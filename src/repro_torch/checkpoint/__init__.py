@@ -1,0 +1,4 @@
+from repro_torch.checkpoint.convert import (load_config, load_pytree,
+                                            params_from_numpy)
+
+__all__ = ["load_config", "load_pytree", "params_from_numpy"]

@@ -1,0 +1,149 @@
+"""Model configuration schema for the PyTorch port.
+
+A ``ModelConfig`` fully describes one architecture.  The field names and
+defaults are those of the JAX package's config, so a ``.cfg.json`` written
+beside a JAX checkpoint loads here unchanged; the port itself serves the
+dense decoder only and raises ``NotImplementedError`` on the fields it does
+not implement yet (MoE, SSM, hybrid, encoder-decoder, quantized KV).
+
+Frozen dataclass, so configs hash and compare by value.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Tuple
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    # identity ------------------------------------------------------------
+    name: str = "model"
+    arch_type: str = "dense"        # dense | moe | ssm | hybrid | audio | vlm
+    source: str = ""                 # citation for the config values
+
+    # trunk ----------------------------------------------------------------
+    num_layers: int = 2
+    d_model: int = 256
+    num_heads: int = 4
+    num_kv_heads: int = 4
+    head_dim: int = 0                # 0 -> d_model // num_heads
+    d_ff: int = 1024
+    vocab_size: int = 512
+
+    # attention ------------------------------------------------------------
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    # sliding window: 0 = full attention.  ``window_pattern`` gives a cycle of
+    # per-layer windows (0 entries = global); empty -> uniform ``window``.
+    window: int = 0
+    window_pattern: Tuple[int, ...] = ()
+    logit_soft_cap: float = 0.0
+
+    # mlp -------------------------------------------------------------------
+    mlp_activation: str = "swiglu"   # swiglu | relu2 | gelu
+    norm: str = "rmsnorm"            # rmsnorm | layernorm
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = True
+
+    # moe --------------------------------------------------------------------
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    num_shared_experts: int = 0
+    moe_capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+
+    # ssm (mamba-2 / SSD) -----------------------------------------------------
+    ssm_state_size: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2              # d_inner = expand * d_model
+    ssm_conv_width: int = 4
+    ssm_chunk: int = 128
+
+    # hybrid (hymba): parallel attention + SSM heads in every layer ----------
+    hybrid: bool = False
+
+    # encoder-decoder (seamless-m4t) ------------------------------------------
+    is_encoder_decoder: bool = False
+    num_encoder_layers: int = 0
+    encoder_seq_len: int = 1024      # stubbed frontend: #frame embeddings
+
+    # vlm (internvl2): patch embeddings prepended to the text sequence -------
+    num_image_tokens: int = 0        # 0 -> pure text
+
+    # vocab padding: embeddings/logits are padded to a multiple so the vocab
+    # dim shards cleanly over the tensor-parallel axis (labels never hit the
+    # pad ids; softmax learns to push them down).  1 = no padding (tests).
+    vocab_pad_multiple: int = 1
+
+    # numerics ----------------------------------------------------------------
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"   # dry-run overrides to bfloat16
+    kv_cache_dtype: str = ""         # "" = compute dtype; bf16 = narrow cast;
+                                     # int8 | fp8 | fp8_e5m2 = quantized paged
+                                     # pool with per-token-per-head scales
+    fp8_matmul: bool = False         # fp8 per-tile QK^T matmuls in the
+                                     # attention kernels (not ported yet:
+                                     # the port raises when it is set)
+    remat: bool = True
+    use_scan: bool = True
+    use_pallas: bool = False         # read by the JAX package only
+    z_loss: float = 0.0
+    loss_chunk: int = 0              # >0: chunked CE (never materializes the
+                                     # full (B,S,V) logits) — see §Perf
+
+    # -------------------------------------------------------------------------
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim else self.d_model // self.num_heads
+
+    def padded_vocab(self) -> int:
+        m = max(self.vocab_pad_multiple, 1)
+        return ((self.vocab_size + m - 1) // m) * m
+
+    def with_(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    # parameter count estimate (for roofline MODEL_FLOPS = 6*N*D) -------------
+    def param_count(self, active_only: bool = False) -> int:
+        D = self.d_model
+        hd = self.resolved_head_dim()
+        n_q = self.num_heads * hd
+        n_kv = self.num_kv_heads * hd
+        attn = D * n_q + 2 * D * n_kv + n_q * D
+        if self.qkv_bias:
+            attn += n_q + 2 * n_kv
+        if self.mlp_activation == "swiglu":
+            mlp_dense = 3 * D * self.d_ff
+        else:
+            mlp_dense = 2 * D * self.d_ff
+        if self.num_experts:
+            e = self.num_experts_per_tok if active_only else self.num_experts
+            e += self.num_shared_experts
+            mlp = e * mlp_dense + D * self.num_experts   # + router
+        else:
+            mlp = mlp_dense
+        ssm = 0
+        if self.ssm_state_size:
+            d_in = self.ssm_expand * D if not self.hybrid else n_q
+            nh = d_in // self.ssm_head_dim
+            # in_proj (z,x,B,C,dt) + conv + out_proj + A,D,dt_bias + gated norm
+            conv_dim = d_in + 2 * self.ssm_state_size
+            ssm = (D * (2 * d_in + 2 * self.ssm_state_size + nh)
+                   + conv_dim * self.ssm_conv_width + d_in * D + 3 * nh + d_in)
+        per_layer = 2 * D  # norms
+        if self.hybrid:
+            per_layer += attn + mlp + ssm
+        elif self.ssm_state_size and self.arch_type == "ssm":
+            per_layer = 2 * D + ssm  # attention-free; d_ff==0
+        else:
+            per_layer += attn + mlp
+        total = self.num_layers * per_layer
+        if self.is_encoder_decoder:
+            # encoder layers (self-attn + mlp) + decoder cross-attn
+            enc = self.num_encoder_layers * (attn + mlp_dense + 2 * D)
+            cross = self.num_layers * (attn + D)
+            total += enc + cross
+        emb = self.vocab_size * D
+        total += emb if self.tie_embeddings else 2 * emb
+        total += D  # final norm
+        return int(total)

@@ -1,0 +1,14 @@
+from repro_torch.data import synthetic
+from repro_torch.data.tokenizer import SPECIAL_TOKENS, BPETokenizer
+
+
+def build_tokenizer() -> BPETokenizer:
+    """The serving CLI's tokenizer: a 512-token BPE trained on the first
+    2000 synthetic pretraining texts — the tokenizer the JAX package's
+    training pipeline builds with its default seed."""
+    world = synthetic.World.make(40, seed=1234)
+    texts = synthetic.gen_pretrain_texts(world, 2000, seed=0)
+    return BPETokenizer.train(texts, 512)
+
+
+__all__ = ["BPETokenizer", "SPECIAL_TOKENS", "build_tokenizer", "synthetic"]

@@ -1,0 +1,6 @@
+from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_residual
+from repro_torch.kernels.rmsnorm.ref import (rmsnorm_plain,
+                                              rmsnorm_residual_plain)
+
+__all__ = ["rmsnorm", "rmsnorm_residual", "rmsnorm_plain",
+           "rmsnorm_residual_plain"]

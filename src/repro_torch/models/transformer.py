@@ -1,0 +1,234 @@
+"""The dense decoder-only LM on the paged serving path.
+
+Parameters are a nested dict of tensors with the JAX package's tree and
+leaf layout (``embed/table``, ``layers/attn/wq``, ...): per-layer leaves
+are stacked on a leading ``(L, ...)`` axis and the layer loop indexes
+them, where the JAX package scans.  Paths are those of the JAX package's
+checkpoint manifest, so ``repro_torch.checkpoint.params_from_numpy`` maps
+a JAX checkpoint onto this tree with no transposes.
+
+Norm placement: the first ``ln1`` is a plain RMSNorm; every later norm
+(``ln2``, the next layer's ``ln1``, the final norm) follows a residual
+add and runs as the fused RMSNorm + residual kernel, ``2L + 1`` norm
+launches per forward.  In float32 that is the same math as the JAX
+package's ``h = h + a; x = norm(h)``.
+
+The KV pool is updated IN PLACE: ``decode_step_paged`` and
+``verify_step_paged`` return the same pool dict they were given.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (apply_mlp, apply_norm,
+                                       apply_norm_residual, embed,
+                                       torch_dtype, unembed)
+
+Params = Dict[str, object]
+
+
+def _require_dense(cfg: ModelConfig) -> None:
+    if (cfg.arch_type != "dense" or cfg.num_experts or cfg.hybrid
+            or cfg.is_encoder_decoder or cfg.num_image_tokens
+            or cfg.ssm_state_size):
+        raise NotImplementedError(
+            f"arch {cfg.arch_type!r}: the port serves the dense decoder only")
+    if cfg.fp8_matmul:
+        raise NotImplementedError("fp8_matmul (fp8 QK^T) is not ported")
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """Checkpoint-manifest path -> shape of every parameter leaf."""
+    _require_dense(cfg)
+    L, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
+    hd = cfg.resolved_head_dim()
+    nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    V = cfg.padded_vocab()
+    shapes = {"embed/table": (V, d), "final_norm/scale": (d,),
+              "layers/ln1/scale": (L, d), "layers/ln2/scale": (L, d),
+              "layers/attn/wq": (L, d, nq), "layers/attn/wk": (L, d, nkv),
+              "layers/attn/wv": (L, d, nkv), "layers/attn/wo": (L, nq, d),
+              "layers/mlp/w_up": (L, d, f), "layers/mlp/w_gate": (L, d, f),
+              "layers/mlp/w_down": (L, f, d)}
+    if not cfg.tie_embeddings:
+        shapes["embed/unembed"] = (d, V)
+    if cfg.qkv_bias:
+        shapes.update({"layers/attn/bq": (L, nq), "layers/attn/bk": (L, nkv),
+                       "layers/attn/bv": (L, nkv)})
+    return shapes
+
+
+def unflatten(flat: Dict[str, torch.Tensor]) -> Params:
+    """{"a/b/c": t} -> {"a": {"b": {"c": t}}}."""
+    tree: Params = {}
+    for path, leaf in flat.items():
+        node = tree
+        *heads, last = path.split("/")
+        for k in heads:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    return tree
+
+
+def flatten(tree: Params, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`unflatten`."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(flatten(v, path + "/"))
+        else:
+            out[path] = v
+    return out
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0,
+                device="cpu") -> Params:
+    """Random parameters from ``seed`` with the JAX package's init rules
+    (truncated-normal fan-in matrices, N(0, 0.02) embedding, unit norm
+    scales, zero biases), drawn from a ``torch.Generator`` on ``device``.
+    The numbers differ from the JAX package's (another generator); tests
+    that compare the two load one set of parameters into both."""
+    device = torch.device(device)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    dt = torch_dtype(cfg.param_dtype)
+    L, f = cfg.num_layers, cfg.d_ff
+    nq = cfg.num_heads * cfg.resolved_head_dim()
+    special_scale = {"layers/attn/wo": 1.0 / math.sqrt(2 * max(L, 1) * nq),
+                     "layers/mlp/w_down": 1.0 / math.sqrt(f)}
+    flat = {}
+    for path, shape in param_shapes(cfg).items():
+        leaf = path.rsplit("/", 1)[1]
+        t = torch.empty(shape, dtype=dt, device=device)
+        if leaf == "scale":
+            t.fill_(1.0)
+        elif leaf in ("bq", "bk", "bv"):
+            t.zero_()
+        elif leaf == "table":
+            t.normal_(0.0, 0.02, generator=g)
+        else:
+            fan_in = shape[-2]
+            torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=g)
+            t.mul_(special_scale.get(path, 1.0 / math.sqrt(fan_in)))
+        flat[path] = t
+    return unflatten(flat)
+
+
+# ---------------------------------------------------------------------------
+# Paged KV pool
+# ---------------------------------------------------------------------------
+
+def paged_cache_supported(cfg: ModelConfig) -> bool:
+    """The paged pool stores attention K/V only: ssm/hybrid and
+    encoder-decoder archs cannot be position-gated."""
+    return (cfg.arch_type != "ssm" and not cfg.hybrid
+            and not cfg.is_encoder_decoder)
+
+
+_PLAIN_KV = {"": None, "bf16": "bfloat16", "bfloat16": "bfloat16",
+             "f32": "float32", "float32": "float32"}
+
+
+def kv_pool_dtype(cfg: ModelConfig) -> torch.dtype:
+    """Storage dtype of the pool's k/v; quantized pools are not ported."""
+    if cfg.kv_cache_dtype not in _PLAIN_KV:
+        raise NotImplementedError(
+            f"kv_cache_dtype {cfg.kv_cache_dtype!r}: quantized KV pools are "
+            f"not ported yet")
+    return torch_dtype(_PLAIN_KV[cfg.kv_cache_dtype] or cfg.compute_dtype)
+
+
+def paged_block_bytes(cfg: ModelConfig, block_size: int) -> int:
+    """Bytes one physical KV block costs across ALL layers."""
+    hd = cfg.resolved_head_dim()
+    item = torch.empty((), dtype=kv_pool_dtype(cfg)).element_size()
+    return cfg.num_layers * 2 * block_size * cfg.num_kv_heads * hd * item
+
+
+def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, *,
+                     device="cpu") -> Dict[str, torch.Tensor]:
+    """A zeroed pool of ``num_blocks`` KV blocks shared by all slots,
+    stacked over layers: {"k", "v"} each (L, NB, bs, KV, hd)."""
+    if not paged_cache_supported(cfg):
+        raise NotImplementedError(
+            f"paged KV cache unsupported for arch {cfg.arch_type!r}")
+    shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
+             cfg.resolved_head_dim())
+    dt = kv_pool_dtype(cfg)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Paged decode / verify steps
+# ---------------------------------------------------------------------------
+
+def _layer(tree: Params, i: int) -> Params:
+    """Layer ``i`` of a stacked (L, ...) subtree."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def _paged_layers(params: Params, h: torch.Tensor, pool, cfg: ModelConfig,
+                  positions: torch.Tensor, block_table: torch.Tensor,
+                  scatter=None) -> torch.Tensor:
+    """Run every layer over the paged pool and apply the final norm.
+    h: (S, T, d); positions: (S, T); scatter: optional host-made (rows,
+    dest), see ``attention.paged_inputs``.  Returns the final-normed
+    hidden."""
+    _require_dense(cfg)
+    if cfg.window_pattern:
+        raise NotImplementedError("per-layer window_pattern is not ported")
+    inputs = attn.paged_inputs(positions, block_table, cfg,
+                               pool["k"].shape[2], scatter)
+    layers = params["layers"]
+    L = cfg.num_layers
+    x = apply_norm(_layer(layers["ln1"], 0), h, cfg)
+    for i in range(L):
+        a = attn.paged_decode_attention(
+            _layer(layers["attn"], i), x, cfg, pool["k"][i], pool["v"][i],
+            inputs, block_table, window=cfg.window)
+        x, h = apply_norm_residual(_layer(layers["ln2"], i), a, h, cfg)
+        y = apply_mlp(_layer(layers["mlp"], i), x, cfg)
+        nxt = _layer(layers["ln1"], i + 1) if i + 1 < L \
+            else params["final_norm"]
+        x, h = apply_norm_residual(nxt, y, h, cfg)
+    return x
+
+
+def decode_step_paged(params: Params, pool, batch,
+                      cfg: ModelConfig) -> Tuple[torch.Tensor, dict]:
+    """One decode step over the slot set.  batch: {"token": (S, 1) int32,
+    "position": (S,) int32 (−1 = inactive slot), "block_table": (S, MB)
+    int32}, and optionally "kv_scatter": the (rows, dest) int64 tensors of
+    ``attention.scatter_plan`` — without them the step reads one count back
+    from the device.  Returns (logits (S, 1, V), pool), the pool updated in
+    place."""
+    h = embed(params["embed"], batch["token"], cfg)
+    x = _paged_layers(params, h, pool, cfg, batch["position"][:, None],
+                      batch["block_table"], batch.get("kv_scatter"))
+    return unembed(params["embed"], x, cfg), pool
+
+
+def verify_step_paged(params: Params, pool, batch,
+                      cfg: ModelConfig) -> Tuple[torch.Tensor, dict]:
+    """Multi-token step (speculative verification / chunked prefill):
+    batch: {"tokens": (S, T) int32, "positions": (S, T) int32 — −1 for
+    padding tokens and inactive slots, live positions a contiguous prefix
+    of each row — "block_table": (S, MB) int32}, and optionally
+    "kv_scatter" as in :func:`decode_step_paged`.  Returns (logits
+    (S, T, V), pool), the pool updated in place."""
+    h = embed(params["embed"], batch["tokens"], cfg)
+    x = _paged_layers(params, h, pool, cfg, batch["positions"],
+                      batch["block_table"], batch.get("kv_scatter"))
+    return unembed(params["embed"], x, cfg), pool

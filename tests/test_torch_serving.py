@@ -1,0 +1,339 @@
+"""The port's serving stack on its own terms: the bit-exactness properties
+the JAX package pins for itself, pinned inside the port (spec == non-spec
+greedy, sharing on == off, sampled tokens independent of the schedule),
+the host-side modules held to the JAX package's copies, the entry points'
+CUDA-by-default rule, the serve CLI, and the package's import rules."""
+import ast
+import contextlib
+import io
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from helpers import tiny_cfg
+from repro.data.synthetic import World as JaxWorld
+from repro.data.synthetic import gen_pretrain_texts as jax_texts
+from repro.data.tokenizer import BPETokenizer as JaxBPE
+from repro.serving import KVBlockPool as JaxPool
+from repro.serving import PrefixTree as JaxTree
+from repro.serving import Request as JaxRequest
+from repro.serving import Scheduler as JaxScheduler
+from repro.serving.drafter import propose as jax_propose
+from repro_torch import Engine, Request
+from repro_torch.data import build_tokenizer
+from repro_torch.launch import serve
+from repro_torch.models import init_params
+from repro_torch.serving import (KVBlockPool, PrefixTree, Scheduler,
+                                 draft_propose)
+from torch_parity import RAGGED, port_cfg
+
+# tiny shapes: intra-op threads would only contend with the other test
+# workers on the same cores
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+TPL = [7, 3, 9, 1, 5, 2, 8, 4] * 3      # 24-token template = 3 blocks @ bs=8
+SHARED = [TPL + [50 + i] * (i % 4 + 1) for i in range(6)]
+
+
+@pytest.fixture(scope="module")
+def params():
+    return init_params(port_cfg(tiny_cfg("dense")), seed=0)
+
+
+def _engine(params, **kw):
+    kw = dict(dict(num_slots=4, max_len=64, block_size=8), **kw)
+    return Engine(port_cfg(tiny_cfg("dense")), params, device="cpu", **kw)
+
+
+def _run(eng, prompts, max_new=9, seed=0, **rkw):
+    reqs = [Request(rid=i, prompt=list(p), max_new=max_new, **rkw)
+            for i, p in enumerate(prompts)]
+    stats = eng.run(reqs, seed=seed)
+    return [r.tokens for r in reqs], stats
+
+
+# ---------------------------------------------------------------------------
+# Bit-exactness inside the port
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("spec_k", [1, 4])
+def test_speculative_greedy_equals_sequential(params, spec_k):
+    want = _engine(params).generate_ids(RAGGED, max_new=13)
+    eng = _engine(params, spec_k=spec_k)
+    got = eng.generate_ids(RAGGED, max_new=13)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_prefix_sharing_greedy_bit_exact(params):
+    want, _ = _run(_engine(params), SHARED)
+    on = _engine(params, prefix_cache=True)
+    cold, s1 = _run(on, SHARED)
+    warm, s2 = _run(on, SHARED)
+    assert want == cold == warm
+    assert s2["prefix"]["hit_rate"] == 1.0
+    assert s2["prefix"]["forked"] > 0
+    assert s2["prefix_skipped_tokens"] > 0
+    assert s2["prefill_tokens"] < s1["prefill_tokens"]
+
+
+def test_policies_give_identical_outputs(params):
+    outs = [_engine(params, policy=p, num_slots=2).generate_ids(
+        RAGGED[:6], max_new=6) for p in ("fifo", "longest_prefill",
+                                         "cache_aware")]
+    np.testing.assert_array_equal(outs[0], outs[1])
+    np.testing.assert_array_equal(outs[0], outs[2])
+
+
+@pytest.mark.parametrize("spec_k", [0, 3])
+def test_sampled_tokens_identical_across_num_slots(params, spec_k):
+    """Draws are keyed by (seed, rid, position): how many slots shared the
+    step cannot change a request's sampled tokens."""
+    outs = []
+    for slots in (1, 2, 4):
+        toks, _ = _run(_engine(params, num_slots=slots, spec_k=spec_k),
+                       RAGGED[:5], max_new=7, seed=5, greedy=False,
+                       temperature=1.3)
+        outs.append(toks)
+    assert outs[0] == outs[1] == outs[2]
+    again, _ = _run(_engine(params, spec_k=spec_k), RAGGED[:5], max_new=7,
+                    seed=6, greedy=False, temperature=1.3)
+    assert again != outs[0]                   # the seed matters
+
+
+def test_sampled_request_independent_of_its_batch(params):
+    eng = _engine(params)
+    alone = Request(rid=7, prompt=[5, 6], max_new=6, greedy=False,
+                    temperature=1.3)
+    eng.run([alone], seed=11)
+    crowd = [Request(rid=i, prompt=[i + 1] * (i + 1), max_new=4,
+                     greedy=False) for i in range(5)]
+    together = Request(rid=7, prompt=[5, 6], max_new=6, greedy=False,
+                       temperature=1.3)
+    eng.run(crowd + [together], seed=11)
+    assert together.tokens == alone.tokens
+
+
+def test_sampled_request_unaffected_by_prefix_sharing(params):
+    alone = Request(rid=3, prompt=TPL + [50, 51], max_new=6, greedy=False,
+                    temperature=1.3)
+    _engine(params).run([alone], seed=11)
+    on = _engine(params, prefix_cache=True)
+    on.run([Request(rid=9, prompt=TPL + [60], max_new=4)])  # prime cache
+    shared = Request(rid=3, prompt=TPL + [50, 51], max_new=6, greedy=False,
+                     temperature=1.3)
+    on.run([shared], seed=11)
+    assert shared.tokens == alone.tokens
+
+
+def test_temperature_reaches_the_sampler(params):
+    eng = _engine(params)
+    greedy = eng.generate_ids([[3, 1, 4, 1, 5]], max_new=8)
+    cold = eng.generate_ids([[3, 1, 4, 1, 5]], max_new=8, greedy=False,
+                            temperature=1e-4)
+    np.testing.assert_array_equal(cold, greedy)
+    hot = eng.generate_ids([[3, 1, 4, 1, 5]], max_new=8, greedy=False,
+                           temperature=8.0)
+    assert (hot != cold).any()
+
+
+def test_eos_evicts_early_and_prefix_matches(params):
+    eng = _engine(params)
+    full = eng.generate_ids([[3, 1, 4, 1, 5]], max_new=8)[0]
+    eos = int(full[3])
+    r = Request(rid=0, prompt=[3, 1, 4, 1, 5], max_new=8, eos_id=eos)
+    eng.run([r])
+    assert r.tokens[-1] == eos and len(r.tokens) <= 8
+    np.testing.assert_array_equal(r.tokens, full[:len(r.tokens)])
+
+
+def test_churn_small_pool_completes_and_matches_solo(params):
+    rng = np.random.default_rng(0)
+    eng = _engine(params, num_slots=2, max_len=24)
+    prompts = [rng.integers(1, 90, size=int(rng.integers(1, 12))).tolist()
+               for _ in range(9)]
+    reqs = [Request(rid=i, prompt=p, max_new=int(rng.integers(1, 8)))
+            for i, p in enumerate(prompts)]
+    eng.run(reqs)
+    solo = _engine(params, num_slots=2, max_len=24)
+    for r in reqs:
+        assert len(r.tokens) == r.max_new
+        np.testing.assert_array_equal(
+            r.tokens, solo.generate_ids([r.prompt], max_new=r.max_new)[0])
+
+
+def test_deadline_expires_requests_under_wall_clock(params):
+    eng = _engine(params, num_slots=1)
+    slow = Request(rid=0, prompt=[1] * 30, max_new=30, deadline_s=0.0)
+    ok = Request(rid=1, prompt=[2, 3], max_new=3)
+    stats = eng.run([slow, ok], use_time=True)
+    assert stats["expired"] >= 1 and slow.expired
+    assert len(ok.tokens) == 3 and not ok.expired
+
+
+def test_kv_report_and_pool_bytes(params):
+    eng = _engine(params, pool_bytes=65536)
+    rep = eng.kv_report()
+    assert rep["kv_pool_dtype"] == "float32"
+    assert rep["pool_bytes"] <= 65536 and rep["num_blocks"] == eng.num_blocks
+    assert eng.bytes_per_block == 2 * 2 * 8 * 2 * 16 * 4
+
+
+# ---------------------------------------------------------------------------
+# Entry points: CUDA by default, no silent fallback, no silent degrade
+# ---------------------------------------------------------------------------
+
+def test_engine_defaults_to_cuda_and_never_falls_back(params, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Engine(port_cfg(tiny_cfg("dense")), params)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--prompt", "hi"])
+
+
+def test_engine_refuses_params_on_another_device(params):
+    meta = {k: {kk: (v.to("meta") if not isinstance(v, dict) else v)
+                for kk, v in sub.items()} for k, sub in params.items()}
+    with pytest.raises(ValueError, match="is on meta"):
+        _engine(meta)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(window=8), "sliding-window"),
+    (dict(kv_cache_dtype="fp8"), "quantized"),
+])
+def test_unported_engine_paths_raise(kw, match):
+    cfg = port_cfg(tiny_cfg("dense", **kw))
+    with pytest.raises(NotImplementedError, match=match):
+        Engine(cfg, init_params(cfg), device="cpu")
+
+
+def test_static_path_batches_raise(params):
+    eng = _engine(params)
+    for prompts, max_new in (([[], [1, 2]], 4), ([[1, 2]], 0),
+                             ([[1] * 60], 8)):
+        with pytest.raises(NotImplementedError, match="static"):
+            eng.generate(prompts, max_new=max_new)
+
+
+# ---------------------------------------------------------------------------
+# Host-side modules: the port's copies behave as the JAX package's
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed", range(4))
+def test_drafter_matches_reference(seed):
+    rng = np.random.default_rng(seed)
+    for _ in range(40):
+        hist = rng.integers(0, 4 + seed, size=int(rng.integers(1, 40)))
+        hist = [int(t) for t in hist]
+        k = int(rng.integers(0, 6))
+        assert draft_propose(hist, k) == jax_propose(hist, k)
+
+
+@pytest.mark.parametrize("policy", ["fifo", "longest_prefill",
+                                    "cache_aware"])
+def test_scheduler_and_pool_trace_match_reference(policy):
+    """The same admission / mapping / rollback / finish sequence through
+    both copies leaves the same slots, tables and ledgers."""
+    rng = np.random.default_rng(len(policy))
+    sides = []
+    for pool_cls, tree_cls, sched_cls, req_cls in (
+            (KVBlockPool, PrefixTree, Scheduler, Request),
+            (JaxPool, JaxTree, JaxScheduler, JaxRequest)):
+        pool = pool_cls(24, 4)
+        sides.append((pool, sched_cls(3, pool, 8, policy,
+                                      tree=tree_cls(4)), req_cls))
+    prompts = [list(TPL[:int(n)]) + [int(t)] for n, t in
+               zip(rng.integers(2, 20, 12), rng.integers(60, 70, 12))]
+    trace = [[] for _ in sides]
+    for rid, prompt in enumerate(prompts):
+        for (pool, sched, req_cls), out in zip(sides, trace):
+            sched.submit(req_cls(rid=rid, prompt=prompt, max_new=3))
+            newly = sched.admit()
+            for si in newly:
+                slot = sched.slots[si]
+                if slot.cow is not None:
+                    sched.cow_executed(si)
+                sched.ensure_mapped(si, len(slot.req.prompt) + 1)
+                sched.register_prefix(si)
+                pool.truncate(slot, len(slot.req.prompt))
+            if rid % 2:
+                for si in sched.active_slots()[:1]:
+                    sched.finish(si)
+            pool.check_invariants()
+            out.append((newly, [(s.pos, list(s.blocks), s.reserved)
+                                if s else None for s in sched.slots],
+                        pool.num_free, pool.num_reserved, pool.num_shared,
+                        sched.prefix_report()))
+    assert trace[0] == trace[1]
+
+
+def test_tokenizer_matches_reference_pipeline():
+    world = JaxWorld.make(40, seed=1234)
+    ref = JaxBPE.train(jax_texts(world, 2000, seed=0), 512)
+    tok = build_tokenizer()
+    assert tok.merges == ref.merges and tok.vocab_size == ref.vocab_size
+    s = "<|bos|><|user_start|>what is the color of ent3 ?<|user_end|>"
+    ids = tok.encode(s)
+    assert ids == ref.encode(s) and tok.decode(ids) == ref.decode(ids)
+
+
+# ---------------------------------------------------------------------------
+# The serve CLI (plain path on the CPU)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("extra", [[], ["--spec-k", "3", "--prefix-cache"]])
+def test_serve_cli_reports_on_cpu(extra):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve.main(["--device", "cpu", "--prompt", "what is the color of "
+                    "ent3 ?", "--prompt", "compute 3 + 4 .", "--max-new",
+                    "6", "--max-len", "64", "--report"] + extra)
+    out = buf.getvalue()
+    assert out.count(">>> ") == 2
+    assert "# requests=2 generated=" in out and "tokens_per_s=" in out
+    assert "# device=cpu kernels=plain" in out
+    if extra:
+        assert "# spec_k=3 drafted=" in out and "# prefix_cache" in out
+
+
+def test_serve_cli_loads_a_jax_checkpoint(tmp_path):
+    """--ckpt reads the JAX package's checkpoint and config metadata."""
+    import jax
+    from repro.checkpoint import save_config, save_pytree
+    from repro.models.transformer import init_params as jax_init
+    cfg = tiny_cfg("dense", vocab_size=512)
+    jparams, _ = jax_init(cfg, jax.random.key(0))
+    path = str(tmp_path / "ckpt")
+    save_pytree(jparams, path)
+    save_config(cfg, path)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve.main(["--device", "cpu", "--ckpt", path, "--prompt", "hi",
+                    "--max-new", "3", "--max-len", "64"])
+    assert "model config from checkpoint metadata" in buf.getvalue()
+
+
+# ---------------------------------------------------------------------------
+# Package rules
+# ---------------------------------------------------------------------------
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in
+    list((REPO / "src" / "repro_torch").rglob("*.py"))
+    + [REPO / "chip_smoke.py"]))
+def test_port_imports_neither_jax_nor_the_reference(path):
+    for mod in _imports(REPO / path):
+        root = mod.split(".")[0]
+        assert root not in ("jax", "jaxlib", "repro"), (path, mod)

@@ -7,20 +7,37 @@ Run from the root of a checkout.  Phases, each fatal on failure:
 
 1. build every CUDA source of the port (``src/repro_torch/kernels/csrc``),
    one nvcc per source, all started together;
-2. hold each kernel against its plain PyTorch version on the card at
-   nanochat-d20 shapes (S=8 slots, KV=10, G=1, D=128, bs=16, MB=32; ragged
-   positions, unmapped blocks, inactive slots), plus a G=2 case and a
-   sliding-window case, in float32 and bfloat16;
-3. one ``decode_step_paged`` and one ``verify_step_paged`` at full width
-   (depth 2) on the card against the same step on the CPU, same params;
-4. the main path: ``repro_torch.Engine`` with the full nanochat-d20 config
-   (seeded random params, 8 ragged token-id requests, max_new 32) with
-   spec_k=0 and spec_k=4; greedy tokens must be equal, spec_k=4 must
-   have drafted (one prompt repeats an n-gram), and every kernel of each
-   run must have launched (counts reset just before each run);
-   then one shorter spec_k=0 run under torch.profiler for the device
-   time by kernel and the device's busy share;
-5. time each kernel, its plain version and one PyTorch library call on
+2. hold each kernel against its plain PyTorch version on the card:
+   - serving kernels at nanochat-d20 shapes (S=8 slots, KV=10, G=1,
+     D=128, bs=16, MB=32; ragged positions, unmapped blocks, inactive
+     slots), plus a G=2 case and a sliding-window case;
+   - training kernels: flash forward and backward at (B 4, S 1024,
+     H = KV = 10, D 128) plus G=2, S=1000 and window=256 cases (the
+     backward against autograd through the plain forward); fused AdamW on
+     the AdamW partition's largest leaf (65536 x 1280) and an odd-length
+     leaf; the RMSNorm backward, plain and residual, at 4096 x 1280
+     against autograd of the plain norms;
+   all in float32 and bfloat16 (fused AdamW: f32 and bf16 gradients);
+3. full width at depth 2, card against CPU, same params and batch:
+   - one ``decode_step_paged`` and one ``verify_step_paged``;
+   - one training step: the loss, every gradient, one
+     ``nanochat_optimizer`` update with fused AdamW, and one DiLoCo outer
+     round (K=2, H=1);
+4. the serving main path: ``repro_torch.Engine`` with the full
+   nanochat-d20 config (seeded random params, 8 ragged token-id requests,
+   max_new 32) with spec_k=0 and spec_k=4; greedy tokens must be equal,
+   spec_k=4 must have drafted, every kernel of each run must have
+   launched (counts reset just before each run); then one shorter spec_k=0
+   run under torch.profiler for the device time by kernel and busy share;
+5. the training main path at full nanochat-d20 (20 layers, float32,
+   random params from seed 0) on the port's synthetic corpus through its
+   ``PackedDataset`` at seq_len 1024: ``run_stage("diloco")`` with K=2,
+   per-worker batch 4, H=2, 4 steps and fused AdamW, then
+   ``run_stage("ddp")`` for 2 steps at global batch 8.  Every training
+   kernel must have launched on each path, losses must be finite and
+   fall, sync steps as expected; tokens/s, step seconds and peak memory
+   per method; one DiLoCo inner step under torch.profiler;
+6. time each kernel, its plain version and one PyTorch library call on
    the same inputs (CUDA events, L2 flushed before each launch) beside
    the least time the card could take (bound).
 
@@ -32,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -43,18 +61,39 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, 1e-2)}   # (atol, rtol)
+# f32 backward of flash attention: sums over up to G*S products in another
+# order than the plain einsums; fused AdamW is exact (no FMA contraction)
+TOL_FLASH_BWD = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
 REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:41",
     "rmsnorm_residual": "src/repro/kernels/rmsnorm/kernel.py:58",
     "paged_decode": "src/repro/kernels/decode_attention/kernel.py:468",
     "paged_verify": "src/repro/kernels/decode_attention/kernel.py:317",
+    "flash_fwd": "src/repro/kernels/flash_attention/kernel.py:127",
+    "fused_adamw": "src/repro/kernels/fused_adamw/kernel.py:61",
+    # gradients: the TPU kernels have none; these are the forward kernels
+    # whose gradient they compute (see "gradient_of")
+    "flash_bwd": "src/repro/kernels/flash_attention/kernel.py:127",
+    "rmsnorm_bwd": "src/repro/kernels/rmsnorm/kernel.py:41",
+}
+GRADIENT_OF = {
+    "flash_bwd": "flash_fwd: the Pallas kernel has no VJP; the JAX package "
+                 "differentiates its jnp reference",
+    "rmsnorm_bwd": "rmsnorm and rmsnorm_residual: the JAX package "
+                   "differentiates its jnp norms",
 }
 SOURCE = {
     "rmsnorm": "src/repro_torch/kernels/csrc/rmsnorm.cu",
     "rmsnorm_residual": "src/repro_torch/kernels/csrc/rmsnorm.cu",
     "paged_decode": "src/repro_torch/kernels/csrc/paged_attention.cu",
     "paged_verify": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "flash_fwd": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_bwd": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "fused_adamw": "src/repro_torch/kernels/csrc/fused_adamw.cu",
+    "rmsnorm_bwd": "src/repro_torch/kernels/csrc/rmsnorm.cu",
 }
+TRAIN_KERNELS = ("rmsnorm", "rmsnorm_residual", "flash_fwd", "flash_bwd",
+                 "fused_adamw", "rmsnorm_bwd")
 
 
 class SmokeFailure(Exception):
@@ -114,10 +153,10 @@ def paged_case(torch, *, S=8, KV=10, G=1, D=128, bs=16, MB=32, T=1,
             torch.tensor(n_tok, dtype=torch.int32), live)
 
 
-def max_err(torch, got, want, live=None):
+def max_err(torch, got, want, live=None, tol=None):
     """Max abs error (over live rows) and whether it is within the dtype's
-    tolerance."""
-    atol, rtol = TOL[str(got.dtype).replace("torch.", "")]
+    tolerance (``tol``: {dtype name: (atol, rtol)}, default ``TOL``)."""
+    atol, rtol = (tol or TOL)[str(got.dtype).replace("torch.", "")]
     got, want = got.float(), want.float()
     if live is not None:
         got, want = got[live], want[live]
@@ -176,11 +215,105 @@ def phase_kernels(torch, results):
                 err, ok = max_err(torch, got, want, mask)
                 results.append((name, dtype, tuple(q.shape) + (
                     f"window={window}",), err, ok))
+
+
+def report_checks(results):
     for name, dtype, shape, err, ok in results:
         log(f"  {name:17s} {dtype:9s} {str(shape):40s} max_abs_err={err:.3e}"
             f" {'ok' if ok else 'FAIL'}")
     check(all(r[-1] for r in results), "a kernel disagrees with its plain "
           "version")
+
+
+def flash_inputs(torch, *, B=4, S=1024, H=10, KV=10, D=128, dtype="float32",
+                 seed=0):
+    """Seeded q, do (B, S, H, D) and k, v (B, S, KV, D) on the card."""
+    g = torch.Generator().manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q, do = (torch.randn((B, S, H, D), generator=g).to(dt).cuda()
+             for _ in range(2))
+    k, v = (torch.randn((B, S, KV, D), generator=g).to(dt).cuda()
+            for _ in range(2))
+    return q, k, v, do
+
+
+def phase_train_kernels(torch, results):
+    """The training slice's kernels against their plain versions: flash
+    forward (o and lse) and backward (against autograd through the plain
+    forward), fused AdamW (bit for bit) and the RMSNorm backward (against
+    autograd of the plain norms)."""
+    from repro_torch.kernels.flash_attention import (flash_attention_plain,
+                                                     flash_bwd, flash_fwd)
+    from repro_torch.kernels.fused_adamw import (fused_adamw_plain,
+                                                 fused_adamw_update)
+    from repro_torch.kernels.rmsnorm import (rmsnorm_bwd, rmsnorm_plain,
+                                             rmsnorm_residual_plain)
+    for dtype in ("float32", "bfloat16"):
+        for case in (dict(), dict(KV=5), dict(S=1000), dict(window=256)):
+            case = dict(case)
+            window = case.pop("window", None)
+            q, k, v, do = flash_inputs(torch, dtype=dtype, seed=len(results),
+                                       **case)
+            o, lse = flash_fwd(q, k, v, window=window)
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            o_ref, lse_ref = flash_attention_plain(*leaves, True, window)
+            want = torch.autograd.grad(o_ref, leaves, do)
+            got = flash_bwd(q, k, v, o, lse, do, window=window)
+            torch.cuda.synchronize()
+            e_o, ok_o = max_err(torch, o, o_ref.detach())
+            e_l = float((lse - lse_ref.detach()).abs().max())
+            ok_l = bool(e_l <= 1e-4
+                        + 1e-5 * float(lse_ref.detach().abs().max()))
+            tag = (tuple(q.shape) + (f"KV={k.shape[2]}",)
+                   + ((f"window={window}",) if window else ()))
+            results.append(("flash_fwd", dtype, tag, max(e_o, e_l),
+                            ok_o and ok_l))
+            errs = [max_err(torch, a, b, tol=TOL_FLASH_BWD)
+                    for a, b in zip(got, want)]
+            results.append(("flash_bwd", dtype, tag,
+                            max(e for e, _ in errs), all(k for _, k in errs)))
+            del q, k, v, do, o, lse, leaves, o_ref, lse_ref, want, got
+    g = torch.Generator().manual_seed(2)
+    for n, gdt in ((65536 * 1280, "float32"), (65536 * 1280, "bfloat16"),
+                   (1_000_003, "float32")):
+        p = torch.randn(n, generator=g).cuda()
+        gr = torch.randn(n, generator=g).to(getattr(torch, gdt)).cuda()
+        m = (0.1 * torch.randn(n, generator=g)).cuda()
+        v = torch.rand(n, generator=g).cuda()
+        t = torch.tensor(3.0, device="cuda")
+        scal = (torch.tensor(1e-3, device="cuda"), 1 - 0.9 ** t,
+                1 - 0.95 ** t)
+        kw = dict(b1=0.9, b2=0.95, eps=1e-10, wd=0.01)
+        got = fused_adamw_update(p, gr, m, v, *scal, **kw)
+        want = fused_adamw_plain(p, gr, m, v, *scal, **kw)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        results.append(("fused_adamw", gdt, (n,), err, err == 0.0))
+        del p, gr, m, v, got, want
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        x, r, dy, dh = (torch.randn((4, 1024, 1280), generator=g).to(dt)
+                        .cuda() for _ in range(4))
+        sc = (1 + 0.1 * torch.randn(1280, generator=g)).cuda()
+        for residual in (False, True):
+            leaves = [t.clone().requires_grad_() for t in
+                      ((x, r, sc) if residual else (x, sc))]
+            if residual:
+                want = torch.autograd.grad(rmsnorm_residual_plain(*leaves),
+                                           leaves, (dy, dh))
+                got = rmsnorm_bwd(dy, x, sc, residual=r, dh=dh)
+            else:
+                want = torch.autograd.grad(rmsnorm_plain(*leaves), leaves,
+                                           dy)
+                got = rmsnorm_bwd(dy, x, sc)
+            torch.cuda.synchronize()
+            e_x, ok_x = max_err(torch, got[0], want[0])
+            # dscale: f32 sums over 4096 rows in another order
+            e_s = float((got[1] - want[-1]).abs().max())
+            ok_s = bool(e_s <= 1e-3 + 1e-4 * float(want[-1].abs().max()))
+            results.append(("rmsnorm_bwd", dtype,
+                            (4, 1024, 1280, "residual" if residual
+                             else "plain"), max(e_x, e_s), ok_x and ok_s))
 
 
 # ---------------------------------------------------------------------------
@@ -233,6 +366,89 @@ def phase_step_vs_cpu(torch):
         check(e_logit <= 2e-3 and e_pool <= 1e-4,
               f"{kind} step on the card disagrees with the CPU")
     return worst
+
+
+def rel_err(torch, got, want):
+    """max |got - want| / max |want| over one tensor (got on any device)."""
+    want = want.float()
+    return float((got.float().cpu() - want).abs().max()
+                 / want.abs().max().clamp(min=1e-30))
+
+
+def phase_train_step_vs_cpu(torch):
+    """One training step of nanochat-d20 at full width and depth 2 on the
+    card and on the CPU, same parameters and batch (B 2, S 256): the loss
+    (rtol 1e-5) and every gradient (max error over max |g| <= 1e-4, f32
+    GEMMs sum in another order); one ``nanochat_optimizer`` update with
+    fused AdamW from the CPU's gradients on both (<= 1e-4 of each leaf's
+    max |update|: Newton-Schulz's products in another order); one DiLoCo
+    outer round, K=2 and H=1, through ``DistTrainer`` (losses rtol 1e-5,
+    global params <= 1e-4 of each leaf's max)."""
+    from repro_torch.configs import (NANOCHAT_D20, DiLoCoConfig,
+                                     OptimizerConfig)
+    from repro_torch.core import DistTrainer, make_strategy
+    from repro_torch.models import init_params, lm_loss
+    from repro_torch.models.transformer import flatten, unflatten
+    from repro_torch.optim import nanochat_optimizer
+    cfg = NANOCHAT_D20.with_(num_layers=2)
+    params = flatten(init_params(cfg, seed=0, device="cpu"))
+    params_d = {k: v.cuda() for k, v in params.items()}
+    g = torch.Generator().manual_seed(11)
+    toks = torch.randint(0, cfg.vocab_size, (2, 2, 257), generator=g,
+                         dtype=torch.int32)
+    batch = {"tokens": toks[0, :, :-1], "labels": toks[0, :, 1:]}
+    out = {}
+    for dev, p in (("cpu", params), ("cuda", params_d)):
+        leaves = {k: v.clone().requires_grad_() for k, v in p.items()}
+        loss, _ = lm_loss(unflatten(leaves), {k: v.to(dev) for k, v in
+                                              batch.items()}, cfg)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        out[dev] = (float(loss.detach()), dict(zip(leaves, grads)))
+        del leaves, grads
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["cuda"]
+    e_loss = abs(l_gpu - l_cpu) / abs(l_cpu)
+    e_grad = max(rel_err(torch, g_gpu[k], g_cpu[k]) for k in g_cpu)
+    log(f"  d20 width, depth 2, B 2 x S 256: loss {l_gpu:.6f} vs cpu "
+        f"{l_cpu:.6f} (rel {e_loss:.2e}, tol 1e-5); worst gradient leaf "
+        f"{e_grad:.2e} of its max (tol 1e-4)")
+    check(e_loss <= 1e-5 and e_grad <= 1e-4,
+          "training step on the card disagrees with the CPU")
+    opt_cfg = OptimizerConfig(total_steps=10, warmup_steps=2,
+                              fused_adamw=True)
+    opt = nanochat_optimizer(opt_cfg)
+    upd = {}
+    for dev, p in (("cpu", params), ("cuda", params_d)):
+        step = torch.tensor(1, dtype=torch.int32, device=dev)
+        u, _ = opt.update({k: v.to(dev) for k, v in g_cpu.items()},
+                          opt.init(p), p, step)
+        upd[dev] = u
+    e_upd = max(rel_err(torch, upd["cuda"][k], upd["cpu"][k])
+                for k in upd["cpu"])
+    log(f"  nanochat_optimizer update (fused AdamW), same grads: worst "
+        f"leaf {e_upd:.2e} of its max (tol 1e-4)")
+    check(e_upd <= 1e-4, "optimizer update on the card disagrees with the "
+          "CPU")
+    del upd, g_cpu, g_gpu, out
+    dcfg = DiLoCoConfig(num_workers=2, h_inner_steps=1)
+    # worker w trains on sequence 0 of toks[w]: (K 2, B 1, S 256)
+    data = lambda s: {"tokens": toks[:, :1, :-1], "labels": toks[:, :1, 1:]}
+    runs = {}
+    for dev, p in (("cpu", params), ("cuda", params_d)):
+        dt = DistTrainer(lambda pp, b: lm_loss(pp, b, cfg), opt_cfg, dcfg,
+                         make_strategy(dcfg))
+        state, hist = dt.run(dt.init(p), data, 1)
+        runs[dev] = (hist, state.global_params)
+        del state
+    (h_cpu, p_cpu), (h_gpu, p_gpu) = runs["cpu"], runs["cuda"]
+    e_l = abs(h_gpu["loss"][0] - h_cpu["loss"][0]) / abs(h_cpu["loss"][0])
+    e_p = max(rel_err(torch, p_gpu[k], p_cpu[k]) for k in p_cpu)
+    log(f"  DiLoCo round K=2 H=1: loss rel {e_l:.2e} (tol 1e-5), global "
+        f"params worst leaf {e_p:.2e} of its max (tol 1e-4), syncs "
+        f"{h_gpu['sync_steps']}")
+    check(e_l <= 1e-5 and e_p <= 1e-4 and h_gpu["sync_steps"] == [0],
+          "DiLoCo outer round on the card disagrees with the CPU")
+    return {"loss_rel": e_loss, "grad_rel": e_grad, "update_rel": e_upd,
+            "diloco_loss_rel": e_l, "diloco_param_rel": e_p}
 
 
 # ---------------------------------------------------------------------------
@@ -312,7 +528,6 @@ def profile_engine(torch, eng, prompts, max_new=8):
     (torch.profiler, device activity only), and the device's busy share
     of the run's wall time.  Tracing slows the host a little, so the busy
     share is a lower bound."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import Request
     reqs = [Request(rid=100 + i, prompt=p, max_new=max_new)
@@ -323,14 +538,7 @@ def profile_engine(torch, eng, prompts, max_new=8):
         stats = eng.run(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_name = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        by_name[e.key] = by_name.get(e.key, 0.0) + us
+    by_name = device_time_by_kernel(torch, prof)
     busy_s = sum(by_name.values()) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     out = {"wall_s": wall, "device_busy_s": busy_s,
@@ -343,6 +551,133 @@ def profile_engine(torch, eng, prompts, max_new=8):
     log(f"  profiled spec_k=0 run (max_new={max_new}): wall {wall:.3f} s, "
         f"device busy {busy_s:.3f} s ({100 * busy_s / wall:.1f}%), "
         f"{out['token_steps']} token-steps")
+    for k, ms in out["top_kernels_ms"]:
+        log(f"    {ms:9.2f} ms  {100 * ms / 1e3 / busy_s:5.1f}%  {k[:90]}")
+    return out
+
+
+def device_time_by_kernel(torch, prof):
+    """{kernel name: device microseconds} from a torch.profiler run."""
+    from torch.autograd import DeviceType
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        by_name[e.key] = by_name.get(e.key, 0.0) + us
+    return by_name
+
+
+TRAIN_SEQ = 1024
+TRAIN_PLANS = (
+    # method, run_stage arguments, expected sync steps
+    ("diloco", dict(steps=4, workers=2, per_worker_batch=4, h=2), [1, 3]),
+    ("ddp", dict(steps=2, workers=2, per_worker_batch=4, h=1), [0, 1]),
+)
+
+
+def phase_train(torch):
+    """The training main path at full nanochat-d20: DiLoCo (K=2, per-worker
+    batch 4, H=2, 4 steps) and DDP (global batch 8, 2 steps) through
+    ``run_stage``, fused AdamW on, on the synthetic corpus at seq_len
+    1024.  Launch counts are reset just before each run."""
+    from repro_torch.configs import (NANOCHAT_D20, DiLoCoConfig,
+                                     OptimizerConfig)
+    from repro_torch.kernels import KERNELS, launches, reset_launches
+    from repro_torch.launch.train import build_pipeline, run_stage
+    from repro_torch.models import init_params
+    cfg = NANOCHAT_D20
+    _, tok, stages = build_pipeline(seq_len=TRAIN_SEQ)
+    ds = stages["base"]
+    log(f"  corpus: {ds.num_tokens} tokens of a {tok.vocab_size}-token BPE, "
+        f"seq_len {TRAIN_SEQ}; model {cfg.name}, {cfg.num_layers} layers, "
+        f"d {cfg.d_model}, vocab {cfg.vocab_size}, float32")
+    runs, profile = {}, None
+    for method, kw, syncs in TRAIN_PLANS:
+        opt_cfg = OptimizerConfig(total_steps=kw["steps"], warmup_steps=1,
+                                  learning_rate=0.02, adam_lr=1e-3,
+                                  fused_adamw=True)
+        params = init_params(cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        final, hist = run_stage(method, cfg, params, ds, opt_cfg=opt_cfg,
+                                diloco_cfg=DiLoCoConfig(), seed=0, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: launches[k] for k in KERNELS}
+        peak = torch.cuda.max_memory_allocated()
+        k_eff = kw["workers"] if method == "diloco" else 1
+        step_tokens = kw["workers"] * kw["per_worker_batch"] * TRAIN_SEQ
+        losses = hist["loss"]
+        runs[method] = {
+            "launches": counts, "loss": losses,
+            "sync_steps": hist["sync_steps"],
+            "step_seconds": hist["step_seconds"],
+            "tokens_per_s": step_tokens / hist["step_seconds"],
+            "wall_s": wall, "tokens_per_s_wall": kw["steps"] * step_tokens
+            / wall, "peak_memory_gb": peak / 1e9, "workers": k_eff,
+            "step_tokens": step_tokens}
+        log(f"  run_stage({method!r}) {kw}: losses "
+            f"{[round(x, 4) for x in losses]}, syncs {hist['sync_steps']}, "
+            f"step {hist['step_seconds']:.3f} s "
+            f"({runs[method]['tokens_per_s']:.0f} tokens/s over "
+            f"{step_tokens} tokens a step), wall {wall:.2f} s, peak "
+            f"{peak / 1e9:.2f} GB, launches {counts}")
+        check(all(math.isfinite(x) for x in losses),
+              f"{method}: non-finite loss")
+        check(hist["sync_steps"] == syncs,
+              f"{method}: sync steps {hist['sync_steps']} != {syncs}")
+        check(losses[-1] < losses[0], f"{method}: the loss did not fall")
+        for k in TRAIN_KERNELS:
+            check(counts[k] > 0, f"{method}: kernel {k} never launched on "
+                  f"the main path")
+        if method == "diloco":
+            profile = profile_train_step(torch, cfg, final, ds, opt_cfg, kw)
+        del params, final
+        torch.cuda.empty_cache()
+    return runs, profile
+
+
+def profile_train_step(torch, cfg, params, ds, opt_cfg, kw):
+    """Device time by kernel over one DiLoCo inner step (both workers) at
+    the main path's shapes, after one warm-up step, and the device's busy
+    share of its wall time (torch.profiler, device activity only)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import DiLoCoConfig
+    from repro_torch.core import DistTrainer, make_strategy
+    from repro_torch.models import lm_loss
+    dcfg = DiLoCoConfig(num_workers=kw["workers"], h_inner_steps=kw["h"])
+    dt = DistTrainer(lambda p, b: lm_loss(p, b, cfg), opt_cfg, dcfg,
+                     make_strategy(dcfg))
+    state = dt.init(params)
+    eng = dt.engine()
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             ds.worker_batches(0, kw["workers"], kw["per_worker_batch"])
+             .items()}
+    state, _ = eng.inner_step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, loss = eng.inner_step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = device_time_by_kernel(torch, prof)
+    busy_s = sum(by_name.values()) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    out = {"wall_s": wall, "device_busy_s": busy_s,
+           "busy_share": busy_s / wall if wall else None,
+           "top_kernels_ms": [(k, us / 1e3) for k, us in top]}
+    del state
+    if not by_name:
+        log("  profiler: no device time recorded (not measured)")
+        return out
+    log(f"  profiled one DiLoCo inner step (K={kw['workers']}): wall "
+        f"{wall:.3f} s, device busy {busy_s:.3f} s "
+        f"({100 * busy_s / wall:.1f}%)")
     for k, ms in out["top_kernels_ms"]:
         log(f"    {ms:9.2f} ms  {100 * ms / 1e3 / busy_s:5.1f}%  {k[:90]}")
     return out
@@ -380,7 +715,8 @@ def bound(nbytes, ops, dtype):
                                        else "operations")
 
 
-def phase_timing(torch, runs, checks):
+def phase_timing(torch, paths, checks):
+    """``paths``: {main-path run name: {kernel: launches}}."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (
         paged_decode_attention, paged_decode_attention_plain,
@@ -397,31 +733,34 @@ def phase_timing(torch, runs, checks):
     sc = torch.ones(d, device=dev)
     out = []
 
-    def row(name, shape, ms, plain_ms, lib_ms, nbytes, ops):
+    def row(name, shape, ms, plain_ms, lib_ms, nbytes, ops, **extra):
         b_ms, b_by = bound(nbytes, ops, dtype)
         err = {dt: max(e for n, t, _, e, _ in checks if n == name and t == dt)
                for dt in ("float32", "bfloat16")}
-        out.append({"name": name, "route": "cuda", "source": SOURCE[name],
-                    "replaces": REPLACES[name],
-                    "launches": sum(run["launches"][name]
-                                    for run in runs.values()),
-                    "launches_by_path": {f"spec_k{k}": run["launches"][name]
-                                         for k, run in runs.items()},
-                    "max_abs_err": err[dtype], "ms": ms,
-                    "plain_ms": plain_ms,
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                    "dtype": dtype, "shape": list(shape),
-                    "max_abs_err_bf16": err["bfloat16"]})
+        out.append(dict({"name": name, "route": "cuda",
+                         "source": SOURCE[name], "replaces": REPLACES[name],
+                         "launches": sum(c[name] for c in paths.values()),
+                         "launches_by_path": {k: c[name]
+                                              for k, c in paths.items()},
+                         "max_abs_err": err[dtype], "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "library_ms": lib_ms,
+                         "dtype": dtype, "shape": list(shape),
+                         "max_abs_err_bf16": err["bfloat16"]}, **extra,
+                        **({"gradient_of": GRADIENT_OF[name]}
+                           if name in GRADIENT_OF else {})))
 
     row("rmsnorm", x.shape,
         time_ms(torch, lambda: rmsnorm(x, sc)),
         time_ms(torch, lambda: rmsnorm_plain(x, sc)),
         time_ms(torch, lambda: F.rms_norm(x, (d,), sc, 1e-5)),
-        (2 * rows * d) * item + d * 4, 4 * rows * d)
+        (2 * rows * d) * item + d * 4, 4 * rows * d, library="F.rms_norm")
     row("rmsnorm_residual", x.shape,
         time_ms(torch, lambda: rmsnorm_residual(x, r, sc)),
         time_ms(torch, lambda: rmsnorm_residual_plain(x, r, sc)),
-        None, (4 * rows * d) * item + d * 4, 5 * rows * d)
+        None, (4 * rows * d) * item + d * 4, 5 * rows * d,
+        library="null: no one PyTorch call adds the residual and "
+                "normalises")
 
     for name, T in (("paged_decode", 1), ("paged_verify", 5)):
         q, kp, vp, tab, start, ntok, live = (
@@ -475,8 +814,89 @@ def phase_timing(torch, runs, checks):
         lib = lambda: F.scaled_dot_product_attention(qs, kg, vg,
                                                      attn_mask=mask)
         row(name, q.shape, time_ms(torch, fn), time_ms(torch, plain),
-            time_ms(torch, lib), nbytes, ops)
+            time_ms(torch, lib), nbytes, ops,
+            library="F.scaled_dot_product_attention over the K/V gathered "
+                    "from the pool, with a boolean mask")
+    del x, r, q, kp, vp, kg, vg, mask
+    train_rows(torch, row)
     return out
+
+
+def train_rows(torch, row):
+    """Timing rows of the training kernels at the main path's shapes
+    (float32): flash at (B 4, S 1024, H = KV = 10, D 128), the RMSNorm
+    backward at 4 x 1024 rows of 1280, fused AdamW on the AdamW
+    partition's largest leaf (65536 x 1280)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_plain, flash_bwd,
+        flash_fwd)
+    from repro_torch.kernels.fused_adamw import (fused_adamw_plain,
+                                                 fused_adamw_update)
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_bwd_plain
+    item = 4
+    q, k, v, do = flash_inputs(torch)
+    B, S, H, D = q.shape
+    o, lse = flash_fwd(q, k, v)
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    fwd_ops = 4 * B * H * S * S * D / 2          # causal: half the scores
+    act = B * S * H * D * item
+    row("flash_fwd", q.shape, time_ms(torch, lambda: flash_fwd(q, k, v)),
+        time_ms(torch, lambda: flash_attention_plain(q, k, v)),
+        time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)),
+        4 * act + B * H * S * 4, fwd_ops,
+        library="F.scaled_dot_product_attention(is_causal=True) on "
+                "(B, H, S, D) copies")
+    leaves = [t.clone().requires_grad_() for t in (qt, kt, vt)]
+    out_lib = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    row("flash_bwd", q.shape,
+        time_ms(torch, lambda: flash_bwd(q, k, v, o, lse, do)),
+        time_ms(torch, lambda: flash_attention_bwd_plain(q, k, v, o, lse,
+                                                         do)),
+        time_ms(torch, lambda: torch.autograd.grad(
+            out_lib, leaves, dot, retain_graph=True)),
+        8 * act + B * H * S * 4, 2.5 * fwd_ops,
+        library="SDPA's backward through autograd "
+                "(torch.autograd.grad of F.scaled_dot_product_attention)")
+    del q, k, v, do, o, lse, qt, kt, vt, dot, leaves, out_lib
+    g = torch.Generator().manual_seed(5)
+    rows, d = 4 * 1024, 1280
+    x, r, dy, dh = (torch.randn((4, 1024, d), generator=g).cuda()
+                    for _ in range(4))
+    sc = (1 + 0.1 * torch.randn(d, generator=g)).cuda()
+    xl, wl = x.clone().requires_grad_(), sc.clone().requires_grad_()
+    y_lib = F.rms_norm(xl, (d,), wl, 1e-5)
+    row("rmsnorm_bwd", x.shape,
+        time_ms(torch, lambda: rmsnorm_bwd(dy, x, sc)),
+        time_ms(torch, lambda: rmsnorm_bwd_plain(dy, x, sc)),
+        time_ms(torch, lambda: torch.autograd.grad(y_lib, (xl, wl), dy,
+                                                   retain_graph=True)),
+        3 * rows * d * item + 2 * d * 4, 10 * rows * d,
+        library="F.rms_norm's backward through autograd",
+        ms_residual=time_ms(torch, lambda: rmsnorm_bwd(
+            dy, x, sc, residual=r, dh=dh)),
+        plain_ms_residual=time_ms(torch, lambda: rmsnorm_bwd_plain(
+            dy, x, sc, 1e-5, r, dh)))
+    del x, r, dy, dh, xl, wl, y_lib
+    n = 65536 * 1280
+    p, gr = (torch.randn(n, generator=g).cuda() for _ in range(2))
+    m = (0.1 * torch.randn(n, generator=g)).cuda()
+    v = torch.rand(n, generator=g).cuda()
+    t = torch.tensor(3.0, device="cuda")
+    scal = (torch.tensor(1e-3, device="cuda"), 1 - 0.9 ** t, 1 - 0.95 ** t)
+    kw = dict(b1=0.9, b2=0.95, eps=1e-10, wd=0.0)
+    p2, m2, v2 = p.clone(), m.clone(), v.clone()
+    row("fused_adamw", (n,),
+        time_ms(torch, lambda: fused_adamw_update(p, gr, m, v, *scal, **kw)),
+        time_ms(torch, lambda: fused_adamw_plain(p, gr, m, v, *scal, **kw)),
+        time_ms(torch, lambda: torch._fused_adamw_(
+            [p2], [gr], [m2], [v2], [], [t], lr=1e-3, beta1=0.9,
+            beta2=0.95, weight_decay=0.0, eps=1e-10, amsgrad=False,
+            maximize=False)),
+        28 * n, 14 * n,
+        library="torch._fused_adamw_ on one flat leaf (updates p, m, v "
+                "in place; the port's kernel returns u, m', v')")
 
 
 # ---------------------------------------------------------------------------
@@ -511,7 +931,7 @@ def main(argv=None) -> int:
               "cuda": torch.version.cuda}
     try:
         from repro_torch.kernels import _build
-        log("[1/5] build kernels")
+        log("[1/6] build kernels")
         t0 = time.perf_counter()
         text = _build.build(verbose=True)
         report["build_s"] = time.perf_counter() - t0
@@ -520,20 +940,29 @@ def main(argv=None) -> int:
                 log("  " + line.strip())
         log(f"  built in {report['build_s']:.1f} s")
 
-        log("[2/5] kernels vs plain versions")
+        log("[2/6] kernels vs plain versions")
         checks = []
         phase_kernels(torch, checks)
+        phase_train_kernels(torch, checks)
+        report_checks(checks)
         report["checks"] = [list(c) for c in checks]
 
-        log("[3/5] full-width step: card vs CPU")
+        log("[3/6] full width, depth 2: card vs CPU")
         report["step_vs_cpu"] = phase_step_vs_cpu(torch)
+        report["train_step_vs_cpu"] = phase_train_step_vs_cpu(torch)
 
-        log("[4/5] Engine, nanochat-d20, spec_k=0 and 4")
+        log("[4/6] Engine, nanochat-d20, spec_k=0 and 4")
         runs, report["profile"] = phase_engine(torch)
         report["engine"] = runs
 
-        log("[5/5] kernel timing")
-        kernels = phase_timing(torch, runs, checks)
+        log("[5/6] training, nanochat-d20: DiLoCo and DDP")
+        train, report["train_profile"] = phase_train(torch)
+        report["train"] = train
+
+        log("[6/6] kernel timing")
+        paths = {f"spec_k{k}": run["launches"] for k, run in runs.items()}
+        paths.update({m: run["launches"] for m, run in train.items()})
+        kernels = phase_timing(torch, paths, checks)
         report["kernels"] = kernels
         for k in kernels:
             log(f"  {k['name']:17s} ms={k['ms']:.4f} plain_ms="
@@ -548,7 +977,10 @@ def main(argv=None) -> int:
         Path(args.out).write_text(json.dumps(report, indent=1, default=str))
     summary = {k: {"tokens_per_s": v["tokens_per_s"], "wall_s": v["wall_s"]}
                for k, v in runs.items()}
-    print(json.dumps({"engine_spec_k": summary}))
+    train_summary = {k: {key: v[key] for key in (
+        "tokens_per_s", "step_seconds", "peak_memory_gb", "loss")}
+        for k, v in train.items()}
+    print(json.dumps({"engine_spec_k": summary, "train": train_summary}))
     print(report["gpu"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

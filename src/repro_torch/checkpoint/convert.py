@@ -18,7 +18,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import torch_dtype
-from repro_torch.models.transformer import Params, param_shapes, unflatten
+from repro_torch.models.transformer import (Params, flatten, param_shapes,
+                                            unflatten)
 
 
 def load_pytree(path: str) -> Dict[str, np.ndarray]:
@@ -50,6 +51,13 @@ def params_from_numpy(flat: Dict[str, np.ndarray], cfg: ModelConfig,
                              f"{arr.shape} vs {shape}")
         out[path] = torch.tensor(arr, dtype=dt, device=device)
     return unflatten(out)
+
+
+def params_to_numpy(params: Params) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`params_from_numpy`: {manifest path: array}
+    (host copies, float32 leaves as float32)."""
+    return {path: leaf.detach().cpu().numpy()
+            for path, leaf in flatten(params).items()}
 
 
 def load_config(path: str) -> Optional[ModelConfig]:

@@ -1,12 +1,15 @@
-"""Model configuration schema for the PyTorch port.
+"""Configuration schema for the PyTorch port.
 
 A ``ModelConfig`` fully describes one architecture.  The field names and
 defaults are those of the JAX package's config, so a ``.cfg.json`` written
-beside a JAX checkpoint loads here unchanged; the port itself serves the
+beside a JAX checkpoint loads here unchanged; the port itself runs the
 dense decoder only and raises ``NotImplementedError`` on the fields it does
 not implement yet (MoE, SSM, hybrid, encoder-decoder, quantized KV).
+``DiLoCoConfig`` and ``OptimizerConfig`` are field-for-field copies of the
+JAX package's training configs; the port raises on the knobs whose code
+paths it does not have yet (see ``core/outer_opt.py`` and ``core/sync.py``).
 
-Frozen dataclass, so configs hash and compare by value.
+Frozen dataclasses, so configs hash and compare by value.
 """
 from __future__ import annotations
 
@@ -147,3 +150,61 @@ class ModelConfig:
         total += emb if self.tie_embeddings else 2 * emb
         total += D  # final norm
         return int(total)
+
+
+@dataclass(frozen=True)
+class DiLoCoConfig:
+    """Hyper-parameters from the paper (§3)."""
+    num_workers: int = 8
+    h_inner_steps: int = 100          # H=100 base pretraining
+    h_mid_sft: int = 30               # H=30 mid-training / SFT
+    outer_lr: float = 0.8             # eta_outer
+    outer_momentum: float = 0.9       # mu_outer (Nesterov)
+    nesterov: bool = True
+    # --- beyond-paper knobs ------------------------------------------------
+    delta_dtype: str = "float32"      # float32 | bfloat16 | int8 | fp8 |
+                                      # fp8_e5m2: the outer sync's wire
+                                      # codec (only float32 is ported)
+    error_feedback: bool = True       # lossy codecs carry a per-worker
+                                      # residual so quantization noise
+                                      # cannot bias the outer optimizer
+    grad_compress: str = "none"       # none | int8 | fp8 | fp8_e5m2: DDP-side
+                                      # per-step update compression
+    drift_aware: bool = False         # drift-weighted averaging (paper §5
+                                      # future work; not ported)
+    adaptive_h: bool = False          # adaptive H schedule (paper §5 future
+                                      # work; not ported)
+    h_min: int = 10
+    h_max: int = 200
+    # --- sync-strategy runtime (repro_torch.core.sync / DistTrainer) -------
+    strategy: str = "diloco"          # ddp | diloco are ported; streaming |
+                                      # overlapped | pipelined | gossip |
+                                      # async_gossip raise
+    num_fragments: int = 4            # streaming/pipelined: F fragments
+    sync_delay: int = 0               # overlapped/pipelined: steps between
+                                      # delta capture and outer application
+    h_jitter: int = 0                 # overlapped / async_gossip jitter
+    sync_seed: int = 0                # seeds jitter draws and gossip peers
+    topology: str = "ring"            # gossip peer schedule: ring | random
+                                      # matching | full
+    staleness_bound: int = 0          # async_gossip staleness bound
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    """nanochat's optimizer split: Muon for matrices, AdamW for the rest."""
+    learning_rate: float = 0.02       # muon lr
+    adam_lr: float = 3e-4
+    weight_decay: float = 0.0
+    adam_betas: Tuple[float, float] = (0.9, 0.95)
+    adam_eps: float = 1e-10
+    muon_momentum: float = 0.95
+    muon_ns_steps: int = 5
+    grad_clip: float = 1.0
+    fused_adamw: bool = False         # fused AdamW update kernel
+                                      # (repro_torch.kernels.fused_adamw):
+                                      # same update math
+    warmup_steps: int = 32
+    schedule: str = "wsd"             # wsd | cosine | constant
+    total_steps: int = 1000
+    final_lr_frac: float = 0.0

@@ -1,4 +1,6 @@
 from repro_torch.data import synthetic
+from repro_torch.data.pipeline import PackedDataset
+from repro_torch.data.pipeline import build_tokenizer as train_tokenizer
 from repro_torch.data.tokenizer import SPECIAL_TOKENS, BPETokenizer
 
 
@@ -8,7 +10,8 @@ def build_tokenizer() -> BPETokenizer:
     training pipeline builds with its default seed."""
     world = synthetic.World.make(40, seed=1234)
     texts = synthetic.gen_pretrain_texts(world, 2000, seed=0)
-    return BPETokenizer.train(texts, 512)
+    return train_tokenizer(texts, 512)
 
 
-__all__ = ["BPETokenizer", "SPECIAL_TOKENS", "build_tokenizer", "synthetic"]
+__all__ = ["BPETokenizer", "PackedDataset", "SPECIAL_TOKENS",
+           "build_tokenizer", "synthetic", "train_tokenizer"]

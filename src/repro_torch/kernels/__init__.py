@@ -4,6 +4,7 @@ its CUDA kernel (or raises) for CUDA tensors.  ``launches`` counts kernel
 launches per name since ``reset_launches()``."""
 from repro_torch.kernels._build import launches, reset_launches
 
-KERNELS = ("rmsnorm", "rmsnorm_residual", "paged_decode", "paged_verify")
+KERNELS = ("rmsnorm", "rmsnorm_residual", "paged_decode", "paged_verify",
+           "flash_fwd", "flash_bwd", "fused_adamw", "rmsnorm_bwd")
 
 __all__ = ["KERNELS", "launches", "reset_launches"]

@@ -1,8 +1,15 @@
-"""Grouped-query attention against a paged KV pool — the serving path.
+"""Grouped-query attention: the training path (``attention``, through the
+flash attention kernel) and the serving path against a paged KV pool.
 
-GQA is computed grouped: queries are shaped (S, T, KV, G, hd), so KV heads
-are never repeated.  The fresh K/V of every live token are written into
-the pool IN PLACE before the attention reads it (the JAX package returns
+Training: the JAX package picks one of three jnp score paths per call
+(``_direct``, ``_blocked``, ``_banded``); all three compute causal softmax
+attention with an optional window, so here all map onto the one flash
+function (``repro_torch.kernels.flash_attention``), whose backward is a
+kernel too.  Nothing of size (B, H, S, S) is kept for autograd.
+
+Serving: GQA is computed grouped: queries are shaped (S, T, KV, G, hd),
+so KV heads are never repeated.  The fresh K/V of every live token are
+written into the pool IN PLACE before the attention reads it (the JAX package returns
 a new pool; here the caller's pool tensors are updated), then the paged
 kernels (``repro_torch.kernels.decode_attention``) read it through the
 block table: the decode kernel for T = 1 token per slot, the verify kernel
@@ -20,6 +27,7 @@ from repro_torch.kernels.decode_attention import (paged_decode_attention as
                                                   paged_decode_kernel,
                                                   paged_verify_attention as
                                                   paged_verify_kernel)
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import apply_rope, cast, rope_cos_sin
 
 
@@ -84,7 +92,8 @@ def paged_inputs(positions: torch.Tensor, block_table: torch.Tensor,
 
 
 def project_qkv(p, x: torch.Tensor, cfg: ModelConfig):
-    """x: (S, T, d) -> q (S, T, KV, G, hd), k/v (S, T, KV, hd)."""
+    """x: (S, T, d) -> q (S, T, KV, G, hd), k/v (S, T, KV, hd) (for
+    training, (B, S, d) in, the same shapes with B, S)."""
     dt = x.dtype
     hd = cfg.resolved_head_dim()
     q = x @ cast(p["wq"], dt)
@@ -98,6 +107,23 @@ def project_qkv(p, x: torch.Tensor, cfg: ModelConfig):
     KV = cfg.num_kv_heads
     return (q.reshape(S, T, KV, cfg.num_heads // KV, hd),
             k.reshape(S, T, KV, hd), v.reshape(S, T, KV, hd))
+
+
+def attention(p, x: torch.Tensor, cfg: ModelConfig, *,
+              positions: torch.Tensor,
+              window: Optional[int] = None) -> torch.Tensor:
+    """Training / prefill self-attention over a full causal sequence.
+    x: (B, S, d); positions: (S,) — the JAX package's ``attention`` with
+    ``memory`` None.  Returns y (B, S, d)."""
+    B, S = x.shape[:2]
+    H, hd = cfg.num_heads, cfg.resolved_head_dim()
+    q, k, v = project_qkv(p, x, cfg)
+    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+    q = apply_rope(q.reshape(B, S, H, hd), cos, sin)
+    k = apply_rope(k, cos, sin)
+    out = flash_attention(q, k, v.contiguous(), causal=True,
+                          window=window or None)
+    return out.reshape(B, S, H * hd) @ cast(p["wo"], x.dtype)
 
 
 def paged_decode_attention(p, x: torch.Tensor, cfg: ModelConfig,

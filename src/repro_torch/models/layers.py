@@ -1,11 +1,13 @@
 """Core layers of the dense decoder: norms, rotary embeddings, embedding /
-unembedding and the SwiGLU MLP, as plain functions on tensors.
+unembedding, the SwiGLU MLP and the cross-entropy loss, as plain
+functions on tensors.
 
 Parameters are nested dicts of tensors with the JAX package's layout:
 matrices are ``(d_in, d_out)`` and applied as ``x @ W``; norms carry a
 float32 ``scale``.  Norms go through the RMSNorm kernels
 (``repro_torch.kernels.rmsnorm``): the CUDA kernel for CUDA tensors, its
-plain version for CPU tensors.
+plain version for CPU tensors; both are differentiable, with a backward
+kernel of their own.
 """
 from __future__ import annotations
 
@@ -104,3 +106,32 @@ def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     up = x @ cast(p["w_up"], dt)
     gate = x @ cast(p["w_gate"], dt)
     return (F.silu(gate) * up) @ cast(p["w_down"], dt)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def softmax_ce_sums(logits: torch.Tensor, labels: torch.Tensor, mask=None,
+                    z_loss: float = 0.0):
+    """(sum of CE over valid positions, count of valid positions), in f32;
+    labels == -1 (and mask == 0) are not valid."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.long().clamp(min=0)[..., None])[..., 0]
+    ce = lse - gold
+    if z_loss:
+        ce = ce + z_loss * lse.square()
+    valid = labels >= 0
+    if mask is not None:
+        valid = valid & (mask > 0)
+    valid = valid.float()
+    return (ce * valid).sum(), valid.sum()
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask=None, z_loss: float = 0.0) -> torch.Tensor:
+    """Mean CE over valid positions, in f32.  labels == -1 are ignored."""
+    total, count = softmax_ce_sums(logits, labels, mask, z_loss)
+    return total / count.clamp(min=1.0)

@@ -128,3 +128,159 @@ def test_cuda_engine_greedy_equals_cpu_engine(cuda):
         got = Engine(cfg, params_d, device=cuda, **kw).generate_ids(
             prompts, max_new=13)
         np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The training slice's kernels: flash attention forward and backward,
+# fused AdamW, the RMSNorm backward
+# ---------------------------------------------------------------------------
+
+# (atol, rtol) by dtype.  f32 forward: the serving kernels' tolerance; f32
+# backward: 1e-4 + 1e-4, the gradients sum up to G * S products in another
+# order than the plain einsums.  bf16: outputs are rounded to 8 mantissa
+# bits.
+FLASH_TOL = {torch.float32: ((1e-5, 1e-4), (1e-4, 1e-4)),
+             torch.bfloat16: ((1e-2, 1e-2), (2e-2, 2e-2))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,D,window", [
+    (2, 128, 4, 4, 128, None),      # nanochat-d20's head dim, G = 1
+    (2, 200, 4, 2, 64, None),       # G = 2, S not a multiple of the tile
+    (1, 300, 2, 1, 32, 70),         # sliding window
+    (3, 45, 4, 2, 16, None),        # the tiny test model's head dim
+])
+def test_cuda_flash_kernels_match_plain(cuda, dtype, B, S, H, KV, D, window):
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_plain, flash_bwd,
+        flash_fwd)
+    g = torch.Generator().manual_seed(S + D)
+    q, do = (torch.randn((B, S, H, D), generator=g).to(dtype).to(cuda)
+             for _ in range(2))
+    k, v = (torch.randn((B, S, KV, D), generator=g).to(dtype).to(cuda)
+            for _ in range(2))
+    (fa, fr), (ba, br) = FLASH_TOL[dtype]
+    o, lse = flash_fwd(q, k, v, window=window)
+    o_ref, lse_ref = flash_attention_plain(q, k, v, True, window)
+    torch.testing.assert_close(o, o_ref, atol=fa, rtol=fr)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    got = flash_bwd(q, k, v, o_ref, lse_ref, do, window=window)
+    want = flash_attention_bwd_plain(q, k, v, o_ref, lse_ref, do, True,
+                                     window)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=ba, rtol=br)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_autograd_matches_autograd_of_plain(cuda):
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((2, 150, 4, 64), generator=g).to(cuda).requires_grad_()
+    k = torch.randn((2, 150, 2, 64), generator=g).to(cuda).requires_grad_()
+    v = torch.randn((2, 150, 2, 64), generator=g).to(cuda).requires_grad_()
+    do = torch.randn((2, 150, 4, 64), generator=g).to(cuda)
+    reset_launches()
+    got = torch.autograd.grad(flash_attention(q, k, v), (q, k, v), do)
+    assert launches["flash_fwd"] == 1 and launches["flash_bwd"] == 1
+    want = torch.autograd.grad(flash_attention_plain(q, k, v)[0], (q, k, v),
+                               do)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,pdt,gdt", [(1_000_003, torch.float32,
+                                        torch.float32),
+                                       (4097, torch.float32, torch.bfloat16),
+                                       (77, torch.bfloat16, torch.bfloat16)])
+def test_cuda_fused_adamw_matches_plain_bitwise(cuda, n, pdt, gdt):
+    """No FMA contraction in the kernel: the same rounded operations as
+    the plain version, so the results are equal bit for bit."""
+    from repro_torch.kernels.fused_adamw import (fused_adamw_plain,
+                                                 fused_adamw_update)
+    g = torch.Generator().manual_seed(n)
+    p = torch.randn(n, generator=g).to(pdt).to(cuda)
+    gr = torch.randn(n, generator=g).to(gdt).to(cuda)
+    m = (0.1 * torch.randn(n, generator=g)).to(cuda)
+    v = torch.rand(n, generator=g).to(cuda)
+    t = torch.tensor(7.0, device=cuda)
+    scal = (torch.tensor(1e-3, device=cuda), 1 - 0.9 ** t, 1 - 0.95 ** t)
+    kw = dict(b1=0.9, b2=0.95, eps=1e-10, wd=0.01)
+    got = fused_adamw_update(p, gr, m, v, *scal, **kw)
+    want = fused_adamw_plain(p, gr, m, v, *scal, **kw)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("residual", [False, True])
+def test_cuda_rmsnorm_bwd_matches_plain_and_autograd(cuda, dtype, atol,
+                                                     residual):
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_bwd_plain
+    g = torch.Generator().manual_seed(int(residual))
+    shape = (4, 1000, 1280)           # 4000 rows: the backward's CTAs
+    x, r, dy, dh = (torch.randn(shape, generator=g).to(dtype).to(cuda)
+                    for _ in range(4))
+    s = (1 + 0.1 * torch.randn(1280, generator=g)).to(cuda)
+    kw = dict(residual=r, dh=dh) if residual else {}
+    got = rmsnorm_bwd(dy, x, s, **kw)
+    want = rmsnorm_bwd_plain(dy, x, s, 1e-5, *(
+        (r, dh) if residual else ()))
+    torch.testing.assert_close(got[0], want[0], atol=atol, rtol=atol)
+    # dscale sums 4000 rows: relative tolerance on the column sums
+    torch.testing.assert_close(got[1], want[1], atol=1e-3, rtol=1e-4)
+    if dtype == torch.float32:
+        xs = [x.clone().requires_grad_(), s.clone().requires_grad_()]
+        if residual:
+            xs.insert(1, r.clone().requires_grad_())
+            out = rmsnorm_residual_plain(*xs)
+            ref = torch.autograd.grad(out, xs, (dy, dh))
+        else:
+            ref = torch.autograd.grad(rmsnorm_plain(*xs), xs, dy)
+        torch.testing.assert_close(got[0], ref[0], atol=1e-5, rtol=1e-4)
+        torch.testing.assert_close(got[1], ref[-1], atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_training_step_matches_cpu(cuda):
+    """Two DiLoCo rounds (K=2, H=2) of a tiny model with fused AdamW on
+    the card (kernels) and on the CPU (plain versions), same params and
+    data: losses and final parameters agree."""
+    from repro_torch.configs import (DiLoCoConfig, ModelConfig,
+                                     OptimizerConfig)
+    from repro_torch.core import DistTrainer, DiLoCoSync
+    from repro_torch.models import init_params, lm_loss
+    from repro_torch.models.transformer import flatten
+    cfg = ModelConfig(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
+                      d_ff=128, vocab_size=97)
+    opt = OptimizerConfig(total_steps=8, warmup_steps=2, fused_adamw=True)
+    dcfg = DiLoCoConfig(num_workers=2, h_inner_steps=2)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, 97, (4, 2, 2, 33)).astype(np.int32)
+
+    def data(s):
+        return {"tokens": toks[s, :, :, :-1], "labels": toks[s, :, :, 1:]}
+
+    out = {}
+    for dev in ("cpu", cuda):
+        params = {k: v.to(dev) for k, v in
+                  flatten(init_params(cfg, seed=0)).items()}
+        dt = DistTrainer(lambda p, b: lm_loss(p, b, cfg), opt, dcfg,
+                         DiLoCoSync())
+        reset_launches()
+        state, hist = dt.run(dt.init(params), data, 4)
+        out[str(dev)] = (hist, state.global_params)
+        if dev != "cpu":
+            for name in ("flash_fwd", "flash_bwd", "fused_adamw",
+                         "rmsnorm_bwd"):
+                assert launches[name] > 0, name
+    (h_cpu, p_cpu), (h_gpu, p_gpu) = out["cpu"], out[str(cuda)]
+    np.testing.assert_allclose(h_gpu["loss"], h_cpu["loss"], rtol=1e-5)
+    assert h_gpu["sync_steps"] == h_cpu["sync_steps"] == [1, 3]
+    for k, v in p_cpu.items():
+        torch.testing.assert_close(p_gpu[k].cpu(), v, atol=1e-4, rtol=1e-4)

@@ -2,8 +2,11 @@
 (what the wrappers run for CPU tensors) against the JAX oracle AND the
 Pallas kernel in interpret mode, on the same numpy inputs; f32, atol
 1e-5, live rows only (rows with no attendable key are garbage in every
-implementation).  The CUDA kernels themselves run only on a card:
-``tests/test_torch_cuda.py`` holds them to these plain versions."""
+implementation).  Gradients (flash attention, RMSNorm), which have no
+Pallas kernel, are held to ``jax.grad`` / ``jax.vjp`` of the JAX oracle.
+The CUDA kernels themselves run only on a card: ``tests/test_torch_cuda.py``
+holds them to these plain versions."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,6 +16,11 @@ from repro.kernels.decode_attention import (
     paged_decode_attention as pallas_paged_decode,
     paged_verify_attention as pallas_paged_verify,
     reference_paged_decode_attention, reference_paged_verify_attention)
+from repro.kernels.flash_attention import (
+    flash_attention as pallas_flash_attention, reference_attention)
+from repro.kernels.fused_adamw import (fused_adamw_update as
+                                       pallas_fused_adamw,
+                                       reference_fused_adamw)
 from repro.kernels.rmsnorm import (reference_rmsnorm,
                                    reference_rmsnorm_residual)
 from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm
@@ -21,8 +29,14 @@ from repro_torch.kernels import _build, launches, reset_launches
 from repro_torch.kernels.decode_attention import (
     paged_decode_attention, paged_decode_attention_plain,
     paged_verify_attention, paged_verify_attention_plain)
-from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_plain,
-                                         rmsnorm_residual,
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd_plain,
+                                                 flash_attention_plain,
+                                                 flash_bwd, flash_fwd)
+from repro_torch.kernels.fused_adamw import (fused_adamw_plain,
+                                             fused_adamw_update)
+from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_bwd,
+                                         rmsnorm_plain, rmsnorm_residual,
                                          rmsnorm_residual_plain)
 from torch_cases import paged_tables, pools
 
@@ -175,6 +189,184 @@ def test_paged_plain_ignores_unmapped_and_stale_lanes():
 
 
 # ---------------------------------------------------------------------------
+# RMSNorm backward (no Pallas kernel: held to jax.vjp of the oracles)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(8, 64), (3, 7, 96), (5, 1280)])
+@pytest.mark.parametrize("residual", [False, True])
+def test_rmsnorm_bwd_plain_matches_jax_vjp(shape, residual):
+    """dx (= d residual) and dscale against jax.vjp of the JAX oracle;
+    f32, atol 1e-5 (dscale sums over rows: rtol 1e-5 too)."""
+    rng = np.random.default_rng(sum(shape) + residual)
+    x, r, dy, dh = (rng.standard_normal(shape).astype(np.float32)
+                    for _ in range(4))
+    s = (1 + 0.1 * rng.standard_normal(shape[-1])).astype(np.float32)
+    t = lambda a: torch.from_numpy(a)
+    if residual:
+        _, vjp = jax.vjp(reference_rmsnorm_residual, *(jnp.asarray(a)
+                                                       for a in (x, r, s)))
+        jdx, jdr, jds = vjp((jnp.asarray(dy), jnp.asarray(dh)))
+        np.testing.assert_array_equal(np.asarray(jdx), np.asarray(jdr))
+        dx, ds = rmsnorm_bwd(t(dy), t(x), t(s), residual=t(r), dh=t(dh))
+    else:
+        _, vjp = jax.vjp(reference_rmsnorm, jnp.asarray(x), jnp.asarray(s))
+        jdx, jds = vjp(jnp.asarray(dy))
+        dx, ds = rmsnorm_bwd(t(dy), t(x), t(s))
+    _close(dx, jdx)
+    np.testing.assert_allclose(ds.numpy(), np.asarray(jds), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_rmsnorm_autograd_runs_the_plain_backward_on_cpu():
+    """The differentiable wrappers' gradients on the CPU are the plain
+    backward's, and equal autograd through the plain forward."""
+    rng = np.random.default_rng(1)
+    x, r = (torch.from_numpy(rng.standard_normal((4, 3, 32))
+                             .astype(np.float32)).requires_grad_()
+            for _ in range(2))
+    s = torch.from_numpy((1 + 0.1 * rng.standard_normal(32))
+                         .astype(np.float32)).requires_grad_()
+    dy, dh = torch.randn(4, 3, 32), torch.randn(4, 3, 32)
+    got = torch.autograd.grad(rmsnorm_residual(x, r, s), (x, r, s),
+                              (dy, dh))
+    want = torch.autograd.grad(rmsnorm_residual_plain(x, r, s), (x, r, s),
+                               (dy, dh))
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+    got = torch.autograd.grad(rmsnorm(x, s), (x, s), dy)
+    want = torch.autograd.grad(rmsnorm_plain(x, s), (x, s), dy)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (layout (B, S, H, D); the JAX kernel's is (B, H, S, D))
+# ---------------------------------------------------------------------------
+
+def _bhsd(a):
+    return jnp.asarray(np.ascontiguousarray(a.transpose(0, 2, 1, 3)))
+
+
+def _qkv(rng, B, S, H, KV, D):
+    return (rng.standard_normal((B, S, H, D)).astype(np.float32),
+            rng.standard_normal((B, S, KV, D)).astype(np.float32),
+            rng.standard_normal((B, S, KV, D)).astype(np.float32))
+
+
+@pytest.mark.parametrize("B,S,H,KV,D,window", [
+    (2, 32, 4, 2, 16, None),       # GQA, G = 2, four 8-row tiles
+    (1, 32, 2, 2, 32, 8),          # sliding window: tiles skipped
+    (2, 24, 4, 1, 16, None),       # G = 4
+])
+def test_flash_plain_matches_jax_oracle_and_pallas(B, S, H, KV, D, window):
+    rng = np.random.default_rng(S + H + D)
+    q, k, v = _qkv(rng, B, S, H, KV, D)
+    o, lse = flash_fwd(*(torch.from_numpy(a) for a in (q, k, v)),
+                       window=window)
+    assert o.shape == (B, S, H, D) and lse.shape == (B, H, S)
+    jq, jk, jv = _bhsd(q), _bhsd(k), _bhsd(v)
+    want = [np.asarray(reference_attention(jq, jk, jv, window=window)),
+            np.asarray(pallas_flash_attention(jq, jk, jv, window=window,
+                                              bq=8, bk=8, interpret=True))]
+    _close(o.numpy().transpose(0, 2, 1, 3), *want)
+
+
+@pytest.mark.parametrize("S,window", [(21, None), (37, 5), (1, None)])
+def test_flash_plain_non_tile_lengths_match_jax_oracle(S, window):
+    """S that is no multiple of any tile (the Pallas kernel asserts
+    divisibility; the oracle takes any S), with and without a window."""
+    rng = np.random.default_rng(S)
+    q, k, v = _qkv(rng, 2, S, 4, 2, 16)
+    o, _ = flash_fwd(*(torch.from_numpy(a) for a in (q, k, v)),
+                     window=window)
+    want = reference_attention(_bhsd(q), _bhsd(k), _bhsd(v), window=window)
+    _close(o.numpy().transpose(0, 2, 1, 3), want)
+
+
+@pytest.mark.parametrize("B,S,H,KV,D,window", [
+    (2, 32, 4, 2, 16, None),
+    (1, 29, 4, 1, 16, 6),          # G = 4, window, S not a tile multiple
+    (2, 16, 2, 2, 32, None),
+])
+def test_flash_bwd_plain_matches_jax_grad(B, S, H, KV, D, window):
+    """dq, dk, dv from the saved (o, lse) against jax.vjp of the JAX
+    oracle (the Pallas kernel has no VJP); f32, atol 1e-5 (the sums run
+    over G * S terms)."""
+    rng = np.random.default_rng(B * S + H + D)
+    q, k, v = _qkv(rng, B, S, H, KV, D)
+    do = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: reference_attention(a, b, c,
+                                                         window=window),
+                     _bhsd(q), _bhsd(k), _bhsd(v))
+    want = [np.asarray(g).transpose(0, 2, 1, 3) for g in vjp(_bhsd(do))]
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    o, lse = flash_fwd(tq, tk, tv, window=window)
+    for got, w in zip(flash_bwd(tq, tk, tv, o, lse, tdo, window=window),
+                      want):
+        _close(got, w)
+    # the autograd.Function (plain forward + plain backward on the CPU)
+    leaves = [a.clone().requires_grad_() for a in (tq, tk, tv)]
+    grads = torch.autograd.grad(flash_attention(*leaves, window=window),
+                                leaves, tdo)
+    for got, w in zip(grads, want):
+        _close(got, w)
+
+
+def test_flash_bwd_plain_equals_autograd_through_the_plain_forward():
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(a).requires_grad_()
+               for a in _qkv(rng, 2, 19, 4, 2, 16))
+    do = torch.randn(2, 19, 4, 16)
+    o, lse = flash_attention_plain(q, k, v, True, 7)
+    want = torch.autograd.grad(o, (q, k, v), do)
+    got = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                    o.detach(), lse, do, True, 7)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# Fused AdamW
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,dtype", [((7, 13), np.float32),
+                                         ((300,), np.float32),
+                                         ((4, 129), "bfloat16")])
+def test_fused_adamw_plain_matches_jax_oracle_and_pallas(shape, dtype):
+    """Any leaf length (no LANE padding); p and g in f32 or bf16.  The
+    plain version runs the oracle's operations in its order: agreement to
+    1-2 ulp (rtol 1e-6), as the JAX package states for its own kernel;
+    where the two terms of a sum nearly cancel (b1 m + (1-b1) g, or the
+    decay against the step), an ulp of the O(0.1) terms is the absolute
+    floor (atol 1e-8)."""
+    rng = np.random.default_rng(int(np.prod(shape)))
+    p, g = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+    m = (0.1 * rng.standard_normal(shape)).astype(np.float32)
+    v = rng.random(shape).astype(np.float32)
+    lr, bc1, bc2 = np.float32(3e-3), np.float32(1 - 0.9 ** 3), \
+        np.float32(1 - 0.95 ** 3)
+    kw = dict(b1=0.9, b2=0.95, eps=1e-10, wd=0.1)
+    tp, tg = torch.from_numpy(p), torch.from_numpy(g)
+    jp, jg = jnp.asarray(p), jnp.asarray(g)
+    if dtype == "bfloat16":
+        tp, tg = tp.bfloat16(), tg.bfloat16()
+        jp = jnp.asarray(tp.float().numpy(), jnp.bfloat16)
+        jg = jnp.asarray(tg.float().numpy(), jnp.bfloat16)
+    got = fused_adamw_update(tp, tg, torch.from_numpy(m), torch.from_numpy(v),
+                             *(torch.tensor(x) for x in (lr, bc1, bc2)),
+                             **kw)
+    jargs = (jp, jg, jnp.asarray(m), jnp.asarray(v), lr, bc1, bc2)
+    for want in (reference_fused_adamw(*jargs, **kw),
+                 pallas_fused_adamw(*jargs, interpret=True, **kw)):
+        for a, b in zip(got, want):
+            assert a.dtype == torch.float32 and a.shape == shape
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
+                                       atol=1e-8)
+    torch.testing.assert_close(
+        got, fused_adamw_plain(tp, tg, torch.from_numpy(m),
+                               torch.from_numpy(v),
+                               *(torch.tensor(x) for x in (lr, bc1, bc2)),
+                               **kw), atol=0, rtol=0)
+
+
+# ---------------------------------------------------------------------------
 # Wrappers: CPU tensors take the plain version; no silent fallback
 # ---------------------------------------------------------------------------
 
@@ -218,6 +410,22 @@ def test_wrappers_refuse_devices_they_have_no_kernel_for():
         paged_verify_attention(q[:, None], kp, kp, tab, pos, pos)
 
 
+def test_training_wrappers_refuse_devices_they_have_no_kernel_for():
+    q = torch.empty((1, 8, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        flash_fwd(q, q, q)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        flash_bwd(q, q, q, q, torch.empty((1, 2, 8), device="meta"), q)
+    p = torch.empty(10, device="meta")
+    one = torch.ones((), device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        fused_adamw_update(p, p, p, p, one, one, one, b1=0.9, b2=0.95,
+                           eps=1e-10, wd=0.0)
+    x = torch.empty((2, 8), device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        rmsnorm_bwd(x, x, torch.empty(8, device="meta"))
+
+
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):
     """No toolkit, no kernel: the build raises instead of falling back."""
     monkeypatch.setenv("PATH", str(tmp_path))
@@ -227,6 +435,19 @@ def test_build_raises_without_nvcc(tmp_path, monkeypatch):
         _build.build(["rmsnorm"])
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("paged_attention", {})
+
+
+def test_training_wrappers_on_cpu_count_no_launch():
+    reset_launches()
+    q = torch.randn(1, 8, 2, 16)
+    o = flash_attention(q.requires_grad_(), q, q)
+    o.sum().backward()
+    fused_adamw_update(*(torch.ones(5) for _ in range(4)),
+                       *(torch.tensor(0.5) for _ in range(3)), b1=0.9,
+                       b2=0.95, eps=1e-10, wd=0.0)
+    x = torch.ones((2, 8), requires_grad=True)
+    rmsnorm(x, torch.ones(8)).sum().backward()
+    assert sum(launches.values()) == 0
 
 
 def test_build_names_libraries_by_source_hash():

@@ -13,6 +13,9 @@ import pytest
 import torch
 
 from helpers import tiny_cfg
+from repro.configs import base as jax_configs
+from repro.data.pipeline import PackedDataset as JaxPackedDataset
+from repro.data.pipeline import build_tokenizer as jax_build_tokenizer
 from repro.data.synthetic import World as JaxWorld
 from repro.data.synthetic import gen_pretrain_texts as jax_texts
 from repro.data.tokenizer import BPETokenizer as JaxBPE
@@ -22,7 +25,9 @@ from repro.serving import Request as JaxRequest
 from repro.serving import Scheduler as JaxScheduler
 from repro.serving.drafter import propose as jax_propose
 from repro_torch import Engine, Request
-from repro_torch.data import build_tokenizer
+from repro_torch.configs import base as port_configs
+from repro_torch.data import PackedDataset, build_tokenizer
+from repro_torch.data.pipeline import build_tokenizer as port_build_tokenizer
 from repro_torch.launch import serve
 from repro_torch.models import init_params
 from repro_torch.serving import (KVBlockPool, PrefixTree, Scheduler,
@@ -278,6 +283,41 @@ def test_tokenizer_matches_reference_pipeline():
     s = "<|bos|><|user_start|>what is the color of ent3 ?<|user_end|>"
     ids = tok.encode(s)
     assert ids == ref.encode(s) and tok.decode(ids) == ref.decode(ids)
+
+
+@pytest.mark.parametrize("name", ["ModelConfig", "DiLoCoConfig",
+                                  "OptimizerConfig"])
+def test_config_copies_match_the_reference_field_for_field(name):
+    import dataclasses
+    ours, ref = getattr(port_configs, name), getattr(jax_configs, name)
+    fields = lambda c: [(f.name, f.default if f.default is not
+                         dataclasses.MISSING else f.default_factory())
+                        for f in dataclasses.fields(c)]
+    assert fields(ours) == fields(ref)
+
+
+def test_packed_dataset_and_tokenizer_copies_match_the_reference():
+    """The port's copy of the numpy-only pipeline: the same tokenizer, the
+    same packed stream, the same merged and per-worker batches."""
+    world = JaxWorld.make(40, seed=1234)
+    texts = jax_texts(world, 300, seed=0)
+    ref_tok = jax_build_tokenizer(texts, 300)
+    tok = port_build_tokenizer(texts, 300)
+    assert tok.merges == ref_tok.merges
+    ref = JaxPackedDataset.from_texts(texts, ref_tok, 32)
+    ds = PackedDataset.from_texts(texts, tok, 32)
+    np.testing.assert_array_equal(ds.tokens, ref.tokens)
+    assert ds.num_tokens == ref.num_tokens
+    for step in (0, 5):
+        for a, b in ((ds.batch(step, 3, seed=1), ref.batch(step, 3, seed=1)),
+                     (ds.worker_batches(step, 2, 3, seed=1),
+                      ref.worker_batches(step, 2, 3, seed=1))):
+            assert a.keys() == b.keys()
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k])
+    tiny = PackedDataset.from_texts(texts[:1], tok, 64)      # tiled up
+    ref_tiny = JaxPackedDataset.from_texts(texts[:1], ref_tok, 64)
+    np.testing.assert_array_equal(tiny.tokens, ref_tiny.tokens)
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,10 @@ Run from the root of a checkout.  Phases, each fatal on failure:
 2. hold each kernel against its plain PyTorch version on the card:
    - serving kernels at nanochat-d20 shapes (S=8 slots, KV=10, G=1,
      D=128, bs=16, MB=32; ragged positions, unmapped blocks, inactive
-     slots), plus a G=2 case and a sliding-window case;
+     slots), plus a G=2 case and a sliding-window case; the same cases
+     for the dequant kernels on int8, fp8_e4m3 and fp8_e5m2 pools, the
+     fp8 QK^T kernels on f32 and bf16 pools, and the plain kernels on a
+     bf16 pool under f32 queries;
    - training kernels: flash forward and backward at (B 4, S 1024,
      H = KV = 10, D 128) plus G=2, S=1000 and window=256 cases (the
      backward against autograd through the plain forward); fused AdamW on
@@ -19,16 +22,23 @@ Run from the root of a checkout.  Phases, each fatal on failure:
      against autograd of the plain norms;
    all in float32 and bfloat16 (fused AdamW: f32 and bf16 gradients);
 3. full width at depth 2, card against CPU, same params and batch:
-   - one ``decode_step_paged`` and one ``verify_step_paged``;
+   - one ``decode_step_paged`` and one ``verify_step_paged``, on an f32
+     pool and on an fp8 pool (logits; the fp8 pool within one quantum);
    - one training step: the loss, every gradient, one
      ``nanochat_optimizer`` update with fused AdamW, and one DiLoCo outer
      round (K=2, H=1);
 4. the serving main path: ``repro_torch.Engine`` with the full
    nanochat-d20 config (seeded random params, 8 ragged token-id requests,
-   max_new 32) with spec_k=0 and spec_k=4; greedy tokens must be equal,
-   spec_k=4 must have drafted, every kernel of each run must have
-   launched (counts reset just before each run); then one shorter spec_k=0
-   run under torch.profiler for the device time by kernel and busy share;
+   max_new 32; 16 off the f32 pool) with spec_k=0 and spec_k=4, on an f32
+   pool, on int8, fp8
+   and fp8_e5m2 pools and with the fp8 QK^T; greedy tokens must be equal
+   between spec_k 0 and 4 on each, spec_k=4 must have drafted, every
+   kernel of each run must have launched and no other paged kernel
+   (counts reset just before each run); token agreement with the f32
+   stream is printed; then one shorter spec_k=0 run on an f32 and on an
+   fp8 pool under torch.profiler for the device time by kernel and busy
+   share, and the capacity of an f32 and an fp8 pool at one byte budget
+   (blocks and peak admitted requests);
 5. the training main path at full nanochat-d20 (20 layers, float32,
    random params from seed 0) on the port's synthetic corpus through its
    ``PackedDataset`` at seq_len 1024: ``run_stage("diloco")`` with K=2,
@@ -75,7 +85,14 @@ REPLACES = {
     # whose gradient they compute (see "gradient_of")
     "flash_bwd": "src/repro/kernels/flash_attention/kernel.py:127",
     "rmsnorm_bwd": "src/repro/kernels/rmsnorm/kernel.py:41",
+    "paged_decode_dequant": "src/repro/kernels/decode_attention/kernel.py:416",
+    "paged_verify_dequant": "src/repro/kernels/decode_attention/kernel.py:367",
+    # fp8=True variants of paged_decode / paged_verify: the TPU kernels
+    # with qk_dot_fp8 (src/repro/kernels/common.py:31) inside
+    "paged_decode_fp8": "src/repro/kernels/decode_attention/kernel.py:468",
+    "paged_verify_fp8": "src/repro/kernels/decode_attention/kernel.py:317",
 }
+QK_DOT_FP8 = "src/repro/kernels/common.py:31 qk_dot_fp8"
 GRADIENT_OF = {
     "flash_bwd": "flash_fwd: the Pallas kernel has no VJP; the JAX package "
                  "differentiates its jnp reference",
@@ -91,7 +108,13 @@ SOURCE = {
     "flash_bwd": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "fused_adamw": "src/repro_torch/kernels/csrc/fused_adamw.cu",
     "rmsnorm_bwd": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+    "paged_decode_dequant": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "paged_verify_dequant": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "paged_decode_fp8": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "paged_verify_fp8": "src/repro_torch/kernels/csrc/paged_attention.cu",
 }
+# kv_cache_dtype spelling -> quantize target of the pool
+KV_TARGETS = {"int8": "int8", "fp8": "fp8_e4m3", "fp8_e5m2": "fp8_e5m2"}
 TRAIN_KERNELS = ("rmsnorm", "rmsnorm_residual", "flash_fwd", "flash_bwd",
                  "fused_adamw", "rmsnorm_bwd")
 
@@ -118,7 +141,8 @@ def paged_case(torch, *, S=8, KV=10, G=1, D=128, bs=16, MB=32, T=1,
     """Random q / pools and a ragged block table at the given shape.
     Slot 6 is inactive, slot 2 has an unmapped early block, slot 4 a
     mid-sequence one; blocks are shuffled physical ids.  Returns
-    (q, k_pool, v_pool, tables, start, n_tok, live (S, T) bool host)."""
+    (q, k_pool, v_pool, tables, start, n_tok, live (S, T) bool host);
+    see ``with_pool`` for pools in another dtype or quantized."""
     g = torch.Generator().manual_seed(seed)
     dt = getattr(torch, dtype)
     NB = S * MB
@@ -151,6 +175,18 @@ def paged_case(torch, *, S=8, KV=10, G=1, D=128, bs=16, MB=32, T=1,
     return (q, k_pool, v_pool, tables,
             torch.tensor(starts, dtype=torch.int32),
             torch.tensor(n_tok, dtype=torch.int32), live)
+
+
+def with_pool(torch, k_pool, v_pool, pool):
+    """The f32 pools of ``paged_case`` as ``pool``: a torch dtype name
+    (a plain pool) or a quantize target (returns [k, v, k_scale,
+    v_scale]: payloads quantized per (token, head))."""
+    from repro_torch.kernels.quantize import quantize_axis
+    if pool in ("float32", "bfloat16"):
+        return [p.to(getattr(torch, pool)) for p in (k_pool, v_pool)]
+    (kq, ks), (vq, vs) = (quantize_axis(p, dtype=pool)
+                          for p in (k_pool.float(), v_pool.float()))
+    return [kq, vq, ks[..., 0].contiguous(), vs[..., 0].contiguous()]
 
 
 def max_err(torch, got, want, live=None, tol=None):
@@ -215,6 +251,54 @@ def phase_kernels(torch, results):
                 err, ok = max_err(torch, got, want, mask)
                 results.append((name, dtype, tuple(q.shape) + (
                     f"window={window}",), err, ok))
+
+
+def phase_quant_kernels(torch, results):
+    """The quantized-pool (dequant-on-load) kernels for int8, fp8_e4m3 and
+    fp8_e5m2 pools, the fp8 QK^T kernels on f32 and bf16 pools, and the
+    plain kernels on a bf16 pool under f32 queries, each against its
+    plain version at the paged shapes of ``phase_kernels`` (G 1 and 2, T 1
+    and 5, window 0 and 64), f32 and bf16 queries."""
+    from repro_torch.kernels import decode_attention as da
+    dev = torch.device("cuda")
+    variants = [("dequant", t) for t in ("int8", "fp8_e4m3", "fp8_e5m2")]
+    variants += [("fp8", "float32"), ("fp8", "bfloat16"),
+                 ("plain", "bfloat16")]
+    for dtype in ("float32", "bfloat16"):
+        for kind, pool in variants:
+            if dtype == "bfloat16" and pool == "float32":
+                continue       # an f32 pool under bf16 queries: not a path
+            for case in (dict(), dict(KV=5, G=2), dict(window=64)):
+                case = dict(case)
+                window = case.pop("window", 0)
+                for T in (1, 5):
+                    q, kp, vp, tab, start, ntok, live = paged_case(
+                        torch, T=T, dtype=dtype, seed=T + 7 * len(case),
+                        **case)
+                    kv = [t.to(dev) for t in with_pool(torch, kp, vp, pool)]
+                    q, tab, start, ntok = (t.to(dev) for t in
+                                           (q, tab, start, ntok))
+                    idx = (start,) if T == 1 else (start, ntok)
+                    step = "decode" if T == 1 else "verify"
+                    fn = getattr(da, f"paged_{step}_attention"
+                                 + ("_dequant" if kind == "dequant" else ""))
+                    plain = getattr(da, f"paged_{step}_attention"
+                                    + ("_dequant" if kind == "dequant"
+                                       else "") + "_plain")
+                    args = (q, *kv, tab, *idx)
+                    if kind == "fp8":
+                        got = fn(*args, window=window, fp8=True)
+                        want = plain(*args, window, True)
+                    else:
+                        got = fn(*args, window=window)
+                        want = plain(*args, window)
+                    torch.cuda.synchronize()
+                    mask = (live[:, 0] if T == 1 else live).to(dev)
+                    err, ok = max_err(torch, got, want, mask)
+                    name = f"paged_{step}" + ("" if kind == "plain"
+                                              else f"_{kind}")
+                    results.append((name, dtype, tuple(q.shape) + (
+                        f"pool={pool}", f"window={window}"), err, ok))
 
 
 def report_checks(results):
@@ -368,6 +452,84 @@ def phase_step_vs_cpu(torch):
     return worst
 
 
+def fp8_quanta(torch, codes, scale, ref_codes, ref_scale):
+    """Largest |dequant - ref dequant| of two fp8_e4m3 pools, in quanta:
+    units of the e4m3 spacing at the larger of the two codes (2^(e-3)
+    for a normal code of exponent e, 2^-9 below 2^-6), times the
+    reference row's scale."""
+    a, b = codes.float(), ref_codes.float()
+    diff = (a * scale[..., None] - b * ref_scale[..., None]).abs()
+    mag = torch.maximum(a.abs(), b.abs()).clamp(min=2.0 ** -6)
+    step = torch.exp2(torch.floor(torch.log2(mag)) - 3)
+    return float((diff / (step * ref_scale[..., None])).max())
+
+
+def phase_quant_step_vs_cpu(torch):
+    """One decode and one verify step of nanochat-d20 at full width and
+    depth 2 on an fp8 pool, card against CPU, same params, batch and
+    pool: logits within 2e-3, and the pool after the step (payload times
+    scale) within one fp8 quantum of the CPU's: card and CPU GEMMs sum
+    in another order, which may put a fresh K/V value on the other side
+    of a rounding boundary."""
+    from repro_torch.configs import NANOCHAT_D20
+    from repro_torch.kernels.quantize import quantize_axis
+    from repro_torch.models import (decode_step_paged, init_paged_cache,
+                                    init_params, verify_step_paged)
+    from repro_torch.models.transformer import flatten, unflatten
+    cfg = NANOCHAT_D20.with_(num_layers=2, kv_cache_dtype="fp8")
+    params = init_params(cfg, seed=0, device="cpu")
+    params_d = unflatten({k: v.cuda() for k, v in flatten(params).items()})
+    g = torch.Generator().manual_seed(13)
+    S, bs, MB, T = 8, 16, 32, 5
+    _, _, _, tab, start, ntok, live = paged_case(torch, T=T, S=S, seed=6)
+    worst = {}
+    for kind in ("decode", "verify"):
+        pool = init_paged_cache(cfg, S * MB, bs)
+        for name in ("k", "v"):
+            pool[name], sc = quantize_axis(
+                torch.randn(pool[name].shape, generator=g), dtype="fp8_e4m3")
+            pool[f"{name}_scale"] = sc[..., 0].contiguous()
+        pool_d = {k: v.cuda() for k, v in pool.items()}
+        if kind == "decode":
+            batch = {"token": torch.randint(0, cfg.vocab_size, (S, 1),
+                                            generator=g, dtype=torch.int32),
+                     "position": start.clone(), "block_table": tab}
+            step, rows = decode_step_paged, live[:, :1]
+        else:
+            t = torch.arange(T)[None, :]
+            ok = (start[:, None] >= 0) & (t < ntok[:, None])
+            batch = {"tokens": torch.randint(0, cfg.vocab_size, (S, T),
+                                             generator=g, dtype=torch.int32),
+                     "positions": torch.where(ok, start[:, None] + t,
+                                              -1).to(torch.int32),
+                     "block_table": tab}
+            step, rows = verify_step_paged, live
+        batch_d = {k: v.cuda() for k, v in batch.items()}
+        want, pool = step(params, pool, batch, cfg)
+        got, pool_d = step(params_d, pool_d, batch_d, cfg)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()),
+              f"fp8 pool {kind}: non-finite logits")
+        e_logit = float((got.cpu() - want)[rows].abs().max())
+        quanta = max(fp8_quanta(torch, pool_d[k].cpu(),
+                                pool_d[f"{k}_scale"].cpu(), pool[k],
+                                pool[f"{k}_scale"]) for k in ("k", "v"))
+        e_scale = max(float(((pool_d[k].cpu() - pool[k]).abs()
+                             / pool[k].abs().clamp(min=1e-30)).max())
+                      for k in ("k_scale", "v_scale"))
+        flips = sum(int((pool_d[k].cpu().view(torch.uint8)
+                         != pool[k].view(torch.uint8)).sum())
+                    for k in ("k", "v"))
+        worst[kind] = (e_logit, quanta, e_scale, flips)
+        log(f"  {kind}_step_paged d20 width, depth 2, fp8 pool: logits "
+            f"max_abs_err={e_logit:.3e} (atol 2e-3), pool within "
+            f"{quanta:.3f} quanta (tol 1), scales rel {e_scale:.2e}, "
+            f"{flips} payload codes differ")
+        check(e_logit <= 2e-3 and quanta <= 1.0 + 1e-3,
+              f"fp8-pool {kind} step on the card disagrees with the CPU")
+    return worst
+
+
 def rel_err(torch, got, want):
     """max |got - want| / max |want| over one tensor (got on any device)."""
     want = want.float()
@@ -456,12 +618,34 @@ def phase_train_step_vs_cpu(torch):
 # ---------------------------------------------------------------------------
 
 PROMPT_LENS = (5, 16, 64, 128, 33, 200, 9, 300)
+PAGED = ("paged_decode", "paged_verify", "paged_decode_dequant",
+         "paged_verify_dequant", "paged_decode_fp8", "paged_verify_fp8")
+ENGINE_PATHS = (
+    # path-name prefix, config change, the attention kernel of spec_k 0
+    # and of spec_k 4 (every other paged kernel must stay at 0 launches)
+    ("", {}, "paged_decode", "paged_verify"),
+    ("int8_", dict(kv_cache_dtype="int8"), "paged_decode_dequant",
+     "paged_verify_dequant"),
+    ("fp8_", dict(kv_cache_dtype="fp8"), "paged_decode_dequant",
+     "paged_verify_dequant"),
+    ("fp8_e5m2_", dict(kv_cache_dtype="fp8_e5m2"), "paged_decode_dequant",
+     "paged_verify_dequant"),
+    ("fp8_matmul_", dict(fp8_matmul=True), "paged_decode_fp8",
+     "paged_verify_fp8"),
+)
+CAPACITY_POOL_BYTES = 131_072_000      # 40 f32 blocks of nanochat-d20
 
 
 def phase_engine(torch):
-    from repro_torch import Engine, Request
+    """Each path of ``ENGINE_PATHS`` (f32 pool, int8 / fp8 / fp8_e5m2
+    pools, fp8 QK^T on an f32 pool) at spec_k 0 and 4 over the 8 ragged
+    requests (max_new 32 on the f32 pool, 16 on the others): greedy tokens equal between the two, every kernel of the
+    run launched, the other paged kernels not; token agreement of each
+    path's stream with the f32 one (printed, not gated: a quantized pool
+    is lossy); then an f32 and an fp8-pool spec_k=0 run under
+    torch.profiler."""
+    from repro_torch import Engine
     from repro_torch.configs import NANOCHAT_D20
-    from repro_torch.kernels import KERNELS, launches, reset_launches
     from repro_torch.models import init_params
     cfg = NANOCHAT_D20
     t0 = time.perf_counter()
@@ -477,50 +661,134 @@ def phase_engine(torch):
     # drafter proposes prompt[6:10], so spec_k=4 verifies real drafts and
     # rolls back the rejected ones
     prompts[1][13:16] = prompts[1][3:6]
-    need = {0: ("rmsnorm", "rmsnorm_residual", "paged_decode"),
-            4: ("rmsnorm", "rmsnorm_residual", "paged_verify")}
-    out, runs = {}, {}
-    for spec_k in (0, 4):
-        eng = Engine(cfg, params, max_len=512, num_slots=8, block_size=16,
-                     spec_k=spec_k, device="cuda")
-        eng.run([Request(rid=99, prompt=[1, 2, 3], max_new=2)])   # warm-up
-        reqs = [Request(rid=i, prompt=p, max_new=32)
-                for i, p in enumerate(prompts)]
-        torch.cuda.synchronize()
-        reset_launches()
-        stats = eng.run(reqs)
-        torch.cuda.synchronize()
-        counts = {k: launches[k] for k in KERNELS}
-        out[spec_k] = [r.tokens for r in reqs]
-        tps = stats["generated"] / stats["wall"]
-        runs[spec_k] = {"launches": counts, "wall_s": stats["wall"],
-                        "generated": stats["generated"],
-                        "step_calls": stats["step_calls"],
-                        "tokens_per_s": tps,
-                        "drafted": stats.get("drafted", 0),
-                        "accepted": stats.get("accepted", 0)}
-        log(f"  Engine spec_k={spec_k}: {stats['generated']} tokens in "
-            f"{stats['wall']:.3f} s ({tps:.1f} tokens/s), "
-            f"{stats['step_calls']} step calls, drafted "
-            f"{stats.get('drafted', 0)} accepted {stats.get('accepted', 0)}, "
-            f"launches {counts}")
-        for r in reqs:
-            check(len(r.tokens) == 32 and all(0 <= t < cfg.vocab_size
-                                              for t in r.tokens),
-                  f"spec_k={spec_k}: request {r.rid} output malformed")
-        for k in need[spec_k]:
-            check(counts[k] > 0, f"spec_k={spec_k}: kernel {k} never "
-                  f"launched on the main path")
-        if spec_k:
-            check(stats["drafted"] > 0, "spec_k=4 drafted no token")
+    runs, f32_tokens = {}, None
+    for prefix, change, k0_kernel, k4_kernel in ENGINE_PATHS:
+        pcfg = cfg.with_(**change)
+        out = {}
+        for spec_k, attn_kernel in ((0, k0_kernel), (4, k4_kernel)):
+            name = f"{prefix}spec_k{spec_k}"
+            out[spec_k], runs[name] = engine_run(
+                torch, pcfg, params, prompts, spec_k,
+                ("rmsnorm", "rmsnorm_residual", attn_kernel), name,
+                max_new=16 if prefix else 32)
+        check(out[0] == out[4], f"{prefix or 'f32 '}greedy tokens differ "
+              f"between spec_k=0 and 4")
+        if f32_tokens is None:
+            f32_tokens = out[0]
+        agree = token_agreement(out[0], f32_tokens)
+        for spec_k in (0, 4):
+            runs[f"{prefix}spec_k{spec_k}"]["agreement_with_f32"] = agree
+        log(f"  {prefix or 'f32 '}greedy tokens equal between spec_k=0 and "
+            f"4; agreement with the f32 stream {agree:.4f} (not gated)")
+    profile = {}
+    for label, change in (("f32", {}), ("fp8_pool",
+                                         dict(kv_cache_dtype="fp8"))):
+        eng = Engine(cfg.with_(**change), params, max_len=512, num_slots=8,
+                     block_size=16, device="cuda")
+        profile[label] = profile_engine(torch, eng, prompts)
         del eng
         torch.cuda.empty_cache()
-    check(out[0] == out[4], "greedy tokens differ between spec_k=0 and 4")
-    log("  greedy tokens equal between spec_k=0 and spec_k=4")
-    eng = Engine(cfg, params, max_len=512, num_slots=8, block_size=16,
-                 device="cuda")
-    profile = profile_engine(torch, eng, prompts)
+    runs["capacity"] = phase_capacity(torch, cfg, params)
     return runs, profile
+
+
+def engine_run(torch, cfg, params, prompts, spec_k, need, name,
+               max_new=32):
+    """One ``Engine`` run of ``prompts`` after a warm-up request, launch
+    counts reset just before it; gates the outputs' shape and the launch
+    counts.  Returns (tokens, run record)."""
+    from repro_torch import Engine, Request
+    from repro_torch.kernels import KERNELS, launches, reset_launches
+    eng = Engine(cfg, params, max_len=512, num_slots=8, block_size=16,
+                 spec_k=spec_k, device="cuda")
+    eng.run([Request(rid=99, prompt=[1, 2, 3], max_new=2)])   # warm-up
+    reqs = [Request(rid=i, prompt=p, max_new=max_new)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    reset_launches()
+    stats = eng.run(reqs)
+    torch.cuda.synchronize()
+    counts = {k: launches[k] for k in KERNELS}
+    tps = stats["generated"] / stats["wall"]
+    kv = eng.kv_report()
+    run = {"launches": counts, "wall_s": stats["wall"],
+           "generated": stats["generated"],
+           "step_calls": stats["step_calls"], "tokens_per_s": tps,
+           "drafted": stats.get("drafted", 0),
+           "accepted": stats.get("accepted", 0),
+           "kv_pool_dtype": kv["kv_pool_dtype"],
+           "bytes_per_block": kv["bytes_per_block"]}
+    log(f"  Engine {name} (pool {kv['kv_pool_dtype']}, fp8_matmul "
+        f"{cfg.fp8_matmul}): {stats['generated']} tokens in "
+        f"{stats['wall']:.3f} s ({tps:.1f} tokens/s), {stats['step_calls']} "
+        f"step calls, drafted {stats.get('drafted', 0)} accepted "
+        f"{stats.get('accepted', 0)}, launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    for r in reqs:
+        check(len(r.tokens) == max_new and all(0 <= t < cfg.vocab_size
+                                               for t in r.tokens),
+              f"{name}: request {r.rid} output malformed")
+    for k in need:
+        check(counts[k] > 0, f"{name}: kernel {k} never launched on the "
+              f"main path")
+    for k in PAGED:
+        if k not in need:
+            check(counts[k] == 0, f"{name}: kernel {k} launched off its "
+                  f"path")
+    if spec_k:
+        check(stats["drafted"] > 0, f"{name}: spec_k={spec_k} drafted no "
+              f"token")
+    tokens = [r.tokens for r in reqs]
+    del eng
+    torch.cuda.empty_cache()
+    return tokens, run
+
+
+def token_agreement(tokens, ref) -> float:
+    """Share of positions where two greedy streams emit the same token."""
+    pairs = [(a, b) for ra, rb in zip(tokens, ref) for a, b in zip(ra, rb)]
+    return sum(a == b for a, b in pairs) / len(pairs)
+
+
+def phase_capacity(torch, cfg, params, n_req=16, prompt_len=200,
+                   max_new=8):
+    """Admitted requests at one byte budget: an f32-pool and an fp8-pool
+    engine, each sized by ``pool_bytes`` = 40 f32 blocks' worth, 16
+    slots, serving 16 requests of 200 prompt tokens and max_new 8
+    (spec_k 4: prefill runs 5 tokens per forward).  Records num_blocks
+    and the peak of concurrently admitted requests."""
+    from repro_torch import Engine, Request
+    g = torch.Generator().manual_seed(9)
+    prompts = [torch.randint(1, cfg.vocab_size, (prompt_len,),
+                             generator=g).tolist() for _ in range(n_req)]
+    out = {}
+    for kv in ("", "fp8"):
+        eng = Engine(cfg.with_(kv_cache_dtype=kv), params, max_len=256,
+                     num_slots=16, block_size=16, spec_k=4,
+                     pool_bytes=CAPACITY_POOL_BYTES, device="cuda")
+        reqs = [Request(rid=i, prompt=p, max_new=max_new)
+                for i, p in enumerate(prompts)]
+        stats = eng.run(reqs)
+        torch.cuda.synchronize()
+        check(all(len(r.tokens) == max_new for r in reqs),
+              f"capacity run ({kv or 'f32'}): a request did not finish")
+        rep = eng.kv_report()
+        out[kv or "f32"] = {
+            "num_blocks": eng.num_blocks, "pool_bytes": rep["pool_bytes"],
+            "bytes_per_block": eng.bytes_per_block,
+            "peak_admitted": stats["peak_admitted"], "wall_s": stats["wall"],
+            "tokens_per_s": stats["generated"] / stats["wall"]}
+        del eng
+        torch.cuda.empty_cache()
+    f, q = out["f32"], out["fp8"]
+    log(f"  capacity at pool_bytes {CAPACITY_POOL_BYTES}: f32 "
+        f"{f['num_blocks']} blocks ({f['bytes_per_block']} B each), peak "
+        f"{f['peak_admitted']} admitted, {f['wall_s']:.2f} s; fp8 "
+        f"{q['num_blocks']} blocks ({q['bytes_per_block']} B each), peak "
+        f"{q['peak_admitted']} admitted, {q['wall_s']:.2f} s "
+        f"({n_req} requests of {prompt_len} prompt tokens, max_new "
+        f"{max_new}, 16 slots)")
+    return out
 
 
 def profile_engine(torch, eng, prompts, max_new=8):
@@ -548,7 +816,8 @@ def profile_engine(torch, eng, prompts, max_new=8):
     if not by_name:
         log("  profiler: no device time recorded (not measured)")
         return out
-    log(f"  profiled spec_k=0 run (max_new={max_new}): wall {wall:.3f} s, "
+    log(f"  profiled spec_k=0 run, pool {eng.kv_report()['kv_pool_dtype']} "
+        f"(max_new={max_new}): wall {wall:.3f} s, "
         f"device busy {busy_s:.3f} s ({100 * busy_s / wall:.1f}%), "
         f"{out['token_steps']} token-steps")
     for k, ms in out["top_kernels_ms"]:
@@ -767,24 +1036,7 @@ def phase_timing(torch, paths, checks):
             t.to(dev) for t in paged_case(torch, T=T, dtype=dtype, seed=T))
         S, KV, G, D = q.shape[0], q.shape[-3], q.shape[-2], q.shape[-1]
         bs, MB = kp.shape[1], tab.shape[1]
-        # what this run's data needs (window 0): q in and out for each
-        # query that attends some key, each K/V row at a mapped position
-        # <= the slot's last query once, the table entries up to that
-        # query's block, and the per-slot positions (and counts)
-        kv_rows, pairs, q_rows, tab_reads = 0, 0, 0, 0
-        tab_h, start_h, ntok_h = tab.cpu(), start.cpu(), ntok.cpu()
-        for s in range(S):
-            st, n = int(start_h[s]), int(ntok_h[s])
-            if st < 0 or n == 0:
-                continue
-            last = st + n - 1
-            mapped = [int(tab_h[s, p // bs]) >= 0 for p in range(last + 1)]
-            kv_rows += sum(mapped)
-            tab_reads += last // bs + 1
-            for t in range(n):
-                keys = sum(mapped[:st + t + 1])
-                pairs += keys
-                q_rows += keys > 0
+        kv_rows, q_rows, tab_reads, pairs = paged_work(tab, start, ntok, bs)
         nbytes = ((2 * kv_rows * KV * D + 2 * q_rows * KV * G * D) * item
                   + (tab_reads + S * (1 if T == 1 else 2)) * 4)
         ops = 4 * pairs * KV * G * D
@@ -818,8 +1070,75 @@ def phase_timing(torch, paths, checks):
             library="F.scaled_dot_product_attention over the K/V gathered "
                     "from the pool, with a boolean mask")
     del x, r, q, kp, vp, kg, vg, mask
+    quant_rows(torch, row)
     train_rows(torch, row)
     return out
+
+
+def paged_work(tab, start, ntok, bs):
+    """What one paged call's data needs (window 0): the K/V rows at a
+    mapped position <= the slot's last query (each read once), the query
+    rows that attend some key, the table entries up to the last query's
+    block, and the (query, key) pairs.  Returns (kv_rows, q_rows,
+    tab_reads, pairs) per KV head."""
+    kv_rows, pairs, q_rows, tab_reads = 0, 0, 0, 0
+    tab_h, start_h, ntok_h = tab.cpu(), start.cpu(), ntok.cpu()
+    for s in range(tab_h.shape[0]):
+        st, n = int(start_h[s]), int(ntok_h[s])
+        if st < 0 or n == 0:
+            continue
+        last = st + n - 1
+        mapped = [int(tab_h[s, p // bs]) >= 0 for p in range(last + 1)]
+        kv_rows += sum(mapped)
+        tab_reads += last // bs + 1
+        for t in range(n):
+            keys = sum(mapped[:st + t + 1])
+            pairs += keys
+            q_rows += keys > 0
+    return kv_rows, q_rows, tab_reads, pairs
+
+
+def quant_rows(torch, row):
+    """Timing rows of the quantized-pool and fp8 QK^T variants at the
+    main path's paged shapes and f32 queries: the dequant kernels on an
+    fp8_e4m3 pool (int8 and fp8_e5m2 beside it), the fp8 kernels on an
+    f32 pool.  No single PyTorch call dequantizes a paged pool and
+    attends, or attends with an fp8 QK^T, so library_ms is null."""
+    from repro_torch.kernels import decode_attention as da
+    dev = torch.device("cuda")
+    for step, T in (("decode", 1), ("verify", 5)):
+        q, kp, vp, tab, start, ntok, _ = (
+            t.to(dev) for t in paged_case(torch, T=T, seed=T))
+        S, KV, G, D = q.shape[0], q.shape[-3], q.shape[-2], q.shape[-1]
+        bs = kp.shape[1]
+        idx = (start,) if T == 1 else (start, ntok)
+        kv_rows, q_rows, tab_reads, pairs = paged_work(tab, start, ntok, bs)
+        small = 2 * q_rows * KV * G * D * 4 + (tab_reads + len(idx) * S) * 4
+        ops = 4 * pairs * KV * G * D
+        fn = getattr(da, f"paged_{step}_attention_dequant")
+        plain = getattr(da, f"paged_{step}_attention_dequant_plain")
+        ms, plain_ms = {}, {}
+        for target in ("fp8_e4m3", "int8", "fp8_e5m2"):
+            kv = with_pool(torch, kp, vp, target)
+            ms[target] = time_ms(torch, lambda: fn(q, *kv, tab, *idx))
+            plain_ms[target] = time_ms(torch, lambda: plain(q, *kv, tab,
+                                                            *idx))
+        # 1-byte payload plus one f32 scale per (token, head), K and V
+        row(f"paged_{step}_dequant", q.shape, ms["fp8_e4m3"],
+            plain_ms["fp8_e4m3"], None,
+            2 * kv_rows * KV * (D * 1 + 4) + small, ops,
+            pool="float8_e4m3fn", ms_by_pool=ms, plain_ms_by_pool=plain_ms,
+            library="null: no single PyTorch call dequantizes a paged pool "
+                    "and attends")
+        fn = getattr(da, f"paged_{step}_attention")
+        plain = getattr(da, f"paged_{step}_attention_plain")
+        row(f"paged_{step}_fp8", q.shape,
+            time_ms(torch, lambda: fn(q, kp, vp, tab, *idx, fp8=True)),
+            time_ms(torch, lambda: plain(q, kp, vp, tab, *idx, 0, True)),
+            None, 2 * kv_rows * KV * D * 4 + small, ops, pool="float32",
+            device_function=QK_DOT_FP8,
+            library="null: no single PyTorch call attends with a per-row "
+                    "fp8 QK^T")
 
 
 def train_rows(torch, row):
@@ -943,24 +1262,29 @@ def main(argv=None) -> int:
         log("[2/6] kernels vs plain versions")
         checks = []
         phase_kernels(torch, checks)
+        phase_quant_kernels(torch, checks)
         phase_train_kernels(torch, checks)
         report_checks(checks)
         report["checks"] = [list(c) for c in checks]
 
         log("[3/6] full width, depth 2: card vs CPU")
         report["step_vs_cpu"] = phase_step_vs_cpu(torch)
+        report["quant_step_vs_cpu"] = phase_quant_step_vs_cpu(torch)
         report["train_step_vs_cpu"] = phase_train_step_vs_cpu(torch)
 
-        log("[4/6] Engine, nanochat-d20, spec_k=0 and 4")
+        log("[4/6] Engine, nanochat-d20: f32, int8, fp8 and fp8_e5m2 "
+            "pools, fp8 QK^T; spec_k=0 and 4; capacity")
         runs, report["profile"] = phase_engine(torch)
+        capacity = runs.pop("capacity")
         report["engine"] = runs
+        report["capacity"] = capacity
 
         log("[5/6] training, nanochat-d20: DiLoCo and DDP")
         train, report["train_profile"] = phase_train(torch)
         report["train"] = train
 
         log("[6/6] kernel timing")
-        paths = {f"spec_k{k}": run["launches"] for k, run in runs.items()}
+        paths = {name: run["launches"] for name, run in runs.items()}
         paths.update({m: run["launches"] for m, run in train.items()})
         kernels = phase_timing(torch, paths, checks)
         report["kernels"] = kernels
@@ -975,12 +1299,14 @@ def main(argv=None) -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1, default=str))
-    summary = {k: {"tokens_per_s": v["tokens_per_s"], "wall_s": v["wall_s"]}
+    summary = {k: {"tokens_per_s": v["tokens_per_s"], "wall_s": v["wall_s"],
+                   "agreement_with_f32": v["agreement_with_f32"]}
                for k, v in runs.items()}
     train_summary = {k: {key: v[key] for key in (
         "tokens_per_s", "step_seconds", "peak_memory_gb", "loss")}
         for k, v in train.items()}
-    print(json.dumps({"engine_spec_k": summary, "train": train_summary}))
+    print(json.dumps({"engine": summary, "capacity": capacity,
+                      "train": train_summary}))
     print(report["gpu"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,17 @@
 (``ref.py``) for CPU tensors.
 
 Shapes (see ``ref.py``): q (S, KV, G, D) for decode, (S, T, KV, G, D) for
-verify; pools (NB, bs, KV, D) in q's dtype (float32 or bfloat16); block
-tables (S, MB) and positions (S,) int32.  All contiguous, one device.
-``window`` > 0 limits attention to the last ``window`` positions."""
+verify, float32 or bfloat16; pools (NB, bs, KV, D) in float32 or bfloat16
+(read in q's dtype), or, for the ``*_dequant`` variants, an int8 /
+float8_e4m3fn / float8_e5m2 payload with (NB, bs, KV) float32 scales;
+block tables (S, MB) and positions (S,) int32.  All contiguous, one
+device.  ``window`` > 0 limits attention to the last ``window``
+positions; ``fp8=True`` runs QK^T on per-row fp8_e4m3 tiles
+(``ModelConfig.fp8_matmul``).
+
+Launch counts, one per launch: ``paged_decode`` / ``paged_verify`` (plain
+pools), ``paged_decode_fp8`` / ``paged_verify_fp8`` (fp8 QK^T),
+``paged_decode_dequant`` / ``paged_verify_dequant`` (quantized pools)."""
 from __future__ import annotations
 
 import ctypes
@@ -14,31 +22,47 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.ref import (
-    paged_decode_attention_plain, paged_verify_attention_plain)
+    paged_decode_attention_dequant_plain, paged_decode_attention_plain,
+    paged_verify_attention_dequant_plain, paged_verify_attention_plain)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "repro_paged_decode": (_I, _P, _P, _P, _P, _P, _P) + (_I,) * 8 + (_P,),
-    "repro_paged_verify": (_I, _P, _P, _P, _P, _P, _P, _P) + (_I,) * 9
-    + (_P,),
+    # q_dtype, pool_dtype, fp8, q, k_pool, v_pool, k_scale, v_scale, table,
+    # q_pos, out, S, KV, G, D, NB, bs, MB, window, stream
+    "repro_paged_decode": (_I,) * 3 + (_P,) * 8 + (_I,) * 8 + (_P,),
+    # ... table, start_pos, n_tokens, out, S, T, KV, G, D, NB, bs, MB,
+    # window, stream
+    "repro_paged_verify": (_I,) * 3 + (_P,) * 9 + (_I,) * 9 + (_P,),
 }
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+                torch.float8_e4m3fn: 3, torch.float8_e5m2: 4}
+_PLAIN_POOLS = (torch.float32, torch.bfloat16)
 
 
-def _check(q, k_pool, v_pool, block_tables, *index_vectors):
+def _check(q, k_pool, v_pool, scales, block_tables, *index_vectors):
     if q.device.type != "cuda":
         raise ValueError(f"paged attention takes CPU or CUDA tensors, got "
                          f"{q.device}")
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"paged attention kernel takes float32 or bfloat16, "
-                        f"got {q.dtype}")
+    if q.dtype not in _Q_DTYPES:
+        raise TypeError(f"paged attention kernel takes float32 or bfloat16 "
+                        f"queries, got {q.dtype}")
     if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
         raise ValueError("k_pool/v_pool must both be (NB, bs, KV, D)")
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise TypeError("pools must be in q's dtype")
+    if k_pool.dtype != v_pool.dtype:
+        raise TypeError("k_pool and v_pool must share one dtype")
+    quantized = scales is not None
+    allowed = (tuple(_POOL_DTYPES)[2:] if quantized else _PLAIN_POOLS)
+    if k_pool.dtype not in allowed:
+        raise TypeError(f"pool dtype {k_pool.dtype}: the "
+                        f"{'dequant' if quantized else 'plain-pool'} kernel "
+                        f"takes {[str(d) for d in allowed]}")
     if (k_pool.shape[2], k_pool.shape[3]) != (q.shape[-3], q.shape[-1]):
         raise ValueError(f"pool (KV, D) {tuple(k_pool.shape[2:])} does not "
                          f"match q {tuple(q.shape)}")
+    for sc in scales or ():
+        if sc.dtype != torch.float32 or sc.shape != k_pool.shape[:3]:
+            raise ValueError("k_scale/v_scale must be float32 (NB, bs, KV)")
     S = q.shape[0]
     if block_tables.dim() != 2 or block_tables.shape[0] != S:
         raise ValueError("block_tables must be (S, MB)")
@@ -48,66 +72,95 @@ def _check(q, k_pool, v_pool, block_tables, *index_vectors):
     for t in index_vectors:
         if tuple(t.shape) != (S,):
             raise ValueError(f"per-slot vectors must be ({S},)")
-    for t in (q, k_pool, v_pool, block_tables) + index_vectors:
+    for t in (q, k_pool, v_pool, block_tables) + tuple(scales or ()) \
+            + index_vectors:
         if t.device != q.device:
             raise ValueError("paged attention operands must share one device")
         if not t.is_contiguous():
             raise ValueError("paged attention kernel takes contiguous tensors")
 
 
-def _lib():
-    return _build.load("paged_attention", _SIGNATURES)
-
-
-def paged_decode_attention(q, k_pool, v_pool, block_tables, q_pos, *,
-                           window: int = 0) -> torch.Tensor:
-    """One query per slot at ``q_pos`` (-1 = inactive slot)."""
-    if q.device.type == "cpu":
-        return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
-                                            q_pos, window)
-    if q.dim() != 4:
-        raise ValueError("q must be (S, KV, G, D)")
-    _check(q, k_pool, v_pool, block_tables, q_pos)
-    S, KV, G, D = q.shape
-    NB, bs = k_pool.shape[:2]
+def _launch(entry: str, name: str, q, k_pool, v_pool, scales, block_tables,
+            index_vectors, fp8: bool, window: int) -> torch.Tensor:
+    """Check, launch one kernel and count it under ``name``."""
+    _check(q, k_pool, v_pool, scales, block_tables, *index_vectors)
     out = torch.empty_like(q)
-    if S * KV == 0:
+    if q.numel() == 0:
         return out
-    lib = _lib()
+    S, MB = block_tables.shape
+    NB, bs, KV, D = k_pool.shape
+    T = q.shape[1] if q.dim() == 5 else None
+    G = q.shape[-2]
+    k_sc, v_sc = (s.data_ptr() for s in scales) if scales else (None, None)
+    lib = _build.load("paged_attention", _SIGNATURES)
     with torch.cuda.device(q.device):
-        rc = lib.repro_paged_decode(
-            _DTYPES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
-            v_pool.data_ptr(), block_tables.data_ptr(), q_pos.data_ptr(),
-            out.data_ptr(), S, KV, G, D, NB, bs, block_tables.shape[1],
-            int(window), torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(rc, lib, "paged_decode_attention")
-    _build.launches["paged_decode"] += 1
+        rc = getattr(lib, entry)(
+            _Q_DTYPES[q.dtype], _POOL_DTYPES[k_pool.dtype], int(fp8),
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), k_sc, v_sc,
+            block_tables.data_ptr(), *(t.data_ptr() for t in index_vectors),
+            out.data_ptr(), S, *((T,) if T is not None else ()), KV, G, D,
+            NB, bs, MB, int(window),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, lib, name)
+    _build.launches[name] += 1
     return out
 
 
+def paged_decode_attention(q, k_pool, v_pool, block_tables, q_pos, *,
+                           window: int = 0, fp8: bool = False) -> torch.Tensor:
+    """One query per slot at ``q_pos`` (-1 = inactive slot)."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
+                                            q_pos, window, fp8)
+    if q.dim() != 4:
+        raise ValueError("q must be (S, KV, G, D)")
+    return _launch("repro_paged_decode",
+                   "paged_decode_fp8" if fp8 else "paged_decode", q, k_pool,
+                   v_pool, None, block_tables, (q_pos,), fp8, window)
+
+
 def paged_verify_attention(q, k_pool, v_pool, block_tables, start_pos,
-                           n_tokens, *, window: int = 0) -> torch.Tensor:
+                           n_tokens, *, window: int = 0,
+                           fp8: bool = False) -> torch.Tensor:
     """T queries per slot at ``start_pos + t`` for ``t < n_tokens`` (the
     other rows are padding; ``start_pos`` -1 = inactive slot)."""
     if q.device.type == "cpu":
         return paged_verify_attention_plain(q, k_pool, v_pool, block_tables,
-                                            start_pos, n_tokens, window)
+                                            start_pos, n_tokens, window, fp8)
     if q.dim() != 5:
         raise ValueError("q must be (S, T, KV, G, D)")
-    _check(q, k_pool, v_pool, block_tables, start_pos, n_tokens)
-    S, T, KV, G, D = q.shape
-    NB, bs = k_pool.shape[:2]
-    out = torch.empty_like(q)
-    if S * T * KV == 0:
-        return out
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        rc = lib.repro_paged_verify(
-            _DTYPES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
-            v_pool.data_ptr(), block_tables.data_ptr(), start_pos.data_ptr(),
-            n_tokens.data_ptr(), out.data_ptr(), S, T, KV, G, D, NB, bs,
-            block_tables.shape[1], int(window),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(rc, lib, "paged_verify_attention")
-    _build.launches["paged_verify"] += 1
-    return out
+    return _launch("repro_paged_verify",
+                   "paged_verify_fp8" if fp8 else "paged_verify", q, k_pool,
+                   v_pool, None, block_tables, (start_pos, n_tokens), fp8,
+                   window)
+
+
+def paged_decode_attention_dequant(q, k_pool, v_pool, k_scale, v_scale,
+                                   block_tables, q_pos, *,
+                                   window: int = 0) -> torch.Tensor:
+    """:func:`paged_decode_attention` over a quantized pool, dequantized
+    on load."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_dequant_plain(
+            q, k_pool, v_pool, k_scale, v_scale, block_tables, q_pos, window)
+    if q.dim() != 4:
+        raise ValueError("q must be (S, KV, G, D)")
+    return _launch("repro_paged_decode", "paged_decode_dequant", q, k_pool,
+                   v_pool, (k_scale, v_scale), block_tables, (q_pos,), False,
+                   window)
+
+
+def paged_verify_attention_dequant(q, k_pool, v_pool, k_scale, v_scale,
+                                   block_tables, start_pos, n_tokens, *,
+                                   window: int = 0) -> torch.Tensor:
+    """:func:`paged_verify_attention` over a quantized pool, dequantized
+    on load."""
+    if q.device.type == "cpu":
+        return paged_verify_attention_dequant_plain(
+            q, k_pool, v_pool, k_scale, v_scale, block_tables, start_pos,
+            n_tokens, window)
+    if q.dim() != 5:
+        raise ValueError("q must be (S, T, KV, G, D)")
+    return _launch("repro_paged_verify", "paged_verify_dequant", q, k_pool,
+                   v_pool, (k_scale, v_scale), block_tables,
+                   (start_pos, n_tokens), False, window)

@@ -5,23 +5,58 @@ An einsum over the gathered blocks, the same math as the JAX package's
 oracles (``src/repro/kernels/decode_attention/ref.py``): f32 scores and
 softmax, masked lanes set to the finite -1e30, output in q's dtype.  A
 row with no attendable key (inactive slot, padding token) comes back as
-garbage the caller ignores."""
+garbage the caller ignores.
+
+Pools are read in q's dtype, as the JAX package casts them before its
+kernels: a bf16 pool under f32 queries widens exactly.  Three variants:
+
+* plain pools (``fp8=False``);
+* ``fp8=True``: the QK^T of ``ModelConfig.fp8_matmul``.  Each Q row and
+  each pooled K row (over D) is quantized to fp8_e4m3 with its own amax
+  scale and dequantized, as the oracle's ``_fp8_rows`` does; V and the
+  PV product stay f32.  The rows stay f32 after the round trip (the
+  kernels contract the upcast fp8 values in f32 and rescale);
+* quantized pools (``*_dequant``): an int8 / fp8_e4m3 / fp8_e5m2 payload
+  with (NB, bs, KV) f32 per-token-per-head scales, dequantized in f32
+  and cast to q's dtype, then the plain math.  ``fp8_matmul`` does not
+  apply to them, as in the JAX package."""
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
+from repro_torch.kernels.quantize import quantize_axis
+
 NEG_INF = -1e30
+_ONE_BYTE = (torch.int8, torch.float8_e4m3fn, torch.float8_e5m2)
 
 
-def _gather(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
-    """(NB, bs, KV, D) pool -> (S, MB*bs, KV, D) f32, through the table
-    with unmapped (-1) entries read from block 0 (they are masked)."""
+def _gather(pool: torch.Tensor, block_tables: torch.Tensor,
+            dtype: torch.dtype,
+            scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(NB, bs, KV, D) pool -> (S, MB*bs, KV, D) f32 through the table,
+    unmapped (-1) entries read from block 0 (they are masked).  Values
+    pass through ``dtype`` (q's); a quantized pool is first multiplied by
+    its (NB, bs, KV) ``scale``."""
     S, MB = block_tables.shape
     bs, KV, D = pool.shape[1:]
     safe = block_tables.clamp(min=0).long()
-    return pool[safe].reshape(S, MB * bs, KV, D).float()
+    if pool.dtype in _ONE_BYTE:          # gather the bytes: no fp8 indexing
+        x = pool.view(torch.uint8)[safe].view(pool.dtype).float()
+    else:
+        x = pool[safe].float()
+    if scale is not None:
+        x = x * scale[safe][..., None]
+    return x.to(dtype).float().reshape(S, MB * bs, KV, D)
+
+
+def _fp8_rows(x: torch.Tensor) -> torch.Tensor:
+    """Each row of ``x`` (..., D) through fp8_e4m3 with its own amax
+    scale and back, in f32."""
+    q8, s = quantize_axis(x, axis=-1, dtype="fp8_e4m3")
+    return q8.float() * s
 
 
 def _key_mask(block_tables: torch.Tensor, bs: int) -> tuple:
@@ -32,35 +67,26 @@ def _key_mask(block_tables: torch.Tensor, bs: int) -> tuple:
     return k_pos, mapped
 
 
-def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, q_pos,
-                                 window: int = 0) -> torch.Tensor:
-    """q: (S, KV, G, D); k_pool/v_pool: (NB, bs, KV, D); block_tables:
-    (S, MB) int32 (-1 = unmapped); q_pos: (S,) int32 (-1 = inactive).
-    Returns (S, KV, G, D)."""
+def _decode(q, k, v, block_tables, q_pos, bs, window, fp8):
+    """q (S, KV, G, D); k/v gathered (S, L, KV, D) f32."""
     D = q.shape[-1]
-    bs = k_pool.shape[1]
-    k = _gather(k_pool, block_tables)
-    v = _gather(v_pool, block_tables)
     k_pos, mapped = _key_mask(block_tables, bs)
     qp = q_pos.long()[:, None]
     ok = (k_pos[None, :] <= qp) & mapped
     if window > 0:
         ok &= (qp - k_pos[None, :]) < window
-    s = torch.einsum("bhgd,bshd->bhgs", q.float(), k) / math.sqrt(D)
+    qf = q.float()
+    if fp8:
+        qf, k = _fp8_rows(qf), _fp8_rows(k)
+    s = torch.einsum("bhgd,bshd->bhgs", qf, k) / math.sqrt(D)
     s = s.masked_fill(~ok[:, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhgs,bshd->bhgd", p, v).to(q.dtype)
 
 
-def paged_verify_attention_plain(q, k_pool, v_pool, block_tables, start_pos,
-                                 n_tokens, window: int = 0) -> torch.Tensor:
-    """q: (S, T, KV, G, D); query token t of slot s sits at position
-    ``start_pos[s] + t`` and is live iff ``start_pos[s] >= 0`` and
-    ``t < n_tokens[s]``.  Returns (S, T, KV, G, D)."""
+def _verify(q, k, v, block_tables, start_pos, n_tokens, bs, window, fp8):
+    """q (S, T, KV, G, D); k/v gathered (S, L, KV, D) f32."""
     T, D = q.shape[1], q.shape[-1]
-    bs = k_pool.shape[1]
-    k = _gather(k_pool, block_tables)
-    v = _gather(v_pool, block_tables)
     k_pos, mapped = _key_mask(block_tables, bs)
     t = torch.arange(T, device=q.device)
     qp = start_pos.long()[:, None] + t[None, :]                  # (S, T)
@@ -69,7 +95,56 @@ def paged_verify_attention_plain(q, k_pool, v_pool, block_tables, start_pos,
           & mapped[:, None, :])
     if window > 0:
         ok &= (qp[:, :, None] - k_pos[None, None, :]) < window
-    s = torch.einsum("bthgd,bshd->bhgts", q.float(), k) / math.sqrt(D)
+    qf = q.float()
+    if fp8:
+        qf, k = _fp8_rows(qf), _fp8_rows(k)
+    s = torch.einsum("bthgd,bshd->bhgts", qf, k) / math.sqrt(D)
     s = s.masked_fill(~ok[:, None, None, :, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhgts,bshd->bthgd", p, v).to(q.dtype)
+
+
+def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, q_pos,
+                                 window: int = 0,
+                                 fp8: bool = False) -> torch.Tensor:
+    """q: (S, KV, G, D); k_pool/v_pool: (NB, bs, KV, D); block_tables:
+    (S, MB) int32 (-1 = unmapped); q_pos: (S,) int32 (-1 = inactive).
+    Returns (S, KV, G, D)."""
+    k = _gather(k_pool, block_tables, q.dtype)
+    v = _gather(v_pool, block_tables, q.dtype)
+    return _decode(q, k, v, block_tables, q_pos, k_pool.shape[1], window,
+                   fp8)
+
+
+def paged_verify_attention_plain(q, k_pool, v_pool, block_tables, start_pos,
+                                 n_tokens, window: int = 0,
+                                 fp8: bool = False) -> torch.Tensor:
+    """q: (S, T, KV, G, D); query token t of slot s sits at position
+    ``start_pos[s] + t`` and is live iff ``start_pos[s] >= 0`` and
+    ``t < n_tokens[s]``.  Returns (S, T, KV, G, D)."""
+    k = _gather(k_pool, block_tables, q.dtype)
+    v = _gather(v_pool, block_tables, q.dtype)
+    return _verify(q, k, v, block_tables, start_pos, n_tokens,
+                   k_pool.shape[1], window, fp8)
+
+
+def paged_decode_attention_dequant_plain(q, k_pool, v_pool, k_scale,
+                                         v_scale, block_tables, q_pos,
+                                         window: int = 0) -> torch.Tensor:
+    """:func:`paged_decode_attention_plain` over a quantized pool:
+    payloads (NB, bs, KV, D) int8 / fp8, scales (NB, bs, KV) f32."""
+    k = _gather(k_pool, block_tables, q.dtype, k_scale)
+    v = _gather(v_pool, block_tables, q.dtype, v_scale)
+    return _decode(q, k, v, block_tables, q_pos, k_pool.shape[1], window,
+                   False)
+
+
+def paged_verify_attention_dequant_plain(q, k_pool, v_pool, k_scale,
+                                         v_scale, block_tables, start_pos,
+                                         n_tokens,
+                                         window: int = 0) -> torch.Tensor:
+    """:func:`paged_verify_attention_plain` over a quantized pool."""
+    k = _gather(k_pool, block_tables, q.dtype, k_scale)
+    v = _gather(v_pool, block_tables, q.dtype, v_scale)
+    return _verify(q, k, v, block_tables, start_pos, n_tokens,
+                   k_pool.shape[1], window, False)

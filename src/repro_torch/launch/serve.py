@@ -100,8 +100,9 @@ def main(argv=None):
                     help="LRU bound on resident prefix-cache blocks")
     ap.add_argument("--kv-dtype", type=str, default=None,
                     choices=["bf16", "f32", "int8", "fp8", "fp8_e5m2"],
-                    help="KV-pool storage format override (quantized pools "
-                         "are not ported and raise)")
+                    help="KV-pool storage format override: a plain pool "
+                         "(bf16, f32) or a quantized one (int8, fp8, "
+                         "fp8_e5m2: 1-byte payload + f32 scales)")
     ap.add_argument("--pool-bytes", type=int, default=None,
                     help="size the KV pool by byte budget instead of "
                          "slots x blocks")

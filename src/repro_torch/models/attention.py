@@ -14,6 +14,16 @@ a new pool; here the caller's pool tensors are updated), then the paged
 kernels (``repro_torch.kernels.decode_attention``) read it through the
 block table: the decode kernel for T = 1 token per slot, the verify kernel
 for T > 1.
+
+The pool's storage follows ``cfg.kv_cache_dtype`` (``kv_pool_dtype``):
+the compute dtype, bf16 or f32 (plain pools, read in the compute dtype),
+or int8 / fp8 / fp8_e5m2 (quantized pools: a 1-byte payload plus f32
+per-token-per-head scale planes).  A quantized pool is written through
+``kernels.quantize.quantize_axis`` over the head dim of the RoPE'd K and
+the V (quantize on scatter) and read by the dequant kernels (dequant on
+load).  ``cfg.fp8_matmul`` runs the plain-pool kernels' QK^T on per-row
+fp8 tiles; the dequant kernels keep the f32 contraction, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -23,12 +33,53 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.decode_attention import (paged_decode_attention as
-                                                  paged_decode_kernel,
-                                                  paged_verify_attention as
-                                                  paged_verify_kernel)
+from repro_torch.kernels import decode_attention as paged_kernels
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import apply_rope, cast, rope_cos_sin
+from repro_torch.kernels.quantize import quantize_axis, target_dtype
+from repro_torch.models.layers import (apply_rope, cast, rope_cos_sin,
+                                       token_matmul, torch_dtype)
+
+# ``ModelConfig.kv_cache_dtype`` spellings -> quantize target names, and
+# the plain spellings -> dtype names ("" = the compute dtype)
+KV_QUANT_TARGETS = {"int8": "int8", "fp8": "fp8_e4m3",
+                    "fp8_e4m3": "fp8_e4m3", "fp8_e5m2": "fp8_e5m2"}
+_KV_PLAIN = {"": None, "bf16": "bfloat16", "bfloat16": "bfloat16",
+             "f32": "float32", "float32": "float32"}
+
+
+def kv_quant_dtype(cfg: ModelConfig) -> Optional[str]:
+    """The quantize target the config's KV pool uses, or None for a plain
+    pool.  Raises ``ValueError`` on an unknown spelling."""
+    s = cfg.kv_cache_dtype
+    if s in _KV_PLAIN:
+        return None
+    if s not in KV_QUANT_TARGETS:
+        raise ValueError(f"unknown kv_cache_dtype {cfg.kv_cache_dtype!r}; "
+                         f"expected one of {sorted(_KV_PLAIN)} or "
+                         f"{sorted(KV_QUANT_TARGETS)}")
+    return KV_QUANT_TARGETS[s]
+
+
+def serving_matmul(cfg: ModelConfig):
+    """The matrix product of a serving forward.  Where the attention
+    quantizes K and V (a quantized pool) or Q and K (``fp8_matmul``), a
+    last-bit difference can move a value across a rounding boundary, a
+    whole quantum, and greedy speculative decoding would part from
+    sequential decoding: there every GEMM runs per token column
+    (``token_matmul``), so a verify forward computes what decode forwards
+    do to the bit.  Elsewhere one GEMM per projection, whose last-bit
+    differences stay last-bit."""
+    if kv_quant_dtype(cfg) is not None or cfg.fp8_matmul:
+        return token_matmul
+    return torch.matmul
+
+
+def kv_pool_dtype(cfg: ModelConfig) -> torch.dtype:
+    """Storage dtype of the paged pool's k/v."""
+    qd = kv_quant_dtype(cfg)
+    if qd is not None:
+        return target_dtype(qd)
+    return torch_dtype(_KV_PLAIN[cfg.kv_cache_dtype] or cfg.compute_dtype)
 
 
 class PagedInputs(NamedTuple):
@@ -91,14 +142,15 @@ def paged_inputs(positions: torch.Tensor, block_table: torch.Tensor,
                        n_tok)
 
 
-def project_qkv(p, x: torch.Tensor, cfg: ModelConfig):
+def project_qkv(p, x: torch.Tensor, cfg: ModelConfig, mm=torch.matmul):
     """x: (S, T, d) -> q (S, T, KV, G, hd), k/v (S, T, KV, hd) (for
-    training, (B, S, d) in, the same shapes with B, S)."""
+    training, (B, S, d) in, the same shapes with B, S); ``mm`` is the
+    matrix product (``serving_matmul`` when serving)."""
     dt = x.dtype
     hd = cfg.resolved_head_dim()
-    q = x @ cast(p["wq"], dt)
-    k = x @ cast(p["wk"], dt)
-    v = x @ cast(p["wv"], dt)
+    q = mm(x, cast(p["wq"], dt))
+    k = mm(x, cast(p["wk"], dt))
+    v = mm(x, cast(p["wv"], dt))
     if "bq" in p:
         q = q + cast(p["bq"], dt)
         k = k + cast(p["bk"], dt)
@@ -126,44 +178,74 @@ def attention(p, x: torch.Tensor, cfg: ModelConfig, *,
     return out.reshape(B, S, H * hd) @ cast(p["wo"], x.dtype)
 
 
+def _scatter(pool: torch.Tensor, rows: torch.Tensor,
+             dest: torch.Tensor) -> None:
+    """pool (NB, bs, KV, hd).view(NB*bs, KV, hd)[dest] = rows, in place;
+    1-byte payloads are written as bytes (no fp8 ``index_copy_``)."""
+    NB, bs = pool.shape[:2]
+    flat = pool.view(NB * bs, *pool.shape[2:])
+    rows = rows.to(pool.dtype)
+    if pool.element_size() == 1:
+        flat, rows = flat.view(torch.uint8), rows.view(torch.uint8)
+    flat.index_copy_(0, dest, rows)
+
+
 def paged_decode_attention(p, x: torch.Tensor, cfg: ModelConfig,
                            k_pool: torch.Tensor, v_pool: torch.Tensor,
                            inputs: PagedInputs, block_table: torch.Tensor,
-                           window: Optional[int] = None) -> torch.Tensor:
+                           window: Optional[int] = None,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """Decode / verify attention for T fresh tokens per slot.
 
-    x: (S, T, d); k_pool/v_pool: (NB, bs, KV, hd) in x's dtype, updated in
-    place with the fresh K/V; block_table: (S, MB) int32.  Returns
+    x: (S, T, d); k_pool/v_pool: (NB, bs, KV, hd), updated in place with
+    the fresh K/V: a plain pool in any float dtype (read in x's), or a
+    quantized payload with ``k_scale`` / ``v_scale`` (NB, bs, KV) f32,
+    updated in place with it; block_table: (S, MB) int32.  Returns
     y (S, T, d); rows of inactive slots and padding tokens are garbage the
     caller ignores."""
     S, T = x.shape[:2]
     hd = cfg.resolved_head_dim()
     KV = cfg.num_kv_heads
-    if k_pool.dtype != x.dtype:
-        raise NotImplementedError(
-            f"a {k_pool.dtype} KV pool under {x.dtype} compute is not "
-            f"ported; the pool must be in the compute dtype")
-    q, k_new, v_new = project_qkv(p, x, cfg)
+    quantized = k_scale is not None
+    mm = serving_matmul(cfg)
+    q, k_new, v_new = project_qkv(p, x, cfg, mm=mm)
     q = apply_rope(q.reshape(S, T, cfg.num_heads, hd), inputs.cos,
                    inputs.sin).reshape(q.shape)
     k_new = apply_rope(k_new, inputs.cos, inputs.sin)
 
-    NB, bs = k_pool.shape[:2]
-    k_pool.view(NB * bs, KV, hd).index_copy_(
-        0, inputs.dest, k_new.reshape(S * T, KV, hd).index_select(
-            0, inputs.rows))
-    v_pool.view(NB * bs, KV, hd).index_copy_(
-        0, inputs.dest, v_new.reshape(S * T, KV, hd).index_select(
-            0, inputs.rows))
+    k_rows = k_new.reshape(S * T, KV, hd).index_select(0, inputs.rows)
+    v_rows = v_new.reshape(S * T, KV, hd).index_select(0, inputs.rows)
+    if quantized:               # quantize on scatter, one scale per row
+        qd = kv_quant_dtype(cfg)
+        k_rows, k_s = quantize_axis(k_rows, axis=-1, dtype=qd)
+        v_rows, v_s = quantize_axis(v_rows, axis=-1, dtype=qd)
+        NB, bs = k_scale.shape[:2]
+        k_scale.view(NB * bs, KV).index_copy_(0, inputs.dest, k_s[..., 0])
+        v_scale.view(NB * bs, KV).index_copy_(0, inputs.dest, v_s[..., 0])
+    _scatter(k_pool, k_rows, inputs.dest)
+    _scatter(v_pool, v_rows, inputs.dest)
 
     w = int(window or 0)
     if T == 1:
-        out = paged_decode_kernel(q[:, 0].contiguous(), k_pool, v_pool,
-                                  block_table, inputs.q_pos,
-                                  window=w)[:, None]
+        q0 = q[:, 0].contiguous()
+        if quantized:
+            out = paged_kernels.paged_decode_attention_dequant(
+                q0, k_pool, v_pool, k_scale, v_scale, block_table,
+                inputs.q_pos, window=w)
+        else:
+            out = paged_kernels.paged_decode_attention(
+                q0, k_pool, v_pool, block_table, inputs.q_pos, window=w,
+                fp8=cfg.fp8_matmul)
+        out = out[:, None]
+    elif quantized:
+        out = paged_kernels.paged_verify_attention_dequant(
+            q.contiguous(), k_pool, v_pool, k_scale, v_scale, block_table,
+            inputs.q_pos, inputs.n_tok, window=w)
     else:
-        out = paged_verify_kernel(q.contiguous(), k_pool, v_pool,
-                                  block_table, inputs.q_pos, inputs.n_tok,
-                                  window=w)
+        out = paged_kernels.paged_verify_attention(
+            q.contiguous(), k_pool, v_pool, block_table, inputs.q_pos,
+            inputs.n_tok, window=w, fp8=cfg.fp8_matmul)
     out = out.reshape(S, T, cfg.num_heads * hd)
-    return out @ cast(p["wo"], x.dtype)
+    return mm(out, cast(p["wo"], x.dtype))

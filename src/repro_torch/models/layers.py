@@ -86,9 +86,22 @@ def embed(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         torch_dtype(cfg.compute_dtype))
 
 
-def unembed(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def token_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a serving forward's (S, T, d) rows as one (S, d) GEMM
+    per token column, so a verify forward (T > 1) runs exactly the GEMM a
+    decode forward (T = 1) runs and each row comes out the same to the
+    bit.  cuBLAS picks its kernel, and with it the summation order, by
+    the number of rows (and a batched GEMM by the batch count)."""
+    if x.shape[1] == 1:
+        return x @ w
+    xt = x.transpose(0, 1).contiguous()
+    return torch.stack([xt[t] @ w for t in range(xt.shape[0])], dim=1)
+
+
+def unembed(p, h: torch.Tensor, cfg: ModelConfig,
+            mm=torch.matmul) -> torch.Tensor:
     w = p["table"].t() if cfg.tie_embeddings else p["unembed"]
-    logits = h @ cast(w, h.dtype)
+    logits = mm(h, cast(w, h.dtype))
     if cfg.logit_soft_cap > 0:
         logits = cfg.logit_soft_cap * torch.tanh(logits / cfg.logit_soft_cap)
     return logits
@@ -98,14 +111,17 @@ def unembed(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # Dense MLP
 # ---------------------------------------------------------------------------
 
-def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig,
+              mm=torch.matmul) -> torch.Tensor:
+    """SwiGLU; ``mm`` is the matrix product (``attention.serving_matmul``
+    when serving)."""
     if cfg.mlp_activation != "swiglu":
         raise NotImplementedError(f"mlp_activation {cfg.mlp_activation!r}: "
                                   f"the port has swiglu only")
     dt = x.dtype
-    up = x @ cast(p["w_up"], dt)
-    gate = x @ cast(p["w_gate"], dt)
-    return (F.silu(gate) * up) @ cast(p["w_down"], dt)
+    up = mm(x, cast(p["w_up"], dt))
+    gate = mm(x, cast(p["w_gate"], dt))
+    return mm(F.silu(gate) * up, cast(p["w_down"], dt))
 
 
 # ---------------------------------------------------------------------------

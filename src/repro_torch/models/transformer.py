@@ -23,7 +23,12 @@ stay alive until the backward, which at nanochat-d20 and 4 x 1024 tokens
 is about 9 GB in float32.
 
 The KV pool is updated IN PLACE: ``decode_step_paged`` and
-``verify_step_paged`` return the same pool dict they were given.
+``verify_step_paged`` return the same pool dict they were given, payload
+and (for a quantized ``kv_cache_dtype``) scale planes alike.
+
+``cfg.fp8_matmul`` reaches the paged serving kernels only (fp8 QK^T).
+The JAX package's training attention has no fp8 path, so the training
+forward ignores the flag, as the reference does.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models.attention import kv_pool_dtype
 from repro_torch.models.layers import (apply_mlp, apply_norm,
                                        apply_norm_residual, embed,
                                        softmax_ce_sums,
@@ -50,8 +56,6 @@ def _require_dense(cfg: ModelConfig) -> None:
             or cfg.ssm_state_size):
         raise NotImplementedError(
             f"arch {cfg.arch_type!r}: the port serves the dense decoder only")
-    if cfg.fp8_matmul:
-        raise NotImplementedError("fp8_matmul (fp8 QK^T) is not ported")
 
 
 # ---------------------------------------------------------------------------
@@ -148,11 +152,11 @@ def _unstack(tree: Params, n: int) -> List[Params]:
 
 
 def _run_layers(params: Params, h: torch.Tensor, cfg: ModelConfig,
-                attend) -> torch.Tensor:
+                attend, mm=torch.matmul) -> torch.Tensor:
     """Every block and the final norm; returns the final-normed hidden.
-    ``attend(i, attn_params, x)`` is layer i's attention output.  The first
-    ``ln1`` is a plain RMSNorm, every later norm is fused with the residual
-    add before it."""
+    ``attend(i, attn_params, x)`` is layer i's attention output; ``mm``
+    the MLP's matrix product.  The first ``ln1`` is a plain RMSNorm, every
+    later norm is fused with the residual add before it."""
     _require_dense(cfg)
     if cfg.window_pattern:
         raise NotImplementedError("per-layer window_pattern is not ported")
@@ -162,7 +166,7 @@ def _run_layers(params: Params, h: torch.Tensor, cfg: ModelConfig,
     for i, lp in enumerate(layers):
         a = attend(i, lp["attn"], x)
         x, h = apply_norm_residual(lp["ln2"], a, h, cfg)
-        y = apply_mlp(lp["mlp"], x, cfg)
+        y = apply_mlp(lp["mlp"], x, cfg, mm=mm)
         nxt = layers[i + 1]["ln1"] if i + 1 < L else params["final_norm"]
         x, h = apply_norm_residual(nxt, y, h, cfg)
     return x
@@ -239,38 +243,36 @@ def paged_cache_supported(cfg: ModelConfig) -> bool:
             and not cfg.is_encoder_decoder)
 
 
-_PLAIN_KV = {"": None, "bf16": "bfloat16", "bfloat16": "bfloat16",
-             "f32": "float32", "float32": "float32"}
-
-
-def kv_pool_dtype(cfg: ModelConfig) -> torch.dtype:
-    """Storage dtype of the pool's k/v; quantized pools are not ported."""
-    if cfg.kv_cache_dtype not in _PLAIN_KV:
-        raise NotImplementedError(
-            f"kv_cache_dtype {cfg.kv_cache_dtype!r}: quantized KV pools are "
-            f"not ported yet")
-    return torch_dtype(_PLAIN_KV[cfg.kv_cache_dtype] or cfg.compute_dtype)
-
-
 def paged_block_bytes(cfg: ModelConfig, block_size: int) -> int:
-    """Bytes one physical KV block costs across ALL layers."""
+    """Bytes one physical KV block costs across ALL layers: the payload,
+    plus the f32 per-token-per-head scale planes of a quantized pool."""
     hd = cfg.resolved_head_dim()
     item = torch.empty((), dtype=kv_pool_dtype(cfg)).element_size()
-    return cfg.num_layers * 2 * block_size * cfg.num_kv_heads * hd * item
+    per_layer = 2 * block_size * cfg.num_kv_heads * hd * item
+    if attn.kv_quant_dtype(cfg) is not None:
+        per_layer += 2 * block_size * cfg.num_kv_heads * 4
+    return cfg.num_layers * per_layer
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, *,
                      device="cpu") -> Dict[str, torch.Tensor]:
     """A zeroed pool of ``num_blocks`` KV blocks shared by all slots,
-    stacked over layers: {"k", "v"} each (L, NB, bs, KV, hd)."""
+    stacked over layers: {"k", "v"} each (L, NB, bs, KV, hd) in
+    ``kv_pool_dtype(cfg)``, plus {"k_scale", "v_scale"} (L, NB, bs, KV)
+    f32 for a quantized pool."""
     if not paged_cache_supported(cfg):
         raise NotImplementedError(
             f"paged KV cache unsupported for arch {cfg.arch_type!r}")
     shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
              cfg.resolved_head_dim())
     dt = kv_pool_dtype(cfg)
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
+    pool = {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
+    if attn.kv_quant_dtype(cfg) is not None:
+        pool.update({k: torch.zeros(shape[:-1], dtype=torch.float32,
+                                    device=device)
+                     for k in ("k_scale", "v_scale")})
+    return pool
 
 
 # ---------------------------------------------------------------------------
@@ -286,10 +288,14 @@ def _paged_layers(params: Params, h: torch.Tensor, pool, cfg: ModelConfig,
     hidden."""
     inputs = attn.paged_inputs(positions, block_table, cfg,
                                pool["k"].shape[2], scatter)
+    quantized = "k_scale" in pool
     return _run_layers(params, h, cfg, lambda i, p, x:
                        attn.paged_decode_attention(
                            p, x, cfg, pool["k"][i], pool["v"][i], inputs,
-                           block_table, window=cfg.window))
+                           block_table, window=cfg.window,
+                           k_scale=pool["k_scale"][i] if quantized else None,
+                           v_scale=pool["v_scale"][i] if quantized else None),
+                       mm=attn.serving_matmul(cfg))
 
 
 def decode_step_paged(params: Params, pool, batch,
@@ -303,7 +309,8 @@ def decode_step_paged(params: Params, pool, batch,
     h = embed(params["embed"], batch["token"], cfg)
     x = _paged_layers(params, h, pool, cfg, batch["position"][:, None],
                       batch["block_table"], batch.get("kv_scatter"))
-    return unembed(params["embed"], x, cfg), pool
+    logits = unembed(params["embed"], x, cfg, mm=attn.serving_matmul(cfg))
+    return logits, pool
 
 
 def verify_step_paged(params: Params, pool, batch,
@@ -317,4 +324,5 @@ def verify_step_paged(params: Params, pool, batch,
     h = embed(params["embed"], batch["tokens"], cfg)
     x = _paged_layers(params, h, pool, cfg, batch["positions"],
                       batch["block_table"], batch.get("kv_scatter"))
-    return unembed(params["embed"], x, cfg), pool
+    logits = unembed(params["embed"], x, cfg, mm=attn.serving_matmul(cfg))
+    return logits, pool

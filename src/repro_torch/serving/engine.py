@@ -38,8 +38,20 @@ Differences from the JAX package, by design:
   on which requests shared its batch.  The bits differ from
   ``jax.random``'s; greedy decoding gives the JAX engine's tokens;
 * only the continuous path is ported: a batch the scheduler path cannot
-  serve (empty prompts, over capacity), sliding-window recycling and
-  quantized pools raise ``NotImplementedError``.
+  serve (empty prompts, over capacity) and sliding-window recycling raise
+  ``NotImplementedError``.
+
+Quantized KV pools (``cfg.kv_cache_dtype`` int8 / fp8 / fp8_e5m2) store a
+1-byte payload plus f32 per-token-per-head scale planes, which
+``init_paged_cache`` allocates with the pool; a byte-budget engine
+(``pool_bytes``) fits proportionally more blocks and admits more requests.
+Quantize on scatter and dequant on load happen inside
+``models.attention.paged_decode_attention``; the copy-on-write fork copies
+every pool leaf, scales included.  The two step shapes stay bit-exact
+with each other under greedy decoding: where the attention quantizes,
+their GEMMs run per token column (``attention.serving_matmul``), so a
+verify forward writes the pool that decode forwards write.
+``cfg.fp8_matmul`` runs the plain-pool kernels' QK^T in fp8.
 
 Device -> host reads in the step loops go through the module-level
 ``_fetch`` only: one batched read per step.  The rows each forward writes

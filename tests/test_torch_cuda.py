@@ -11,8 +11,11 @@ import torch
 
 from repro_torch.kernels import launches, reset_launches
 from repro_torch.kernels.decode_attention import (
-    paged_decode_attention, paged_decode_attention_plain,
-    paged_verify_attention, paged_verify_attention_plain)
+    paged_decode_attention, paged_decode_attention_dequant,
+    paged_decode_attention_dequant_plain, paged_decode_attention_plain,
+    paged_verify_attention, paged_verify_attention_dequant,
+    paged_verify_attention_dequant_plain, paged_verify_attention_plain)
+from repro_torch.kernels.quantize import quantize_axis
 from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_plain,
                                          rmsnorm_residual,
                                          rmsnorm_residual_plain)
@@ -67,6 +70,86 @@ def test_cuda_paged_kernels_match_plain(cuda, T, G, window):
     torch.testing.assert_close(got[mask], want[mask], atol=1e-5, rtol=1e-4)
 
 
+def _paged_inputs(cuda, T, G, seed, pool_dtype=torch.float32,
+                  q_dtype=torch.float32):
+    """nanochat-d20's paged shapes (S 8, KV*G = 10, D 128, bs 16, MB 32)
+    on the card; a pool named by a quantize target comes back as
+    (payload, scale) pairs of random K/V quantized per (token, head)."""
+    rng = np.random.default_rng(seed)
+    S, KV, bs, MB, D = 8, 10 // G, 16, 32, 128
+    NB = S * MB
+    shape = (S, KV, G, D) if T == 1 else (S, T, KV, G, D)
+    q = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    kp, vp = (torch.from_numpy(a) for a in pools(rng, NB, bs, KV, D))
+    tables, start, n_tok, live = paged_tables(rng, S, NB, bs, MB, T=T)
+    if isinstance(pool_dtype, str):
+        (kp, ks), (vp, vs) = (quantize_axis(p, dtype=pool_dtype)
+                              for p in (kp, vp))
+        kv = [kp.to(cuda), vp.to(cuda), ks[..., 0].to(cuda),
+              vs[..., 0].to(cuda)]
+    else:
+        kv = [kp.to(pool_dtype).to(cuda), vp.to(pool_dtype).to(cuda)]
+    rest = [torch.from_numpy(tables).to(cuda), torch.from_numpy(start)
+            .to(cuda)]
+    if T > 1:
+        rest.append(torch.from_numpy(n_tok).to(cuda))
+    mask = torch.from_numpy(live[:, 0] if T == 1 else live).to(cuda)
+    return q.to(q_dtype).to(cuda), kv, rest, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("target", ["int8", "fp8_e4m3", "fp8_e5m2"])
+@pytest.mark.parametrize("T,G,window", [(1, 1, 0), (1, 2, 0), (5, 1, 0),
+                                        (5, 2, 64)])
+@pytest.mark.parametrize("q_dtype,tol", [(torch.float32, 1e-5),
+                                         (torch.bfloat16, 1e-2)])
+def test_cuda_dequant_kernels_match_plain(cuda, target, T, G, window,
+                                          q_dtype, tol):
+    q, kv, rest, mask = _paged_inputs(cuda, T, G, T + G, target, q_dtype)
+    reset_launches()
+    if T == 1:
+        got = paged_decode_attention_dequant(q, *kv, *rest, window=window)
+        want = paged_decode_attention_dequant_plain(q, *kv, *rest, window)
+        name = "paged_decode_dequant"
+    else:
+        got = paged_verify_attention_dequant(q, *kv, *rest, window=window)
+        want = paged_verify_attention_dequant_plain(q, *kv, *rest, window)
+        name = "paged_verify_dequant"
+    torch.cuda.synchronize()
+    assert dict(launches) == {name: 1}
+    torch.testing.assert_close(got[mask], want[mask], atol=tol,
+                               rtol=10 * tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,pool_dtype,tol", [
+    (torch.float32, torch.float32, 1e-5),
+    (torch.float32, torch.bfloat16, 1e-5),      # narrower pool, fp8 QK^T
+    (torch.bfloat16, torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("T,G,window", [(1, 1, 0), (1, 2, 64), (5, 1, 0),
+                                        (5, 2, 0)])
+@pytest.mark.parametrize("fp8", [False, True])
+def test_cuda_plain_pool_kernels_by_pool_dtype_and_fp8(
+        cuda, q_dtype, pool_dtype, tol, T, G, window, fp8):
+    """The plain-pool kernels on a pool in another dtype than q and with
+    the fp8 QK^T (per-row e4m3 Q and K tiles), against their plain
+    versions."""
+    q, kv, rest, mask = _paged_inputs(cuda, T, G, 3 * T + G, pool_dtype,
+                                      q_dtype)
+    reset_launches()
+    fn, plain = ((paged_decode_attention, paged_decode_attention_plain)
+                 if T == 1 else
+                 (paged_verify_attention, paged_verify_attention_plain))
+    got = fn(q, *kv, *rest, window=window, fp8=fp8)
+    want = plain(q, *kv, *rest, window, fp8)
+    torch.cuda.synchronize()
+    name = ("paged_decode" if T == 1 else "paged_verify") + (
+        "_fp8" if fp8 else "")
+    assert dict(launches) == {name: 1}
+    torch.testing.assert_close(got[mask], want[mask], atol=tol,
+                               rtol=10 * tol)
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_count_one_launch_each(cuda):
     x = torch.randn((4, 1, 256), device=cuda)
@@ -102,21 +185,24 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError, match="int32"):
         paged_decode_attention(q, kp, kp, torch.zeros((1, 1), device=cuda),
                                pos)
-    with pytest.raises(TypeError, match="q's dtype"):
-        paged_decode_attention(q, kp.bfloat16(), kp.bfloat16(),
-                               pos[:, None], pos)
+    with pytest.raises(TypeError, match="pool dtype"):
+        paged_decode_attention(q, kp.half(), kp.half(), pos[:, None], pos)
 
 
 @pytest.mark.cuda
-def test_cuda_engine_greedy_equals_cpu_engine(cuda):
+@pytest.mark.parametrize("cfg_kw", [{}, {"kv_cache_dtype": "fp8"},
+                                    {"fp8_matmul": True}],
+                         ids=["f32", "fp8-pool", "fp8-matmul"])
+def test_cuda_engine_greedy_equals_cpu_engine(cuda, cfg_kw):
     """A tiny model served on the card (kernels) and on the CPU (plain
-    versions) from the same parameters emits the same greedy tokens."""
+    versions) from the same parameters emits the same greedy tokens, on
+    an f32 pool, on an fp8 pool and with the fp8 QK^T."""
     from repro_torch import Engine
     from repro_torch.configs import ModelConfig
     from repro_torch.models import init_params
     from repro_torch.models.transformer import flatten, unflatten
     cfg = ModelConfig(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
-                      d_ff=128, vocab_size=97)
+                      d_ff=128, vocab_size=97, **cfg_kw)
     params = init_params(cfg, seed=0)
     params_d = unflatten({k: v.to(cuda) for k, v in flatten(params).items()})
     prompts = [[5, 6, 7], [1, 2, 3, 4, 5, 6, 7, 8, 9, 10], [2, 9], [7] * 17,
@@ -128,6 +214,56 @@ def test_cuda_engine_greedy_equals_cpu_engine(cuda):
         got = Engine(cfg, params_d, device=cuda, **kw).generate_ids(
             prompts, max_new=13)
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg_kw", [{"kv_cache_dtype": "fp8"},
+                                    {"kv_cache_dtype": "int8"},
+                                    {"fp8_matmul": True}],
+                         ids=["fp8-pool", "int8-pool", "fp8-matmul"])
+def test_cuda_verify_step_equals_decode_steps_bit_for_bit(cuda, cfg_kw):
+    """Where the attention quantizes, a verify forward over T tokens per
+    slot writes the same pool, to the bit, and gives the same logits as T
+    decode forwards on the card: its GEMMs run per token column at the
+    decode step's row count (``serving_matmul``) and the paged kernels
+    treat each query row alike.  Without that, quantization turns
+    last-bit differences into whole quanta and speculative greedy
+    decoding parts from sequential."""
+    from repro_torch.configs import ModelConfig
+    from repro_torch.models import (decode_step_paged, init_paged_cache,
+                                    init_params, verify_step_paged)
+    from repro_torch.models.transformer import flatten, unflatten
+    cfg = ModelConfig(num_layers=2, d_model=256, num_heads=4, num_kv_heads=2,
+                      d_ff=512, vocab_size=97, **cfg_kw)
+    params = unflatten({k: v.to(cuda) for k, v in
+                        flatten(init_params(cfg, seed=0)).items()})
+    S, T, bs, MB = 8, 5, 4, 4
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, 97, (S, T), generator=g, dtype=torch.int32)
+    table = torch.arange(S * MB, dtype=torch.int32).reshape(S, MB)
+    start = torch.randint(0, MB * bs - T, (S,), generator=g,
+                          dtype=torch.int32)
+    pos = start[:, None] + torch.arange(T, dtype=torch.int32)
+    pools = [init_paged_cache(cfg, S * MB, bs, device=cuda) for _ in "ab"]
+    for name in pools[0]:
+        if pools[0][name].element_size() == 4:
+            fill = torch.rand(pools[0][name].shape, generator=g)
+            pools[0][name].copy_(fill)
+            pools[1][name].copy_(fill)
+    d = lambda t: t.to(cuda)
+    chunk, _ = verify_step_paged(params, pools[0], {
+        "tokens": d(toks), "positions": d(pos), "block_table": d(table)},
+        cfg)
+    for t in range(T):
+        one, _ = decode_step_paged(params, pools[1], {
+            "token": d(toks[:, t:t + 1]), "position": d(pos[:, t]),
+            "block_table": d(table)}, cfg)
+        assert torch.equal(chunk[:, t], one[:, 0]), t
+    for name, a in pools[0].items():
+        b = pools[1][name]
+        if a.element_size() == 1:
+            a, b = a.view(torch.uint8), b.view(torch.uint8)
+        assert torch.equal(a, b), name
 
 
 # ---------------------------------------------------------------------------

@@ -119,10 +119,7 @@ def test_paged_block_bytes_and_pool_match_reference():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(kv_cache_dtype="fp8"), "quantized"),
-    (dict(kv_cache_dtype="int8"), "quantized"),
     (dict(num_experts=4, num_experts_per_tok=2, arch_type="moe"), "dense"),
-    (dict(fp8_matmul=True), "fp8"),
 ])
 def test_unported_features_raise(kw, match):
     cfg = port_cfg(tiny_cfg("dense", **kw))
@@ -133,6 +130,15 @@ def test_unported_features_raise(kw, match):
             "token": torch.zeros((1, 1), dtype=torch.int32),
             "position": torch.zeros(1, dtype=torch.int32),
             "block_table": torch.zeros((1, 1), dtype=torch.int32)}, cfg)
+
+
+def test_unknown_kv_cache_dtype_raises_value_error():
+    """As the JAX package's ``kv_quant_dtype`` does."""
+    cfg = port_cfg(tiny_cfg("dense", kv_cache_dtype="fp4"))
+    with pytest.raises(ValueError, match="unknown kv_cache_dtype 'fp4'"):
+        init_paged_cache(cfg, 4, 8)
+    with pytest.raises(ValueError, match="unknown kv_cache_dtype"):
+        paged_block_bytes(cfg, 8)
 
 
 # ---------------------------------------------------------------------------

@@ -207,7 +207,6 @@ def test_engine_refuses_params_on_another_device(params):
 
 @pytest.mark.parametrize("kw,match", [
     (dict(window=8), "sliding-window"),
-    (dict(kv_cache_dtype="fp8"), "quantized"),
 ])
 def test_unported_engine_paths_raise(kw, match):
     cfg = port_cfg(tiny_cfg("dense", **kw))

@@ -21,12 +21,23 @@ Run from the root of a checkout.  Phases, each fatal on failure:
      leaf; the RMSNorm backward, plain and residual, at 4096 x 1280
      against autograd of the plain norms;
    all in float32 and bfloat16 (fused AdamW: f32 and bf16 gradients);
+   - the outer-sync wire kernels, quantize_ef (codes, residual, scales)
+     and dequantize, bit for bit, for int8, fp8_e4m3 and fp8_e5m2: at
+     (2, 131,072,000) (the layers/mlp/w_up leaf of two workers) with a
+     residual, at (1, 1280), on a scalar leaf, and per tile (256);
 3. full width at depth 2, card against CPU, same params and batch:
    - one ``decode_step_paged`` and one ``verify_step_paged``, on an f32
      pool and on an fp8 pool (logits; the fp8 pool within one quantum);
    - one training step: the loss, every gradient, one
      ``nanochat_optimizer`` update with fused AdamW, and one DiLoCo outer
      round (K=2, H=1);
+   - one DiLoCo outer round (K=2, H=1) with an int8 and an fp8 wire:
+     from each device's own inner step every code within its deltas'
+     distance on the code grid plus one, at most 1e-5 of the codes more
+     than one step apart, scales within the amaxes' gap plus 1e-6 (codes
+     that differ counted, and those far apart by optimizer partition and
+     by AdamW gradient size); from one state, the new anchor, momentum
+     and residual equal bit for bit;
 4. the serving main path: ``repro_torch.Engine`` with the full
    nanochat-d20 config (seeded random params, 8 ragged token-id requests,
    max_new 32; 16 off the f32 pool) with spec_k=0 and spec_k=4, on an f32
@@ -43,10 +54,16 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    random params from seed 0) on the port's synthetic corpus through its
    ``PackedDataset`` at seq_len 1024: ``run_stage("diloco")`` with K=2,
    per-worker batch 4, H=2, 4 steps and fused AdamW, then
-   ``run_stage("ddp")`` for 2 steps at global batch 8.  Every training
-   kernel must have launched on each path, losses must be finite and
-   fall, sync steps as expected; tokens/s, step seconds and peak memory
-   per method; one DiLoCo inner step under torch.profiler;
+   ``run_stage("ddp")`` for 2 steps at global batch 8; then the lossy
+   wire: DiLoCo (H=2, 4 steps) with int8, fp8 and fp8_e5m2 wires, DDP
+   with ``grad_compress`` fp8 (K=2, 2 steps), and with int8 wires
+   streaming (F=2), overlapped (delay 1) and pipelined (F=2, delay 1),
+   4 steps each.  Every training kernel must have launched on each path
+   (and quantize_ef and dequantize on each lossy one), losses must be
+   finite and fall, sync records as expected; tokens/s, step seconds,
+   peak memory and wire bytes per worker per sync (from
+   ``OuterPayload.nbytes``) per path; one DiLoCo inner step under
+   torch.profiler; the device time of one outer sync of each path;
 6. time each kernel, its plain version and one PyTorch library call on
    the same inputs (CUDA events, L2 flushed before each launch) beside
    the least time the card could take (bound).
@@ -91,6 +108,8 @@ REPLACES = {
     # with qk_dot_fp8 (src/repro/kernels/common.py:31) inside
     "paged_decode_fp8": "src/repro/kernels/decode_attention/kernel.py:468",
     "paged_verify_fp8": "src/repro/kernels/decode_attention/kernel.py:317",
+    "quantize_ef": "src/repro/kernels/quantize/kernel.py:95",
+    "dequantize": "src/repro/kernels/quantize/kernel.py:126",
 }
 QK_DOT_FP8 = "src/repro/kernels/common.py:31 qk_dot_fp8"
 GRADIENT_OF = {
@@ -112,7 +131,12 @@ SOURCE = {
     "paged_verify_dequant": "src/repro_torch/kernels/csrc/paged_attention.cu",
     "paged_decode_fp8": "src/repro_torch/kernels/csrc/paged_attention.cu",
     "paged_verify_fp8": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "quantize_ef": "src/repro_torch/kernels/csrc/quantize.cu",
+    "dequantize": "src/repro_torch/kernels/csrc/quantize.cu",
 }
+WIRE_KERNELS = ("quantize_ef", "dequantize")
+WIRE_TARGETS = ("int8", "fp8_e4m3", "fp8_e5m2")
+W_UP = 131_072_000                     # 20 x 1280 x 5120: one stacked leaf
 # kv_cache_dtype spelling -> quantize target of the pool
 KV_TARGETS = {"int8": "int8", "fp8": "fp8_e4m3", "fp8_e5m2": "fp8_e5m2"}
 TRAIN_KERNELS = ("rmsnorm", "rmsnorm_residual", "flash_fwd", "flash_bwd",
@@ -400,6 +424,47 @@ def phase_train_kernels(torch, results):
                              else "plain"), max(e_x, e_s), ok_x and ok_s))
 
 
+def code_bits(torch, q):
+    """A payload's codes as comparable integers (fp8 as its bytes)."""
+    return q if q.dtype == torch.int8 else q.view(torch.uint8)
+
+
+def phase_wire_kernels(torch, results):
+    """quantize_ef and dequantize against their plain versions on the
+    card, bit for bit (codes, residual, scales, dequantized values), for
+    each target: the w_up leaf of two workers with a residual, an odd
+    (1, 1280) row, a scalar leaf, and per-tile scales (tile 256) on a
+    ragged (2, 1280 * 100 + 7) leaf.  The recorded error is the largest
+    absolute difference of the f32 outputs (0 when bit for bit)."""
+    from repro_torch.kernels.quantize import (dequantize, dequantize_plain,
+                                              quantize_ef, quantize_ef_plain)
+    g = torch.Generator().manual_seed(4)
+    cases = (((2, W_UP), 0, True), ((1, 1280), 0, True), ((), 0, True),
+             ((2, 1280 * 100 + 7), 256, True))
+    for target in WIRE_TARGETS:
+        for shape, tile, residual in cases:
+            x = (torch.randn(shape, generator=g) * 1e-2).cuda()
+            r = ((torch.randn(shape, generator=g) * 1e-5).cuda() if residual
+                 else None)
+            got = quantize_ef(x, r, dtype=target, tile=tile)
+            want = quantize_ef_plain(x, r, dtype=target, tile=tile)
+            dq = dequantize(got[0], got[2], tile=tile)
+            dq_plain = dequantize_plain(want[0], want[2], tile=tile)
+            torch.cuda.synchronize()
+            same = (torch.equal(code_bits(torch, got[0]),
+                                code_bits(torch, want[0]))
+                    and torch.equal(got[1], want[1])
+                    and torch.equal(got[2], want[2])
+                    and torch.equal(dq, dq_plain))
+            err = max(float((a - b).abs().max()) if a.numel() else 0.0
+                      for a, b in ((got[1], want[1]), (got[2], want[2]),
+                                   (dq, dq_plain)))
+            tag = tuple(shape) + (target, f"tile={tile}")
+            results.append(("quantize_ef", "float32", tag, err, same))
+            results.append(("dequantize", "float32", tag, err, same))
+            del x, r, got, want, dq, dq_plain
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: full-width step on the card vs the CPU
 # ---------------------------------------------------------------------------
@@ -611,6 +676,193 @@ def phase_train_step_vs_cpu(torch):
           "DiLoCo outer round on the card disagrees with the CPU")
     return {"loss_rel": e_loss, "grad_rel": e_grad, "update_rel": e_upd,
             "diloco_loss_rel": e_l, "diloco_param_rel": e_p}
+
+
+def code_steps(torch, a, b):
+    """|code distance| between two payloads of one target, elementwise:
+    int8 values, or fp8 bytes read as sign-magnitude ordinals (adjacent
+    fp8 values of one sign are adjacent bytes)."""
+    if a.dtype == torch.int8:
+        return (a.int() - b.int()).abs()
+    ord_ = lambda q: ((q.view(torch.uint8).int() & 0x7F)
+                      * (1 - 2 * (q.view(torch.uint8).int() >> 7)))
+    return (ord_(a) - ord_(b)).abs()
+
+
+def grid_pos(torch, y, codec):
+    """Continuous position of ``y`` (in scale units) on a wire's code
+    grid: y itself for int8; for fp8 (e4m3) the ordinal of the code
+    grid, linear between codes (8 subnormal steps of 2^-9, then 8 steps a
+    binade), signed.  At every code it equals the code's ordinal."""
+    if codec == "int8":
+        return y
+    m = y.abs()
+    e = torch.floor(torch.log2(m.clamp(min=2.0 ** -6)))
+    pos = torch.where(m < 2.0 ** -6, m * 2.0 ** 9,
+                      8 + 8 * (e + 6) + (m / torch.exp2(e) - 1) * 8)
+    return torch.sign(y) * pos
+
+
+# share of the codes that may lie more than one step apart between the
+# card's and the CPU's own inner steps (measured on an H100: 7.5e-8 int8,
+# 4.2e-6 fp8)
+FAR_CODES_MAX = 1e-5
+
+
+def phase_wire_round_vs_cpu(torch):
+    """One DiLoCo outer round of nanochat-d20 at full width and depth 2
+    (K=2, H=1, worker w on sequence 0 of its batch, B 1 x S 256) with an
+    int8 and an fp8 wire, card against CPU from the same parameters.
+
+    (a) The inner step runs on each device; the K deltas of each leaf are
+    encoded on both.  The two devices' inner steps differ in the last
+    bits (GEMM order, Newton-Schulz), and AdamW's first step turns a
+    gradient g into the update -lr * g / (|g| + eps), which moves by up to
+    a quarter of lr per unit relative change of g where |g| is near eps
+    (1e-10); so a delta may differ by more than a code step.  The gates:
+    no code further from the CPU's than the two deltas' difference in
+    code steps plus one (the rounding), at most FAR_CODES_MAX of the codes
+    more than one step apart, and each scale within its two amaxes'
+    relative difference plus 1e-6.  Printed: the codes that differ, those
+    more than one step apart in AdamW and in Muon leaves, and how many of
+    the AdamW ones have a CPU gradient within 100x of eps (|g| from the
+    first step's second moment, sqrt(v / (1 - beta2))).
+    (b) The CPU's post-inner-step state, copied to the card, takes the
+    outer round on both devices: the new anchor, momentum and residual
+    (the residual is e - q * scale, so it carries every code and scale)
+    must be equal bit for bit (the round is elementwise f32 arithmetic in
+    one order, and the kernels equal the plain versions)."""
+    import dataclasses
+    from repro_torch.configs import (NANOCHAT_D20, DiLoCoConfig,
+                                     OptimizerConfig)
+    from repro_torch.core import DistTrainer, make_strategy, outer_opt
+    from repro_torch.core.transport import make_codec
+    from repro_torch.models import init_params, lm_loss
+    from repro_torch.models.transformer import flatten
+    from repro_torch.optim.combined import partition_label
+    cfg = NANOCHAT_D20.with_(num_layers=2)
+    params = flatten(init_params(cfg, seed=0, device="cpu"))
+    g = torch.Generator().manual_seed(17)
+    toks = torch.randint(0, cfg.vocab_size, (2, 1, 257), generator=g,
+                         dtype=torch.int32)
+    batch = {"tokens": toks[:, :, :-1], "labels": toks[:, :, 1:]}
+    opt_cfg = OptimizerConfig(total_steps=10, warmup_steps=2,
+                              fused_adamw=True)
+    dcfg = DiLoCoConfig(num_workers=2, h_inner_steps=1)
+    inner = {}
+    for dev in ("cpu", "cuda"):
+        dt = DistTrainer(lambda pp, b: lm_loss(pp, b, cfg), opt_cfg, dcfg,
+                         make_strategy(dcfg))
+        eng = dt.engine()
+        state = dt.init({k: v.to(dev) for k, v in params.items()})
+        state, _ = eng.inner_step(state, {k: v.to(dev) for k, v in
+                                          batch.items()})
+        inner[dev] = (eng, state)
+    cpu_eng, cpu_state = inner["cpu"]
+
+    def on(dev, st):
+        """A copy of ``st`` on ``dev`` (every tensor, so rounds start
+        equal and leave the original untouched)."""
+        cp = lambda d: {k: v.to(dev, copy=True) for k, v in d.items()}
+        return st._replace(
+            global_params=cp(st.global_params),
+            worker_params=[cp(w) for w in st.worker_params],
+            outer=st.outer._replace(v=cp(st.outer.v),
+                                    t=st.outer.t.to(dev, copy=True)))
+
+    out = {}
+    for codec in ("int8", "fp8"):
+        # (a) each device's own inner step
+        flips, beyond, n, worst, e_scale = 0, 0, 0, 0, 0.0
+        far = {"adamw": 0, "muon": 0}
+        near_eps, far_by_leaf = 0, {}
+        for k in params:
+            enc = {}
+            for dev, (eng, state) in inner.items():
+                d = outer_opt.stack_delta([w[k] for w in
+                                           state.worker_params],
+                                          state.global_params[k])
+                payload, _ = make_codec(codec).encode({k: d})
+                enc[dev] = (d.cpu(), payload.data[k].cpu(),
+                            payload.scales[k].cpu())
+            (dc, qc, sc), (dg, qg, sg) = enc["cpu"], enc["cuda"]
+            dist = code_steps(torch, qg, qc)
+            # the deltas' own distance in code steps, per element: the
+            # codes' ordinals follow G(e / scale), exactly at each code
+            # and within half a step between them (round to nearest), so
+            # two codes lie at most |G(y_card) - G(y_cpu)| + 1 apart
+            y = lambda d, sc_: d / sc_.reshape((-1,) + (1,) * (d.dim() - 1))
+            gap = (grid_pos(torch, y(dg, sg), codec)
+                   - grid_pos(torch, y(dc, sc), codec)).abs()
+            allowed = gap + 1 + 1e-3
+            check(bool((dist <= allowed).all()),
+                  f"{codec} wire, {k}: a card code is further from the "
+                  f"CPU's than the deltas' distance on the code grid + 1 "
+                  f"(worst excess {float((dist - allowed).max()):.3f})")
+            amax = lambda t: t.abs().reshape(t.shape[0], -1).amax(1)
+            a_rel = ((amax(dg) - amax(dc)).abs() / amax(dc)).reshape(
+                sc.shape)
+            s_rel = (sg - sc).abs() / sc
+            check(bool((s_rel <= a_rel + 1e-6).all()),
+                  f"{codec} wire, {k}: scales further apart than the "
+                  f"amaxes")
+            flips += int((dist > 0).sum())
+            far_k = dist > 1
+            nf = int(far_k.sum())
+            beyond += nf
+            if nf:
+                label = partition_label(k, params[k])
+                far[label] += nf
+                far_by_leaf[k] = nf
+                if label == "adamw":
+                    b2, eps = opt_cfg.adam_betas[1], opt_cfg.adam_eps
+                    g_abs = torch.stack([o["adamw"]["v"][k] for o in
+                                         cpu_state.inner_opt]).div(
+                                             1 - b2).sqrt()
+                    near = (g_abs >= eps / 100) & (g_abs <= eps * 100)
+                    near_eps += int((far_k & near).sum())
+            worst = max(worst, int(dist.max()))
+            n += dist.numel()
+            e_scale = max(e_scale, float(s_rel.max()))
+        # (b) the same post-inner-step state on both devices
+        wcfg = dataclasses.replace(dcfg, delta_dtype=codec)
+        e = dataclasses.replace(cpu_eng, cfg=wcfg)
+        res0 = e.init_residual(cpu_state.global_params)
+        gen = torch.Generator().manual_seed(3)
+        for r in res0.values():
+            r.normal_(generator=gen).mul_(1e-6)
+        synced = {}
+        for dev in ("cpu", "cuda"):
+            st, res = e.outer_step_ef(on(dev, cpu_state), {
+                k: v.to(dev, copy=True) for k, v in res0.items()})
+            synced[dev] = (st, res)
+        (s_c, r_c), (s_g, r_g) = synced["cpu"], synced["cuda"]
+        same = all(torch.equal(b.cpu(), a) for x, y in (
+            (s_c.global_params, s_g.global_params), (s_c.outer.v,
+                                                      s_g.outer.v),
+            (r_c, r_g)) for a, b in ((x[k], y[k]) for k in x))
+        out[codec] = {"codes_differing": flips, "codes": n,
+                      "codes_beyond_one_step": beyond,
+                      "beyond_by_partition": far,
+                      "beyond_adamw_g_within_100x_eps": near_eps,
+                      "beyond_by_leaf": far_by_leaf,
+                      "max_code_steps": worst, "scale_rel": e_scale,
+                      "same_state_round_bitwise": same}
+        log(f"  DiLoCo round K=2 H=1, {codec} wire: own inner steps: "
+            f"{flips} of {n} codes differ, {beyond} by more than one step "
+            f"(at most {worst}; each within its deltas' difference + 1; "
+            f"{far['adamw']} in AdamW leaves, {near_eps} of them with "
+            f"|g| within 100x of eps, {far['muon']} in Muon leaves; by "
+            f"leaf {far_by_leaf}), scales rel {e_scale:.2e} (within the "
+            f"amaxes' + 1e-6); same state on both: anchor, momentum and "
+            f"residual {'bit for bit' if same else 'DIFFER'}")
+        check(beyond <= FAR_CODES_MAX * n,
+              f"{codec} wire: {beyond} of {n} codes more than one step "
+              f"apart, above {FAR_CODES_MAX:g} of the codes")
+        check(same, f"{codec}-wire outer round from one state differs "
+              f"between the card and the CPU")
+        del synced
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -840,20 +1092,40 @@ def device_time_by_kernel(torch, prof):
 
 
 TRAIN_SEQ = 1024
+_K2 = dict(workers=2, per_worker_batch=4)
 TRAIN_PLANS = (
-    # method, run_stage arguments, expected sync steps
-    ("diloco", dict(steps=4, workers=2, per_worker_batch=4, h=2), [1, 3]),
-    ("ddp", dict(steps=2, workers=2, per_worker_batch=4, h=1), [0, 1]),
+    # path, method, run_stage arguments, DiLoCoConfig fields, expected
+    # (sync_steps, frag_syncs)
+    ("diloco", "diloco", dict(steps=4, h=2, **_K2), {}, ([1, 3], [])),
+    ("ddp", "ddp", dict(steps=2, h=1, **_K2), {}, ([0, 1], [])),
+    ("diloco_int8", "diloco", dict(steps=4, h=2, **_K2),
+     dict(delta_dtype="int8"), ([1, 3], [])),
+    ("diloco_fp8", "diloco", dict(steps=4, h=2, **_K2),
+     dict(delta_dtype="fp8"), ([1, 3], [])),
+    ("diloco_fp8_e5m2", "diloco", dict(steps=4, h=2, **_K2),
+     dict(delta_dtype="fp8_e5m2"), ([1, 3], [])),
+    ("ddp_compressed_fp8", "ddp", dict(steps=2, h=1, **_K2),
+     dict(grad_compress="fp8"), ([0, 1], [])),
+    ("streaming_int8", "streaming", dict(steps=4, h=2, **_K2),
+     dict(delta_dtype="int8", num_fragments=2),
+     ([], [(0, 0), (1, 1), (2, 0), (3, 1)])),
+    ("overlapped_int8", "overlapped", dict(steps=4, h=2, **_K2),
+     dict(delta_dtype="int8", sync_delay=1), ([2, 3], [])),
+    ("pipelined_int8", "pipelined", dict(steps=4, h=2, **_K2),
+     dict(delta_dtype="int8", num_fragments=2, sync_delay=1),
+     ([], [(2, 0), (3, 1)])),
 )
 
 
 def phase_train(torch):
-    """The training main path at full nanochat-d20: DiLoCo (K=2, per-worker
-    batch 4, H=2, 4 steps) and DDP (global batch 8, 2 steps) through
-    ``run_stage``, fused AdamW on, on the synthetic corpus at seq_len
-    1024.  Launch counts are reset just before each run."""
+    """The training main path at full nanochat-d20 through ``run_stage``,
+    fused AdamW on, on the synthetic corpus at seq_len 1024: each path of
+    ``TRAIN_PLANS`` (K=2 at per-worker batch 4; DDP at global batch 8).
+    Launch counts and the transport's wire-byte count are reset just
+    before each run."""
     from repro_torch.configs import (NANOCHAT_D20, DiLoCoConfig,
                                      OptimizerConfig)
+    from repro_torch.core import transport
     from repro_torch.kernels import KERNELS, launches, reset_launches
     from repro_torch.launch.train import build_pipeline, run_stage
     from repro_torch.models import init_params
@@ -864,51 +1136,149 @@ def phase_train(torch):
         f"seq_len {TRAIN_SEQ}; model {cfg.name}, {cfg.num_layers} layers, "
         f"d {cfg.d_model}, vocab {cfg.vocab_size}, float32")
     runs, profile = {}, None
-    for method, kw, syncs in TRAIN_PLANS:
+    for path, method, kw, dkw, (syncs, frags) in TRAIN_PLANS:
         opt_cfg = OptimizerConfig(total_steps=kw["steps"], warmup_steps=1,
                                   learning_rate=0.02, adam_lr=1e-3,
                                   fused_adamw=True)
+        dcfg = DiLoCoConfig(**dkw)
+        wire = (dcfg.grad_compress if method == "ddp" else dcfg.delta_dtype)
+        lossy = wire not in ("none", "float32")
         params = init_params(cfg, seed=0, device="cuda")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
+        transport.reset_shipped()
         t0 = time.perf_counter()
         final, hist = run_stage(method, cfg, params, ds, opt_cfg=opt_cfg,
-                                diloco_cfg=DiLoCoConfig(), seed=0, **kw)
+                                diloco_cfg=dcfg, seed=0, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {k: launches[k] for k in KERNELS}
         peak = torch.cuda.max_memory_allocated()
-        k_eff = kw["workers"] if method == "diloco" else 1
+        k_eff = 1 if method == "ddp" and not lossy else kw["workers"]
         step_tokens = kw["workers"] * kw["per_worker_batch"] * TRAIN_SEQ
         losses = hist["loss"]
-        runs[method] = {
-            "launches": counts, "loss": losses,
-            "sync_steps": hist["sync_steps"],
+        n_syncs = len(hist["sync_steps"]) + len(hist["frag_syncs"])
+        wire_bytes = sum(transport.shipped.values())
+        runs[path] = {
+            "method": method, "config": dkw, "launches": counts,
+            "loss": losses, "sync_steps": hist["sync_steps"],
+            "frag_syncs": hist["frag_syncs"],
             "step_seconds": hist["step_seconds"],
             "tokens_per_s": step_tokens / hist["step_seconds"],
             "wall_s": wall, "tokens_per_s_wall": kw["steps"] * step_tokens
             / wall, "peak_memory_gb": peak / 1e9, "workers": k_eff,
-            "step_tokens": step_tokens}
-        log(f"  run_stage({method!r}) {kw}: losses "
-            f"{[round(x, 4) for x in losses]}, syncs {hist['sync_steps']}, "
-            f"step {hist['step_seconds']:.3f} s "
-            f"({runs[method]['tokens_per_s']:.0f} tokens/s over "
+            "step_tokens": step_tokens, "wire": dict(transport.shipped),
+            "wire_bytes_per_worker_per_sync":
+                wire_bytes / k_eff / n_syncs if wire_bytes else None}
+        log(f"  run_stage({method!r}) {path} {kw} {dkw}: losses "
+            f"{[round(x, 4) for x in losses]}, syncs {hist['sync_steps']} "
+            f"frag_syncs {hist['frag_syncs']}, step "
+            f"{hist['step_seconds']:.3f} s "
+            f"({runs[path]['tokens_per_s']:.0f} tokens/s over "
             f"{step_tokens} tokens a step), wall {wall:.2f} s, peak "
-            f"{peak / 1e9:.2f} GB, launches {counts}")
+            f"{peak / 1e9:.2f} GB, wire bytes per worker per sync "
+            f"{runs[path]['wire_bytes_per_worker_per_sync']} "
+            f"({dict(transport.shipped)} in {n_syncs} syncs), launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
         check(all(math.isfinite(x) for x in losses),
-              f"{method}: non-finite loss")
-        check(hist["sync_steps"] == syncs,
-              f"{method}: sync steps {hist['sync_steps']} != {syncs}")
-        check(losses[-1] < losses[0], f"{method}: the loss did not fall")
-        for k in TRAIN_KERNELS:
-            check(counts[k] > 0, f"{method}: kernel {k} never launched on "
+              f"{path}: non-finite loss")
+        check(hist["sync_steps"] == syncs and hist["frag_syncs"] == frags,
+              f"{path}: sync records {hist['sync_steps']} "
+              f"{hist['frag_syncs']} != {syncs} {frags}")
+        check(losses[-1] < losses[0], f"{path}: the loss did not fall")
+        for k in TRAIN_KERNELS + (WIRE_KERNELS if lossy else ()):
+            check(counts[k] > 0, f"{path}: kernel {k} never launched on "
                   f"the main path")
-        if method == "diloco":
+        if not lossy:
+            check(counts["quantize_ef"] == counts["dequantize"] == 0,
+                  f"{path}: a wire kernel launched on the f32 wire")
+        if path == "diloco":
             profile = profile_train_step(torch, cfg, final, ds, opt_cfg, kw)
         del params, final
         torch.cuda.empty_cache()
+    for path, ms in time_outer_syncs(torch, cfg, ds).items():
+        if path in runs:
+            runs[path]["outer_sync_ms"] = ms
     return runs, profile
+
+
+def time_outer_syncs(torch, cfg, ds, reps=3):
+    """Device ms of one outer sync of each training path (CUDA events, the
+    mean of ``reps``), from one K=2 nanochat-d20 state after one inner
+    step.  Every sync writes the anchor into the workers, so small seeded
+    noise is added to the workers before each timed sync to keep the
+    deltas (and the work of the codecs) real."""
+    import dataclasses
+    from repro_torch.configs import DiLoCoConfig, OptimizerConfig
+    from repro_torch.core import (DistTrainer, compressed_ddp_config,
+                                  fragment_masks, make_strategy)
+    from repro_torch.models import init_params, lm_loss
+    dcfg = DiLoCoConfig(num_workers=2, h_inner_steps=2)
+    dt = DistTrainer(lambda p, b: lm_loss(p, b, cfg),
+                     OptimizerConfig(total_steps=4, warmup_steps=1,
+                                     fused_adamw=True), dcfg,
+                     make_strategy(dcfg))
+    state = dt.init(init_params(cfg, seed=0, device="cuda"))
+    eng = dt.engine()
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             ds.worker_batches(0, 2, 4).items()}
+    state, _ = eng.inner_step(state, batch)
+    del batch
+    frag = fragment_masks(state.global_params, 2)[0]
+    g = torch.Generator(device="cuda").manual_seed(23)
+
+    def with_wire(**kw):
+        return dataclasses.replace(eng, cfg=dataclasses.replace(dcfg, **kw))
+
+    def snap(sel):
+        return lambda st: [{k: w[k][sl].clone() for k, sl in sel.items()
+                            if sl is not None} for w in st.worker_params]
+
+    whole = {k: slice(None) for k in state.global_params}
+    full = (None, lambda e, st, res, _: e.outer_step_ef(st, res))
+    plans = [("diloco", with_wire(), full),
+             ("diloco_int8", with_wire(delta_dtype="int8"), full),
+             ("diloco_fp8", with_wire(delta_dtype="fp8"), full),
+             ("diloco_fp8_e5m2", with_wire(delta_dtype="fp8_e5m2"), full),
+             ("ddp_compressed_fp8", dataclasses.replace(
+                 eng, cfg=compressed_ddp_config(dataclasses.replace(
+                     dcfg, grad_compress="fp8"))), full),
+             ("streaming_int8", with_wire(delta_dtype="int8"), (
+                 None, lambda e, st, res, _: e.outer_step_fragment_ef(
+                     st, frag, res))),
+             ("overlapped_int8", with_wire(delta_dtype="int8"), (
+                 snap(whole), lambda e, st, res, sn: e.sync(
+                     st, res, snapshot=sn))),
+             ("pipelined_int8", with_wire(delta_dtype="int8"), (
+                 snap(frag), lambda e, st, res, sn: e.sync(
+                     st, res, frag=frag, snapshot=sn, fragment=0)))]
+    out = {}
+    for path, e, (prep, run) in plans:
+        res = e.init_residual(state.global_params)
+        times = []
+        for _ in range(reps):
+            for w in state.worker_params:
+                for t in w.values():
+                    t.add_(torch.randn(t.shape, generator=g, device="cuda"),
+                           alpha=1e-4)
+            sn = prep(state) if prep else None     # taken at capture time
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            a.record()
+            state, res = run(e, state, res, sn)
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+            del sn
+        out[path] = sum(times) / reps
+        del res
+        torch.cuda.empty_cache()
+        log(f"  one outer sync, {path}: {out[path]:.2f} ms of device time "
+            f"(mean of {reps})")
+    del state
+    torch.cuda.empty_cache()
+    return out
 
 
 def profile_train_step(torch, cfg, params, ds, opt_cfg, kw):
@@ -1004,7 +1374,8 @@ def phase_timing(torch, paths, checks):
 
     def row(name, shape, ms, plain_ms, lib_ms, nbytes, ops, **extra):
         b_ms, b_by = bound(nbytes, ops, dtype)
-        err = {dt: max(e for n, t, _, e, _ in checks if n == name and t == dt)
+        err = {dt: max((e for n, t, _, e, _ in checks
+                        if n == name and t == dt), default=None)
                for dt in ("float32", "bfloat16")}
         out.append(dict({"name": name, "route": "cuda",
                          "source": SOURCE[name], "replaces": REPLACES[name],
@@ -1072,6 +1443,7 @@ def phase_timing(torch, paths, checks):
     del x, r, q, kp, vp, kg, vg, mask
     quant_rows(torch, row)
     train_rows(torch, row)
+    wire_rows(torch, row)
     return out
 
 
@@ -1218,6 +1590,53 @@ def train_rows(torch, row):
                 "in place; the port's kernel returns u, m', v')")
 
 
+def wire_rows(torch, row):
+    """Timing rows of the outer-sync wire kernels at the main path's
+    largest leaf: layers/mlp/w_up of two workers, (2, 131,072,000) f32
+    with a residual; the int8 times in the row, the fp8 targets beside.
+    Bounds: quantize_ef must read x and r and write q (1 byte) and r' once
+    (13 bytes per element); dequantize reads 1 byte and writes 4."""
+    from repro_torch.kernels.quantize import (dequantize, dequantize_plain,
+                                              quantize_ef, quantize_ef_plain)
+    g = torch.Generator().manual_seed(6)
+    shape = (2, W_UP)
+    n = shape[0] * shape[1]
+    x = (torch.randn(shape, generator=g) * 1e-2).cuda()
+    r = (torch.randn(shape, generator=g) * 1e-5).cuda()
+    ms, plain_ms, dq_ms, dq_plain_ms = {}, {}, {}, {}
+    dq_lib_ms = {t: None for t in WIRE_TARGETS}
+    for target in WIRE_TARGETS:
+        ms[target] = time_ms(torch, lambda: quantize_ef(x, r, dtype=target),
+                             reps=10)
+        plain_ms[target] = time_ms(
+            torch, lambda: quantize_ef_plain(x, r, dtype=target), reps=5)
+        q, _, sc = quantize_ef(x, r, dtype=target)
+        dq_ms[target] = time_ms(torch, lambda: dequantize(q, sc), reps=10)
+        dq_plain_ms[target] = time_ms(torch, lambda: dequantize_plain(q, sc),
+                                      reps=5)
+        if target == "int8":
+            # one PyTorch call: int8 * f32 promotes inside one elementwise
+            # kernel and gives the same function bit for bit
+            check(torch.equal(torch.mul(q, sc), dequantize(q, sc)),
+                  "torch.mul(int8 payload, scale) differs from dequantize")
+            dq_lib_ms[target] = time_ms(torch, lambda: torch.mul(q, sc),
+                                        reps=10)
+        del q, sc
+    none = ("null: no single PyTorch call computes the per-row amax scale, "
+            "the clipped narrow payload and the error-feedback residual")
+    row("quantize_ef", shape, ms["int8"], plain_ms["int8"], None, 13 * n,
+        10 * n, target="int8", ms_by_target=ms,
+        plain_ms_by_target=plain_ms, library=none)
+    row("dequantize", shape, dq_ms["int8"], dq_plain_ms["int8"],
+        dq_lib_ms["int8"], 5 * n, n, target="int8", ms_by_target=dq_ms,
+        plain_ms_by_target=dq_plain_ms, library_ms_by_target=dq_lib_ms,
+        library="torch.mul(q, scale) for int8 (one call, promotes to f32); "
+                "null for fp8_e4m3 and fp8_e5m2: PyTorch does not promote "
+                "float8 types, so their q.float() * scale is two kernels")
+    del x, r
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 
 def gpu_line() -> str:
@@ -1264,6 +1683,7 @@ def main(argv=None) -> int:
         phase_kernels(torch, checks)
         phase_quant_kernels(torch, checks)
         phase_train_kernels(torch, checks)
+        phase_wire_kernels(torch, checks)
         report_checks(checks)
         report["checks"] = [list(c) for c in checks]
 
@@ -1271,6 +1691,7 @@ def main(argv=None) -> int:
         report["step_vs_cpu"] = phase_step_vs_cpu(torch)
         report["quant_step_vs_cpu"] = phase_quant_step_vs_cpu(torch)
         report["train_step_vs_cpu"] = phase_train_step_vs_cpu(torch)
+        report["wire_round_vs_cpu"] = phase_wire_round_vs_cpu(torch)
 
         log("[4/6] Engine, nanochat-d20: f32, int8, fp8 and fp8_e5m2 "
             "pools, fp8 QK^T; spec_k=0 and 4; capacity")
@@ -1279,7 +1700,9 @@ def main(argv=None) -> int:
         report["engine"] = runs
         report["capacity"] = capacity
 
-        log("[5/6] training, nanochat-d20: DiLoCo and DDP")
+        log("[5/6] training, nanochat-d20: DiLoCo and DDP on the f32 wire; "
+            "DiLoCo on int8, fp8 and fp8_e5m2 wires, compressed DDP, "
+            "streaming, overlapped and pipelined on the lossy wire")
         train, report["train_profile"] = phase_train(torch)
         report["train"] = train
 
@@ -1302,8 +1725,9 @@ def main(argv=None) -> int:
     summary = {k: {"tokens_per_s": v["tokens_per_s"], "wall_s": v["wall_s"],
                    "agreement_with_f32": v["agreement_with_f32"]}
                for k, v in runs.items()}
-    train_summary = {k: {key: v[key] for key in (
-        "tokens_per_s", "step_seconds", "peak_memory_gb", "loss")}
+    train_summary = {k: {key: v.get(key) for key in (
+        "tokens_per_s", "step_seconds", "peak_memory_gb", "loss",
+        "wire_bytes_per_worker_per_sync", "outer_sync_ms")}
         for k, v in train.items()}
     print(json.dumps({"engine": summary, "capacity": capacity,
                       "train": train_summary}))

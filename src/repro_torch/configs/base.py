@@ -164,22 +164,23 @@ class DiLoCoConfig:
     # --- beyond-paper knobs ------------------------------------------------
     delta_dtype: str = "float32"      # float32 | bfloat16 | int8 | fp8 |
                                       # fp8_e5m2: the outer sync's wire
-                                      # codec (only float32 is ported)
+                                      # codec (core/transport.py)
     error_feedback: bool = True       # lossy codecs carry a per-worker
                                       # residual so quantization noise
                                       # cannot bias the outer optimizer
     grad_compress: str = "none"       # none | int8 | fp8 | fp8_e5m2: DDP-side
                                       # per-step update compression
     drift_aware: bool = False         # drift-weighted averaging (paper §5
-                                      # future work; not ported)
+                                      # future work)
     adaptive_h: bool = False          # adaptive H schedule (paper §5 future
                                       # work; not ported)
     h_min: int = 10
     h_max: int = 200
     # --- sync-strategy runtime (repro_torch.core.sync / DistTrainer) -------
-    strategy: str = "diloco"          # ddp | diloco are ported; streaming |
-                                      # overlapped | pipelined | gossip |
-                                      # async_gossip raise
+    strategy: str = "diloco"          # ddp | ddp_compressed | diloco |
+                                      # streaming | overlapped | pipelined
+                                      # are ported; gossip | async_gossip
+                                      # raise
     num_fragments: int = 4            # streaming/pipelined: F fragments
     sync_delay: int = 0               # overlapped/pipelined: steps between
                                       # delta capture and outer application

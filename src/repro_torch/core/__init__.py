@@ -1,14 +1,24 @@
 """The training runtime: DiLoCo and DDP through one ``DistTrainer`` loop,
-with the ``ddp`` and ``diloco`` sync strategies."""
+with the ``ddp``, ``ddp_compressed``, ``diloco``, ``streaming``,
+``overlapped`` and ``pipelined`` sync strategies over the codec
+transport."""
 from repro_torch.core.ddp import DDPState, DDPTrainer
 from repro_torch.core.diloco import DiLoCoState, DiLoCoTrainer
 from repro_torch.core.dist_trainer import DistTrainer
 from repro_torch.core.outer_opt import OuterState
 from repro_torch.core.schedule import FixedH
-from repro_torch.core.sync import (DDPSync, DiLoCoSync, SyncRunner,
-                                   SyncStrategy, make_strategy,
-                                   strategy_names)
+from repro_torch.core.streaming import StreamingDiLoCoTrainer, fragment_masks
+from repro_torch.core.sync import (CompressedDDPSync, DDPSync, DiLoCoSync,
+                                   OverlappedSync, PipelinedSync,
+                                   StreamingSync, SyncEvent, SyncRunner,
+                                   SyncStrategy, compressed_ddp_config,
+                                   make_strategy, strategy_names)
+from repro_torch.core.transport import OuterPayload, Transport, make_codec
 
-__all__ = ["DDPState", "DDPSync", "DDPTrainer", "DiLoCoState", "DiLoCoSync",
-           "DiLoCoTrainer", "DistTrainer", "FixedH", "OuterState",
-           "SyncRunner", "SyncStrategy", "make_strategy", "strategy_names"]
+__all__ = ["CompressedDDPSync", "DDPState", "DDPSync", "DDPTrainer",
+           "DiLoCoState", "DiLoCoSync", "DiLoCoTrainer", "DistTrainer",
+           "FixedH", "OuterPayload", "OuterState", "OverlappedSync",
+           "PipelinedSync", "StreamingDiLoCoTrainer", "StreamingSync",
+           "SyncEvent", "SyncRunner", "SyncStrategy", "Transport",
+           "compressed_ddp_config", "fragment_masks", "make_codec",
+           "make_strategy", "strategy_names"]

@@ -17,23 +17,33 @@ parameters are updated IN PLACE by the inner step (the JAX package returns
 new arrays), and the outer step writes the new anchor into every worker's
 tensors, so a worker holds one copy of its parameters throughout.
 
+The outer step goes through the codec transport (``core/transport.py``):
+f32, bf16, or int8 / fp8 / fp8_e5m2 through the quantize kernels, with a
+per-worker error-feedback residual (``init_residual``) that the sync
+runner holds beside the state.  The anchor and the outer momentum are
+updated in place too.
+
 The DDP baseline (``core/ddp.py``, and ``DDPSync`` in ``core/sync.py``) is
 the same inner step with K = 1 on the global batch.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, NamedTuple, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import DiLoCoConfig, OptimizerConfig
 from repro_torch.core import outer_opt
 from repro_torch.core.outer_opt import OuterState
+from repro_torch.core.transport import make_codec
 from repro_torch.models.transformer import flatten, unflatten
 from repro_torch.optim import Optimizer, apply_updates, nanochat_optimizer
 
 Flat = Dict[str, torch.Tensor]
+# leaf -> the rows of its leading dim in a fragment (slice(None): the
+# whole leaf), or None when the leaf is not in it
+Fragment = Dict[str, Optional[slice]]
 
 
 class DiLoCoState(NamedTuple):
@@ -76,7 +86,6 @@ class DiLoCoTrainer:
     def init(self, params) -> DiLoCoState:
         """``params``: a nested tree (or flat dict); it is copied, never
         written.  All state lives on the parameters' device."""
-        outer_opt.require_ported(self.cfg)
         with torch.no_grad():
             anchor = {k: p.detach().clone()
                       for k, p in flatten(params).items()}
@@ -111,14 +120,72 @@ class DiLoCoTrainer:
                 torch.stack(losses))
 
     # -- outer step ----------------------------------------------------------
+    def init_residual(self, params) -> Optional[Flat]:
+        """Per-worker (K, ...) f32 error-feedback residual of each leaf for
+        lossy codecs, or None when the codec is lossless or error feedback
+        is off.  Held by the sync runners, not in ``DiLoCoState``."""
+        if not (self.cfg.error_feedback
+                and make_codec(self.cfg.delta_dtype).lossy):
+            return None
+        return {k: torch.zeros((self.cfg.num_workers,) + tuple(p.shape),
+                               dtype=torch.float32, device=p.device)
+                for k, p in flatten(params).items()}
+
     @torch.no_grad()
+    def sync(self, state: DiLoCoState, residual: Optional[Flat] = None, *,
+             frag: Optional[Fragment] = None,
+             snapshot: Optional[List[Flat]] = None, fragment: int = -1
+             ) -> Tuple[DiLoCoState, Optional[Flat]]:
+        """One outer round through the codec transport.
+
+        ``frag`` (``core/streaming.py fragment_masks``) names the rows of
+        each leaf's leading dim that take part (None: every leaf, whole);
+        the outer momentum of the rest decays as under a zero delta, as
+        the reference's whole-tree update does.  ``snapshot`` (K dicts of
+        the selected slices, taken earlier) supplies the deltas instead of
+        the workers, and the workers then carry forward the progress made
+        since: worker = new anchor + (worker − snapshot).  Without a
+        snapshot the workers take the new anchor (their inner optimizer
+        states stay per worker, paper §3).  The anchor, momentum, residual
+        and workers are updated in place.  Returns (state, residual)."""
+        gp, v = state.global_params, state.outer.v
+        sel = ({k: slice(None) for k in gp} if frag is None else
+               {k: sl for k, sl in frag.items() if sl is not None})
+        rows = {k: ([w[k][sl] for w in state.worker_params]
+                    if snapshot is None else [s[k] for s in snapshot])
+                for k, sl in sel.items()}
+        outer_opt.outer_sync(
+            {k: gp[k][sl] for k, sl in sel.items()}, rows,
+            {k: v[k][sl] for k, sl in sel.items()}, self.cfg,
+            None if residual is None else
+            {k: residual[k][:, sl] for k, sl in sel.items()},
+            kind="delta" if frag is None else "fragment", fragment=fragment)
+        if frag is not None:
+            mu = self.cfg.outer_momentum
+            for k, vk in v.items():
+                sl = frag.get(k)
+                if sl is None:
+                    vk.mul_(mu)
+                elif sl != slice(None):
+                    vk[:sl.start].mul_(mu)
+                    vk[sl.stop:].mul_(mu)
+        for i, params in enumerate(state.worker_params):
+            for k, sl in sel.items():
+                w = params[k][sl]
+                if snapshot is None:
+                    w.copy_(gp[k][sl])
+                else:
+                    w.copy_(gp[k][sl].float()
+                            + (w.float() - snapshot[i][k].float()))
+        return (state._replace(outer=state.outer._replace(
+            t=state.outer.t + 1)), residual)
+
+    def outer_step_ef(self, state: DiLoCoState,
+                      residual: Optional[Flat] = None
+                      ) -> Tuple[DiLoCoState, Optional[Flat]]:
+        """Full outer sync with an optional error-feedback residual;
+        returns (state, residual)."""
+        return self.sync(state, residual)
+
     def outer_step(self, state: DiLoCoState) -> DiLoCoState:
-        """Average the deltas, outer Nesterov step, and write the new
-        anchor into every worker (inner optimizer states stay per worker,
-        paper §3)."""
-        new_global, new_outer = outer_opt.outer_step(
-            state.global_params, state.worker_params, state.outer, self.cfg)
-        for params in state.worker_params:
-            for k, p in params.items():
-                p.copy_(new_global[k])
-        return state._replace(global_params=new_global, outer=new_outer)
+        return self.outer_step_ef(state)[0]

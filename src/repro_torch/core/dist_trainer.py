@@ -5,11 +5,12 @@
     state = trainer.init(params)
     state, hist = trainer.run(state, data_fn, num_steps)
 
-The strategy owns when and what to synchronize; the loop runs the inner
-steps, records losses and builds the history: ``step`` / ``loss``,
-``sync_steps``, ``frag_syncs`` and ``evals`` (always
-empty here, kept so the keys match the JAX package's) and
-``step_seconds`` (median seconds per inner step over chunks).
+The strategy owns when and what to synchronize (and holds the codec's
+error-feedback residual); the loop runs the inner steps, records losses
+and builds the history: ``step`` / ``loss``, ``sync_steps``,
+``frag_syncs`` and ``evals`` (always empty here, kept so the keys match
+the JAX package's) and ``step_seconds`` (median seconds per inner step
+over chunks).
 
 Chunks.  A chunk runs from the current step to the strategy's next event
 (the next outer sync for DiLoCo), at most ``MAX_CHUNK`` steps.  The
@@ -33,7 +34,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import DiLoCoConfig, OptimizerConfig
-from repro_torch.core.diloco import DiLoCoState, DiLoCoTrainer
+from repro_torch.core.diloco import DiLoCoState
+from repro_torch.core.streaming import StreamingDiLoCoTrainer
 from repro_torch.core.sync import SyncStrategy
 
 
@@ -68,8 +70,13 @@ class DistTrainer:
     cfg: DiLoCoConfig
     strategy: SyncStrategy
 
-    def engine(self) -> DiLoCoTrainer:
-        return DiLoCoTrainer(self.loss_fn, self.opt_cfg, self.cfg)
+    # The compute engine: StreamingDiLoCoTrainer is the most general
+    # DiLoCoTrainer (inner step, full and fragment outer steps); strategies
+    # pick which pieces they drive.
+    def engine(self) -> StreamingDiLoCoTrainer:
+        return StreamingDiLoCoTrainer(
+            self.loss_fn, self.opt_cfg, self.cfg,
+            num_fragments=getattr(self.strategy, "num_fragments", 4))
 
     def init(self, params) -> DiLoCoState:
         return self.engine().init(params)
@@ -91,7 +98,7 @@ class DistTrainer:
             raise NotImplementedError("run checkpoints and resume are not "
                                       "ported")
         eng = self.engine()
-        runner = self.strategy.bind(eng)
+        runner = self.strategy.bind(eng, state.global_params)
         device = state.inner_step.device
         history: Dict[str, list] = {"step": [], "loss": [], "sync_steps": [],
                                     "frag_syncs": [], "evals": []}

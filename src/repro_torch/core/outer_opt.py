@@ -1,42 +1,45 @@
-"""DiLoCo outer synchronization: delta averaging + Nesterov outer SGD
-(the JAX package's ``core/outer_opt.py``, plain mean only).
+"""DiLoCo outer synchronization: delta exchange through the codec
+transport, averaging, and Nesterov outer SGD (the JAX package's
+``core/outer_opt.py``).
 
     Δθ_i    = θ_i^H − θ_t          (per-worker parameter delta, f32)
-    Δθ̄      = (1/k) Σ_i Δθ_i       (cross-worker average)
+    Δθ̄      = (1/k) Σ_i decode(encode(Δθ_i))   (the communication)
     v_{t+1} = μ v_t + Δθ̄
     θ_{t+1} = θ_t + η (Δθ̄ + μ v_{t+1})   (Nesterov; else θ_t + η v_{t+1})
 
-The JAX package ships deltas through a codec transport; its float32 codec
-is the identity, and that is the only one ported: any other
-``delta_dtype`` raises, as does ``drift_aware`` averaging.  The average is
-taken leaf by leaf, so no (K, ...) stack of deltas is ever held.
+The exchange itself is ``core/transport.py``: f32 passthrough, bf16 cast,
+or int8 / fp8 / fp8_e5m2 with per-tensor-per-worker scales through the
+quantize kernels, with an optional per-worker error-feedback residual.
+
+``outer_sync`` runs the round one leaf at a time: it stacks one leaf's K
+worker deltas, encodes, ships, decodes and averages them, and applies the
+outer update to that leaf before it touches the next, so no (K, ...)
+stack of the whole model is held.  Leaves are independent, so this gives
+the reference's whole-tree result bit for bit.  Drift-aware averaging
+weighs each worker by the cosine of its WHOLE delta to the mean, which
+needs every leaf first: that path decodes all leaves, then averages.
 """
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.configs.base import DiLoCoConfig
+from repro_torch.core.transport import (QuantizedCodec, Transport,
+                                        make_codec, wire_width)
+from repro_torch.kernels.quantize.ref import reference_quantize_ef
 
 Flat = Dict[str, torch.Tensor]
 
-_F32_CODECS = ("float32", "f32")
+# wire width (bytes/element) of each supported delta payload dtype
+DELTA_WIDTH = {d: wire_width(d)
+               for d in ("float32", "bfloat16", "int8", "fp8", "fp8_e5m2")}
 
 
 class OuterState(NamedTuple):
     v: Flat               # outer momentum, f32, one leaf per parameter
     t: torch.Tensor       # outer step counter, 0-d int32
-
-
-def require_ported(cfg: DiLoCoConfig) -> None:
-    """Raise for the outer-sync knobs whose code paths are not ported."""
-    if cfg.drift_aware:
-        raise NotImplementedError("drift_aware averaging is not ported")
-    if cfg.delta_dtype not in _F32_CODECS:
-        raise NotImplementedError(
-            f"delta_dtype {cfg.delta_dtype!r}: the codec transport is not "
-            f"ported; only float32 (the identity codec) is")
 
 
 def init_outer_state(params: Flat) -> OuterState:
@@ -47,38 +50,131 @@ def init_outer_state(params: Flat) -> OuterState:
         t=torch.zeros((), dtype=torch.int32, device=some.device))
 
 
-def _average(workers: List[torch.Tensor], anchor: torch.Tensor,
-             cfg: DiLoCoConfig) -> torch.Tensor:
-    """Mean over workers of the f32 deltas ``w - anchor`` of one leaf,
-    summed in worker order (for K = 2 exactly the JAX package's mean)."""
-    require_ported(cfg)
-    g = anchor.float()
-    acc = workers[0].float() - g
-    for w in workers[1:]:
-        acc = acc + (w.float() - g)
-    return acc / len(workers)
+def make_transport(cfg: DiLoCoConfig) -> Transport:
+    """The transport the config describes: the quantize kernels on CUDA
+    tensors, their plain versions on CPU tensors."""
+    return Transport(make_codec(cfg.delta_dtype))
 
 
-def outer_update(global_params: Flat, avg_delta: Flat, state: OuterState,
-                 cfg: DiLoCoConfig) -> Tuple[Flat, OuterState]:
-    """Nesterov-momentum SGD on the averaged delta (the pseudo-gradient is
-    −Δθ̄).  Returns new parameter and momentum tensors."""
+def quantize_delta(delta: Flat, dtype: str):
+    """Per-tensor symmetric quantization of a (K, ...) stacked delta dict
+    through the plain per-row oracle (an f32 or bf16 wire is a cast, with
+    no scales).  Returns (payload, scales) dicts."""
+    codec = make_codec(dtype)
+    if not isinstance(codec, QuantizedCodec):
+        payload, _ = codec.encode(delta)
+        return payload.data, payload.scales
+    out = {k: reference_quantize_ef(d, dtype=codec.qdtype)
+           for k, d in delta.items()}
+    return ({k: q for k, (q, _, _) in out.items()},
+            {k: s for k, (_, _, s) in out.items()})
+
+
+def dequantize_delta(payload: Flat, scales: Optional[Flat]) -> Flat:
+    if scales is None:
+        return {k: p.float() for k, p in payload.items()}
+    return {k: p.float() * scales[k] for k, p in payload.items()}
+
+
+# ---------------------------------------------------------------------------
+# Averaging
+# ---------------------------------------------------------------------------
+
+def _tree_dot(a: Flat, b: Flat) -> torch.Tensor:
+    out = None
+    for k in a:
+        s = torch.sum(a[k].float() * b[k].float())
+        out = s if out is None else out + s
+    return out
+
+
+def _mean(d: torch.Tensor) -> torch.Tensor:
+    """Mean over the leading worker dim, summed in worker order (for K=2
+    exactly the reference's ``jnp.mean``)."""
+    acc = d[0]
+    for i in range(1, d.shape[0]):
+        acc = acc + d[i]
+    return acc / d.shape[0]
+
+
+def _average(delta: Flat, cfg: DiLoCoConfig) -> Flat:
+    """Decoded f32 (K, ...) stacked deltas -> averaged delta dict; with
+    ``drift_aware`` each worker is weighted by softmax(4 · cos(Δ_i, Δ̄))
+    over the whole dict.  (The reference's ``live`` quorum mask belongs
+    to the fault layer, which is not ported.)"""
+    mean = {k: _mean(d) for k, d in delta.items()}
+    if not cfg.drift_aware:
+        return mean
+    k_workers = next(iter(delta.values())).shape[0]
+    mean_norm = torch.sqrt(_tree_dot(mean, mean)) + 1e-12
+    cos = []
+    for i in range(k_workers):
+        di = {k: d[i] for k, d in delta.items()}
+        ni = torch.sqrt(_tree_dot(di, di)) + 1e-12
+        cos.append(_tree_dot(di, mean) / (ni * mean_norm))
+    w = torch.softmax(4.0 * torch.stack(cos), dim=0)          # (K,)
+    return {k: torch.tensordot(w, d.float(), dims=([0], [0]))
+            for k, d in delta.items()}
+
+
+def exchange_and_average(stacked_delta: Flat, cfg: DiLoCoConfig,
+                         residual: Optional[Flat] = None,
+                         kind: str = "delta", fragment: int = -1
+                         ) -> Tuple[Flat, Optional[Flat]]:
+    """encode -> ship -> decode -> average; returns (averaged delta, new
+    error-feedback residual or None)."""
+    full, new_residual = make_transport(cfg).exchange(
+        stacked_delta, residual, kind=kind, fragment=fragment)
+    return _average(full, cfg), new_residual
+
+
+# ---------------------------------------------------------------------------
+# Outer update
+# ---------------------------------------------------------------------------
+
+def update_leaf(p: torch.Tensor, v: torch.Tensor, d: torch.Tensor,
+                cfg: DiLoCoConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Nesterov-momentum SGD on one leaf's averaged delta (the
+    pseudo-gradient is −Δθ̄).  Returns (new parameter, new momentum)."""
     mu, eta = cfg.outer_momentum, cfg.outer_lr
-    new_p, new_v = {}, {}
-    for k, p in global_params.items():
-        d = avg_delta[k].float()
-        v = mu * state.v[k] + d
-        step_dir = d + mu * v if cfg.nesterov else v
-        new_p[k] = (p.float() + eta * step_dir).to(p.dtype)
-        new_v[k] = v
-    return new_p, OuterState(new_v, state.t + 1)
+    d = d.float()
+    v_new = mu * v + d
+    step_dir = d + mu * v_new if cfg.nesterov else v_new
+    return (p.float() + eta * step_dir).to(p.dtype), v_new
+
+
+def stack_delta(rows: Sequence[torch.Tensor],
+                anchor: torch.Tensor) -> torch.Tensor:
+    """(K, ...) f32 deltas ``rows[i] - anchor`` of one leaf."""
+    out = torch.empty((len(rows),) + tuple(anchor.shape),
+                      dtype=torch.float32, device=anchor.device)
+    a = anchor.float()
+    for i, r in enumerate(rows):
+        torch.sub(r.float(), a, out=out[i])
+    return out
 
 
 @torch.no_grad()
-def outer_step(global_params: Flat, worker_params: List[Flat],
-               state: OuterState, cfg: DiLoCoConfig
-               ) -> Tuple[Flat, OuterState]:
-    """Average the workers' deltas and apply the outer update."""
-    avg = {k: _average([w[k] for w in worker_params], p, cfg)
-           for k, p in global_params.items()}
-    return outer_update(global_params, avg, state, cfg)
+def outer_sync(anchor: Flat, rows: Dict[str, List[torch.Tensor]], v: Flat,
+               cfg: DiLoCoConfig, residual: Optional[Flat] = None, *,
+               kind: str = "delta", fragment: int = -1) -> None:
+    """One outer round over the leaves (or fragment slices) named by
+    ``anchor``: ``rows[k]`` are the K workers' (or snapshots') tensors of
+    leaf k, ``v[k]`` its momentum, ``residual[k]`` its (K, ...) error
+    feedback carry.  Writes the new anchor, momentum and residual IN
+    PLACE into those tensors (views of a larger leaf are fine)."""
+    # drift-aware weights need every leaf's delta at once; otherwise one
+    # leaf at a time, so no (K, ...) stack of the whole model is held
+    groups = [list(anchor)] if cfg.drift_aware else [[k] for k in anchor]
+    for group in groups:
+        delta = {k: stack_delta(rows[k], anchor[k]) for k in group}
+        res = None if residual is None else {k: residual[k] for k in group}
+        avg, new_res = exchange_and_average(delta, cfg, res, kind=kind,
+                                            fragment=fragment)
+        del delta
+        for k in group:
+            p, vv = update_leaf(anchor[k], v[k], avg[k], cfg)
+            anchor[k].copy_(p)
+            v[k].copy_(vv)
+            if residual is not None:
+                residual[k].copy_(new_res[k])

@@ -7,6 +7,7 @@ from repro_torch.kernels._build import launches, reset_launches
 KERNELS = ("rmsnorm", "rmsnorm_residual", "paged_decode", "paged_verify",
            "flash_fwd", "flash_bwd", "fused_adamw", "rmsnorm_bwd",
            "paged_decode_dequant", "paged_verify_dequant",
-           "paged_decode_fp8", "paged_verify_fp8")
+           "paged_decode_fp8", "paged_verify_fp8", "quantize_ef",
+           "dequantize")
 
 __all__ = ["KERNELS", "launches", "reset_launches"]

@@ -1,24 +1,36 @@
 """Training launcher — the base stage of the paper's pipeline as a CLI
 (the JAX package's ``launch/train.py``, base stage only):
 
-  --method ddp      fully synchronous baseline (K = 1 on the global batch)
-  --method diloco   DiLoCo: K workers, H inner steps of Muon + AdamW, then
-                    the outer Nesterov step
+  --method ddp         fully synchronous baseline (K = 1 on the global
+                       batch); with --grad-compress int8|fp8|fp8_e5m2, K
+                       workers averaging their per-step updates through
+                       that codec (ddp_compressed)
+  --method diloco      DiLoCo: K workers, H inner steps of Muon + AdamW,
+                       then the outer Nesterov step
+  --method streaming   one of --fragments F fragments every H/F steps
+  --method overlapped  the outer update lands --sync-delay steps after the
+                       capture; --h-jitter straggler jitter on the capture
+  --method pipelined   one fragment per round, applied --sync-delay later
 
     PYTHONPATH=src python -m repro_torch.launch.train --method diloco \\
-        --steps 30 --workers 2 [--fused-adamw] [--device cuda|cpu]
+        --steps 30 --workers 2 [--delta-dtype int8|fp8|fp8_e5m2|bfloat16] \\
+        [--no-error-feedback] [--drift-aware] [--fused-adamw] \\
+        [--device cuda|cpu]
 
-Runs on the card by default and raises without one; ``--device cpu`` runs
-the kernels' plain PyTorch versions.  The corpus is the synthetic world
-of ``repro_torch.data.synthetic`` (the same texts and tokenizer as the
-JAX pipeline's base stage); H is steps // 3 as in the JAX pipeline's base
+``--delta-dtype`` picks the outer-sync wire codec (int8 and fp8 carry
+per-tensor scales and an error-feedback residual and run the quantize
+kernels on the card; see ``repro_torch.core.transport``).  Runs on the
+card by default and raises without one; ``--device cpu`` runs the
+kernels' plain PyTorch versions.  The corpus is the synthetic world of
+``repro_torch.data.synthetic`` (the same texts and tokenizer as the JAX
+pipeline's base stage); H is steps // 3 as in the JAX pipeline's base
 stage, and the optimizer schedule spans the JAX pipeline's three stages
 (steps + 2 * (steps // 2)), so the base stage here follows the JAX
 pipeline's base stage step for step.
 
 Not ported yet, and raising ``NotImplementedError``: the mid and SFT
-stages with ``run_pipeline`` and the evals, ``--method hybrid``, the other
-sync strategies, compressed sync, run checkpoints and faults.
+stages with ``run_pipeline`` and the evals, ``--method hybrid``, the
+gossip strategies, run checkpoints and faults.
 """
 from __future__ import annotations
 
@@ -68,18 +80,28 @@ def run_stage(method: str, cfg: ModelConfig, params, stage_ds, *,
               checkpoint_every: int = 0, resume: bool = False):
     """Run one pipeline stage of ``cfg`` from ``params`` (a parameter tree
     on the device to train on) under ``method``; returns (final global
-    parameter tree, history).  Both methods go through ``DistTrainer``."""
-    from repro_torch.core import DistTrainer, make_strategy
+    parameter tree, history).  Every method goes through ``DistTrainer``;
+    ``method`` picks the sync strategy."""
+    from repro_torch.core import (DistTrainer, compressed_ddp_config,
+                                  make_strategy)
     from repro_torch.models import lm_loss
     from repro_torch.models.transformer import unflatten
 
     if h_schedule is not None:
         raise NotImplementedError("H schedules other than a fixed H "
                                   "(adaptive H) are not ported")
+
+    def worker_data(step):
+        return stage_ds.worker_batches(step, workers, per_worker_batch,
+                                       seed=seed)
+
     if method == "ddp" and diloco_cfg.grad_compress not in ("", "none"):
-        raise NotImplementedError("DDP with gradient compression "
-                                  "(ddp_compressed) is not ported")
-    if method == "ddp":
+        # DDP-side gradient compression: K real workers exchanging their
+        # per-step updates through the codec (core.sync.CompressedDDPSync)
+        dcfg = compressed_ddp_config(
+            dataclasses.replace(diloco_cfg, num_workers=workers))
+        data = worker_data
+    elif method == "ddp":
         dcfg = dataclasses.replace(diloco_cfg, num_workers=1,
                                    h_inner_steps=1, outer_lr=1.0,
                                    outer_momentum=0.0, nesterov=False,
@@ -89,12 +111,14 @@ def run_stage(method: str, cfg: ModelConfig, params, stage_ds, *,
             b = stage_ds.batch(step, workers * per_worker_batch, seed=seed)
             return {k: v[None] for k, v in b.items()}
     else:
+        # clamp the overlap knobs to the stage's H (a stage's budget can
+        # shrink H below a globally configured delay / jitter)
+        delay = min(diloco_cfg.sync_delay, h - 1)
+        jitter = min(diloco_cfg.h_jitter, h - 1 - delay)
         dcfg = dataclasses.replace(diloco_cfg, num_workers=workers,
-                                   h_inner_steps=h, strategy=method)
-
-        def data(step):
-            return stage_ds.worker_batches(step, workers, per_worker_batch,
-                                           seed=seed)
+                                   h_inner_steps=h, strategy=method,
+                                   sync_delay=delay, h_jitter=jitter)
+        data = worker_data
 
     trainer = DistTrainer(lambda p, b: lm_loss(p, b, cfg), opt_cfg, dcfg,
                           make_strategy(dcfg))
@@ -113,18 +137,40 @@ def run_pipeline(*args, **kwargs):
 
 
 def main(argv=None) -> dict:
+    from repro_torch.core.transport import reset_shipped, shipped
     from repro_torch.models import init_params
     from repro_torch.serving import resolve_device
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--method", default="diloco",
-                    help="ddp | diloco (the other JAX strategies and "
-                         "hybrid are not ported)")
+                    help="ddp | diloco | streaming | overlapped | pipelined "
+                         "(gossip, async_gossip and hybrid are not ported)")
     ap.add_argument("--arch", default="tiny",
                     choices=["tiny", "nanochat-d20"])
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--fused-adamw", action="store_true",
                     help="AdamW through the fused kernel")
+    ap.add_argument("--delta-dtype", default="float32",
+                    choices=["float32", "f32", "bfloat16", "bf16", "int8",
+                             "fp8", "e5m2", "fp8_e5m2"],
+                    help="the outer-sync wire codec")
+    ap.add_argument("--no-error-feedback", action="store_true",
+                    help="disable the lossy codecs' error-feedback residual")
+    ap.add_argument("--grad-compress", default="none",
+                    choices=["none", "int8", "fp8", "fp8_e5m2"],
+                    help="--method ddp only: K workers exchange their "
+                         "per-step updates through this codec")
+    ap.add_argument("--drift-aware", action="store_true",
+                    help="weigh each worker's delta by its cosine to the "
+                         "mean")
+    ap.add_argument("--sync-delay", type=int, default=0,
+                    help="overlapped/pipelined: steps between delta capture "
+                         "and apply")
+    ap.add_argument("--h-jitter", type=int, default=0,
+                    help="overlapped: max per-worker straggler jitter on "
+                         "the capture")
+    ap.add_argument("--fragments", type=int, default=4,
+                    help="streaming/pipelined: number of fragments F")
     ap.add_argument("--device", type=str, default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
@@ -141,7 +187,14 @@ def main(argv=None) -> dict:
     opt_cfg = OptimizerConfig(total_steps=total, warmup_steps=20,
                               schedule="wsd", learning_rate=0.02,
                               adam_lr=1e-3, fused_adamw=args.fused_adamw)
-    dcfg = DiLoCoConfig(num_workers=args.workers, sync_seed=args.seed)
+    dcfg = DiLoCoConfig(num_workers=args.workers, sync_seed=args.seed,
+                        delta_dtype=args.delta_dtype,
+                        error_feedback=not args.no_error_feedback,
+                        grad_compress=args.grad_compress,
+                        drift_aware=args.drift_aware,
+                        sync_delay=args.sync_delay, h_jitter=args.h_jitter,
+                        num_fragments=args.fragments)
+    reset_shipped()
     t0 = time.perf_counter()
     _, hist = run_stage(args.method, cfg, params, stages["base"],
                         steps=args.steps, workers=args.workers,
@@ -151,9 +204,11 @@ def main(argv=None) -> dict:
     wall = time.perf_counter() - t0
     tokens = args.steps * args.workers * per_worker_batch * seq_len
     kernels = "cuda" if device.type == "cuda" else "plain"
+    syncs = len(hist["sync_steps"]) + len(hist["frag_syncs"])
     print(f"[{args.method}:base] {cfg.name} device={device.type} "
           f"kernels={kernels} loss {hist['loss'][0]:.3f} -> "
-          f"{hist['loss'][-1]:.3f} syncs={len(hist['sync_steps'])} "
+          f"{hist['loss'][-1]:.3f} syncs={syncs} "
+          f"wire_bytes={dict(shipped)} "
           f"step_seconds={hist['step_seconds']:.4f} "
           f"tokens_per_s={tokens / wall:.1f}")
     return hist

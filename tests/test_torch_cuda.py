@@ -420,3 +420,114 @@ def test_cuda_training_step_matches_cpu(cuda):
     assert h_gpu["sync_steps"] == h_cpu["sync_steps"] == [1, 3]
     for k, v in p_cpu.items():
         torch.testing.assert_close(p_gpu[k].cpu(), v, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,tile,residual", [
+    ((2, 131072), 0, True), ((1, 1280), 0, True), ((), 0, True),
+    ((3, 5, 7), 0, False), ((2, 12807), 256, True), ((2, 1000), 128, False),
+    ((2, 0), 0, True)], ids=str)
+@pytest.mark.parametrize("dtype", ["int8", "fp8_e4m3", "fp8_e5m2"])
+def test_cuda_quantize_kernels_match_plain_bitwise(cuda, dtype, shape, tile,
+                                                   residual):
+    """quantize_ef (codes, residual, scales) and dequantize equal their
+    plain versions on the card bit for bit, per row and per tile, on row,
+    3-d, odd-length, scalar and 0-size leaves."""
+    from repro_torch.kernels.quantize import (dequantize, dequantize_plain,
+                                              quantize_ef, quantize_ef_plain)
+    g = torch.Generator().manual_seed(0)
+    x = (torch.randn(shape, generator=g) * 0.01).to(cuda)
+    r = ((torch.randn(shape, generator=g) * 1e-4).to(cuda) if residual
+         else None)
+    got = quantize_ef(x, r, dtype=dtype, tile=tile)
+    want = quantize_ef_plain(x, r, dtype=dtype, tile=tile)
+    bits = lambda t: t.view(torch.uint8) if t.dtype != torch.int8 else t
+    assert torch.equal(bits(got[0]), bits(want[0]))
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert got[2].shape == want[2].shape
+    assert torch.equal(dequantize(got[0], got[2], tile=tile),
+                       dequantize_plain(want[0], want[2], tile=tile))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [0, 256])
+@pytest.mark.parametrize("dtype", ["int8", "fp8_e4m3", "fp8_e5m2"])
+def test_cuda_quantize_kernels_propagate_nan_and_inf_like_plain(cuda, dtype,
+                                                                tile):
+    """A NaN or an inf in a row reaches that row's (or tile's) scale, its
+    residuals and its decoded values as in the plain version, so a
+    diverged worker cannot ship a valid-looking payload; every code whose
+    plain decode is a number is equal bit for bit."""
+    from repro_torch.kernels.quantize import (dequantize, dequantize_plain,
+                                              quantize_ef, quantize_ef_plain)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(3, 1000, generator=g) * 0.01
+    x[1, 417] = float("nan")
+    x[2, 3] = float("inf")
+    x = x.to(cuda)
+    r = (torch.randn(3, 1000, generator=g) * 1e-4).to(cuda)
+    got = quantize_ef(x, r, dtype=dtype, tile=tile)
+    want = quantize_ef_plain(x, r, dtype=dtype, tile=tile)
+
+    def same(a, b):
+        return (torch.equal(torch.isnan(a), torch.isnan(b))
+                and torch.equal(a.nan_to_num(), b.nan_to_num()))
+    assert torch.isnan(got[2][1]).any() and torch.isinf(got[2][2]).any()
+    assert same(got[1], want[1]) and same(got[2], want[2])
+    out = dequantize(got[0], got[2], tile=tile)
+    ref = dequantize_plain(want[0], want[2], tile=tile)
+    assert same(out, ref) and torch.isnan(ref[1]).any()
+    bits = lambda t: t.view(torch.uint8) if t.dtype != torch.int8 else t
+    num = ~torch.isnan(ref)
+    assert torch.equal(bits(got[0])[num], bits(want[0])[num])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy,kw", [
+    ("diloco", dict(delta_dtype="int8")),
+    ("streaming", dict(delta_dtype="fp8", num_fragments=2)),
+    ("overlapped", dict(delta_dtype="fp8_e5m2", sync_delay=1)),
+    ("pipelined", dict(delta_dtype="int8", num_fragments=2, sync_delay=1))])
+def test_cuda_lossy_wire_launches_the_quantize_kernels(cuda, strategy, kw):
+    """Four steps of a tiny model with a lossy wire on the card: every
+    sync goes through quantize_ef and dequantize, and the losses (rtol
+    1e-5) and final parameters agree with the CPU run, the parameters
+    within 1e-2: a code may differ by a step (up to amax/7 on e5m2) where
+    the GEMMs' order moves a value across a rounding boundary."""
+    from repro_torch.configs import (DiLoCoConfig, ModelConfig,
+                                     OptimizerConfig)
+    from repro_torch.core import DistTrainer, make_strategy
+    from repro_torch.models import init_params, lm_loss
+    from repro_torch.models.transformer import flatten
+    cfg = ModelConfig(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
+                      d_ff=128, vocab_size=97)
+    opt = OptimizerConfig(total_steps=8, warmup_steps=2)
+    dcfg = DiLoCoConfig(num_workers=2, h_inner_steps=2, strategy=strategy,
+                        **kw)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, 97, (4, 2, 2, 33)).astype(np.int32)
+
+    def data(s):
+        return {"tokens": toks[s, :, :, :-1], "labels": toks[s, :, :, 1:]}
+
+    out = {}
+    for dev in ("cpu", cuda):
+        params = {k: v.to(dev) for k, v in
+                  flatten(init_params(cfg, seed=0)).items()}
+        dt = DistTrainer(lambda p, b: lm_loss(p, b, cfg), opt, dcfg,
+                         make_strategy(dcfg))
+        reset_launches()
+        state, hist = dt.run(dt.init(params), data, 4)
+        out[str(dev)] = (hist, state.global_params)
+        n_syncs = len(hist["sync_steps"]) + len(hist["frag_syncs"])
+        if dev != "cpu":
+            assert n_syncs and launches["quantize_ef"] >= n_syncs
+            assert launches["dequantize"] == launches["quantize_ef"]
+        else:
+            assert launches["quantize_ef"] == launches["dequantize"] == 0
+    (h_cpu, p_cpu), (h_gpu, p_gpu) = out["cpu"], out[str(cuda)]
+    np.testing.assert_allclose(h_gpu["loss"], h_cpu["loss"], rtol=1e-5)
+    assert h_gpu["sync_steps"] == h_cpu["sync_steps"]
+    assert h_gpu["frag_syncs"] == h_cpu["frag_syncs"]
+    for k, v in p_cpu.items():
+        torch.testing.assert_close(p_gpu[k].cpu(), v, atol=1e-2, rtol=0)

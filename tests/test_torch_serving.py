@@ -376,3 +376,25 @@ def test_port_imports_neither_jax_nor_the_reference(path):
     for mod in _imports(REPO / path):
         root = mod.split(".")[0]
         assert root not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+def test_wire_constants_copy_the_reference():
+    """The port's copies of the wire tables and quantize constants equal
+    the JAX package's originals."""
+    from repro.core import transport as jax_transport
+    from repro.kernels.quantize import kernel as jax_qkernel
+    from repro.kernels.quantize import ref as jax_qref
+    from repro_torch.core import transport
+    from repro_torch.kernels.quantize import QDTYPES, QMAX, SCALE_EPS
+    assert transport.WIRE_WIDTH == jax_transport.WIRE_WIDTH
+    assert transport._ALIASES == jax_transport._ALIASES
+    assert QMAX == jax_qkernel.QMAX and QDTYPES == jax_qkernel.QDTYPES
+    assert SCALE_EPS == jax_qref.SCALE_EPS == jax_qkernel.SCALE_EPS
+
+
+@pytest.mark.parametrize("path", ["src/repro_torch/core/transport.py",
+                                  "src/repro_torch/core/streaming.py"])
+def test_wire_modules_import_nothing_of_the_reference(path):
+    mods = list(_imports(REPO / path))
+    assert mods and all(m.split(".")[0] not in ("jax", "jaxlib", "repro")
+                        for m in mods), (path, mods)

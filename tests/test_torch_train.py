@@ -26,8 +26,8 @@ from repro.optim import apply_updates as jax_apply_updates
 from repro.optim import nanochat_optimizer as jax_nanochat_optimizer
 from repro_torch.checkpoint import params_to_numpy
 from repro_torch.configs import DiLoCoConfig, OptimizerConfig
-from repro_torch.core import (DDPTrainer, DiLoCoSync, DiLoCoTrainer,
-                              DistTrainer, make_strategy)
+from repro_torch.core import (DDPTrainer, DiLoCoSync, DistTrainer,
+                              make_strategy)
 from repro_torch.data import PackedDataset
 from repro_torch.launch import train
 from repro_torch.models import lm_loss
@@ -271,22 +271,27 @@ def test_train_cli_defaults_to_cuda_and_raises_without_it(monkeypatch):
         train.main(["--steps", "1"])
 
 
-@pytest.mark.parametrize("what", ["streaming", "gossip", "hybrid",
-                                  "drift_aware", "int8", "prefetch",
-                                  "faults", "checkpoint", "pipeline",
-                                  "evals", "adaptive_h"])
+@pytest.mark.parametrize("what", ["async_gossip", "gossip", "hybrid",
+                                  "streaming_faults", "gossip_cli",
+                                  "prefetch", "faults", "checkpoint",
+                                  "pipeline", "evals", "adaptive_h"])
 def test_unported_paths_raise(jparams, what):
     cfg = port_cfg(tiny_cfg("dense"))
     params = port_params(tiny_cfg("dense"), jparams)
     with pytest.raises(NotImplementedError):
-        if what in ("streaming", "gossip"):
+        if what in ("async_gossip", "gossip"):
             make_strategy(DiLoCoConfig(strategy=what))
         elif what == "hybrid":
             train.main(["--device", "cpu", "--method", "hybrid"])
-        elif what in ("drift_aware", "int8"):
-            dcfg = (DiLoCoConfig(drift_aware=True) if what == "drift_aware"
-                    else DiLoCoConfig(delta_dtype="int8"))
-            DiLoCoTrainer(None, OptimizerConfig(), dcfg).init(params)
+        elif what == "gossip_cli":
+            train.main(["--device", "cpu", "--method", "gossip",
+                        "--steps", "1", "--workers", "2"])
+        elif what == "streaming_faults":
+            dcfg = DiLoCoConfig(num_workers=2, h_inner_steps=2,
+                                strategy="streaming", num_fragments=2)
+            dt = DistTrainer(lambda p, b: lm_loss(p, b, cfg),
+                             OptimizerConfig(), dcfg, make_strategy(dcfg))
+            dt.run(dt.init(params), None, 1, faults=object())
         elif what == "pipeline":
             train.run_pipeline(method="diloco")
         elif what == "adaptive_h":
@@ -313,6 +318,12 @@ def test_ddp_sync_rejects_multiple_workers(jparams):
 
 
 def test_unknown_strategy_is_a_value_error():
+    from repro.core.sync import strategy_names as jax_strategy_names
+    from repro_torch.core import strategy_names
+    from repro_torch.core.sync import UNPORTED
     with pytest.raises(ValueError, match="unknown strategy"):
         make_strategy(DiLoCoConfig(strategy="nope"))
     assert isinstance(make_strategy(DiLoCoConfig()), DiLoCoSync)
+    # the reference's registry, in its order, less the gossip strategies
+    assert strategy_names() + UNPORTED == jax_strategy_names()
+    assert UNPORTED == ("gossip", "async_gossip")

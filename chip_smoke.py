@@ -25,6 +25,12 @@ Run from the root of a checkout.  Phases, each fatal on failure:
      and dequantize, bit for bit, for int8, fp8_e4m3 and fp8_e5m2: at
      (2, 131,072,000) (the layers/mlp/w_up leaf of two workers) with a
      residual, at (1, 1280), on a scalar leaf, and per tile (256);
+   - the static path's kernels: the SSD chunk scan at mamba2-1.3b's
+     shapes (B 2, H 64, P 64, N 128; S 512, S 300 (padding), S 64
+     (Q 64)) within 1e-4 + 1e-4 in f32, and the ring decode at (B 8,
+     KV 10, G 1, S 320, D 128) with window 0 and 64 over a wrapped ring
+     with empty slots (the row whose query sits at -1 gives zeros and is
+     not compared);
 3. full width at depth 2, card against CPU, same params and batch:
    - one ``decode_step_paged`` and one ``verify_step_paged``, on an f32
      pool and on an fp8 pool (logits; the fp8 pool within one quantum);
@@ -38,6 +44,10 @@ Run from the root of a checkout.  Phases, each fatal on failure:
      that differ counted, and those far apart by optimizer partition and
      by AdamW gradient size); from one state, the new anchor, momentum
      and residual equal bit for bit;
+   - the static path: mamba2-1.3b's ``forward_lm`` (2 x 200 tokens), and
+     for mamba2-1.3b and nanochat-d20 a 12-token static prefill plus one
+     ``decode_step_lm`` (logits 2e-3; SSM state, conv ring, ring K/V
+     within 1e-4 of their max);
 4. the serving main path: ``repro_torch.Engine`` with the full
    nanochat-d20 config (seeded random params, 8 ragged token-id requests,
    max_new 32; 16 off the f32 pool) with spec_k=0 and spec_k=4, on an f32
@@ -49,7 +59,17 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    stream is printed; then one shorter spec_k=0 run on an f32 and on an
    fp8 pool under torch.profiler for the device time by kernel and busy
    share, and the capacity of an f32 and an fp8 pool at one byte budget
-   (blocks and peak admitted requests);
+   (blocks and peak admitted requests); then the static-bucket path:
+   mamba2-1.3b at full width and depth (48 layers, seeded random
+   params) serves the same 8 requests through ``Engine.generate`` (an
+   SSM has no paged cache; max_new 16) and scores 4 rows (one over 128
+   tokens, one under 64) with ``score_continuations_batch`` (the SSD
+   kernel once per layer; no paged or flash kernel on either), one
+   short static run under torch.profiler; nanochat-d20 serves the 8
+   requests on an engine too small for them (max_len 256), so the batch
+   takes the static path and the ring decode kernel, and on a batch that
+   fits the share of greedy tokens equal between the static path and
+   the scheduler is printed (not gated);
 5. the training main path at full nanochat-d20 (20 layers, float32,
    random params from seed 0) on the port's synthetic corpus through its
    ``PackedDataset`` at seq_len 1024: ``run_stage("diloco")`` with K=2,
@@ -110,6 +130,8 @@ REPLACES = {
     "paged_verify_fp8": "src/repro/kernels/decode_attention/kernel.py:317",
     "quantize_ef": "src/repro/kernels/quantize/kernel.py:95",
     "dequantize": "src/repro/kernels/quantize/kernel.py:126",
+    "ssd": "src/repro/kernels/ssd/kernel.py:89",
+    "ring_decode": "src/repro/kernels/decode_attention/kernel.py:489",
 }
 QK_DOT_FP8 = "src/repro/kernels/common.py:31 qk_dot_fp8"
 GRADIENT_OF = {
@@ -133,6 +155,8 @@ SOURCE = {
     "paged_verify_fp8": "src/repro_torch/kernels/csrc/paged_attention.cu",
     "quantize_ef": "src/repro_torch/kernels/csrc/quantize.cu",
     "dequantize": "src/repro_torch/kernels/csrc/quantize.cu",
+    "ssd": "src/repro_torch/kernels/csrc/ssd.cu",
+    "ring_decode": "src/repro_torch/kernels/csrc/ring_attention.cu",
 }
 WIRE_KERNELS = ("quantize_ef", "dequantize")
 WIRE_TARGETS = ("int8", "fp8_e4m3", "fp8_e5m2")
@@ -141,6 +165,15 @@ W_UP = 131_072_000                     # 20 x 1280 x 5120: one stacked leaf
 KV_TARGETS = {"int8": "int8", "fp8": "fp8_e4m3", "fp8_e5m2": "fp8_e5m2"}
 TRAIN_KERNELS = ("rmsnorm", "rmsnorm_residual", "flash_fwd", "flash_bwd",
                  "fused_adamw", "rmsnorm_bwd")
+# the SSD scan in f32: sums over Q*N and Q*P products in another order
+# than the plain einsums (the chunk cumsum is shared to the bit)
+TOL_SSD = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
+# mamba2-1.3b's scan: (B, S, H, P, N, chunk); S 300 takes the padding
+# path, S 64 runs at Q = 64
+SSD_CASES = ((2, 512, 64, 64, 128, 128), (2, 300, 64, 64, 128, 128),
+             (2, 64, 64, 64, 128, 128))
+# the static path's ring decode at nanochat-d20's heads: (B, KV, G, S, D)
+RING_CASE = (8, 10, 1, 320, 128)
 
 
 class SmokeFailure(Exception):
@@ -465,6 +498,74 @@ def phase_wire_kernels(torch, results):
             del x, r, got, want, dq, dq_plain
 
 
+def ssd_case(torch, B, S, H, P, N, seed=0):
+    """Seeded SSD inputs on the card, distributed as the JAX package's
+    kernel tests draw them: x, Bm, Cm normal, dt = softplus(normal),
+    A = -exp(U[0, 1)), D = 1."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((B, S, H, P), generator=g)
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=g))
+    A = -torch.exp(torch.rand((H,), generator=g))
+    Bm = torch.randn((B, S, N), generator=g)
+    Cm = torch.randn((B, S, N), generator=g)
+    return [t.cuda() for t in (x, dt, A, Bm, Cm, torch.ones(H))]
+
+
+def ring_case(torch, B, KV, G, S, D, dtype="float32", seed=0):
+    """A wrapped ring on the card: row b's last query at q_pos, slots
+    holding positions counting down from q_pos - 1 around the ring over
+    the first 3/4 of the slots, the rest empty (-1); the last row's query
+    sits at -1 (a left-pad token: no live key).  Returns (q, k, v, pos,
+    q_pos, live rows (B,) bool)."""
+    g = torch.Generator().manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, KV, G, D), generator=g).to(dt)
+    k = torch.randn((B, KV, S, D), generator=g).to(dt)
+    v = torch.randn((B, KV, S, D), generator=g).to(dt)
+    fill = 3 * S // 4
+    base = torch.randint(fill, fill + 100, (B, 1), generator=g)
+    j = torch.arange(S)[None, :]
+    pos = torch.where(j < fill, (base - 1 - j) % (base + 1),
+                      torch.full_like(j, -1)).to(torch.int32)
+    q_pos = base[:, 0].to(torch.int32)
+    q_pos[-1] = -1
+    live = torch.ones(B, dtype=torch.bool)
+    live[-1] = False
+    return [t.cuda() for t in (q, k, v, pos, q_pos, live)]
+
+
+def phase_static_kernels(torch, results):
+    """The SSD scan at mamba2-1.3b's shapes (S 512; S 300, the padding
+    path; S 64, Q 64) and the ring decode at (B 8, KV 10, G 1, S 320,
+    D 128) with window 0 and 64 over a wrapped ring with empty slots
+    (the row whose query sits at -1 excluded), against their plain
+    versions, f32 and bf16."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    from repro_torch.kernels.ssd import ssd, ssd_chunked
+    for dtype in ("float32", "bfloat16"):
+        for B, S, H, P, N, chunk in SSD_CASES:
+            args = ssd_case(torch, B, S, H, P, N, seed=S)
+            args[0] = args[0].to(getattr(torch, dtype))
+            y, h = ssd(*args, chunk=chunk)
+            yp, hp = ssd_chunked(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            e1, ok1 = max_err(torch, y, yp, tol=TOL_SSD)
+            e2, ok2 = max_err(torch, h, hp, tol=TOL_SSD)
+            results.append(("ssd", dtype, (B, S, H, P, N, f"Q={min(chunk, S)}"),
+                            max(e1, e2), ok1 and ok2))
+        for window in (0, 64):
+            q, k, v, pos, q_pos, live = ring_case(torch, *RING_CASE,
+                                                  dtype=dtype, seed=window)
+            got = decode_attention(q, k, v, pos, q_pos, window=window)
+            want = decode_attention_plain(q, k, v, pos, q_pos, window)
+            torch.cuda.synchronize()
+            err, ok = max_err(torch, got, want, live)
+            ok = ok and bool((got[~live] == 0).all())
+            results.append(("ring_decode", dtype, tuple(q.shape) + (
+                f"S={RING_CASE[3]}", f"window={window}"), err, ok))
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: full-width step on the card vs the CPU
 # ---------------------------------------------------------------------------
@@ -515,6 +616,85 @@ def phase_step_vs_cpu(torch):
         check(e_logit <= 2e-3 and e_pool <= 1e-4,
               f"{kind} step on the card disagrees with the CPU")
     return worst
+
+
+def phase_static_step_vs_cpu(torch):
+    """The static path at full width and depth 2, card against CPU, same
+    params and tokens: mamba2-1.3b's ``forward_lm`` over 2 rows of 200
+    tokens (the SSD kernel at Q 128 with padding; logits within 2e-3),
+    and for mamba2-1.3b and nanochat-d20 a 12-token static prefill (row 0
+    with 3 left-pad tokens at position -1) plus one ``decode_step_lm``:
+    the last logits within 2e-3, the final SSM state and conv ring (or
+    the ring K/V of live slots, positions equal) within 1e-4 of their
+    max."""
+    from repro_torch.configs import MAMBA2_13B, NANOCHAT_D20
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models import (decode_step_lm, forward_lm,
+                                    init_decode_cache, init_params)
+    from repro_torch.models.transformer import flatten, unflatten
+    out = {}
+    for base in (MAMBA2_13B, NANOCHAT_D20):
+        cfg = base.with_(num_layers=2)
+        params = init_params(cfg, seed=0, device="cpu")
+        params_d = unflatten({k: v.cuda() for k, v in flatten(params).items()})
+        g = torch.Generator().manual_seed(4)
+        rec = {}
+        if cfg.arch_type == "ssm":
+            toks = torch.randint(0, cfg.vocab_size, (2, 200), generator=g,
+                                 dtype=torch.int32)
+            with torch.no_grad():
+                want, _ = forward_lm(params, {"tokens": toks}, cfg)
+                reset_launches()
+                got, _ = forward_lm(params_d, {"tokens": toks.cuda()}, cfg)
+            torch.cuda.synchronize()
+            check(launches["ssd"] == cfg.num_layers,
+                  f"{cfg.name}: forward_lm launched ssd {launches['ssd']} "
+                  f"times, not once per layer")
+            check(bool(torch.isfinite(got).all()), "non-finite logits")
+            rec["forward_logits"] = float((got.cpu() - want).abs().max())
+            del got, want
+        B, T = 3, 12
+        lens = torch.tensor([9, 12, 12])
+        toks = torch.randint(0, cfg.vocab_size, (B, T + 1), generator=g,
+                             dtype=torch.int32)
+        caches = [init_decode_cache(cfg, B, T + 1),
+                  init_decode_cache(cfg, B, T + 1, device="cuda")]
+        with torch.no_grad():
+            for t in range(T + 1):
+                pos = (t - (T - lens)).clamp(min=-1).to(torch.int32)
+                want, caches[0] = decode_step_lm(params, caches[0], {
+                    "token": toks[:, t:t + 1], "position": pos}, cfg)
+                got, caches[1] = decode_step_lm(params_d, caches[1], {
+                    "token": toks[:, t:t + 1].cuda(),
+                    "position": pos.cuda()}, cfg)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), "non-finite logits")
+        rec["decode_logits"] = float((got.cpu() - want).abs().max())
+        sub = caches[0]["mamba" if cfg.arch_type == "ssm" else "attn"]
+        sub_d = caches[1]["mamba" if cfg.arch_type == "ssm" else "attn"]
+        for key in (("conv", "ssm") if cfg.arch_type == "ssm" else ("k", "v")):
+            ref, got_c = sub[key], sub_d[key].cpu()
+            if key in ("k", "v"):
+                # slots of left-pad tokens (position -1) are masked; from
+                # layer 2 on they hold garbage that differs by design (a
+                # row with no live key: zeros on the card, the mean of V
+                # in the plain version)
+                live = (sub["pos"] >= 0)[:, :, None, :, None]
+                ref, got_c = ref * live, got_c * live
+                check(torch.equal(sub["pos"], sub_d["pos"].cpu())
+                      and sub["idx"] == sub_d["idx"],
+                      f"{cfg.name}: ring positions differ")
+            rec[f"cache_{key}_rel"] = float(
+                (got_c - ref).abs().max() / ref.abs().max())
+        log(f"  {cfg.name} width, depth 2, static path: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rec.items())
+            + " (logits atol 2e-3, caches 1e-4 of their max)")
+        check(all(v <= 2e-3 for k, v in rec.items() if "logits" in k)
+              and all(v <= 1e-4 for k, v in rec.items() if "cache" in k),
+              f"{cfg.name}: the static path on the card disagrees with "
+              f"the CPU")
+        out[cfg.name] = rec
+    return out
 
 
 def fp8_quanta(torch, codes, scale, ref_codes, ref_scale):
@@ -1091,6 +1271,178 @@ def device_time_by_kernel(torch, prof):
     return by_name
 
 
+STATIC_FORBIDDEN = PAGED + ("flash_fwd", "flash_bwd")
+
+
+def static_counts(torch):
+    from repro_torch.kernels import KERNELS, launches
+    torch.cuda.synchronize()
+    return {k: launches[k] for k in KERNELS}
+
+
+def phase_static_serving(torch):
+    """The static-bucket serving path and scoring.
+
+    mamba2-1.3b at full width and depth (48 layers, random weights from
+    seed 0): ``Engine.generate`` of the 8 ragged requests of phase 4
+    (greedy, max_new 16), which takes the static path (an SSM has no
+    paged cache): rmsnorm kernels launched, no paged, flash or SSD
+    kernel; then ``score_continuations_batch`` of 4 rows (one longer than
+    128 tokens, one shorter than 64): the SSD kernel once per layer, no
+    paged or flash kernel; a short static run under torch.profiler.
+
+    nanochat-d20 at full width: the same 8 requests on an engine whose
+    max_len (256) cannot hold the 300-token prompt, so ``generate`` takes
+    the static path and the ring decode kernel (no paged kernel); then,
+    on a batch that fits (prompts cut to 200 tokens), the share of greedy
+    tokens equal between the static path and the scheduler (printed, not
+    gated: cuBLAS sums GEMMs of other row counts in other orders)."""
+    import numpy as np
+    from repro_torch import Engine
+    from repro_torch.configs import MAMBA2_13B, NANOCHAT_D20
+    from repro_torch.kernels import reset_launches
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import flatten
+    runs, max_new = {}, 16
+    g = torch.Generator().manual_seed(7)
+    lens = PROMPT_LENS
+
+    cfg = MAMBA2_13B
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for v in flatten(params).values())
+    log(f"  mamba2-1.3b params: {n_params / 1e6:.1f} M on the card "
+        f"({time.perf_counter() - t0:.1f} s to init)")
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in lens]
+    eng = Engine(cfg, params, device="cuda")
+    check(not eng.continuous, "mamba2-1.3b engine built a paged pool")
+    eng.generate([[1, 2, 3]], max_new=2)                      # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    rows = eng.generate(prompts, max_new=max_new)
+    counts = static_counts(torch)
+    wall = time.perf_counter() - t0
+    check(len(rows) == len(prompts) and all(
+        len(r) == max_new and all(0 <= t < cfg.vocab_size for t in r)
+        for r in rows), "mamba2 generate: output malformed")
+    check(counts["rmsnorm"] > 0 and counts["rmsnorm_residual"] > 0,
+          "mamba2 generate: the rmsnorm kernels never launched")
+    check(all(counts[k] == 0 for k in STATIC_FORBIDDEN + ("ssd",
+                                                          "ring_decode")),
+          f"mamba2 generate launched a kernel off its path: {counts}")
+    steps = max(lens) + max_new - 1
+    runs["mamba2_generate"] = {
+        "launches": counts, "wall_s": wall, "generated": len(rows) * max_new,
+        "tokens_per_s": len(rows) * max_new / wall, "decode_steps": steps,
+        "ms_per_step": 1e3 * wall / steps}
+    log(f"  Engine mamba2-1.3b generate (static path, B 8, Tp "
+        f"{max(lens)}, max_new {max_new}): {len(rows) * max_new} tokens in "
+        f"{wall:.3f} s ({len(rows) * max_new / wall:.1f} tokens/s, "
+        f"{1e3 * wall / steps:.2f} ms per decode step), launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+
+    score_rows = [(prompts[3][:120], prompts[0][:12]),     # 132 tokens
+                  (prompts[2][:40], prompts[1][:8]),       # 48 tokens
+                  (prompts[5][:90], prompts[6][:5]),
+                  (prompts[4][:20], prompts[7][:16])]
+    eng.score_continuations_batch(score_rows)                 # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    scores = eng.score_continuations_batch(score_rows)
+    counts = static_counts(torch)
+    wall = time.perf_counter() - t0
+    check(scores.shape == (4,) and bool(np.isfinite(scores).all())
+          and bool((scores < 0).all()), f"mamba2 scores malformed: {scores}")
+    check(counts["ssd"] == cfg.num_layers,
+          f"mamba2 scoring launched ssd {counts['ssd']} times, not once "
+          f"per layer ({cfg.num_layers})")
+    check(all(counts[k] == 0 for k in STATIC_FORBIDDEN + ("ring_decode",)),
+          f"mamba2 scoring launched a kernel off its path: {counts}")
+    runs["mamba2_score"] = {"launches": counts, "wall_s": wall,
+                            "scores": [float(x) for x in scores]}
+    log(f"  mamba2-1.3b score_continuations_batch (4 rows, padded to 144 "
+        f"tokens): {wall * 1e3:.1f} ms, scores {np.round(scores, 3)}, "
+        f"launches { {k: v for k, v in counts.items() if v} }")
+    runs["mamba2_profile"] = profile_static(
+        torch, eng, [p[:32] for p in prompts], max_new=4)
+    del eng, params
+    torch.cuda.empty_cache()
+
+    cfg = NANOCHAT_D20
+    params = init_params(cfg, seed=0, device="cuda")
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in lens]
+    eng = Engine(cfg, params, max_len=256, num_slots=8, block_size=16,
+                 device="cuda")
+    check(not eng._fits(prompts, max_new), "the d20 batch fits the pool")
+    eng.generate([[1] * 300], max_new=2)                      # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    rows = eng.generate(prompts, max_new=max_new)
+    counts = static_counts(torch)
+    wall = time.perf_counter() - t0
+    check(all(len(r) == max_new for r in rows), "d20 static: malformed")
+    check(counts["ring_decode"] == cfg.num_layers * steps,
+          f"d20 static launched ring_decode {counts['ring_decode']} times, "
+          f"not {cfg.num_layers} x {steps}")
+    check(all(counts[k] == 0 for k in STATIC_FORBIDDEN + ("ssd",)),
+          f"d20 static launched a kernel off its path: {counts}")
+    runs["d20_static"] = {
+        "launches": counts, "wall_s": wall, "generated": len(rows) * max_new,
+        "tokens_per_s": len(rows) * max_new / wall,
+        "ms_per_step": 1e3 * wall / steps}
+    log(f"  Engine nanochat-d20 over capacity (max_len 256): static path, "
+        f"{len(rows) * max_new} tokens in {wall:.3f} s "
+        f"({len(rows) * max_new / wall:.1f} tokens/s), launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    fit = [p[:200] for p in prompts]
+    big = Engine(cfg, params, max_len=512, num_slots=8, block_size=16,
+                 device="cuda")
+    check(big._fits(fit, max_new), "the cut batch does not fit")
+    sched = big.generate(fit, max_new=max_new)
+    static = [list(r) for r in big.generate_ids_static(fit, max_new=max_new)]
+    agree = token_agreement(static, sched)
+    runs["d20_static"]["static_vs_scheduler_agreement"] = agree
+    log(f"  nanochat-d20 static vs scheduler greedy tokens on a fitting "
+        f"batch: {agree:.4f} agree (not gated)")
+    del eng, big, params
+    torch.cuda.empty_cache()
+    return runs
+
+
+def profile_static(torch, eng, prompts, max_new=4):
+    """Device time by kernel over one static-path generate (torch.profiler,
+    device activity only) and the device's busy share of its wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.generate(prompts, max_new=max_new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = device_time_by_kernel(torch, prof)
+    busy_s = sum(by_name.values()) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    out = {"wall_s": wall, "device_busy_s": busy_s,
+           "busy_share": busy_s / wall if wall else None,
+           "decode_steps": max(len(p) for p in prompts) + max_new - 1,
+           "top_kernels_ms": [(k, us / 1e3) for k, us in top]}
+    if not by_name:
+        log("  profiler: no device time recorded (not measured)")
+        return out
+    log(f"  profiled static generate ({out['decode_steps']} decode steps, "
+        f"B {len(prompts)}): wall {wall:.3f} s, device busy {busy_s:.3f} s "
+        f"({100 * busy_s / wall:.1f}%)")
+    for k, ms in out["top_kernels_ms"]:
+        log(f"    {ms:9.2f} ms  {100 * ms / 1e3 / busy_s:5.1f}%  {k[:90]}")
+    return out
+
+
 TRAIN_SEQ = 1024
 _K2 = dict(workers=2, per_worker_batch=4)
 TRAIN_PLANS = (
@@ -1441,6 +1793,7 @@ def phase_timing(torch, paths, checks):
             library="F.scaled_dot_product_attention over the K/V gathered "
                     "from the pool, with a boolean mask")
     del x, r, q, kp, vp, kg, vg, mask
+    static_rows(torch, row)
     quant_rows(torch, row)
     train_rows(torch, row)
     wire_rows(torch, row)
@@ -1468,6 +1821,64 @@ def paged_work(tab, start, ntok, bs):
             pairs += keys
             q_rows += keys > 0
     return kv_rows, q_rows, tab_reads, pairs
+
+
+def ssd_ops(B, S, H, P, N, Q):
+    """FLOPs the chunked scan needs: per chunk of r real rows, per batch
+    row the causal half of C.B^T (r(r+1)/2 pairs of N), and per head the
+    inter term and the state update (2 r N P each) and the intra product
+    (r(r+1)/2 pairs of P), two FLOPs a multiply-add."""
+    ops = 0
+    for c0 in range(0, S, Q):
+        r = min(Q, S - c0)
+        pairs = r * (r + 1) // 2
+        ops += 2 * pairs * N + H * (4 * r * N * P + 2 * pairs * P)
+    return B * ops
+
+
+def static_rows(torch, row):
+    """Timing rows of the SSD scan at mamba2-1.3b's scoring shape (B 2,
+    S 512, H 64, P 64, N 128, Q 128) and of the ring decode at (B 8,
+    KV 10, G 1, S 320, D 128), f32.  The SSD's bytes: x and y, dt, A, D,
+    B and C once, the final state written; its operations ``ssd_ops``.
+    The ring's bytes: the live K/V rows, q, the output and the positions;
+    4 FLOPs per (query head, live slot, d).  No one PyTorch call computes
+    the chunked scan (library_ms null); the ring's yardstick is SDPA with
+    the slots' boolean mask."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    from repro_torch.kernels.ssd import ssd, ssd_chunked
+    B, S, H, P, N, Q = SSD_CASES[0]
+    args = ssd_case(torch, B, S, H, P, N, seed=S)
+    nbytes = (2 * B * S * H * P + B * S * H + 2 * H + 2 * B * S * N
+              + B * H * N * P) * 4
+    row("ssd", (B, S, H, P, N, Q),
+        time_ms(torch, lambda: ssd(*args, chunk=Q), reps=20),
+        time_ms(torch, lambda: ssd_chunked(*args, chunk=Q), reps=5), None,
+        nbytes, ssd_ops(B, S, H, P, N, Q),
+        library="null: no single PyTorch call computes the chunked SSD "
+                "scan")
+    del args
+    q, k, v, pos, q_pos, live = ring_case(torch, *RING_CASE)
+    Bq, KV, G, D = q.shape
+    Sr = k.shape[2]
+    ok = (pos >= 0) & (pos <= q_pos[:, None].long())
+    n_live = int(ok.sum())
+    nbytes = (2 * n_live * KV * D + 2 * Bq * KV * G * D) * 4 + (
+        Bq * Sr + Bq) * 4
+    mask = ok[:, None, None, :]
+    mask = mask | ~mask.any(-1, keepdim=True)          # no empty rows
+    qs = q.reshape(Bq, KV * G, 1, D)
+    row("ring_decode", tuple(q.shape) + (Sr,),
+        time_ms(torch, lambda: decode_attention(q, k, v, pos, q_pos)),
+        time_ms(torch, lambda: decode_attention_plain(q, k, v, pos, q_pos)),
+        time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, k, v, attn_mask=mask)),
+        nbytes, 4 * n_live * KV * G * D, live_slots=n_live,
+        library="F.scaled_dot_product_attention over the ring with the "
+                "slots' boolean mask")
+    del q, k, v, pos, q_pos, mask
 
 
 def quant_rows(torch, row):
@@ -1684,6 +2095,7 @@ def main(argv=None) -> int:
         phase_quant_kernels(torch, checks)
         phase_train_kernels(torch, checks)
         phase_wire_kernels(torch, checks)
+        phase_static_kernels(torch, checks)
         report_checks(checks)
         report["checks"] = [list(c) for c in checks]
 
@@ -1692,6 +2104,7 @@ def main(argv=None) -> int:
         report["quant_step_vs_cpu"] = phase_quant_step_vs_cpu(torch)
         report["train_step_vs_cpu"] = phase_train_step_vs_cpu(torch)
         report["wire_round_vs_cpu"] = phase_wire_round_vs_cpu(torch)
+        report["static_step_vs_cpu"] = phase_static_step_vs_cpu(torch)
 
         log("[4/6] Engine, nanochat-d20: f32, int8, fp8 and fp8_e5m2 "
             "pools, fp8 QK^T; spec_k=0 and 4; capacity")
@@ -1699,6 +2112,11 @@ def main(argv=None) -> int:
         capacity = runs.pop("capacity")
         report["engine"] = runs
         report["capacity"] = capacity
+        log("[4/6 cont.] static-bucket path and scoring: mamba2-1.3b (full "
+            "width and depth) generate and score; nanochat-d20 over "
+            "capacity")
+        static = phase_static_serving(torch)
+        report["static"] = static
 
         log("[5/6] training, nanochat-d20: DiLoCo and DDP on the f32 wire; "
             "DiLoCo on int8, fp8 and fp8_e5m2 wires, compressed DDP, "
@@ -1709,6 +2127,8 @@ def main(argv=None) -> int:
         log("[6/6] kernel timing")
         paths = {name: run["launches"] for name, run in runs.items()}
         paths.update({m: run["launches"] for m, run in train.items()})
+        paths.update({m: run["launches"] for m, run in static.items()
+                      if "launches" in run})
         kernels = phase_timing(torch, paths, checks)
         report["kernels"] = kernels
         for k in kernels:
@@ -1729,8 +2149,12 @@ def main(argv=None) -> int:
         "tokens_per_s", "step_seconds", "peak_memory_gb", "loss",
         "wire_bytes_per_worker_per_sync", "outer_sync_ms")}
         for k, v in train.items()}
+    static_summary = {k: {key: v.get(key) for key in (
+        "tokens_per_s", "wall_s", "ms_per_step",
+        "static_vs_scheduler_agreement", "busy_share")}
+        for k, v in static.items()}
     print(json.dumps({"engine": summary, "capacity": capacity,
-                      "train": train_summary}))
+                      "train": train_summary, "static": static_summary}))
     print(report["gpu"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,10 @@
 
 A ``ModelConfig`` fully describes one architecture.  The field names and
 defaults are those of the JAX package's config, so a ``.cfg.json`` written
-beside a JAX checkpoint loads here unchanged; the port itself runs the
-dense decoder only and raises ``NotImplementedError`` on the fields it does
-not implement yet (MoE, SSM, hybrid, encoder-decoder, quantized KV).
+beside a JAX checkpoint loads here unchanged; the port runs the dense
+decoder and the mamba-2 (``arch_type="ssm"``) decoder and raises
+``NotImplementedError`` on the fields it does not implement yet (MoE,
+hybrid, encoder-decoder, VLM, ``window_pattern``).
 ``DiLoCoConfig`` and ``OptimizerConfig`` are field-for-field copies of the
 JAX package's training configs; the port raises on the knobs whose code
 paths it does not have yet (see ``core/outer_opt.py`` and ``core/sync.py``).
@@ -85,12 +86,15 @@ class ModelConfig:
     kv_cache_dtype: str = ""         # "" = compute dtype; bf16 = narrow cast;
                                      # int8 | fp8 | fp8_e5m2 = quantized paged
                                      # pool with per-token-per-head scales
-    fp8_matmul: bool = False         # fp8 per-tile QK^T matmuls in the
-                                     # attention kernels (not ported yet:
-                                     # the port raises when it is set)
+    fp8_matmul: bool = False         # fp8 per-row QK^T in the paged
+                                     # serving kernels (training ignores
+                                     # it, as the JAX package's does)
     remat: bool = True
     use_scan: bool = True
-    use_pallas: bool = False         # read by the JAX package only
+    use_pallas: bool = False         # read by the JAX package only: on
+                                     # the card the port always runs its
+                                     # kernels (SSD included), on the CPU
+                                     # their plain versions
     z_loss: float = 0.0
     loss_chunk: int = 0              # >0: chunked CE (never materializes the
                                      # full (B,S,V) logits) — see §Perf

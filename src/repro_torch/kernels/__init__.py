@@ -8,6 +8,6 @@ KERNELS = ("rmsnorm", "rmsnorm_residual", "paged_decode", "paged_verify",
            "flash_fwd", "flash_bwd", "fused_adamw", "rmsnorm_bwd",
            "paged_decode_dequant", "paged_verify_dequant",
            "paged_decode_fp8", "paged_verify_fp8", "quantize_ef",
-           "dequantize")
+           "dequantize", "ssd", "ring_decode")
 
 __all__ = ["KERNELS", "launches", "reset_launches"]

@@ -1,12 +1,14 @@
 from repro_torch.kernels.decode_attention.ops import (
-    paged_decode_attention, paged_decode_attention_dequant,
+    decode_attention, paged_decode_attention, paged_decode_attention_dequant,
     paged_verify_attention, paged_verify_attention_dequant)
 from repro_torch.kernels.decode_attention.ref import (
-    paged_decode_attention_dequant_plain, paged_decode_attention_plain,
-    paged_verify_attention_dequant_plain, paged_verify_attention_plain)
+    decode_attention_plain, paged_decode_attention_dequant_plain,
+    paged_decode_attention_plain, paged_verify_attention_dequant_plain,
+    paged_verify_attention_plain)
 
-__all__ = ["paged_decode_attention", "paged_decode_attention_dequant",
-           "paged_verify_attention", "paged_verify_attention_dequant",
+__all__ = ["decode_attention", "paged_decode_attention",
+           "paged_decode_attention_dequant", "paged_verify_attention",
+           "paged_verify_attention_dequant", "decode_attention_plain",
            "paged_decode_attention_plain",
            "paged_decode_attention_dequant_plain",
            "paged_verify_attention_plain",

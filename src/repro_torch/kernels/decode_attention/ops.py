@@ -1,6 +1,6 @@
-"""Paged attention wrappers: the hand-written CUDA kernels
-(``csrc/paged_attention.cu``) for CUDA tensors, the plain versions
-(``ref.py``) for CPU tensors.
+"""Decode attention wrappers: the hand-written CUDA kernels
+(``csrc/paged_attention.cu``, ``csrc/ring_attention.cu``) for CUDA
+tensors, the plain versions (``ref.py``) for CPU tensors.
 
 Shapes (see ``ref.py``): q (S, KV, G, D) for decode, (S, T, KV, G, D) for
 verify, float32 or bfloat16; pools (NB, bs, KV, D) in float32 or bfloat16
@@ -11,9 +11,14 @@ device.  ``window`` > 0 limits attention to the last ``window``
 positions; ``fp8=True`` runs QK^T on per-row fp8_e4m3 tiles
 (``ModelConfig.fp8_matmul``).
 
+``decode_attention`` is the ring-buffer decode of the static serving
+path: q (B, KV, G, D), a cache k / v (B, KV, S, D) in q's dtype, slot
+positions pos (B, S) and query positions q_pos (B,) int32.
+
 Launch counts, one per launch: ``paged_decode`` / ``paged_verify`` (plain
 pools), ``paged_decode_fp8`` / ``paged_verify_fp8`` (fp8 QK^T),
-``paged_decode_dequant`` / ``paged_verify_dequant`` (quantized pools)."""
+``paged_decode_dequant`` / ``paged_verify_dequant`` (quantized pools),
+``ring_decode`` (the ring cache)."""
 from __future__ import annotations
 
 import ctypes
@@ -22,8 +27,9 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.ref import (
-    paged_decode_attention_dequant_plain, paged_decode_attention_plain,
-    paged_verify_attention_dequant_plain, paged_verify_attention_plain)
+    decode_attention_plain, paged_decode_attention_dequant_plain,
+    paged_decode_attention_plain, paged_verify_attention_dequant_plain,
+    paged_verify_attention_plain)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -33,6 +39,10 @@ _SIGNATURES = {
     # ... table, start_pos, n_tokens, out, S, T, KV, G, D, NB, bs, MB,
     # window, stream
     "repro_paged_verify": (_I,) * 3 + (_P,) * 9 + (_I,) * 9 + (_P,),
+}
+_RING_SIGNATURES = {
+    # dtype, q, k, v, pos, q_pos, out, B, KV, G, S, D, window, stream
+    "repro_ring_decode": (_I,) + (_P,) * 6 + (_I,) * 6 + (_P,),
 }
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -164,3 +174,45 @@ def paged_verify_attention_dequant(q, k_pool, v_pool, k_scale, v_scale,
     return _launch("repro_paged_verify", "paged_verify_dequant", q, k_pool,
                    v_pool, (k_scale, v_scale), block_tables,
                    (start_pos, n_tokens), False, window)
+
+
+def decode_attention(q, k, v, pos, q_pos, *, window: int = 0) -> torch.Tensor:
+    """One query token per row against a ring-buffer cache; see
+    ``decode_attention_plain`` for the gates."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k, v, pos, q_pos, window)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode attention takes CPU or CUDA tensors, got "
+                         f"{q.device}")
+    if q.dtype not in _Q_DTYPES:
+        raise TypeError(f"ring decode kernel takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError("q must be (B, KV, G, D) and k, v (B, KV, S, D)")
+    B, KV, G, D = q.shape
+    S = k.shape[2]
+    if (k.shape != v.shape or tuple(k.shape) != (B, KV, S, D)
+            or tuple(pos.shape) != (B, S) or tuple(q_pos.shape) != (B,)):
+        raise ValueError(f"cache {tuple(k.shape)} / pos {tuple(pos.shape)} "
+                         f"/ q_pos {tuple(q_pos.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("the ring cache must be in q's dtype")
+    if pos.dtype != torch.int32 or q_pos.dtype != torch.int32:
+        raise TypeError("pos and q_pos must be int32")
+    for t in (q, k, v, pos, q_pos):
+        if t.device != q.device:
+            raise ValueError("decode attention operands must share one "
+                             "device")
+        if not t.is_contiguous():
+            raise ValueError("ring decode kernel takes contiguous tensors")
+    out = torch.empty_like(q)
+    lib = _build.load("ring_attention", _RING_SIGNATURES)
+    with torch.cuda.device(q.device):
+        rc = lib.repro_ring_decode(
+            _Q_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            pos.data_ptr(), q_pos.data_ptr(), out.data_ptr(), B, KV, G, S, D,
+            int(window), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, lib, "ring_decode")
+    _build.launches["ring_decode"] += 1
+    return out

@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the paged attention kernels: the CPU path of
-the wrappers in ``ops.py`` and the yardstick the CUDA kernels are held to.
+"""Plain PyTorch versions of the paged attention kernels and of the
+ring-buffer decode kernel: the CPU path of the wrappers in ``ops.py`` and
+the yardstick the CUDA kernels are held to.
 
 An einsum over the gathered blocks, the same math as the JAX package's
 oracles (``src/repro/kernels/decode_attention/ref.py``): f32 scores and
@@ -19,7 +20,12 @@ kernels: a bf16 pool under f32 queries widens exactly.  Three variants:
 * quantized pools (``*_dequant``): an int8 / fp8_e4m3 / fp8_e5m2 payload
   with (NB, bs, KV) f32 per-token-per-head scales, dequantized in f32
   and cast to q's dtype, then the plain math.  ``fp8_matmul`` does not
-  apply to them, as in the JAX package."""
+  apply to them, as in the JAX package.
+
+``decode_attention_plain`` is the ring-buffer decode of the static serving
+path, a copy of the JAX package's ``reference_decode_attention``: the
+cache (B, KV, S, D) with a per-slot position array, the causal gate and
+the window gate."""
 from __future__ import annotations
 
 import math
@@ -148,3 +154,20 @@ def paged_verify_attention_dequant_plain(q, k_pool, v_pool, k_scale,
     v = _gather(v_pool, block_tables, q.dtype, v_scale)
     return _verify(q, k, v, block_tables, start_pos, n_tokens,
                    k_pool.shape[1], window, False)
+
+
+def decode_attention_plain(q, k, v, pos, q_pos,
+                           window: int = 0) -> torch.Tensor:
+    """q: (B, KV, G, D); k / v: (B, KV, S, D); pos: (B, S) int32 (-1 =
+    empty slot); q_pos: (B,) int32.  A slot is attended iff pos >= 0,
+    pos <= q_pos and, with ``window`` > 0, q_pos - pos < window.  Returns
+    (B, KV, G, D) in q's dtype."""
+    D = q.shape[-1]
+    s = torch.einsum("bhgd,bhsd->bhgs", q.float(), k.float()) / math.sqrt(D)
+    pos, qp = pos.long(), q_pos.long()[:, None]
+    ok = (pos >= 0) & (pos <= qp)
+    if window > 0:
+        ok &= (qp - pos) < window
+    s = s.masked_fill(~ok[:, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhgs,bhsd->bhgd", p, v.float()).to(q.dtype)

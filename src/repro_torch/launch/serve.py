@@ -1,6 +1,9 @@
 """Serving launcher for the PyTorch port: a request-stream runner over the
 continuous-batching engine, with the JAX package's flags and report lines
-plus ``--device``.
+plus ``--device``.  An arch without a paged cache (``--config
+mamba2-1.3b``, or an SSM checkpoint) takes the static-bucket fallback:
+requests grouped by ``max_new``, no arrival times, and ``--report``
+prints that the report is unavailable.
 
   # one-shot prompts (stdin also works, one prompt per line)
   PYTHONPATH=src python -m repro_torch.launch.serve --ckpt runs/final \\
@@ -55,18 +58,24 @@ def build_requests(args, tok):
     return reqs
 
 
+CONFIGS = ("tiny", "nanochat-d20", "mamba2-1.3b")
+
+
 def make_config(arch: str, vocab_size: int):
-    """``tiny`` (the JAX launcher's tiny-nanochat) or ``nanochat-d20`` (the
-    paper's model at full width), at the tokenizer's vocabulary."""
-    from repro_torch.configs import NANOCHAT_D20, ModelConfig
+    """``tiny`` (the JAX launcher's tiny-nanochat), ``nanochat-d20`` (the
+    paper's model at full width) or ``mamba2-1.3b`` (the SSM at full
+    width), at the tokenizer's vocabulary."""
+    from repro_torch.configs import MAMBA2_13B, NANOCHAT_D20, ModelConfig
     if arch == "tiny":
         return ModelConfig(name="tiny-nanochat", num_layers=4, d_model=128,
                            num_heads=4, num_kv_heads=4, d_ff=512,
                            vocab_size=vocab_size, tie_embeddings=True)
     if arch == "nanochat-d20":
         return NANOCHAT_D20.with_(vocab_size=vocab_size)
-    raise NotImplementedError(f"config {arch!r}: the port has tiny and "
-                              f"nanochat-d20")
+    if arch == "mamba2-1.3b":
+        return MAMBA2_13B.with_(vocab_size=vocab_size)
+    raise NotImplementedError(f"config {arch!r}: the port has "
+                              f"{', '.join(CONFIGS)}")
 
 
 def main(argv=None):
@@ -74,7 +83,7 @@ def main(argv=None):
     ap.add_argument("--ckpt", type=str, default=None)
     ap.add_argument("--config", type=str, default="tiny",
                     help="arch when the checkpoint has no .cfg.json "
-                         "metadata: tiny | nanochat-d20")
+                         "metadata: tiny | nanochat-d20 | mamba2-1.3b")
     ap.add_argument("--prompt", action="append", default=[])
     ap.add_argument("--stream", type=str, default=None,
                     help="JSONL request stream with arrival timestamps")
@@ -148,14 +157,34 @@ def main(argv=None):
         print("no requests", file=sys.stderr)
         return
 
-    stats = engine.run([r for _, r in reqs], use_time=True)
-    for prompt, r in reqs:
-        row = r.tokens
+    if engine.continuous:
+        stats = engine.run([r for _, r in reqs], use_time=True)
+        rows = [r.tokens for _, r in reqs]
+    else:   # ssm fallback: static buckets, grouped by max_new (the encoded
+            # prompt ids go straight through)
+        rows = [None] * len(reqs)
+        by_mn = {}
+        for i, (_, r) in enumerate(reqs):
+            by_mn.setdefault(r.max_new, []).append(i)
+        for mn, idxs in by_mn.items():
+            out = engine.generate(
+                [reqs[i][1].prompt for i in idxs], max_new=mn,
+                greedy=args.temperature == 0.0,
+                temperature=args.temperature or 1.0,
+                eos_id=reqs[idxs[0]][1].eos_id)
+            for i, row in zip(idxs, out):
+                rows[i] = list(row)
+        stats = None
+        if args.report:
+            print("# report unavailable on the static fallback path "
+                  "(ssm/hybrid arch): arrival times and per-request "
+                  "latency are not modeled", file=sys.stderr)
+    for (prompt, r), row in zip(reqs, rows):
         if r.eos_id in row:
             row = row[:row.index(r.eos_id)]
         print(f">>> {prompt}\n{tok.decode(row).strip()}")
 
-    if args.report:
+    if args.report and stats is not None:
         lats = [r.finish_time - r.arrival for _, r in reqs
                 if r.finish_time is not None]
         ttfts = [r.ttft for _, r in reqs if r.first_token_time is not None]

@@ -7,7 +7,7 @@ attention with an optional window, so here all map onto the one flash
 function (``repro_torch.kernels.flash_attention``), whose backward is a
 kernel too.  Nothing of size (B, H, S, S) is kept for autograd.
 
-Serving: GQA is computed grouped: queries are shaped (S, T, KV, G, hd),
+Paged serving: GQA is computed grouped: queries are shaped (S, T, KV, G, hd),
 so KV heads are never repeated.  The fresh K/V of every live token are
 written into the pool IN PLACE before the attention reads it (the JAX package returns
 a new pool; here the caller's pool tensors are updated), then the paged
@@ -24,6 +24,16 @@ the V (quantize on scatter) and read by the dequant kernels (dequant on
 load).  ``cfg.fp8_matmul`` runs the plain-pool kernels' QK^T on per-row
 fp8 tiles; the dequant kernels keep the f32 contraction, as in the JAX
 package.
+
+Static serving (``decode_attention``): one token per row against a
+fixed-capacity ring cache (``init_cache``) of k / v (B, KV, cap, hd), a
+per-slot position array pos (B, cap) (-1 = empty) and one shared write
+index ``idx``; the new K/V go to slot ``idx % cap`` IN PLACE
+(``_cache_insert``), then the ring decode kernel
+(``kernels.decode_attention.decode_attention``) attends the live slots:
+the JAX package's ``_mask_bias`` gates (slot filled, causal, window).
+The cache keeps the kernel's (B, KV, cap, hd) layout, not the JAX
+package's (B, cap, KV, hd), so no step transposes it.
 """
 from __future__ import annotations
 
@@ -33,7 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import decode_attention as paged_kernels
+from repro_torch.kernels import decode_attention as attn_kernels
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.quantize import quantize_axis, target_dtype
 from repro_torch.models.layers import (apply_rope, cast, rope_cos_sin,
@@ -231,21 +241,84 @@ def paged_decode_attention(p, x: torch.Tensor, cfg: ModelConfig,
     if T == 1:
         q0 = q[:, 0].contiguous()
         if quantized:
-            out = paged_kernels.paged_decode_attention_dequant(
+            out = attn_kernels.paged_decode_attention_dequant(
                 q0, k_pool, v_pool, k_scale, v_scale, block_table,
                 inputs.q_pos, window=w)
         else:
-            out = paged_kernels.paged_decode_attention(
+            out = attn_kernels.paged_decode_attention(
                 q0, k_pool, v_pool, block_table, inputs.q_pos, window=w,
                 fp8=cfg.fp8_matmul)
         out = out[:, None]
     elif quantized:
-        out = paged_kernels.paged_verify_attention_dequant(
+        out = attn_kernels.paged_verify_attention_dequant(
             q.contiguous(), k_pool, v_pool, k_scale, v_scale, block_table,
             inputs.q_pos, inputs.n_tok, window=w)
     else:
-        out = paged_kernels.paged_verify_attention(
+        out = attn_kernels.paged_verify_attention(
             q.contiguous(), k_pool, v_pool, block_table, inputs.q_pos,
             inputs.n_tok, window=w, fp8=cfg.fp8_matmul)
     out = out.reshape(S, T, cfg.num_heads * hd)
     return mm(out, cast(p["wo"], x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Ring KV cache (the static-bucket serving path)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, capacity: int, *, dtype=None,
+               device="cpu", stack: Tuple[int, ...] = ()) -> dict:
+    """A fixed-capacity cache: {"k", "v": stack + (B, KV, cap, hd) in
+    ``dtype`` (default the compute dtype), "pos": stack + (B, cap) int32
+    filled with -1, "idx": 0, the next write slot (mod cap), shared by
+    every layer of a stack}."""
+    hd = cfg.resolved_head_dim()
+    dt = dtype or torch_dtype(cfg.compute_dtype)
+    shape = stack + (batch, cfg.num_kv_heads, capacity, hd)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device),
+            "pos": torch.full(stack + (batch, capacity), -1,
+                              dtype=torch.int32, device=device),
+            "idx": 0}
+
+
+def _cache_insert(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
+                  pos_new: torch.Tensor) -> dict:
+    """Write S_new entries (k_new / v_new (B, S_new, KV, hd), pos_new (B,
+    S_new)) at slot ``idx mod cap`` IN PLACE.  Decode writes one position,
+    so a write never crosses the ring's end.  Returns the cache dict with
+    ``idx`` advanced (the same tensors)."""
+    cap = cache["k"].shape[2]
+    s_new = k_new.shape[1]
+    slot = cache["idx"] % cap
+    cache["k"][:, :, slot:slot + s_new] = k_new.transpose(1, 2)
+    cache["v"][:, :, slot:slot + s_new] = v_new.transpose(1, 2)
+    cache["pos"][:, slot:slot + s_new] = pos_new
+    return dict(cache, idx=cache["idx"] + s_new)
+
+
+def decode_attention(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, *,
+                     position: torch.Tensor, window: int = 0,
+                     memory_cache=None, rope=None):
+    """One-token self-attention decode against a ring cache (one layer's
+    {"k", "v", "pos", "idx"}).  x: (B, 1, d); position: (B,) int32
+    absolute position of the new token (-1 for a left-pad token, whose row
+    is garbage nothing reads); window: 0 = none.  ``rope``: the (cos, sin)
+    tables of ``position``, when the caller shares them across layers.
+    Returns (y (B, 1, d), cache with idx advanced), the tensors updated in
+    place.  Cross-attention (``memory_cache``) waits for the
+    encoder-decoder slice."""
+    if memory_cache is not None:
+        raise NotImplementedError("cross-attention decode (encoder-decoder "
+                                  "archs) is not ported")
+    B = x.shape[0]
+    H, hd = cfg.num_heads, cfg.resolved_head_dim()
+    q, k_new, v_new = project_qkv(p, x, cfg)
+    cos, sin = rope if rope is not None else rope_cos_sin(
+        position[:, None], hd, cfg.rope_theta)
+    q = apply_rope(q.reshape(B, 1, H, hd), cos, sin).reshape(q.shape)
+    k_new = apply_rope(k_new, cos, sin)
+    cache = _cache_insert(cache, k_new, v_new, position[:, None])
+    out = attn_kernels.decode_attention(
+        q[:, 0].contiguous(), cache["k"], cache["v"], cache["pos"],
+        position, window=int(window or 0))
+    return out.reshape(B, 1, H * hd) @ cast(p["wo"], x.dtype), cache

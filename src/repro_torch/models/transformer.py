@@ -1,5 +1,6 @@
-"""The dense decoder-only LM: the training forward and loss, and the
-paged serving steps.
+"""The decoder-only LM, dense or mamba-2 (``arch_type="ssm"``): the
+full-sequence forward and loss, the paged serving steps (dense), and the
+one-token decode step of the static-bucket serving path (both archs).
 
 Parameters are a nested dict of tensors with the JAX package's tree and
 leaf layout (``embed/table``, ``layers/attn/wq``, ...): per-layer leaves
@@ -11,7 +12,8 @@ a JAX checkpoint onto this tree with no transposes.
 Norm placement: the first ``ln1`` is a plain RMSNorm; every later norm
 (``ln2``, the next layer's ``ln1``, the final norm) follows a residual
 add and runs as the fused RMSNorm + residual kernel, ``2L + 1`` norm
-launches per forward.  In float32 that is the same math as the JAX
+launches per forward (``L + 1`` for the SSM block, ``h + mamba(norm(h))``,
+which has no MLP).  In float32 that is the same math as the JAX
 package's ``h = h + a; x = norm(h)``.
 
 Training (``forward_hidden``, ``lm_loss``) differentiates through the
@@ -24,7 +26,10 @@ is about 9 GB in float32.
 
 The KV pool is updated IN PLACE: ``decode_step_paged`` and
 ``verify_step_paged`` return the same pool dict they were given, payload
-and (for a quantized ``kv_cache_dtype``) scale planes alike.
+and (for a quantized ``kv_cache_dtype``) scale planes alike.  So is the
+static path's cache (``init_decode_cache``): ``decode_step_lm`` writes
+the ring cache's slot, or the SSM conv ring and state, into the tensors
+it was given.
 
 ``cfg.fp8_matmul`` reaches the paged serving kernels only (fp8 QK^T).
 The JAX package's training attention has no fp8 path, so the training
@@ -40,22 +45,31 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import kv_pool_dtype
 from repro_torch.models.layers import (apply_mlp, apply_norm,
                                        apply_norm_residual, embed,
                                        softmax_ce_sums,
-                                       softmax_cross_entropy, torch_dtype,
-                                       unembed)
+                                       rope_cos_sin, softmax_cross_entropy,
+                                       torch_dtype, unembed)
 
 Params = Dict[str, object]
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if (cfg.arch_type != "dense" or cfg.num_experts or cfg.hybrid
-            or cfg.is_encoder_decoder or cfg.num_image_tokens
-            or cfg.ssm_state_size):
+def _require_supported(cfg: ModelConfig) -> None:
+    """The port runs the dense decoder and the mamba-2 decoder; MoE,
+    hybrid, encoder-decoder and VLM archs raise."""
+    if (cfg.arch_type not in ("dense", "ssm") or cfg.num_experts
+            or cfg.hybrid or cfg.is_encoder_decoder or cfg.num_image_tokens
+            or (cfg.arch_type == "dense") == bool(cfg.ssm_state_size)):
         raise NotImplementedError(
-            f"arch {cfg.arch_type!r}: the port serves the dense decoder only")
+            f"arch {cfg.arch_type!r}: the port runs the dense and the ssm "
+            f"(mamba-2) decoders only")
+
+
+def _require_uniform_window(cfg: ModelConfig) -> None:
+    if cfg.window_pattern:
+        raise NotImplementedError("per-layer window_pattern is not ported")
 
 
 # ---------------------------------------------------------------------------
@@ -63,21 +77,28 @@ def _require_dense(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
-    """Checkpoint-manifest path -> shape of every parameter leaf."""
-    _require_dense(cfg)
+    """Checkpoint-manifest path -> shape of every parameter leaf.  The SSM
+    block has ``ln1`` and ``mamba`` and no ``attn``, ``ln2`` or ``mlp``."""
+    _require_supported(cfg)
     L, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
     hd = cfg.resolved_head_dim()
     nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
     V = cfg.padded_vocab()
     shapes = {"embed/table": (V, d), "final_norm/scale": (d,),
-              "layers/ln1/scale": (L, d), "layers/ln2/scale": (L, d),
-              "layers/attn/wq": (L, d, nq), "layers/attn/wk": (L, d, nkv),
-              "layers/attn/wv": (L, d, nkv), "layers/attn/wo": (L, nq, d),
-              "layers/mlp/w_up": (L, d, f), "layers/mlp/w_gate": (L, d, f),
-              "layers/mlp/w_down": (L, f, d)}
+              "layers/ln1/scale": (L, d)}
+    if cfg.arch_type == "ssm":
+        shapes.update({f"layers/mamba/{k}": (L,) + v for k, v in
+                       ssm_mod.mamba_param_shapes(cfg).items()})
+    else:
+        shapes.update({
+            "layers/ln2/scale": (L, d),
+            "layers/attn/wq": (L, d, nq), "layers/attn/wk": (L, d, nkv),
+            "layers/attn/wv": (L, d, nkv), "layers/attn/wo": (L, nq, d),
+            "layers/mlp/w_up": (L, d, f), "layers/mlp/w_gate": (L, d, f),
+            "layers/mlp/w_down": (L, f, d)})
     if not cfg.tie_embeddings:
         shapes["embed/unembed"] = (d, V)
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and cfg.arch_type != "ssm":
         shapes.update({"layers/attn/bq": (L, nq), "layers/attn/bk": (L, nkv),
                        "layers/attn/bv": (L, nkv)})
     return shapes
@@ -111,7 +132,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
                 device="cpu") -> Params:
     """Random parameters from ``seed`` with the JAX package's init rules
     (truncated-normal fan-in matrices, N(0, 0.02) embedding, unit norm
-    scales, zero biases), drawn from a ``torch.Generator`` on ``device``.
+    scales, zero biases; the mamba leaves as ``ssm.init_mamba``), drawn
+    from a ``torch.Generator`` on ``device``.
     The numbers differ from the JAX package's (another generator); tests
     that compare the two load one set of parameters into both."""
     device = torch.device(device)
@@ -121,9 +143,11 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     L, f = cfg.num_layers, cfg.d_ff
     nq = cfg.num_heads * cfg.resolved_head_dim()
     special_scale = {"layers/attn/wo": 1.0 / math.sqrt(2 * max(L, 1) * nq),
-                     "layers/mlp/w_down": 1.0 / math.sqrt(f)}
+                     "layers/mlp/w_down": 1.0 / math.sqrt(max(f, 1))}
     flat = {}
     for path, shape in param_shapes(cfg).items():
+        if path.startswith("layers/mamba/"):
+            continue
         leaf = path.rsplit("/", 1)[1]
         t = torch.empty(shape, dtype=dt, device=device)
         if leaf == "scale":
@@ -137,6 +161,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
             torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=g)
             t.mul_(special_scale.get(path, 1.0 / math.sqrt(fan_in)))
         flat[path] = t
+    if cfg.arch_type == "ssm":
+        flat.update({f"layers/mamba/{k}": v for k, v in ssm_mod.init_mamba(
+            g, cfg, stack=(L,), dtype=dt, device=device).items()})
     return unflatten(flat)
 
 
@@ -152,21 +179,24 @@ def _unstack(tree: Params, n: int) -> List[Params]:
 
 
 def _run_layers(params: Params, h: torch.Tensor, cfg: ModelConfig,
-                attend, mm=torch.matmul) -> torch.Tensor:
+                mix, mm=torch.matmul) -> torch.Tensor:
     """Every block and the final norm; returns the final-normed hidden.
-    ``attend(i, attn_params, x)`` is layer i's attention output; ``mm``
-    the MLP's matrix product.  The first ``ln1`` is a plain RMSNorm, every
-    later norm is fused with the residual add before it."""
-    _require_dense(cfg)
-    if cfg.window_pattern:
-        raise NotImplementedError("per-layer window_pattern is not ported")
+    ``mix(i, layer_params, x)`` is layer i's mixer output on its normed
+    input (attention; the mamba block for ``arch_type="ssm"``, which has
+    no MLP); ``mm`` the MLP's matrix product.  The first ``ln1`` is a
+    plain RMSNorm, every later norm is fused with the residual add before
+    it."""
+    _require_supported(cfg)
+    _require_uniform_window(cfg)
     L = cfg.num_layers
+    ssm = cfg.arch_type == "ssm"
     layers = _unstack(params["layers"], L)
     x = apply_norm(layers[0]["ln1"], h, cfg)
     for i, lp in enumerate(layers):
-        a = attend(i, lp["attn"], x)
-        x, h = apply_norm_residual(lp["ln2"], a, h, cfg)
-        y = apply_mlp(lp["mlp"], x, cfg, mm=mm)
+        y = mix(i, lp, x)
+        if not ssm:
+            x, h = apply_norm_residual(lp["ln2"], y, h, cfg)
+            y = apply_mlp(lp["mlp"], x, cfg, mm=mm)
         nxt = layers[i + 1]["ln1"] if i + 1 < L else params["final_norm"]
         x, h = apply_norm_residual(nxt, y, h, cfg)
     return x
@@ -175,13 +205,17 @@ def _run_layers(params: Params, h: torch.Tensor, cfg: ModelConfig,
 def forward_hidden(params: Params, batch: Dict[str, torch.Tensor],
                    cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward up to the final norm.  batch["tokens"]:
-    (B, S) int.  Returns (h (B, S, d), aux_loss) — aux is 0: the dense
-    decoder has no router loss."""
+    (B, S) int.  Returns (h (B, S, d), aux_loss) — aux is 0: neither the
+    dense nor the SSM decoder has a router loss."""
     h = embed(params["embed"], batch["tokens"], cfg)
-    positions = torch.arange(h.shape[1], device=h.device)
-    window = cfg.window or None
-    x = _run_layers(params, h, cfg, lambda i, p, x: attn.attention(
-        p, x, cfg, positions=positions, window=window))
+    if cfg.arch_type == "ssm":
+        x = _run_layers(params, h, cfg, lambda i, p, x: ssm_mod.apply_mamba(
+            p["mamba"], x, cfg))
+    else:
+        positions = torch.arange(h.shape[1], device=h.device)
+        window = cfg.window or None
+        x = _run_layers(params, h, cfg, lambda i, p, x: attn.attention(
+            p["attn"], x, cfg, positions=positions, window=window))
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -291,7 +325,8 @@ def _paged_layers(params: Params, h: torch.Tensor, pool, cfg: ModelConfig,
     quantized = "k_scale" in pool
     return _run_layers(params, h, cfg, lambda i, p, x:
                        attn.paged_decode_attention(
-                           p, x, cfg, pool["k"][i], pool["v"][i], inputs,
+                           p["attn"], x, cfg, pool["k"][i], pool["v"][i],
+                           inputs,
                            block_table, window=cfg.window,
                            k_scale=pool["k_scale"][i] if quantized else None,
                            v_scale=pool["v_scale"][i] if quantized else None),
@@ -326,3 +361,72 @@ def verify_step_paged(params: Params, pool, batch,
                       batch["block_table"], batch.get("kv_scatter"))
     logits = unembed(params["embed"], x, cfg, mm=attn.serving_matmul(cfg))
     return logits, pool
+
+
+# ---------------------------------------------------------------------------
+# Static-path decode (ring cache / SSM state)
+# ---------------------------------------------------------------------------
+
+def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int, *,
+                      dtype=None, device="cpu") -> dict:
+    """Stacked (L, ...) decode caches of the static path.  Dense: the ring
+    cache of ``attention.init_cache`` with ``capacity`` slots per row (in
+    the compute dtype by default) and one shared write index; SSM:
+    {"mamba": {"conv", "ssm"}} (float32 by default), whose size does not
+    depend on ``capacity``."""
+    _require_supported(cfg)
+    _require_uniform_window(cfg)
+    L = cfg.num_layers
+    if cfg.arch_type == "ssm":
+        return {"mamba": ssm_mod.init_mamba_cache(
+            cfg, batch, dtype=dtype or torch.float32, device=device,
+            stack=(L,))}
+    return {"attn": attn.init_cache(cfg, batch, capacity, dtype=dtype,
+                                    device=device, stack=(L,))}
+
+
+def _block_decode(i: int, lp: Params, x: torch.Tensor, cfg: ModelConfig,
+                  cache: dict, position: torch.Tensor, rope) -> torch.Tensor:
+    """Layer i's one-token mixer on its normed input x (B, 1, d), the
+    mixer half of the JAX package's ``_block_decode`` (the norms, the
+    residual adds and the MLP are ``_run_layers``'): the mamba step on
+    layer i's conv ring and state, or self-attention on its ring cache
+    with the config's uniform window (0 = none), both updated in place."""
+    if cfg.arch_type == "ssm":
+        mc = cache["mamba"]
+        y, _ = ssm_mod.decode_mamba(lp["mamba"], x, cfg, {
+            "conv": mc["conv"][i], "ssm": mc["ssm"][i]})
+        return y
+    ac = cache["attn"]
+    y, _ = attn.decode_attention(
+        lp["attn"], x, cfg, {"k": ac["k"][i], "v": ac["v"][i],
+                             "pos": ac["pos"][i], "idx": ac["idx"]},
+        position=position, window=cfg.window, rope=rope)
+    return y
+
+
+def decode_step_lm(params: Params, cache: dict, batch,
+                   cfg: ModelConfig) -> Tuple[torch.Tensor, dict]:
+    """One decode step of the static path.  batch: {"token": (B, 1) int,
+    "position": (B,) int32 tensor or an int for every row} — the absolute
+    position of the token, -1 for a left-pad token.  Returns (logits
+    (B, 1, V), cache), the cache updated in place (its ring index
+    advanced)."""
+    token = batch["token"]
+    B = token.shape[0]
+    position = batch["position"]
+    if not torch.is_tensor(position):
+        position = torch.full((B,), int(position), dtype=torch.int32)
+    position = position.to(device=token.device,
+                           dtype=torch.int32).reshape(-1).expand(B)
+    position = position.contiguous()
+    h = embed(params["embed"], token, cfg)
+    rope = None
+    if cfg.arch_type != "ssm":
+        rope = rope_cos_sin(position[:, None], cfg.resolved_head_dim(),
+                            cfg.rope_theta)
+    x = _run_layers(params, h, cfg, lambda i, p, x: _block_decode(
+        i, p, x, cfg, cache, position, rope))
+    if "attn" in cache:
+        cache["attn"]["idx"] += 1
+    return unembed(params["embed"], x, cfg), cache

@@ -1,5 +1,6 @@
-"""Continuous-batching inference engine over the paged KV pool — the port
-of the JAX package's ``repro.serving.engine`` continuous path.
+"""Inference engine — the port of the JAX package's ``repro.serving.engine``:
+the continuous-batching path over the paged KV pool, the static-bucket
+path, and continuation scoring.
 
 Layers, as in the JAX package:
 
@@ -37,9 +38,30 @@ Differences from the JAX package, by design:
   that triple per sampled position, so a request's tokens do not depend
   on which requests shared its batch.  The bits differ from
   ``jax.random``'s; greedy decoding gives the JAX engine's tokens;
-* only the continuous path is ported: a batch the scheduler path cannot
-  serve (empty prompts, over capacity) and sliding-window recycling raise
-  ``NotImplementedError``.
+* sliding-window block recycling is not ported: a windowed config
+  raises ``NotImplementedError`` on the continuous path.
+
+**The static-bucket path** (``generate_ids_static``) serves what the
+scheduler path cannot: archs without a paged cache (``arch_type="ssm"``:
+an SSM engine builds no pool, and ``run()`` raises), and batches that do
+not fit (empty prompts, max_new < 1, over capacity), to which
+``generate`` routes.  Prompts are left-padded to the longest; every token
+of the padded prompts, then every generated token, is one
+``decode_step_lm`` over the whole batch (a Python loop where the JAX
+package scans), against a ring KV cache of ``Tp + max_new`` slots (the
+ring decode kernel) or the SSM conv ring and state.  Left-pad tokens sit
+at position -1: the attention masks them, but the SSM step ignores the
+position, as the JAX package's does, so a shorter prompt's pad tokens run
+through the SSM state before the prompt and an SSM's tokens depend on the
+batch's padding.  The port follows the reference there.  Sampling draws
+Gumbel noise from one generator seeded by ``seed`` (not ``jax.random``'s
+bits); greedy tokens equal the JAX engine's.  The step loop reads nothing
+back from the device until the tokens are done.
+
+**Scoring** (``score_continuations*``): one full-sequence forward
+(``forward_lm``: the flash kernel for a dense model, the SSD kernel for
+an SSM) over rows padded to a multiple of 16 tokens; the sum of the
+continuation tokens' log-probabilities per row.
 
 Quantized KV pools (``cfg.kv_cache_dtype`` int8 / fp8 / fp8_e5m2) store a
 1-byte payload plus f32 per-token-per-head scale planes, which
@@ -72,9 +94,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.tokenizer import BPETokenizer
 from repro_torch.models.attention import scatter_plan
-from repro_torch.models.transformer import (Params, decode_step_paged,
-                                            flatten, init_paged_cache,
-                                            kv_pool_dtype, paged_block_bytes,
+from repro_torch.models.transformer import (Params, decode_step_lm,
+                                            decode_step_paged, flatten,
+                                            forward_lm, init_decode_cache,
+                                            init_paged_cache, kv_pool_dtype,
+                                            paged_block_bytes,
                                             paged_cache_supported,
                                             verify_step_paged)
 from repro_torch.serving import drafter as drafter_mod
@@ -122,6 +146,17 @@ def _gumbel(u: torch.Tensor) -> torch.Tensor:
     return -torch.log(-torch.log(u))
 
 
+def _left_pad(prompts: Sequence[Sequence[int]], pad_id: int):
+    """(tokens (B, Tp) int32 left-padded with ``pad_id``, lens (B,))."""
+    tp = max(len(p) for p in prompts)
+    out = np.full((len(prompts), tp), pad_id, np.int32)
+    lens = np.zeros((len(prompts),), np.int32)
+    for i, p in enumerate(prompts):
+        out[i, tp - len(p):] = p
+        lens[i] = len(p)
+    return out, lens
+
+
 @dataclasses.dataclass
 class Engine:
     cfg: ModelConfig
@@ -143,18 +178,17 @@ class Engine:
     def __post_init__(self):
         self.device = resolve_device(self.device)
         cfg = self.cfg
-        if not paged_cache_supported(cfg):
-            raise NotImplementedError(
-                f"arch {cfg.arch_type!r} needs the static-bucket path, "
-                f"which is not ported")
-        if cfg.window or cfg.window_pattern:
-            raise NotImplementedError(
-                "sliding-window configs need per-slot block recycling, "
-                "which is not ported")
         for path, t in flatten(self.params).items():
             if t.device.type != self.device.type:
                 raise ValueError(f"param {path} is on {t.device}, the engine "
                                  f"on {self.device}")
+        self.continuous = paged_cache_supported(cfg)
+        if not self.continuous:
+            return                     # static-bucket path only: no pool
+        if cfg.window or cfg.window_pattern:
+            raise NotImplementedError(
+                "sliding-window configs need per-slot block recycling, "
+                "which is not ported")
         self._mb = -(-self.max_len // self.block_size)   # blocks per slot
         self.bytes_per_block = paged_block_bytes(cfg, self.block_size)
         if self.num_blocks is None:
@@ -399,6 +433,10 @@ class Engine:
         counters) and returns aggregate stats.  ``use_time`` honors
         ``Request.arrival`` (seconds relative to the call) against the wall
         clock; otherwise all requests are immediately admissible."""
+        if not self.continuous:
+            raise RuntimeError(f"arch {self.cfg.arch_type!r} has no paged "
+                               f"cache: the continuous path is unsupported "
+                               f"(generate takes the static path)")
         if self.spec_k > 0:
             return self._run_spec(requests, seed=seed, use_time=use_time)
         S, MB, T = self.num_slots, self._mb, self.prefill_chunk
@@ -650,31 +688,104 @@ class Engine:
         return False
 
     # ----------------------------------------------------------------------
-    # Public API (wrappers over the scheduler)
+    # Static-bucket path (ssm archs, and batches the scheduler cannot serve)
     # ----------------------------------------------------------------------
+
+    def _generate_scan(self, tokens: torch.Tensor, lens: np.ndarray, *,
+                       max_new: int, greedy: bool, temperature: float,
+                       seed: int) -> torch.Tensor:
+        """tokens: (B, Tp) left-padded prompts on the device; lens: (B,)
+        host prompt lengths.  Feeds every prompt column (row b's token t
+        at position t - (Tp - lens[b]), -1 for its pad tokens), then
+        max_new generated tokens.  Returns (B, max_new) on the device."""
+        B, Tp = tokens.shape
+        cache = init_decode_cache(self.cfg, B, Tp + max_new,
+                                  device=self.device)
+        pre = np.maximum(np.arange(Tp)[:, None] - (Tp - lens)[None, :],
+                         -1).astype(np.int32)                 # (Tp, B)
+        pos_d = self._put(np.concatenate(
+            [pre, lens[None, :] + np.arange(max_new)[:, None]]).astype(
+                np.int32))
+        logits = None
+        for t in range(Tp):
+            logits, cache = decode_step_lm(
+                self.params, cache, {"token": tokens[:, t:t + 1],
+                                     "position": pos_d[t]}, self.cfg)
+        g = None
+        if not greedy:
+            g = torch.Generator(device=self.device)
+            g.manual_seed(seed)
+        out = []
+        for t in range(max_new):
+            lg = logits[:, 0].float()
+            if greedy:
+                nxt = torch.argmax(lg, dim=-1)
+            else:
+                u = torch.rand(lg.shape, generator=g, device=self.device)
+                nxt = torch.argmax(lg / temperature + _gumbel(u), dim=-1)
+            nxt = nxt.to(torch.int32)
+            out.append(nxt)
+            if t + 1 < max_new:         # the last token's logits go unused
+                logits, cache = decode_step_lm(
+                    self.params, cache, {"token": nxt[:, None],
+                                         "position": pos_d[Tp + t]},
+                    self.cfg)
+        if not out:
+            return torch.zeros((B, 0), dtype=torch.int32, device=self.device)
+        return torch.stack(out, dim=1)
+
+    def generate_ids_static(self, prompts: Sequence[Sequence[int]],
+                            max_new: int = 16, greedy: bool = True,
+                            temperature: float = 1.0,
+                            seed: int = 0) -> np.ndarray:
+        """The static-bucket path: the batch is left-padded to its longest
+        prompt and stalls until its longest request finishes.  Returns
+        (B, max_new) int32."""
+        pad = self.tok.pad if self.tok else 0
+        tokens, lens = _left_pad(prompts, pad)
+        with torch.no_grad():
+            out = self._generate_scan(self._put(tokens), lens,
+                                      max_new=max_new, greedy=greedy,
+                                      temperature=temperature, seed=seed)
+        return _fetch(out)
+
+    # ----------------------------------------------------------------------
+    # Public API
+    # ----------------------------------------------------------------------
+
+    def _fits(self, prompts: Sequence[Sequence[int]], max_new: int) -> bool:
+        """Whether the scheduler path can serve this batch; anything it
+        cannot (empty prompts, max_new < 1, over-capacity requests — per
+        slot OR whole pool — or an arch without a paged cache) routes to
+        the static path instead."""
+        return (self.continuous and max_new >= 1
+                and all(1 <= len(p) and len(p) + max_new <= self.capacity
+                        and -(-(len(p) + max_new) // self.block_size)
+                        <= self.num_blocks
+                        for p in prompts))
 
     def generate(self, prompts: Sequence[Sequence[int]], max_new: int = 16,
                  greedy: bool = True, temperature: float = 1.0,
                  seed: int = 0, eos_id: Optional[int] = None
                  ) -> List[List[int]]:
-        """Ragged generation through the scheduler path.  Rows include the
-        EOS token when one was produced.  A batch that path cannot serve
-        (empty prompt, max_new < 1, over capacity) would need the static
-        path, which is not ported: it raises."""
-        fits = max_new >= 1 and all(
-            1 <= len(p) and len(p) + max_new <= self.capacity
-            and -(-(len(p) + max_new) // self.block_size) <= self.num_blocks
-            for p in prompts)
-        if not fits:
-            raise NotImplementedError(
-                "this batch needs the static-bucket path (empty prompt, "
-                "max_new < 1 or over capacity), which is not ported")
-        reqs = [Request(rid=i, prompt=list(p), max_new=max_new,
-                        temperature=temperature, greedy=greedy,
-                        eos_id=eos_id)
-                for i, p in enumerate(prompts)]
-        self.run(reqs, seed=seed)
-        return [r.tokens for r in reqs]
+        """Ragged generation: the scheduler path when the batch fits (EOS
+        evicts early, freeing the slot for queued requests), the static
+        bucket otherwise (trimmed to match).  Rows include the EOS token
+        when one was produced."""
+        if self._fits(prompts, max_new):
+            reqs = [Request(rid=i, prompt=list(p), max_new=max_new,
+                            temperature=temperature, greedy=greedy,
+                            eos_id=eos_id)
+                    for i, p in enumerate(prompts)]
+            self.run(reqs, seed=seed)
+            return [r.tokens for r in reqs]
+        rows = [[int(t) for t in r] for r in self.generate_ids_static(
+            prompts, max_new=max_new, greedy=greedy,
+            temperature=temperature, seed=seed)]
+        if eos_id is not None:
+            rows = [row[:row.index(eos_id) + 1] if eos_id in row else row
+                    for row in rows]
+        return rows
 
     def generate_ids(self, prompts: Sequence[Sequence[int]],
                      max_new: int = 16, greedy: bool = True,
@@ -683,3 +794,54 @@ class Engine:
                                         greedy=greedy,
                                         temperature=temperature, seed=seed),
                           np.int32)
+
+    def chat(self, prompts: List[str], max_new: int = 32,
+             greedy: bool = True, temperature: float = 1.0) -> List[str]:
+        """Text in, text out, stopping at ``<|assistant_end|>``."""
+        if self.tok is None:
+            raise ValueError("chat needs the engine's tokenizer")
+        ids = [self.tok.encode(p) for p in prompts]
+        stop = self.tok.special_id("<|assistant_end|>")
+        rows = self.generate(ids, max_new=max_new, greedy=greedy,
+                             temperature=temperature, eos_id=stop)
+        texts = []
+        for row in rows:
+            if stop in row:
+                row = row[:row.index(stop)]
+            texts.append(self.tok.decode(list(row)))
+        return texts
+
+    # -- scoring (the multiple-choice evals) --------------------------------
+
+    def _score_batch(self, tokens: torch.Tensor,
+                     cont_mask: torch.Tensor) -> torch.Tensor:
+        """tokens: (B, T); cont_mask: (B, T), 1 where position t's target
+        (token t+1) belongs to the continuation.  Returns (B,) summed
+        log-probabilities."""
+        logits, _ = forward_lm(self.params, {"tokens": tokens}, self.cfg)
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        tgt = torch.roll(tokens, -1, dims=1).long()
+        gold = torch.gather(lp, -1, tgt[..., None])[..., 0]
+        return torch.sum(gold * cont_mask, dim=1)
+
+    def score_continuations_batch(self, rows) -> np.ndarray:
+        """rows: list of (prompt_ids, option_ids).  One forward for the
+        whole batch, padded to a shared length bucket (a multiple of 16)."""
+        pad = self.tok.pad if self.tok else 0
+        tmax = max(len(p) + len(o) for p, o in rows)
+        tmax = -(-tmax // 16) * 16
+        toks = np.full((len(rows), tmax), pad, np.int32)
+        mask = np.zeros((len(rows), tmax), np.float32)
+        for i, (p, o) in enumerate(rows):
+            full = list(p) + list(o)
+            toks[i, :len(full)] = full
+            mask[i, len(p) - 1:len(full) - 1] = 1.0
+        with torch.no_grad():
+            out = self._score_batch(self._put(toks), self._put(mask))
+        return _fetch(out)
+
+    def score_continuations(self, prompt_ids: Sequence[int],
+                            options_ids: Sequence[Sequence[int]]
+                            ) -> np.ndarray:
+        return self.score_continuations_batch(
+            [(prompt_ids, o) for o in options_ids])

@@ -19,7 +19,7 @@ from repro_torch.kernels.quantize import quantize_axis
 from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_plain,
                                          rmsnorm_residual,
                                          rmsnorm_residual_plain)
-from torch_cases import paged_tables, pools
+from torch_cases import paged_tables, pools, ring_inputs, ssd_inputs
 
 
 @pytest.fixture
@@ -531,3 +531,115 @@ def test_cuda_lossy_wire_launches_the_quantize_kernels(cuda, strategy, kw):
     assert h_gpu["frag_syncs"] == h_cpu["frag_syncs"]
     for k, v in p_cpu.items():
         torch.testing.assert_close(p_gpu[k].cpu(), v, atol=1e-2, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The static serving path and the SSM: the SSD scan and the ring decode
+# ---------------------------------------------------------------------------
+
+RAGGED = [[5, 6, 7], [1, 2, 3, 4, 5, 6, 7, 8, 9, 10], [2, 9], [7] * 17,
+          [4, 4, 4, 4, 4], [11, 3], [1] * 30, [8]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (2, 512, 64, 64, 128, 128),     # mamba2-1.3b
+    (2, 300, 8, 64, 128, 128),      # padding: S not a multiple of Q
+    (1, 64, 8, 64, 128, 128),       # S < chunk: Q = 64
+    (2, 100, 2, 16, 32, 32), (1, 37, 3, 8, 4, 8)])
+def test_cuda_ssd_kernel_matches_plain(cuda, B, S, H, P, N, chunk):
+    from repro_torch.kernels.ssd import ssd, ssd_chunked
+    args = [torch.from_numpy(a).to(cuda)
+            for a in ssd_inputs(S + N, B, S, H, P, N, D_val=0.5)]
+    reset_launches()
+    y, h = ssd(*args, chunk=chunk)
+    yp, hp = ssd_chunked(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert launches["ssd"] == 1
+    torch.testing.assert_close(y, yp, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(h, hp, atol=1e-4, rtol=1e-4)
+    xb = args[0].to(torch.bfloat16)
+    yb, hb = ssd(xb, *args[1:], chunk=chunk)
+    ypb, hpb = ssd_chunked(xb, *args[1:], chunk=chunk)
+    assert yb.dtype == torch.bfloat16
+    torch.testing.assert_close(yb.float(), ypb.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(hb, hpb, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_refuses_autograd(cuda):
+    from repro_torch.kernels.ssd import ssd
+    args = [torch.from_numpy(a).to(cuda)
+            for a in ssd_inputs(0, 1, 16, 2, 8, 4)]
+    args[0].requires_grad_()
+    with pytest.raises(NotImplementedError, match="backward"):
+        ssd(*args, chunk=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,KV,G,S,D,window", [
+    (8, 10, 1, 320, 128, 0), (8, 10, 1, 320, 128, 64),
+    (3, 2, 2, 256, 64, 0), (2, 1, 4, 100, 64, 16), (2, 2, 3, 256, 32, 0)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_ring_kernel_matches_plain(cuda, B, KV, G, S, D, window, dtype,
+                                        tol):
+    """Wrapped rings with empty slots; the last row's query at -1 has no
+    live key (zeros on the card, the mean of V in the plain version) and
+    is not compared."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    q, k, v, pos, q_pos, live = ring_inputs(S + D, B, KV, G, S, D)
+    q, k, v = (torch.from_numpy(a).to(dtype).to(cuda) for a in (q, k, v))
+    pos, q_pos = (torch.from_numpy(a).to(cuda) for a in (pos, q_pos))
+    reset_launches()
+    got = decode_attention(q, k, v, pos, q_pos, window=window)
+    want = decode_attention_plain(q, k, v, pos, q_pos, window)
+    torch.cuda.synchronize()
+    assert launches["ring_decode"] == 1
+    live = torch.from_numpy(live).to(cuda)
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               atol=tol, rtol=10 * tol)
+    assert bool((got[~live] == 0).all())
+
+
+def _tiny(arch):
+    from repro_torch.configs import ModelConfig
+    if arch == "ssm":
+        return ModelConfig(num_layers=2, d_model=64, arch_type="ssm",
+                           ssm_state_size=16, ssm_head_dim=16, ssm_chunk=8,
+                           num_heads=4, num_kv_heads=4, d_ff=0,
+                           vocab_size=97)
+    return ModelConfig(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
+                       d_ff=128, vocab_size=97)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["ssm", "dense"])
+def test_cuda_static_path_and_scoring_equal_cpu(cuda, arch):
+    """Greedy static-path tokens on the card equal the CPU's, scores
+    agree, and each path launched its kernel: the ring decode on the
+    dense static path, the SSD scan once per layer per scoring forward,
+    no paged kernel on either."""
+    from repro_torch import Engine
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import flatten, unflatten
+    cfg = _tiny(arch)
+    params = init_params(cfg, seed=0)
+    params_d = unflatten({k: v.to(cuda) for k, v in flatten(params).items()})
+    kw = dict(num_slots=4, max_len=16, block_size=8)
+    cpu = Engine(cfg, params, device="cpu", **kw)
+    card = Engine(cfg, params_d, device=cuda, **kw)
+    reset_launches()
+    got = card.generate_ids(RAGGED, max_new=9)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got, cpu.generate_ids(RAGGED, max_new=9))
+    assert not any(launches[k] for k in launches if k.startswith("paged"))
+    assert (launches["ring_decode"] > 0) == (arch == "dense")
+    rows = [(p, RAGGED[(i + 1) % 8][:4]) for i, p in enumerate(RAGGED)]
+    reset_launches()
+    score = card.score_continuations_batch(rows)
+    np.testing.assert_allclose(score, cpu.score_continuations_batch(rows),
+                               atol=1e-3, rtol=1e-4)
+    assert launches["ssd"] == (cfg.num_layers if arch == "ssm" else 0)

@@ -215,11 +215,17 @@ def test_unported_engine_paths_raise(kw, match):
 
 
 def test_static_path_batches_raise(params):
+    """A batch the scheduler path cannot serve (an empty prompt, max_new <
+    1, over capacity) raises nothing now: ``generate`` routes it to the
+    static-bucket path, as the JAX package's engine does."""
     eng = _engine(params)
     for prompts, max_new in (([[], [1, 2]], 4), ([[1, 2]], 0),
                              ([[1] * 60], 8)):
-        with pytest.raises(NotImplementedError, match="static"):
-            eng.generate(prompts, max_new=max_new)
+        assert not eng._fits(prompts, max_new)
+        got = eng.generate(prompts, max_new=max_new)
+        want = eng.generate_ids_static(prompts, max_new=max_new)
+        assert got == want.tolist() and want.shape == (len(prompts),
+                                                       max_new)
 
 
 # ---------------------------------------------------------------------------
@@ -295,6 +301,32 @@ def test_config_copies_match_the_reference_field_for_field(name):
     assert fields(ours) == fields(ref)
 
 
+def test_mamba2_config_copy_matches_the_reference_field_for_field():
+    import dataclasses
+    from repro.configs.mamba2_13b import CONFIG as JAX_MAMBA2
+    from repro_torch.configs import MAMBA2_13B
+    assert dataclasses.asdict(MAMBA2_13B) == dataclasses.asdict(JAX_MAMBA2)
+
+
+def test_params_from_numpy_round_trips_a_tiny_ssm_tree():
+    """The SSM leaves (layers/mamba/*, ln1, no attn / ln2 / mlp) go through
+    the checkpoint mapping both ways, and a missing leaf is refused."""
+    from repro_torch.checkpoint import params_from_numpy, params_to_numpy
+    cfg = port_cfg(tiny_cfg("ssm"))
+    flat = params_to_numpy(init_params(cfg, seed=3))
+    assert {k for k in flat if k.startswith("layers/")} == {
+        "layers/ln1/scale"} | {f"layers/mamba/{k}" for k in (
+            "in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias",
+            "norm_scale", "out_proj")}
+    again = params_to_numpy(params_from_numpy(flat, cfg))
+    assert again.keys() == flat.keys()
+    for k in flat:
+        np.testing.assert_array_equal(again[k], flat[k])
+    flat.pop("layers/mamba/D")
+    with pytest.raises(KeyError, match="missing"):
+        params_from_numpy(flat, cfg)
+
+
 def test_packed_dataset_and_tokenizer_copies_match_the_reference():
     """The port's copy of the numpy-only pipeline: the same tokenizer, the
     same packed stream, the same merged and per-worker batches."""
@@ -353,6 +385,37 @@ def test_serve_cli_loads_a_jax_checkpoint(tmp_path):
         serve.main(["--device", "cpu", "--ckpt", path, "--prompt", "hi",
                     "--max-new", "3", "--max-len", "64"])
     assert "model config from checkpoint metadata" in buf.getvalue()
+
+
+def test_serve_cli_takes_the_static_fallback_for_an_ssm_checkpoint(
+        tmp_path):
+    """An SSM checkpoint (config from its .cfg.json) has no paged cache:
+    the CLI serves it on the static path and says the report is
+    unavailable, as the JAX launcher does."""
+    import jax
+    from repro.checkpoint import save_config, save_pytree
+    from repro.models.transformer import init_params as jax_init
+    cfg = tiny_cfg("ssm", vocab_size=512)
+    jparams, _ = jax_init(cfg, jax.random.key(0))
+    path = str(tmp_path / "ssm")
+    save_pytree(jparams, path)
+    save_config(cfg, path)
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        serve.main(["--device", "cpu", "--ckpt", path, "--prompt", "hi",
+                    "--prompt", "compute 3 + 4 .", "--max-new", "3",
+                    "--report"])
+    assert "model config from checkpoint metadata" in out.getvalue()
+    assert out.getvalue().count(">>> ") == 2
+    assert "# report unavailable on the static fallback path" in \
+        err.getvalue()
+    assert "tokens_per_s=" not in out.getvalue()
+
+
+def test_serve_make_config_names_the_ported_configs():
+    assert serve.make_config("mamba2-1.3b", 512).arch_type == "ssm"
+    with pytest.raises(NotImplementedError, match="mamba2-1.3b"):
+        serve.make_config("hymba", 512)
 
 
 # ---------------------------------------------------------------------------

@@ -34,3 +34,39 @@ def paged_tables(rng, S, NB, bs, MB, T=1, unmapped=True):
         for t in range(int(n_tok[s])):
             live[s, t] = tables[s, (start[s] + t) // bs] >= 0
     return tables, start, n_tok, live
+
+
+def ssd_inputs(seed, B, S, H, P, N, D_val=1.0):
+    """SSD scan inputs as f32 arrays, distributed as the JAX package's
+    kernel tests draw them: x, Bm, Cm normal, dt = softplus(normal),
+    A = -exp(U[0, 1)), D = ``D_val``."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H)))).astype(np.float32)
+    A = (-np.exp(rng.uniform(size=(H,)))).astype(np.float32)
+    Bm = rng.standard_normal((B, S, N)).astype(np.float32)
+    Cm = rng.standard_normal((B, S, N)).astype(np.float32)
+    D = np.full((H,), D_val, np.float32)
+    return x, dt, A, Bm, Cm, D
+
+
+def ring_inputs(seed, B, KV, G, S, D, dead_row=True):
+    """q, k, v (f32) and a wrapped ring: the first 3/4 of the slots hold
+    positions counting down from q_pos - 1 modulo the row's fill, the rest
+    are empty (-1); with ``dead_row`` the last row's query sits at -1 (a
+    left-pad token: no live key).  Returns numpy arrays and the live-row
+    mask (B,)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, KV, G, D)).astype(np.float32)
+    k = rng.standard_normal((B, KV, S, D)).astype(np.float32)
+    v = rng.standard_normal((B, KV, S, D)).astype(np.float32)
+    fill = 3 * S // 4
+    base = rng.integers(fill, fill + 100, (B, 1))
+    pos = (base - 1 - np.arange(S)[None, :]) % (base + 1)
+    pos = np.where(np.arange(S)[None, :] < fill, pos, -1).astype(np.int32)
+    q_pos = base[:, 0].astype(np.int32)
+    live = np.ones((B,), bool)
+    if dead_row:
+        q_pos[-1] = -1
+        live[-1] = False
+    return q, k, v, pos, q_pos, live

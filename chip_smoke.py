@@ -31,6 +31,11 @@ Run from the root of a checkout.  Phases, each fatal on failure:
      KV 10, G 1, S 320, D 128) with window 0 and 64 over a wrapped ring
      with empty slots (the row whose query sits at -1 gives zeros and is
      not compared);
+   - the fp8 QK^T flash forward (``flash_fwd(fp8=True)``) against its
+     plain version at (B 4, S 1024, H = KV = 10, D 128), causal, plus
+     G=2, S=1000 and window=64 cases, f32 and bf16, with the flash
+     forward's tolerances; its output must differ from the exact
+     kernel's by more than 1e-3;
 3. full width at depth 2, card against CPU, same params and batch:
    - one ``decode_step_paged`` and one ``verify_step_paged``, on an f32
      pool and on an fp8 pool (logits; the fp8 pool within one quantum);
@@ -84,7 +89,22 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    peak memory and wire bytes per worker per sync (from
    ``OuterPayload.nbytes``) per path; one DiLoCo inner step under
    torch.profiler; the device time of one outer sync of each path;
-6. time each kernel, its plain version and one PyTorch library call on
+6. the three-stage pipeline: ``run_pipeline`` (base -> mid -> SFT, with
+   the evals after each stage: held-out CE, multiple choice, arithmetic
+   and pattern exact match through ``Engine``) of nanochat-d20 at full
+   width (20 layers, d 1280, 10 heads of 128; vocab = the tokenizer's
+   512, as the JAX pipeline sets it) for DiLoCo and for hybrid (DiLoCo
+   base, DDP mid and SFT), K 2, per-worker batch 8, seq_len 128, steps
+   6 / 4 / 4, fused AdamW, each from fresh parameters: per stage the
+   loss, step seconds, tokens/s, peak memory, held-out CE, the suite's
+   values and the eval seconds; gates on the losses, the stage methods,
+   the launches (the training kernels and the paged decode of the evals;
+   no verify, quantized-pool, wire, ssd, ring or fp8 kernel), the eval
+   values, and the final checkpoint reloaded to the same held-out CE bit
+   for bit; the hybrid run's final parameters on the CPU: held-out CE
+   within rtol 1e-4, MC option scores within 1e-3 of their magnitude,
+   greedy-token agreement printed;
+7. time each kernel, its plain version and one PyTorch library call on
    the same inputs (CUDA events, L2 flushed before each launch) beside
    the least time the card could take (bound).
 
@@ -132,6 +152,9 @@ REPLACES = {
     "dequantize": "src/repro/kernels/quantize/kernel.py:126",
     "ssd": "src/repro/kernels/ssd/kernel.py:89",
     "ring_decode": "src/repro/kernels/decode_attention/kernel.py:489",
+    # the fp8=True variant of flash_fwd: the TPU kernel with qk_dot_fp8
+    # (src/repro/kernels/common.py:31) in its body (kernel.py:69-70)
+    "flash_fwd_fp8": "src/repro/kernels/flash_attention/kernel.py:127",
 }
 QK_DOT_FP8 = "src/repro/kernels/common.py:31 qk_dot_fp8"
 GRADIENT_OF = {
@@ -157,6 +180,7 @@ SOURCE = {
     "dequantize": "src/repro_torch/kernels/csrc/quantize.cu",
     "ssd": "src/repro_torch/kernels/csrc/ssd.cu",
     "ring_decode": "src/repro_torch/kernels/csrc/ring_attention.cu",
+    "flash_fwd_fp8": "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
 WIRE_KERNELS = ("quantize_ef", "dequantize")
 WIRE_TARGETS = ("int8", "fp8_e4m3", "fp8_e5m2")
@@ -174,6 +198,24 @@ SSD_CASES = ((2, 512, 64, 64, 128, 128), (2, 300, 64, 64, 128, 128),
              (2, 64, 64, 64, 128, 128))
 # the static path's ring decode at nanochat-d20's heads: (B, KV, G, S, D)
 RING_CASE = (8, 10, 1, 320, 128)
+# the fp8 QK^T flash forward: the training shape, G=2, S=1000, window 64
+FP8_FLASH_CASES = (dict(), dict(KV=5), dict(S=1000), dict(window=64))
+# the pipeline phase: nanochat-d20 at full width (vocab = the tokenizer's)
+PIPELINE_METHODS = ("diloco", "hybrid")
+PIPELINE_STEPS = {"base": 6, "mid": 4, "sft": 4}
+PIPELINE_KW = dict(arch="nanochat-d20", reduced=False, steps=PIPELINE_STEPS,
+                   workers=2, per_worker_batch=8, seq_len=128,
+                   fused_adamw=True, eval_after_each_stage=True)
+PIPELINE_KERNELS = ("flash_fwd", "flash_bwd", "fused_adamw", "rmsnorm_bwd",
+                    "rmsnorm_residual", "paged_decode")
+# the evals run spec_k 0 on an f32 pool, the wire is f32, the model dense
+PIPELINE_IDLE = ("paged_verify", "paged_decode_dequant",
+                 "paged_verify_dequant", "paged_decode_fp8",
+                 "paged_verify_fp8", "quantize_ef", "dequantize", "ssd",
+                 "ring_decode", "flash_fwd_fp8")
+# eval items per suite whose greedy tokens are also generated on the CPU
+# (full-width decode on the host's cores is slow; agreement is printed)
+CPU_GEN_ITEMS = 16
 
 
 class SmokeFailure(Exception):
@@ -455,6 +497,40 @@ def phase_train_kernels(torch, results):
             results.append(("rmsnorm_bwd", dtype,
                             (4, 1024, 1280, "residual" if residual
                              else "plain"), max(e_x, e_s), ok_x and ok_s))
+
+
+def phase_fp8_flash_kernels(torch, results):
+    """The fp8 QK^T flash forward (o and lse) against its plain version
+    (quantize-dequantize the rows of q and k, then the exact attention)
+    at ``FP8_FLASH_CASES``, causal, in float32 and bfloat16; its output
+    must differ from the exact kernel's by more than 1e-3, so the narrow
+    path is live.  In bf16 the plain version rounds the dequantized rows
+    to bf16 (the JAX oracle does) and the kernel keeps them in f32 (the
+    Pallas kernel does), so the lse is held to the bf16 tolerance."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_fp8_plain, flash_fwd)
+    for dtype in ("float32", "bfloat16"):
+        for case in FP8_FLASH_CASES:
+            case = dict(case)
+            window = case.pop("window", None)
+            q, k, v, _ = flash_inputs(torch, dtype=dtype,
+                                      seed=100 + len(results), **case)
+            o, lse = flash_fwd(q, k, v, window=window, fp8=True)
+            o_ref, lse_ref = flash_attention_fp8_plain(q, k, v, True, window)
+            exact, _ = flash_fwd(q, k, v, window=window)
+            torch.cuda.synchronize()
+            e_o, ok_o = max_err(torch, o, o_ref)
+            e_l = float((lse - lse_ref).abs().max())
+            atol, rtol = ((1e-4, 1e-5) if dtype == "float32"
+                          else TOL["bfloat16"])
+            ok_l = bool(e_l <= atol + rtol * float(lse_ref.abs().max()))
+            live = float((o.float() - exact.float()).abs().max())
+            tag = (tuple(q.shape) + (f"KV={k.shape[2]}",)
+                   + ((f"window={window}",) if window else ())
+                   + (f"vs_exact={live:.2e}",))
+            results.append(("flash_fwd_fp8", dtype, tag, max(e_o, e_l),
+                            ok_o and ok_l and live > 1e-3))
+            del q, k, v, o, lse, o_ref, lse_ref, exact
 
 
 def code_bits(torch, q):
@@ -1482,7 +1558,7 @@ def phase_train(torch):
     from repro_torch.launch.train import build_pipeline, run_stage
     from repro_torch.models import init_params
     cfg = NANOCHAT_D20
-    _, tok, stages = build_pipeline(seq_len=TRAIN_SEQ)
+    _, tok, stages, _ = build_pipeline(seq_len=TRAIN_SEQ)
     ds = stages["base"]
     log(f"  corpus: {ds.num_tokens} tokens of a {tok.vocab_size}-token BPE, "
         f"seq_len {TRAIN_SEQ}; model {cfg.name}, {cfg.num_layers} layers, "
@@ -1675,7 +1751,188 @@ def profile_train_step(torch, cfg, params, ds, opt_cfg, kw):
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: timing
+# Phase 6: the three-stage pipeline with evals
+# ---------------------------------------------------------------------------
+
+def phase_pipeline(torch):
+    """``run_pipeline`` (base -> mid -> SFT, evals after each stage) of
+    nanochat-d20 at full width for each of ``PIPELINE_METHODS``, each from
+    fresh parameters, launch counts reset just before each run.  Gates:
+    finite losses, a falling base loss, the stage methods, the kernels of
+    the path launched and no other, every eval value in [0, 1] and a
+    finite held-out CE, and the ``{method}_final`` checkpoint reloaded
+    through the port's ``load_pytree`` + ``load_config`` giving the same
+    held-out CE bit for bit.  Then the hybrid run's final parameters on
+    the CPU: held-out CE (rtol 1e-4) and the MC option scores (1e-3 of
+    their magnitude) against the card's; greedy-token agreement of the
+    first ``CPU_GEN_ITEMS`` arith / pattern items printed."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import (load_config, load_pytree,
+                                        params_from_numpy)
+    from repro_torch.evals import heldout_metrics
+    from repro_torch.kernels import KERNELS, launches, reset_launches
+    from repro_torch.launch.train import build_pipeline, run_pipeline
+    _, tok, stages, suites = build_pipeline(seq_len=PIPELINE_KW["seq_len"])
+    heldout_kw = dict(ds=stages["base"], batches=4, batch_size=8)
+    want_methods = {"diloco": ["diloco"] * 3,
+                    "hybrid": ["diloco", "ddp", "ddp"]}
+    out_root = ROOT / "build"
+    out_root.mkdir(exist_ok=True)
+    runs, final = {}, None
+    for method in PIPELINE_METHODS:
+        out_dir = tempfile.mkdtemp(prefix="pipeline_", dir=out_root)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = run_pipeline(method, out_dir=out_dir, device="cuda",
+                           **PIPELINE_KW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: launches[k] for k in KERNELS}
+        st = res["stages"]
+        for stage, e in st.items():
+            p = e["port"]
+            log(f"  {method}:{stage} ({e['method']}) loss "
+                f"{e['loss_first']:.4f} -> {e['loss_last']:.4f}, step "
+                f"{e['step_seconds']:.4f} s, {p['tokens_per_s']:.0f} "
+                f"tokens/s, peak {p['peak_memory_gb']:.2f} GB, heldout_ce "
+                f"{e['core']['heldout_ce']:.6f}, tasks {e['tasks']}, eval "
+                f"{p['eval_seconds']:.2f} s")
+        log(f"  {method}: {wall:.2f} s, launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        check([st[s]["method"] for s in ("base", "mid", "sft")]
+              == want_methods[method], f"pipeline {method}: stage methods "
+              f"{[e['method'] for e in st.values()]}")
+        check(all(math.isfinite(x) for e in st.values()
+                  for x in e["losses"] + [e["loss_last"]]),
+              f"pipeline {method}: non-finite loss")
+        check(st["base"]["loss_last"] < st["base"]["loss_first"],
+              f"pipeline {method}: the base loss did not fall")
+        for k in PIPELINE_KERNELS:
+            check(counts[k] > 0, f"pipeline {method}: kernel {k} never "
+                  f"launched on the main path")
+        for k in PIPELINE_IDLE:
+            check(counts[k] == 0, f"pipeline {method}: kernel {k} launched "
+                  f"off its path")
+        for e in st.values():
+            check(all(0.0 <= x <= 1.0 for x in e["tasks"].values()),
+                  f"pipeline {method}: an eval value outside [0, 1]")
+            check(math.isfinite(e["core"]["heldout_ce"]),
+                  f"pipeline {method}: non-finite heldout_ce")
+        ckpt = str(Path(out_dir) / f"{method}_final")
+        cfg = load_config(ckpt)
+        params = params_from_numpy(load_pytree(ckpt), cfg, "cuda")
+        again = heldout_metrics(cfg, params, **heldout_kw)["heldout_ce"]
+        want = st["sft"]["core"]["heldout_ce"]
+        log(f"  {method}_final reloaded: {cfg.name}, {cfg.num_layers} "
+            f"layers, d {cfg.d_model}, vocab {cfg.vocab_size}; heldout_ce "
+            f"{again!r} vs the run's {want!r}")
+        check(again == want, f"pipeline {method}: the reloaded checkpoint "
+              f"gives another heldout_ce")
+        runs[method] = {"wall_s": wall, "launches": counts,
+                        "stages": st}
+        if method == "hybrid":
+            final = (cfg, params)
+        else:
+            del params
+        shutil.rmtree(out_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    runs["hybrid"]["eval_profile"] = profile_evals(torch, tok, suites,
+                                                   heldout_kw, *final)
+    runs["hybrid"]["card_vs_cpu"] = pipeline_vs_cpu(torch, tok, suites,
+                                                    heldout_kw, *final)
+    return runs
+
+
+def profile_evals(torch, tok, suites, heldout_kw, cfg, params):
+    """One stage's evals (held-out CE, then each suite of ``chat_suite``)
+    on the hybrid run's final parameters under torch.profiler: the wall
+    seconds of each part, the device's busy share of the whole, and the
+    kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import Engine
+    from repro_torch.evals import (arith_exact, heldout_metrics,
+                                   mc_accuracy, pattern_exact)
+    eng = Engine(cfg, params, tok, device="cuda")
+    parts = (("heldout", lambda: heldout_metrics(engine=eng, **heldout_kw)),
+             ("mc", lambda: mc_accuracy(eng, tok, suites["mc"])),
+             ("arith", lambda: arith_exact(eng, tok, suites["arith"])),
+             ("pattern", lambda: pattern_exact(eng, tok, suites["pattern"])))
+    walls = {}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for name, fn in parts:
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t1
+        wall = time.perf_counter() - t0
+    del eng
+    by_name = device_time_by_kernel(torch, prof)
+    busy_s = sum(by_name.values()) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    out = {"wall_s": wall, "part_wall_s": walls, "device_busy_s": busy_s,
+           "busy_share": busy_s / wall if by_name else None,
+           "top_kernels_ms": [(k, us / 1e3) for k, us in top]}
+    log(f"  profiled evals (hybrid final params): wall {wall:.3f} s "
+        f"({', '.join(f'{k} {v:.3f} s' for k, v in walls.items())}), "
+        + (f"device busy {busy_s:.3f} s ({100 * busy_s / wall:.1f}%)"
+           if by_name else "profiler: no device time recorded (not "
+           "measured)"))
+    for k, ms in out["top_kernels_ms"]:
+        log(f"    {ms:9.2f} ms  {100 * ms / 1e3 / busy_s:5.1f}%  {k[:90]}")
+    return out
+
+
+def pipeline_vs_cpu(torch, tok, suites, heldout_kw, cfg, params):
+    """The hybrid run's final parameters, card against CPU: held-out CE,
+    the MC option scores, and the greedy rows of the first
+    ``CPU_GEN_ITEMS`` items of each generative suite."""
+    import numpy as np
+
+    from repro_torch import Engine
+    from repro_torch.evals import heldout_metrics
+    from repro_torch.models.transformer import flatten, unflatten
+    params_h = unflatten({k: v.cpu() for k, v in flatten(params).items()})
+    t0 = time.perf_counter()
+    rows = [(tok.encode(it["prompt"]), tok.encode(o + " "))
+            for it in suites["mc"] for o in it["options"]]
+    eos = tok.special_id("<|assistant_end|>")
+    out = {}
+    for dev, p in (("cuda", params), ("cpu", params_h)):
+        eng = Engine(cfg, p, tok, device=dev)
+        gen = {name: eng.generate([tok.encode(it["prompt"]) for it in
+                                   suites[name][:CPU_GEN_ITEMS]],
+                                  max_new=8, greedy=True, eos_id=eos)
+               for name in ("arith", "pattern")}
+        out[dev] = (heldout_metrics(engine=eng, **heldout_kw)["heldout_ce"],
+                    eng.score_continuations_batch(rows), gen)
+        del eng
+    (ce_d, sc_d, gen_d), (ce_h, sc_h, gen_h) = out["cuda"], out["cpu"]
+    e_ce = abs(ce_d - ce_h) / abs(ce_h)
+    e_sc = float(np.max(np.abs(sc_d - sc_h) / np.maximum(np.abs(sc_h),
+                                                         1e-30)))
+    agree = {name: token_agreement(gen_d[name], gen_h[name])
+             for name in gen_d}
+    log(f"  hybrid final params, card vs CPU ({time.perf_counter() - t0:.1f}"
+        f" s): heldout_ce {ce_d!r} vs {ce_h!r} (rel {e_ce:.2e}, rtol "
+        f"1e-4); MC option scores (128 rows) rel err {e_sc:.2e} (1e-3); "
+        f"greedy-token agreement over the first {CPU_GEN_ITEMS} items "
+        f"{agree} (not gated)")
+    check(e_ce <= 1e-4, "pipeline: heldout_ce on the card disagrees with "
+          "the CPU")
+    check(e_sc <= 1e-3, "pipeline: MC option scores on the card disagree "
+          "with the CPU")
+    return {"heldout_ce": [ce_d, ce_h], "mc_score_rel_err": e_sc,
+            "greedy_agreement": agree}
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: timing
 # ---------------------------------------------------------------------------
 
 def time_ms(torch, fn, reps=50):
@@ -1931,8 +2188,8 @@ def train_rows(torch, row):
     partition's largest leaf (65536 x 1280)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bwd_plain, flash_attention_plain, flash_bwd,
-        flash_fwd)
+        flash_attention_bwd_plain, flash_attention_fp8_plain,
+        flash_attention_plain, flash_bwd, flash_fwd)
     from repro_torch.kernels.fused_adamw import (fused_adamw_plain,
                                                  fused_adamw_update)
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_bwd_plain
@@ -1950,6 +2207,12 @@ def train_rows(torch, row):
         4 * act + B * H * S * 4, fwd_ops,
         library="F.scaled_dot_product_attention(is_causal=True) on "
                 "(B, H, S, D) copies")
+    # the fp8 variant contracts the decoded codes in f32: the same bound
+    row("flash_fwd_fp8", q.shape,
+        time_ms(torch, lambda: flash_fwd(q, k, v, fp8=True)),
+        time_ms(torch, lambda: flash_attention_fp8_plain(q, k, v)),
+        None, 4 * act + B * H * S * 4, fwd_ops,
+        library="null: no single PyTorch call attends with an fp8 QK^T")
     leaves = [t.clone().requires_grad_() for t in (qt, kt, vt)]
     out_lib = F.scaled_dot_product_attention(*leaves, is_causal=True)
     row("flash_bwd", q.shape,
@@ -2078,9 +2341,10 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     report = {"gpu": gpu_line(), "torch": torch.__version__,
               "cuda": torch.version.cuda}
+    t_start = time.perf_counter()
     try:
         from repro_torch.kernels import _build
-        log("[1/6] build kernels")
+        log("[1/7] build kernels")
         t0 = time.perf_counter()
         text = _build.build(verbose=True)
         report["build_s"] = time.perf_counter() - t0
@@ -2089,44 +2353,55 @@ def main(argv=None) -> int:
                 log("  " + line.strip())
         log(f"  built in {report['build_s']:.1f} s")
 
-        log("[2/6] kernels vs plain versions")
+        log("[2/7] kernels vs plain versions")
         checks = []
         phase_kernels(torch, checks)
         phase_quant_kernels(torch, checks)
         phase_train_kernels(torch, checks)
         phase_wire_kernels(torch, checks)
         phase_static_kernels(torch, checks)
+        phase_fp8_flash_kernels(torch, checks)
         report_checks(checks)
         report["checks"] = [list(c) for c in checks]
 
-        log("[3/6] full width, depth 2: card vs CPU")
+        log("[3/7] full width, depth 2: card vs CPU")
         report["step_vs_cpu"] = phase_step_vs_cpu(torch)
         report["quant_step_vs_cpu"] = phase_quant_step_vs_cpu(torch)
         report["train_step_vs_cpu"] = phase_train_step_vs_cpu(torch)
         report["wire_round_vs_cpu"] = phase_wire_round_vs_cpu(torch)
         report["static_step_vs_cpu"] = phase_static_step_vs_cpu(torch)
 
-        log("[4/6] Engine, nanochat-d20: f32, int8, fp8 and fp8_e5m2 "
+        log("[4/7] Engine, nanochat-d20: f32, int8, fp8 and fp8_e5m2 "
             "pools, fp8 QK^T; spec_k=0 and 4; capacity")
         runs, report["profile"] = phase_engine(torch)
         capacity = runs.pop("capacity")
         report["engine"] = runs
         report["capacity"] = capacity
-        log("[4/6 cont.] static-bucket path and scoring: mamba2-1.3b (full "
+        log("[4/7 cont.] static-bucket path and scoring: mamba2-1.3b (full "
             "width and depth) generate and score; nanochat-d20 over "
             "capacity")
         static = phase_static_serving(torch)
         report["static"] = static
 
-        log("[5/6] training, nanochat-d20: DiLoCo and DDP on the f32 wire; "
+        log("[5/7] training, nanochat-d20: DiLoCo and DDP on the f32 wire; "
             "DiLoCo on int8, fp8 and fp8_e5m2 wires, compressed DDP, "
             "streaming, overlapped and pipelined on the lossy wire")
         train, report["train_profile"] = phase_train(torch)
         report["train"] = train
 
-        log("[6/6] kernel timing")
+        log("[6/7] pipeline, nanochat-d20 at full width: base -> mid -> "
+            "SFT with evals after each stage, DiLoCo and hybrid")
+        t0 = time.perf_counter()
+        pipeline = phase_pipeline(torch)
+        report["pipeline"] = pipeline
+        report["pipeline_s"] = time.perf_counter() - t0
+        log(f"  pipeline phase {report['pipeline_s']:.1f} s")
+
+        log("[7/7] kernel timing")
         paths = {name: run["launches"] for name, run in runs.items()}
         paths.update({m: run["launches"] for m, run in train.items()})
+        paths.update({f"pipeline_{m}": run["launches"]
+                      for m, run in pipeline.items()})
         paths.update({m: run["launches"] for m, run in static.items()
                       if "launches" in run})
         kernels = phase_timing(torch, paths, checks)
@@ -2139,6 +2414,8 @@ def main(argv=None) -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
+    report["total_s"] = time.perf_counter() - t_start
+    log(f"all phases passed in {report['total_s']:.1f} s")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1, default=str))
@@ -2153,8 +2430,16 @@ def main(argv=None) -> int:
         "tokens_per_s", "wall_s", "ms_per_step",
         "static_vs_scheduler_agreement", "busy_share")}
         for k, v in static.items()}
+    pipeline_summary = {m: {stage: {
+        "method": e["method"], "loss": [e["loss_first"], e["loss_last"]],
+        "step_seconds": e["step_seconds"],
+        "tokens_per_s": e["port"]["tokens_per_s"],
+        "heldout_ce": e["core"]["heldout_ce"], "tasks": e["tasks"],
+        "eval_seconds": e["port"]["eval_seconds"]}
+        for stage, e in run["stages"].items()} for m, run in pipeline.items()}
     print(json.dumps({"engine": summary, "capacity": capacity,
-                      "train": train_summary, "static": static_summary}))
+                      "train": train_summary, "static": static_summary,
+                      "pipeline": pipeline_summary}))
     print(report["gpu"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""Load JAX-package checkpoints into the port, without JAX.
+"""Load checkpoints in the JAX package's format into the port, without
+JAX (the JAX package's files and the port's own, ``checkpoint.py``).
 
 The JAX package saves a parameter tree as ``<path>.npz`` plus a
 ``<path>.json`` manifest of ``{"key", "path", "dtype", "shape"}`` per leaf,

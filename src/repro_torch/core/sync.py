@@ -8,7 +8,8 @@ package's ``core/sync.py``):
                           (``--grad-compress``); with a lossless codec it
                           is per-step delta-averaged DDP;
 * ``DiLoCoSync``        — full delta exchange + outer Nesterov step every
-                          H inner steps (paper §2.2), fixed H;
+                          H inner steps (paper §2.2), fixed H or any
+                          ``HSchedule`` (``AdaptiveH``);
 * ``StreamingSync``     — one fragment every H/F steps, staggered
                           (Streaming DiLoCo, arXiv:2501.18512);
 * ``OverlappedSync``    — the delta captured at t is applied at t+delay,
@@ -43,7 +44,7 @@ import random as _pyrandom
 from typing import Any, Dict, List, Optional, Tuple
 
 from repro_torch.configs.base import DiLoCoConfig
-from repro_torch.core.schedule import FixedH
+from repro_torch.core.schedule import FixedH, HSchedule
 from repro_torch.core.transport import make_codec
 
 # history records a runner can emit: (history_key, value) pairs
@@ -164,7 +165,7 @@ class DDPSync(SyncStrategy):
 # ---------------------------------------------------------------------------
 
 class _DiLoCoRunner(SyncRunner):
-    def __init__(self, engine, params, hs: FixedH):
+    def __init__(self, engine, params, hs: HSchedule):
         self.engine = engine
         self.hs = hs
         self.since = 0
@@ -189,20 +190,27 @@ class _DiLoCoRunner(SyncRunner):
         return state, []
 
     def next_event(self, step):
+        # syncs fire when since_sync reaches the schedule's current H, and
+        # every HSchedule here changes H only at a sync (AdaptiveH's loss
+        # window is fed per step by after_step, but its slope check runs
+        # at the boundary), so the next boundary is known in advance
         h = int(self.hs.current_h)
         return step + max(h - self.since, 1) - 1
 
 
 @dataclasses.dataclass(frozen=True)
 class DiLoCoSync(SyncStrategy):
-    """Paper §2.2: average parameter deltas + outer Nesterov SGD every H
-    (``h``, default the config's ``h_inner_steps``)."""
+    """Paper §2.2: average parameter deltas + outer Nesterov SGD every H.
+
+    ``h`` overrides the config's ``h_inner_steps``; ``h_schedule`` plugs in
+    any ``HSchedule`` (e.g. ``AdaptiveH``) instead of fixed H."""
     name = "diloco"
     h: Optional[int] = None
+    h_schedule: Optional[HSchedule] = None
 
     def bind(self, engine, params) -> SyncRunner:
-        return _DiLoCoRunner(engine, params,
-                             FixedH(self.h or engine.cfg.h_inner_steps))
+        hs = self.h_schedule or FixedH(self.h or engine.cfg.h_inner_steps)
+        return _DiLoCoRunner(engine, params, hs)
 
     def payload_schedule(self, n_params, num_steps, cfg):
         h = self.h or cfg.h_inner_steps
@@ -519,15 +527,18 @@ class PipelinedSync(SyncStrategy):
 # Registry
 # ---------------------------------------------------------------------------
 
+# name -> factory(cfg, h_schedule); only DiLoCo reads the H schedule, as
+# in the JAX package's registry
 _STRATEGY_REGISTRY: Dict[str, Any] = {
-    "ddp": lambda cfg: DDPSync(),
-    "ddp_compressed": lambda cfg: CompressedDDPSync(),
-    "diloco": lambda cfg: DiLoCoSync(),
-    "streaming": lambda cfg: StreamingSync(num_fragments=cfg.num_fragments),
-    "overlapped": lambda cfg: OverlappedSync(
+    "ddp": lambda cfg, hs: DDPSync(),
+    "ddp_compressed": lambda cfg, hs: CompressedDDPSync(),
+    "diloco": lambda cfg, hs: DiLoCoSync(h_schedule=hs),
+    "streaming": lambda cfg, hs: StreamingSync(
+        num_fragments=cfg.num_fragments),
+    "overlapped": lambda cfg, hs: OverlappedSync(
         delay=cfg.sync_delay, jitter=cfg.h_jitter, seed=cfg.sync_seed),
-    "pipelined": lambda cfg: PipelinedSync(num_fragments=cfg.num_fragments,
-                                           delay=cfg.sync_delay),
+    "pipelined": lambda cfg, hs: PipelinedSync(
+        num_fragments=cfg.num_fragments, delay=cfg.sync_delay),
 }
 # registered in the JAX package, not ported yet
 UNPORTED = ("gossip", "async_gossip")
@@ -538,8 +549,11 @@ def strategy_names() -> Tuple[str, ...]:
     return tuple(_STRATEGY_REGISTRY)
 
 
-def make_strategy(cfg: DiLoCoConfig) -> SyncStrategy:
-    """The strategy ``cfg.strategy`` names."""
+def make_strategy(cfg: DiLoCoConfig,
+                  h_schedule: Optional[HSchedule] = None) -> SyncStrategy:
+    """The strategy ``cfg.strategy`` names; ``h_schedule`` reaches
+    DiLoCo's runner (the other strategies ignore it, as in the JAX
+    package)."""
     if cfg.strategy in UNPORTED:
         raise NotImplementedError(
             f"strategy {cfg.strategy!r} is not ported; the port has "
@@ -548,4 +562,4 @@ def make_strategy(cfg: DiLoCoConfig) -> SyncStrategy:
     if factory is None:
         raise ValueError(f"unknown strategy {cfg.strategy!r}; expected one "
                          f"of {strategy_names()}")
-    return factory(cfg)
+    return factory(cfg, h_schedule)

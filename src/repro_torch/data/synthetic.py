@@ -1,14 +1,15 @@
-"""The synthetic pretraining corpus the serving CLI trains its tokenizer
-on: a seeded world of entity facts, arithmetic statements, word patterns
-and filler, generated exactly as the JAX package's ``repro.data.synthetic``
-generates it (same seeds, same texts), so the port's tokenizer has the
-same merges and ids as the JAX pipeline's.
+"""The synthetic three-stage corpora and eval suites of the JAX package's
+``repro.data.synthetic``, copied line for line (same seeds, same texts):
+a seeded world of entity facts, arithmetic statements, word patterns and
+filler for the base stage (and the tokenizer), chat-schema dialogues for
+mid-training, single-turn instruction pairs for SFT, and the
+multiple-choice, arithmetic and pattern eval items.
 """
 from __future__ import annotations
 
 import dataclasses
 import random
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 ATTRIBUTES = ["color", "size", "shape", "sound", "taste"]
 VALUES = {
@@ -102,3 +103,110 @@ def gen_pretrain_texts(world: World, n: int, seed: int = 0) -> List[str]:
         else:
             out.append(_filler_sentence(rng))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Chat / instruction stages
+# ---------------------------------------------------------------------------
+
+def _chat(q: str, a: str) -> str:
+    return (f"<|user_start|>{q}<|user_end|>"
+            f"<|assistant_start|>{a}<|assistant_end|>")
+
+
+def _qa_pair(world: World, rng: random.Random, ents: Sequence[str]
+             ) -> Tuple[str, str]:
+    r = rng.random()
+    if r < 0.5:
+        e = rng.choice(list(ents))
+        a = rng.choice(ATTRIBUTES)
+        return (f"what is the {a} of {e} ?", f"the {a} of {e} is {world.facts[e][a]} .")
+    if r < 0.85:
+        s = _arith_sentence(rng)
+        lhs, res = s.rstrip(" .").split(" = ")
+        return (f"compute {lhs} .", f"{lhs} = {res} .")
+    w1, w2 = rng.sample(PATTERN_WORDS, 2)
+    return (f"continue the pattern {w1} {w2} {w1} {w2} .",
+            f"{w1} {w2} {w1} {w2} .")
+
+
+def gen_dialogue_texts(world: World, n: int, seed: int = 1) -> List[str]:
+    """Mid-training stage: multi-turn dialogues (SmolTalk proxy)."""
+    rng = random.Random(seed)
+    ents = world.train_entities()
+    out = []
+    for _ in range(n):
+        turns = rng.randint(1, 3)
+        convo = "<|bos|>"
+        for _ in range(turns):
+            q, a = _qa_pair(world, rng, ents)
+            convo += _chat(q, a)
+        out.append(convo)
+    return out
+
+
+def gen_sft_texts(world: World, n: int, seed: int = 2) -> List[str]:
+    """SFT stage: single-turn, arithmetic/fact heavy, clean answers."""
+    rng = random.Random(seed)
+    ents = world.train_entities()
+    out = []
+    for _ in range(n):
+        q, a = _qa_pair(world, rng, ents)
+        out.append("<|bos|>" + _chat(q, a))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Eval item generators (consumed by repro.evals.tasks)
+# ---------------------------------------------------------------------------
+
+def gen_mc_eval(world: World, n: int, seed: int = 7,
+                heldout: bool = False) -> List[dict]:
+    """MMLU-like multiple choice on world facts."""
+    rng = random.Random(seed)
+    ents = world.eval_entities() if heldout else world.train_entities()
+    items = []
+    for _ in range(n):
+        e = rng.choice(list(ents))
+        a = rng.choice(ATTRIBUTES)
+        gold = world.facts[e][a]
+        opts = [v for v in VALUES[a] if v != gold]
+        rng.shuffle(opts)
+        options = opts[:3] + [gold]
+        rng.shuffle(options)
+        items.append({
+            "prompt": f"<|user_start|>what is the {a} of {e} ?<|user_end|>"
+                      f"<|assistant_start|>the {a} of {e} is ",
+            "options": options,
+            "answer": options.index(gold),
+        })
+    return items
+
+
+def gen_arith_eval(n: int, seed: int = 8) -> List[dict]:
+    """GSM8K-like: exact-match arithmetic completion."""
+    rng = random.Random(seed)
+    items = []
+    for _ in range(n):
+        s = _arith_sentence(rng)
+        lhs, res = s.rstrip(" .").split(" = ")
+        items.append({
+            "prompt": f"<|user_start|>compute {lhs} .<|user_end|>"
+                      f"<|assistant_start|>{lhs} = ",
+            "answer": res,
+        })
+    return items
+
+
+def gen_pattern_eval(n: int, seed: int = 9) -> List[dict]:
+    """HumanEval-like: deterministic continuation exact-match."""
+    rng = random.Random(seed)
+    items = []
+    for _ in range(n):
+        w1, w2 = rng.sample(PATTERN_WORDS, 2)
+        items.append({
+            "prompt": f"<|user_start|>continue the pattern {w1} {w2} {w1} {w2} ."
+                      f"<|user_end|><|assistant_start|>",
+            "answer": f"{w1} {w2}",
+        })
+    return items

@@ -3,7 +3,9 @@
 // The forward replaces the JAX package's Pallas kernel
 //   src/repro/kernels/flash_attention/kernel.py  flash_attention_fwd
 //   (:98, pallas_call :127)
-// and also returns the row log-sum-exp.  The backward has no TPU
+// and also returns the row log-sum-exp.  Its fp8=True variant (QK^T on
+// per-row fp8_e4m3 codes, src/repro/kernels/common.py:31 qk_dot_fp8 in the
+// kernel body :69-70) is the FP8_QK instantiation, repro_flash_fwd_fp8.  The backward has no TPU
 // counterpart: the Pallas kernel has no VJP, and the JAX package's
 // gradient of this function is jax.grad of its jnp reference
 // (kernels/flash_attention/ref.py reference_attention).
@@ -37,6 +39,14 @@
 // * forward: one CTA per (q tile, head, batch); online softmax over the
 //   KV tiles (running max m, sum l, f32 accumulator in registers), P
 //   through shared memory into P.V; o = acc / l, lse = m + log l.
+//   With FP8_QK, every row of the staged Q tile (once) and of each K tile
+//   (after its load) is replaced in shared memory by the f32 values of its
+//   e4m3 codes under the row's own scale max(amax, 1e-12) / 448 (true
+//   division, clip to +-448, round to nearest even), one warp per row;
+//   the code dot is then multiplied by q_scale * k_scale and by 1/sqrt(D),
+//   in that order, as qk_dot_fp8 does.  P.V stays f32.  A row's scale
+//   sits in the row's padding float (column D), so both variants use the
+//   same shared memory and fit two CTAs per SM.
 // * backward, FA2's split:
 //   - delta = rowsum(dO * O), one warp per row;
 //   - dK/dV: one CTA per (KV tile, KV head, batch), looping over the G
@@ -54,6 +64,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <math.h>
 
 namespace {
@@ -61,6 +72,9 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTile = 64;          // rows of every tile (queries and keys)
 constexpr int kP = kTile + 1;      // padded row of a 64 x 64 score tile
+constexpr int kWarps = kThreads / 32;
+constexpr float kFp8Max = 448.f;   // float8_e4m3fn saturation
+constexpr float kScaleEps = 1e-12f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -79,6 +93,33 @@ __device__ __forceinline__ float row_max(float v) {
 __device__ __forceinline__ float row_sum(float v) {
   for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Replace each of the 64 rows (length D, stride D + 1) of a staged tile by
+// the f32 values of its fp8_e4m3 codes under the row's own amax scale,
+// written to the row's padding float x[row][D]: one warp per row.
+// qk_dot_fp8's order: scale, true division, clip, RNE cast.
+// (paged_attention.cu fp8_rows, at this kernel's padded stride.)
+template <int D>
+__device__ void fp8_rows(float* x) {
+  constexpr int DP = D + 1;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < kTile; r += kWarps) {
+    float* row = x + r * DP;
+    float amax = 0.f;
+    for (int d = lane; d < D; d += 32) amax = fmaxf(amax, fabsf(row[d]));
+    const float s = fmaxf(warp_max(amax), kScaleEps) / kFp8Max;
+    for (int d = lane; d < D; d += 32) {
+      const float y = fminf(fmaxf(row[d] / s, -kFp8Max), kFp8Max);
+      row[d] = static_cast<float>(__nv_fp8_e4m3(y));
+    }
+    if (lane == 0) row[D] = s;
+  }
 }
 
 __device__ __forceinline__ bool visible(int qi, int ki, int S, int causal,
@@ -114,7 +155,7 @@ __device__ __forceinline__ void key_tiles(int q0, int S, int causal,
 // Forward
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <typename T, int D, bool FP8_QK>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
@@ -130,6 +171,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kvh = h / (H / KV);
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   load_tile<T, D>(Qs, q, b, q0, h, S, H);
+  if constexpr (FP8_QK) {
+    __syncthreads();
+    fp8_rows<D>(Qs);
+  }
 
   float m[4], l[4], acc[4][NC];
 #pragma unroll
@@ -147,6 +192,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_tile<T, D>(Ks, k, b, k0, kvh, S, KV);
     load_tile<T, D>(Vs, v, b, k0, kvh, S, KV);
     __syncthreads();
+    if constexpr (FP8_QK) {
+      fp8_rows<D>(Ks);
+      __syncthreads();
+    }
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -171,6 +220,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const bool ok = visible(qi, k0 + tx + 16 * j, S, causal, window);
+        if constexpr (FP8_QK)   // the row scales, in the padding column
+          s[i][j] = s[i][j] * Qs[(ty * 4 + i) * DP + D] * Ks[(tx + 16 * j) * DP + D];
         s[i][j] = ok ? s[i][j] * scale : -INFINITY;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -474,11 +525,11 @@ constexpr size_t dq_smem(int D) {
          * sizeof(float);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool FP8_QK>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int S, int H, int KV, float scale,
                 int causal, int window, cudaStream_t st) {
-  auto kern = flash_fwd_kernel<T, D>;
+  auto kern = flash_fwd_kernel<T, D, FP8_QK>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(fwd_smem(D)));
@@ -526,15 +577,15 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* o,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool FP8_QK>
 cudaError_t fwd_d(int D, const void* q, const void* k, const void* v,
                   void* o, float* lse, int B, int S, int H, int KV,
                   float scale, int causal, int window, cudaStream_t st) {
   switch (D) {
-    case 16: return fwd<T, 16>(q, k, v, o, lse, B, S, H, KV, scale, causal, window, st);
-    case 32: return fwd<T, 32>(q, k, v, o, lse, B, S, H, KV, scale, causal, window, st);
-    case 64: return fwd<T, 64>(q, k, v, o, lse, B, S, H, KV, scale, causal, window, st);
-    case 128: return fwd<T, 128>(q, k, v, o, lse, B, S, H, KV, scale, causal, window, st);
+    case 16: return fwd<T, 16, FP8_QK>(q, k, v, o, lse, B, S, H, KV, scale, causal, window, st);
+    case 32: return fwd<T, 32, FP8_QK>(q, k, v, o, lse, B, S, H, KV, scale, causal, window, st);
+    case 64: return fwd<T, 64, FP8_QK>(q, k, v, o, lse, B, S, H, KV, scale, causal, window, st);
+    case 128: return fwd<T, 128, FP8_QK>(q, k, v, o, lse, B, S, H, KV, scale, causal, window, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -554,6 +605,22 @@ cudaError_t bwd_d(int D, const void* q, const void* k, const void* v,
   }
 }
 
+template <bool FP8_QK>
+int fwd_any(int dtype, const void* q, const void* k, const void* v, void* o,
+            void* lse, int B, int S, int H, int KV, int D, float scale,
+            int causal, int window, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0)
+    err = fwd_d<float, FP8_QK>(D, q, k, v, o, l, B, S, H, KV, scale, causal,
+                               window, st);
+  else if (dtype == 1)
+    err = fwd_d<__nv_bfloat16, FP8_QK>(D, q, k, v, o, l, B, S, H, KV, scale,
+                                       causal, window, st);
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 extern "C" {
@@ -565,15 +632,17 @@ const char* repro_error_string(int code) {
 int repro_flash_fwd(int dtype, const void* q, const void* k, const void* v,
                     void* o, void* lse, int B, int S, int H, int KV, int D,
                     float scale, int causal, int window, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0)
-    err = fwd_d<float>(D, q, k, v, o, l, B, S, H, KV, scale, causal, window, st);
-  else if (dtype == 1)
-    err = fwd_d<__nv_bfloat16>(D, q, k, v, o, l, B, S, H, KV, scale, causal,
-                               window, st);
-  return static_cast<int>(err);
+  return fwd_any<false>(dtype, q, k, v, o, lse, B, S, H, KV, D, scale, causal,
+                        window, stream);
+}
+
+// The forward with QK^T on per-row fp8_e4m3 codes (same arguments).
+int repro_flash_fwd_fp8(int dtype, const void* q, const void* k,
+                        const void* v, void* o, void* lse, int B, int S, int H,
+                        int KV, int D, float scale, int causal, int window,
+                        void* stream) {
+  return fwd_any<true>(dtype, q, k, v, o, lse, B, S, H, KV, D, scale, causal,
+                       window, stream);
 }
 
 // delta is (B, H, S) f32 scratch.

@@ -7,7 +7,9 @@ Layout (the model's, see ``ref.py``): q (B, S, H, D), k/v (B, S, KV, D),
 H % KV == 0, all one dtype (float32 or bfloat16), contiguous, one device.
 ``causal`` masks keys after the query; ``window`` > 0 keeps only keys
 with query - key < window.  The CUDA kernels take head dims 16, 32, 64
-and 128 and any S."""
+and 128 and any S.  ``flash_fwd(..., fp8=True)`` runs QK^T on per-row
+fp8_e4m3 codes (the JAX kernel's ``fp8=True``); it is forward only, as
+the JAX kernel is, so the backward and ``flash_attention`` refuse it."""
 from __future__ import annotations
 
 import ctypes
@@ -18,12 +20,14 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import (
-    flash_attention_bwd_plain, flash_attention_plain)
+    flash_attention_bwd_plain, flash_attention_fp8_plain,
+    flash_attention_plain)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FWD = (_I, _P, _P, _P, _P, _P) + (_I,) * 5 + (_F, _I, _I, _P)
 _SIGNATURES = {
-    "repro_flash_fwd": (_I, _P, _P, _P, _P, _P) + (_I,) * 5
-    + (_F, _I, _I, _P),
+    "repro_flash_fwd": _FWD,
+    "repro_flash_fwd_fp8": _FWD,
     "repro_flash_bwd": (_I,) + (_P,) * 10 + (_I,) * 5 + (_F, _I, _I, _P),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -65,11 +69,20 @@ def _flags(causal: bool, window: Optional[int]):
     return int(bool(causal)), int(window or 0)
 
 
+def _refuse_fp8(fp8: bool, what: str) -> None:
+    if fp8:
+        raise ValueError(f"{what}: the fp8 QK^T flash attention is forward "
+                         f"only (the JAX kernel has no backward)")
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, window: Optional[int] = None):
-    """Returns (o (B, S, H, D) in q's dtype, lse (B, H, S) f32)."""
+              causal: bool = True, window: Optional[int] = None,
+              fp8: bool = False):
+    """Returns (o (B, S, H, D) in q's dtype, lse (B, H, S) f32).
+    ``fp8``: QK^T on per-row fp8_e4m3 codes of q and k."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, window)
+        plain = flash_attention_fp8_plain if fp8 else flash_attention_plain
+        return plain(q, k, v, causal, window)
     _check(q, k, v)
     B, S, H, D = q.shape
     o = torch.empty_like(q)
@@ -77,21 +90,24 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if B * S * H == 0:
         return o, lse
     lib = _lib()
+    name = "flash_fwd_fp8" if fp8 else "flash_fwd"
     with torch.cuda.device(q.device):
-        rc = lib.repro_flash_fwd(
+        rc = getattr(lib, f"repro_{name}")(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), lse.data_ptr(), B, S, H, k.shape[2], D,
             1.0 / math.sqrt(D), *_flags(causal, window),
             torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(rc, lib, "flash_fwd")
-    _build.launches["flash_fwd"] += 1
+    _build.check(rc, lib, name)
+    _build.launches[name] += 1
     return o, lse
 
 
 def flash_bwd(q, k, v, o, lse, do, *, causal: bool = True,
-              window: Optional[int] = None):
+              window: Optional[int] = None, fp8: bool = False):
     """Gradients (dq, dk, dv) of the forward's output given its output
-    ``o``, its ``lse`` and the output gradient ``do`` (same shape as q)."""
+    ``o``, its ``lse`` and the output gradient ``do`` (same shape as q).
+    ``fp8=True`` raises ``ValueError``: that forward has no backward."""
+    _refuse_fp8(fp8, "flash_bwd")
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal, window)
     _check(q, k, v, o, do)
@@ -136,8 +152,10 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    causal: bool = True, window: Optional[int] = None,
+                    fp8: bool = False) -> torch.Tensor:
     """Differentiable attention output (B, S, H, D); the backward is
-    ``flash_bwd``."""
+    ``flash_bwd``.  ``fp8=True`` raises ``ValueError`` (forward only: call
+    ``flash_fwd(..., fp8=True)``)."""
+    _refuse_fp8(fp8, "flash_attention")
     return _FlashAttention.apply(q, k, v, causal, window)

@@ -10,7 +10,11 @@ kernel takes (B, H, S, D), a transpose away.  Scores are materialised
 (B, KV, G, S, S); masked scores are the JAX code's finite -1e30, so their
 probabilities are exactly 0 and no row (every row sees its own key) is
 empty.  The forward also returns the row log-sum-exp (B, H, S) f32, which
-the backward uses to recompute the probabilities."""
+the backward uses to recompute the probabilities.
+
+``flash_attention_fp8_plain`` is the plain version of the ``fp8=True``
+forward (QK^T on per-row fp8_e4m3 codes): the JAX oracle
+``reference_attention_fp8``."""
 from __future__ import annotations
 
 import math
@@ -82,3 +86,20 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = True,
     dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf) * scale
     return (dq.reshape(B, S, H, D).to(q.dtype).contiguous(),
             dk.to(k.dtype).contiguous(), dv.to(v.dtype).contiguous())
+
+
+def flash_attention_fp8_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, causal: bool = True,
+                              window: Optional[int] = None):
+    """The ``fp8=True`` forward: every (position, head) row of q and k is
+    quantized to fp8_e4m3 under its own amax scale over D
+    (``quantize_axis``), dequantized (back to the input's dtype, as the
+    oracle does), and the exact attention runs on the result.  Returns
+    (o, lse) as :func:`flash_attention_plain`."""
+    from repro_torch.kernels.quantize.ref import quantize_axis
+
+    def dq(x):
+        xq, s = quantize_axis(x, -1, "fp8_e4m3")
+        return (xq.float() * s).to(x.dtype)
+
+    return flash_attention_plain(dq(q), dq(k), v, causal, window)

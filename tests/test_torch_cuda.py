@@ -643,3 +643,98 @@ def test_cuda_static_path_and_scoring_equal_cpu(cuda, arch):
     np.testing.assert_allclose(score, cpu.score_continuations_batch(rows),
                                atol=1e-3, rtol=1e-4)
     assert launches["ssd"] == (cfg.num_layers if arch == "ssm" else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,D,causal,window", [
+    (1, 256, 4, 2, 64, True, None), (1, 256, 4, 2, 64, True, 64),
+    (1, 256, 4, 2, 64, False, None), (2, 200, 4, 4, 128, True, None),
+    (1, 130, 2, 1, 32, True, 16)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_flash_fp8_kernel_matches_plain(cuda, B, S, H, KV, D, causal,
+                                             window, dtype, tol):
+    """The fp8 QK^T flash forward against its plain version (the JAX
+    oracle's quantize-dequantize-attend) within the flash forward's
+    tolerance; it differs from the exact kernel by more than 1e-3, so the
+    narrow path is live, and launches its own kernel once."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_fp8_plain, flash_fwd)
+    g = torch.Generator().manual_seed(S + H + D)
+    q = torch.randn((B, S, H, D), generator=g).to(dtype).to(cuda)
+    k, v = (torch.randn((B, S, KV, D), generator=g).to(dtype).to(cuda)
+            for _ in range(2))
+    reset_launches()
+    o, lse = flash_fwd(q, k, v, causal=causal, window=window, fp8=True)
+    assert launches["flash_fwd_fp8"] == 1 and launches["flash_fwd"] == 0
+    o_ref, lse_ref = flash_attention_fp8_plain(q, k, v, causal, window)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, lse_ref, atol=tol * 10, rtol=tol)
+    exact, _ = flash_fwd(q, k, v, causal=causal, window=window)
+    assert float((o.float() - exact.float()).abs().max()) > 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_flash_fp8_refuses_the_backward(cuda):
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_bwd, flash_fwd)
+    q = torch.randn((1, 64, 2, 64), device=cuda)
+    o, lse = flash_fwd(q, q, q, fp8=True)
+    with pytest.raises(ValueError, match="forward only"):
+        flash_bwd(q, q, q, o, lse, o, fp8=True)
+    with pytest.raises(ValueError, match="forward only"):
+        flash_attention(q, q, q, fp8=True)
+
+
+@pytest.mark.cuda
+def test_cuda_run_pipeline_tiny_matches_cpu(cuda, tmp_path, monkeypatch):
+    """The three-stage hybrid pipeline with evals on a tiny model, on the
+    card and on the CPU from the same initial parameters (drawn on the
+    CPU: the two devices' generators differ): the stage methods, the
+    losses (rtol 1e-4) and the held-out CE (rtol 1e-4) agree; the card
+    run launched the training kernels and the paged decode kernel of the
+    evals, and no verify, quantized-pool, wire, ssd, ring or fp8 kernel;
+    every eval value lies in [0, 1]; the final checkpoint reloads to the
+    same held-out CE."""
+    from repro_torch.checkpoint import (load_config, load_pytree,
+                                        params_from_numpy)
+    from repro_torch.evals import heldout_metrics
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import train
+    from repro_torch.launch.train import build_pipeline, run_pipeline
+    from repro_torch.models.transformer import flatten, unflatten
+    init = train.init_params
+
+    def init_on_cpu(cfg, seed=0, device="cpu"):
+        return unflatten({k: v.to(device) for k, v in
+                          flatten(init(cfg, seed=seed)).items()})
+
+    monkeypatch.setattr(train, "init_params", init_on_cpu)
+    kw = dict(arch="tiny", steps={"base": 6, "mid": 4, "sft": 4}, workers=2,
+              per_worker_batch=2, seq_len=64, fused_adamw=True)
+    cpu = run_pipeline("hybrid", device="cpu", **kw)
+    reset_launches()
+    card = run_pipeline("hybrid", device="cuda", out_dir=str(tmp_path), **kw)
+    torch.cuda.synchronize()
+    counts = {k: launches[k] for k in KERNELS}
+    for k in ("flash_fwd", "flash_bwd", "fused_adamw", "rmsnorm_bwd",
+              "rmsnorm_residual", "paged_decode"):
+        assert counts[k] > 0, k
+    for k in ("paged_verify", "paged_decode_dequant", "paged_verify_dequant",
+              "paged_decode_fp8", "paged_verify_fp8", "quantize_ef",
+              "dequantize", "ssd", "ring_decode", "flash_fwd_fp8"):
+        assert counts[k] == 0, k
+    for stage in ("base", "mid", "sft"):
+        c, g = cpu["stages"][stage], card["stages"][stage]
+        assert c["method"] == g["method"]
+        np.testing.assert_allclose(g["losses"], c["losses"], rtol=1e-4)
+        np.testing.assert_allclose(g["core"]["heldout_ce"],
+                                   c["core"]["heldout_ce"], rtol=1e-4)
+        assert all(0.0 <= x <= 1.0 for x in g["tasks"].values())
+    ckpt = str(tmp_path / "hybrid_final")
+    cfg = load_config(ckpt)
+    params = params_from_numpy(load_pytree(ckpt), cfg, cuda)
+    _, _, stages, _ = build_pipeline(seq_len=64)
+    again = heldout_metrics(cfg, params, ds=stages["base"], batches=4,
+                            batch_size=8)
+    assert again["heldout_ce"] == card["stages"]["sft"]["core"]["heldout_ce"]

@@ -18,6 +18,7 @@ from repro.kernels.decode_attention import (
     reference_paged_decode_attention, reference_paged_verify_attention)
 from repro.kernels.flash_attention import (
     flash_attention as pallas_flash_attention, reference_attention)
+from repro.kernels.flash_attention.ref import reference_attention_fp8
 from repro.kernels.fused_adamw import (fused_adamw_update as
                                        pallas_fused_adamw,
                                        reference_fused_adamw)
@@ -31,6 +32,7 @@ from repro_torch.kernels.decode_attention import (
     paged_verify_attention, paged_verify_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd_plain,
+                                                 flash_attention_fp8_plain,
                                                  flash_attention_plain,
                                                  flash_bwd, flash_fwd)
 from repro_torch.kernels.fused_adamw import (fused_adamw_plain,
@@ -320,6 +322,61 @@ def test_flash_bwd_plain_equals_autograd_through_the_plain_forward():
     got = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
                                     o.detach(), lse, do, True, 7)
     torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 64),
+                                           (False, None)])
+@pytest.mark.parametrize("H", [4, 2])
+def test_flash_fp8_plain_matches_jax_oracle_and_pallas(causal, window, H):
+    """The ``fp8=True`` forward (QK^T on per-row fp8_e4m3 codes) at the
+    JAX package's own test cases ((1, H, 256, 64), KV 2): the plain
+    version against ``reference_attention_fp8`` and the interpret-mode
+    ``flash_attention(fp8=True)`` within 2e-5, and more than 1e-3 away
+    from the exact attention (the narrow path is live)."""
+    ks = jax.random.split(jax.random.key(42), 3)
+    jq = jax.random.normal(ks[0], (1, H, 256, 64), jnp.float32)
+    jk = jax.random.normal(ks[1], (1, 2, 256, 64), jnp.float32)
+    jv = jax.random.normal(ks[2], (1, 2, 256, 64), jnp.float32)
+    q, k, v = (torch.from_numpy(np.ascontiguousarray(
+        np.asarray(a).transpose(0, 2, 1, 3))) for a in (jq, jk, jv))
+    o, lse = flash_fwd(q, k, v, causal=causal, window=window, fp8=True)
+    assert o.shape == q.shape and lse.shape == (1, H, 256)
+    got = o.numpy().transpose(0, 2, 1, 3)
+    kw = dict(causal=causal, window=window)
+    for want in (reference_attention_fp8(jq, jk, jv, **kw),
+                 pallas_flash_attention(jq, jk, jv, fp8=True,
+                                        interpret=True, **kw)):
+        assert np.abs(got - np.asarray(want)).max() < 2e-5
+    exact = np.asarray(reference_attention(jq, jk, jv, **kw))
+    assert np.abs(got - exact).max() > 1e-3
+    o2, lse2 = flash_attention_fp8_plain(q, k, v, causal, window)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+def test_flash_fp8_plain_bf16_rounds_like_the_oracle():
+    """bf16 inputs: the dequantized rows are rounded back to bf16 before
+    the exact attention, as ``reference_attention_fp8`` does."""
+    rng = np.random.default_rng(11)
+    q, k, v = _qkv(rng, 1, 64, 4, 2, 32)
+    jq, jk, jv = (_bhsd(a).astype(jnp.bfloat16) for a in (q, k, v))
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    o, _ = flash_fwd(tq, tk, tv, window=16, fp8=True)
+    assert o.dtype == torch.bfloat16
+    want = np.asarray(reference_attention_fp8(jq, jk, jv, window=16)
+                      .astype(jnp.float32)).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(o.float().numpy(), want, atol=1e-2, rtol=0)
+
+
+def test_flash_fp8_is_forward_only():
+    """The JAX kernel's fp8 path has no backward: the port's backward and
+    the autograd ``flash_attention`` refuse ``fp8=True``."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(rng, 1, 16, 2, 2, 16))
+    o, lse = flash_fwd(q, k, v, fp8=True)
+    with pytest.raises(ValueError, match="forward only"):
+        flash_bwd(q, k, v, o, lse, o, fp8=True)
+    with pytest.raises(ValueError, match="forward only"):
+        flash_attention(q.requires_grad_(), k, v, fp8=True)
 
 
 # ---------------------------------------------------------------------------

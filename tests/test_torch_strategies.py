@@ -320,10 +320,15 @@ def test_strategies_reject_bad_overlap_knobs(params):
     ["--method", "diloco", "--delta-dtype", "bf16", "--drift-aware"]],
     ids=lambda a: "-".join(x.lstrip("-") for x in a[1:4]))
 def test_train_cli_runs_each_strategy_on_cpu(capsys, argv):
-    hist = train.main(["--device", "cpu", "--steps", "6", "--workers", "2"]
-                      + argv)
+    """The CLI runs the three stages under each strategy and wire; the
+    base stage's line shows the wire bytes shipped."""
+    res = train.main(["--device", "cpu", "--steps", "6", "--workers", "2"]
+                     + argv)
     out = capsys.readouterr().out
-    assert f"[{argv[1]}:base] tiny-nanochat device=cpu kernels=plain" in out
+    for stage in ("base", "mid", "sft"):
+        assert (f"[{argv[1]}:{stage}] tiny-nanochat device=cpu "
+                f"kernels=plain" in out)
     assert "wire_bytes={'" in out
-    assert len(hist["loss"]) == 6 and all(np.isfinite(hist["loss"]))
-    assert hist["sync_steps"] or hist["frag_syncs"]
+    base = res["stages"]["base"]
+    assert len(base["losses"]) == 6 and all(np.isfinite(base["losses"]))
+    assert base["port"]["syncs"] and base["port"]["wire_bytes"]

@@ -257,12 +257,17 @@ def test_ddp_trainer_step_equals_k1_dist_trainer(jparams):
 
 
 def test_train_cli_runs_on_cpu(capsys):
-    hist = train.main(["--device", "cpu", "--method", "diloco", "--steps",
-                       "3", "--workers", "2", "--fused-adamw"])
+    """The CLI runs the three stages (3, 1 and 1 steps at H 1) and prints
+    one line per stage."""
+    res = train.main(["--device", "cpu", "--method", "diloco", "--steps",
+                      "3", "--workers", "2", "--fused-adamw"])
     out = capsys.readouterr().out
-    assert "[diloco:base] tiny-nanochat device=cpu kernels=plain" in out
-    assert hist["sync_steps"] == [0, 1, 2] and len(hist["loss"]) == 3
-    assert all(np.isfinite(hist["loss"]))
+    for stage, n in (("base", 3), ("mid", 1), ("sft", 1)):
+        assert (f"[diloco:{stage}] tiny-nanochat device=cpu kernels=plain"
+                in out)
+        e = res["stages"][stage]
+        assert e["port"]["syncs"] == n and len(e["losses"]) == n
+        assert all(np.isfinite(e["losses"]))
 
 
 def test_train_cli_defaults_to_cuda_and_raises_without_it(monkeypatch):
@@ -271,18 +276,18 @@ def test_train_cli_defaults_to_cuda_and_raises_without_it(monkeypatch):
         train.main(["--steps", "1"])
 
 
-@pytest.mark.parametrize("what", ["async_gossip", "gossip", "hybrid",
+@pytest.mark.parametrize("what", ["async_gossip", "gossip",
                                   "streaming_faults", "gossip_cli",
                                   "prefetch", "faults", "checkpoint",
-                                  "pipeline", "evals", "adaptive_h"])
+                                  "evals", "pipeline_faults",
+                                  "pipeline_worker_speeds",
+                                  "pipeline_checkpoint"])
 def test_unported_paths_raise(jparams, what):
     cfg = port_cfg(tiny_cfg("dense"))
     params = port_params(tiny_cfg("dense"), jparams)
     with pytest.raises(NotImplementedError):
         if what in ("async_gossip", "gossip"):
             make_strategy(DiLoCoConfig(strategy=what))
-        elif what == "hybrid":
-            train.main(["--device", "cpu", "--method", "hybrid"])
         elif what == "gossip_cli":
             train.main(["--device", "cpu", "--method", "gossip",
                         "--steps", "1", "--workers", "2"])
@@ -292,13 +297,15 @@ def test_unported_paths_raise(jparams, what):
             dt = DistTrainer(lambda p, b: lm_loss(p, b, cfg),
                              OptimizerConfig(), dcfg, make_strategy(dcfg))
             dt.run(dt.init(params), None, 1, faults=object())
-        elif what == "pipeline":
-            train.run_pipeline(method="diloco")
-        elif what == "adaptive_h":
-            train.run_stage("diloco", cfg, params, None, steps=1, workers=2,
-                            per_worker_batch=1, h=1,
-                            opt_cfg=OptimizerConfig(),
-                            diloco_cfg=DiLoCoConfig(), h_schedule=object())
+        elif what == "pipeline_faults":
+            train.run_pipeline(method="diloco", device="cpu",
+                               fault_schedule="crash:1@2")
+        elif what == "pipeline_worker_speeds":
+            train.run_pipeline(method="diloco", device="cpu",
+                               worker_speeds=(1.0, 1.5))
+        elif what == "pipeline_checkpoint":
+            train.run_pipeline(method="diloco", device="cpu",
+                               checkpoint_dir="x", checkpoint_every=1)
         else:
             dt = _trainer(cfg)
             kw = {"prefetch": dict(prefetch=2),

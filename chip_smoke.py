@@ -13,7 +13,11 @@ Run from the root of a checkout.  Phases, each fatal on failure:
      slots), plus a G=2 case and a sliding-window case; the same cases
      for the dequant kernels on int8, fp8_e4m3 and fp8_e5m2 pools, the
      fp8 QK^T kernels on f32 and bf16 pools, and the plain kernels on a
-     bf16 pool under f32 queries;
+     bf16 pool under f32 queries; and the split kernels' invariant: paged
+     verify row t equals paged decode at start + t, bit for bit, on f32,
+     bf16, int8, fp8_e4m3 and fp8_e5m2 pools and with the fp8 QK^T, G 1
+     and 2, window 0 and 64, over a cache of 8 chunks with verify ranges
+     straddling chunk boundaries;
    - training kernels: flash forward and backward at (B 4, S 1024,
      H = KV = 10, D 128) plus G=2, S=1000 and window=256 cases (the
      backward against autograd through the plain forward); fused AdamW on
@@ -30,7 +34,8 @@ Run from the root of a checkout.  Phases, each fatal on failure:
      (Q 64)) within 1e-4 + 1e-4 in f32, and the ring decode at (B 8,
      KV 10, G 1, S 320, D 128) with window 0 and 64 over a wrapped ring
      with empty slots (the row whose query sits at -1 gives zeros and is
-     not compared);
+     not compared), a chunk of dead slots, a window starting mid-chunk
+     and S 200 (not a multiple of the chunk);
    - the fp8 QK^T flash forward (``flash_fwd(fp8=True)``) against its
      plain version at (B 4, S 1024, H = KV = 10, D 128), causal, plus
      G=2, S=1000 and window=64 cases, f32 and bf16, with the flash
@@ -106,11 +111,14 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    greedy-token agreement printed;
 7. time each kernel, its plain version and one PyTorch library call on
    the same inputs (CUDA events, L2 flushed before each launch) beside
-   the least time the card could take (bound).
+   the least time the card could take (bound); then paged verify and the
+   ring decode at a full cache and at these shapes for each chunk size
+   of ``CHUNK_SWEEP``.
 
-Prints the card's name and power limit, then a ``{"kernels": [...]}``
-line, then ``{"ok": true, "device": {...}}`` as the last line.  Exits
-nonzero, with no result, when CUDA is unavailable or any phase fails.
+Logs each phase's seconds.  Prints the card's name and power limit, then
+a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
+the last line.  Exits nonzero, with no result, when CUDA is unavailable
+or any phase fails.
 """
 from __future__ import annotations
 
@@ -236,17 +244,18 @@ def log(msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 def paged_case(torch, *, S=8, KV=10, G=1, D=128, bs=16, MB=32, T=1,
-               dtype="float32", seed=0):
+               dtype="float32", seed=0, starts=None):
     """Random q / pools and a ragged block table at the given shape.
     Slot 6 is inactive, slot 2 has an unmapped early block, slot 4 a
     mid-sequence one; blocks are shuffled physical ids.  Returns
     (q, k_pool, v_pool, tables, start, n_tok, live (S, T) bool host);
-    see ``with_pool`` for pools in another dtype or quantized."""
+    see ``with_pool`` for pools in another dtype or quantized.
+    ``starts``: the first S slots' start positions instead."""
     g = torch.Generator().manual_seed(seed)
     dt = getattr(torch, dtype)
     NB = S * MB
     cap = MB * bs
-    starts = [0, 17, 100, 255, 300, cap - 40, -1, 64][:S]
+    starts = list(starts or [0, 17, 100, 255, 300, cap - 40, -1, 64])[:S]
     starts += [int(x) for x in torch.randint(0, cap - T, (S - len(starts),),
                                              generator=g)]
     n_tok = [T if s >= 0 else 0 for s in starts]
@@ -398,6 +407,57 @@ def phase_quant_kernels(torch, results):
                                               else f"_{kind}")
                     results.append((name, dtype, tuple(q.shape) + (
                         f"pool={pool}", f"window={window}"), err, ok))
+
+
+# verify ranges straddling the split kernels' chunk boundaries (64 and 256
+# at CHUNK_KEYS 64; 190 -> 194 at 192), one slot at the cache's end
+SPLIT_STARTS = (62, 17, 100, 252, 300, 507, -1, 190)
+SPLIT_POOLS = (("plain", "float32"), ("plain", "bfloat16"),
+               ("dequant", "int8"), ("dequant", "fp8_e4m3"),
+               ("dequant", "fp8_e5m2"), ("fp8", "float32"))
+
+
+def phase_split_invariants(torch, results):
+    """Verify row t equals decode at start + t, bit for bit (torch.equal),
+    at nanochat-d20's paged shapes (S 8, KV x G = 10, D 128, bs 16, MB 32:
+    a cache of 8 chunks) with verify ranges straddling chunk boundaries,
+    unmapped blocks and an inactive slot: f32 queries on f32, bf16, int8,
+    fp8_e4m3 and fp8_e5m2 pools and with the fp8 QK^T, G 1 and 2, window
+    0 and 64; bf16 queries on the bf16 pool.  The error column is the
+    largest difference (0 when equal)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels.decode_attention.ops import split_chunks
+    dev = torch.device("cuda")
+    check(split_chunks(32, 16)[1] >= 3, "the cache must span 3 chunks")
+    cases = [("float32", kind, pool) for kind, pool in SPLIT_POOLS]
+    cases.append(("bfloat16", "plain", "bfloat16"))
+    for dtype, kind, pool in cases:
+        for G in (1, 2):
+            for window in (0, 64):
+                q, kp, vp, tab, start, ntok, _ = paged_case(
+                    torch, T=5, KV=10 // G, G=G, dtype=dtype, seed=G + window,
+                    starts=SPLIT_STARTS)
+                kv = [t.to(dev) for t in with_pool(torch, kp, vp, pool)]
+                q, tab, start, ntok = (t.to(dev) for t in
+                                       (q, tab, start, ntok))
+                sfx = "_dequant" if kind == "dequant" else ""
+                kw = dict(window=window, **({"fp8": True} if kind == "fp8"
+                                            else {}))
+                got = getattr(da, f"paged_verify_attention{sfx}")(
+                    q, *kv, tab, start, ntok, **kw)
+                err, equal = 0.0, True
+                for t in range(q.shape[1]):
+                    q_pos = torch.where((t < ntok) & (start >= 0), start + t,
+                                        -1).to(torch.int32)
+                    one = getattr(da, f"paged_decode_attention{sfx}")(
+                        q[:, t].contiguous(), *kv, tab, q_pos, **kw)
+                    equal &= torch.equal(got[:, t], one)
+                    err = max(err, float((got[:, t].float() - one.float())
+                                         .abs().max()))
+                torch.cuda.synchronize()
+                results.append(("verify_eq_decode", dtype, tuple(q.shape) + (
+                    f"pool={pool}{'+fp8' if kind == 'fp8' else ''}",
+                    f"window={window}"), err, equal))
 
 
 def report_checks(results):
@@ -614,8 +674,10 @@ def phase_static_kernels(torch, results):
     """The SSD scan at mamba2-1.3b's shapes (S 512; S 300, the padding
     path; S 64, Q 64) and the ring decode at (B 8, KV 10, G 1, S 320,
     D 128) with window 0 and 64 over a wrapped ring with empty slots
-    (the row whose query sits at -1 excluded), against their plain
-    versions, f32 and bf16."""
+    (the row whose query sits at -1 excluded), plus the split kernel's
+    edges: a chunk of dead slots, a window starting mid-chunk, S 200 (not
+    a multiple of the chunk); against their plain versions, f32 and
+    bf16."""
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_plain)
     from repro_torch.kernels.ssd import ssd, ssd_chunked
@@ -630,16 +692,24 @@ def phase_static_kernels(torch, results):
             e2, ok2 = max_err(torch, h, hp, tol=TOL_SSD)
             results.append(("ssd", dtype, (B, S, H, P, N, f"Q={min(chunk, S)}"),
                             max(e1, e2), ok1 and ok2))
-        for window in (0, 64):
-            q, k, v, pos, q_pos, live = ring_case(torch, *RING_CASE,
+        B, KV, G, S, D = RING_CASE
+        for window, edge in ((0, ""), (64, ""), (0, "dead-chunk"),
+                             (40, "mid-chunk"), (0, "S=200")):
+            Sr = 200 if edge == "S=200" else S
+            q, k, v, pos, q_pos, live = ring_case(torch, B, KV, G, Sr, D,
                                                   dtype=dtype, seed=window)
+            if edge == "dead-chunk":            # row 0: slots 64-127 dead
+                pos[0, 64:128] = -1
+            if edge == "mid-chunk":             # the window starts mid-chunk
+                pos[1] = torch.roll(pos[1], 90)
             got = decode_attention(q, k, v, pos, q_pos, window=window)
             want = decode_attention_plain(q, k, v, pos, q_pos, window)
             torch.cuda.synchronize()
             err, ok = max_err(torch, got, want, live)
             ok = ok and bool((got[~live] == 0).all())
             results.append(("ring_decode", dtype, tuple(q.shape) + (
-                f"S={RING_CASE[3]}", f"window={window}"), err, ok))
+                f"S={Sr}", f"window={window}") + ((edge,) if edge else ()),
+                err, ok))
 
 
 # ---------------------------------------------------------------------------
@@ -2057,6 +2127,114 @@ def phase_timing(torch, paths, checks):
     return out
 
 
+# key positions per CTA tried at a full cache (the kernels run the
+# wrapper's CHUNK_KEYS; the other values are set for this sweep only)
+CHUNK_SWEEP = (32, 64, 128, 256)
+
+
+def phase_split_timing(torch):
+    """Paged verify (T 5, f32) and the ring decode at a full cache, every
+    slot at 486 or more keys (S 8, KV 10, G 1, D 128, bs 16, MB 32; a
+    ring of 512 live slots at B 8), where the split matters most, and at
+    phase 7's shapes; for each chunk size of ``CHUNK_SWEEP`` (CUDA events,
+    L2 flushed), each output checked against the plain version.  Returns
+    {case: {chunk_keys: ms}} plus the full-cache byte bounds, and at the
+    wrapper's chunk size the device time of the split and the combine
+    kernel per launch (``split_breakdown``; also for paged decode and for
+    a decode call with no active slot)."""
+    from repro_torch.kernels.decode_attention import ops as da
+    dev = torch.device("cuda")
+    cap = 32 * 16
+    q, kp, vp, tab, start, ntok, live = (t.to(dev) for t in paged_case(
+        torch, T=5, seed=5, starts=[cap - 5 - 3 * i for i in range(8)]))
+    kv_rows, q_rows, tab_reads, _ = paged_work(tab, start, ntok, 16)
+    verify_bytes = (2 * kv_rows * 10 * 128 + 2 * q_rows * 10 * 128) * 4 + (
+        tab_reads + 16) * 4
+    p7 = [t.to(dev) for t in paged_case(torch, T=5, seed=5)]
+    B, KV, G, Sr, D = 8, 10, 1, cap, 128
+    g = torch.Generator().manual_seed(9)
+    rq, rk, rv = (torch.randn(shape, generator=g).to(dev) for shape in (
+        (B, KV, G, D), (B, KV, Sr, D), (B, KV, Sr, D)))
+    r_qpos = torch.full((B,), 600, dtype=torch.int32, device=dev)
+    r_pos = (599 - torch.arange(Sr, device=dev, dtype=torch.int32))[None] \
+        .repeat(B, 1).contiguous()
+    ring_bytes = (2 * B * Sr * KV * D + 2 * B * KV * G * D) * 4 + (
+        B * Sr + B) * 4
+    r7 = ring_case(torch, *RING_CASE)
+    full = (q, kp, vp, tab, start, ntok)
+    ring = (rq, rk, rv, r_pos, r_qpos)
+    # name: (kernel call, plain call, rows compared)
+    cases = {
+        "paged_verify_full": (lambda: da.paged_verify_attention(*full),
+                              lambda: da.paged_verify_attention_plain(*full),
+                              live),
+        "paged_verify_phase7": (lambda: da.paged_verify_attention(*p7[:6]),
+                                lambda: da.paged_verify_attention_plain(
+                                    *p7[:6]), p7[6]),
+        "ring_decode_full": (lambda: da.decode_attention(*ring),
+                             lambda: da.decode_attention_plain(*ring), None),
+        "ring_decode_phase7": (lambda: da.decode_attention(*r7[:5]),
+                               lambda: da.decode_attention_plain(*r7[:5]),
+                               r7[5]),
+    }
+    d7 = [t.to(dev) for t in paged_case(torch, T=1, seed=1)]
+    idle = torch.full_like(d7[4], -1)
+    calls = {"paged_decode_phase7": lambda: da.paged_decode_attention(*d7[:5]),
+             "paged_decode_no_active_slot": lambda: da.paged_decode_attention(
+                 *d7[:4], idle)}
+    calls.update({name: fn for name, (fn, _, _) in cases.items()})
+    out = {name: {} for name in cases}
+    out["device_us"] = split_breakdown(torch, calls)
+    default = da.CHUNK_KEYS
+    try:
+        for ck in CHUNK_SWEEP:
+            da.CHUNK_KEYS = ck
+            for name, (fn, plain, mask) in cases.items():
+                err, ok = max_err(torch, fn(), plain(), mask)
+                check(ok, f"{name} at CHUNK_KEYS {ck} disagrees with its "
+                      f"plain version ({err:.3e})")
+                out[name][ck] = time_ms(torch, fn)
+    finally:
+        da.CHUNK_KEYS = default
+    out["chunk_keys"] = default
+    out["bound_ms"] = {"paged_verify_full": verify_bytes / HBM_BYTES_PER_S
+                       * 1e3,
+                       "ring_decode_full": ring_bytes / HBM_BYTES_PER_S * 1e3}
+    return out
+
+
+def split_breakdown(torch, calls):
+    """{call: {"split": us, "combine": us}}: device microseconds per
+    launch of the split kernel and of the combine kernel, averaged over
+    the launches the trace recorded (torch.profiler over 10 calls, each
+    after an L2 flush and a sleep kernel, as ``time_ms``; None where the
+    trace recorded none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                flush.zero_()
+                torch.cuda._sleep(2_000_000)
+                fn()
+            torch.cuda.synchronize()
+        us = {"split": 0.0, "combine": 0.0}
+        n = {"split": 0, "combine": 0}
+        for e in prof.key_averages():
+            part = next((p for p in us if f"{p}_kernel" in e.key), None)
+            if part is None or e.device_type != DeviceType.CUDA:
+                continue
+            t = getattr(e, "self_device_time_total", None)
+            us[part] += e.self_cuda_time_total if t is None else t
+            n[part] += e.count
+        out[name] = {p: us[p] / n[p] if n[p] else None for p in us}
+    return out
+
+
 def paged_work(tab, start, ntok, bs):
     """What one paged call's data needs (window 0): the K/V rows at a
     mapped position <= the slot's last query (each read once), the query
@@ -2342,6 +2520,15 @@ def main(argv=None) -> int:
     report = {"gpu": gpu_line(), "torch": torch.__version__,
               "cuda": torch.version.cuda}
     t_start = time.perf_counter()
+    phase_s = report["phase_s"] = {}
+    last = [t_start]
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = now - last[0]
+        last[0] = now
+        log(f"  phase {name}: {phase_s[name]:.1f} s")
+
     try:
         from repro_torch.kernels import _build
         log("[1/7] build kernels")
@@ -2352,10 +2539,12 @@ def main(argv=None) -> int:
             if "Used" in line or "spill" in line or "error" in line.lower():
                 log("  " + line.strip())
         log(f"  built in {report['build_s']:.1f} s")
+        lap("1 build")
 
         log("[2/7] kernels vs plain versions")
         checks = []
         phase_kernels(torch, checks)
+        phase_split_invariants(torch, checks)
         phase_quant_kernels(torch, checks)
         phase_train_kernels(torch, checks)
         phase_wire_kernels(torch, checks)
@@ -2363,6 +2552,7 @@ def main(argv=None) -> int:
         phase_fp8_flash_kernels(torch, checks)
         report_checks(checks)
         report["checks"] = [list(c) for c in checks]
+        lap("2 kernels")
 
         log("[3/7] full width, depth 2: card vs CPU")
         report["step_vs_cpu"] = phase_step_vs_cpu(torch)
@@ -2370,6 +2560,7 @@ def main(argv=None) -> int:
         report["train_step_vs_cpu"] = phase_train_step_vs_cpu(torch)
         report["wire_round_vs_cpu"] = phase_wire_round_vs_cpu(torch)
         report["static_step_vs_cpu"] = phase_static_step_vs_cpu(torch)
+        lap("3 depth-2 vs CPU")
 
         log("[4/7] Engine, nanochat-d20: f32, int8, fp8 and fp8_e5m2 "
             "pools, fp8 QK^T; spec_k=0 and 4; capacity")
@@ -2382,12 +2573,14 @@ def main(argv=None) -> int:
             "capacity")
         static = phase_static_serving(torch)
         report["static"] = static
+        lap("4 serving")
 
         log("[5/7] training, nanochat-d20: DiLoCo and DDP on the f32 wire; "
             "DiLoCo on int8, fp8 and fp8_e5m2 wires, compressed DDP, "
             "streaming, overlapped and pipelined on the lossy wire")
         train, report["train_profile"] = phase_train(torch)
         report["train"] = train
+        lap("5 training")
 
         log("[6/7] pipeline, nanochat-d20 at full width: base -> mid -> "
             "SFT with evals after each stage, DiLoCo and hybrid")
@@ -2395,7 +2588,7 @@ def main(argv=None) -> int:
         pipeline = phase_pipeline(torch)
         report["pipeline"] = pipeline
         report["pipeline_s"] = time.perf_counter() - t0
-        log(f"  pipeline phase {report['pipeline_s']:.1f} s")
+        lap("6 pipeline")
 
         log("[7/7] kernel timing")
         paths = {name: run["launches"] for name, run in runs.items()}
@@ -2411,6 +2604,16 @@ def main(argv=None) -> int:
                 f"{k['plain_ms']:.4f} library_ms={k['library_ms']} "
                 f"bound_ms={k['bound_ms']:.5f} ({k['bound_by']}) "
                 f"launches={k['launches_by_path']}")
+        split = report["split_timing"] = phase_split_timing(torch)
+        for name in ("paged_verify_full", "paged_verify_phase7",
+                     "ring_decode_full", "ring_decode_phase7"):
+            log(f"  {name:19s} ms by CHUNK_KEYS " + " ".join(
+                f"{ck}:{ms:.4f}" for ck, ms in split[name].items()))
+        for name, us in split["device_us"].items():
+            log(f"  {name:27s} device us per launch: " + ", ".join(
+                f"{part} {'not measured' if t is None else f'{t:.2f}'}"
+                for part, t in us.items()))
+        lap("7 timing")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2439,7 +2642,8 @@ def main(argv=None) -> int:
         for stage, e in run["stages"].items()} for m, run in pipeline.items()}
     print(json.dumps({"engine": summary, "capacity": capacity,
                       "train": train_summary, "static": static_summary,
-                      "pipeline": pipeline_summary}))
+                      "pipeline": pipeline_summary, "phase_s": phase_s}))
+    print(json.dumps({"split_timing": report["split_timing"]}))
     print(report["gpu"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

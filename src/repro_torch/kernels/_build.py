@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` holds kernels behind a plain C interface.  At first
 use it is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library under ``build/repro_torch_kernels/`` at the repository root, named
-by a hash of its source and flags (an edited source rebuilds, an unchanged
-one is reused), and loaded with ``ctypes``.  Pointers and the CUDA stream
+by a hash of its source, the headers it includes (``HEADERS``) and the
+flags (an edited source or header rebuilds, an unchanged one is reused),
+and loaded with ``ctypes``.  Pointers and the CUDA stream
 cross the boundary as ``c_void_p``; each C entry returns
 ``cudaGetLastError()`` after its launch and :func:`check` raises on a
 nonzero code.  Nothing here falls back to the CPU: a missing ``nvcc``, a
@@ -29,6 +30,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("rmsnorm", "paged_attention", "flash_attention",
            "fused_adamw", "quantize", "ssd", "ring_attention")
+# headers a source includes: part of its hash, so an edit rebuilds it
+HEADERS = {"paged_attention": ("split_combine.cuh",),
+           "ring_attention": ("split_combine.cuh",)}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -58,7 +62,8 @@ def nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join((CSRC / f).read_bytes()
+                   for f in (f"{name}.cu", *HEADERS.get(name, ())))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -19,176 +19,121 @@
 // operations to bytes; the least time is the live K/V rows (plus q, the
 // output and pos) over 3.35 TB/s.
 //
-// Design: one CTA per (batch row, KV head), the TPU kernel's sequential
-// grid axis over key blocks becoming a loop inside the CTA over tiles of
-// 32 slots.  Per tile the CTA stages the slots' positions, decides which
-// are live, and loads only the live K and V rows into shared memory (a
-// tile with no live slot is skipped whole); then one warp per (query head,
-// slot) takes a dot product with shuffles, one warp per query head folds
-// the tile into the running f32 max / sum (online softmax), and one thread
-// per (head, d) rescales and accumulates P.V.  The G query heads of a KV
-// head share each tile loaded once.  Dead slots contribute exactly zero
-// (the TPU kernel's finite -1e30 mask gives exp(0) to every slot of a row
-// with nothing live), so a row with no live key (a query at position -1,
-// a left-pad token of the static prefill) comes out as zeros; that row is
+// Design: split keys (split_combine.cuh), as the paged kernels.  The TPU
+// kernel's sequential grid axis over key blocks becomes a grid of (batch
+// row, KV head) x chunk CTAs, a chunk being `chunk` consecutive slots, and
+// a second kernel that merges the chunks in ascending order.  A CTA first
+// reads its chunk's positions and decides which slots are live (a chunk
+// with none writes an empty partial and exits), then walks the chunk in
+// tiles of 16 slots, copying only tiles with a live slot, the next ones by
+// cp.async while the current one computes.  The G query heads of a KV head
+// share each tile loaded once.  Dead slots contribute exactly zero (the
+// TPU kernel's finite -1e30 mask gives exp(0) to every slot of a row with
+// nothing live), so a row with no live key (a query at position -1, a
+// left-pad token of the static prefill) comes out as zeros; that row is
 // garbage the caller never reads, in both implementations.
 //
 // C interface (ctypes): pointers and the stream as void*, sizes as int;
-// dtype 0 = float32, 1 = bfloat16 (q, k, v and the output).  Returns
-// cudaGetLastError() after the launch.
+// dtype 0 = float32, 1 = bfloat16 (q, k, v and the output).  With nc =
+// ceil(S / chunk) > 1 chunks, part_m / part_l (B * KV * G * nc floats) and
+// part_acc (B * KV * G * nc * D floats) are the caller's f32 scratch (null
+// when nc == 1).  D must be a multiple of 4, at most 512.  Returns
+// cudaGetLastError() after the launches.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <stdint.h>
+#include "split_combine.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;                    // slots per tile
-constexpr int kMaxSmem = 227 * 1024;
+using namespace split;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Shared-memory floats for G query heads of head dim D (plus kTile ints).
-__host__ __device__ inline size_t smem_floats(int G, int D) {
-  return 2 * static_cast<size_t>(G) * D        // q rows, accumulators
-         + 2 * static_cast<size_t>(kTile) * D  // K tile, V tile
-         + static_cast<size_t>(G) * kTile      // scores / probabilities
-         + 3 * static_cast<size_t>(G)          // m, l, alpha
-         + kTile;                              // live flags
-}
+constexpr int kTile = 16;                    // slots per tile
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-ring_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const int* __restrict__ pos,
-                   const int* __restrict__ q_pos, T* __restrict__ out, int KV,
-                   int G, int S, int D, int window, float scale) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x / KV, h = blockIdx.x - b * KV;
-  float* qs = smem;
-  float* acc = qs + G * D;
-  float* ks = acc + G * D;
-  float* vs = ks + kTile * D;
-  float* ps = vs + kTile * D;
-  float* m = ps + G * kTile;
-  float* l = m + G;
-  float* alpha = l + G;
-  int* live = reinterpret_cast<int*>(alpha + G);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+ring_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const int* __restrict__ pos,
+                  const int* __restrict__ q_pos, T* __restrict__ out,
+                  float* pm, float* pl, float* pacc, int KV, int G, int S,
+                  int D, int window, int chunk, int nc, int w, float scale) {
+  extern __shared__ __align__(16) char smem_raw[];
+  const int bh = blockIdx.x, b = bh / KV, c = blockIdx.y;
+  const int j_lo = c * chunk;
+  const int n = min(chunk, S - j_lo);                   // slots of this chunk
   const int qp = q_pos[b];
-  const size_t row0 = (static_cast<size_t>(b) * KV + h);   // (b, h) of q/out
+  const auto row_of = [=](int r) { return static_cast<size_t>(bh) * G + r; };
 
-  for (int i = tid; i < G * D; i += kThreads) {
-    qs[i] = to_f32(q[row0 * G * D + i]);
-    acc[i] = 0.f;
+  Smem sm;
+  lay_out<T, T, false>(sm, smem_raw, G, D, kTile, chunk);
+  int mine = 0;
+  for (int j = threadIdx.x; j < n; j += kThreads) {
+    const int p = pos[static_cast<size_t>(b) * S + j_lo + j];
+    const int ok = p >= 0 && p <= qp && (window <= 0 || qp - p < window);
+    sm.flags[j] = ok;
+    mine |= ok;
   }
-  for (int r = tid; r < G; r += kThreads) {
-    m[r] = -1e30f;
-    l[r] = 0.f;
-  }
-  const T* kb = k + row0 * S * D;
-  const T* vb = v + row0 * S * D;
-  const int* pb = pos + static_cast<size_t>(b) * S;
-
-  for (int j0 = 0; j0 < S; j0 += kTile) {
-    const int nt = min(kTile, S - j0);
-    int mine = 0;
-    if (tid < kTile) {
-      const int p = tid < nt ? pb[j0 + tid] : -1;
-      mine = p >= 0 && p <= qp && (window <= 0 || qp - p < window);
-      live[tid] = mine;
-    }
-    if (!__syncthreads_or(mine)) continue;   // no live slot in this tile
-    for (int i = tid; i < kTile * D; i += kThreads) {
-      const int j = i / D;
-      const bool in = live[j] != 0;
-      ks[i] = in ? to_f32(kb[static_cast<size_t>(j0) * D + i]) : 0.f;
-      vs[i] = in ? to_f32(vb[static_cast<size_t>(j0) * D + i]) : 0.f;
-    }
-    __syncthreads();
-
-    // scores: one warp per (query head, slot)
-    for (int e = warp; e < G * kTile; e += kWarps) {
-      const int r = e / kTile, j = e - r * kTile;
-      float dot = 0.f;
-      for (int d = lane; d < D; d += 32) dot += qs[r * D + d] * ks[j * D + d];
-      dot = warp_sum(dot);
-      if (lane == 0) ps[e] = live[j] ? dot * scale : -INFINITY;
-    }
-    __syncthreads();
-
-    // online softmax: one warp per query head
-    for (int r = warp; r < G; r += kWarps) {
-      const float sv = ps[r * kTile + lane];            // kTile == 32
-      const float mx = warp_max(sv);
-      const float m_old = m[r];
-      const float m_new = fmaxf(m_old, mx);
-      const float p = sv == -INFINITY ? 0.f : expf(sv - m_new);
-      ps[r * kTile + lane] = p;
-      const float sum = warp_sum(p);
-      if (lane == 0) {
-        const float a = expf(m_old - m_new);
-        alpha[r] = a;
-        l[r] = l[r] * a + sum;
-        m[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + P V: one thread per (head, d)
-    for (int i = tid; i < G * D; i += kThreads) {
-      const int r = i / D, d = i - r * D;
-      float a = acc[i] * alpha[r];
-      for (int j = 0; j < kTile; ++j) a += ps[r * kTile + j] * vs[j * D + d];
-      acc[i] = a;
-    }
-    __syncthreads();
+  if (!__syncthreads_or(mine)) {                        // no live slot
+    write_empty<T>(out, pm, G, D, c, nc, row_of);
+    return;
   }
 
-  for (int i = tid; i < G * D; i += kThreads) {
-    const int r = i / D;
-    out[row0 * G * D + i] = from_f32<T>(acc[i] / fmaxf(l[r], 1e-30f));
+  const int rowbytes = D * static_cast<int>(sizeof(T));
+  const size_t base = (static_cast<size_t>(bh) * S + j_lo) * D;
+  const auto live_tile = [&](int t0) {
+    int any = 0;
+    for (int j = t0; j < min(t0 + kTile, n); ++j) any |= sm.flags[j];
+    return any != 0;
+  };
+  const auto fetch = [&](int t0, int st) {              // slots t0 .. t0+15
+    const int nk = min(kTile, n - t0);
+    copy_rows(sm.raw_k(st), reinterpret_cast<const char*>(k + base + t0 * D), nk,
+              rowbytes, rowbytes, w);
+    copy_rows(sm.raw_v(st), reinterpret_cast<const char*>(v + base + t0 * D), nk,
+              rowbytes, rowbytes, w);
+  };
+
+  for (int k = 0; k < kStages - 1; ++k) {
+    if (k * kTile < n && live_tile(k * kTile)) fetch(k * kTile, k);
+    cp_commit();
   }
+  load_q_rows<T, false>(sm, q, G, D, row_of);
+  for (int t0 = 0, it = 0; t0 < n; t0 += kTile, ++it) {
+    const int ahead = t0 + (kStages - 1) * kTile;
+    if (ahead < n && live_tile(ahead)) fetch(ahead, (it + kStages - 1) % kStages);
+    cp_commit();
+    cp_wait<kStages - 1>();
+    __syncthreads();
+    if (live_tile(t0)) {                                // dead tile: skipped
+      const int* live = sm.flags + t0;
+      fold_tile<T, T, false>(sm, it % kStages, G, min(kTile, n - t0), kTile, D,
+                             scale, [&](int, int j) { return live[j] != 0; });
+    }
+  }
+  write_rows<T>(sm, out, pm, pl, pacc, G, D, c, nc, row_of);
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const int* pos,
-           const int* q_pos, void* out, int B, int KV, int G, int S, int D,
-           int window, cudaStream_t st) {
-  const size_t smem = smem_floats(G, D) * sizeof(float);
-  if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ring_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+           const int* q_pos, void* out, float* pm, float* pl, float* pacc,
+           int B, int KV, int G, int S, int D, int window, int chunk,
+           cudaStream_t st) {
+  const int nc = (S + chunk - 1) / chunk;
+  if (nc > 1 && (pm == nullptr || pl == nullptr || pacc == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int w = copy_width(static_cast<size_t>(D) * sizeof(T), k, v);
+  if (w == 0) return static_cast<int>(cudaErrorMisalignedAddress);
+  Smem sizes;
+  const size_t smem = lay_out<T, T, false>(sizes, nullptr, G, D, kTile, chunk);
+  const auto kernel = ring_split_kernel<T>;
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
-  ring_decode_kernel<T><<<B * KV, kThreads, smem, st>>>(
+  kernel<<<dim3(B * KV, nc), kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), pos,
-      q_pos, static_cast<T*>(out), KV, G, S, D, window, scale);
+      q_pos, static_cast<T*>(out), pm, pl, pacc, KV, G, S, D, window, chunk, nc, w,
+      scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || nc == 1) return static_cast<int>(err);
+  launch_combine<T>(pm, pl, pacc, out, B * KV * G, nc, D, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -201,16 +146,24 @@ const char* repro_error_string(int code) {
 }
 
 int repro_ring_decode(int dtype, const void* q, const void* k, const void* v,
-                      const void* pos, const void* q_pos, void* out, int B,
-                      int KV, int G, int S, int D, int window, void* stream) {
-  if (B < 1 || KV < 1 || G < 1 || S < 1 || D < 1)
+                      const void* pos, const void* q_pos, void* out,
+                      void* part_m, void* part_l, void* part_acc, int B,
+                      int KV, int G, int S, int D, int window, int chunk,
+                      void* stream) {
+  if (B < 1 || KV < 1 || G < 1 || S < 1 || D < 1 || D % 4 != 0 || D > 4 * kThreads ||
+      chunk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* p = static_cast<const int*>(pos);
   const auto* qp = static_cast<const int*>(q_pos);
+  auto* pm = static_cast<float*>(part_m);
+  auto* pl = static_cast<float*>(part_l);
+  auto* pa = static_cast<float*>(part_acc);
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(q, k, v, p, qp, out, B, KV, G, S, D, window, st);
+  if (dtype == 0)
+    return launch<float>(q, k, v, p, qp, out, pm, pl, pa, B, KV, G, S, D, window, chunk, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, p, qp, out, B, KV, G, S, D, window, st);
+    return launch<__nv_bfloat16>(q, k, v, p, qp, out, pm, pl, pa, B, KV, G, S, D, window,
+                                 chunk, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -15,8 +15,16 @@ positions; ``fp8=True`` runs QK^T on per-row fp8_e4m3 tiles
 path: q (B, KV, G, D), a cache k / v (B, KV, S, D) in q's dtype, slot
 positions pos (B, S) and query positions q_pos (B,) int32.
 
-Launch counts, one per launch: ``paged_decode`` / ``paged_verify`` (plain
-pools), ``paged_decode_fp8`` / ``paged_verify_fp8`` (fp8 QK^T),
+The kernels split each row's keys into chunks of ``CHUNK_KEYS`` key
+positions, one CTA each, and merge the chunks' partial softmax states in
+a second kernel (``csrc/split_combine.cuh``).  The chunk count comes from
+the shapes alone (:func:`split_chunks`, :func:`ring_chunks`): a wrapper
+reads nothing back from the card.  The partials go to f32 scratch from
+``torch.empty``.
+
+Launch counts, one per call (a call may run the combine kernel after the
+split kernel): ``paged_decode`` / ``paged_verify`` (plain pools),
+``paged_decode_fp8`` / ``paged_verify_fp8`` (fp8 QK^T),
 ``paged_decode_dequant`` / ``paged_verify_dequant`` (quantized pools),
 ``ring_decode`` (the ring cache)."""
 from __future__ import annotations
@@ -31,23 +39,54 @@ from repro_torch.kernels.decode_attention.ref import (
     paged_decode_attention_plain, paged_verify_attention_dequant_plain,
     paged_verify_attention_plain)
 
+# Key positions per CTA: the same for decode and verify, every pool type
+# and the fp8 QK^T, so that verify row t stays decode at start + t, bit
+# for bit.  Picked by measurement on an H100 (PERF.md).
+CHUNK_KEYS = 64
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # q_dtype, pool_dtype, fp8, q, k_pool, v_pool, k_scale, v_scale, table,
-    # q_pos, out, S, KV, G, D, NB, bs, MB, window, stream
-    "repro_paged_decode": (_I,) * 3 + (_P,) * 8 + (_I,) * 8 + (_P,),
-    # ... table, start_pos, n_tokens, out, S, T, KV, G, D, NB, bs, MB,
-    # window, stream
-    "repro_paged_verify": (_I,) * 3 + (_P,) * 9 + (_I,) * 9 + (_P,),
+    # q_pos, out, part_m, part_l, part_acc, S, KV, G, D, NB, bs, MB, window,
+    # chunk_blocks, stream
+    "repro_paged_decode": (_I,) * 3 + (_P,) * 11 + (_I,) * 9 + (_P,),
+    # ... table, start_pos, n_tokens, out, part_m, part_l, part_acc, S, T,
+    # KV, G, D, NB, bs, MB, window, chunk_blocks, stream
+    "repro_paged_verify": (_I,) * 3 + (_P,) * 12 + (_I,) * 10 + (_P,),
 }
 _RING_SIGNATURES = {
-    # dtype, q, k, v, pos, q_pos, out, B, KV, G, S, D, window, stream
-    "repro_ring_decode": (_I,) + (_P,) * 6 + (_I,) * 6 + (_P,),
+    # dtype, q, k, v, pos, q_pos, out, part_m, part_l, part_acc, B, KV, G,
+    # S, D, window, chunk, stream
+    "repro_ring_decode": (_I,) + (_P,) * 9 + (_I,) * 7 + (_P,),
 }
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                 torch.float8_e4m3fn: 3, torch.float8_e5m2: 4}
 _PLAIN_POOLS = (torch.float32, torch.bfloat16)
+
+
+def split_chunks(MB: int, bs: int) -> tuple:
+    """(blocks per chunk, chunks) of a paged call over block tables (S, MB)
+    of bs-key blocks: ``CHUNK_KEYS`` positions a chunk, in whole blocks."""
+    cb = max(1, CHUNK_KEYS // bs)
+    return cb, max(1, -(-MB // cb))
+
+
+def ring_chunks(S: int) -> int:
+    """Chunks of ``CHUNK_KEYS`` slots over a ring of S slots."""
+    return -(-S // CHUNK_KEYS)
+
+
+def _scratch(rows: int, nc: int, D: int, device) -> tuple:
+    """(tensor, part_m, part_l, part_acc pointers) of the f32 partials of
+    ``rows`` rows over ``nc`` chunks; no scratch for one chunk."""
+    if nc == 1:
+        return None, None, None, None
+    buf = torch.empty(rows * nc * (D + 2), dtype=torch.float32,
+                      device=device)
+    acc = buf.data_ptr()
+    m = acc + rows * nc * D * 4
+    return buf, m, m + rows * nc * 4, acc
 
 
 def _check(q, k_pool, v_pool, scales, block_tables, *index_vectors):
@@ -70,6 +109,9 @@ def _check(q, k_pool, v_pool, scales, block_tables, *index_vectors):
     if (k_pool.shape[2], k_pool.shape[3]) != (q.shape[-3], q.shape[-1]):
         raise ValueError(f"pool (KV, D) {tuple(k_pool.shape[2:])} does not "
                          f"match q {tuple(q.shape)}")
+    if q.shape[-1] % 4 or q.shape[-1] > 512:
+        raise ValueError(f"paged attention kernel takes a head dim that is "
+                         f"a multiple of 4 up to 512, got {q.shape[-1]}")
     for sc in scales or ():
         if sc.dtype != torch.float32 or sc.shape != k_pool.shape[:3]:
             raise ValueError("k_scale/v_scale must be float32 (NB, bs, KV)")
@@ -101,6 +143,10 @@ def _launch(entry: str, name: str, q, k_pool, v_pool, scales, block_tables,
     NB, bs, KV, D = k_pool.shape
     T = q.shape[1] if q.dim() == 5 else None
     G = q.shape[-2]
+    cb, nc = split_chunks(MB, bs)
+    # buf holds the scratch until the launch is queued; the caching
+    # allocator orders its reuse after the kernels on this stream
+    buf, *part = _scratch(q.numel() // D, nc, D, q.device)
     k_sc, v_sc = (s.data_ptr() for s in scales) if scales else (None, None)
     lib = _build.load("paged_attention", _SIGNATURES)
     with torch.cuda.device(q.device):
@@ -108,8 +154,8 @@ def _launch(entry: str, name: str, q, k_pool, v_pool, scales, block_tables,
             _Q_DTYPES[q.dtype], _POOL_DTYPES[k_pool.dtype], int(fp8),
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), k_sc, v_sc,
             block_tables.data_ptr(), *(t.data_ptr() for t in index_vectors),
-            out.data_ptr(), S, *((T,) if T is not None else ()), KV, G, D,
-            NB, bs, MB, int(window),
+            out.data_ptr(), *part, S, *((T,) if T is not None else ()), KV,
+            G, D, NB, bs, MB, int(window), cb,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, lib, name)
     _build.launches[name] += 1
@@ -200,6 +246,9 @@ def decode_attention(q, k, v, pos, q_pos, *, window: int = 0) -> torch.Tensor:
         raise TypeError("the ring cache must be in q's dtype")
     if pos.dtype != torch.int32 or q_pos.dtype != torch.int32:
         raise TypeError("pos and q_pos must be int32")
+    if D % 4 or D > 512:
+        raise ValueError(f"ring decode kernel takes a head dim that is a "
+                         f"multiple of 4 up to 512, got {D}")
     for t in (q, k, v, pos, q_pos):
         if t.device != q.device:
             raise ValueError("decode attention operands must share one "
@@ -207,12 +256,14 @@ def decode_attention(q, k, v, pos, q_pos, *, window: int = 0) -> torch.Tensor:
         if not t.is_contiguous():
             raise ValueError("ring decode kernel takes contiguous tensors")
     out = torch.empty_like(q)
+    buf, *part = _scratch(B * KV * G, ring_chunks(S), D, q.device)
     lib = _build.load("ring_attention", _RING_SIGNATURES)
     with torch.cuda.device(q.device):
         rc = lib.repro_ring_decode(
             _Q_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            pos.data_ptr(), q_pos.data_ptr(), out.data_ptr(), B, KV, G, S, D,
-            int(window), torch.cuda.current_stream(q.device).cuda_stream)
+            pos.data_ptr(), q_pos.data_ptr(), out.data_ptr(), *part, B, KV,
+            G, S, D, int(window), CHUNK_KEYS,
+            torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, lib, "ring_decode")
     _build.launches["ring_decode"] += 1
     return out

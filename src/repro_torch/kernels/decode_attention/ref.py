@@ -25,13 +25,23 @@ kernels: a bf16 pool under f32 queries widens exactly.  Three variants:
 ``decode_attention_plain`` is the ring-buffer decode of the static serving
 path, a copy of the JAX package's ``reference_decode_attention``: the
 cache (B, KV, S, D) with a per-slot position array, the causal gate and
-the window gate."""
+the window gate.
+
+The ``*_split_plain`` functions mirror the CUDA kernels' split-key design
+for the tests (the wrappers never call them): each row's keys cut into
+chunks of ``chunk_keys`` positions (whole blocks on a paged pool), one
+partial softmax state (m, l, acc) per (row, chunk) with masked keys at
+exactly zero, merged in ascending chunk order (``combine_partials``).
+Each row's values depend only on its own q row, keys and position limit,
+so verify row t equals decode at ``start + t`` bit for bit, and decode is
+verify at T = 1, as in the kernels."""
 from __future__ import annotations
 
 import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.quantize import quantize_axis
 
@@ -171,3 +181,108 @@ def decode_attention_plain(q, k, v, pos, q_pos,
     s = s.masked_fill(~ok[:, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhgs,bhsd->bhgd", p, v.float()).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The split-key mirror (tests only)
+# ---------------------------------------------------------------------------
+
+def _exp(x: torch.Tensor) -> torch.Tensor:
+    """exp in f64, rounded to f32: the same bits whichever of PyTorch's
+    vector or scalar loops an element falls in."""
+    return torch.exp(x.double()).float()
+
+
+def _split_states(s, ok, v_t, chunk: int) -> tuple:
+    """Partial softmax states of chunks of ``chunk`` keys.  s, ok (..., L)
+    each row's scores and mask; v_t (..., D, L) its values, transposed
+    (broadcast over rows).  Keys past L pad the last chunk, masked.
+    Returns m (..., nc) (-inf where a chunk has no key), l (..., nc) and
+    acc (..., nc, D).  Every reduction runs over a row's own contiguous
+    last axis."""
+    nc = -(-s.shape[-1] // chunk)
+    pad = nc * chunk - s.shape[-1]
+    s, ok, v_t = F.pad(s, (0, pad)), F.pad(ok, (0, pad)), F.pad(v_t, (0, pad))
+    s = s.masked_fill(~ok, -math.inf).unflatten(-1, (nc, chunk))
+    ok = ok.unflatten(-1, (nc, chunk))
+    m = s.amax(-1)
+    p = torch.where(ok, _exp(s - m[..., None]), 0.0).contiguous()
+    vc = v_t.unflatten(-1, (nc, chunk)).transpose(-3, -2)
+    acc = (p[..., None, :] * vc).contiguous().sum(-1)
+    return m, p.sum(-1), acc
+
+
+def combine_partials(m, l, acc) -> torch.Tensor:
+    """Merge the partials of each row in ascending chunk order: chunk c
+    weighs exp(m_c - M) (exactly 1 for the max's chunk), an empty chunk (m
+    = -inf) weighs 0 and its l and acc are never read; acc / l in f32, and
+    zeros for a row with no key."""
+    M = m.amax(-1)
+    L = torch.zeros_like(M)
+    A = torch.zeros_like(acc[..., 0, :])
+    for c in range(m.shape[-1]):
+        mc = m[..., c]
+        w = torch.where(mc == -math.inf, 0.0,
+                        torch.where(mc == M, 1.0, _exp(mc - M)))
+        on = w != 0
+        L = torch.where(on, L + l[..., c] * w, L)
+        A = torch.where(on[..., None], A + acc[..., c, :] * w[..., None], A)
+    return torch.where((M == -math.inf)[..., None], 0.0, A / L[..., None])
+
+
+def paged_verify_split_plain(q, k_pool, v_pool, block_tables, start_pos,
+                             n_tokens, window: int = 0, fp8: bool = False,
+                             k_scale=None, v_scale=None, *,
+                             chunk_keys: int = 64) -> torch.Tensor:
+    """:func:`paged_verify_attention_plain` (with ``k_scale``/``v_scale``
+    its dequant variant) through the split and the combine: chunks of
+    max(1, chunk_keys // bs) whole blocks.  Rows with no attendable key
+    are zeros."""
+    S, T, KV, G, D = q.shape
+    bs, MB = k_pool.shape[1], block_tables.shape[1]
+    k = _gather(k_pool, block_tables, q.dtype, k_scale)
+    v = _gather(v_pool, block_tables, q.dtype, v_scale)
+    k_pos, mapped = _key_mask(block_tables, bs)
+    t = torch.arange(T, device=q.device)
+    qp = start_pos.long()[:, None] + t[None, :]                   # (S, T)
+    valid = (start_pos[:, None] >= 0) & (t[None, :] < n_tokens[:, None])
+    ok = ((k_pos[None, None, :] <= qp[:, :, None]) & valid[:, :, None]
+          & mapped[:, None, :])
+    if window > 0:
+        ok &= (qp[:, :, None] - k_pos[None, None, :]) < window
+    qf = q.float()
+    if fp8:
+        qf, k = _fp8_rows(qf), _fp8_rows(k)
+    kk = k.permute(0, 2, 1, 3)[:, None, :, None]              # (S,1,KV,1,L,D)
+    s = (qf[..., None, :] * kk).contiguous().sum(-1) / math.sqrt(D)
+    v_t = v.permute(0, 2, 3, 1)[:, None, :, None]             # (S,1,KV,1,D,L)
+    m, l, acc = _split_states(s, ok[:, :, None, None, :], v_t,
+                              max(1, chunk_keys // bs) * bs)
+    return combine_partials(m, l, acc).to(q.dtype)
+
+
+def paged_decode_split_plain(q, k_pool, v_pool, block_tables, q_pos,
+                             window: int = 0, fp8: bool = False,
+                             k_scale=None, v_scale=None, *,
+                             chunk_keys: int = 64) -> torch.Tensor:
+    """Decode through the split: verify at T = 1, as the kernels run it."""
+    return paged_verify_split_plain(
+        q[:, None], k_pool, v_pool, block_tables, q_pos,
+        (q_pos >= 0).to(torch.int32), window, fp8, k_scale, v_scale,
+        chunk_keys=chunk_keys)[:, 0]
+
+
+def decode_attention_split_plain(q, k, v, pos, q_pos, window: int = 0, *,
+                                 chunk_keys: int = 64) -> torch.Tensor:
+    """:func:`decode_attention_plain` through the split: chunks of
+    ``chunk_keys`` ring slots.  Rows with no live slot are zeros."""
+    D = q.shape[-1]
+    pos, qp = pos.long(), q_pos.long()[:, None]
+    ok = (pos >= 0) & (pos <= qp)
+    if window > 0:
+        ok &= (qp - pos) < window
+    s = (q.float()[..., None, :] * k.float()[:, :, None]).contiguous().sum(-1)
+    m, l, acc = _split_states(s / math.sqrt(D), ok[:, None, None, :],
+                              v.float().transpose(-1, -2)[:, :, None],
+                              chunk_keys)
+    return combine_partials(m, l, acc).to(q.dtype)

@@ -19,7 +19,8 @@ from repro_torch.kernels.quantize import quantize_axis
 from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_plain,
                                          rmsnorm_residual,
                                          rmsnorm_residual_plain)
-from torch_cases import paged_tables, pools, ring_inputs, ssd_inputs
+from torch_cases import (paged_tables, pools, ring_inputs, split_inputs,
+                        ssd_inputs)
 
 
 @pytest.fixture
@@ -150,6 +151,100 @@ def test_cuda_plain_pool_kernels_by_pool_dtype_and_fp8(
                                rtol=10 * tol)
 
 
+def _split_pool(kp, vp, pool, q_dtype, cuda):
+    """The f32 pools as the kernels' ``pool``: a quantize target (payloads
+    and (NB, bs, KV) scales), "fp8_qk" (a pool in q's dtype, read with
+    the fp8 QK^T) or a torch dtype name.  Returns (kv tensors, dequant?,
+    fp8?)."""
+    if pool in ("int8", "fp8_e4m3", "fp8_e5m2"):
+        (kq, ks), (vq, vs) = (quantize_axis(p, dtype=pool) for p in (kp, vp))
+        return [t.to(cuda) for t in (kq, vq, ks[..., 0], vs[..., 0])], \
+            True, False
+    dt = q_dtype if pool == "fp8_qk" else getattr(torch, pool)
+    return [kp.to(dt).to(cuda), vp.to(dt).to(cuda)], False, pool == "fp8_qk"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,pool", [
+    (torch.float32, "float32"), (torch.float32, "bfloat16"),
+    (torch.float32, "int8"), (torch.float32, "fp8_e4m3"),
+    (torch.float32, "fp8_e5m2"), (torch.float32, "fp8_qk"),
+    (torch.bfloat16, "bfloat16"), (torch.bfloat16, "int8"),
+    (torch.bfloat16, "fp8_qk")])
+@pytest.mark.parametrize("G,window", [(1, 0), (2, 0), (1, 64), (2, 64)])
+def test_cuda_verify_rows_equal_decode_bit_for_bit(cuda, q_dtype, pool, G,
+                                                   window):
+    """Over a cache of several chunks (MB 16 x bs 16 = 4 chunks of
+    CHUNK_KEYS), with a verify range straddling a chunk boundary,
+    unmapped blocks and an inactive slot: paged_verify(q)[:, t] equals
+    paged_decode(q[:, t]) at q_pos = start + t (-1 where t is padding),
+    to the bit, on every pool and with the fp8 QK^T; and verify stays
+    within its tolerance of the plain version."""
+    from repro_torch.kernels.decode_attention import ops
+    q, kp, vp, tab, start, n_tok, live = split_inputs(
+        G * 10 + window, KV=10 // G, G=G, D=128, bs=16, MB=16)
+    assert ops.split_chunks(16, 16)[1] >= 3
+    kv, dequant, fp8 = _split_pool(torch.from_numpy(kp), torch.from_numpy(vp),
+                                   pool, q_dtype, cuda)
+    q = torch.from_numpy(q).to(q_dtype).to(cuda)
+    tab, start, n_tok = (torch.from_numpy(a).to(cuda)
+                         for a in (tab, start, n_tok))
+    sfx = "_dequant" if dequant else ""
+    verify = getattr(ops, f"paged_verify_attention{sfx}")
+    decode = getattr(ops, f"paged_decode_attention{sfx}")
+    kw = {"window": window, **({"fp8": True} if fp8 else {})}
+    reset_launches()
+    got = verify(q, *kv, tab, start, n_tok, **kw)
+    for t in range(q.shape[1]):
+        q_pos = torch.where((t < n_tok) & (start >= 0), start + t,
+                            -1).to(torch.int32)
+        one = decode(q[:, t].contiguous(), *kv, tab, q_pos, **kw)
+        assert torch.equal(got[:, t], one), t
+    torch.cuda.synchronize()
+    name = "_fp8" if fp8 else sfx
+    assert dict(launches) == {f"paged_verify{name}": 1,
+                              f"paged_decode{name}": q.shape[1]}
+    plain = getattr(ops, f"paged_verify_attention{sfx}_plain")
+    want = plain(q, *kv, tab, start, n_tok, window, *((True,) if fp8 else ()))
+    tol = 1e-5 if q_dtype == torch.float32 else 1e-2
+    mask = torch.from_numpy(live).to(cuda)
+    torch.testing.assert_close(got[mask].float(), want[mask].float(),
+                               atol=tol, rtol=10 * tol)
+    empty = torch.arange(q.shape[1], device=cuda)[None, :] >= n_tok[:, None]
+    empty[2] = True                      # slot 2's one block is unmapped
+    assert bool((got[empty] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("window", [0, 40])
+def test_cuda_ring_split_edges(cuda, dtype, tol, window):
+    """The ring kernel split into chunks of CHUNK_KEYS slots: S 200 is not
+    a multiple of the chunk; row 0's slots 64-127 (a whole chunk) are
+    dead; row 1's ring is rotated so that its window (40) starts mid-
+    chunk; the last row has no live key and gives zeros."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    from repro_torch.kernels.decode_attention.ops import ring_chunks
+    B, KV, G, S, D = 3, 2, 2, 200, 64
+    assert S % 64 and ring_chunks(S) == 4
+    q, k, v, pos, q_pos, live = ring_inputs(11, B, KV, G, S, D)
+    pos[0, 64:128] = -1
+    pos[1] = np.roll(pos[1], 90)
+    q, k, v = (torch.from_numpy(a).to(dtype).to(cuda) for a in (q, k, v))
+    pos, q_pos = (torch.from_numpy(a).to(cuda) for a in (pos, q_pos))
+    reset_launches()
+    got = decode_attention(q, k, v, pos, q_pos, window=window)
+    want = decode_attention_plain(q, k, v, pos, q_pos, window)
+    torch.cuda.synchronize()
+    assert dict(launches) == {"ring_decode": 1}
+    live = torch.from_numpy(live).to(cuda)
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               atol=tol, rtol=10 * tol)
+    assert bool((got[~live] == 0).all())
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_count_one_launch_each(cuda):
     x = torch.randn((4, 1, 256), device=cuda)
@@ -221,14 +316,18 @@ def test_cuda_engine_greedy_equals_cpu_engine(cuda, cfg_kw):
                                     {"kv_cache_dtype": "int8"},
                                     {"fp8_matmul": True}],
                          ids=["fp8-pool", "int8-pool", "fp8-matmul"])
-def test_cuda_verify_step_equals_decode_steps_bit_for_bit(cuda, cfg_kw):
+@pytest.mark.parametrize("bs,MB", [(4, 4), (16, 16)],
+                         ids=["one-chunk", "four-chunks"])
+def test_cuda_verify_step_equals_decode_steps_bit_for_bit(cuda, cfg_kw, bs,
+                                                          MB):
     """Where the attention quantizes, a verify forward over T tokens per
     slot writes the same pool, to the bit, and gives the same logits as T
     decode forwards on the card: its GEMMs run per token column at the
     decode step's row count (``serving_matmul``) and the paged kernels
     treat each query row alike.  Without that, quantization turns
     last-bit differences into whole quanta and speculative greedy
-    decoding parts from sequential."""
+    decoding parts from sequential.  At bs 16, MB 16 the cache spans four
+    chunks of the split kernels."""
     from repro_torch.configs import ModelConfig
     from repro_torch.models import (decode_step_paged, init_paged_cache,
                                     init_params, verify_step_paged)
@@ -237,7 +336,7 @@ def test_cuda_verify_step_equals_decode_steps_bit_for_bit(cuda, cfg_kw):
                       d_ff=512, vocab_size=97, **cfg_kw)
     params = unflatten({k: v.to(cuda) for k, v in
                         flatten(init_params(cfg, seed=0)).items()})
-    S, T, bs, MB = 8, 5, 4, 4
+    S, T = 8, 5
     g = torch.Generator().manual_seed(1)
     toks = torch.randint(0, 97, (S, T), generator=g, dtype=torch.int32)
     table = torch.arange(S * MB, dtype=torch.int32).reshape(S, MB)

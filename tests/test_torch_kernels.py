@@ -507,6 +507,27 @@ def test_training_wrappers_on_cpu_count_no_launch():
     assert sum(launches.values()) == 0
 
 
+def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
+    """An edit to split_combine.cuh renames (so rebuilds) both libraries
+    that include it, and no other."""
+    for f in _build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    names = ("paged_attention", "ring_attention", "rmsnorm")
+    before = {n: _build._lib_path(n) for n in names}
+    with open(tmp_path / "split_combine.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = {n: _build._lib_path(n) for n in names}
+    assert after["paged_attention"] != before["paged_attention"]
+    assert after["ring_attention"] != before["ring_attention"]
+    assert after["rmsnorm"] == before["rmsnorm"]
+    for name, headers in _build.HEADERS.items():
+        assert name in _build.SOURCES
+        assert all((_build.CSRC / h).is_file() for h in headers)
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert all(f'#include "{h}"' in src for h in headers)
+
+
 def test_build_names_libraries_by_source_hash():
     a, b = _build._lib_path("rmsnorm"), _build._lib_path("paged_attention")
     assert a.parent == b.parent == _build.BUILD_DIR

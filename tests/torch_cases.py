@@ -36,6 +36,41 @@ def paged_tables(rng, S, NB, bs, MB, T=1, unmapped=True):
     return tables, start, n_tok, live
 
 
+def split_inputs(seed, S=4, T=5, KV=2, G=1, D=32, bs=16, MB=16, chunk=64):
+    """Paged verify inputs whose caches span at least three chunks of
+    ``chunk`` key positions: slot 0's T tokens straddle the first chunk
+    boundary, slot 1 ends at the cache's last position with an unmapped
+    block midway, slot 2 starts in its unmapped first block (no key to
+    attend), the last slot is inactive, any others are random.  Returns
+    numpy q (S, T, KV, G, D), k_pool, v_pool (NB, bs, KV, D), tables
+    (S, MB), start (S,), n_tok (S,) and live (S, T): live tokens whose own
+    key is mapped."""
+    rng = np.random.default_rng(seed)
+    cap = MB * bs
+    assert S >= 4 and T >= 3 and cap >= 3 * chunk
+    start = np.full((S,), -1, np.int32)
+    n_tok = np.zeros((S,), np.int32)
+    start[:3], n_tok[:3] = (chunk - 2, cap - T, 1), (T, T, 2)
+    for s in range(3, S - 1):
+        start[s] = rng.integers(0, cap - T + 1)
+        n_tok[s] = rng.integers(1, T + 1)
+    NB = S * MB
+    perm = rng.permutation(NB)
+    tables = np.full((S, MB), -1, np.int32)
+    for s in range(S - 1):
+        n = (start[s] + n_tok[s] - 1) // bs + 1
+        tables[s, :n] = perm[s * MB:s * MB + n]
+    tables[1, MB // 2] = -1
+    tables[2, 0] = -1
+    q = rng.standard_normal((S, T, KV, G, D)).astype(np.float32)
+    k_pool, v_pool = pools(rng, NB, bs, KV, D)
+    live = np.zeros((S, T), bool)
+    for s in range(S - 1):
+        for t in range(int(n_tok[s])):
+            live[s, t] = tables[s, (start[s] + t) // bs] >= 0
+    return q, k_pool, v_pool, tables, start, n_tok, live
+
+
 def ssd_inputs(seed, B, S, H, P, N, D_val=1.0):
     """SSD scan inputs as f32 arrays, distributed as the JAX package's
     kernel tests draw them: x, Bm, Cm normal, dt = softplus(normal),

@@ -50,12 +50,17 @@ def _check(q, k, v, *others):
     if D not in _HEAD_DIMS:
         raise ValueError(f"flash attention kernel takes head dims "
                          f"{_HEAD_DIMS}, got {D}")
-    for t in (q, k, v) + others:
+    for name, t in zip(("q", "k", "v", "o", "do"), (q, k, v) + others):
         if t.device != q.device:
             raise ValueError("flash attention operands must share one device")
         if not t.is_contiguous():
             raise ValueError("flash attention kernel takes contiguous "
                              "tensors")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash attention kernel takes 16-byte aligned "
+                             f"tensors (its tiles are copied in 16-byte "
+                             f"chunks); {name} starts at an offset of "
+                             f"{t.data_ptr() % 16} bytes")
     for t in (k, v) + others:
         if t.dtype != q.dtype:
             raise TypeError("flash attention operands must share q's dtype")

@@ -14,7 +14,11 @@ the backward uses to recompute the probabilities.
 
 ``flash_attention_fp8_plain`` is the plain version of the ``fp8=True``
 forward (QK^T on per-row fp8_e4m3 codes): the JAX oracle
-``reference_attention_fp8``."""
+``reference_attention_fp8``.
+
+``tf32_round`` and ``split_tf32`` are the CUDA kernels' operand split
+(hi = TF32 of x, lo = TF32 of x - hi), for tests of its numerics on the
+CPU; no plain version uses them."""
 from __future__ import annotations
 
 import math
@@ -103,3 +107,24 @@ def flash_attention_fp8_plain(q: torch.Tensor, k: torch.Tensor,
         return (xq.float() * s).to(x.dtype)
 
     return flash_attention_plain(dq(q), dq(k), v, causal, window)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds: to
+    nearest on the low 13 bits of the significand, ties away from zero
+    (half a TF32 ulp added to the magnitude bits, then the low 13 bits
+    cleared: a carry moves into the exponent, the largest finite values
+    become inf); NaN stays NaN."""
+    x = x.float().contiguous()
+    bits = x.view(torch.int32).to(torch.int64)
+    r = (bits + 0x1000) & 0xFFFFE000
+    r = torch.where(r >= 2 ** 31, r - 2 ** 32, r).to(torch.int32)
+    return torch.where(torch.isnan(x), x, r.view(torch.float32))
+
+
+def split_tf32(x: torch.Tensor):
+    """(hi, lo) TF32 parts of float32 ``x``: hi = tf32_round(x), lo =
+    tf32_round(x - hi) (x - hi is exact in f32), so hi + lo is x to within
+    2^-22 |x|."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)

@@ -385,6 +385,10 @@ FLASH_TOL = {torch.float32: ((1e-5, 1e-4), (1e-4, 1e-4)),
     (2, 200, 4, 2, 64, None),       # G = 2, S not a multiple of the tile
     (1, 300, 2, 1, 32, 70),         # sliding window
     (3, 45, 4, 2, 16, None),        # the tiny test model's head dim
+    (1, 1, 2, 2, 128, None),        # one position
+    (2, 7, 4, 2, 64, None),         # under one 16-row mma block
+    (1, 100, 10, 2, 64, None),      # G = 5
+    (1, 300, 2, 2, 128, 16),        # a window smaller than a tile
 ])
 def test_cuda_flash_kernels_match_plain(cuda, dtype, B, S, H, KV, D, window):
     from repro_torch.kernels.flash_attention import (
@@ -405,6 +409,49 @@ def test_cuda_flash_kernels_match_plain(cuda, dtype, B, S, H, KV, D, window):
                                      window)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=ba, rtol=br)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_kernels_are_deterministic(cuda, dtype):
+    """No atomics: flash_fwd and flash_bwd give the same bits on a second
+    call with the same inputs (the pipeline reloads checkpoints bit for bit
+    and compares a training step with the CPU)."""
+    from repro_torch.kernels.flash_attention import flash_bwd, flash_fwd
+    g = torch.Generator().manual_seed(11)
+    q, do = (torch.randn((2, 300, 4, 128), generator=g).to(dtype).to(cuda)
+             for _ in range(2))
+    k, v = (torch.randn((2, 300, 2, 128), generator=g).to(dtype).to(cuda)
+            for _ in range(2))
+    first = flash_fwd(q, k, v)
+    assert all(torch.equal(a, b) for a, b in zip(first, flash_fwd(q, k, v)))
+    grads = flash_bwd(q, k, v, *first, do)
+    again = flash_bwd(q, k, v, *first, do)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("operand", ["q", "k", "v", "o", "do"])
+def test_cuda_flash_kernels_refuse_misaligned_views(cuda, operand):
+    """A contiguous view that does not start on a 16-byte boundary (the
+    kernels copy tiles in 16-byte chunks) is refused with a ValueError
+    naming the operand, before any launch."""
+    from repro_torch.kernels.flash_attention import flash_bwd, flash_fwd
+    g = torch.Generator().manual_seed(12)
+    shape = (1, 40, 2, 64)
+    ops = {n: torch.randn(shape, generator=g).to(cuda)
+           for n in ("q", "k", "v", "do")}
+    ops["o"], lse = flash_fwd(ops["q"], ops["k"], ops["v"])
+    buf = torch.empty(ops[operand].numel() + 1, device=cuda)
+    ops[operand] = buf[1:].view(shape).copy_(ops[operand])
+    assert ops[operand].is_contiguous() and ops[operand].data_ptr() % 16
+    before = dict(launches)
+    with pytest.raises(ValueError, match=rf"aligned.*\b{operand} starts"):
+        if operand in ("q", "k", "v"):
+            flash_fwd(ops["q"], ops["k"], ops["v"])
+        else:
+            flash_bwd(ops["q"], ops["k"], ops["v"], ops["o"], lse, ops["do"])
+    assert dict(launches) == before
 
 
 @pytest.mark.cuda

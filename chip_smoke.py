@@ -45,6 +45,12 @@ yardstick.  Then phases, each fatal on failure:
      kernel's by more than 1e-3;
    - flash forward and backward at the training shape, f32 and bf16: a
      second call with the same inputs gives the same bits (no atomics);
+   - the RMSNorm kernels at every layout (``NORM_WIDTHS``: warp-wide rows
+     to 2048, CTA-wide to 12288) over ``NORM_ROWS`` rows, forward and
+     backward, f32 and bf16; a row's bits independent of the launch (40
+     rows at once, as 8-row slices and one by one: forward outputs and
+     backward dx); the backward's dx and dscale the same bits on a
+     second call; widths the layout does not take refused;
    each check logs its worst ratio of error to the tolerance's allowance
    (``gate_ratio``; ``bits`` where it compares bit for bit);
 3. full width at depth 2, card against CPU, same params and batch:
@@ -122,9 +128,11 @@ yardstick.  Then phases, each fatal on failure:
    their operand type, with two roofs beside it: the split-TF32 design
    ceiling, FLASH_TF32_PRODUCTS TF32 products per f32 product, and the
    67 TFLOP/s f32 roof); the flash rows also at the pipeline's shape
-   (``PIPELINE_FLASH_SHAPE``, a line of their own); then paged verify
-   and the ring decode at a full cache and at these shapes for each
-   chunk size of ``CHUNK_SWEEP``.
+   (``PIPELINE_FLASH_SHAPE``, a line of their own); the norms at every
+   shape of ``NORM_SHAPES`` (the backward, plain and residual, each with
+   its own bound, at two), beside ``floor_ms``, the same timing of an
+   empty kernel; then paged verify and the ring decode at a full cache
+   and at these shapes for each chunk size of ``CHUNK_SWEEP``.
 
 Logs each phase's seconds.  Prints the card's name and power limit, then
 a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
@@ -249,6 +257,12 @@ PIPELINE_IDLE = ("paged_verify", "paged_decode_dequant",
 # eval items per suite whose greedy tokens are also generated on the CPU
 # (full-width decode on the host's cores is slow; agreement is printed)
 CPU_GEN_ITEMS = 16
+# where the main path launches the norms (f32 rows of d): a decode step's
+# S*T rows of nanochat-d20 and of mamba2-1.3b, a pipeline worker's batch
+# (8 x 128 tokens) and phase 5's (4 x 1024); the backward at the last two
+NORM_SHAPES = {"decode": (8, 1, 1280), "mamba2_decode": (8, 1, 2048),
+               "pipeline": (8, 128, 1280), "training": (4, 1024, 1280)}
+NORM_BWD_SHAPES = ("training", "pipeline")
 
 
 class SmokeFailure(Exception):
@@ -660,6 +674,116 @@ def phase_flash_determinism(torch, results):
                             all(torch.equal(x, y) for x, y in zip(a, b)),
                             None))
         del q, k, v, do, first, again, grads, grads2
+
+
+# the norm kernels' layouts: warp-wide rows to 2048 (1600 masks part of
+# its last tile), CTA-wide above; row counts from 1 to a training batch
+NORM_WIDTHS = (64, 96, 1280, 1600, 2048, 12288)
+NORM_ROWS = (1, 8, 40, 300, 4096)
+
+
+def phase_norm_kernels(torch, results):
+    """The RMSNorm kernels at every layout: forward (both variants) and
+    backward (both variants; dscale within 1e-3 + 1e-4 of its largest
+    column, as a sum over the rows in another order) against the plain
+    versions, f32 and bf16, at each width of ``NORM_WIDTHS`` over the row
+    counts of ``NORM_ROWS`` (to 300 at d 12288); a row's bits independent
+    of the launch (40 rows at once, as 8-row slices and one by one: the
+    forward's outputs and the backward's dx, bit for bit); the backward's
+    dx and dscale the same bits on a second call; widths the layout does
+    not take refused with ValueError."""
+    from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_bwd,
+                                             rmsnorm_bwd_plain, rmsnorm_plain,
+                                             rmsnorm_residual,
+                                             rmsnorm_residual_plain)
+
+    def inputs(rows, d, dt, seed):
+        g = torch.Generator().manual_seed(seed)
+        t = [torch.randn((rows, d), generator=g).to(dt).cuda()
+             for _ in range(4)]
+        return t + [(1 + 0.1 * torch.randn(d, generator=g)).cuda()]
+
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for d in NORM_WIDTHS:
+            row_counts = NORM_ROWS[:4] if d > 2048 else NORM_ROWS
+            worst = {}
+            for rows in row_counts:
+                x, r, dy, dh, sc = inputs(rows, d, dt, rows + d)
+                got = {"rmsnorm": [(rmsnorm(x, sc), rmsnorm_plain(x, sc))],
+                       "rmsnorm_residual": list(zip(
+                           rmsnorm_residual(x, r, sc),
+                           rmsnorm_residual_plain(x, r, sc)))}
+                for res in (None, r):
+                    kw = {} if res is None else dict(residual=r, dh=dh)
+                    (gx, gs), (wx, ws) = (
+                        rmsnorm_bwd(dy, x, sc, **kw),
+                        rmsnorm_bwd_plain(dy, x, sc, 1e-5, res,
+                                          None if res is None else dh))
+                    torch.cuda.synchronize()
+                    e_s = float((gs - ws).abs().max())
+                    ok_s, r_s = scalar_gate(e_s, 1e-3, 1e-4,
+                                            float(ws.abs().max()))
+                    e_x, ok_x, r_x = max_err(torch, gx, wx)
+                    w = worst.setdefault("rmsnorm_bwd", [0.0, True, 0.0])
+                    w[:] = [max(w[0], e_x, e_s), w[1] and ok_x and ok_s,
+                            max(w[2], r_x, r_s)]
+                torch.cuda.synchronize()
+                for name, pairs in got.items():
+                    for a, b in pairs:
+                        e, ok, ratio = max_err(torch, a, b)
+                        w = worst.setdefault(name, [0.0, True, 0.0])
+                        w[:] = [max(w[0], e), w[1] and ok, max(w[2], ratio)]
+            tag = (f"d={d}", "rows " + "/".join(map(str, row_counts)))
+            for name, (e, ok, ratio) in worst.items():
+                results.append((name, dtype, tag, e, ok, ratio))
+        for d in (96, 1280, 2048, 12288):
+            x, r, dy, dh, sc = inputs(40, d, dt, d)
+
+            def run(a, b):
+                o, h = rmsnorm_residual(x[a:b], r[a:b], sc)
+                return (rmsnorm(x[a:b], sc), o, h,
+                        rmsnorm_bwd(dy[a:b], x[a:b], sc)[0],
+                        rmsnorm_bwd(dy[a:b], x[a:b], sc, residual=r[a:b],
+                                    dh=dh[a:b])[0])
+
+            whole = run(0, 40)
+            for step in (8, 1):
+                parts = [run(a, a + step) for a in range(0, 40, step)]
+                torch.cuda.synchronize()
+                diff, equal = 0.0, True
+                for k, a in enumerate(whole):
+                    b = torch.cat([p[k] for p in parts])
+                    diff = max(diff, float((a.float() - b.float()).abs()
+                                           .max()))
+                    equal = equal and torch.equal(a, b)
+                results.append(("norm_rows_independent", dtype, (
+                    f"d={d}", f"40 rows vs {40 // step} launches of {step}"),
+                    diff, equal, None))
+        x, r, dy, dh, sc = inputs(4096, 1280, dt, 3)
+        for kw in ({}, dict(residual=r, dh=dh)):
+            first, again = (rmsnorm_bwd(dy, x, sc, **kw) for _ in range(2))
+            torch.cuda.synchronize()
+            diff = max(float((a.float() - b.float()).abs().max())
+                       for a, b in zip(first, again))
+            results.append(("rmsnorm_bwd", dtype, (
+                4096, 1280, "residual" if kw else "plain",
+                "same bits on a second call"), diff,
+                all(torch.equal(a, b) for a, b in zip(first, again)), None))
+    for d in (1284, 12296):
+        x = torch.ones((2, d), device="cuda")
+        sc = torch.ones(d, device="cuda")
+        for name, call in (("rmsnorm", lambda: rmsnorm(x, sc)),
+                           ("rmsnorm_residual",
+                            lambda: rmsnorm_residual(x, x, sc)),
+                           ("rmsnorm_bwd", lambda: rmsnorm_bwd(x, x, sc))):
+            try:
+                call()
+                refused = False
+            except ValueError:
+                refused = True
+            results.append((name, "float32", (f"d={d}", "refused"), 0.0,
+                            refused, None))
 
 
 def code_bits(torch, q):
@@ -2121,22 +2245,53 @@ def flash_bounds(name, nbytes, ops):
             "bound_ms_f32": bound(nbytes, ops, "float32")[0]}
 
 
+def with_bound(t, dtype):
+    """A timing dict ({"ms", "plain_ms", "library_ms", "nbytes", "ops",
+    ...}) with its ``bound_ms`` and ``bound_by`` in place of the counts."""
+    t = dict(t)
+    b_ms, b_by = bound(t.pop("nbytes"), t.pop("ops"), dtype)
+    return dict(t, bound_ms=b_ms, bound_by=b_by)
+
+
+def norm_fwd_times(torch, shape, seed):
+    """{"rmsnorm": ..., "rmsnorm_residual": ...} at ``shape`` (f32): the
+    kernel's, the plain version's and ``F.rms_norm``'s ms (the residual
+    variant has no one-call counterpart), with the function's bytes (x
+    read and the output written once, plus the residual read and the new
+    residual written; the scale read once) and operations."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_plain,
+                                             rmsnorm_residual,
+                                             rmsnorm_residual_plain)
+    g = torch.Generator().manual_seed(40 + seed)
+    x, r = (torch.randn(shape, generator=g).cuda() for _ in range(2))
+    d = shape[-1]
+    sc = (1 + 0.1 * torch.randn(d, generator=g)).cuda()
+    n = x.numel()
+    return {
+        "rmsnorm": {
+            "shape": list(shape), "ms": time_ms(torch, lambda: rmsnorm(x, sc)),
+            "plain_ms": time_ms(torch, lambda: rmsnorm_plain(x, sc)),
+            "library_ms": time_ms(
+                torch, lambda: F.rms_norm(x, (d,), sc, 1e-5)),
+            "nbytes": 2 * n * 4 + d * 4, "ops": 4 * n},
+        "rmsnorm_residual": {
+            "shape": list(shape),
+            "ms": time_ms(torch, lambda: rmsnorm_residual(x, r, sc)),
+            "plain_ms": time_ms(
+                torch, lambda: rmsnorm_residual_plain(x, r, sc)),
+            "library_ms": None, "nbytes": 4 * n * 4 + d * 4, "ops": 5 * n}}
+
+
 def phase_timing(torch, paths, checks):
     """``paths``: {main-path run name: {kernel: launches}}."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (
         paged_decode_attention, paged_decode_attention_plain,
         paged_verify_attention, paged_verify_attention_plain)
-    from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_plain,
-                                             rmsnorm_residual,
-                                             rmsnorm_residual_plain)
     dev = torch.device("cuda")
     dtype = "float32"                     # the main path's working type
     item = 4
-    rows, d = 8, 1280                     # a decode step's S*T rows
-    x = torch.randn((rows, 1, d), device=dev)
-    r = torch.randn((rows, 1, d), device=dev)
-    sc = torch.ones(d, device=dev)
     out = []
 
     def row(name, shape, ms, plain_ms, lib_ms, nbytes, ops, **extra):
@@ -2168,17 +2323,17 @@ def phase_timing(torch, paths, checks):
                         **({"gradient_of": GRADIENT_OF[name]}
                            if name in GRADIENT_OF else {})))
 
-    row("rmsnorm", x.shape,
-        time_ms(torch, lambda: rmsnorm(x, sc)),
-        time_ms(torch, lambda: rmsnorm_plain(x, sc)),
-        time_ms(torch, lambda: F.rms_norm(x, (d,), sc, 1e-5)),
-        (2 * rows * d) * item + d * 4, 4 * rows * d, library="F.rms_norm")
-    row("rmsnorm_residual", x.shape,
-        time_ms(torch, lambda: rmsnorm_residual(x, r, sc)),
-        time_ms(torch, lambda: rmsnorm_residual_plain(x, r, sc)),
-        None, (4 * rows * d) * item + d * 4, 5 * rows * d,
-        library="null: no one PyTorch call adds the residual and "
-                "normalises")
+    norms = {k: norm_fwd_times(torch, shape, seed)
+             for seed, (k, shape) in enumerate(NORM_SHAPES.items())}
+    libraries = {"rmsnorm": "F.rms_norm",
+                 "rmsnorm_residual": "null: no one PyTorch call adds the "
+                                     "residual and normalises"}
+    for name, library in libraries.items():
+        t = norms["decode"][name]
+        row(name, NORM_SHAPES["decode"], t["ms"], t["plain_ms"],
+            t["library_ms"], t["nbytes"], t["ops"], library=library,
+            **{f"at_{k}_shape": with_bound(v[name], dtype)
+               for k, v in norms.items() if k != "decode"})
 
     for name, T in (("paged_decode", 1), ("paged_verify", 5)):
         q, kp, vp, tab, start, ntok, live = (
@@ -2218,7 +2373,7 @@ def phase_timing(torch, paths, checks):
             time_ms(torch, lib), nbytes, ops,
             library="F.scaled_dot_product_attention over the K/V gathered "
                     "from the pool, with a boolean mask")
-    del x, r, q, kp, vp, kg, vg, mask
+    del q, kp, vp, kg, vg, mask
     static_rows(torch, row)
     quant_rows(torch, row)
     train_rows(torch, row)
@@ -2530,13 +2685,10 @@ def sdpa_kernels(torch, B, S, H, KV, D):
 def train_rows(torch, row):
     """Timing rows of the training kernels at the main path's shapes
     (float32): flash at (B 4, S 1024, H = KV = 10, D 128), the RMSNorm
-    backward at 4 x 1024 rows of 1280, fused AdamW on the AdamW
-    partition's largest leaf (65536 x 1280)."""
-    import torch.nn.functional as F
+    backward, plain and residual, at 4 x 1024 and 8 x 128 rows of 1280,
+    fused AdamW on the AdamW partition's largest leaf (65536 x 1280)."""
     from repro_torch.kernels.fused_adamw import (fused_adamw_plain,
                                                  fused_adamw_update)
-    from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_bwd_plain
-    item = 4
     shape = TRAIN_FLASH_SHAPE
     times = flash_timing(torch, *shape)
     pipe = flash_timing(torch, *PIPELINE_FLASH_SHAPE)
@@ -2558,25 +2710,17 @@ def train_rows(torch, row):
         log(f"  {name} at the pipeline's shape (B, S, H, KV, D) "
             f"{PIPELINE_FLASH_SHAPE}: " + " ".join(
                 f"{k}={v}" for k, v in at_pipe.items() if k != "shape"))
+    bwd = {k: norm_bwd_times(torch, NORM_SHAPES[k], seed)
+           for seed, k in enumerate(NORM_BWD_SHAPES)}
+    t = bwd["training"]
+    row("rmsnorm_bwd", NORM_SHAPES["training"], t["ms"], t["plain_ms"],
+        t["library_ms"], t["nbytes"], t["ops"],
+        library="F.rms_norm's backward through autograd (plain variant; "
+                "null for the residual variant)",
+        **{k: v for k, v in with_bound(t, "float32").items()
+           if k.endswith("_residual")},
+        at_pipeline_shape=with_bound(bwd["pipeline"], "float32"))
     g = torch.Generator().manual_seed(5)
-    rows, d = 4 * 1024, 1280
-    x, r, dy, dh = (torch.randn((4, 1024, d), generator=g).cuda()
-                    for _ in range(4))
-    sc = (1 + 0.1 * torch.randn(d, generator=g)).cuda()
-    xl, wl = x.clone().requires_grad_(), sc.clone().requires_grad_()
-    y_lib = F.rms_norm(xl, (d,), wl, 1e-5)
-    row("rmsnorm_bwd", x.shape,
-        time_ms(torch, lambda: rmsnorm_bwd(dy, x, sc)),
-        time_ms(torch, lambda: rmsnorm_bwd_plain(dy, x, sc)),
-        time_ms(torch, lambda: torch.autograd.grad(y_lib, (xl, wl), dy,
-                                                   retain_graph=True)),
-        3 * rows * d * item + 2 * d * 4, 10 * rows * d,
-        library="F.rms_norm's backward through autograd",
-        ms_residual=time_ms(torch, lambda: rmsnorm_bwd(
-            dy, x, sc, residual=r, dh=dh)),
-        plain_ms_residual=time_ms(torch, lambda: rmsnorm_bwd_plain(
-            dy, x, sc, 1e-5, r, dh)))
-    del x, r, dy, dh, xl, wl, y_lib
     n = 65536 * 1280
     p, gr = (torch.randn(n, generator=g).cuda() for _ in range(2))
     m = (0.1 * torch.randn(n, generator=g)).cuda()
@@ -2595,6 +2739,38 @@ def train_rows(torch, row):
         28 * n, 14 * n,
         library="torch._fused_adamw_ on one flat leaf (updates p, m, v "
                 "in place; the port's kernel returns u, m', v')")
+
+
+def norm_bwd_times(torch, shape, seed):
+    """The RMSNorm backward at ``shape`` (f32), plain and residual: the
+    kernel's and the plain version's ms, ``F.rms_norm``'s backward
+    through autograd for the plain variant, and each variant's bytes (x
+    and dy read, dx written; the residual variant also reads the residual
+    and dh; the scale read and dscale written once) and operations; the
+    residual variant's under keys ending in ``_residual``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_bwd_plain
+    g = torch.Generator().manual_seed(50 + seed)
+    x, r, dy, dh = (torch.randn(shape, generator=g).cuda() for _ in range(4))
+    d = shape[-1]
+    sc = (1 + 0.1 * torch.randn(d, generator=g)).cuda()
+    n = x.numel()
+    xl, wl = x.clone().requires_grad_(), sc.clone().requires_grad_()
+    y_lib = F.rms_norm(xl, (d,), wl, 1e-5)
+    bound_res = bound(5 * n * 4 + 2 * d * 4, 11 * n, "float32")
+    return {
+        "shape": list(shape),
+        "ms": time_ms(torch, lambda: rmsnorm_bwd(dy, x, sc)),
+        "plain_ms": time_ms(torch, lambda: rmsnorm_bwd_plain(dy, x, sc)),
+        "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+            y_lib, (xl, wl), dy, retain_graph=True)),
+        "nbytes": 3 * n * 4 + 2 * d * 4, "ops": 10 * n,
+        "ms_residual": time_ms(torch, lambda: rmsnorm_bwd(
+            dy, x, sc, residual=r, dh=dh)),
+        "plain_ms_residual": time_ms(torch, lambda: rmsnorm_bwd_plain(
+            dy, x, sc, 1e-5, r, dh)),
+        "library_ms_residual": None, "bound_ms_residual": bound_res[0],
+        "bound_by_residual": bound_res[1]}
 
 
 def wire_rows(torch, row):
@@ -2646,6 +2822,24 @@ def wire_rows(torch, row):
 
 # ---------------------------------------------------------------------------
 
+def norm_timing(torch):
+    """The norms' phase-7 timings alone, for this checkout's kernels:
+    ``floor_ms``, then per shape of ``NORM_SHAPES`` the forward kernels'
+    ms and bounds and, at ``NORM_BWD_SHAPES``, the backward's (plain and
+    residual)."""
+    from repro_torch.kernels import _build
+    _build.build(["rmsnorm"])
+    out = {"source": str(ROOT), "floor_ms": time_ms(
+        torch, lambda: torch.cuda._sleep(0))}
+    for seed, (k, shape) in enumerate(NORM_SHAPES.items()):
+        out[k] = {n: with_bound(v, "float32") for n, v in
+                  norm_fwd_times(torch, shape, seed).items()}
+    for seed, k in enumerate(NORM_BWD_SHAPES):
+        out[k]["rmsnorm_bwd"] = with_bound(
+            norm_bwd_times(torch, NORM_SHAPES[k], seed), "float32")
+    return out
+
+
 def gpu_line() -> str:
     try:
         return subprocess.run(
@@ -2660,6 +2854,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=str, default=None,
                     help="also write the full report as JSON to this file")
+    ap.add_argument("--norm-timing", action="store_true",
+                    help="only build the RMSNorm kernels of this checkout "
+                         "and time them at NORM_SHAPES beside the floor "
+                         "(one JSON line): to set two checkouts side by "
+                         "side in one run on one card")
     args = ap.parse_args(argv)
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found; run from a checkout "
@@ -2672,6 +2871,10 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.norm_timing:
+        print(json.dumps(norm_timing(torch)))
+        print(gpu_line())
+        return 0
     report = {"gpu": gpu_line(), "torch": torch.__version__,
               "cuda": torch.version.cuda}
     t_start = time.perf_counter()
@@ -2713,6 +2916,7 @@ def main(argv=None) -> int:
         phase_static_kernels(torch, checks)
         phase_fp8_flash_kernels(torch, checks)
         phase_flash_determinism(torch, checks)
+        phase_norm_kernels(torch, checks)
         report_checks(checks)
         report["checks"] = [list(c) for c in checks]
         lap("2 kernels")
@@ -2760,6 +2964,8 @@ def main(argv=None) -> int:
                       for m, run in pipeline.items()})
         paths.update({m: run["launches"] for m, run in static.items()
                       if "launches" in run})
+        floor = report["floor_ms"] = time_ms(
+            torch, lambda: torch.cuda._sleep(0))
         kernels = phase_timing(torch, paths, checks)
         report["kernels"] = kernels
         for k in kernels:
@@ -2767,6 +2973,19 @@ def main(argv=None) -> int:
                 f"{k['plain_ms']:.4f} library_ms={k['library_ms']} "
                 f"bound_ms={k['bound_ms']:.5f} ({k['bound_by']}) "
                 f"launches={k['launches_by_path']}")
+            for key, v in k.items():
+                if (k["name"].startswith("rmsnorm") and key.startswith("at_")
+                        and key.endswith("_shape")):
+                    log(f"  {'':17s} {key} {v['shape']}: " + " ".join(
+                        f"{n}={v[n]}" for n in v if n != "shape"))
+            if k["name"] == "rmsnorm_residual":
+                log(f"  {'floor':17s} ms={floor:.4f} (the same timing of "
+                    f"an empty kernel, torch.cuda._sleep(0): not a kernel "
+                    f"row)")
+            if "ms_residual" in k:
+                log(f"  {'':17s} residual variant: " + " ".join(
+                    f"{n}={v}" for n, v in k.items()
+                    if n.endswith("_residual")))
         split = report["split_timing"] = phase_split_timing(torch)
         for name in ("paged_verify_full", "paged_verify_phase7",
                      "ring_decode_full", "ring_decode_phase7"):
@@ -2805,7 +3024,8 @@ def main(argv=None) -> int:
         for stage, e in run["stages"].items()} for m, run in pipeline.items()}
     print(json.dumps({"engine": summary, "capacity": capacity,
                       "train": train_summary, "static": static_summary,
-                      "pipeline": pipeline_summary, "phase_s": phase_s}))
+                      "pipeline": pipeline_summary, "phase_s": phase_s,
+                      "floor_ms": floor}))
     print(json.dumps({"split_timing": report["split_timing"]}))
     print(report["gpu"])
     print(json.dumps({"kernels": kernels}))

@@ -45,6 +45,97 @@ def test_cuda_rmsnorm_kernels_match_plain(cuda, dtype, atol):
                                atol=atol, rtol=atol)
 
 
+# widths of the layout's variants (warp-wide rows to 2048, CTA-wide above;
+# 1600 masks part of its last tile) and row counts of the main path
+NORM_WIDTHS = (64, 96, 1280, 1600, 2048, 12288)
+NORM_ROWS = (1, 8, 40, 300, 4096)
+NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _norm_inputs(cuda, rows, d, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    x, r, dy, dh = (torch.randn((rows, d), generator=g).to(dtype).to(cuda)
+                    for _ in range(4))
+    s = (1 + 0.1 * torch.randn(d, generator=g)).to(cuda)
+    return x, r, s, dy, dh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", NORM_WIDTHS)
+def test_cuda_rmsnorm_kernels_match_plain_at_every_width(cuda, dtype, d):
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_bwd_plain
+    tol = NORM_TOL[dtype]
+    for rows in NORM_ROWS[:4] if d > 2048 else NORM_ROWS:
+        x, r, s, dy, dh = _norm_inputs(cuda, rows, d, dtype, rows + d)
+        torch.testing.assert_close(rmsnorm(x, s), rmsnorm_plain(x, s),
+                                   atol=tol, rtol=tol)
+        torch.testing.assert_close(rmsnorm_residual(x, r, s),
+                                   rmsnorm_residual_plain(x, r, s),
+                                   atol=tol, rtol=tol)
+        for kw in ({}, dict(residual=r, dh=dh)):
+            got = rmsnorm_bwd(dy, x, s, **kw)
+            want = rmsnorm_bwd_plain(dy, x, s, 1e-5, kw.get("residual"),
+                                     kw.get("dh"))
+            torch.testing.assert_close(got[0], want[0], atol=tol, rtol=tol)
+            # dscale sums the rows in another order
+            torch.testing.assert_close(got[1], want[1], atol=1e-3,
+                                       rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [96, 1280, 2048, 12288])
+def test_cuda_rmsnorm_rows_independent_of_the_launch(cuda, dtype, d):
+    """A row's bits do not depend on the rows launched with it: 40 rows
+    in one launch, as 8-row slices and one by one, bit for bit (forward,
+    both variants, and the backward's dx)."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+    x, r, s, dy, dh = _norm_inputs(cuda, 40, d, dtype, d)
+
+    def run(a, b):
+        o, h = rmsnorm_residual(x[a:b], r[a:b], s)
+        return (rmsnorm(x[a:b], s), o, h, rmsnorm_bwd(dy[a:b], x[a:b], s)[0],
+                rmsnorm_bwd(dy[a:b], x[a:b], s, residual=r[a:b],
+                            dh=dh[a:b])[0])
+
+    whole = run(0, 40)
+    for step in (8, 1):
+        parts = [run(a, a + step) for a in range(0, 40, step)]
+        for k, got in enumerate(whole):
+            assert torch.equal(got, torch.cat([p[k] for p in parts])), (
+                step, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual", [False, True])
+def test_cuda_rmsnorm_bwd_is_deterministic(cuda, dtype, residual):
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+    x, r, s, dy, dh = _norm_inputs(cuda, 4096, 1280, dtype, 3)
+    kw = dict(residual=r, dh=dh) if residual else {}
+    first = rmsnorm_bwd(dy, x, s, **kw)
+    second = rmsnorm_bwd(dy, x, s, **kw)
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+def test_cuda_rmsnorm_refuses_widths_and_misaligned_rows(cuda):
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+    for d in (1284, 12296):
+        x = torch.ones((2, d), device=cuda)
+        s = torch.ones(d, device=cuda)
+        for call in (lambda: rmsnorm(x, s), lambda: rmsnorm_residual(x, x, s),
+                     lambda: rmsnorm_bwd(x, x, s)):
+            with pytest.raises(ValueError, match="multiple of 8"):
+                call()
+    flat = torch.ones(2 * 64 + 1, device=cuda)
+    x, s = flat[1:].view(2, 64), torch.ones(64, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        rmsnorm(x, s)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,G,window", [(1, 1, 0), (1, 2, 0), (5, 1, 0),
                                         (5, 2, 0), (1, 1, 64), (5, 1, 64)])

@@ -64,7 +64,8 @@ def _close(got, *wants, mask=None):
 # RMSNorm
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("R,d", [(8, 64), (40, 96), (7, 1280)])
+@pytest.mark.parametrize("R,d", [(8, 64), (40, 96), (7, 1280), (5, 1600),
+                                 (4, 2048)])
 def test_rmsnorm_plain_matches_jax_oracle_and_pallas(R, d):
     rng = np.random.default_rng(R * d)
     x = (2 * rng.standard_normal((R, d))).astype(np.float32)
@@ -75,7 +76,8 @@ def test_rmsnorm_plain_matches_jax_oracle_and_pallas(R, d):
            pallas_rmsnorm(jnp.asarray(x), jnp.asarray(s), interpret=True))
 
 
-@pytest.mark.parametrize("shape", [(3, 8, 64), (5, 1, 96)])
+@pytest.mark.parametrize("shape", [(3, 8, 64), (5, 1, 96), (2, 3, 1600),
+                                   (4, 1, 2048)])
 def test_rmsnorm_residual_plain_matches_jax_oracle_and_pallas(shape):
     rng = np.random.default_rng(sum(shape))
     x = rng.standard_normal(shape).astype(np.float32)

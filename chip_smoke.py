@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (built for H100).
 
     python3 chip_smoke.py [--out report.json]
+    python3 chip_smoke.py --norm-timing | --ssd-timing
 
 Run from the root of a checkout.  First logs the kernels that SDPA
 launches at the training shape (torch.profiler), the flash rows'
@@ -33,7 +34,9 @@ yardstick.  Then phases, each fatal on failure:
      residual, at (1, 1280), on a scalar leaf, and per tile (256);
    - the static path's kernels: the SSD chunk scan at mamba2-1.3b's
      shapes (B 2, H 64, P 64, N 128; S 512, S 300 (padding), S 64
-     (Q 64)) within 1e-4 + 1e-4 in f32, and the ring decode at (B 8,
+     (Q 64); scoring's B 4, S 144) and small ragged shapes (Q 8, 32
+     and 37, N 4 and 32, P 8 and 16) within 1e-4 + 1e-4 in f32, the
+     same bits on a second call, and the ring decode at (B 8,
      KV 10, G 1, S 320, D 128) with window 0 and 64 over a wrapped ring
      with empty slots (the row whose query sits at -1 gives zeros and is
      not compared), a chunk of dead slots, a window starting mid-chunk
@@ -87,7 +90,8 @@ yardstick.  Then phases, each fatal on failure:
    SSM has no paged cache; max_new 16) and scores 4 rows (one over 128
    tokens, one under 64) with ``score_continuations_batch`` (the SSD
    kernel once per layer; no paged or flash kernel on either), one
-   short static run under torch.profiler; nanochat-d20 serves the 8
+   short static run and one scoring call under torch.profiler (device
+   time by kernel, busy share); nanochat-d20 serves the 8
    requests on an engine too small for them (max_len 256), so the batch
    takes the static path and the ring decode kernel, and on a batch that
    fits the share of greedy tokens equal between the static path and
@@ -124,10 +128,11 @@ yardstick.  Then phases, each fatal on failure:
 7. time each kernel, its plain version and one PyTorch library call on
    the same inputs (CUDA events, L2 flushed before each launch) beside
    the least time the card could take
-   (bound; the flash kernels' operations at the tensor cores' rate for
-   their operand type, with two roofs beside it: the split-TF32 design
-   ceiling, FLASH_TF32_PRODUCTS TF32 products per f32 product, and the
-   67 TFLOP/s f32 roof); the flash rows also at the pipeline's shape
+   (bound; the flash kernels' and the SSD's operations at the tensor
+   cores' rate for their operand type, with two roofs beside it: the
+   split-TF32 design ceiling, TC_TF32_PRODUCTS TF32 products per f32
+   product, and the 67 TFLOP/s f32 roof); the SSD also at the scoring
+   shape (``SSD_TIMING_SHAPES``); the flash rows also at the pipeline's shape
    (``PIPELINE_FLASH_SHAPE``, a line of their own); the norms at every
    shape of ``NORM_SHAPES`` (the backward, plain and residual, each with
    its own bound, at two), beside ``floor_ms``, the same timing of an
@@ -138,6 +143,11 @@ Logs each phase's seconds.  Prints the card's name and power limit, then
 a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
 the last line.  Exits nonzero, with no result, when CUDA is unavailable
 or any phase fails.
+
+``--norm-timing`` and ``--ssd-timing`` build only rmsnorm.cu or ssd.cu
+and print one JSON line of those kernels' phase-7 timings beside
+``floor_ms``: run this script beside two checkouts' ``src/`` in one call
+(parent, change, change, parent) to compare them on one card.
 """
 from __future__ import annotations
 
@@ -155,15 +165,17 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12,
                   "fp8_e4m3": 1979e12}
-# The flash kernels run their products on the tensor cores: share of each
-# kernel's FLOPs by operand type (f32 data as TF32; the fp8 forward's
-# QK^T, half its FLOPs, on e4m3 codes), the rates of their bound
-FLASH_OPS_BY_TYPE = {"flash_fwd": {"tf32": 1.0}, "flash_bwd": {"tf32": 1.0},
-                     "flash_fwd_fp8": {"fp8_e4m3": 0.5, "tf32": 0.5}}
+# The flash and SSD kernels run their products on the tensor cores: share
+# of each kernel's FLOPs by operand type (f32 data as TF32; the fp8
+# forward's QK^T, half its FLOPs, on e4m3 codes), the rates of their bound
+TC_OPS_BY_TYPE = {"flash_fwd": {"tf32": 1.0}, "flash_bwd": {"tf32": 1.0},
+                  "flash_fwd_fp8": {"fp8_e4m3": 0.5, "tf32": 0.5},
+                  "ssd": {"tf32": 1.0}}
 # TF32 products per f32 product of the split these kernels chose (hi.lo +
 # lo.hi + hi.hi; the fp8 QK^T one product on the codes, its P.V three):
 # the design's own ceiling, reported beside the bound
-FLASH_TF32_PRODUCTS = {"flash_fwd": 3, "flash_bwd": 3, "flash_fwd_fp8": 2}
+TC_TF32_PRODUCTS = {"flash_fwd": 3, "flash_bwd": 3, "flash_fwd_fp8": 2,
+                    "ssd": 3}
 # flash attention (B, S, H, KV, D) in phase 5 and in the pipeline phase,
 # where their flash launches happen
 TRAIN_FLASH_SHAPE = (4, 1024, 10, 10, 128)
@@ -234,9 +246,15 @@ TRAIN_KERNELS = ("rmsnorm", "rmsnorm_residual", "flash_fwd", "flash_bwd",
 # than the plain einsums (the chunk cumsum is shared to the bit)
 TOL_SSD = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
 # mamba2-1.3b's scan: (B, S, H, P, N, chunk); S 300 takes the padding
-# path, S 64 runs at Q = 64
+# path, S 64 runs at Q = 64, S 144 is the scoring call's (4 rows padded
+# to 144 tokens: a chunk of 128 and one of 16); then ragged small shapes
+# (Q 8, 32 and 37; N and P below a tile)
 SSD_CASES = ((2, 512, 64, 64, 128, 128), (2, 300, 64, 64, 128, 128),
-             (2, 64, 64, 64, 128, 128))
+             (2, 64, 64, 64, 128, 128), (4, 144, 64, 64, 128, 128),
+             (1, 37, 3, 8, 4, 8), (2, 100, 2, 16, 32, 32),
+             (1, 80, 3, 8, 4, 37))
+# the SSD's phase-7 shapes: the kernel row's and scoring's
+SSD_TIMING_SHAPES = {"timed": SSD_CASES[0], "scoring": SSD_CASES[3]}
 # the static path's ring decode at nanochat-d20's heads: (B, KV, G, S, D)
 RING_CASE = (8, 10, 1, 320, 128)
 # the fp8 QK^T flash forward: the training shape, G=2, S=1000, window 64
@@ -883,8 +901,17 @@ def phase_static_kernels(torch, results):
             torch.cuda.synchronize()
             e1, ok1, r1 = max_err(torch, y, yp, tol=TOL_SSD)
             e2, ok2, r2 = max_err(torch, h, hp, tol=TOL_SSD)
-            results.append(("ssd", dtype, (B, S, H, P, N, f"Q={min(chunk, S)}"),
-                            max(e1, e2), ok1 and ok2, max(r1, r2)))
+            tag = (B, S, H, P, N, f"Q={min(chunk, S)}")
+            results.append(("ssd", dtype, tag, max(e1, e2), ok1 and ok2,
+                            max(r1, r2)))
+            if (B, S, H, P, N, chunk) in SSD_TIMING_SHAPES.values():
+                y2, h2 = ssd(*args, chunk=chunk)
+                torch.cuda.synchronize()
+                diff = max(float((y2.float() - y.float()).abs().max()),
+                           float((h2 - h).abs().max()))
+                results.append(("ssd", dtype, tag + (
+                    "same bits on a second call",), diff,
+                    torch.equal(y, y2) and torch.equal(h, h2), None))
         B, KV, G, S, D = RING_CASE
         for window, edge in ((0, ""), (64, ""), (0, "dead-chunk"),
                              (40, "mid-chunk"), (0, "S=200")):
@@ -1628,7 +1655,8 @@ def phase_static_serving(torch):
     paged cache): rmsnorm kernels launched, no paged, flash or SSD
     kernel; then ``score_continuations_batch`` of 4 rows (one longer than
     128 tokens, one shorter than 64): the SSD kernel once per layer, no
-    paged or flash kernel; a short static run under torch.profiler.
+    paged or flash kernel; a short static run and the scoring call under
+    torch.profiler.
 
     nanochat-d20 at full width: the same 8 requests on an engine whose
     max_len (256) cannot hold the 300-token prompt, so ``generate`` takes
@@ -1706,8 +1734,15 @@ def phase_static_serving(torch):
     log(f"  mamba2-1.3b score_continuations_batch (4 rows, padded to 144 "
         f"tokens): {wall * 1e3:.1f} ms, scores {np.round(scores, 3)}, "
         f"launches { {k: v for k, v in counts.items() if v} }")
-    runs["mamba2_profile"] = profile_static(
-        torch, eng, [p[:32] for p in prompts], max_new=4)
+    short = [p[:32] for p in prompts]
+    short_steps = max(len(p) for p in short) + 4 - 1
+    runs["mamba2_profile"] = dict(profile_static(
+        torch, lambda: eng.generate(short, max_new=4),
+        f"static generate ({short_steps} decode steps, B {len(short)})"),
+        decode_steps=short_steps)
+    runs["mamba2_score_profile"] = profile_static(
+        torch, lambda: eng.score_continuations_batch(score_rows),
+        "score_continuations_batch (4 rows, padded to 144 tokens)")
     del eng, params
     torch.cuda.empty_cache()
 
@@ -1754,14 +1789,15 @@ def phase_static_serving(torch):
     return runs
 
 
-def profile_static(torch, eng, prompts, max_new=4):
-    """Device time by kernel over one static-path generate (torch.profiler,
-    device activity only) and the device's busy share of its wall time."""
+def profile_static(torch, fn, what):
+    """Device time by kernel over one call of ``fn`` on the static path (a
+    generate, a scoring call; torch.profiler, device activity only) and
+    the device's busy share of its wall time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.generate(prompts, max_new=max_new)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = device_time_by_kernel(torch, prof)
@@ -1769,13 +1805,11 @@ def profile_static(torch, eng, prompts, max_new=4):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     out = {"wall_s": wall, "device_busy_s": busy_s,
            "busy_share": busy_s / wall if wall else None,
-           "decode_steps": max(len(p) for p in prompts) + max_new - 1,
            "top_kernels_ms": [(k, us / 1e3) for k, us in top]}
     if not by_name:
         log("  profiler: no device time recorded (not measured)")
         return out
-    log(f"  profiled static generate ({out['decode_steps']} decode steps, "
-        f"B {len(prompts)}): wall {wall:.3f} s, device busy {busy_s:.3f} s "
+    log(f"  profiled {what}: wall {wall:.3f} s, device busy {busy_s:.3f} s "
         f"({100 * busy_s / wall:.1f}%)")
     for k, ms in out["top_kernels_ms"]:
         log(f"    {ms:9.2f} ms  {100 * ms / 1e3 / busy_s:5.1f}%  {k[:90]}")
@@ -2228,20 +2262,20 @@ def bound(nbytes, ops, dtype):
                                        else "operations")
 
 
-def flash_bounds(name, nbytes, ops):
-    """The flash rows' bound and roofs, ms: ``bound_ms`` (and
+def tc_bounds(name, nbytes, ops):
+    """The tensor-core rows' bound and roofs, ms: ``bound_ms`` (and
     ``bound_by``), the function's ``ops`` at the tensor cores' rate for
-    their operand type (``FLASH_OPS_BY_TYPE``) or its bytes over HBM's
+    their operand type (``TC_OPS_BY_TYPE``) or its bytes over HBM's
     rate; ``roof_split_tf32_ms``, the ceiling of the split the kernels
-    chose (``FLASH_TF32_PRODUCTS`` TF32 products per f32 product); and
+    chose (``TC_TF32_PRODUCTS`` TF32 products per f32 product); and
     ``bound_ms_f32``, the 67 TFLOP/s f32 roof without tensor cores."""
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = sum(ops * share / PEAK_OPS_PER_S[t]
-                for t, share in FLASH_OPS_BY_TYPE[name].items())
+                for t, share in TC_OPS_BY_TYPE[name].items())
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "roof_split_tf32_ms": bound(
-                nbytes, FLASH_TF32_PRODUCTS[name] * ops, "tf32")[0],
+                nbytes, TC_TF32_PRODUCTS[name] * ops, "tf32")[0],
             "bound_ms_f32": bound(nbytes, ops, "float32")[0]}
 
 
@@ -2251,6 +2285,13 @@ def with_bound(t, dtype):
     t = dict(t)
     b_ms, b_by = bound(t.pop("nbytes"), t.pop("ops"), dtype)
     return dict(t, bound_ms=b_ms, bound_by=b_by)
+
+
+def with_tc_bound(t, name):
+    """``with_bound`` for a tensor-core kernel: ``tc_bounds``' bound and
+    roofs in place of the counts."""
+    t = dict(t)
+    return dict(t, **tc_bounds(name, t.pop("nbytes"), t.pop("ops")))
 
 
 def norm_fwd_times(torch, shape, seed):
@@ -2296,13 +2337,13 @@ def phase_timing(torch, paths, checks):
 
     def row(name, shape, ms, plain_ms, lib_ms, nbytes, ops, **extra):
         b_ms, b_by = bound(nbytes, ops, dtype)
-        if name in FLASH_OPS_BY_TYPE:            # tensor-core route
-            fb = flash_bounds(name, nbytes, ops)
+        if name in TC_OPS_BY_TYPE:               # tensor-core route
+            fb = tc_bounds(name, nbytes, ops)
             b_ms, b_by = fb.pop("bound_ms"), fb.pop("bound_by")
             extra = dict(extra, **fb, bound_rates={
                 t: f"{share:g} of the FLOPs at "
                    f"{PEAK_OPS_PER_S[t] / 1e12:.0f} TFLOP/s"
-                for t, share in FLASH_OPS_BY_TYPE[name].items()})
+                for t, share in TC_OPS_BY_TYPE[name].items()})
         mine = [c for c in checks if c[0] == name]
         err = {dt: max((c[3] for c in mine if c[1] == dt), default=None)
                for dt in ("float32", "bfloat16")}
@@ -2525,30 +2566,40 @@ def ssd_ops(B, S, H, P, N, Q):
     return B * ops
 
 
+def ssd_times(torch, shape):
+    """The SSD kernel's and its plain version's ms at ``shape`` (B, S, H,
+    P, N, Q), f32, with the function's bytes (x and y, dt, A, D, B and C
+    once, the final state written) and operations (``ssd_ops``)."""
+    from repro_torch.kernels.ssd import ssd, ssd_chunked
+    B, S, H, P, N, Q = shape
+    args = ssd_case(torch, B, S, H, P, N, seed=S)
+    return {"shape": list(shape),
+            "ms": time_ms(torch, lambda: ssd(*args, chunk=Q), reps=20),
+            "plain_ms": time_ms(torch, lambda: ssd_chunked(*args, chunk=Q),
+                                reps=5),
+            "library_ms": None,
+            "nbytes": (2 * B * S * H * P + B * S * H + 2 * H + 2 * B * S * N
+                       + B * H * N * P) * 4,
+            "ops": ssd_ops(B, S, H, P, N, Q)}
+
+
 def static_rows(torch, row):
-    """Timing rows of the SSD scan at mamba2-1.3b's scoring shape (B 2,
-    S 512, H 64, P 64, N 128, Q 128) and of the ring decode at (B 8,
-    KV 10, G 1, S 320, D 128), f32.  The SSD's bytes: x and y, dt, A, D,
-    B and C once, the final state written; its operations ``ssd_ops``.
-    The ring's bytes: the live K/V rows, q, the output and the positions;
-    4 FLOPs per (query head, live slot, d).  No one PyTorch call computes
-    the chunked scan (library_ms null); the ring's yardstick is SDPA with
-    the slots' boolean mask."""
+    """Timing rows of the SSD scan at mamba2-1.3b's shapes
+    (``SSD_TIMING_SHAPES``: the row at B 2, S 512, H 64, P 64, N 128, Q
+    128, and scoring's B 4, S 144 beside it) and of the ring decode at
+    (B 8, KV 10, G 1, S 320, D 128), f32.  The SSD's bytes and operations
+    are ``ssd_times``'.  The ring's bytes: the live K/V rows, q, the
+    output and the positions; 4 FLOPs per (query head, live slot, d).  No
+    one PyTorch call computes the chunked scan (library_ms null); the
+    ring's yardstick is SDPA with the slots' boolean mask."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_plain)
-    from repro_torch.kernels.ssd import ssd, ssd_chunked
-    B, S, H, P, N, Q = SSD_CASES[0]
-    args = ssd_case(torch, B, S, H, P, N, seed=S)
-    nbytes = (2 * B * S * H * P + B * S * H + 2 * H + 2 * B * S * N
-              + B * H * N * P) * 4
-    row("ssd", (B, S, H, P, N, Q),
-        time_ms(torch, lambda: ssd(*args, chunk=Q), reps=20),
-        time_ms(torch, lambda: ssd_chunked(*args, chunk=Q), reps=5), None,
-        nbytes, ssd_ops(B, S, H, P, N, Q),
+    t = {k: ssd_times(torch, shape) for k, shape in SSD_TIMING_SHAPES.items()}
+    row("ssd", t["timed"]["shape"], t["timed"]["ms"], t["timed"]["plain_ms"],
+        None, t["timed"]["nbytes"], t["timed"]["ops"],
         library="null: no single PyTorch call computes the chunked SSD "
-                "scan")
-    del args
+                "scan", at_scoring_shape=with_tc_bound(t["scoring"], "ssd"))
     q, k, v, pos, q_pos, live = ring_case(torch, *RING_CASE)
     Bq, KV, G, D = q.shape
     Sr = k.shape[2]
@@ -2704,7 +2755,7 @@ def train_rows(torch, row):
         p_ms, p_plain, p_lib, p_bytes, p_ops = pipe[name]
         at_pipe = dict({"shape": list(PIPELINE_FLASH_SHAPE), "ms": p_ms,
                         "plain_ms": p_plain, "library_ms": p_lib},
-                       **flash_bounds(name, p_bytes, p_ops))
+                       **tc_bounds(name, p_bytes, p_ops))
         row(name, shape[:3] + shape[4:], ms, plain_ms, lib_ms, nbytes, ops,
             library=library, at_pipeline_shape=at_pipe)
         log(f"  {name} at the pipeline's shape (B, S, H, KV, D) "
@@ -2840,6 +2891,19 @@ def norm_timing(torch):
     return out
 
 
+def ssd_timing(torch):
+    """The SSD's phase-7 timings alone, for this checkout's kernel:
+    ``floor_ms``, then at each shape of ``SSD_TIMING_SHAPES`` the kernel's
+    and the plain version's ms with the bound and roofs."""
+    from repro_torch.kernels import _build
+    _build.build(["ssd"])
+    out = {"source": str(ROOT), "floor_ms": time_ms(
+        torch, lambda: torch.cuda._sleep(0))}
+    for k, shape in SSD_TIMING_SHAPES.items():
+        out[k] = with_tc_bound(ssd_times(torch, shape), "ssd")
+    return out
+
+
 def gpu_line() -> str:
     try:
         return subprocess.run(
@@ -2859,6 +2923,10 @@ def main(argv=None) -> int:
                          "and time them at NORM_SHAPES beside the floor "
                          "(one JSON line): to set two checkouts side by "
                          "side in one run on one card")
+    ap.add_argument("--ssd-timing", action="store_true",
+                    help="only build the SSD kernel of this checkout and "
+                         "time it at SSD_TIMING_SHAPES beside the floor "
+                         "(one JSON line), as --norm-timing")
     args = ap.parse_args(argv)
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found; run from a checkout "
@@ -2871,8 +2939,9 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if args.norm_timing:
-        print(json.dumps(norm_timing(torch)))
+    if args.norm_timing or args.ssd_timing:
+        print(json.dumps(norm_timing(torch) if args.norm_timing
+                         else ssd_timing(torch)))
         print(gpu_line())
         return 0
     report = {"gpu": gpu_line(), "torch": torch.__version__,
@@ -2974,8 +3043,7 @@ def main(argv=None) -> int:
                 f"bound_ms={k['bound_ms']:.5f} ({k['bound_by']}) "
                 f"launches={k['launches_by_path']}")
             for key, v in k.items():
-                if (k["name"].startswith("rmsnorm") and key.startswith("at_")
-                        and key.endswith("_shape")):
+                if key.startswith("at_") and key.endswith("_shape"):
                     log(f"  {'':17s} {key} {v['shape']}: " + " ".join(
                         f"{n}={v[n]}" for n in v if n != "shape"))
             if k["name"] == "rmsnorm_residual":

@@ -10,11 +10,18 @@ The kernel takes the padding as rows it loads as zeros and never
 writes, so no padded copy is made.  Returns (y in x's dtype (B, S, H, P),
 final state h float32 (B, H, N, P)).
 
+The kernel runs the state-passing decomposition (``csrc/ssd.cu``): the
+wrapper allocates its scratch with ``torch.empty`` (the chunk states
+(B, nc, H, N, P), the chunk cumsums (B, nc, H, Q) and C.B^T (B, nc, Q,
+Q), f32, nc = ceil(S / Q)); the kernels allocate nothing.
+
 The kernel has no backward: on the card the scan serves the forward
 (scoring, prefill) only, and a call on tensors that require grad raises
 (the plain version on the CPU is differentiable through autograd).
 
-Launch count: ``ssd``, one per launch."""
+Launch count: ``ssd``, one per call of ``ssd`` on the card, which makes
+four device launches (C.B^T, the chunk states, the state passing, the
+chunk scan), each checked for a launch error."""
 from __future__ import annotations
 
 import ctypes
@@ -27,8 +34,9 @@ from repro_torch.kernels.ssd.ref import ssd_chunked
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # x_dtype, x, dt, A, Bm, Cm, D, y, h, B, S, H, P, N, Q, stream
-    "repro_ssd": (_I,) + (_P,) * 8 + (_I,) * 6 + (_P,),
+    # x_dtype, x, dt, A, Bm, Cm, D, y, h, st, cum, cb, B, S, H, P, N, Q,
+    # stream
+    "repro_ssd": (_I,) + (_P,) * 11 + (_I,) * 6 + (_P,),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = 128
@@ -75,13 +83,19 @@ def ssd(x, dt, A, Bm, Cm, D, *,
     x = x.contiguous()
     dt, A, Bm, Cm, D = (t.float().contiguous() for t in (dt, A, Bm, Cm, D))
     y = torch.empty_like(x)
-    h = torch.empty((Bsz, H, N, P), dtype=torch.float32, device=x.device)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    nc = -(-S // Q)
+    h = torch.empty((Bsz, H, N, P), **f32)
+    st = torch.empty((Bsz, nc, H, N, P), **f32)
+    cum = torch.empty((Bsz, nc, H, Q), **f32)
+    cb = torch.empty((Bsz, nc, Q, Q), **f32)
     lib = _build.load("ssd", _SIGNATURES)
     with torch.cuda.device(x.device):
         rc = lib.repro_ssd(
             _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
             Bm.data_ptr(), Cm.data_ptr(), D.data_ptr(), y.data_ptr(),
-            h.data_ptr(), Bsz, S, H, P, N, Q,
+            h.data_ptr(), st.data_ptr(), cum.data_ptr(), cb.data_ptr(),
+            Bsz, S, H, P, N, Q,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, lib, "ssd")
     _build.launches["ssd"] += 1

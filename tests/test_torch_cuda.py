@@ -783,7 +783,9 @@ RAGGED = [[5, 6, 7], [1, 2, 3, 4, 5, 6, 7, 8, 9, 10], [2, 9], [7] * 17,
     (2, 512, 64, 64, 128, 128),     # mamba2-1.3b
     (2, 300, 8, 64, 128, 128),      # padding: S not a multiple of Q
     (1, 64, 8, 64, 128, 128),       # S < chunk: Q = 64
-    (2, 100, 2, 16, 32, 32), (1, 37, 3, 8, 4, 8)])
+    (4, 144, 64, 64, 128, 128),     # scoring: chunks of 128 and 16 rows
+    (2, 100, 2, 16, 32, 32), (1, 37, 3, 8, 4, 8),
+    (1, 80, 3, 8, 4, 37)])          # Q 37, a 6-row last chunk
 def test_cuda_ssd_kernel_matches_plain(cuda, B, S, H, P, N, chunk):
     from repro_torch.kernels.ssd import ssd, ssd_chunked
     args = [torch.from_numpy(a).to(cuda)
@@ -802,6 +804,41 @@ def test_cuda_ssd_kernel_matches_plain(cuda, B, S, H, P, N, chunk):
     torch.testing.assert_close(yb.float(), ypb.float(), atol=2e-2,
                                rtol=2e-2)
     torch.testing.assert_close(hb, hpb, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ssd_kernel_is_deterministic(cuda, dtype):
+    """No atomics: a second call with the same inputs gives the same
+    bits."""
+    from repro_torch.kernels.ssd import ssd
+    args = [torch.from_numpy(a).to(cuda)
+            for a in ssd_inputs(7, 4, 144, 64, 64, 128)]
+    args[0] = args[0].to(dtype)
+    y, h = ssd(*args, chunk=128)
+    y2, h2 = ssd(*args, chunk=128)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scratch_does_not_leak_into_the_result(cuda):
+    """The wrapper's scratch (chunk states, cumsums, C.B^T) comes from
+    torch.empty, so from blocks that earlier calls or other tensors
+    used: calls at S 300 and S 144 in turns, and again after the
+    allocator's blocks held NaN, give the first calls' bits."""
+    from repro_torch.kernels.ssd import ssd
+    H, P, N = 8, 64, 128
+    inputs = [[torch.from_numpy(a).to(cuda)
+               for a in ssd_inputs(S, 2, S, H, P, N)] for S in (300, 144)]
+    first = [ssd(*a, chunk=128) for a in inputs]
+    again = [ssd(*a, chunk=128) for a in inputs[::-1]][::-1]
+    junk = [torch.full((n,), float("nan"), device=cuda)
+            for n in (2 ** 16,) * 32 + (2 ** 24,) * 4]
+    del junk
+    fresh = [ssd(*a, chunk=128) for a in inputs]
+    for (y, h), (y2, h2), (y3, h3) in zip(first, again, fresh):
+        assert torch.equal(y, y2) and torch.equal(h, h2)
+        assert torch.equal(y, y3) and torch.equal(h, h3)
 
 
 @pytest.mark.cuda

@@ -115,8 +115,10 @@ yardstick.  Then phases, each fatal on failure:
    and pattern exact match through ``Engine``) of nanochat-d20 at full
    width (20 layers, d 1280, 10 heads of 128; vocab = the tokenizer's
    512, as the JAX pipeline sets it) for DiLoCo and for hybrid (DiLoCo
-   base, DDP mid and SFT), K 2, per-worker batch 8, seq_len 128, steps
-   6 / 4 / 4, fused AdamW, each from fresh parameters: per stage the
+   base, DDP mid and SFT), K 4, per-worker batch 8, seq_len 128, steps
+   6 / 4 / 4, fused AdamW, remat on (the config's default: the forward
+   kernels launch again in the backward), each from fresh parameters:
+   per stage the
    loss, step seconds, tokens/s, peak memory, held-out CE, the suite's
    values and the eval seconds; gates on the losses, the stage methods,
    the launches (the training kernels and the paged decode of the evals;
@@ -125,6 +127,31 @@ yardstick.  Then phases, each fatal on failure:
    for bit; the hybrid run's final parameters on the CPU: held-out CE
    within rtol 1e-4, MC option scores within 1e-3 of their magnitude,
    greedy-token agreement printed;
+6b. the run machinery and the paper's diagnostics:
+   - remat at nanochat-d20's full width and depth (vocab 65536), phase
+     5's shape (4 x 1024 tokens): one training step with remat off and
+     on, the loss and every gradient equal bit for bit, the forward
+     kernels launched twice under remat and the backward's once; the
+     peak memory and seconds of one DiLoCo round (H 1, fused AdamW) at
+     K 2 with remat off and on and at K 4 with remat on, and off when
+     the K 2 and K 4 peaks reckon it fits;
+   - resume at depth 2 and full width (vocab 512), K 2, H 2, 4 steps on
+     the int8 wire, DiLoCo and pipelined (F 2, delay 1): a checkpoint
+     every 2 steps (pipelined defers the one at step 2: a fragment is in
+     flight), a run resumed from the first checkpoint into fresh state
+     equal to the uninterrupted run bit for bit (the anchor, outer
+     momentum, every worker's parameters and optimizer state, and the
+     error-feedback residual), in a temporary directory under build/;
+   - prefetch 4 with the eval hook every 3 steps: the same bits as
+     prefetch 0, the hook called at step 2;
+   - drift: a DiLoCo run of nanochat-d20 at full width and depth (vocab
+     512, K 4, H 2, 4 steps of 8 x 128 tokens a worker) measured before
+     its last sync: ``param_drift`` against the same function on
+     float64 CPU copies (rtol 1e-5), ``worker_cka_matrix`` of the
+     ``forward_hidden`` probe on an 8 x 128 batch against the same on
+     float64 CPU copies of the hidden states (rtol 1e-4), and workers 0
+     and 1's ``linear_cka`` and ``subspace_overlap`` (r 8) logged;
+   the launch counts of each run read for phase 7's table;
 7. time each kernel, its plain version and one PyTorch library call on
    the same inputs (CUDA events, L2 flushed before each launch) beside
    the least time the card could take
@@ -262,8 +289,10 @@ FP8_FLASH_CASES = (dict(), dict(KV=5), dict(S=1000), dict(window=64))
 # the pipeline phase: nanochat-d20 at full width (vocab = the tokenizer's)
 PIPELINE_METHODS = ("diloco", "hybrid")
 PIPELINE_STEPS = {"base": 6, "mid": 4, "sft": 4}
+# K 4, the reference example's: phase 6b measures K 4 with remat at phase
+# 5's shape (4 x 1024 tokens a worker) at 58.2 GB of the card's 85.0
 PIPELINE_KW = dict(arch="nanochat-d20", reduced=False, steps=PIPELINE_STEPS,
-                   workers=2, per_worker_batch=8, seq_len=128,
+                   workers=4, per_worker_batch=8, seq_len=128,
                    fused_adamw=True, eval_after_each_stage=True)
 PIPELINE_KERNELS = ("flash_fwd", "flash_bwd", "fused_adamw", "rmsnorm_bwd",
                     "rmsnorm_residual", "paged_decode")
@@ -2229,6 +2258,405 @@ def pipeline_vs_cpu(torch, tok, suites, heldout_kw, cfg, params):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6b: remat, run checkpoints and resume, prefetch and eval hooks, drift
+# ---------------------------------------------------------------------------
+
+# remat at phase 5's shape: one training step off and on, then one DiLoCo
+# round (H 1) per (K, remat) plan: peak memory and seconds
+REMAT_TOKENS = dict(per_worker_batch=4, seq_len=TRAIN_SEQ)
+REMAT_PLANS = ((2, False), (2, True), (4, True), (4, False))
+# resume, prefetch and the eval hook at depth 2 and full width (vocab
+# 512): (path, DiLoCoConfig fields, steps, checkpoint_every)
+RESUME_DEPTH = 2
+RESUME_PLANS = (("diloco_int8", dict(strategy="diloco", delta_dtype="int8"),
+                 4, 2),
+                ("pipelined_int8", dict(strategy="pipelined",
+                                        delta_dtype="int8", num_fragments=2,
+                                        sync_delay=1), 4, 2))
+RESUME_KW = dict(workers=2, h=2, per_worker_batch=8, seq_len=128)
+PREFETCH_DEPTH = 4
+EVAL_EVERY = 3
+# drift on a short DiLoCo run at nanochat-d20's full depth and width
+DRIFT_KW = dict(steps=4, h=2, per_worker_batch=8, seq_len=128)
+DRIFT_RANK = 8
+TOL_DRIFT = {"param_drift": 1e-5, "worker_cka": 1e-4}   # rtol, vs f64 CPU
+# the card's memory a K 4 pipeline must leave free to move phase 6 to K 4
+PIPELINE_K4_HEADROOM_GB = 8.0
+
+
+class _KeepRunner:
+    """A strategy that hands out its runner: the resume gates compare the
+    runner's error-feedback residual, which ``DistTrainer.run`` keeps."""
+
+    def __init__(self, strategy):
+        self.strategy, self.runner = strategy, None
+
+    def bind(self, engine, params):
+        self.runner = self.strategy.bind(engine, params)
+        return self.runner
+
+    def __getattr__(self, name):
+        return getattr(self.strategy, name)
+
+
+def tree_bits_equal(torch, a, b) -> bool:
+    """Same paths, dtypes and bits in two trees (states, residuals)."""
+    from repro_torch.checkpoint.checkpoint import _leaves
+    la, lb = _leaves(a), _leaves(b)
+    if [p for p, _ in la] != [p for p, _ in lb]:
+        return False
+    return all(x.dtype == y.dtype and torch.equal(x, y)
+               for (_, x), (_, y) in zip(la, lb))
+
+
+def phase_state(torch):
+    """Remat, run checkpoints and resume, prefetch and the eval hook, and
+    the drift diagnostics, on the card (see the module docstring)."""
+    from repro_torch.kernels import KERNELS, launches, reset_launches
+    out, paths = {}, {}
+    t0 = time.perf_counter()
+    out["remat"] = remat_runs(torch, paths)
+    log(f"  remat: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["resume"] = resume_runs(torch, paths)
+    log(f"  resume, prefetch, eval hook: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    k4 = out["remat"]["rounds"].get("k4_remat")
+    free_gb = (torch.cuda.get_device_properties(0).total_memory / 1e9
+               - k4["peak_memory_gb"]) if k4 else 0.0
+    out["pipeline_k4_fits"] = free_gb >= PIPELINE_K4_HEADROOM_GB
+    log(f"  K 4 with remat leaves {free_gb:.1f} GB of the card free at "
+        f"phase 5's shape (phase 6 moves to K 4 at >= "
+        f"{PIPELINE_K4_HEADROOM_GB} GB): "
+        + ("fits" if out["pipeline_k4_fits"] else "does not fit"))
+    reset_launches()
+    out["drift"] = drift_run(torch, 4 if out["pipeline_k4_fits"] else 2)
+    paths["drift"] = {k: launches[k] for k in KERNELS}
+    log(f"  drift: {time.perf_counter() - t0:.1f} s")
+    for name, counts in paths.items():
+        for k in ("rmsnorm", "rmsnorm_residual", "flash_fwd"):
+            check(counts[k] > 0, f"{name}: kernel {k} never launched")
+    out["launches"] = paths
+    return out
+
+
+def remat_runs(torch, paths):
+    """nanochat-d20 at full width and depth (vocab 65536, f32) at phase 5's
+    shape: one training step with remat off and on (loss and every
+    gradient equal bit for bit, the forward kernels launched twice under
+    remat, the backward kernels once), then the peak memory and seconds
+    of one DiLoCo round (H 1, fused AdamW) for each of ``REMAT_PLANS``
+    (the second of two rounds is timed; the peak is over both).  K 4
+    without remat runs only when the K 2 rounds reckon it fits."""
+    from repro_torch.configs import (NANOCHAT_D20, DiLoCoConfig,
+                                     OptimizerConfig)
+    from repro_torch.core import DistTrainer, make_strategy
+    from repro_torch.kernels import KERNELS, launches, reset_launches
+    from repro_torch.launch.train import build_pipeline
+    from repro_torch.models import init_params, lm_loss
+    from repro_torch.models.transformer import flatten, unflatten
+    _, _, stages, _ = build_pipeline(seq_len=REMAT_TOKENS["seq_len"])
+    ds = stages["base"]
+    B = REMAT_TOKENS["per_worker_batch"]
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             ds.batch(0, B).items()}
+    params = flatten(init_params(NANOCHAT_D20, seed=0, device="cuda"))
+    step = {}
+    for remat in (False, True):
+        cfg = NANOCHAT_D20.with_(remat=remat)
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        loss, _ = lm_loss(unflatten(leaves), batch, cfg)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        torch.cuda.synchronize()
+        step[remat] = (loss.detach(), dict(zip(leaves, grads)),
+                       {k: launches[k] for k in KERNELS},
+                       time.perf_counter() - t0,
+                       torch.cuda.max_memory_allocated() / 1e9)
+        paths[f"remat_step_{'on' if remat else 'off'}"] = step[remat][2]
+        del leaves, grads, loss
+    (l0, g0, c0, s0, m0), (l1, g1, c1, s1, m1) = step[False], step[True]
+    same = bool(torch.equal(l0, l1)) and all(torch.equal(g0[k], g1[k])
+                                             for k in g0)
+    log(f"  one training step, nanochat-d20 B {B} x S "
+        f"{REMAT_TOKENS['seq_len']}: loss {float(l0)!r} (remat off) vs "
+        f"{float(l1)!r} (on); loss and {len(g0)} gradients equal bit for "
+        f"bit: {same}; {s0:.3f} s / {s1:.3f} s, peak {m0:.2f} / {m1:.2f} "
+        f"GB; launches off {({k: v for k, v in c0.items() if v})} on "
+        f"{({k: v for k, v in c1.items() if v})}")
+    check(same, "remat on and off give other bits")
+    check(c1["flash_fwd"] == 2 * c0["flash_fwd"] > 0
+          and c1["flash_bwd"] == c0["flash_bwd"] > 0
+          and c1["rmsnorm_bwd"] == c0["rmsnorm_bwd"] > 0,
+          "remat: the forward kernels did not launch twice, or the "
+          "backward's count moved")
+    del step, g0, g1
+    torch.cuda.empty_cache()
+    opt_cfg = OptimizerConfig(total_steps=4, warmup_steps=1,
+                              learning_rate=0.02, adam_lr=1e-3,
+                              fused_adamw=True)
+    rounds = {}
+    for k, remat in REMAT_PLANS:
+        name = f"k{k}_{'remat' if remat else 'no_remat'}"
+        if k == 4 and not remat:
+            fit = reckon_k4(torch, rounds)
+            rounds["k4_no_remat_reckoning"] = fit
+            if not fit["fits"]:
+                log(f"  K 4 without remat not run: {fit['text']}")
+                continue
+        cfg = NANOCHAT_D20.with_(remat=remat)
+        dcfg = DiLoCoConfig(num_workers=k, h_inner_steps=1)
+        dt = DistTrainer(lambda p, b: lm_loss(p, b, cfg), opt_cfg, dcfg,
+                         make_strategy(dcfg))
+        eng = dt.engine()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        state = dt.init(unflatten(params))
+        times = []
+        for r in range(2):
+            wb = {n: torch.from_numpy(v).cuda() for n, v in
+                  ds.worker_batches(r, k, B).items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, losses = eng.inner_step(state, wb)
+            state = eng.outer_step(state)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        paths[f"remat_{name}"] = {n: launches[n] for n in KERNELS}
+        rounds[name] = {"workers": k, "remat": remat, "round_s": times[-1],
+                        "rounds_s": times, "peak_memory_gb": peak,
+                        "tokens_per_s": k * B * REMAT_TOKENS["seq_len"]
+                        / times[-1],
+                        "loss": [float(x) for x in losses.cpu()]}
+        log(f"  one DiLoCo round (H 1), K {k}, remat "
+            f"{'on' if remat else 'off'}: {times[-1]:.3f} s (first round "
+            f"{times[0]:.3f} s), peak {peak:.2f} GB, "
+            f"{rounds[name]['tokens_per_s']:.0f} tokens/s")
+        check(all(math.isfinite(x) for x in rounds[name]["loss"]),
+              f"remat {name}: non-finite loss")
+        del state, eng, dt, wb, losses
+        torch.cuda.empty_cache()
+    del params, batch
+    torch.cuda.empty_cache()
+    return {"step_bits_equal": same, "step_s": [s0, s1],
+            "step_peak_gb": [m0, m1], "step_launches": [c0, c1],
+            "rounds": rounds}
+
+
+def reckon_k4(torch, rounds):
+    """Whether K 4 without remat fits, from the K 2 and K 4 rounds
+    measured: two more workers' state (the K 4 and K 2 peaks with remat
+    apart) on top of the K 2 peak without remat, against the card."""
+    total = torch.cuda.get_device_properties(0).total_memory / 1e9
+    per_two = (rounds["k4_remat"]["peak_memory_gb"]
+               - rounds["k2_remat"]["peak_memory_gb"])
+    want = rounds["k2_no_remat"]["peak_memory_gb"] + per_two
+    fits = want < total - 2.0
+    text = (f"K 2 without remat {rounds['k2_no_remat']['peak_memory_gb']:.2f}"
+            f" GB + two workers' state {per_two:.2f} GB (K 4 minus K 2 with "
+            f"remat) = {want:.2f} GB of {total:.2f}")
+    return {"fits": fits, "want_gb": want, "total_gb": total, "text": text}
+
+
+def resume_runs(torch, paths):
+    """Depth 2, full width (vocab 512), K 2, H 2, 4 steps, for each of
+    ``RESUME_PLANS``: an uninterrupted run writing a checkpoint every 2
+    steps; a run resumed from its first checkpoint (later manifests
+    removed) into fresh state: the state (anchor, outer momentum and
+    counter, every worker's parameters and optimizer state, the step) and
+    the runner's residual equal bit for bit, and the losses recorded.  For
+    DiLoCo also a run with prefetch ``PREFETCH_DEPTH`` and the eval hook
+    every ``EVAL_EVERY`` steps: the same bits as the run without, the hook
+    called at the expected steps.  Checkpoints go to a temporary directory
+    under build/, removed afterwards."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import list_run_checkpoints
+    from repro_torch.configs import DiLoCoConfig, OptimizerConfig
+    from repro_torch.core import DistTrainer, make_strategy
+    from repro_torch.kernels import KERNELS, launches, reset_launches
+    from repro_torch.launch.train import build_pipeline, make_model
+    from repro_torch.models import init_params, lm_loss
+    _, tok, stages, _ = build_pipeline(seq_len=RESUME_KW["seq_len"])
+    ds = stages["base"]
+    cfg = make_model("nanochat-d20", False, tok.vocab_size).with_(
+        num_layers=RESUME_DEPTH)
+    params = init_params(cfg, seed=0, device="cuda")
+    opt_cfg = OptimizerConfig(total_steps=8, warmup_steps=1,
+                              learning_rate=0.02, adam_lr=1e-3,
+                              fused_adamw=True)
+    K = RESUME_KW["workers"]
+
+    def data(s):
+        return ds.worker_batches(s, K, RESUME_KW["per_worker_batch"])
+
+    def run(dkw, steps, **kw):
+        dcfg = DiLoCoConfig(num_workers=K, h_inner_steps=RESUME_KW["h"],
+                            **dkw)
+        keep = _KeepRunner(make_strategy(dcfg))
+        dt = DistTrainer(lambda p, b: lm_loss(p, b, cfg), opt_cfg, dcfg,
+                         keep)
+        state, hist = dt.run(dt.init(params), data, steps, **kw)
+        return state, keep.runner.residual, hist
+
+    root = ROOT / "build"
+    root.mkdir(exist_ok=True)
+    out = {}
+    for path, dkw, steps, every in RESUME_PLANS:
+        d = tempfile.mkdtemp(prefix="resume_", dir=root)
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            a_state, a_res, a_hist = run(dkw, steps, checkpoint_dir=d,
+                                         checkpoint_every=every)
+            torch.cuda.synchronize()
+            t_a = time.perf_counter() - t0
+            paths[f"resume_{path}"] = {k: launches[k] for k in KERNELS}
+            written = [s for s, _ in list_run_checkpoints(d)]
+            nbytes = sum(os.path.getsize(os.path.join(d, f))
+                         for f in os.listdir(d))
+            first = written[0]
+            for s, man in list_run_checkpoints(d)[1:]:
+                os.remove(man)
+            t0 = time.perf_counter()
+            b_state, b_res, b_hist = run(dkw, steps, checkpoint_dir=d,
+                                         resume=True)
+            torch.cuda.synchronize()
+            t_b = time.perf_counter() - t0
+            same = (tree_bits_equal(torch, a_state, b_state)
+                    and tree_bits_equal(torch, a_res, b_res)
+                    and a_hist["loss"] == b_hist["loss"]
+                    and a_hist["sync_steps"] == b_hist["sync_steps"]
+                    and a_hist["frag_syncs"] == b_hist["frag_syncs"])
+            out[path] = {"checkpoints": written, "resumed_from": first,
+                         "checkpoint_bytes": nbytes, "run_s": t_a,
+                         "resume_s": t_b, "bits_equal": same,
+                         "loss": a_hist["loss"],
+                         "sync_steps": a_hist["sync_steps"],
+                         "frag_syncs": a_hist["frag_syncs"]}
+            log(f"  {path}: checkpoints at {written} ({nbytes / 1e9:.2f} GB "
+                f"on disk), resumed from {first} into fresh state: state "
+                f"and residual equal bit for bit: {same}; losses "
+                f"{[round(x, 4) for x in a_hist['loss']]}; run {t_a:.1f} s, "
+                f"resume {t_b:.1f} s")
+            check(same, f"{path}: the resumed run differs from the "
+                  f"uninterrupted one")
+            check(a_res is not None, f"{path}: no error-feedback residual")
+            if path == "diloco_int8":
+                seen = []
+                c_state, c_res, c_hist = run(
+                    dkw, steps, prefetch=PREFETCH_DEPTH,
+                    eval_fn=lambda g: seen.append(1) or float(
+                        g["final_norm/scale"].sum()),
+                    eval_every=EVAL_EVERY)
+                want = [s - 1 for s in range(EVAL_EVERY, steps + 1,
+                                             EVAL_EVERY)]
+                got = [s for s, _ in c_hist["evals"]]
+                pf_same = (tree_bits_equal(torch, a_state, c_state)
+                           and tree_bits_equal(torch, a_res, c_res)
+                           and a_hist["loss"] == c_hist["loss"])
+                out[path].update(prefetch_bits_equal=pf_same,
+                                 eval_steps=got)
+                log(f"  {path}: prefetch {PREFETCH_DEPTH} with the eval "
+                    f"hook every {EVAL_EVERY} steps: the same bits as "
+                    f"prefetch 0: {pf_same}; evals at steps {got} "
+                    f"(want {want})")
+                check(pf_same, "prefetch changed the run's bits")
+                check(got == want and len(seen) == len(want),
+                      "the eval hook ran at other steps")
+                del c_state, c_res
+            del a_state, b_state, a_res, b_res
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+def drift_run(torch, k):
+    """A short DiLoCo run of nanochat-d20 (full width and depth, vocab 512)
+    at K ``k``, H 2, 4 steps of 8 x 128 tokens a worker, through the
+    trainer's inner and outer steps; before the last sync: ``param_drift``
+    on the card against the same function on float64 CPU copies (rtol
+    ``TOL_DRIFT``), ``worker_cka_matrix`` of the workers' final-normed
+    hidden states (``forward_hidden``) on an 8 x 128 probe batch, card
+    against the same on float64 CPU copies of those states, and the
+    ``linear_cka`` and ``subspace_overlap`` (r 8) of workers 0 and 1."""
+    from repro_torch.configs import DiLoCoConfig, OptimizerConfig
+    from repro_torch.core import DistTrainer, drift, make_strategy
+    from repro_torch.launch.train import build_pipeline, make_model
+    from repro_torch.models import init_params, lm_loss
+    from repro_torch.models.transformer import forward_hidden, unflatten
+    _, tok, stages, _ = build_pipeline(seq_len=DRIFT_KW["seq_len"])
+    ds = stages["base"]
+    cfg = make_model("nanochat-d20", False, tok.vocab_size)
+    dcfg = DiLoCoConfig(num_workers=k, h_inner_steps=DRIFT_KW["h"])
+    dt = DistTrainer(lambda p, b: lm_loss(p, b, cfg),
+                     OptimizerConfig(total_steps=DRIFT_KW["steps"],
+                                     warmup_steps=1, fused_adamw=True),
+                     dcfg, make_strategy(dcfg))
+    eng = dt.engine()
+    state = dt.init(init_params(cfg, seed=0, device="cuda"))
+    for s in range(DRIFT_KW["steps"]):
+        wb = {n: torch.from_numpy(v).cuda() for n, v in
+              ds.worker_batches(s, k, DRIFT_KW["per_worker_batch"]).items()}
+        state, _ = eng.inner_step(state, wb)
+        if (s + 1) % DRIFT_KW["h"] == 0 and s + 1 < DRIFT_KW["steps"]:
+            state = eng.outer_step(state)
+    t0 = time.perf_counter()
+    d_card = {n: float(v) for n, v in drift.param_drift(
+        state.worker_params, state.global_params).items()}
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d_cpu = {n: float(v) for n, v in drift.param_drift(
+        [{n: v.double().cpu() for n, v in w.items()}
+         for w in state.worker_params],
+        {n: v.double().cpu() for n, v in state.global_params.items()}
+    ).items()}
+    t_cpu = time.perf_counter() - t0
+    e_drift = max(abs(d_card[n] - d_cpu[n]) / max(abs(d_cpu[n]), 1e-30)
+                  for n in d_cpu)
+    probe = {n: torch.from_numpy(v).cuda() for n, v in
+             ds.batch(999999, DRIFT_KW["per_worker_batch"]).items()}
+    with torch.no_grad():
+        acts = [forward_hidden(unflatten(w), probe, cfg)[0]
+                for w in state.worker_params]
+        cka_card = drift.worker_cka_matrix(acts, lambda a, _: a, probe)
+        acts64 = [a.double().cpu() for a in acts]
+        cka_cpu = drift.worker_cka_matrix(acts64, lambda a, _: a, probe)
+        e_cka = float(((cka_card.double().cpu() - cka_cpu).abs()
+                       / cka_cpu.abs().clamp(min=1e-30)).max())
+        x = acts[0].reshape(-1, acts[0].shape[-1])
+        y = acts[1].reshape(-1, acts[1].shape[-1])
+        cka01 = float(drift.linear_cka(x, y))
+        sub01 = float(drift.subspace_overlap(x, y, r=DRIFT_RANK))
+    off = ((float(cka_card.sum()) - k) / (k * (k - 1)))
+    log(f"  drift, nanochat-d20 (vocab {cfg.vocab_size}), K {k}, H "
+        f"{DRIFT_KW['h']}, before the sync at step {DRIFT_KW['steps']}: "
+        + " ".join(f"{n}={v:.6g}" for n, v in d_card.items())
+        + f" (card {t_card:.2f} s; float64 CPU {t_cpu:.2f} s; worst rel "
+        f"{e_drift:.2e}, rtol {TOL_DRIFT['param_drift']:g}); worker CKA "
+        f"off-diagonal mean {off:.8f} (vs float64 CPU worst rel "
+        f"{e_cka:.2e}, rtol {TOL_DRIFT['worker_cka']:g}); workers 0 and 1: "
+        f"linear_cka {cka01:.8f}, subspace_overlap_r{DRIFT_RANK} "
+        f"{sub01:.6f}")
+    check(e_drift <= TOL_DRIFT["param_drift"],
+          "param_drift on the card disagrees with float64 on the CPU")
+    check(e_cka <= TOL_DRIFT["worker_cka"],
+          "worker_cka_matrix on the card disagrees with float64 on the CPU")
+    return {"workers": k, "param_drift": d_card, "param_drift_cpu64": d_cpu,
+            "param_drift_rel_err": e_drift, "worker_cka_offdiag": off,
+            "worker_cka_rel_err": e_cka,
+            "worker_cka": cka_card.cpu().tolist(), "linear_cka_01": cka01,
+            f"subspace_overlap_r{DRIFT_RANK}_01": sub01}
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: timing
 # ---------------------------------------------------------------------------
 
@@ -3026,6 +3454,12 @@ def main(argv=None) -> int:
         report["pipeline_s"] = time.perf_counter() - t0
         lap("6 pipeline")
 
+        log("[6b/7] remat at full depth (K 2 and 4), run checkpoints and "
+            "resume (diloco and pipelined on the int8 wire), prefetch and "
+            "the eval hook at depth 2, drift on a short DiLoCo run")
+        state = report["state"] = phase_state(torch)
+        lap("6b state")
+
         log("[7/7] kernel timing")
         paths = {name: run["launches"] for name, run in runs.items()}
         paths.update({m: run["launches"] for m, run in train.items()})
@@ -3033,6 +3467,8 @@ def main(argv=None) -> int:
                       for m, run in pipeline.items()})
         paths.update({m: run["launches"] for m, run in static.items()
                       if "launches" in run})
+        paths.update({f"state_{n}": c
+                      for n, c in state["launches"].items()})
         floor = report["floor_ms"] = time_ms(
             torch, lambda: torch.cuda._sleep(0))
         kernels = phase_timing(torch, paths, checks)
@@ -3090,10 +3526,22 @@ def main(argv=None) -> int:
         "heldout_ce": e["core"]["heldout_ce"], "tasks": e["tasks"],
         "eval_seconds": e["port"]["eval_seconds"]}
         for stage, e in run["stages"].items()} for m, run in pipeline.items()}
+    state_summary = {
+        "remat_rounds": state["remat"]["rounds"],
+        "remat_step_s": state["remat"]["step_s"],
+        "remat_step_peak_gb": state["remat"]["step_peak_gb"],
+        "resume": {p: {k: v[k] for k in ("checkpoints", "resumed_from",
+                                          "bits_equal", "checkpoint_bytes")}
+                   for p, v in state["resume"].items()},
+        "prefetch_bits_equal":
+            state["resume"]["diloco_int8"]["prefetch_bits_equal"],
+        "drift": {k: v for k, v in state["drift"].items()
+                  if k != "worker_cka"},
+        "pipeline_k4_fits": state["pipeline_k4_fits"]}
     print(json.dumps({"engine": summary, "capacity": capacity,
                       "train": train_summary, "static": static_summary,
-                      "pipeline": pipeline_summary, "phase_s": phase_s,
-                      "floor_ms": floor}))
+                      "pipeline": pipeline_summary, "state": state_summary,
+                      "phase_s": phase_s, "floor_ms": floor}))
     print(json.dumps({"split_timing": report["split_timing"]}))
     print(report["gpu"])
     print(json.dumps({"kernels": kernels}))

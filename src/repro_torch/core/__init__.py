@@ -1,7 +1,9 @@
 """The training runtime: DiLoCo and DDP through one ``DistTrainer`` loop,
 with the ``ddp``, ``ddp_compressed``, ``diloco``, ``streaming``,
 ``overlapped`` and ``pipelined`` sync strategies over the codec
-transport, and the fixed, staged and adaptive H schedules."""
+transport, the fixed, staged and adaptive H schedules, and the drift
+diagnostics (``drift``)."""
+from repro_torch.core import drift
 from repro_torch.core.ddp import DDPState, DDPTrainer
 from repro_torch.core.diloco import DiLoCoState, DiLoCoTrainer
 from repro_torch.core.dist_trainer import DistTrainer
@@ -20,5 +22,5 @@ __all__ = ["AdaptiveH", "CompressedDDPSync", "DDPState", "DDPSync", "DDPTrainer"
            "FixedH", "HSchedule", "OuterPayload", "OuterState", "OverlappedSync",
            "PipelinedSync", "StagedH", "StreamingDiLoCoTrainer", "StreamingSync",
            "SyncEvent", "SyncRunner", "SyncStrategy", "Transport",
-           "compressed_ddp_config", "fragment_masks", "make_codec",
+           "compressed_ddp_config", "drift", "fragment_masks", "make_codec",
            "make_strategy", "strategy_names"]

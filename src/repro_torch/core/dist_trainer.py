@@ -1,28 +1,41 @@
 """The distributed-training loop (the JAX package's
-``core/dist_trainer.py``, without faults, checkpoints, prefetch or evals).
+``core/dist_trainer.py``, without faults).
 
     trainer = DistTrainer(loss_fn, opt_cfg, dcfg, DiLoCoSync())
     state = trainer.init(params)
     state, hist = trainer.run(state, data_fn, num_steps)
 
 The strategy owns when and what to synchronize (and holds the codec's
-error-feedback residual); the loop runs the inner steps, records losses
-and builds the history: ``step`` / ``loss``, ``sync_steps``,
-``frag_syncs`` and ``evals`` (always empty here, kept so the keys match
-the JAX package's) and ``step_seconds`` (median seconds per inner step
-over chunks).
+error-feedback residual); the loop runs the inner steps, records losses,
+runs the eval hook, writes run checkpoints and builds the history:
+``step`` / ``loss`` (every ``record_every``), ``sync_steps``,
+``frag_syncs``, ``evals`` (``(step, eval_fn(global_params))`` pairs) and
+``step_seconds`` (median seconds per inner step over chunks; checkpoint
+and eval time kept out).
 
 Chunks.  A chunk runs from the current step to the strategy's next event
-(the next outer sync for DiLoCo), at most ``MAX_CHUNK`` steps.  The
-inner steps of a chunk are enqueued back to back; their (T, K) losses stay
-on the device and are read back ONCE per chunk, then the runner's
-``after_step`` is replayed per step on the host with fixed-order means.
-``chunked=False`` reads the losses after every step instead.  The device
-work is the same either way, so both give the same losses and
-parameters bit for bit.
+(the next outer sync for DiLoCo), split at eval and checkpoint boundaries,
+at most ``max_chunk`` steps.  Its batches are stacked on the host and
+moved to the device once (``data.pipeline.stack_batches``; with
+``prefetch``, assembled ahead on a background thread by ``Prefetcher``),
+and the inner steps index step i of the stacked chunk.  They are enqueued
+back to back; their (T, K) losses stay on the device and are read back
+ONCE per chunk, then the runner's ``after_step`` is replayed per step on
+the host with fixed-order means.  ``chunked=False`` runs one-step chunks
+instead.  The device work is the same either way, so both give the same
+losses and parameters bit for bit.
+
+Run checkpoints.  At every ``checkpoint_every`` boundary the state, the
+runner's extras (the residual) and meta (round counters) and the history
+go to ``checkpoint_dir`` (``checkpoint.save_run_checkpoint``); a runner
+with a snapshot in flight defers it to the next clean boundary.
+``resume`` loads the latest complete checkpoint into fresh tensors and
+starts at its step.
 
 The state passed to ``run`` is updated in place (worker parameters and
 optimizer states) and returned; make a fresh one with ``init`` per run.
+A resume loads into fresh tensors, never into ones another run holds.
+The fault layer's kill route is not ported (faults raise).
 """
 from __future__ import annotations
 
@@ -33,13 +46,17 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.checkpoint import (latest_run_checkpoint,
+                                              load_run_checkpoint,
+                                              save_run_checkpoint)
 from repro_torch.configs.base import DiLoCoConfig, OptimizerConfig
 from repro_torch.core.diloco import DiLoCoState
 from repro_torch.core.streaming import StreamingDiLoCoTrainer
 from repro_torch.core.sync import SyncStrategy
+from repro_torch.data.pipeline import Prefetcher, stack_batches
 
 
-# the longest chunk: how many steps' losses may wait on the device
+# the default longest chunk: how many steps' losses may wait on the device
 MAX_CHUNK = 128
 
 
@@ -57,8 +74,12 @@ def _host_mean(row: np.ndarray) -> float:
     return float(acc / row.dtype.type(len(row)))
 
 
-def _to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+def _history_from_json(v):
+    """JSON round-trips tuples as lists; restore the tuples the history
+    holds (``frag_syncs``, ``evals``)."""
+    if isinstance(v, list):
+        return tuple(_history_from_json(x) for x in v)
+    return v
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,68 +103,153 @@ class DistTrainer:
         return self.engine().init(params)
 
     def run(self, state: DiLoCoState, data_fn, num_steps: int,
-            eval_fn: Optional[Callable] = None, eval_every: int = 0, *,
-            chunked: bool = True, prefetch: int = 0, faults=None,
+            record_every: int = 1, eval_fn: Optional[Callable] = None,
+            eval_every: int = 0, *, chunked: bool = True, prefetch: int = 0,
+            max_chunk: int = MAX_CHUNK, faults=None,
             checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
             resume: bool = False) -> Tuple[DiLoCoState, Dict]:
         """data_fn(step) -> per-worker-stacked batch {name: (K, B, S)}
-        (numpy or tensors); moved to the parameters' device here."""
-        if eval_fn is not None or eval_every:
-            raise NotImplementedError("eval hooks are not ported")
-        if prefetch:
-            raise NotImplementedError("prefetch is not ported")
+        (numpy or tensors); moved to the parameters' device here.
+
+        ``record_every`` thins the loss history; ``eval_fn(global_params)``
+        runs after every ``eval_every`` steps, after ``runner.refresh``;
+        ``chunked=False`` reads the losses after every step; ``prefetch`` >
+        0 assembles batches that many steps ahead on a background thread;
+        ``max_chunk`` caps a chunk's length (0: only events, evals,
+        checkpoints and ``num_steps`` bound it).  ``checkpoint_dir`` +
+        ``checkpoint_every`` write crash-consistent checkpoints at chunk
+        boundaries (deferred while a snapshot is in flight); ``resume``
+        restores the latest complete one (state, runner extras, history,
+        data cursor) into fresh tensors and continues bit for bit as the
+        uninterrupted run would."""
         if faults is not None and not getattr(faults, "empty", False):
             raise NotImplementedError("fault injection is not ported")
-        if checkpoint_dir or checkpoint_every or resume:
-            raise NotImplementedError("run checkpoints and resume are not "
-                                      "ported")
+        if not chunked and prefetch > 0:
+            raise ValueError(
+                "prefetch requires the chunked loop (chunked=True): the "
+                "per-step loop assembles batches synchronously and would "
+                "silently ignore it")
+        if not chunked and (checkpoint_dir or resume):
+            raise ValueError(
+                "checkpointing / resume require the chunked loop "
+                "(chunked=True): the per-step loop has no chunk boundaries "
+                "to anchor them to")
+        if resume and not checkpoint_dir:
+            raise ValueError("resume=True requires checkpoint_dir")
         eng = self.engine()
         runner = self.strategy.bind(eng, state.global_params)
         device = state.inner_step.device
         history: Dict[str, list] = {"step": [], "loss": [], "sync_steps": [],
                                     "frag_syncs": [], "evals": []}
-        chunk_step_seconds = []
-        step = 0
-        t_prev = time.perf_counter()
-        while step < num_steps:
+        start_step = 0
+        if resume:
+            manifest = latest_run_checkpoint(checkpoint_dir)
+            if manifest is not None:
+                template = runner.checkpoint_extras()
+                state, extras = load_run_checkpoint(
+                    manifest, state,
+                    template[0] if template is not None else None)
+                runner.load_extras(extras, manifest.get("extras_meta") or {})
+                for key, vals in (manifest.get("history") or {}).items():
+                    history[key] = [_history_from_json(v) for v in vals]
+                start_step = int(manifest["step"])
+
+        def record(recs):
+            for key, val in recs:
+                history.setdefault(key, []).append(val)
+
+        def chunk_end(step: int) -> int:
+            if not chunked:
+                return step
             end = num_steps - 1
-            if chunked:
-                event = runner.next_event(step)
-                if event is not None:
-                    end = min(end, max(event, step))
-                end = min(end, step + MAX_CHUNK - 1)
-            else:
-                end = step
-            losses = []
-            for s in range(step, end + 1):
-                state, loss = eng.inner_step(state,
-                                             _to_device(data_fn(s), device))
-                losses.append(loss)
-            losses_host = _fetch(torch.stack(losses))   # ONE read per chunk
-            for i in range(end - step + 1):
-                s = step + i
-                loss_mean = _host_mean(losses_host[i])
-                history["step"].append(s)
-                history["loss"].append(loss_mean)
-                new_state, recs = runner.after_step(state, s, loss_mean)
-                if new_state is not state and s != end:
-                    raise RuntimeError(
-                        f"sync runner replaced the state at step {s}, "
-                        f"mid-chunk (chunk ends at {end}): next_event() must "
-                        f"report every step whose after_step touches device "
-                        f"state")
-                state = new_state
-                for key, val in recs:
-                    history.setdefault(key, []).append(val)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)   # an outer sync is timed too
-            t_now = time.perf_counter()
-            chunk_step_seconds.append((t_now - t_prev) / (end - step + 1))
-            t_prev = t_now
-            step = end + 1
+            event = runner.next_event(step)
+            if event is not None:
+                end = min(end, max(event, step))
+            if eval_fn is not None and eval_every:
+                # an eval landing mid-chunk splits the chunk: it must see
+                # the state at exactly that step
+                end = min(end, (step // eval_every + 1) * eval_every - 1)
+            if max_chunk:
+                end = min(end, step + max_chunk - 1)
+            if checkpoint_dir and checkpoint_every:
+                # so must a checkpoint
+                end = min(end, (step // checkpoint_every + 1)
+                          * checkpoint_every - 1)
+            return end
+
+        source = (Prefetcher(data_fn, num_steps, depth=prefetch,
+                             start=start_step, device=device)
+                  if prefetch > 0 else None)
+        chunk_step_seconds = []
+        try:
+            step = start_step
+            t_prev = time.perf_counter()
+            pending_ckpt = False
+            while step < num_steps:
+                end = chunk_end(step)
+                T = end - step + 1
+                batches = (source.take(step, T) if source is not None
+                           else stack_batches([data_fn(s) for s in
+                                               range(step, end + 1)],
+                                              device))
+                losses = []
+                for i in range(T):
+                    state, loss = eng.inner_step(
+                        state, {k: v[i] for k, v in batches.items()})
+                    losses.append(loss)
+                del batches
+                losses_host = _fetch(torch.stack(losses))  # ONE read a chunk
+                for i in range(T):
+                    s = step + i
+                    loss_mean = _host_mean(losses_host[i])
+                    if s % record_every == 0:
+                        history["step"].append(s)
+                        history["loss"].append(loss_mean)
+                    new_state, recs = runner.after_step(state, s, loss_mean)
+                    if new_state is not state and s != end:
+                        raise RuntimeError(
+                            f"sync runner replaced the state at step {s}, "
+                            f"mid-chunk (chunk ends at {end}): next_event() "
+                            f"must report every step whose after_step "
+                            f"touches device state")
+                    state = new_state
+                    record(recs)
+                if source is not None and end + 1 < num_steps:
+                    # the replay above just enqueued any outer sync: start
+                    # assembling the next chunk now, so it overlaps the sync
+                    source.prime(end + 1, chunk_end(end + 1) - end)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)  # an outer sync is timed
+                t_now = time.perf_counter()
+                chunk_step_seconds.append((t_now - t_prev) / T)
+                t_prev = t_now
+                if checkpoint_dir and checkpoint_every and (
+                        pending_ckpt or (end + 1) % checkpoint_every == 0):
+                    extras = runner.checkpoint_extras()
+                    if extras is None:
+                        # a snapshot in flight is not saved: defer to the
+                        # next clean chunk boundary
+                        pending_ckpt = True
+                    else:
+                        pending_ckpt = False
+                        arrays, extras_meta = extras
+                        save_run_checkpoint(
+                            checkpoint_dir, end + 1, state,
+                            extras_arrays=arrays, extras_meta=extras_meta,
+                            history=history, meta={"num_steps": num_steps})
+                        t_prev = time.perf_counter()  # not step time
+                if (eval_fn is not None and eval_every
+                        and (end + 1) % eval_every == 0):
+                    state = runner.refresh(state)
+                    history["evals"].append((end, eval_fn(
+                        state.global_params)))
+                    t_prev = time.perf_counter()      # not step time
+                step = end + 1
+        finally:
+            if source is not None:
+                source.close()
         state, recs = runner.finalize(state, num_steps)
-        for key, val in recs:
-            history.setdefault(key, []).append(val)
+        record(recs)
         history["step_seconds"] = sorted(chunk_step_seconds)[
             len(chunk_step_seconds) // 2] if chunk_step_seconds else 0.0
         return state, history

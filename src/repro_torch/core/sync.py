@@ -25,7 +25,11 @@ off).  The fault-aware quorum variants of the reference belong to the
 fault layer, which is not ported.
 
 A strategy's ``bind(engine, params)`` makes a per-run ``SyncRunner``; the
-loop calls ``after_step`` after every inner step.  Between events
+loop calls ``after_step`` after every inner step, ``refresh`` before an
+eval hook reads ``global_params``, and ``checkpoint_extras`` /
+``load_extras`` to save and restore what a resume needs beyond the state
+(the residual and the round counters; None while a snapshot is in
+flight).  Between events
 ``after_step`` is host bookkeeping only; ``next_event(step)`` names the
 next step whose ``after_step`` touches device state (a sync, a snapshot,
 a delayed apply), so the loop can run the inner steps up to it without
@@ -104,9 +108,31 @@ class SyncRunner:
         state; ``None`` = no event before the run ends."""
         return step
 
+    def refresh(self, state):
+        """Bring ``global_params`` up to date for an observer (the eval
+        hook); identity for strategies that keep it current at every
+        sync."""
+        return state
+
     def finalize(self, state, num_steps: int):
         """Called once after the last step; returns (state, records)."""
         return state, []
+
+    # -- run checkpoints ----------------------------------------------------
+    def checkpoint_extras(self) -> Optional[Tuple[Any, Dict]]:
+        """What a resume needs beyond the state: ``(tensors, meta)``, where
+        ``tensors`` is a tree of tensors (the codec's error-feedback
+        residual) and ``meta`` JSON-serializable host state (round
+        counters).  None when the runner is mid-round (a snapshot in
+        flight) and a checkpoint here could not be resumed: the loop
+        defers to the next clean chunk boundary.  The base runner holds
+        nothing, so every boundary is clean."""
+        return {}, {}
+
+    def load_extras(self, arrays, meta: Dict) -> None:
+        """Restore what ``checkpoint_extras`` captured; ``arrays`` is None
+        when the checkpoint carried no tensors."""
+        return None
 
 
 class SyncStrategy:
@@ -135,9 +161,12 @@ class _DDPRunner(SyncRunner):
     def next_event(self, step):
         return None
 
-    def finalize(self, state, num_steps):
+    def refresh(self, state):
         # the global parameters ARE the worker's (the same tensors)
-        return state._replace(global_params=dict(state.worker_params[0])), []
+        return state._replace(global_params=dict(state.worker_params[0]))
+
+    def finalize(self, state, num_steps):
+        return self.refresh(state), []
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,6 +217,17 @@ class _DiLoCoRunner(SyncRunner):
             self.since = 0
             return self._sync(state, num_steps - 1)
         return state, []
+
+    def checkpoint_extras(self):
+        if self.since:
+            # mid-round: ``since`` (and AdaptiveH's loss window) are not
+            # saved, so defer to the outer boundary, where both are fresh
+            return None
+        return {"residual": self.residual}, {}
+
+    def load_extras(self, arrays, meta):
+        if arrays is not None:
+            self.residual = arrays["residual"]
 
     def next_event(self, step):
         # syncs fire when since_sync reaches the schedule's current H, and
@@ -290,6 +330,15 @@ class _StreamingRunner(SyncRunner):
             return state, [("frag_syncs", (step, f))]
         return state, []
 
+    def checkpoint_extras(self):
+        # the fragment slot is a function of the step alone and the
+        # un-synced divergence lives in the state: every boundary is clean
+        return {"residual": self.residual}, {}
+
+    def load_extras(self, arrays, meta):
+        if arrays is not None:
+            self.residual = arrays["residual"]
+
     def next_event(self, step):
         # fragment boundaries: every step s with (s + 1) % period == 0
         return (step // self.period + 1) * self.period - 1
@@ -344,6 +393,7 @@ class _OverlappedRunner(SyncRunner):
         self.engine = engine
         self.h, self.delay, self.jitter = h, delay, jitter
         self.k = engine.cfg.num_workers
+        self.seed = seed
         self.rng = _pyrandom.Random(seed)
         self.round_end = h - 1
         self.snap_steps = self._draw_snap_steps()
@@ -402,6 +452,23 @@ class _OverlappedRunner(SyncRunner):
                                                              self.residual)
             records.append(("sync_steps", num_steps - 1))
         return state, records
+
+    def checkpoint_extras(self):
+        if self.pending is not None or self.buf is not None:
+            return None     # snapshot in flight: defer to a clean boundary
+        return {"residual": self.residual}, {"round_end": self.round_end}
+
+    def load_extras(self, arrays, meta):
+        if arrays is not None:
+            self.residual = arrays["residual"]
+        # replay the jitter draws so the random stream continues as it
+        # would have without the restart
+        self.rng = _pyrandom.Random(self.seed)
+        self.round_end = self.h - 1
+        self.snap_steps = self._draw_snap_steps()
+        while self.round_end < int(meta["round_end"]):
+            self.round_end += self.h
+            self.snap_steps = self._draw_snap_steps()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -493,6 +560,16 @@ class _PipelinedRunner(SyncRunner):
                                                              self.residual)
             records.append(("sync_steps", num_steps - 1))
         return state, records
+
+    def checkpoint_extras(self):
+        if self.pending is not None:
+            return None     # fragment in flight: defer to a clean boundary
+        return {"residual": self.residual}, {"round": self.round}
+
+    def load_extras(self, arrays, meta):
+        if arrays is not None:
+            self.residual = arrays["residual"]
+        self.round = int(meta["round"])
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,5 +1,6 @@
 from repro_torch.data import synthetic
-from repro_torch.data.pipeline import PackedDataset
+from repro_torch.data.pipeline import (PackedDataset, Prefetcher,
+                                       stack_batches)
 from repro_torch.data.pipeline import build_tokenizer as train_tokenizer
 from repro_torch.data.tokenizer import SPECIAL_TOKENS, BPETokenizer
 
@@ -13,5 +14,6 @@ def build_tokenizer() -> BPETokenizer:
     return train_tokenizer(texts, 512)
 
 
-__all__ = ["BPETokenizer", "PackedDataset", "SPECIAL_TOKENS",
-           "build_tokenizer", "synthetic", "train_tokenizer"]
+__all__ = ["BPETokenizer", "PackedDataset", "Prefetcher", "SPECIAL_TOKENS",
+           "build_tokenizer", "stack_batches", "synthetic",
+           "train_tokenizer"]

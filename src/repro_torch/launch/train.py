@@ -20,7 +20,8 @@ mid-train -> SFT), with the evals after each stage, under one of:
     PYTHONPATH=src python -m repro_torch.launch.train --method hybrid \\
         --steps 30 --workers 2 [--delta-dtype int8|fp8|fp8_e5m2|bfloat16] \\
         [--no-error-feedback] [--drift-aware] [--fused-adamw] \\
-        [--adaptive-h] [--out-dir DIR] [--device cuda|cpu]
+        [--adaptive-h] [--prefetch N] [--checkpoint-dir DIR \\
+        --checkpoint-every N [--resume]] [--out-dir DIR] [--device cuda|cpu]
 
 ``--steps N`` gives the stages N, N // 2 and N // 2 steps.
 ``--delta-dtype`` picks the outer-sync wire codec (int8 and fp8 carry
@@ -31,11 +32,15 @@ kernels' plain PyTorch versions.  The corpora and eval suites are the
 synthetic world of ``repro_torch.data.synthetic`` (the same texts,
 tokenizer and items as the JAX pipeline's).  The model's vocab is the
 tokenizer's; ``--arch nanochat-d20`` runs the JAX package's reduced
-variant unless ``--no-reduced`` (the full widths).
+variant unless ``--no-reduced`` (the full widths).  ``--prefetch N``
+assembles batches N steps ahead on a background thread;
+``--checkpoint-dir`` / ``--checkpoint-every`` write crash-consistent run
+checkpoints of the base stage, and ``--resume`` continues it bit for bit
+from the latest complete one.
 
 Not ported yet, and raising ``NotImplementedError``: the gossip
-strategies, fault injection, run checkpoints and resume, prefetch, and
-the heterogeneous-fleet comm report (``worker_speeds``).
+strategies, fault injection and the heterogeneous-fleet comm report
+(``worker_speeds``).
 """
 from __future__ import annotations
 
@@ -170,9 +175,12 @@ def run_pipeline(method: str = "diloco", arch: str = "tiny",
     writes ``{method}_final`` (parameters + ``.cfg.json``) and
     ``{method}_metrics.json`` there.
 
-    ``min_quorum`` acts only with faults.  Not ported: ``fault_schedule``,
-    ``checkpoint_dir`` / ``checkpoint_every`` / ``resume``, ``prefetch``
-    and ``worker_speeds`` (the comm report) raise."""
+    ``prefetch`` reaches every stage.  ``checkpoint_dir`` /
+    ``checkpoint_every`` / ``resume`` give the BASE stage crash-consistent
+    run checkpoints (a rerun with ``resume`` continues bit for bit from
+    the latest complete one), as in the JAX package.  ``min_quorum`` acts
+    only with faults.  Not ported: ``fault_schedule`` and
+    ``worker_speeds`` (the comm report) raise."""
     import torch
 
     from repro_torch.core import AdaptiveH, transport
@@ -181,10 +189,6 @@ def run_pipeline(method: str = "diloco", arch: str = "tiny",
 
     if fault_schedule:
         raise NotImplementedError("fault injection is not ported")
-    if checkpoint_dir or checkpoint_every or resume:
-        raise NotImplementedError("run checkpoints and resume are not ported")
-    if prefetch:
-        raise NotImplementedError("prefetch is not ported")
     if worker_speeds:
         raise NotImplementedError("the heterogeneous-fleet comm report "
                                   "(worker_speeds) is not ported")
@@ -225,11 +229,17 @@ def run_pipeline(method: str = "diloco", arch: str = "tiny",
             torch.cuda.reset_peak_memory_stats(device)
         transport.reset_shipped()
         t0 = time.perf_counter()
+        # checkpoints and resume target the base stage, the long
+        # decentralized pretrain, as in the JAX package
+        is_base = stage == "base"
         params, hist = run_stage(
             stage_method, cfg, params, stages[stage],
             steps=steps[stage], workers=workers,
             per_worker_batch=per_worker_batch, h=h_by_stage[stage],
-            opt_cfg=opt_cfg, diloco_cfg=dcfg, seed=seed, h_schedule=hs)
+            opt_cfg=opt_cfg, diloco_cfg=dcfg, seed=seed, h_schedule=hs,
+            prefetch=prefetch,
+            checkpoint_dir=checkpoint_dir if is_base else None,
+            checkpoint_every=checkpoint_every, resume=resume and is_base)
         if on_card:
             torch.cuda.synchronize(device)
         wall = time.perf_counter() - t0
@@ -318,6 +328,18 @@ def main(argv=None) -> Dict:
                          "the capture")
     ap.add_argument("--fragments", type=int, default=4,
                     help="streaming/pipelined: number of fragments F")
+    ap.add_argument("--prefetch", type=int, default=0,
+                    help="assemble + device_put batches this many steps "
+                         "ahead on a background thread (0 = synchronous)")
+    ap.add_argument("--checkpoint-dir", type=str, default=None,
+                    help="write crash-consistent checkpoints here at outer "
+                         "boundaries (base stage)")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="steps between checkpoints (0 = off)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume the base stage from the latest complete "
+                         "checkpoint in --checkpoint-dir (bit-exact "
+                         "continuation)")
     ap.add_argument("--out-dir", type=str, default=None,
                     help="write the final checkpoint and the metrics here")
     ap.add_argument("--device", type=str, default="cuda",
@@ -336,6 +358,10 @@ def main(argv=None) -> Dict:
                         num_fragments=args.fragments,
                         error_feedback=not args.no_error_feedback,
                         fused_adamw=args.fused_adamw, seed=args.seed,
+                        prefetch=args.prefetch,
+                        checkpoint_dir=args.checkpoint_dir,
+                        checkpoint_every=args.checkpoint_every,
+                        resume=args.resume,
                         out_dir=args.out_dir, device=args.device)
 
 

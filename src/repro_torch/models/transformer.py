@@ -19,10 +19,19 @@ package's ``h = h + a; x = norm(h)``.
 Training (``forward_hidden``, ``lm_loss``) differentiates through the
 kernels' ``autograd.Function``s.  The stacked leaves are split into their
 L layers once per forward with ``unbind``, whose backward stacks the L
-layer gradients in one op.  No layer is rematerialised (the JAX package
-wraps each layer in ``jax.checkpoint``): the activations of every layer
-stay alive until the backward, which at nanochat-d20 and 4 x 1024 tokens
-is about 9 GB in float32.
+layer gradients in one op.
+
+Rematerialisation.  With ``cfg.remat`` (the default, as in the JAX
+package, which wraps each layer in ``jax.checkpoint``) each layer runs
+under ``torch.utils.checkpoint``: only its inputs are kept, and its
+forward runs again in the backward.  Because every residual add is fused
+with the NEXT norm, one unit runs from ``(x_i, h_i)`` (layer i's normed
+input and its residual stream) to ``(x_{i+1}, h_{i+1})`` and takes the
+next norm's scale as an input; the reference's unit carries ``h`` alone.
+The kernels give the same bits on a second call, so remat on and off give
+the same loss and gradients bit for bit.  It applies only when the
+forward builds a graph: the evals and serving run under ``no_grad`` and
+do not pay for the recompute.
 
 The KV pool is updated IN PLACE: ``decode_step_paged`` and
 ``verify_step_paged`` return the same pool dict they were given, payload
@@ -185,21 +194,42 @@ def _run_layers(params: Params, h: torch.Tensor, cfg: ModelConfig,
     input (attention; the mamba block for ``arch_type="ssm"``, which has
     no MLP); ``mm`` the MLP's matrix product.  The first ``ln1`` is a
     plain RMSNorm, every later norm is fused with the residual add before
-    it."""
+    it.  With ``cfg.remat``, and only when the forward builds a graph,
+    each unit runs under ``torch.utils.checkpoint``."""
     _require_supported(cfg)
     _require_uniform_window(cfg)
     L = cfg.num_layers
     ssm = cfg.arch_type == "ssm"
     layers = _unstack(params["layers"], L)
-    x = apply_norm(layers[0]["ln1"], h, cfg)
-    for i, lp in enumerate(layers):
+
+    def block(i, lp, nxt, x, h):
         y = mix(i, lp, x)
         if not ssm:
             x, h = apply_norm_residual(lp["ln2"], y, h, cfg)
             y = apply_mlp(lp["mlp"], x, cfg, mm=mm)
+        return apply_norm_residual(nxt, y, h, cfg)
+
+    remat = cfg.remat and _needs_grad(params, h)
+    x = apply_norm(layers[0]["ln1"], h, cfg)
+    for i, lp in enumerate(layers):
         nxt = layers[i + 1]["ln1"] if i + 1 < L else params["final_norm"]
-        x, h = apply_norm_residual(nxt, y, h, cfg)
+        if remat:
+            # the forward is deterministic and draws no random numbers,
+            # so the recompute gives the saved tensors' bits again
+            x, h = checkpoint(block, i, lp, nxt, x, h, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            x, h = block(i, lp, nxt, x, h)
     return x
+
+
+def _needs_grad(params: Params, h: torch.Tensor) -> bool:
+    """Whether this forward builds a graph: grad mode on and a parameter
+    or the input requiring grad.  The evals and serving build none."""
+    if not torch.is_grad_enabled():
+        return False
+    return h.requires_grad or any(
+        t.requires_grad for t in flatten(params).values())
 
 
 def forward_hidden(params: Params, batch: Dict[str, torch.Tensor],

@@ -278,10 +278,8 @@ def test_train_cli_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 @pytest.mark.parametrize("what", ["async_gossip", "gossip",
                                   "streaming_faults", "gossip_cli",
-                                  "prefetch", "faults", "checkpoint",
-                                  "evals", "pipeline_faults",
-                                  "pipeline_worker_speeds",
-                                  "pipeline_checkpoint"])
+                                  "faults", "pipeline_faults",
+                                  "pipeline_worker_speeds"])
 def test_unported_paths_raise(jparams, what):
     cfg = port_cfg(tiny_cfg("dense"))
     params = port_params(tiny_cfg("dense"), jparams)
@@ -303,16 +301,9 @@ def test_unported_paths_raise(jparams, what):
         elif what == "pipeline_worker_speeds":
             train.run_pipeline(method="diloco", device="cpu",
                                worker_speeds=(1.0, 1.5))
-        elif what == "pipeline_checkpoint":
-            train.run_pipeline(method="diloco", device="cpu",
-                               checkpoint_dir="x", checkpoint_every=1)
         else:
             dt = _trainer(cfg)
-            kw = {"prefetch": dict(prefetch=2),
-                  "faults": dict(faults=object()),
-                  "checkpoint": dict(checkpoint_dir="x", checkpoint_every=1),
-                  "evals": dict(eval_fn=print, eval_every=1)}[what]
-            dt.run(dt.init(params), None, 1, **kw)
+            dt.run(dt.init(params), None, 1, faults=object())
 
 
 def test_ddp_sync_rejects_multiple_workers(jparams):

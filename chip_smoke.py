@@ -152,6 +152,23 @@ yardstick.  Then phases, each fatal on failure:
      float64 CPU copies of the hidden states (rtol 1e-4), and workers 0
      and 1's ``linear_cka`` and ``subspace_overlap`` (r 8) logged;
    the launch counts of each run read for phase 7's table;
+6c. gossip and async gossip over the codec wire (int8), nanochat-d20 at
+   full width (vocab 512), K 4, per-worker batch 8, seq_len 128, H 2,
+   fused AdamW, remat on, through ``run_stage``: gossip on the ring and
+   the random topology (20 layers, 4 steps each) and async gossip
+   (jitter 1, bound 1, 6 steps) at full depth when the gossip run's peak
+   plus its three publication boards reckon it fits, else at 10 layers;
+   gates: losses finite and falling, the ``gossip_syncs`` and
+   ``sync_steps`` records equal to the same run's on the CPU (a tiny
+   model), the training and wire kernels launched and no other, the
+   counted wire bytes equal to the records' reads (per worker per round,
+   for gossip: ``payload_schedule``'s plus the scales' 4 bytes a leaf);
+   step seconds and peak memory logged; at depth 2, async gossip with
+   jitter 0 and bound 0 equal to gossip bit for bit, and resume ==
+   uninterrupted bit for bit for both (state, anchors, momentum,
+   residual, boards); then ``comm_report`` for diloco (phase 6's base
+   step), gossip and async gossip over worker speeds (1, 1, 1.5, 2) on
+   Table 1's base stage (300 steps, H 100), beside the link it assumes;
 7. time each kernel, its plain version and one PyTorch library call on
    the same inputs (CUDA events, L2 flushed before each launch) beside
    the least time the card could take
@@ -2657,6 +2674,291 @@ def drift_run(torch, k):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6c: gossip and async gossip over the codec wire
+# ---------------------------------------------------------------------------
+
+# Table 1's model and shape: nanochat-d20 at full width (vocab 512), K 4,
+# per-worker batch 8, seq_len 128, H 2, the int8 wire, fused AdamW, remat
+# on; (path, method, DiLoCoConfig fields, steps)
+GOSSIP_KW = dict(workers=4, per_worker_batch=8, h=2)
+GOSSIP_SEQ = 128
+GOSSIP_PLANS = (("gossip", "gossip", dict(topology="ring"), 4),
+                ("gossip_random", "gossip", dict(topology="random"), 4),
+                # sync_seed 0 draws the periods (3, 3, 2, 3)
+                ("async_gossip", "async_gossip",
+                 dict(h_jitter=1, staleness_bound=1), 6))
+# async gossip's depth when its three publication boards (3 x K f32
+# copies of the model, 25.2 GB at full depth) do not fit beside the
+# gossip run's measured peak
+GOSSIP_ASYNC_DEPTH = 10
+GOSSIP_IDLE = tuple(k for k in REPLACES
+                    if k not in TRAIN_KERNELS + WIRE_KERNELS)
+# resume and the jitter-0 equality at depth 2 (full width, vocab 512)
+GOSSIP_STATE_DEPTH = 2
+GOSSIP_RESUME = (("gossip", dict(strategy="gossip")),
+                 ("async_gossip", dict(strategy="async_gossip", h_jitter=1,
+                                       staleness_bound=1)))
+# the comm report: Table 1's base stage (300 steps, H 100) of this model
+# at the step seconds measured here, on a fleet of these relative speeds
+GOSSIP_SPEEDS = (1.0, 1.0, 1.5, 2.0)
+GOSSIP_REPORT = dict(steps=300, h=100)
+
+
+def gossip_wire_bytes(records, n_params, n_leaves, bound=None):
+    """The wire bytes the port counts for one run from its records: each
+    worker's read of another's payload (the int8 codes, one 4-byte scale
+    per leaf, and the f32 anchors and momentum: 9 bytes a parameter);
+    async gossip reads only the contributions it consumes (another
+    worker, staleness 0 to ``bound``)."""
+    reads = sum(1 for _, w, p, s in records
+                if p != w and (bound is None or 0 <= s <= bound))
+    return reads * (9 * n_params + 4 * n_leaves)
+
+
+def phase_gossip(torch, diloco_step_s):
+    """Gossip (ring, random) and async gossip (jitter 1, bound 1) at
+    ``GOSSIP_PLANS`` through ``run_stage``, each from fresh parameters,
+    launch counts and the wire's byte count reset just before each run:
+    losses finite and falling; the ``gossip_syncs`` and ``sync_steps``
+    records equal to the same run's on the CPU (a tiny model: the records
+    are the schedule's); the training and wire kernels launched and no
+    other; the counted wire bytes equal to the records' reads (for
+    gossip, per worker per round: ``payload_schedule``'s plus the scales'
+    4 bytes a leaf, which the schedule does not count); step seconds and
+    peak memory.  Async gossip runs at full depth when the gossip run's
+    peak plus its boards reckon it fits, else at ``GOSSIP_ASYNC_DEPTH``.
+    Then at depth 2: async gossip with jitter 0 and bound 0 equal to
+    gossip bit for bit (K 4, int8), and resume == uninterrupted bit for
+    bit for both strategies (state and the runner's anchors, momentum,
+    residual and boards).  Then ``comm_report`` for diloco (at
+    ``diloco_step_s``, phase 6's base stage), gossip and async gossip
+    over ``GOSSIP_SPEEDS``."""
+    import dataclasses
+    from repro_torch.configs import DiLoCoConfig, OptimizerConfig
+    from repro_torch.core import make_strategy, transport
+    from repro_torch.kernels import KERNELS, launches, reset_launches
+    from repro_torch.launch.train import (build_pipeline, comm_report,
+                                          make_model, run_stage)
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import flatten
+    _, tok, stages, _ = build_pipeline(seq_len=GOSSIP_SEQ)
+    ds = stages["base"]
+    full = make_model("nanochat-d20", False, tok.vocab_size)
+    tiny = make_model("tiny", True, tok.vocab_size)
+    opt_cfg = OptimizerConfig(total_steps=8, warmup_steps=1,
+                              learning_rate=0.02, adam_lr=1e-3,
+                              fused_adamw=True)
+    K, h = GOSSIP_KW["workers"], GOSSIP_KW["h"]
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    out, paths = {"runs": {}}, {}
+    for path, method, dkw, steps in GOSSIP_PLANS:
+        t_path = time.perf_counter()
+        dcfg = DiLoCoConfig(delta_dtype="int8", **dkw)
+        cfg = full
+        if method == "async_gossip":
+            n_full = out["runs"]["gossip"]["n_params"]
+            boards = 3 * K * 4 * n_full / 1e9
+            want = out["runs"]["gossip"]["peak_memory_gb"] + boards
+            fits = want < total_gb - 2.0
+            cfg = full if fits else full.with_(num_layers=GOSSIP_ASYNC_DEPTH)
+            out["async_depth"] = {
+                "layers": cfg.num_layers, "want_gb": want,
+                "boards_gb": boards, "total_gb": total_gb}
+            log(f"  async gossip's boards {boards:.2f} GB + the gossip "
+                f"run's peak {out['runs']['gossip']['peak_memory_gb']:.2f} "
+                f"GB = {want:.2f} GB of {total_gb:.2f}: "
+                + ("full depth" if fits else
+                   f"cut to {GOSSIP_ASYNC_DEPTH} layers"))
+        params = init_params(cfg, seed=0, device="cuda")
+        flat = flatten(params)
+        n, n_leaves = sum(p.numel() for p in flat.values()), len(flat)
+        del flat
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        transport.reset_shipped()
+        t0 = time.perf_counter()
+        _, hist = run_stage(method, cfg, params, ds, steps=steps,
+                            opt_cfg=opt_cfg, diloco_cfg=dcfg, seed=0,
+                            **GOSSIP_KW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: launches[k] for k in KERNELS}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        shipped = dict(transport.shipped)
+        del params
+        torch.cuda.empty_cache()
+        _, cpu = run_stage(method, tiny, init_params(tiny, seed=0,
+                                                     device="cpu"),
+                           ds, steps=steps, opt_cfg=opt_cfg, diloco_cfg=dcfg,
+                           seed=0, **dict(GOSSIP_KW, per_worker_batch=1))
+        losses, recs = hist["loss"], hist["gossip_syncs"]
+        run_cfg = dataclasses.replace(dcfg, num_workers=K, h_inner_steps=h,
+                                      strategy=method)
+        sched = make_strategy(run_cfg).payload_schedule(n, steps, run_cfg)
+        bound = dcfg.staleness_bound if method == "async_gossip" else None
+        want_bytes = gossip_wire_bytes(recs, n, n_leaves, bound)
+        got_bytes = sum(shipped.values())
+        rounds = len(hist["sync_steps"])
+        per_round = got_bytes / K / rounds if rounds else None
+        run = {"method": method, "config": dkw, "layers": cfg.num_layers,
+               "n_params": n, "loss": losses, "sync_steps":
+               hist["sync_steps"], "gossip_syncs": recs,
+               "step_seconds": hist["step_seconds"],
+               "tokens_per_s": K * GOSSIP_KW["per_worker_batch"]
+               * GOSSIP_SEQ / hist["step_seconds"],
+               "wall_s": wall, "peak_memory_gb": peak, "wire": shipped,
+               "wire_bytes_per_worker_per_round": per_round,
+               "schedule_bytes_per_worker": sched[0].bytes_per_worker,
+               "launches": counts}
+        log(f"  run_stage({method!r}) {path} {dkw}, {cfg.num_layers} "
+            f"layers ({n} params): losses {[round(x, 4) for x in losses]}, "
+            f"syncs {hist['sync_steps']}, gossip_syncs {recs}, step "
+            f"{hist['step_seconds']:.3f} s ({run['tokens_per_s']:.0f} "
+            f"tokens/s), wall {wall:.2f} s, peak {peak:.2f} GB; wire "
+            f"{shipped} (want {want_bytes}), per worker per round "
+            f"{per_round} (payload_schedule {sched[0].bytes_per_worker} + "
+            f"scales {4 * n_leaves}); launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        check(all(math.isfinite(x) for x in losses),
+              f"{path}: non-finite loss")
+        check(losses[-1] < losses[0], f"{path}: the loss did not fall")
+        check(recs and recs == cpu["gossip_syncs"]
+              and hist["sync_steps"] == cpu["sync_steps"],
+              f"{path}: records {recs} {hist['sync_steps']} != the CPU "
+              f"run's {cpu['gossip_syncs']} {cpu['sync_steps']}")
+        check(got_bytes == want_bytes, f"{path}: counted wire bytes "
+              f"{got_bytes} != {want_bytes} from the records")
+        if method == "gossip":
+            check(per_round == sched[0].bytes_per_worker + 4 * n_leaves,
+                  f"{path}: wire bytes per worker per round {per_round} != "
+                  f"payload_schedule's {sched[0].bytes_per_worker} + "
+                  f"{4 * n_leaves} of scales")
+        for k in TRAIN_KERNELS + WIRE_KERNELS:
+            check(counts[k] > 0, f"{path}: kernel {k} never launched on "
+                  f"the main path")
+        for k in GOSSIP_IDLE:
+            check(counts[k] == 0, f"{path}: kernel {k} launched off its "
+                  f"path")
+        paths[path] = counts
+        out["runs"][path] = run
+        log(f"  {path}: {time.perf_counter() - t_path:.1f} s")
+    t0 = time.perf_counter()
+    out["state"] = gossip_state_runs(torch, tok, ds, opt_cfg)
+    log(f"  gossip at depth {GOSSIP_STATE_DEPTH}: jitter 0 == gossip, "
+        f"resume: {time.perf_counter() - t0:.1f} s")
+    # the gossip strategies at the faster of the two full-depth gossip
+    # runs' steps (the same work; the first run may pay warm-up)
+    gossip_s = min(out["runs"][p]["step_seconds"]
+                   for p in ("gossip", "gossip_random"))
+    reports = {}
+    for method, dkw, step_s in (
+            ("diloco", {}, diloco_step_s),
+            ("gossip", {}, gossip_s),
+            ("async_gossip", GOSSIP_PLANS[2][2], gossip_s)):
+        dcfg = DiLoCoConfig(num_workers=K, delta_dtype="int8", **dkw)
+        rep = comm_report(dcfg, method, out["runs"]["gossip"]["n_params"],
+                          GOSSIP_REPORT["steps"], GOSSIP_REPORT["h"],
+                          step_s, GOSSIP_SPEEDS)
+        reports[method] = rep
+        pair = (f", pair barriers {rep['gossip']['wall_clock_s']:.4f} s"
+                if "gossip" in rep else "")
+        homo, het = rep["homogeneous"], rep["heterogeneous"]
+        log(f"  comm_report {method} (int8, K {K}, {GOSSIP_REPORT}, step "
+            f"{step_s:.4f} s, speeds {GOSSIP_SPEEDS}, link "
+            f"{rep['link_bytes_per_s']:.4g} B/s, latency "
+            f"{rep['link_latency_s']} s): {homo['total_bytes']:.0f} bytes a "
+            f"worker; homogeneous {homo['wall_clock_s']:.4f} s (stall "
+            f"{homo['stall_s']:.4f}); heterogeneous "
+            f"{het['wall_clock_s']:.4f} s (stall {het['stall_s']:.4f})"
+            f"{pair}")
+    out["comm_report"] = reports
+    out["launches"] = paths
+    return out
+
+
+def gossip_state_runs(torch, tok, ds, opt_cfg):
+    """Depth 2, full width (vocab 512), K 4, H 2, the int8 wire, through
+    ``DistTrainer``: async gossip with jitter 0 and bound 0 against
+    gossip (state, records, bit for bit), then for each of
+    ``GOSSIP_RESUME`` a run writing a checkpoint at step 2 and one
+    resumed from it into fresh state: the state and the runner's extras
+    (anchors, momentum, residual, boards) equal bit for bit."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import list_run_checkpoints
+    from repro_torch.configs import DiLoCoConfig
+    from repro_torch.core import (AsyncGossipSync, DistTrainer, GossipSync,
+                                  make_strategy)
+    from repro_torch.launch.train import make_model
+    from repro_torch.models import init_params, lm_loss
+    cfg = make_model("nanochat-d20", False, tok.vocab_size).with_(
+        num_layers=GOSSIP_STATE_DEPTH)
+    params = init_params(cfg, seed=0, device="cuda")
+    K, B = GOSSIP_KW["workers"], GOSSIP_KW["per_worker_batch"]
+
+    def run(dcfg, strategy, steps, **kw):
+        keep = _KeepRunner(strategy)
+        dt = DistTrainer(lambda p, b: lm_loss(p, b, cfg), opt_cfg, dcfg,
+                         keep)
+        state, hist = dt.run(dt.init(params),
+                             lambda s: ds.worker_batches(s, K, B), steps,
+                             **kw)
+        return state, keep.runner.checkpoint_extras()[0], hist
+
+    out = {}
+    dcfg = DiLoCoConfig(num_workers=K, h_inner_steps=GOSSIP_KW["h"],
+                        delta_dtype="int8")
+    a = run(dcfg, GossipSync(), 4)
+    b = run(dcfg, AsyncGossipSync(), 4)
+    same = (tree_bits_equal(torch, a[0], b[0])
+            and tree_bits_equal(torch, a[1], b[1])
+            and a[2]["loss"] == b[2]["loss"]
+            and a[2]["gossip_syncs"] == b[2]["gossip_syncs"])
+    out["async_j0_b0_bits_equal"] = same
+    log(f"  async gossip, jitter 0, bound 0 == gossip (K {K}, int8, depth "
+        f"{GOSSIP_STATE_DEPTH}): {same}; gossip_syncs "
+        f"{a[2]['gossip_syncs']}")
+    check(same, "async gossip with jitter 0 and bound 0 differs from gossip")
+    del a, b
+    root = ROOT / "build"
+    root.mkdir(exist_ok=True)
+    for path, dkw in GOSSIP_RESUME:
+        dcfg = DiLoCoConfig(num_workers=K, h_inner_steps=GOSSIP_KW["h"],
+                            delta_dtype="int8", **dkw)
+        d = tempfile.mkdtemp(prefix="gossip_resume_", dir=root)
+        try:
+            t0 = time.perf_counter()
+            a = run(dcfg, make_strategy(dcfg), 3, checkpoint_dir=d,
+                    checkpoint_every=2)
+            written = [s for s, _ in list_run_checkpoints(d)]
+            nbytes = sum(os.path.getsize(os.path.join(d, f))
+                         for f in os.listdir(d))
+            b = run(dcfg, make_strategy(dcfg), 3, checkpoint_dir=d,
+                    resume=True)
+            same = (tree_bits_equal(torch, a[0], b[0])
+                    and tree_bits_equal(torch, a[1], b[1])
+                    and a[2]["loss"] == b[2]["loss"]
+                    and a[2]["gossip_syncs"] == b[2]["gossip_syncs"])
+            out[f"resume_{path}"] = {"checkpoints": written,
+                                     "checkpoint_bytes": nbytes,
+                                     "bits_equal": same,
+                                     "gossip_syncs": a[2]["gossip_syncs"]}
+            log(f"  {path}: checkpoint at {written} ({nbytes / 1e9:.2f} GB "
+                f"on disk), resumed into fresh state: state and runner "
+                f"extras equal bit for bit: {same}; gossip_syncs "
+                f"{a[2]['gossip_syncs']}; {time.perf_counter() - t0:.1f} s")
+            check(written == [2] and same, f"{path}: the resumed run "
+                  f"differs from the uninterrupted one")
+            del a, b
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: timing
 # ---------------------------------------------------------------------------
 
@@ -3460,6 +3762,13 @@ def main(argv=None) -> int:
         state = report["state"] = phase_state(torch)
         lap("6b state")
 
+        log("[6c/7] gossip, nanochat-d20 at full width, K 4, int8 wire: "
+            "ring and random, async gossip (jitter 1, bound 1); jitter 0 "
+            "== gossip and resume at depth 2; the comm report")
+        gossip = report["gossip"] = phase_gossip(
+            torch, pipeline["diloco"]["stages"]["base"]["step_seconds"])
+        lap("6c gossip")
+
         log("[7/7] kernel timing")
         paths = {name: run["launches"] for name, run in runs.items()}
         paths.update({m: run["launches"] for m, run in train.items()})
@@ -3469,6 +3778,7 @@ def main(argv=None) -> int:
                       if "launches" in run})
         paths.update({f"state_{n}": c
                       for n, c in state["launches"].items()})
+        paths.update(gossip["launches"])
         floor = report["floor_ms"] = time_ms(
             torch, lambda: torch.cuda._sleep(0))
         kernels = phase_timing(torch, paths, checks)
@@ -3538,10 +3848,29 @@ def main(argv=None) -> int:
         "drift": {k: v for k, v in state["drift"].items()
                   if k != "worker_cka"},
         "pipeline_k4_fits": state["pipeline_k4_fits"]}
+    gossip_summary = {
+        "runs": {p: {key: v[key] for key in (
+            "layers", "step_seconds", "tokens_per_s", "peak_memory_gb",
+            "loss", "wire_bytes_per_worker_per_round",
+            "schedule_bytes_per_worker")}
+            for p, v in gossip["runs"].items()},
+        "async_depth": gossip["async_depth"], "state": gossip["state"],
+        "comm_report": {m: {"homogeneous_s":
+                                r["homogeneous"]["wall_clock_s"],
+                            "heterogeneous_s":
+                                r["heterogeneous"]["wall_clock_s"],
+                            "pair_barrier_s": r.get("gossip", {}).get(
+                                "wall_clock_s"),
+                            "bytes_per_worker":
+                                r["homogeneous"]["total_bytes"],
+                            "step_time_s": r["step_time_s"],
+                            "link_bytes_per_s": r["link_bytes_per_s"]}
+                        for m, r in gossip["comm_report"].items()}}
     print(json.dumps({"engine": summary, "capacity": capacity,
                       "train": train_summary, "static": static_summary,
                       "pipeline": pipeline_summary, "state": state_summary,
-                      "phase_s": phase_s, "floor_ms": floor}))
+                      "gossip": gossip_summary, "phase_s": phase_s,
+                      "floor_ms": floor}))
     print(json.dumps({"split_timing": report["split_timing"]}))
     print(report["gpu"])
     print(json.dumps({"kernels": kernels}))

@@ -183,8 +183,7 @@ class DiLoCoConfig:
     # --- sync-strategy runtime (repro_torch.core.sync / DistTrainer) -------
     strategy: str = "diloco"          # ddp | ddp_compressed | diloco |
                                       # streaming | overlapped | pipelined
-                                      # are ported; gossip | async_gossip
-                                      # raise
+                                      # | gossip | async_gossip
     num_fragments: int = 4            # streaming/pipelined: F fragments
     sync_delay: int = 0               # overlapped/pipelined: steps between
                                       # delta capture and outer application

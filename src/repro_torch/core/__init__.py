@@ -1,8 +1,8 @@
 """The training runtime: DiLoCo and DDP through one ``DistTrainer`` loop,
 with the ``ddp``, ``ddp_compressed``, ``diloco``, ``streaming``,
-``overlapped`` and ``pipelined`` sync strategies over the codec
-transport, the fixed, staged and adaptive H schedules, and the drift
-diagnostics (``drift``)."""
+``overlapped``, ``pipelined``, ``gossip`` and ``async_gossip`` sync
+strategies over the codec transport, the fixed, staged and adaptive H
+schedules, and the drift diagnostics (``drift``)."""
 from repro_torch.core import drift
 from repro_torch.core.ddp import DDPState, DDPTrainer
 from repro_torch.core.diloco import DiLoCoState, DiLoCoTrainer
@@ -10,17 +10,21 @@ from repro_torch.core.dist_trainer import DistTrainer
 from repro_torch.core.outer_opt import OuterState
 from repro_torch.core.schedule import AdaptiveH, FixedH, HSchedule, StagedH
 from repro_torch.core.streaming import StreamingDiLoCoTrainer, fragment_masks
-from repro_torch.core.sync import (CompressedDDPSync, DDPSync, DiLoCoSync,
-                                   OverlappedSync, PipelinedSync,
+from repro_torch.core.sync import (AsyncGossipSync, CompressedDDPSync,
+                                   DDPSync, DiLoCoSync, GossipRound,
+                                   GossipSync, OverlappedSync, PipelinedSync,
                                    StreamingSync, SyncEvent, SyncRunner,
                                    SyncStrategy, compressed_ddp_config,
-                                   make_strategy, strategy_names)
+                                   gossip_peers, make_strategy,
+                                   strategy_names)
 from repro_torch.core.transport import OuterPayload, Transport, make_codec
 
-__all__ = ["AdaptiveH", "CompressedDDPSync", "DDPState", "DDPSync", "DDPTrainer",
-           "DiLoCoState", "DiLoCoSync", "DiLoCoTrainer", "DistTrainer",
-           "FixedH", "HSchedule", "OuterPayload", "OuterState", "OverlappedSync",
-           "PipelinedSync", "StagedH", "StreamingDiLoCoTrainer", "StreamingSync",
-           "SyncEvent", "SyncRunner", "SyncStrategy", "Transport",
-           "compressed_ddp_config", "drift", "fragment_masks", "make_codec",
+__all__ = ["AdaptiveH", "AsyncGossipSync", "CompressedDDPSync", "DDPState",
+           "DDPSync", "DDPTrainer", "DiLoCoState", "DiLoCoSync",
+           "DiLoCoTrainer", "DistTrainer", "FixedH", "GossipRound",
+           "GossipSync", "HSchedule", "OuterPayload", "OuterState",
+           "OverlappedSync", "PipelinedSync", "StagedH",
+           "StreamingDiLoCoTrainer", "StreamingSync", "SyncEvent",
+           "SyncRunner", "SyncStrategy", "Transport", "compressed_ddp_config",
+           "drift", "fragment_masks", "gossip_peers", "make_codec",
            "make_strategy", "strategy_names"]

@@ -214,6 +214,10 @@ class DistTrainer:
                             f"touches device state")
                     state = new_state
                     record(recs)
+                # no second reference to the state into the next chunk:
+                # it would keep the K optimizer states that the next inner
+                # step replaces alive beside their successors
+                del new_state
                 if source is not None and end + 1 < num_steps:
                     # the replay above just enqueued any outer sync: start
                     # assembling the next chunk now, so it overlaps the sync

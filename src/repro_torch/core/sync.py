@@ -37,17 +37,31 @@ reading anything back.  ``payload_schedule(n_params, num_steps, cfg)`` is
 the strategy's communication footprint, in the wire bytes each worker
 moves per hop (``hop_bytes_per_worker``), host-side only.
 
-The gossip strategies of the JAX registry (``gossip``, ``async_gossip``)
-are not ported: ``make_strategy`` raises ``NotImplementedError`` for
-them.
+* ``GossipSync``      — every H steps each worker averages its outer state
+                          and delta with ONE peer of a deterministic
+                          topology (ring / random matching / full;
+                          NoLoCo, arXiv:2506.10911);
+* ``AsyncGossipSync``   — gossip on per-worker step clocks (H + jitter_i)
+                          against the peer's latest publication, with a
+                          staleness-aware, drift-gated apply rule.
+
+The gossip runners hold per-worker anchors and outer momentum, stacked
+(K, ...) per leaf, beside the residual; ``gossip_rounds`` is their
+per-pair event model for ``launch/comm_sim.simulate_gossip``.  Their
+fault paths (live masks, adopt, rejoin) belong to the fault layer and are
+not ported: ``bind_faults`` raises.
 """
 from __future__ import annotations
 
 import dataclasses
 import random as _pyrandom
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
 
 from repro_torch.configs.base import DiLoCoConfig
+from repro_torch.core import outer_opt
+from repro_torch.core.drift import delta_cosine
 from repro_torch.core.schedule import FixedH, HSchedule
 from repro_torch.core.transport import make_codec
 
@@ -601,6 +615,569 @@ class PipelinedSync(SyncStrategy):
 
 
 # ---------------------------------------------------------------------------
+# Gossip — no-all-reduce peer averaging (NoLoCo, arXiv:2506.10911)
+# ---------------------------------------------------------------------------
+
+GOSSIP_TOPOLOGIES = ("ring", "random", "full")
+
+# columns of a leaf's stacked rows that one outer update takes at a time:
+# it bounds the update's temporaries (one (K, ...) f32 stack of
+# nanochat-d20's largest leaf is 2.1 GB at K 4)
+GOSSIP_SLICE = 1 << 24
+
+
+def _matching_from_order(order: List[int]) -> List[int]:
+    """Pair consecutive entries of ``order`` into an involution: peer[i] is
+    i's partner; an odd leftover is self-paired (a solo outer step)."""
+    peer = list(range(len(order)))
+    for a in range(0, len(order) - 1, 2):
+        i, j = order[a], order[a + 1]
+        peer[i], peer[j] = j, i
+    return peer
+
+
+def gossip_peers(k: int, round_idx: int, topology: str,
+                 seed: int = 0) -> Optional[List[int]]:
+    """The deterministic peer matching for one gossip round: ``peer`` with
+    ``peer[peer[i]] == i``, or None for the full topology (the DiLoCo
+    mean).  ``ring`` alternates the pairing offset each round; ``random``
+    draws a fresh matching per round from ``(seed, round)`` through the
+    same stdlib calls as the reference, so both pair the same workers."""
+    if topology == "full":
+        return None
+    if topology == "ring":
+        off = round_idx % 2
+        order = [(off + j) % k for j in range(k)]
+    elif topology == "random":
+        order = list(range(k))
+        _pyrandom.Random((seed << 32) ^ round_idx).shuffle(order)
+    else:
+        raise ValueError(f"unknown gossip topology {topology!r}; "
+                         f"expected one of {GOSSIP_TOPOLOGIES}")
+    return _matching_from_order(order)
+
+
+@dataclasses.dataclass(frozen=True)
+class GossipRound:
+    """One gossip exchange for ``launch/comm_sim.simulate_gossip``:
+    ``emit_steps[w]`` is the step at which worker w ships its ``nbytes``
+    payload (-1: not this round); ``deps[w]`` the ``(src_worker,
+    src_emit_step)`` transfers w's apply consumes (its peer's; all K-1 for
+    the full topology; none when the contribution is dropped)."""
+    emit_steps: Tuple[int, ...]
+    deps: Tuple[Tuple[Tuple[int, int], ...], ...]
+    nbytes: int
+    codec: str = "f32"
+
+
+def _gossip_payload_bytes(codec, n_params: int) -> int:
+    """One gossip publication on the wire: the codec'd delta plus the
+    sender's f32 anchors and outer momentum, which the pair mean reads."""
+    return codec.schedule_bytes(n_params) + 2 * 4 * n_params
+
+
+def _deltas(rows: Sequence[torch.Tensor],
+            anchors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """(len(rows), ...) f32 deltas ``rows[i] - anchors[i]`` of one leaf."""
+    out = torch.empty((len(rows),) + tuple(rows[0].shape),
+                      dtype=torch.float32, device=rows[0].device)
+    for i, (r, a) in enumerate(zip(rows, anchors)):
+        torch.sub(r.float(), a.float(), out=out[i])
+    return out
+
+
+def _flat(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(t.shape[0], -1)
+
+
+def _pair_mean(t: torch.Tensor, peer_rows: torch.Tensor) -> torch.Tensor:
+    """``t * 0.5 + peer_rows * 0.5`` (``peer_rows`` is a gathered copy,
+    halved in place)."""
+    return (t * 0.5).add_(peer_rows.mul_(0.5))
+
+
+def _gossip_outer_rows(cfg, a, v, base, v_mix, avg,
+                       rows: Optional[Sequence[int]] = None) -> None:
+    """Per-row Nesterov outer update of one leaf's stacked (K, ...) rows:
+    ``update_leaf`` is elementwise, so on the stack it IS the per-row
+    update.  Writes the new anchors and momentum into ``a`` and ``v`` (only
+    the ``rows`` given, else every row), ``GOSSIP_SLICE`` columns at a
+    time; ``base``, ``v_mix`` and ``avg`` were read in full before."""
+    a2, v2 = _flat(a), _flat(v)
+    b2, m2, d2 = _flat(base), _flat(v_mix), _flat(avg)
+    for lo in range(0, a2.shape[1], GOSSIP_SLICE):
+        sl = slice(lo, lo + GOSSIP_SLICE)
+        new_a, new_v = outer_opt.update_leaf(b2[:, sl], m2[:, sl], d2[:, sl],
+                                             cfg)
+        for w in (range(len(a2)) if rows is None else rows):
+            a2[w, sl].copy_(new_a[w])
+            v2[w, sl].copy_(new_v[w])
+
+
+def _gossip_new_state(state, k: str, a: torch.Tensor,
+                      rows: Sequence[int]) -> None:
+    """Workers ``rows`` land on their updated anchors of leaf ``k``;
+    ``global_params`` tracks the anchor mean (the fleet's consensus
+    estimate, for evals and checkpoints)."""
+    for w in rows:
+        state.worker_params[w][k].copy_(a[w])
+    state.global_params[k].copy_(outer_opt._mean(a.float()))
+
+
+@torch.no_grad()
+def _gossip_pair(cfg, state, anchors, v, residual, peer: List[int]):
+    """One synchronized gossip round, leaf by leaf: encode each worker's
+    delta against its own anchor, ship one peer row each (codes, then the
+    peer's anchors and momentum), pair-average the whole outer state, and
+    apply the per-row outer update.  Anchors, momentum, residual and
+    workers are updated in place; returns the state with ``outer.t``
+    advanced.
+
+    ``GossipSync`` and ``AsyncGossipSync`` with jitter 0 and bound 0 run
+    THIS function, so their equality is structural.  The pair mean is
+    ``a * 0.5 + b * 0.5``: exact halves, so with equal rows (K 2) it is a
+    no-op bit for bit.  Every row of a leaf is read (the gathers) before
+    any row of it is written."""
+    transport = outer_opt.make_transport(cfg)
+    for k, a in anchors.items():
+        dq, peer_dq, new_res = transport.exchange_peers(
+            {k: _deltas([w[k] for w in state.worker_params], a)}, peer,
+            None if residual is None else {k: residual[k]})
+        if residual is not None:
+            residual[k].copy_(new_res[k])
+        del new_res
+        # dq * 0.5 + peer_dq * 0.5 in place: each op rounds once, as out
+        # of place
+        avg = dq[k].mul_(0.5).add_(peer_dq[k].mul_(0.5))
+        del dq, peer_dq
+        base = _pair_mean(a, transport.ship_rows(a, peer))
+        v_mix = _pair_mean(v[k], transport.ship_rows(v[k], peer))
+        _gossip_outer_rows(cfg, a, v[k], base, v_mix, avg)
+        del base, v_mix, avg
+        _gossip_new_state(state, k, a, range(len(peer)))
+    return state._replace(outer=state.outer._replace(t=state.outer.t + 1))
+
+
+@torch.no_grad()
+def _gossip_async(cfg, state, anchors, v, residual, pub, pub_anch, pub_v,
+                  due: List[int], peer: List[int], base_w: List[float],
+                  gate: List[bool]):
+    """One async-gossip apply event for the workers ``due``, in two passes
+    over the leaves, since the drift gate's cosine spans the whole tree:
+
+    1. encode each due worker's delta, publish (decoded delta, anchors,
+       momentum) into the boards ``pub``, ``pub_anch``, ``pub_v`` — before
+       any read, so a co-due peer is staleness 0 and reads the anchors of
+       before its update — and carry the due rows' residual;
+    2. weight each due worker's peer by ``base_w`` (times ``max(cos(own,
+       peer), 0)`` where ``gate``), mix ``own * (1 - w) + peer * w`` for
+       the delta, the anchors and the momentum, and apply the per-row
+       outer update to the due rows.
+
+    A worker that is not due advances nothing: its parameters, anchors,
+    momentum, residual and publications keep their bits.  A dropped
+    contribution (weight 0) reads the worker's own row, so it crosses no
+    link.  Never builds a whole-model (K, P) stack."""
+    transport = outer_opt.make_transport(cfg)
+    codec, K = transport.codec, len(peer)
+    dev = state.inner_step.device
+    due_idx = torch.tensor(due, dtype=torch.long, device=dev)
+    reads = list(range(K))
+    for w in due:
+        if base_w[w] > 0:
+            reads[w] = peer[w]
+    row_nbytes = {}
+    for k, a in anchors.items():
+        payload, new_res = codec.encode(
+            {k: _deltas([state.worker_params[w][k] for w in due],
+                        [a[w] for w in due])},
+            None if residual is None else
+            {k: residual[k].index_select(0, due_idx)})
+        row_nbytes[k] = payload.nbytes() // len(due)
+        dq = codec.decode(payload)[k]
+        del payload
+        for j, w in enumerate(due):
+            pub[k][w].copy_(dq[j])
+            pub_anch[k][w].copy_(a[w])
+            pub_v[k][w].copy_(v[k][w])
+            if residual is not None:
+                residual[k][w].copy_(new_res[k][j])
+        del dq, new_res
+    w_eff = []
+    for w in range(K):
+        wt = torch.tensor(base_w[w], dtype=torch.float32, device=dev)
+        if gate[w]:
+            cos = delta_cosine({k: p[w] for k, p in pub.items()},
+                               {k: p[peer[w]] for k, p in pub.items()})
+            wt = wt * torch.clamp(cos.float(), min=0.0)
+        w_eff.append(wt)
+    take = torch.stack(w_eff)
+    keep = 1.0 - take
+
+    def mix(own, published, **kw):
+        col = (-1,) + (1,) * (own.dim() - 1)
+        return (own * keep.reshape(col)).add_(
+            transport.ship_rows(published, reads, **kw)
+            .mul_(take.reshape(col)))
+
+    for k, a in anchors.items():
+        avg = mix(pub[k], pub[k], codec=codec.name,
+                  row_nbytes=row_nbytes[k])
+        base = mix(a, pub_anch[k])
+        v_mix = mix(v[k], pub_v[k])
+        _gossip_outer_rows(cfg, a, v[k], base, v_mix, avg, rows=due)
+        del base, v_mix, avg
+        _gossip_new_state(state, k, a, due)
+    return state._replace(outer=state.outer._replace(t=state.outer.t + 1))
+
+
+def _stacked(params, k: int, zeros: bool = False):
+    """(K, ...) per leaf: K copies of ``params`` (anchors), or f32 zeros
+    (outer momentum, publications)."""
+    return {n: (torch.zeros((k,) + tuple(p.shape), dtype=torch.float32,
+                            device=p.device) if zeros else
+                p.detach().unsqueeze(0).repeat((k,) + (1,) * p.dim()))
+            for n, p in params.items()}
+
+
+class _GossipRunner(SyncRunner):
+    """Synchronized gossip rounds: every H steps each worker encodes its
+    delta against its OWN anchor, exchanges (delta, anchors, momentum)
+    with one peer of the topology schedule, and applies a per-worker
+    Nesterov outer update from the pair-averaged outer state on the
+    pair-averaged delta, so each pairing contracts the pair to an
+    identical outer state.  The runner holds the anchors and outer
+    momentum, (K, ...) per leaf, beside the residual; ``global_params``
+    tracks the anchor mean at every sync.  K 2 and the full topology bind
+    ``_DiLoCoRunner`` instead (``GossipSync.bind``)."""
+
+    def __init__(self, engine, params, h: int, topology: str, seed: int):
+        if topology == "full":
+            raise ValueError("full topology is the DiLoCo mean — "
+                             "GossipSync.bind delegates it to _DiLoCoRunner")
+        gossip_peers(2, 0, topology, seed)   # validate the topology name
+        self.engine = engine
+        self.h, self.topology, self.seed = h, topology, seed
+        self.k = engine.cfg.num_workers
+        self.since = 0
+        self.round = 0
+        self.anchors = _stacked(params, self.k)
+        self.outer_v = _stacked(params, self.k, zeros=True)
+        self.residual = engine.init_residual(params)
+
+    def bind_faults(self, tracker):
+        raise NotImplementedError("gossip's fault paths (live masks, adopt, "
+                                  "rejoin) are not ported")
+
+    def _do_sync(self, state, step):
+        peers = gossip_peers(self.k, self.round, self.topology, self.seed)
+        records: Records = [("gossip_syncs", (step, w, peers[w], 0))
+                            for w in range(self.k)]
+        records.append(("sync_steps", step))
+        state = _gossip_pair(self.engine.cfg, state, self.anchors,
+                             self.outer_v, self.residual, peers)
+        self.round += 1
+        return state, records
+
+    def after_step(self, state, step, loss):
+        self.since += 1
+        if self.since >= self.h:
+            self.since = 0
+            return self._do_sync(state, step)
+        return state, []
+
+    def next_event(self, step):
+        return step + max(self.h - self.since, 1) - 1
+
+    def finalize(self, state, num_steps):
+        if self.since:  # trailing partial round
+            self.since = 0
+            return self._do_sync(state, num_steps - 1)
+        return state, []
+
+    def checkpoint_extras(self):
+        if self.since:
+            return None     # mid-round: defer to the gossip boundary
+        return ({"anchors": self.anchors, "outer_v": self.outer_v,
+                 "residual": self.residual}, {"round": self.round})
+
+    def load_extras(self, arrays, meta):
+        if arrays is not None:
+            self.anchors = arrays["anchors"]
+            self.outer_v = arrays["outer_v"]
+            self.residual = arrays["residual"]
+        self.round = int(meta["round"])
+
+
+@dataclasses.dataclass(frozen=True)
+class GossipSync(SyncStrategy):
+    """NoLoCo-style gossip outer sync: each round every worker averages
+    anchors AND deltas with ONE peer of a deterministic ``topology``
+    schedule (ring / random matching / full, keyed by ``seed``), the
+    delta through the codec transport, so a worker's boundary traffic is
+    one peer payload whatever the fleet size."""
+    name = "gossip"
+    h: Optional[int] = None
+    topology: str = "ring"
+    seed: int = 0
+
+    def bind(self, engine, params) -> SyncRunner:
+        h = self.h or engine.cfg.h_inner_steps
+        if self.topology == "full" or engine.cfg.num_workers == 2:
+            # the full matching, and K 2 (the one pair IS the fleet),
+            # average all workers: the DiLoCo mean, so the DiLoCo runner
+            # itself runs it and the equality is structural
+            return _DiLoCoRunner(engine, params, FixedH(h))
+        return _GossipRunner(engine, params, h, self.topology, self.seed)
+
+    def payload_schedule(self, n_params, num_steps, cfg):
+        h = self.h or cfg.h_inner_steps
+        codec = make_codec(cfg.delta_dtype)
+        if self.topology == "full":
+            # the DiLoCo mean: anchors are common, only the deltas travel
+            b = hop_bytes_per_worker(codec.schedule_bytes(n_params),
+                                     cfg.num_workers, "gather")
+        else:
+            b = hop_bytes_per_worker(_gossip_payload_bytes(codec, n_params),
+                                     cfg.num_workers, "peer")
+        return [SyncEvent(step=s, bytes_per_worker=b, kind="delta",
+                          apply_step=s, codec=codec.name)
+                for s in range(h - 1, num_steps, h)]
+
+    def gossip_rounds(self, n_params, num_steps, cfg) -> List[GossipRound]:
+        """Per-pair event model for ``comm_sim.simulate_gossip``."""
+        h = self.h or cfg.h_inner_steps
+        k = cfg.num_workers
+        codec = make_codec(cfg.delta_dtype)
+        b = (codec.schedule_bytes(n_params) if self.topology == "full"
+             else _gossip_payload_bytes(codec, n_params))
+        rounds = []
+        for r, s in enumerate(range(h - 1, num_steps, h)):
+            peers = gossip_peers(k, r, self.topology, self.seed)
+            if peers is None:
+                deps = tuple(tuple((j, s) for j in range(k) if j != w)
+                             for w in range(k))
+            else:
+                deps = tuple(((peers[w], s),) if peers[w] != w else ()
+                             for w in range(k))
+            rounds.append(GossipRound(emit_steps=(s,) * k, deps=deps,
+                                      nbytes=b, codec=codec.name))
+        return rounds
+
+
+class _AsyncGossipRunner(SyncRunner):
+    """Gossip on per-worker step clocks: worker i syncs every
+    ``periods[i] = H + jitter_i`` steps against the latest (delta,
+    anchors, momentum) its peer PUBLISHED, with no barrier.  The peer's
+    weight follows its staleness s = own step - peer's publish step:
+
+    * s == 0           — co-due peer: the plain 0.5 / 0.5 pair average;
+    * 0 < s <= bound   — 0.5 · (1 - s / (bound + 1)), times the observed
+                         drift ``max(cos(own delta, peer delta), 0)``
+                         (``core/drift.delta_cosine``);
+    * s > bound / none — dropped: a solo outer step on the own delta.
+
+    With jitter 0 and bound 0 every worker is co-due every H at
+    staleness 0, and the apply runs ``_gossip_pair``, the function
+    ``_GossipRunner`` runs: the reduction to the synchronous barrier is
+    bit for bit by construction."""
+
+    def __init__(self, engine, params, h: int, topology: str,
+                 staleness_bound: int, jitter: int, seed: int):
+        if topology == "full":
+            raise ValueError(
+                "async gossip is peer-based; topology='full' is the "
+                "synchronous DiLoCo mean — use GossipSync(topology='full') "
+                "or DiLoCoSync")
+        gossip_peers(2, 0, topology, seed)   # validate the topology name
+        if jitter < 0 or staleness_bound < 0:
+            raise ValueError(
+                f"jitter and staleness_bound must be >= 0, got "
+                f"jitter={jitter} staleness_bound={staleness_bound}")
+        self.engine = engine
+        self.k = k = engine.cfg.num_workers
+        self.h, self.topology = h, topology
+        self.bound = staleness_bound
+        self.seed = seed
+        rng = _pyrandom.Random(seed)
+        self.periods = tuple(
+            h + (rng.randint(0, jitter) if jitter else 0) for _ in range(k))
+        self.fully_sync = (jitter == 0 and staleness_bound == 0)
+        self.anchors = _stacked(params, k)
+        self.outer_v = _stacked(params, k, zeros=True)
+        self.residual = engine.init_residual(params)
+        self.pub_step = [-(10 ** 9)] * k      # host-side publish clocks
+        self.rounds = [0] * k
+        if self.fully_sync:
+            self.pub = self.pub_anch = self.pub_v = None
+        else:
+            # published (decoded delta, anchors, momentum), on the device
+            self.pub = _stacked(params, k, zeros=True)
+            self.pub_anch = {n: torch.zeros_like(a)
+                             for n, a in self.anchors.items()}
+            self.pub_v = _stacked(params, k, zeros=True)
+
+    def bind_faults(self, tracker):
+        raise NotImplementedError("gossip's fault paths (live masks, adopt, "
+                                  "rejoin) are not ported")
+
+    def _do_apply(self, state, step, due):
+        k = self.k
+        peer = list(range(k))
+        base_w = [0.0] * k
+        gate = [False] * k
+        records: Records = []
+        for w in due:                     # publish BEFORE any read, so a
+            self.pub_step[w] = step       # co-due peer is staleness 0
+        for w in due:
+            p = gossip_peers(k, self.rounds[w], self.topology, self.seed)[w]
+            peer[w] = p
+            s = step - self.pub_step[p] if self.pub_step[p] >= 0 else -1
+            if p == w or s < 0 or s > self.bound:
+                base_w[w] = 0.0           # drop: solo outer step
+            elif s == 0:
+                base_w[w] = 0.5
+            else:
+                base_w[w] = 0.5 * (1.0 - s / (self.bound + 1.0))
+                gate[w] = True            # stale: drift-reweighted
+            records.append(("gossip_syncs", (step, w, p, s)))
+            self.rounds[w] += 1
+        if len(due) == k:
+            records.append(("sync_steps", step))
+        if self.fully_sync:
+            # equal clocks + bound 0: the whole fleet is due and every
+            # peer co-due — the synchronous pair function
+            state = _gossip_pair(self.engine.cfg, state, self.anchors,
+                                 self.outer_v, self.residual, peer)
+            return state, records
+        state = _gossip_async(self.engine.cfg, state, self.anchors,
+                              self.outer_v, self.residual, self.pub,
+                              self.pub_anch, self.pub_v, due, peer, base_w,
+                              gate)
+        return state, records
+
+    def after_step(self, state, step, loss):
+        due = [w for w in range(self.k)
+               if (step + 1) % self.periods[w] == 0]
+        if not due:
+            return state, []
+        return self._do_apply(state, step, due)
+
+    def next_event(self, step):
+        return min((step // p + 1) * p - 1 for p in self.periods)
+
+    def finalize(self, state, num_steps):
+        due = [w for w in range(self.k) if num_steps % self.periods[w] != 0]
+        if not due:
+            return state, []
+        return self._do_apply(state, num_steps - 1, due)
+
+    def checkpoint_extras(self):
+        # the boards and clocks hold everything in flight, so every chunk
+        # boundary is clean
+        arrays = {"anchors": self.anchors, "outer_v": self.outer_v,
+                  "residual": self.residual}
+        if not self.fully_sync:
+            arrays.update(pub=self.pub, pub_anch=self.pub_anch,
+                          pub_v=self.pub_v)
+        return arrays, {"pub_step": list(self.pub_step),
+                        "rounds": list(self.rounds)}
+
+    def load_extras(self, arrays, meta):
+        if arrays is not None:
+            self.anchors = arrays["anchors"]
+            self.outer_v = arrays["outer_v"]
+            self.residual = arrays["residual"]
+            if not self.fully_sync:
+                self.pub = arrays["pub"]
+                self.pub_anch = arrays["pub_anch"]
+                self.pub_v = arrays["pub_v"]
+        self.pub_step = [int(x) for x in meta["pub_step"]]
+        self.rounds = [int(x) for x in meta["rounds"]]
+
+
+@dataclasses.dataclass(frozen=True)
+class AsyncGossipSync(SyncStrategy):
+    """Gossip on per-worker step clocks with a staleness-aware apply rule:
+    worker i syncs every ``H + jitter_i`` steps (jitter drawn from
+    ``seed``), consumes its peer's latest PUBLISHED delta without a
+    barrier, and drops or drift-reweights contributions staler than
+    ``staleness_bound`` inner steps.  ``jitter=0, staleness_bound=0`` is
+    ``GossipSync`` bit for bit (the synchronous barrier)."""
+    name = "async_gossip"
+    h: Optional[int] = None
+    topology: str = "ring"
+    staleness_bound: int = 0
+    jitter: int = 0
+    seed: int = 0
+
+    def bind(self, engine, params) -> SyncRunner:
+        h = self.h or engine.cfg.h_inner_steps
+        if (self.jitter == 0 and self.staleness_bound == 0
+                and engine.cfg.num_workers == 2
+                and self.topology != "full"):
+            # equal clocks + bound 0 + one pair: the synchronous fleet
+            # mean, delegated as GossipSync does at K 2 (full still falls
+            # through to the runner's rejection)
+            gossip_peers(2, 0, self.topology, self.seed)  # validate name
+            return _DiLoCoRunner(engine, params, FixedH(h))
+        return _AsyncGossipRunner(engine, params, h, self.topology,
+                                  self.staleness_bound, self.jitter,
+                                  self.seed)
+
+    def _periods(self, h: int, k: int) -> Tuple[int, ...]:
+        rng = _pyrandom.Random(self.seed)
+        return tuple(
+            h + (rng.randint(0, self.jitter) if self.jitter else 0)
+            for _ in range(k))
+
+    def payload_schedule(self, n_params, num_steps, cfg):
+        # the mean worker's footprint: one peer payload every ~H steps,
+        # with the staleness window as overlap budget; the per-worker
+        # event model is gossip_rounds + comm_sim.simulate_gossip
+        h = self.h or cfg.h_inner_steps
+        codec = make_codec(cfg.delta_dtype)
+        b = hop_bytes_per_worker(_gossip_payload_bytes(codec, n_params),
+                                 cfg.num_workers, "peer")
+        return [SyncEvent(step=s, bytes_per_worker=b, kind="delta",
+                          apply_step=s + self.staleness_bound,
+                          codec=codec.name)
+                for s in range(h - 1, num_steps, h)]
+
+    def gossip_rounds(self, n_params, num_steps, cfg) -> List[GossipRound]:
+        """Replay the runner's publish / consume schedule as simulator
+        events: one ``GossipRound`` per step with due workers, pair deps
+        only for consumed (not dropped) contributions."""
+        h = self.h or cfg.h_inner_steps
+        k = cfg.num_workers
+        codec = make_codec(cfg.delta_dtype)
+        b = _gossip_payload_bytes(codec, n_params)
+        periods = self._periods(h, k)
+        pub = [-(10 ** 9)] * k
+        rounds_count = [0] * k
+        out = []
+        for step in range(num_steps):
+            due = [w for w in range(k) if (step + 1) % periods[w] == 0]
+            if not due:
+                continue
+            for w in due:
+                pub[w] = step
+            emit = [-1] * k
+            deps: List[Tuple] = [()] * k
+            for w in due:
+                emit[w] = step
+                p = gossip_peers(k, rounds_count[w], self.topology,
+                                 self.seed)[w]
+                s = step - pub[p]
+                if p != w and s <= self.staleness_bound:
+                    deps[w] = ((p, pub[p]),)
+                rounds_count[w] += 1
+            out.append(GossipRound(emit_steps=tuple(emit), deps=tuple(deps),
+                                   nbytes=b, codec=codec.name))
+        return out
+
+
+# ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
 
@@ -616,13 +1193,16 @@ _STRATEGY_REGISTRY: Dict[str, Any] = {
         delay=cfg.sync_delay, jitter=cfg.h_jitter, seed=cfg.sync_seed),
     "pipelined": lambda cfg, hs: PipelinedSync(
         num_fragments=cfg.num_fragments, delay=cfg.sync_delay),
+    "gossip": lambda cfg, hs: GossipSync(topology=cfg.topology,
+                                         seed=cfg.sync_seed),
+    "async_gossip": lambda cfg, hs: AsyncGossipSync(
+        topology=cfg.topology, staleness_bound=cfg.staleness_bound,
+        jitter=cfg.h_jitter, seed=cfg.sync_seed),
 }
-# registered in the JAX package, not ported yet
-UNPORTED = ("gossip", "async_gossip")
 
 
 def strategy_names() -> Tuple[str, ...]:
-    """Ported strategy names, in the reference's registration order."""
+    """Strategy names, in the reference's registration order."""
     return tuple(_STRATEGY_REGISTRY)
 
 
@@ -631,10 +1211,6 @@ def make_strategy(cfg: DiLoCoConfig,
     """The strategy ``cfg.strategy`` names; ``h_schedule`` reaches
     DiLoCo's runner (the other strategies ignore it, as in the JAX
     package)."""
-    if cfg.strategy in UNPORTED:
-        raise NotImplementedError(
-            f"strategy {cfg.strategy!r} is not ported; the port has "
-            f"{strategy_names()}")
     factory = _STRATEGY_REGISTRY.get(cfg.strategy)
     if factory is None:
         raise ValueError(f"unknown strategy {cfg.strategy!r}; expected one "

@@ -28,13 +28,16 @@ their plain versions on CPU tensors.  ``BF16Cast`` is a plain cast, as in
 the reference (no kernel there either).
 
 ``shipped`` counts the wire bytes of every payload shipped, per codec
-name, since ``reset_shipped()`` — the per-sync wire-bytes metric.
+name, since ``reset_shipped()`` — the per-sync wire-bytes metric.  The
+gossip hop (``ship_peers`` / ``exchange_peers``, and ``ship_rows`` for the
+peer's f32 outer state) counts only the rows that cross a link: worker i
+receives row ``peer_idx[i]``, and a self-paired worker receives nothing.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -64,6 +67,21 @@ def _nbytes(tree: Optional[Flat]) -> int:
     if tree is None:
         return 0
     return sum(t.numel() * t.element_size() for t in tree.values())
+
+
+def _crossing(peer_idx: Sequence[int]) -> int:
+    """Rows of a peer gather that cross a link (worker i reads row
+    ``peer_idx[i]``; a self-paired worker reads its own)."""
+    return sum(1 for i, p in enumerate(peer_idx) if p != i)
+
+
+def _gather_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` of a stacked (K, ...) tensor, in its own dtype; fp8
+    codes move as their bytes (``uint8``), as the reference bitcasts them
+    around its gather."""
+    if t.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+        return t.view(torch.uint8).index_select(0, idx).view(t.dtype)
+    return t.index_select(0, idx)
 
 
 @dataclasses.dataclass
@@ -220,10 +238,45 @@ class Transport:
         in the same memory, so shipping is the identity; it counts the
         payload's wire bytes in ``shipped``.  The reference's bitcast and
         optimization-barrier games keep XLA from widening the wire on a
-        pod mesh; eager PyTorch has no such rewrite to guard against.  The
-        gossip hop (``ship_peers`` / ``exchange_peers``) is not ported."""
+        pod mesh; eager PyTorch has no such rewrite to guard against."""
         shipped[payload.codec] += payload.nbytes()
         return payload
+
+    def ship_peers(self, payload: OuterPayload,
+                   peer_idx: Sequence[int]) -> OuterPayload:
+        """The gossip hop: worker i receives only row ``peer_idx[i]`` of
+        the stacked payload — one peer payload per worker instead of the
+        (K-1)-row gather, which keeps gossip's traffic flat in fleet size.
+        The gather runs on the ENCODED payload, codes in the wire dtype
+        and their scales; decoding comes after.  On one card it is a
+        local ``index_select`` over dim 0.  ``shipped`` counts one payload
+        row (codes and scales) per worker whose peer is another worker."""
+        some = next(iter(payload.data.values()))
+        idx = torch.as_tensor(list(peer_idx), dtype=torch.long,
+                              device=some.device)
+        data = {k: _gather_rows(v, idx) for k, v in payload.data.items()}
+        scales = (None if payload.scales is None else
+                  {k: v.index_select(0, idx)
+                   for k, v in payload.scales.items()})
+        shipped[payload.codec] += (payload.nbytes() // len(peer_idx)
+                                   * _crossing(peer_idx))
+        return dataclasses.replace(payload, data=data, scales=scales)
+
+    def ship_rows(self, t: torch.Tensor, peer_idx: Sequence[int], *,
+                  codec: str = "f32",
+                  row_nbytes: Optional[int] = None) -> torch.Tensor:
+        """Rows ``peer_idx[i]`` of a stacked (K, ...) tensor for each
+        worker i: the peer's outer state that gossip's pair mean reads
+        (anchors, momentum; f32 on the wire), or a publication on the
+        async board, which holds it decoded while the link carries it
+        encoded (``codec`` and its ``row_nbytes``).  Counted in
+        ``shipped`` like ``ship_peers``."""
+        idx = torch.as_tensor(list(peer_idx), dtype=torch.long,
+                              device=t.device)
+        if row_nbytes is None:
+            row_nbytes = t[0].numel() * t.element_size()
+        shipped[codec] += row_nbytes * _crossing(peer_idx)
+        return _gather_rows(t, idx)
 
     def exchange(self, stacked_delta: Flat, residual: Optional[Flat] = None,
                  kind: str = "delta", fragment: int = -1
@@ -234,3 +287,19 @@ class Transport:
             stacked_delta, residual, kind=kind, fragment=fragment)
         payload = self.ship(payload)
         return self.codec.decode(payload), new_residual
+
+    def exchange_peers(self, stacked_delta: Flat, peer_idx: Sequence[int],
+                       residual: Optional[Flat] = None, kind: str = "delta",
+                       fragment: int = -1
+                       ) -> Tuple[Flat, Flat, Optional[Flat]]:
+        """Peer-pair exchange: encode -> ship one peer row per worker ->
+        decode.  Returns ``(dq_own, dq_peer, new_residual)``: ``dq_own[i]``
+        is worker i's own decoded delta, ``dq_peer[i]`` worker
+        ``peer_idx[i]``'s.  The delta is dropped once encoded (pass it
+        unnamed to free it here)."""
+        payload, new_residual = self.codec.encode(
+            stacked_delta, residual, kind=kind, fragment=fragment)
+        del stacked_delta
+        peer_payload = self.ship_peers(payload, peer_idx)
+        return (self.codec.decode(payload), self.codec.decode(peer_payload),
+                new_residual)

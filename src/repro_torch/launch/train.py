@@ -15,13 +15,19 @@ mid-train -> SFT), with the evals after each stage, under one of:
   --method overlapped  the outer update lands --sync-delay steps after the
                        capture; --h-jitter straggler jitter on the capture
   --method pipelined   one fragment per round, applied --sync-delay later
+  --method gossip      no all-reduce: each worker averages with one peer
+                       a round (--topology ring|random|full)
+  --method async_gossip gossip on per-worker clocks (H + jitter_i, from
+                       --h-jitter) with a staleness-aware apply rule
+                       (--staleness-bound)
   --method hybrid      DiLoCo base, DDP mid + SFT (the paper's hand-off)
 
     PYTHONPATH=src python -m repro_torch.launch.train --method hybrid \\
         --steps 30 --workers 2 [--delta-dtype int8|fp8|fp8_e5m2|bfloat16] \\
         [--no-error-feedback] [--drift-aware] [--fused-adamw] \\
         [--adaptive-h] [--prefetch N] [--checkpoint-dir DIR \\
-        --checkpoint-every N [--resume]] [--out-dir DIR] [--device cuda|cpu]
+        --checkpoint-every N [--resume]] [--worker-speeds 1,1,1.5,2] \\
+        [--out-dir DIR] [--device cuda|cpu]
 
 ``--steps N`` gives the stages N, N // 2 and N // 2 steps.
 ``--delta-dtype`` picks the outer-sync wire codec (int8 and fp8 carry
@@ -36,11 +42,14 @@ variant unless ``--no-reduced`` (the full widths).  ``--prefetch N``
 assembles batches N steps ahead on a background thread;
 ``--checkpoint-dir`` / ``--checkpoint-every`` write crash-consistent run
 checkpoints of the base stage, and ``--resume`` continues it bit for bit
-from the latest complete one.
+from the latest complete one.  ``--worker-speeds`` models a
+heterogeneous fleet: after the run, ``comm_report`` replays the base
+stage's sync schedule through the comm simulator
+(``launch/comm_sim.py``, host only) with per-worker step clocks from the
+measured step seconds, and prints the modeled wall-clock of the
+homogeneous and the heterogeneous fleet beside the link it assumed.
 
-Not ported yet, and raising ``NotImplementedError``: the gossip
-strategies, fault injection and the heterogeneous-fleet comm report
-(``worker_speeds``).
+Not ported yet, and raising ``NotImplementedError``: fault injection.
 """
 from __future__ import annotations
 
@@ -140,12 +149,58 @@ def run_stage(method: str, cfg: ModelConfig, params, stage_ds, *,
 
     trainer = DistTrainer(lambda p, b: lm_loss(p, b, cfg), opt_cfg, dcfg,
                           make_strategy(dcfg, h_schedule=h_schedule))
-    state = trainer.init(params)
-    state, hist = trainer.run(state, data, steps, prefetch=prefetch,
-                              faults=faults, checkpoint_dir=checkpoint_dir,
+    # the initial state is passed unnamed: ``run`` consumes it, and a name
+    # here would keep its K optimizer states alive for the whole run
+    state, hist = trainer.run(trainer.init(params), data, steps,
+                              prefetch=prefetch, faults=faults,
+                              checkpoint_dir=checkpoint_dir,
                               checkpoint_every=checkpoint_every,
                               resume=resume)
     return unflatten(state.global_params), hist
+
+
+def comm_report(dcfg: DiLoCoConfig, method: str, n_params: int, steps: int,
+                h: int, step_time_s: float, worker_speeds: Sequence[float],
+                staleness: int = 0, faults=None) -> Dict:
+    """Replay the run's sync schedule through the comm simulator: the
+    symmetric fleet against one with per-worker step clocks
+    (``worker_speeds`` are multipliers on the measured step seconds); the
+    gossip strategies also through their per-pair event model.  Host
+    only.  ``link_bytes_per_s`` and ``link_latency_s`` name the link every
+    modelled wall-clock assumed (``comm_sim.default_comm_model``)."""
+    from repro_torch.core import make_strategy
+    from repro_torch.launch.comm_sim import (default_comm_model,
+                                             simulate_gossip,
+                                             simulate_heterogeneous,
+                                             simulate_schedule)
+    # mirror run_stage's clamping so the replayed schedule is the one the
+    # run executed
+    delay = min(dcfg.sync_delay, h - 1)
+    jitter = min(dcfg.h_jitter, h - 1 - delay)
+    dcfg = dataclasses.replace(dcfg, h_inner_steps=h, sync_delay=delay,
+                               h_jitter=jitter,
+                               strategy=method if method != "hybrid"
+                               else "diloco")
+    strat = make_strategy(dcfg)
+    events = strat.payload_schedule(n_params, steps, dcfg)
+    comm = default_comm_model()
+    homo = simulate_schedule(events, steps, step_time_s, comm)
+    het = simulate_heterogeneous(
+        events, steps, [step_time_s * m for m in worker_speeds], comm,
+        staleness_steps=staleness, faults=faults)
+    report = {"homogeneous": homo, "heterogeneous": het,
+              "worker_speeds": list(worker_speeds),
+              "step_time_s": step_time_s,
+              "link_bytes_per_s": comm.bandwidth,
+              "link_latency_s": comm.latency}
+    if hasattr(strat, "gossip_rounds"):
+        # gossip synchronizes per pair, not per fleet: replay the pair
+        # dependencies, so the wall-clock reflects pair barriers
+        rounds = strat.gossip_rounds(n_params, steps, dcfg)
+        report["gossip"] = simulate_gossip(
+            rounds, steps, [step_time_s * m for m in worker_speeds], comm,
+            staleness_steps=dcfg.staleness_bound, faults=faults)
+    return report
 
 
 def run_pipeline(method: str = "diloco", arch: str = "tiny",
@@ -178,9 +233,11 @@ def run_pipeline(method: str = "diloco", arch: str = "tiny",
     ``prefetch`` reaches every stage.  ``checkpoint_dir`` /
     ``checkpoint_every`` / ``resume`` give the BASE stage crash-consistent
     run checkpoints (a rerun with ``resume`` continues bit for bit from
-    the latest complete one), as in the JAX package.  ``min_quorum`` acts
-    only with faults.  Not ported: ``fault_schedule`` and
-    ``worker_speeds`` (the comm report) raise."""
+    the latest complete one), as in the JAX package.  ``worker_speeds``
+    (one multiplier per worker) adds ``comm_model``, the base stage's
+    ``comm_report`` at its measured step seconds (not for ddp).
+    ``min_quorum`` acts only with faults.  Not ported: ``fault_schedule``
+    raises."""
     import torch
 
     from repro_torch.core import AdaptiveH, transport
@@ -189,9 +246,9 @@ def run_pipeline(method: str = "diloco", arch: str = "tiny",
 
     if fault_schedule:
         raise NotImplementedError("fault injection is not ported")
-    if worker_speeds:
-        raise NotImplementedError("the heterogeneous-fleet comm report "
-                                  "(worker_speeds) is not ported")
+    if worker_speeds and method != "ddp" and len(worker_speeds) != workers:
+        raise ValueError(f"--worker-speeds needs one multiplier per worker: "
+                         f"got {len(worker_speeds)} for {workers} workers")
     device = resolve_device(device)
     steps = steps or {"base": 300, "mid": 120, "sft": 120}
     world, tok, stages, suites = build_pipeline(seq_len=seq_len, seed=seed)
@@ -277,6 +334,31 @@ def run_pipeline(method: str = "diloco", arch: str = "tiny",
               + (f"tasks={entry.get('tasks')}" if eval_after_each_stage
                  else ""), flush=True)
 
+    if worker_speeds and method != "ddp":
+        from repro_torch.models.transformer import flatten
+        n_params = sum(p.numel() for p in flatten(params).values())
+        # staleness stays 0: the schedules' apply_step already carries the
+        # strategy's overlap window (sync_delay)
+        rep = comm_report(dcfg, method, n_params, steps["base"],
+                          h_by_stage["base"],
+                          results["stages"]["base"]["step_seconds"],
+                          worker_speeds)
+        results["comm_model"] = rep
+        homo, het = rep["homogeneous"], rep["heterogeneous"]
+        pair = ""
+        if "gossip" in rep:
+            # the fleet-barrier number is the worst case; the per-pair
+            # replay is what the gossip runners pay
+            pair = (f" pair-barrier wall="
+                    f"{rep['gossip']['wall_clock_s']:.2f}s")
+        print(f"[comm:{method}/{delta_dtype}] "
+              f"bytes={homo['total_bytes']/1e6:.2f}MB/worker "
+              f"homogeneous wall={homo['wall_clock_s']:.2f}s "
+              f"heterogeneous wall={het['wall_clock_s']:.2f}s "
+              f"(straggler adds {het['straggler_s']:.2f}s compute, "
+              f"stall {het['stall_s']:.2f}s)" + pair
+              + f" link={rep['link_bytes_per_s']:.4g}B/s", flush=True)
+
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         from repro_torch.checkpoint import save_config, save_pytree
@@ -289,10 +371,10 @@ def run_pipeline(method: str = "diloco", arch: str = "tiny",
 
 
 def main(argv=None) -> Dict:
+    from repro_torch.core import strategy_names
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--method", default="diloco",
-                    help="ddp | diloco | streaming | overlapped | pipelined "
-                         "| hybrid (gossip and async_gossip are not ported)")
+                    choices=list(strategy_names()) + ["hybrid"])
     ap.add_argument("--arch", default="tiny",
                     choices=["tiny", "nanochat-d20"])
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
@@ -324,10 +406,21 @@ def main(argv=None) -> Dict:
                     help="overlapped/pipelined: steps between delta capture "
                          "and apply")
     ap.add_argument("--h-jitter", type=int, default=0,
-                    help="overlapped: max per-worker straggler jitter on "
-                         "the capture")
+                    help="overlapped/async_gossip: max per-worker straggler "
+                         "jitter on the capture / the sync period")
+    ap.add_argument("--topology", default="ring",
+                    choices=["ring", "random", "full"],
+                    help="gossip/async_gossip: peer-matching topology "
+                         "(full is the DiLoCo mean)")
+    ap.add_argument("--staleness-bound", type=int, default=0,
+                    help="async_gossip: max staleness (in steps) of a peer "
+                         "delta before it is dropped; 0 = synchronous pairs")
     ap.add_argument("--fragments", type=int, default=4,
                     help="streaming/pipelined: number of fragments F")
+    ap.add_argument("--worker-speeds", type=str, default="",
+                    help="comma list of per-worker relative step-time "
+                         "multipliers (heterogeneous fleet); feeds the "
+                         "post-run comm-simulator report")
     ap.add_argument("--prefetch", type=int, default=0,
                     help="assemble + device_put batches this many steps "
                          "ahead on a background thread (0 = synchronous)")
@@ -355,7 +448,12 @@ def main(argv=None) -> Dict:
                         grad_compress=args.grad_compress,
                         drift_aware=args.drift_aware,
                         sync_delay=args.sync_delay, h_jitter=args.h_jitter,
+                        topology=args.topology,
+                        staleness_bound=args.staleness_bound,
                         num_fragments=args.fragments,
+                        worker_speeds=tuple(
+                            float(x) for x in args.worker_speeds.split(",")
+                            if x),
                         error_feedback=not args.no_error_feedback,
                         fused_adamw=args.fused_adamw, seed=args.seed,
                         prefetch=args.prefetch,

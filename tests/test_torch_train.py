@@ -276,20 +276,13 @@ def test_train_cli_defaults_to_cuda_and_raises_without_it(monkeypatch):
         train.main(["--steps", "1"])
 
 
-@pytest.mark.parametrize("what", ["async_gossip", "gossip",
-                                  "streaming_faults", "gossip_cli",
-                                  "faults", "pipeline_faults",
-                                  "pipeline_worker_speeds"])
+@pytest.mark.parametrize("what", ["streaming_faults", "faults",
+                                  "pipeline_faults"])
 def test_unported_paths_raise(jparams, what):
     cfg = port_cfg(tiny_cfg("dense"))
     params = port_params(tiny_cfg("dense"), jparams)
     with pytest.raises(NotImplementedError):
-        if what in ("async_gossip", "gossip"):
-            make_strategy(DiLoCoConfig(strategy=what))
-        elif what == "gossip_cli":
-            train.main(["--device", "cpu", "--method", "gossip",
-                        "--steps", "1", "--workers", "2"])
-        elif what == "streaming_faults":
+        if what == "streaming_faults":
             dcfg = DiLoCoConfig(num_workers=2, h_inner_steps=2,
                                 strategy="streaming", num_fragments=2)
             dt = DistTrainer(lambda p, b: lm_loss(p, b, cfg),
@@ -298,9 +291,6 @@ def test_unported_paths_raise(jparams, what):
         elif what == "pipeline_faults":
             train.run_pipeline(method="diloco", device="cpu",
                                fault_schedule="crash:1@2")
-        elif what == "pipeline_worker_speeds":
-            train.run_pipeline(method="diloco", device="cpu",
-                               worker_speeds=(1.0, 1.5))
         else:
             dt = _trainer(cfg)
             dt.run(dt.init(params), None, 1, faults=object())
@@ -318,10 +308,45 @@ def test_ddp_sync_rejects_multiple_workers(jparams):
 def test_unknown_strategy_is_a_value_error():
     from repro.core.sync import strategy_names as jax_strategy_names
     from repro_torch.core import strategy_names
-    from repro_torch.core.sync import UNPORTED
     with pytest.raises(ValueError, match="unknown strategy"):
         make_strategy(DiLoCoConfig(strategy="nope"))
     assert isinstance(make_strategy(DiLoCoConfig()), DiLoCoSync)
-    # the reference's registry, in its order, less the gossip strategies
-    assert strategy_names() + UNPORTED == jax_strategy_names()
-    assert UNPORTED == ("gossip", "async_gossip")
+    # the reference's registry, in its order
+    assert strategy_names() == jax_strategy_names()
+
+
+def test_train_cli_runs_gossip_on_cpu(capsys):
+    """``--method gossip --topology random --workers 4``: the three stages
+    under gossip, each round's records one per worker, the wire bytes
+    (int8 codes and the peers' f32 anchors and momentum) on each line."""
+    res = train.main(["--device", "cpu", "--method", "gossip",
+                      "--topology", "random", "--workers", "4", "--steps",
+                      "6", "--delta-dtype", "int8"])
+    out = capsys.readouterr().out
+    for stage in ("base", "mid", "sft"):
+        assert (f"[gossip:{stage}] tiny-nanochat device=cpu kernels=plain"
+                in out)
+        e = res["stages"][stage]
+        assert e["method"] == "gossip" and all(np.isfinite(e["losses"]))
+        assert set(e["port"]["wire_bytes"]) == {"int8", "f32"}
+    assert res["stages"]["base"]["port"]["syncs"] == 3
+    assert "comm_model" not in res
+
+
+def test_train_cli_worker_speeds_adds_the_comm_report(capsys):
+    """``--worker-speeds 1,1.5`` replays the base stage's schedule through
+    the comm simulator at its measured step seconds and prints the
+    modeled wall-clock beside the link it assumed."""
+    res = train.main(["--device", "cpu", "--steps", "3", "--workers", "2",
+                      "--worker-speeds", "1,1.5"])
+    out = capsys.readouterr().out
+    rep = res["comm_model"]
+    assert rep["worker_speeds"] == [1.0, 1.5]
+    assert rep["step_time_s"] == res["stages"]["base"]["step_seconds"]
+    assert rep["link_bytes_per_s"] == 12.5e9
+    assert (rep["heterogeneous"]["wall_clock_s"]
+            > rep["homogeneous"]["wall_clock_s"])
+    assert "[comm:diloco/float32] bytes=" in out and "link=1.25e+10B/s" in out
+    with pytest.raises(ValueError, match="one multiplier per worker"):
+        train.run_pipeline(method="diloco", device="cpu", workers=2,
+                           worker_speeds=(1.0, 1.5, 2.0))

@@ -169,6 +169,28 @@ yardstick.  Then phases, each fatal on failure:
    residual, boards); then ``comm_report`` for diloco (phase 6's base
    step), gossip and async gossip over worker speeds (1, 1, 1.5, 2) on
    Table 1's base stage (300 steps, H 100), beside the link it assumes;
+6d. the fault layer at phase 6c's shape (nanochat-d20, full width, vocab
+   512, K 4, per-worker batch 8, seq_len 128, H 2, int8 wire, fused
+   AdamW, remat on) through ``run_stage(faults=...)``: DiLoCo for 8 steps
+   under ``slow:3@1x1.5,crash:2@2,drop:1@3,corrupt:0@5x2,rejoin:2@6`` and
+   gossip (ring, cut to 10 layers for the script's time) for 4 under
+   ``crash:1@1,rejoin:1@2``; gates: the quorum
+   and sync records, the fault / quorum / sync / gossip records equal to
+   a tiny CPU run's, one rejoin record whose norm and cosine are within
+   1e-5 of float64 CPU copies of the pre-adoption state, the down worker
+   holding its parameters of the crash until its rejoin and its
+   optimizer state ``init`` after it, losses finite, the training and
+   wire kernels launched and no other, and each inner step with the
+   worker down launching 3/4 of an all-live step's training kernels;
+   step seconds and peak memory logged; at depth 2, bit for bit: an
+   empty schedule and a one-attempt drop == the fault-free run, one dead
+   worker of K 4 == the K 3 fleet of the others (f32 wire), kill@3 ->
+   resume == uninterrupted for DiLoCo, DDP, streaming and pipelined (the
+   last with a crash and a rejoin), and a ``min_quorum`` skip leaves the
+   anchor at its init (DiLoCo K 2, gossip K 4, then the skipped-round
+   adoption); then ``comm_report`` for diloco and gossip under a crash,
+   a rejoin and a twice-lost payload beside the fault-free report (an
+   empty schedule gives the fault-free report);
 7. time each kernel, its plain version and one PyTorch library call on
    the same inputs (CUDA events, L2 flushed before each launch) beside
    the least time the card could take
@@ -2959,6 +2981,465 @@ def gossip_state_runs(torch, tok, ds, opt_cfg):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6d: the fault layer
+# ---------------------------------------------------------------------------
+
+# the full-width faulted runs at Table 1's shape (phase 6c's): K 4,
+# per-worker batch 8, seq_len 128, H 2, the int8 wire, fused AdamW, remat
+# on; (path, method, layers, steps, schedule, gates: quorum, sync_steps).
+# Gossip runs at 10 layers: with it at 20 the script took 1008.2 s of its
+# 1200 on an H100 80GB HBM3 (PERF.md §6)
+FAULT_PLANS = (
+    ("faults_diloco", "diloco", 20, 8,
+     "slow:3@1x1.5,crash:2@2,drop:1@3,corrupt:0@5x2,rejoin:2@6",
+     [(1, 4), (3, 3), (5, 2), (7, 3)], [1, 3, 5, 7]),
+    ("faults_gossip", "gossip", 10, 4, "crash:1@1,rejoin:1@2",
+     [(1, 3), (3, 3)], [1, 3]))
+# the worker each plan takes down and brings back
+FAULT_WORKER = {"faults_diloco": 2, "faults_gossip": 1}
+# the rejoin drift on the card against float64 CPU copies of the state
+TOL_REJOIN = 1e-5
+# the bit-for-bit gates at depth 2 (full width, vocab 512), H 2
+FAULT_STATE_DEPTH = 2
+# kill -> resume: (path, DiLoCoConfig fields, K, schedule besides the kill)
+# (K 2: the checkpoints of a K 4 depth-2 state are ~4 GB each)
+FAULT_RESUME = (
+    ("diloco_int8", dict(strategy="diloco", delta_dtype="int8"), 2, ""),
+    ("ddp", dict(strategy="ddp", h_inner_steps=1, outer_lr=1.0,
+                 outer_momentum=0.0, nesterov=False), 1, ""),
+    ("streaming_f2_int8", dict(strategy="streaming", delta_dtype="int8",
+                               num_fragments=2), 2, ""),
+    ("pipelined_f2_delay1_int8", dict(strategy="pipelined",
+                                      delta_dtype="int8", num_fragments=2,
+                                      sync_delay=1), 2,
+     "crash:1@1,rejoin:1@4"))
+# the comm report under faults: Table 1's base stage (300 steps, H 100,
+# int8, K 4) with the straggler (worker 3, speed 2) down from step 40 to
+# the round after 160 and a payload lost twice
+FAULT_REPORT_SPEC = "crash:3@40,rejoin:3@160,drop:2@199x2"
+
+
+def rejoin_drift_cpu64(torch, worker_params, global_params, live, w,
+                       snap):
+    """``drift.rejoin_drift`` recomputed on float64 CPU copies, one leaf at
+    a time: the delta norm of worker ``w`` and its cosine to the live
+    workers' mean delta (the mean of the live parameters minus the
+    anchor).  Also whether worker ``w`` still holds ``snap`` (its
+    parameters at its crash, on the host) bit for bit."""
+    rows = [i for i, keep in enumerate(live) if keep]
+    sq_w = dot = sq_m = 0.0
+    held = snap is not None
+    for k, g in global_params.items():
+        g = g.cpu().double().reshape(-1)
+        m = torch.zeros_like(g)
+        for i in rows:
+            m += worker_params[i][k].cpu().reshape(-1)
+        m /= len(rows)
+        m -= g
+        row = worker_params[w][k].cpu()
+        held = held and torch.equal(row, snap[k])
+        dw = row.double().reshape(-1) - g
+        sq_w += float(torch.dot(dw, dw))
+        dot += float(torch.dot(dw, m))
+        sq_m += float(torch.dot(m, m))
+        del g, m, row, dw
+    norm = math.sqrt(sq_w)
+    return (norm, dot / (norm * math.sqrt(sq_m) + 1e-12)), held
+
+
+class _FaultProbe:
+    """Wraps, for one run, the inner step (per step: its live set, the
+    training kernels' launches and its seconds between two device
+    synchronisations; the down worker's parameters at its first dead
+    step, on the host, copied outside the timing), the rejoin drift (the
+    card's value beside float64 CPU copies, and whether the down worker
+    still holds its parameters of the crash) and ``DistTrainer.run`` (its
+    final state).  ``close`` restores all three."""
+
+    def __init__(self, torch, worker):
+        from repro_torch.core import diloco, dist_trainer, sync
+        from repro_torch.kernels import launches
+        self.torch, self.worker = torch, worker
+        self.steps, self.rejoins, self.snap, self.state = [], [], None, None
+        self._saved = [(diloco.DiLoCoTrainer, "inner_step",
+                        diloco.DiLoCoTrainer.inner_step),
+                       (sync, "rejoin_drift", sync.rejoin_drift),
+                       (dist_trainer.DistTrainer, "run",
+                        dist_trainer.DistTrainer.run)]
+        inner, drift_fn, run = (f for _, _, f in self._saved)
+        probe = self
+
+        def inner_step(eng, state, batches, live=None):
+            if (live is not None and not live[worker]
+                    and probe.snap is None):
+                probe.snap = {k: t.cpu().clone() for k, t in
+                              state.worker_params[worker].items()}
+            before = {k: launches[k] for k in TRAIN_KERNELS}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(eng, state, batches, live=live)
+            torch.cuda.synchronize()
+            probe.steps.append((live, {k: launches[k] - before[k]
+                                       for k in TRAIN_KERNELS},
+                                time.perf_counter() - t0))
+            return out
+
+        def rejoin_drift(worker_params, global_params, live, w):
+            got = drift_fn(worker_params, global_params, live, w)
+            ref, held = rejoin_drift_cpu64(torch, worker_params,
+                                           global_params, live, w,
+                                           probe.snap)
+            probe.rejoins.append((w, got, ref, held))
+            return got
+
+        def run_keep(dt, *a, **kw):
+            probe.state, hist = run(dt, *a, **kw)
+            return probe.state, hist
+
+        diloco.DiLoCoTrainer.inner_step = inner_step
+        sync.rejoin_drift = rejoin_drift
+        dist_trainer.DistTrainer.run = run_keep
+
+    def close(self):
+        for owner, name, f in self._saved:
+            setattr(owner, name, f)
+
+
+def phase_faults(torch, diloco_step_s, gossip_step_s):
+    """The fault layer (``FAULT_PLANS``) at full width through
+    ``run_stage(faults=...)``, each from fresh parameters with launch
+    counts reset just before the run: DiLoCo with a slowdown, a crash, a
+    dropped and a twice-corrupted payload and a rejoin; gossip on the
+    ring (at 10 layers) with a worker down in round 1 and back in round
+    3.  Gates: the
+    quorum and sync records, the ``fault``, ``quorum``, ``sync_steps``,
+    ``gossip_syncs`` records and the rejoin's (step, worker) equal to the
+    same schedule's on the CPU (a tiny model); one rejoin record, its norm
+    and cosine within ``TOL_REJOIN`` of float64 CPU copies of the
+    pre-adoption state; the down worker holding its parameters of the
+    crash until then; its optimizer state ``init`` after the run; losses
+    finite; the training and wire kernels launched and no other; each
+    inner step with the worker down launching 3/4 of an all-live step's
+    training kernels.  Step seconds and peak memory logged.  Then the
+    depth-2 gates (``fault_state_runs``) and the comm report under
+    ``FAULT_REPORT_SPEC`` beside the fault-free one."""
+    from repro_torch.configs import DiLoCoConfig, OptimizerConfig
+    from repro_torch.core import FaultSchedule
+    from repro_torch.kernels import KERNELS, launches, reset_launches
+    from repro_torch.launch.train import (build_pipeline, comm_report,
+                                          make_model, run_stage)
+    from repro_torch.checkpoint.checkpoint import _leaves
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import flatten
+    from repro_torch.optim import nanochat_optimizer
+    _, tok, stages, _ = build_pipeline(seq_len=GOSSIP_SEQ)
+    ds = stages["base"]
+    full = make_model("nanochat-d20", False, tok.vocab_size)
+    tiny = make_model("tiny", True, tok.vocab_size)
+    opt_cfg = OptimizerConfig(total_steps=8, warmup_steps=1,
+                              learning_rate=0.02, adam_lr=1e-3,
+                              fused_adamw=True)
+    K = GOSSIP_KW["workers"]
+    out = {"runs": {}}
+    for path, method, layers, steps, spec, quorum, sync_steps in \
+            FAULT_PLANS:
+        t_path = time.perf_counter()
+        down = FAULT_WORKER[path]
+        dcfg = DiLoCoConfig(delta_dtype="int8")
+        cfg = full.with_(num_layers=layers)
+        params = init_params(cfg, seed=0, device="cuda")
+        n_params = sum(p.numel() for p in flatten(params).values())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        probe = _FaultProbe(torch, down)
+        try:
+            t0 = time.perf_counter()
+            _, hist = run_stage(method, cfg, params, ds, steps=steps,
+                                opt_cfg=opt_cfg, diloco_cfg=dcfg, seed=0,
+                                faults=FaultSchedule.from_spec(spec),
+                                **GOSSIP_KW)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            probe.close()
+        counts = {k: launches[k] for k in KERNELS}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        state = probe.state
+        init = nanochat_optimizer(opt_cfg).init(state.worker_params[down])
+        opt_fresh = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            _leaves(state.inner_opt[down]), _leaves(init)))
+        del state, init, params
+        probe.state = None
+        torch.cuda.empty_cache()
+        _, cpu = run_stage(method, tiny, init_params(tiny, seed=0,
+                                                     device="cpu"),
+                           ds, steps=steps, opt_cfg=opt_cfg, diloco_cfg=dcfg,
+                           seed=0, faults=FaultSchedule.from_spec(spec),
+                           **dict(GOSSIP_KW, per_worker_batch=1))
+        live_steps = [c for live, c, _ in probe.steps if live is None]
+        dead_steps = [c for live, c, _ in probe.steps
+                      if live is not None and not live[down]]
+        # the first step pays the run's first launches: left out
+        live_s = sorted(t for live, _, t in probe.steps[1:] if live is None)
+        dead_s = sorted(t for live, _, t in probe.steps
+                        if live is not None and not live[down])
+        inner_s = {"all_live": live_s[len(live_s) // 2] if live_s else None,
+                   "worker_down": dead_s[len(dead_s) // 2]
+                   if dead_s else None}
+        three_quarters = bool(live_steps and dead_steps) and all(
+            4 * c[k] == 3 * live_steps[0][k]
+            for c in dead_steps for k in TRAIN_KERNELS) and all(
+            c == live_steps[0] for c in live_steps)
+        losses = hist["loss"]
+        rejoin = hist.get("rejoin_drift", [])
+        rel = [max(abs(got[i] - ref[i]) / max(abs(ref[i]), 1e-30)
+                   for i in (0, 1)) for _, got, ref, _ in probe.rejoins]
+        run = {"method": method, "schedule": spec, "layers": layers,
+               "n_params": n_params,
+               "loss": losses,
+               "quorum": hist["quorum"], "sync_steps": hist["sync_steps"],
+               "fault": hist["fault"], "rejoin_drift": rejoin,
+               "rejoin_drift_cpu64": [ref for _, _, ref, _ in
+                                      probe.rejoins],
+               "rejoin_drift_rel_err": rel,
+               "held_params_of_the_crash": [h for *_, h in probe.rejoins],
+               "optimizer_state_is_init": opt_fresh,
+               "inner_step_launches_all_live": live_steps[:1],
+               "inner_step_launches_worker_down": dead_steps[:1],
+               "inner_step_s": inner_s,
+               "step_seconds": hist["step_seconds"], "wall_s": wall,
+               "peak_memory_gb": peak, "launches": counts}
+        if method == "gossip":
+            run["gossip_syncs"] = hist["gossip_syncs"]
+        log(f"  run_stage({method!r}, faults={spec!r}), {layers} layers, K "
+            f"{K}, "
+            f"int8: losses {[round(x, 4) for x in losses]}, quorum "
+            f"{hist['quorum']}, syncs {hist['sync_steps']}, fault "
+            f"{hist['fault']}, rejoin_drift {rejoin} (float64 CPU "
+            f"{run['rejoin_drift_cpu64']}, worst rel {rel}), worker {down} "
+            f"held its parameters of the crash: "
+            f"{run['held_params_of_the_crash']}, optimizer state == init "
+            f"after the rejoin: {opt_fresh}; inner-step launches all live "
+            f"{live_steps[:1]}, worker {down} down {dead_steps[:1]}; inner "
+            f"step (median, synchronised) all live {inner_s['all_live']} s, "
+            f"worker {down} down {inner_s['worker_down']} s; step_seconds "
+            f"{hist['step_seconds']:.3f} s (the rejoin probe's float64 "
+            f"copies in its chunk), wall {wall:.2f} s, peak "
+            f"{peak:.2f} GB; launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        check(all(math.isfinite(x) for x in losses),
+              f"{path}: non-finite loss")
+        check(hist["quorum"] == quorum and hist["sync_steps"] == sync_steps,
+              f"{path}: quorum {hist['quorum']} / syncs "
+              f"{hist['sync_steps']} != {quorum} / {sync_steps}")
+        for key in ("fault", "quorum", "sync_steps", "gossip_syncs"):
+            check(hist.get(key) == cpu.get(key), f"{path}: {key} records "
+                  f"{hist.get(key)} != the CPU run's {cpu.get(key)}")
+        check(len(rejoin) == 1 and [r[:2] for r in rejoin]
+              == [r[:2] for r in cpu["rejoin_drift"]]
+              and all(math.isfinite(x) for x in rejoin[0][2:]),
+              f"{path}: rejoin records {rejoin} (CPU "
+              f"{cpu.get('rejoin_drift')})")
+        check(len(rel) == 1 and rel[0] <= TOL_REJOIN,
+              f"{path}: the rejoin drift on the card is {rel} off float64 "
+              f"CPU copies (rtol {TOL_REJOIN})")
+        check(run["held_params_of_the_crash"] == [True],
+              f"{path}: worker {down} moved while it was down")
+        check(opt_fresh, f"{path}: worker {down}'s optimizer state is not "
+              f"init after its rejoin")
+        check(three_quarters, f"{path}: inner steps with worker {down} down "
+              f"did not launch 3/4 of an all-live step's training kernels "
+              f"({dead_steps[:1]} vs {live_steps[:1]})")
+        for k in TRAIN_KERNELS + WIRE_KERNELS:
+            check(counts[k] > 0, f"{path}: kernel {k} never launched on "
+                  f"the main path")
+        for k in GOSSIP_IDLE:
+            check(counts[k] == 0, f"{path}: kernel {k} launched off its "
+                  f"path")
+        out["runs"][path] = run
+        run["seconds"] = time.perf_counter() - t_path
+        log(f"  {path}: {run['seconds']:.1f} s")
+    t0 = time.perf_counter()
+    out["state"] = fault_state_runs(torch, tok, ds, opt_cfg)
+    out["state_seconds"] = time.perf_counter() - t0
+    log(f"  faults at depth {FAULT_STATE_DEPTH}: {out['state_seconds']:.1f}"
+        f" s")
+    n_params = out["runs"]["faults_diloco"]["n_params"]
+    reports = {}
+    for method, step_s in (("diloco", diloco_step_s),
+                           ("gossip", gossip_step_s)):
+        dcfg = DiLoCoConfig(num_workers=K, delta_dtype="int8")
+        args = (dcfg, method, n_params, GOSSIP_REPORT["steps"],
+                GOSSIP_REPORT["h"], step_s, GOSSIP_SPEEDS)
+        free = comm_report(*args)
+        empty = comm_report(*args, faults=FaultSchedule())
+        faulted = comm_report(*args, faults=FaultSchedule.from_spec(
+            FAULT_REPORT_SPEC))
+        reports[method] = {"fault_free": free, "faulted": faulted}
+        het, fhet = free["heterogeneous"], faulted["heterogeneous"]
+        pair = ""
+        if "gossip" in free:
+            pair = (f"; pair barriers {free['gossip']['wall_clock_s']:.4f} "
+                    f"-> {faulted['gossip']['wall_clock_s']:.4f} s")
+        log(f"  comm_report {method} (int8, K {K}, {GOSSIP_REPORT}, step "
+            f"{step_s:.4f} s, speeds {GOSSIP_SPEEDS}, link "
+            f"{free['link_bytes_per_s']:.4g} B/s): "
+            f"fault-free {het['wall_clock_s']:.4f} s, "
+            f"{het['total_bytes']:.0f} bytes a worker; under "
+            f"{FAULT_REPORT_SPEC!r}: {fhet['wall_clock_s']:.4f} s, "
+            f"{fhet['total_bytes']:.0f} bytes, retry "
+            f"{fhet.get('retry_bytes')} bytes" + pair)
+        check(empty == free, f"comm_report {method}: an empty schedule "
+              f"changed the report")
+        check(fhet.get("retry_bytes", 0) > 0 and fhet != het,
+              f"comm_report {method}: the fault overlay changed nothing")
+    out["comm_report"] = reports
+    out["launches"] = {p: r["launches"] for p, r in out["runs"].items()}
+    return out
+
+
+def fault_state_runs(torch, tok, ds, opt_cfg):
+    """Depth ``FAULT_STATE_DEPTH``, full width (vocab 512), H 2, batches of
+    8 x 128 tokens a worker, through ``DistTrainer``, bit for bit: an
+    empty schedule and ``drop:1@3`` (one attempt) against the fault-free
+    DiLoCo run (K 4, int8, state and residual); K 4 with worker 3 dead
+    from step 0 (f32 wire) against K 3 on workers 0-2's batches (losses,
+    anchor, momentum, the live rows' parameters and optimizer states);
+    ``kill@3`` with a checkpoint every 2 steps, then ``resume`` (writing
+    none), against the uninterrupted run for each of ``FAULT_RESUME``
+    (state, residual, losses, records); and ``min_quorum`` K with worker
+    1 down from step 0, which skips every round of 4 steps and leaves the
+    anchor at its init, for DiLoCo (K 2) and gossip (K 4: at K 2 gossip
+    binds the DiLoCo runner), then with ``rejoin:1@2`` the skipped-round
+    adoption and a full round at step 5 (records)."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import list_run_checkpoints
+    from repro_torch.configs import DiLoCoConfig
+    from repro_torch.core import (DistTrainer, FaultSchedule, SimulatedCrash,
+                                  make_strategy)
+    from repro_torch.launch.train import make_model
+    from repro_torch.models import init_params, lm_loss
+    from repro_torch.models.transformer import flatten
+    cfg = make_model("nanochat-d20", False, tok.vocab_size).with_(
+        num_layers=FAULT_STATE_DEPTH)
+    params = init_params(cfg, seed=0, device="cuda")
+    B = GOSSIP_KW["per_worker_batch"]
+
+    def data(k, rows=None):
+        if k == 1:
+            return lambda s: {n: v[None] for n, v in
+                              ds.batch(s, 4 * B).items()}
+        return lambda s: {n: v[:rows] for n, v in
+                          ds.worker_batches(s, k, B).items()}
+
+    def run(dcfg, steps, rows=None, spec=None, **kw):
+        keep = _KeepRunner(make_strategy(dcfg))
+        dt = DistTrainer(lambda p, b: lm_loss(p, b, cfg), opt_cfg, dcfg,
+                         keep)
+        state, hist = dt.run(
+            dt.init(params), data(dcfg.num_workers if rows is None else 4,
+                                  rows), steps,
+            faults=None if spec is None else FaultSchedule.from_spec(spec),
+            **kw)
+        return state, getattr(keep.runner, "residual", None), hist
+
+    def same(a, b, keys=("loss", "sync_steps", "frag_syncs")):
+        return (tree_bits_equal(torch, a[0], b[0])
+                and ((a[1] is None and b[1] is None)
+                     or tree_bits_equal(torch, a[1], b[1]))
+                and all(a[2].get(k) == b[2].get(k) for k in keys))
+
+    out = {}
+    k4 = DiLoCoConfig(num_workers=4, h_inner_steps=GOSSIP_KW["h"],
+                      delta_dtype="int8")
+    base = run(k4, 4)
+    for name, spec in (("empty", ""), ("drop_one_attempt", "drop:1@3")):
+        got = run(k4, 4, spec=spec)
+        out[name] = same(base, got)
+        log(f"  DiLoCo K 4 int8, schedule {spec!r} == no schedule, bit for "
+            f"bit: {out[name]}; quorum {got[2].get('quorum')}")
+        check(out[name], f"schedule {spec!r} changed the fault-free run")
+        del got
+    del base
+    f32 = dataclasses.replace(k4, delta_dtype="float32")
+    a = run(f32, 4, rows=4, spec="crash:3@0")
+    b = run(dataclasses.replace(f32, num_workers=3), 4, rows=3)
+    sa, sb = a[0], b[0]
+    out["one_dead_is_k3"] = (
+        a[2]["loss"] == b[2]["loss"]
+        and tree_bits_equal(torch, sa.global_params, sb.global_params)
+        and tree_bits_equal(torch, sa.outer.v, sb.outer.v)
+        and tree_bits_equal(torch, sa.worker_params[:3], sb.worker_params)
+        and tree_bits_equal(torch, sa.inner_opt[:3], sb.inner_opt)
+        and tree_bits_equal(torch, sa.worker_params[3], flatten(params)))
+    log(f"  DiLoCo K 4 f32 with worker 3 dead from step 0 == K 3 on workers "
+        f"0-2's batches (losses, anchor, momentum, live rows; the dead row "
+        f"at init), bit for bit: {out['one_dead_is_k3']}; quorum "
+        f"{a[2]['quorum']}")
+    check(out["one_dead_is_k3"], "one dead worker differs from the K 3 "
+          "fleet of the others")
+    del a, b, sa, sb
+    root = ROOT / "build"
+    root.mkdir(exist_ok=True)
+    for path, dkw, k, spec in FAULT_RESUME:
+        dcfg = DiLoCoConfig(num_workers=k, **{"h_inner_steps":
+                                              GOSSIP_KW["h"], **dkw})
+        d = tempfile.mkdtemp(prefix="fault_resume_", dir=root)
+        t0 = time.perf_counter()
+        try:
+            want = run(dcfg, 6, spec=spec or None)
+            killed = None
+            try:
+                run(dcfg, 6, spec=",".join(x for x in (spec, "kill@3") if x),
+                    checkpoint_dir=d, checkpoint_every=2)
+            except SimulatedCrash as e:
+                killed = str(e)
+            written = [st for st, _ in list_run_checkpoints(d)]
+            got = run(dcfg, 6, spec=spec or None, checkpoint_dir=d,
+                      resume=True)
+            ok = killed is not None and bool(written) and same(
+                want, got, ("loss", "sync_steps", "frag_syncs", "fault",
+                            "quorum", "rejoin_drift"))
+            out[f"resume_{path}"] = {"killed": killed, "checkpoints":
+                                     written, "bits_equal": ok}
+            log(f"  {path} K {k} {spec!r}: kill@3 ({killed}), checkpoints "
+                f"{written}, resumed == uninterrupted bit for bit: {ok}; "
+                f"{time.perf_counter() - t0:.1f} s")
+            check(ok, f"{path}: kill -> resume differs from the "
+                  f"uninterrupted run")
+            del want, got
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+    init = flatten(params)
+    for strategy, k in (("diloco", 2), ("gossip", 4)):
+        dcfg = DiLoCoConfig(num_workers=k, h_inner_steps=GOSSIP_KW["h"],
+                            strategy=strategy)
+        st, _, hist = run(dcfg, 4, spec="crash:1@0", min_quorum=k)
+        skipped = (hist["sync_steps"] == [] and hist["quorum_skip"]
+                   == [1, 3] and tree_bits_equal(torch, st.global_params,
+                                                 init))
+        _, _, hist2 = run(dcfg, 6, spec="crash:1@0,rejoin:1@2", min_quorum=k)
+        adopted = (hist2["quorum_skip"] == [1, 3]
+                   and hist2["sync_steps"] == [5]
+                   and [r[:2] for r in hist2["rejoin_drift"]] == [(3, 1)])
+        out[f"min_quorum_{strategy}"] = {"skipped_at_init": skipped,
+                                         "rejoin_adopted": adopted}
+        log(f"  {strategy} K {k}, min_quorum {k}, crash:1@0: every round "
+            f"skipped, anchor at init bit for bit: {skipped}; with "
+            f"rejoin:1@2: skips {hist2['quorum_skip']}, syncs "
+            f"{hist2['sync_steps']}, rejoin {hist2['rejoin_drift']}: "
+            f"{adopted}")
+        check(skipped and adopted, f"{strategy}: the min_quorum skip or "
+              f"the skipped-round adoption went wrong")
+        del st
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: timing
 # ---------------------------------------------------------------------------
 
@@ -3769,6 +4250,16 @@ def main(argv=None) -> int:
             torch, pipeline["diloco"]["stages"]["base"]["step_seconds"])
         lap("6c gossip")
 
+        log("[6d/7] the fault layer, nanochat-d20 at full width, K 4, int8 "
+            "wire: DiLoCo and gossip through crash, rejoin, dropped "
+            "payloads; bit-for-bit gates at depth 2; the comm report under "
+            "faults")
+        faults = report["faults"] = phase_faults(
+            torch, pipeline["diloco"]["stages"]["base"]["step_seconds"],
+            min(gossip["runs"][p]["step_seconds"]
+                for p in ("gossip", "gossip_random")))
+        lap("6d faults")
+
         log("[7/7] kernel timing")
         paths = {name: run["launches"] for name, run in runs.items()}
         paths.update({m: run["launches"] for m, run in train.items()})
@@ -3779,6 +4270,7 @@ def main(argv=None) -> int:
         paths.update({f"state_{n}": c
                       for n, c in state["launches"].items()})
         paths.update(gossip["launches"])
+        paths.update(faults["launches"])
         floor = report["floor_ms"] = time_ms(
             torch, lambda: torch.cuda._sleep(0))
         kernels = phase_timing(torch, paths, checks)
@@ -3866,11 +4358,25 @@ def main(argv=None) -> int:
                             "step_time_s": r["step_time_s"],
                             "link_bytes_per_s": r["link_bytes_per_s"]}
                         for m, r in gossip["comm_report"].items()}}
+    faults_summary = {
+        "runs": {p: {key: v[key] for key in (
+            "schedule", "loss", "quorum", "rejoin_drift",
+            "rejoin_drift_rel_err", "layers", "inner_step_s", "step_seconds",
+            "peak_memory_gb", "seconds",
+            "inner_step_launches_all_live",
+            "inner_step_launches_worker_down")}
+            for p, v in faults["runs"].items()},
+        "state": faults["state"], "state_seconds": faults["state_seconds"],
+        "comm_report": {m: {f"{kind}_{key}": r[kind]["heterogeneous"][key]
+                            for kind in ("fault_free", "faulted")
+                            for key in ("wall_clock_s", "total_bytes",
+                                        "retry_bytes")}
+                        for m, r in faults["comm_report"].items()}}
     print(json.dumps({"engine": summary, "capacity": capacity,
                       "train": train_summary, "static": static_summary,
                       "pipeline": pipeline_summary, "state": state_summary,
-                      "gossip": gossip_summary, "phase_s": phase_s,
-                      "floor_ms": floor}))
+                      "gossip": gossip_summary, "faults": faults_summary,
+                      "phase_s": phase_s, "floor_ms": floor}))
     print(json.dumps({"split_timing": report["split_timing"]}))
     print(report["gpu"])
     print(json.dumps({"kernels": kernels}))

@@ -23,13 +23,20 @@ per-worker error-feedback residual (``init_residual``) that the sync
 runner holds beside the state.  The anchor and the outer momentum are
 updated in place too.
 
+The fault layer's rounds are the same ``sync`` under (K,) masks of the
+``core/faults.py`` tracker: only contributors ship and are averaged,
+adopters take the anchor, rejoiners take it with a fresh optimizer state
+and a zero residual, the dead keep their bits (``outer_step_quorum``,
+``adopt_anchor``); a dead worker is not stepped (``inner_step(live=)``).
+
 The DDP baseline (``core/ddp.py``, and ``DDPSync`` in ``core/sync.py``) is
 the same inner step with K = 1 on the global batch.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import torch
 
@@ -101,14 +108,24 @@ class DiLoCoTrainer:
             inner_step=torch.zeros((), dtype=torch.int32, device=device))
 
     # -- inner step ----------------------------------------------------------
-    def inner_step(self, state: DiLoCoState, batches: Dict[str, torch.Tensor]
+    def inner_step(self, state: DiLoCoState, batches: Dict[str, torch.Tensor],
+                   live: Optional[Sequence[bool]] = None
                    ) -> Tuple[DiLoCoState, torch.Tensor]:
         """batches: tensors with a leading (K, ...) worker dim.  Runs the
         workers one after another; returns (state, (K,) losses on the
-        device)."""
+        device).  ``live`` (a (K,) mask; None: every worker) leaves the
+        dead workers out: they are not stepped, so their parameters and
+        optimizer states keep their bits (the reference computes their
+        step and discards it, the same state), and their loss entries are
+        NaN.  The shared step counter advances either way."""
         opt = self._inner_opt()
         new_opt, losses = [], []
         for w, params in enumerate(state.worker_params):
+            if live is not None and not live[w]:
+                new_opt.append(state.inner_opt[w])
+                losses.append(torch.full((), float("nan"),
+                                         device=state.inner_step.device))
+                continue
             batch = {k: v[w] for k, v in batches.items()}
             opt_state, loss = worker_step(self.loss_fn, opt, params,
                                           state.inner_opt[w], batch,
@@ -134,7 +151,10 @@ class DiLoCoTrainer:
     @torch.no_grad()
     def sync(self, state: DiLoCoState, residual: Optional[Flat] = None, *,
              frag: Optional[Fragment] = None,
-             snapshot: Optional[List[Flat]] = None, fragment: int = -1
+             snapshot: Optional[List[Flat]] = None, fragment: int = -1,
+             contrib: Optional[Sequence[bool]] = None,
+             adopt: Optional[Sequence[bool]] = None,
+             reset: Optional[Sequence[bool]] = None
              ) -> Tuple[DiLoCoState, Optional[Flat]]:
         """One outer round through the codec transport.
 
@@ -147,7 +167,15 @@ class DiLoCoTrainer:
         since: worker = new anchor + (worker − snapshot).  Without a
         snapshot the workers take the new anchor (their inner optimizer
         states stay per worker, paper §3).  The anchor, momentum, residual
-        and workers are updated in place.  Returns (state, residual)."""
+        and workers are updated in place.  Returns (state, residual).
+
+        A quorum round (the fault layer) passes three (K,) masks:
+        ``contrib`` rows ship and enter the average (the rest keep their
+        residual rows); ``adopt`` rows take the round as above; ``reset``
+        rows (rejoiners) take the WHOLE new anchor, every leaf, with a
+        fresh inner optimizer state and a zero residual; rows in none
+        pass through frozen.  With every mask all-true this is the
+        unmasked round, bit for bit."""
         gp, v = state.global_params, state.outer.v
         sel = ({k: slice(None) for k in gp} if frag is None else
                {k: sl for k, sl in frag.items() if sl is not None})
@@ -159,7 +187,8 @@ class DiLoCoTrainer:
             {k: v[k][sl] for k, sl in sel.items()}, self.cfg,
             None if residual is None else
             {k: residual[k][:, sl] for k, sl in sel.items()},
-            kind="delta" if frag is None else "fragment", fragment=fragment)
+            kind="delta" if frag is None else "fragment", fragment=fragment,
+            contrib=contrib)
         if frag is not None:
             mu = self.cfg.outer_momentum
             for k, vk in v.items():
@@ -170,6 +199,8 @@ class DiLoCoTrainer:
                     vk[:sl.start].mul_(mu)
                     vk[sl.stop:].mul_(mu)
         for i, params in enumerate(state.worker_params):
+            if adopt is not None and not adopt[i]:
+                continue
             for k, sl in sel.items():
                 w = params[k][sl]
                 if snapshot is None:
@@ -177,8 +208,38 @@ class DiLoCoTrainer:
                 else:
                     w.copy_(gp[k][sl].float()
                             + (w.float() - snapshot[i][k].float()))
+        if reset is not None and any(reset):
+            state = self._reset_rows(state, residual, reset)
         return (state._replace(outer=state.outer._replace(
             t=state.outer.t + 1)), residual)
+
+    def _reset_rows(self, state: DiLoCoState, residual: Optional[Flat],
+                    reset: Sequence[bool]) -> DiLoCoState:
+        """Rejoiners: ``reset`` rows take the whole current anchor, a
+        fresh inner optimizer state (``init`` of their new parameters: the
+        reference zeroes the moments, which start at zero) and a zero
+        error-feedback residual, in place."""
+        gp = state.global_params
+        for i, params in enumerate(state.worker_params):
+            if not reset[i]:
+                continue
+            for k, w in params.items():
+                w.copy_(gp[k])
+            if residual is not None:
+                for r in residual.values():
+                    r[i].zero_()
+        return self.init_inner(state, reset)
+
+    def init_inner(self, state: DiLoCoState,
+                   rows: Sequence[bool]) -> DiLoCoState:
+        """A fresh inner optimizer state (``init`` of the current
+        parameters) for each worker that ``rows`` marks."""
+        if not any(rows):
+            return state
+        opt = self._inner_opt()
+        return state._replace(inner_opt=[
+            opt.init(state.worker_params[i]) if r else o
+            for i, (r, o) in enumerate(zip(rows, state.inner_opt))])
 
     def outer_step_ef(self, state: DiLoCoState,
                       residual: Optional[Flat] = None
@@ -189,3 +250,24 @@ class DiLoCoTrainer:
 
     def outer_step(self, state: DiLoCoState) -> DiLoCoState:
         return self.outer_step_ef(state)[0]
+
+    # -- quorum outer step + elastic rejoin (the fault layer) ---------------
+    def outer_step_quorum(self, state: DiLoCoState, residual: Optional[Flat],
+                          contrib: Sequence[bool], adopt: Sequence[bool],
+                          reset: Sequence[bool]
+                          ) -> Tuple[DiLoCoState, Optional[Flat]]:
+        """``outer_step_ef`` under the quorum masks of ``sync``: ``contrib``
+        rows are averaged, ``adopt`` rows take the new anchor and keep
+        their inner optimizer state, ``reset`` rows take it with a fresh
+        optimizer state and residual, dead rows pass through frozen."""
+        return self.sync(state, residual, contrib=contrib, adopt=adopt,
+                         reset=reset)
+
+    @torch.no_grad()
+    def adopt_anchor(self, state: DiLoCoState, residual: Optional[Flat],
+                     reset: Sequence[bool]
+                     ) -> Tuple[DiLoCoState, Optional[Flat]]:
+        """Rejoin without a round (quorum skipped): ``reset`` rows adopt
+        the CURRENT anchor with a fresh inner optimizer state and a zero
+        residual; the anchor and the outer momentum are untouched."""
+        return self._reset_rows(state, residual, reset), residual

@@ -1,5 +1,5 @@
 """The distributed-training loop (the JAX package's
-``core/dist_trainer.py``, without faults).
+``core/dist_trainer.py``).
 
     trainer = DistTrainer(loss_fn, opt_cfg, dcfg, DiLoCoSync())
     state = trainer.init(params)
@@ -35,7 +35,18 @@ starts at its step.
 The state passed to ``run`` is updated in place (worker parameters and
 optimizer states) and returned; make a fresh one with ``init`` per run.
 A resume loads into fresh tensors, never into ones another run holds.
-The fault layer's kill route is not ported (faults raise).
+
+Faults.  ``faults`` (a ``core.faults.FaultSchedule``) scripts per-worker
+crash / rejoin / slow / drop / corrupt events and run-level kills.  A
+``FleetTracker`` follows it: every chunk starts with ``begin_chunk``
+(crashes fire, their records are kept) and ends before the next crash
+and at a kill (``chunk_limit``); while a worker is down the inner steps
+skip it (``DiLoCoTrainer.inner_step(live=)``) and the recorded loss is
+the live workers' mean; the runner (``bind_faults``, only when the
+schedule has worker events, so a kill-only schedule runs the fault-free
+code) runs quorum rounds.  A kill raises ``SimulatedCrash`` after its
+step's due checkpoint is written; a resume fast-forwards the tracker
+(``catch_up``).
 """
 from __future__ import annotations
 
@@ -51,6 +62,8 @@ from repro_torch.checkpoint.checkpoint import (latest_run_checkpoint,
                                               save_run_checkpoint)
 from repro_torch.configs.base import DiLoCoConfig, OptimizerConfig
 from repro_torch.core.diloco import DiLoCoState
+from repro_torch.core.faults import (FaultSchedule, FleetTracker,
+                                     SimulatedCrash)
 from repro_torch.core.streaming import StreamingDiLoCoTrainer
 from repro_torch.core.sync import SyncStrategy
 from repro_torch.data.pipeline import Prefetcher, stack_batches
@@ -72,6 +85,13 @@ def _host_mean(row: np.ndarray) -> float:
     for x in row[1:]:
         acc = acc + x
     return float(acc / row.dtype.type(len(row)))
+
+
+def _host_mean_live(row: np.ndarray, live) -> float:
+    """``_host_mean`` over the live workers' entries only (a dead worker
+    was not stepped; its entry is NaN), in the same index order."""
+    idx = [w for w, keep in enumerate(live) if keep]
+    return _host_mean(row[idx]) if idx else float("nan")
 
 
 def _history_from_json(v):
@@ -105,7 +125,8 @@ class DistTrainer:
     def run(self, state: DiLoCoState, data_fn, num_steps: int,
             record_every: int = 1, eval_fn: Optional[Callable] = None,
             eval_every: int = 0, *, chunked: bool = True, prefetch: int = 0,
-            max_chunk: int = MAX_CHUNK, faults=None,
+            max_chunk: int = MAX_CHUNK,
+            faults: Optional[FaultSchedule] = None, min_quorum: int = 1,
             checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
             resume: bool = False) -> Tuple[DiLoCoState, Dict]:
         """data_fn(step) -> per-worker-stacked batch {name: (K, B, S)}
@@ -121,23 +142,34 @@ class DistTrainer:
         boundaries (deferred while a snapshot is in flight); ``resume``
         restores the latest complete one (state, runner extras, history,
         data cursor) into fresh tensors and continues bit for bit as the
-        uninterrupted run would."""
-        if faults is not None and not getattr(faults, "empty", False):
-            raise NotImplementedError("fault injection is not ported")
+        uninterrupted run would.  ``faults`` scripts failures (module
+        docstring); a round proceeds with the surviving workers while at
+        least ``min_quorum`` contribute and is skipped below it."""
+        has_faults = faults is not None and not faults.empty
         if not chunked and prefetch > 0:
             raise ValueError(
                 "prefetch requires the chunked loop (chunked=True): the "
                 "per-step loop assembles batches synchronously and would "
                 "silently ignore it")
-        if not chunked and (checkpoint_dir or resume):
+        if not chunked and (has_faults or checkpoint_dir or resume):
             raise ValueError(
-                "checkpointing / resume require the chunked loop "
-                "(chunked=True): the per-step loop has no chunk boundaries "
-                "to anchor them to")
+                "fault injection / checkpointing / resume require the "
+                "chunked loop (chunked=True): the per-step loop has no "
+                "chunk boundaries to anchor them to")
         if resume and not checkpoint_dir:
             raise ValueError("resume=True requires checkpoint_dir")
         eng = self.engine()
         runner = self.strategy.bind(eng, state.global_params)
+        tracker = None
+        if has_faults:
+            faults.validate(self.cfg.num_workers)
+            tracker = FleetTracker(faults, self.cfg.num_workers,
+                                   min_quorum=min_quorum)
+            if faults.worker_events():
+                # quorum rounds; raises for runners without fault support.
+                # A kill-only schedule leaves the runner unbound, so it
+                # runs the fault-free code
+                runner.bind_faults(tracker)
         device = state.inner_step.device
         history: Dict[str, list] = {"step": [], "loss": [], "sync_steps": [],
                                     "frag_syncs": [], "evals": []}
@@ -153,6 +185,8 @@ class DistTrainer:
                 for key, vals in (manifest.get("history") or {}).items():
                     history[key] = [_history_from_json(v) for v in vals]
                 start_step = int(manifest["step"])
+                if tracker is not None:
+                    tracker.catch_up(start_step)
 
         def record(recs):
             for key, val in recs:
@@ -175,6 +209,12 @@ class DistTrainer:
                 # so must a checkpoint
                 end = min(end, (step // checkpoint_every + 1)
                           * checkpoint_every - 1)
+            if tracker is not None:
+                # end before a crash (the live set changes there) and at
+                # a kill (the run dies after it)
+                lim = tracker.chunk_limit(step)
+                if lim is not None:
+                    end = min(end, max(lim, step))
             return end
 
         source = (Prefetcher(data_fn, num_steps, depth=prefetch,
@@ -186,6 +226,12 @@ class DistTrainer:
             t_prev = time.perf_counter()
             pending_ckpt = False
             while step < num_steps:
+                live = None
+                if tracker is not None:
+                    live, recs = tracker.begin_chunk(step)
+                    record(recs)
+                    if all(live):
+                        live = None     # the all-live inner steps
                 end = chunk_end(step)
                 T = end - step + 1
                 batches = (source.take(step, T) if source is not None
@@ -195,13 +241,15 @@ class DistTrainer:
                 losses = []
                 for i in range(T):
                     state, loss = eng.inner_step(
-                        state, {k: v[i] for k, v in batches.items()})
+                        state, {k: v[i] for k, v in batches.items()},
+                        live=live)
                     losses.append(loss)
                 del batches
                 losses_host = _fetch(torch.stack(losses))  # ONE read a chunk
                 for i in range(T):
                     s = step + i
-                    loss_mean = _host_mean(losses_host[i])
+                    loss_mean = (_host_mean(losses_host[i]) if live is None
+                                 else _host_mean_live(losses_host[i], live))
                     if s % record_every == 0:
                         history["step"].append(s)
                         history["loss"].append(loss_mean)
@@ -242,6 +290,10 @@ class DistTrainer:
                             extras_arrays=arrays, extras_meta=extras_meta,
                             history=history, meta={"num_steps": num_steps})
                         t_prev = time.perf_counter()  # not step time
+                if tracker is not None and tracker.kill_at(end):
+                    # scripted process death: any due checkpoint was just
+                    # written; finalize() never runs, as after a real kill
+                    raise SimulatedCrash(f"scripted kill after step {end}")
                 if (eval_fn is not None and eval_every
                         and (end + 1) % eval_every == 0):
                     state = runner.refresh(state)

@@ -23,7 +23,7 @@ slices of at most ``GRAM_SLICE`` elements, in float64.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -74,6 +74,27 @@ def delta_gram(worker_params: List[Dict[str, torch.Tensor]],
     if gram is None:
         gram = torch.zeros((k, k), dtype=torch.float64)
     return gram
+
+
+def rejoin_drift(worker_params: List[Dict[str, torch.Tensor]],
+                 global_params: Dict[str, torch.Tensor],
+                 live: Sequence[bool], w: int) -> Tuple[float, float]:
+    """A rejoiner's drift, taken on the state BEFORE it adopts the anchor
+    (the divergence the rejoin erases): the L2 norm of worker ``w``'s
+    delta ``w - g`` and the cosine of that delta to the mean delta of the
+    ``live`` workers (``w`` among them), as the reference's rejoin probe
+    records them.  All three sums (‖Δ_w‖², Δ_w·Δ̄, ‖Δ̄‖²) come from the
+    live rows' Gram matrix (``delta_gram``), accumulated leaf by leaf in
+    float64, so no (K, P) stack is built.  Returns host floats."""
+    rows = [i for i, keep in enumerate(live) if keep]
+    gram = delta_gram([worker_params[i] for i in rows], global_params)
+    j, n = rows.index(w), len(rows)
+    sq_w = gram[j, j]
+    dot_mean = gram[j].sum() / n            # Δ_w · Δ̄
+    sq_mean = gram.sum() / (n * n)          # ‖Δ̄‖²
+    norm = torch.sqrt(sq_w)
+    cos = dot_mean / (norm * torch.sqrt(sq_mean) + 1e-12)
+    return float(norm), float(cos)
 
 
 def param_drift(worker_params: List[Dict[str, torch.Tensor]],

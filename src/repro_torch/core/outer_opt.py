@@ -97,11 +97,25 @@ def _mean(d: torch.Tensor) -> torch.Tensor:
     return acc / d.shape[0]
 
 
-def _average(delta: Flat, cfg: DiLoCoConfig) -> Flat:
+def _average(delta: Flat, cfg: DiLoCoConfig,
+             live: Optional[Sequence[bool]] = None) -> Flat:
     """Decoded f32 (K, ...) stacked deltas -> averaged delta dict; with
     ``drift_aware`` each worker is weighted by softmax(4 · cos(Δ_i, Δ̄))
-    over the whole dict.  (The reference's ``live`` quorum mask belongs
-    to the fault layer, which is not ported.)"""
+    over the whole dict.
+
+    ``live`` is the quorum round's (K,) contribution mask: only its rows
+    enter the mean (and the drift-aware weights, where the reference
+    gives the rest -inf logits).  They are picked out before the same
+    expressions run, so the masked mean IS the plain mean of the
+    survivors, bit for bit, and an all-live mask is the unmasked
+    average.  ``live=None`` is the unmasked average."""
+    if live is not None and not all(live):
+        rows = [i for i, keep in enumerate(live) if keep]
+        if not rows:
+            return {k: torch.zeros_like(d[0]) for k, d in delta.items()}
+        idx = torch.tensor(rows, dtype=torch.long,
+                           device=next(iter(delta.values())).device)
+        delta = {k: d.index_select(0, idx) for k, d in delta.items()}
     mean = {k: _mean(d) for k, d in delta.items()}
     if not cfg.drift_aware:
         return mean
@@ -119,13 +133,15 @@ def _average(delta: Flat, cfg: DiLoCoConfig) -> Flat:
 
 def exchange_and_average(stacked_delta: Flat, cfg: DiLoCoConfig,
                          residual: Optional[Flat] = None,
-                         kind: str = "delta", fragment: int = -1
+                         kind: str = "delta", fragment: int = -1,
+                         live: Optional[Sequence[bool]] = None
                          ) -> Tuple[Flat, Optional[Flat]]:
     """encode -> ship -> decode -> average; returns (averaged delta, new
-    error-feedback residual or None)."""
+    error-feedback residual or None).  ``live`` is the quorum round's
+    contribution mask (``_average``)."""
     full, new_residual = make_transport(cfg).exchange(
         stacked_delta, residual, kind=kind, fragment=fragment)
-    return _average(full, cfg), new_residual
+    return _average(full, cfg, live=live), new_residual
 
 
 # ---------------------------------------------------------------------------
@@ -157,18 +173,36 @@ def stack_delta(rows: Sequence[torch.Tensor],
 @torch.no_grad()
 def outer_sync(anchor: Flat, rows: Dict[str, List[torch.Tensor]], v: Flat,
                cfg: DiLoCoConfig, residual: Optional[Flat] = None, *,
-               kind: str = "delta", fragment: int = -1) -> None:
+               kind: str = "delta", fragment: int = -1,
+               contrib: Optional[Sequence[bool]] = None) -> None:
     """One outer round over the leaves (or fragment slices) named by
     ``anchor``: ``rows[k]`` are the K workers' (or snapshots') tensors of
     leaf k, ``v[k]`` its momentum, ``residual[k]`` its (K, ...) error
     feedback carry.  Writes the new anchor, momentum and residual IN
-    PLACE into those tensors (views of a larger leaf are fine)."""
+    PLACE into those tensors (views of a larger leaf are fine).
+
+    ``contrib`` (a quorum round's (K,) mask) names the rows that ship:
+    only they are encoded and averaged, and only their residual rows are
+    written, so a non-contributor's carry keeps its bits.  Each row is
+    encoded on its own (per-worker scales), so a contributor's codes are
+    those of an all-row exchange."""
+    sub = (None if contrib is None or all(contrib) else
+           [i for i, keep in enumerate(contrib) if keep])
     # drift-aware weights need every leaf's delta at once; otherwise one
     # leaf at a time, so no (K, ...) stack of the whole model is held
     groups = [list(anchor)] if cfg.drift_aware else [[k] for k in anchor]
     for group in groups:
-        delta = {k: stack_delta(rows[k], anchor[k]) for k in group}
-        res = None if residual is None else {k: residual[k] for k in group}
+        if sub is None:
+            delta = {k: stack_delta(rows[k], anchor[k]) for k in group}
+            res = (None if residual is None else
+                   {k: residual[k] for k in group})
+        else:
+            delta = {k: stack_delta([rows[k][i] for i in sub], anchor[k])
+                     for k in group}
+            idx = torch.tensor(sub, dtype=torch.long,
+                               device=anchor[group[0]].device)
+            res = (None if residual is None else
+                   {k: residual[k].index_select(0, idx) for k in group})
         avg, new_res = exchange_and_average(delta, cfg, res, kind=kind,
                                             fragment=fragment)
         del delta
@@ -176,5 +210,10 @@ def outer_sync(anchor: Flat, rows: Dict[str, List[torch.Tensor]], v: Flat,
             p, vv = update_leaf(anchor[k], v[k], avg[k], cfg)
             anchor[k].copy_(p)
             v[k].copy_(vv)
-            if residual is not None:
+            if residual is None:
+                continue
+            if sub is None:
                 residual[k].copy_(new_res[k])
+            else:
+                for j, i in enumerate(sub):
+                    residual[k][i].copy_(new_res[k][j])

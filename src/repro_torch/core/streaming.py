@@ -18,7 +18,7 @@ as the reference's byte schedule counts it).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 from repro_torch.core.diloco import (DiLoCoState, DiLoCoTrainer, Flat,
                                      Fragment)
@@ -72,3 +72,17 @@ class StreamingDiLoCoTrainer(DiLoCoTrainer):
         error-feedback residual changes only on the fragment's slots.
         Returns (state, residual)."""
         return self.sync(state, residual, frag=frag)
+
+    def outer_step_fragment_quorum(self, state: DiLoCoState, frag: Fragment,
+                                   residual: Optional[Flat],
+                                   contrib: Sequence[bool],
+                                   adopt: Sequence[bool],
+                                   reset: Sequence[bool]
+                                   ) -> Tuple[DiLoCoState, Optional[Flat]]:
+        """``outer_step_fragment_ef`` under quorum masks (``sync``):
+        ``contrib`` rows enter the fragment's average, ``adopt`` rows take
+        the synced fragment slots, ``reset`` rows (rejoiners) take the
+        WHOLE new anchor — every fragment, whatever the round's — with a
+        fresh inner optimizer state and residual; dead rows stay frozen."""
+        return self.sync(state, residual, frag=frag, contrib=contrib,
+                         adopt=adopt, reset=reset)

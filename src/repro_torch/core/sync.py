@@ -21,8 +21,17 @@ package's ``core/sync.py``):
 Every exchange goes through the codec transport (``core/transport.py``);
 runners hold the codec's per-worker error-feedback residual (made by
 ``engine.init_residual``; None for lossless codecs or with error feedback
-off).  The fault-aware quorum variants of the reference belong to the
-fault layer, which is not ported.
+off).
+
+The fault layer (``core/faults.py``): a runner that understands
+per-worker faults (DiLoCo, compressed DDP, streaming, pipelined, gossip)
+takes a ``FleetTracker`` through ``bind_faults`` and runs each round as a
+quorum round under the tracker's masks: the contributors are averaged,
+the live workers adopt, rejoiners take the anchor with a fresh optimizer
+state and residual (their drift is recorded first, ``rejoin_drift``), the
+dead stay frozen, and a round below ``min_quorum`` is skipped (rejoiners
+still adopt).  DDP, overlapped and async gossip reject per-worker events
+with the reference's ``ValueError``.
 
 A strategy's ``bind(engine, params)`` makes a per-run ``SyncRunner``; the
 loop calls ``after_step`` after every inner step, ``refresh`` before an
@@ -47,9 +56,7 @@ moves per hop (``hop_bytes_per_worker``), host-side only.
 
 The gossip runners hold per-worker anchors and outer momentum, stacked
 (K, ...) per leaf, beside the residual; ``gossip_rounds`` is their
-per-pair event model for ``launch/comm_sim.simulate_gossip``.  Their
-fault paths (live masks, adopt, rejoin) belong to the fault layer and are
-not ported: ``bind_faults`` raises.
+per-pair event model for ``launch/comm_sim.simulate_gossip``.
 """
 from __future__ import annotations
 
@@ -61,7 +68,7 @@ import torch
 
 from repro_torch.configs.base import DiLoCoConfig
 from repro_torch.core import outer_opt
-from repro_torch.core.drift import delta_cosine
+from repro_torch.core.drift import delta_cosine, rejoin_drift
 from repro_torch.core.schedule import FixedH, HSchedule
 from repro_torch.core.transport import make_codec
 
@@ -110,6 +117,23 @@ def _copy_rows(params, sel=None):
             if sl is not None}
 
 
+def _quorum_round(tracker, state, step: int):
+    """The tracker's masks for the round at ``step`` and its records, with
+    ``("rejoin_drift", (step, worker, delta_norm, cos_to_live_mean))`` for
+    each rejoiner, taken on the state before it adopts
+    (``drift.rejoin_drift``; one host read per rejoin, never per step)."""
+    info = tracker.round_masks(step)
+    records = list(info.records)
+    records += [("rejoin_drift", (step, w) + rejoin_drift(
+        state.worker_params, state.global_params, info.live, w))
+        for w, r in enumerate(info.reset) if r]
+    return info, records
+
+
+def _rows(mask) -> List[int]:
+    return [i for i, keep in enumerate(mask) if keep]
+
+
 class SyncRunner:
     """Per-run host-side state machine created by ``SyncStrategy.bind``."""
 
@@ -131,6 +155,24 @@ class SyncRunner:
     def finalize(self, state, num_steps: int):
         """Called once after the last step; returns (state, records)."""
         return state, []
+
+    # -- fault tolerance (quorum rounds + elastic rejoin) --------------------
+    # Runners that understand per-worker fault events set
+    # ``supports_faults``; ``bind_faults`` hands them the
+    # ``core.faults.FleetTracker`` their rounds consult (None: the
+    # fault-free rounds).  Run-level ``kill`` events need no runner.
+    supports_faults = False
+    _tracker = None
+
+    def bind_faults(self, tracker) -> None:
+        if not self.supports_faults:
+            raise ValueError(
+                f"{type(self).__name__} does not support per-worker fault "
+                "injection (quorum sync / elastic rejoin); use one of the "
+                "fault-aware strategies (diloco / ddp_compressed / "
+                "streaming / pipelined / gossip), or restrict the schedule "
+                "to run-level kill/slow events")
+        self._tracker = tracker
 
     # -- run checkpoints ----------------------------------------------------
     def checkpoint_extras(self) -> Optional[Tuple[Any, Dict]]:
@@ -208,6 +250,8 @@ class DDPSync(SyncStrategy):
 # ---------------------------------------------------------------------------
 
 class _DiLoCoRunner(SyncRunner):
+    supports_faults = True
+
     def __init__(self, engine, params, hs: HSchedule):
         self.engine = engine
         self.hs = hs
@@ -215,9 +259,21 @@ class _DiLoCoRunner(SyncRunner):
         self.residual = engine.init_residual(params)
 
     def _sync(self, state, step):
-        state, self.residual = self.engine.outer_step_ef(state,
-                                                         self.residual)
-        return state, [("sync_steps", step)]
+        if self._tracker is None:
+            # no fault schedule bound: the unmasked round
+            state, self.residual = self.engine.outer_step_ef(state,
+                                                             self.residual)
+            return state, [("sync_steps", step)]
+        info, records = _quorum_round(self._tracker, state, step)
+        if info.skip:
+            if any(info.reset):
+                state, self.residual = self.engine.adopt_anchor(
+                    state, self.residual, info.reset)
+            return state, records
+        state, self.residual = self.engine.outer_step_quorum(
+            state, self.residual, info.contrib, info.adopt, info.reset)
+        records.append(("sync_steps", step))
+        return state, records
 
     def after_step(self, state, step, loss):
         self.since += 1
@@ -328,6 +384,8 @@ class CompressedDDPSync(SyncStrategy):
 # ---------------------------------------------------------------------------
 
 class _StreamingRunner(SyncRunner):
+    supports_faults = True
+
     def __init__(self, engine, params):
         from repro_torch.core.streaming import fragment_masks
         self.engine = engine
@@ -339,9 +397,21 @@ class _StreamingRunner(SyncRunner):
     def after_step(self, state, step, loss):
         if (step + 1) % self.period == 0:
             f = ((step + 1) // self.period - 1) % self.F
-            state, self.residual = self.engine.outer_step_fragment_ef(
-                state, self.masks[f], self.residual)
-            return state, [("frag_syncs", (step, f))]
+            if self._tracker is None:
+                state, self.residual = self.engine.outer_step_fragment_ef(
+                    state, self.masks[f], self.residual)
+                return state, [("frag_syncs", (step, f))]
+            info, records = _quorum_round(self._tracker, state, step)
+            if info.skip:
+                if any(info.reset):
+                    state, self.residual = self.engine.adopt_anchor(
+                        state, self.residual, info.reset)
+                return state, records
+            state, self.residual = self.engine.outer_step_fragment_quorum(
+                state, self.masks[f], self.residual, info.contrib,
+                info.adopt, info.reset)
+            records.append(("frag_syncs", (step, f)))
+            return state, records
         return state, []
 
     def checkpoint_extras(self):
@@ -524,6 +594,8 @@ class _PipelinedRunner(SyncRunner):
     on the fragment's slots.  With F=1, delay=0 this is exactly
     ``DiLoCoSync``.  The snapshot holds only the fragment's slices."""
 
+    supports_faults = True
+
     def __init__(self, engine, params, h: int, delay: int,
                  num_fragments: int):
         if not 0 <= delay < h:
@@ -534,23 +606,44 @@ class _PipelinedRunner(SyncRunner):
         self.masks = fragment_masks(params, num_fragments)
         self.residual = engine.init_residual(params)
         self.round = 0
-        self.pending = None   # (snapshot, fragment) in flight
+        self.pending = None   # (snapshot, fragment, RoundInfo|None) in flight
         self.pending_apply = -1
 
     def _apply_pending(self, state, step) -> Tuple[Any, Records]:
-        snap, frag = self.pending
+        snap, frag, info = self.pending
         self.pending = None
+        if info is None:
+            state, self.residual = self.engine.sync(
+                state, self.residual, frag=self.masks[frag], snapshot=snap,
+                fragment=frag)
+            return state, [("frag_syncs", (step, frag))]
+        if info.skip:
+            if any(info.reset):
+                state, self.residual = self.engine.adopt_anchor(
+                    state, self.residual, info.reset)
+            return state, []
+        # a worker that crashed while the snapshot was in flight must not
+        # adopt the landing update: intersect with the tracker's live set
+        adopt_now = tuple(a and l for a, l in
+                          zip(info.adopt, self._tracker.live))
         state, self.residual = self.engine.sync(
             state, self.residual, frag=self.masks[frag], snapshot=snap,
-            fragment=frag)
+            fragment=frag, contrib=info.contrib, adopt=adopt_now,
+            reset=info.reset)
         return state, [("frag_syncs", (step, frag))]
 
     def after_step(self, state, step, loss):
         records: Records = []
         if (step + 1) % self.h == 0:
+            info = None
+            if self._tracker is not None:
+                # masks captured WITH the snapshot: the deltas in flight
+                # are the capture-time live set's
+                info, recs = _quorum_round(self._tracker, state, step)
+                records += recs
             frag = self.round % self.F
             self.pending = ([_copy_rows(w, self.masks[frag])
-                             for w in state.worker_params], frag)
+                             for w in state.worker_params], frag, info)
             self.pending_apply = step + self.delay
             self.round += 1
         if self.pending is not None and step >= self.pending_apply:
@@ -570,9 +663,18 @@ class _PipelinedRunner(SyncRunner):
             state, recs = self._apply_pending(state, num_steps - 1)
             records += recs
         if num_steps % self.h:        # trailing partial round: full sync
-            state, self.residual = self.engine.outer_step_ef(state,
-                                                             self.residual)
-            records.append(("sync_steps", num_steps - 1))
+            if self._tracker is None:
+                state, self.residual = self.engine.outer_step_ef(
+                    state, self.residual)
+                records.append(("sync_steps", num_steps - 1))
+            else:
+                info = self._tracker.round_masks(num_steps - 1)
+                records += list(info.records)
+                if not info.skip:
+                    state, self.residual = self.engine.outer_step_quorum(
+                        state, self.residual, info.contrib, info.adopt,
+                        info.reset)
+                    records.append(("sync_steps", num_steps - 1))
         return state, records
 
     def checkpoint_extras(self):
@@ -714,18 +816,42 @@ def _gossip_outer_rows(cfg, a, v, base, v_mix, avg,
             v2[w, sl].copy_(new_v[w])
 
 
-def _gossip_new_state(state, k: str, a: torch.Tensor,
-                      rows: Sequence[int]) -> None:
+def _gossip_new_state(state, k: str, a: torch.Tensor, rows: Sequence[int],
+                      live: Optional[List[int]] = None) -> None:
     """Workers ``rows`` land on their updated anchors of leaf ``k``;
     ``global_params`` tracks the anchor mean (the fleet's consensus
-    estimate, for evals and checkpoints)."""
+    estimate, for evals and checkpoints) — of the ``live`` rows only
+    when given (a dead worker's anchor is stale)."""
     for w in rows:
         state.worker_params[w][k].copy_(a[w])
+    if live is not None:
+        a = a.index_select(0, torch.tensor(live, dtype=torch.long,
+                                           device=a.device))
     state.global_params[k].copy_(outer_opt._mean(a.float()))
 
 
+def _adopt_consensus(state, k: str, a: torch.Tensor, v: torch.Tensor,
+                     residual, vets: List[int], rst: List[int]) -> None:
+    """Rejoiners ``rst`` adopt the veterans' (``vets``) anchor mean of leaf
+    ``k`` with a clean slate: anchor and worker := that consensus, outer
+    momentum and residual := 0 (zeros when no veteran is live, as the
+    reference's masked mean gives)."""
+    if vets:
+        cons = outer_opt._mean(a.index_select(0, torch.tensor(
+            vets, dtype=torch.long, device=a.device)).float())
+    else:
+        cons = torch.zeros(a.shape[1:], dtype=torch.float32, device=a.device)
+    for w in rst:
+        a[w].copy_(cons)
+        v[w].zero_()
+        if residual is not None:
+            residual[k][w].zero_()
+        state.worker_params[w][k].copy_(a[w])
+
+
 @torch.no_grad()
-def _gossip_pair(cfg, state, anchors, v, residual, peer: List[int]):
+def _gossip_pair(cfg, state, anchors, v, residual, peer: List[int],
+                 masks=None):
     """One synchronized gossip round, leaf by leaf: encode each worker's
     delta against its own anchor, ship one peer row each (codes, then the
     peer's anchors and momentum), pair-average the whole outer state, and
@@ -737,14 +863,31 @@ def _gossip_pair(cfg, state, anchors, v, residual, peer: List[int]):
     THIS function, so their equality is structural.  The pair mean is
     ``a * 0.5 + b * 0.5``: exact halves, so with equal rows (K 2) it is a
     no-op bit for bit.  Every row of a leaf is read (the gathers) before
-    any row of it is written."""
+    any row of it is written.
+
+    ``masks`` is a quorum round's ``(active, adopt, reset)`` (the fault
+    layer; ``peer`` pairs the active rows among themselves and the rest
+    with themselves): only active rows take the update (anchors,
+    momentum, residual, parameters); rejoiners (``reset``) then adopt the
+    veterans' (``adopt``) anchor mean with zero momentum and residual
+    (the caller restarts their optimizer state); ``global_params`` is the
+    mean of the live rows' anchors; dead rows keep their bits."""
     transport = outer_opt.make_transport(cfg)
+    act = live = None
+    if masks is not None:
+        active, adopt, reset = masks
+        act, vets, rst = _rows(active), _rows(adopt), _rows(reset)
+        live = _rows(x or y for x, y in zip(adopt, reset))
     for k, a in anchors.items():
         dq, peer_dq, new_res = transport.exchange_peers(
             {k: _deltas([w[k] for w in state.worker_params], a)}, peer,
             None if residual is None else {k: residual[k]})
         if residual is not None:
-            residual[k].copy_(new_res[k])
+            if act is None:
+                residual[k].copy_(new_res[k])
+            else:
+                for w in act:
+                    residual[k][w].copy_(new_res[k][w])
         del new_res
         # dq * 0.5 + peer_dq * 0.5 in place: each op rounds once, as out
         # of place
@@ -752,10 +895,27 @@ def _gossip_pair(cfg, state, anchors, v, residual, peer: List[int]):
         del dq, peer_dq
         base = _pair_mean(a, transport.ship_rows(a, peer))
         v_mix = _pair_mean(v[k], transport.ship_rows(v[k], peer))
-        _gossip_outer_rows(cfg, a, v[k], base, v_mix, avg)
+        _gossip_outer_rows(cfg, a, v[k], base, v_mix, avg, rows=act)
         del base, v_mix, avg
-        _gossip_new_state(state, k, a, range(len(peer)))
+        if act is None:
+            _gossip_new_state(state, k, a, range(len(peer)))
+        else:
+            _adopt_consensus(state, k, a, v[k], residual, vets, rst)
+            _gossip_new_state(state, k, a, act, live)
     return state._replace(outer=state.outer._replace(t=state.outer.t + 1))
+
+
+@torch.no_grad()
+def _gossip_adopt(state, anchors, v, residual, reset, adopt) -> None:
+    """Rejoin on a skipped gossip round: ``reset`` rows adopt the
+    ``adopt`` rows' CURRENT anchor mean (no exchange, no outer update;
+    the caller restarts their optimizer state); the veterans are
+    untouched; ``global_params`` becomes the live rows' anchor mean."""
+    vets, rst = _rows(adopt), _rows(reset)
+    live = _rows(x or y for x, y in zip(adopt, reset))
+    for k, a in anchors.items():
+        _adopt_consensus(state, k, a, v[k], residual, vets, rst)
+        _gossip_new_state(state, k, a, (), live)
 
 
 @torch.no_grad()
@@ -851,6 +1011,8 @@ class _GossipRunner(SyncRunner):
     tracks the anchor mean at every sync.  K 2 and the full topology bind
     ``_DiLoCoRunner`` instead (``GossipSync.bind``)."""
 
+    supports_faults = True
+
     def __init__(self, engine, params, h: int, topology: str, seed: int):
         if topology == "full":
             raise ValueError("full topology is the DiLoCo mean — "
@@ -865,17 +1027,41 @@ class _GossipRunner(SyncRunner):
         self.outer_v = _stacked(params, self.k, zeros=True)
         self.residual = engine.init_residual(params)
 
-    def bind_faults(self, tracker):
-        raise NotImplementedError("gossip's fault paths (live masks, adopt, "
-                                  "rejoin) are not ported")
-
     def _do_sync(self, state, step):
-        peers = gossip_peers(self.k, self.round, self.topology, self.seed)
-        records: Records = [("gossip_syncs", (step, w, peers[w], 0))
-                            for w in range(self.k)]
+        if self._tracker is None:
+            peers = gossip_peers(self.k, self.round, self.topology,
+                                 self.seed)
+            records: Records = [("gossip_syncs", (step, w, peers[w], 0))
+                                for w in range(self.k)]
+            records.append(("sync_steps", step))
+            state = _gossip_pair(self.engine.cfg, state, self.anchors,
+                                 self.outer_v, self.residual, peers)
+            self.round += 1
+            return state, records
+        info, records = _quorum_round(self._tracker, state, step)
+        if info.skip:
+            if any(info.reset):
+                _gossip_adopt(state, self.anchors, self.outer_v,
+                              self.residual, info.reset, info.adopt)
+                state = self.engine.init_inner(state, info.reset)
+            self.round += 1
+            return state, records
+        # the matching over the surviving contributors only: the
+        # sub-fleet's schedule mapped back through the sorted contributor
+        # indices, as the reference pairs them
+        contributors = _rows(info.contrib)
+        sub = gossip_peers(len(contributors), self.round, self.topology,
+                           self.seed)
+        peers = list(range(self.k))
+        for i, w in enumerate(contributors):
+            peers[w] = contributors[sub[i]]
+        for w in contributors:
+            records.append(("gossip_syncs", (step, w, peers[w], 0)))
         records.append(("sync_steps", step))
         state = _gossip_pair(self.engine.cfg, state, self.anchors,
-                             self.outer_v, self.residual, peers)
+                             self.outer_v, self.residual, peers,
+                             masks=(info.contrib, info.adopt, info.reset))
+        state = self.engine.init_inner(state, info.reset)
         self.round += 1
         return state, records
 
@@ -1016,10 +1202,6 @@ class _AsyncGossipRunner(SyncRunner):
             self.pub_anch = {n: torch.zeros_like(a)
                              for n, a in self.anchors.items()}
             self.pub_v = _stacked(params, k, zeros=True)
-
-    def bind_faults(self, tracker):
-        raise NotImplementedError("gossip's fault paths (live masks, adopt, "
-                                  "rejoin) are not ported")
 
     def _do_apply(self, state, step, due):
         k = self.k

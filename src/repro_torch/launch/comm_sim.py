@@ -33,8 +33,8 @@ Bytes are accounted per codec (``SyncEvent.codec``): results carry a
 This is the JAX package's ``launch/comm_sim.py`` with the port's own
 constants (below): an H100's data-sheet rates for the roofline step time,
 and a worker's boundary link of one 100 Gbit/s Ethernet port.  It runs on
-the host and never touches the device.  The fault overlay (``faults=``)
-belongs to the fault layer, which is not ported: it raises.
+the host and never touches the device.  ``faults=`` overlays a
+``core.faults.FaultSchedule`` on the simulators.
 """
 from __future__ import annotations
 
@@ -125,13 +125,19 @@ def simulate_schedule(events: Iterable, num_steps: int, step_time_s: float,
 
 
 def _fault_tables(faults, w_n: int, num_steps: int):
-    """The per-step fault tables the simulators consume: (None, None, {},
-    {}) without faults, so the arithmetic is the fault-free model's.  The
-    fault overlay is not ported."""
-    if faults is not None:
-        raise NotImplementedError("the comm simulator's fault overlay is "
-                                  "not ported")
-    return None, None, {}, {}
+    """Expand an optional ``FaultSchedule`` into the per-step tables the
+    simulators consume; (None, None, {}, {}) when there are no faults, so
+    the no-fault arithmetic stays literally the existing code path."""
+    if faults is None or faults.empty:
+        return None, None, {}, {}
+    from repro_torch.core.faults import sim_timeline
+    faults.validate(w_n)
+    alive_t, factor_t, failed = sim_timeline(faults, w_n, num_steps)
+    drops: Dict[int, Dict[int, int]] = {}   # step -> {worker: attempts}
+    for e in faults.events:
+        if e.kind in ("drop", "corrupt"):
+            drops.setdefault(e.step, {})[e.worker] = e.attempts
+    return alive_t, factor_t, failed, drops
 
 
 def simulate_heterogeneous(events: Iterable, num_steps: int,
@@ -148,7 +154,13 @@ def simulate_heterogeneous(events: Iterable, num_steps: int,
     With identical ``step_times`` and staleness 0 this reduces exactly to
     ``simulate_schedule``.
 
-    ``faults`` (the reference's fault overlay) is not ported and raises.
+    ``faults`` (a ``core.faults.FaultSchedule``) overlays the same
+    script the trainer consumes: crashed workers stop stepping and ship
+    nothing (their clock freezes until a rejoin), ``slow`` scales a
+    worker's step time, ``drop``/``corrupt`` cost one retry transfer —
+    counted in ``retry_bytes`` — and with ``attempts >= 2`` the round
+    stops waiting on that worker entirely.  An empty schedule reduces
+    exactly (bitwise) to the fault-free model.
 
     ``compute_s`` is the slowest worker's pure-compute time (the fleet's
     compute critical path); ``straggler_s`` the spread the slowest worker
@@ -230,7 +242,14 @@ def simulate_gossip(rounds: Iterable, num_steps: int,
     Byte totals are denominated per worker (the busiest link), matching
     ``hop_bytes_per_worker``: gossip traffic is flat in fleet size.
 
-    ``faults`` (the reference's fault overlay) is not ported and raises.
+    ``faults`` overlays a ``core.faults.FaultSchedule``: crashed
+    workers stop stepping, skip their ship-outs, and vanish from peers'
+    pair barriers (the ``transfers`` key never lands — peers proceed on
+    their own clock, gossip's no-fleet-barrier property); ``slow`` scales
+    a worker's step time; ``drop``/``corrupt`` cost one retry transfer
+    (``retry_bytes``), with ``attempts >= 2`` also hiding the payload
+    from peers.  An empty schedule reduces exactly to the fault-free
+    model.
     """
     w_n = len(step_times)
     if w_n == 0:

@@ -27,6 +27,7 @@ mid-train -> SFT), with the evals after each stage, under one of:
         [--no-error-feedback] [--drift-aware] [--fused-adamw] \\
         [--adaptive-h] [--prefetch N] [--checkpoint-dir DIR \\
         --checkpoint-every N [--resume]] [--worker-speeds 1,1,1.5,2] \\
+        [--fault-schedule crash:1@2,rejoin:1@4 [--min-quorum Q]] \\
         [--out-dir DIR] [--device cuda|cpu]
 
 ``--steps N`` gives the stages N, N // 2 and N // 2 steps.
@@ -48,8 +49,12 @@ stage's sync schedule through the comm simulator
 (``launch/comm_sim.py``, host only) with per-worker step clocks from the
 measured step seconds, and prints the modeled wall-clock of the
 homogeneous and the heterogeneous fleet beside the link it assumed.
-
-Not ported yet, and raising ``NotImplementedError``: fault injection.
+``--fault-schedule`` (an inline ``core.faults.FaultSchedule`` spec or a
+JSON path) scripts worker crashes, rejoins, slowdowns, dropped payloads
+and kills in the base stage, whose rounds then average the surviving
+workers while at least ``--min-quorum`` contribute; the stage's entry
+gains the ``fault``, ``quorum``, ``quorum_skip`` and ``rejoin_drift``
+records.
 """
 from __future__ import annotations
 
@@ -106,13 +111,15 @@ def run_stage(method: str, cfg: ModelConfig, params, stage_ds, *,
               steps: int, workers: int, per_worker_batch: int, h: int,
               opt_cfg: OptimizerConfig, diloco_cfg: DiLoCoConfig,
               seed: int = 0, h_schedule=None, prefetch: int = 0,
-              faults=None, checkpoint_dir: Optional[str] = None,
+              faults=None, min_quorum: int = 1,
+              checkpoint_dir: Optional[str] = None,
               checkpoint_every: int = 0, resume: bool = False):
     """Run one pipeline stage of ``cfg`` from ``params`` (a parameter tree
     on the device to train on) under ``method``; returns (final global
     parameter tree, history).  Every method goes through ``DistTrainer``;
     ``method`` picks the sync strategy; ``h_schedule`` (an ``HSchedule``)
-    replaces DiLoCo's fixed H."""
+    replaces DiLoCo's fixed H; ``faults`` (a ``FaultSchedule``) and
+    ``min_quorum`` reach ``DistTrainer.run``."""
     from repro_torch.core import (DistTrainer, compressed_ddp_config,
                                   make_strategy)
     from repro_torch.models import lm_loss
@@ -153,6 +160,7 @@ def run_stage(method: str, cfg: ModelConfig, params, stage_ds, *,
     # here would keep its K optimizer states alive for the whole run
     state, hist = trainer.run(trainer.init(params), data, steps,
                               prefetch=prefetch, faults=faults,
+                              min_quorum=min_quorum,
                               checkpoint_dir=checkpoint_dir,
                               checkpoint_every=checkpoint_every,
                               resume=resume)
@@ -236,16 +244,18 @@ def run_pipeline(method: str = "diloco", arch: str = "tiny",
     the latest complete one), as in the JAX package.  ``worker_speeds``
     (one multiplier per worker) adds ``comm_model``, the base stage's
     ``comm_report`` at its measured step seconds (not for ddp).
-    ``min_quorum`` acts only with faults.  Not ported: ``fault_schedule``
-    raises."""
+    ``fault_schedule`` (a ``FaultSchedule.from_spec`` string or a JSON
+    path) injects scripted failures into the BASE stage, whose rounds
+    need ``min_quorum`` contributors; its entry gains the ``fault``,
+    ``quorum``, ``quorum_skip`` and ``rejoin_drift`` records it has."""
     import torch
 
-    from repro_torch.core import AdaptiveH, transport
+    from repro_torch.core import AdaptiveH, FaultSchedule, transport
     from repro_torch.evals import chat_suite, heldout_metrics
     from repro_torch.serving import Engine, resolve_device
 
-    if fault_schedule:
-        raise NotImplementedError("fault injection is not ported")
+    faults = FaultSchedule.from_spec(fault_schedule) if fault_schedule \
+        else None
     if worker_speeds and method != "ddp" and len(worker_speeds) != workers:
         raise ValueError(f"--worker-speeds needs one multiplier per worker: "
                          f"got {len(worker_speeds)} for {workers} workers")
@@ -286,8 +296,8 @@ def run_pipeline(method: str = "diloco", arch: str = "tiny",
             torch.cuda.reset_peak_memory_stats(device)
         transport.reset_shipped()
         t0 = time.perf_counter()
-        # checkpoints and resume target the base stage, the long
-        # decentralized pretrain, as in the JAX package
+        # faults, checkpoints and resume target the base stage: the long
+        # decentralized pretrain is where workers churn and kills land
         is_base = stage == "base"
         params, hist = run_stage(
             stage_method, cfg, params, stages[stage],
@@ -295,6 +305,7 @@ def run_pipeline(method: str = "diloco", arch: str = "tiny",
             per_worker_batch=per_worker_batch, h=h_by_stage[stage],
             opt_cfg=opt_cfg, diloco_cfg=dcfg, seed=seed, h_schedule=hs,
             prefetch=prefetch,
+            faults=faults if is_base else None, min_quorum=min_quorum,
             checkpoint_dir=checkpoint_dir if is_base else None,
             checkpoint_every=checkpoint_every, resume=resume and is_base)
         if on_card:
@@ -304,6 +315,9 @@ def run_pipeline(method: str = "diloco", arch: str = "tiny",
                  "losses": hist["loss"][:: max(1, len(hist["loss"]) // 50)],
                  "method": stage_method,
                  "step_seconds": hist["step_seconds"]}
+        for key in ("fault", "quorum", "quorum_skip", "rejoin_drift"):
+            if hist.get(key):
+                entry[key] = hist[key]
         tokens = steps[stage] * workers * per_worker_batch * seq_len
         port = {"device": device.type,
                 "kernels": "cuda" if on_card else "plain",
@@ -424,6 +438,14 @@ def main(argv=None) -> Dict:
     ap.add_argument("--prefetch", type=int, default=0,
                     help="assemble + device_put batches this many steps "
                          "ahead on a background thread (0 = synchronous)")
+    ap.add_argument("--fault-schedule", type=str, default="",
+                    help="scripted fault injection for the base stage: an "
+                         "inline spec (crash:2@10,rejoin:2@40,kill@90) or a "
+                         "JSON file path (core.faults.FaultSchedule)")
+    ap.add_argument("--min-quorum", type=int, default=1,
+                    help="minimum live contributors for an outer round; "
+                         "below it the round is skipped (workers keep "
+                         "training locally)")
     ap.add_argument("--checkpoint-dir", type=str, default=None,
                     help="write crash-consistent checkpoints here at outer "
                          "boundaries (base stage)")
@@ -457,6 +479,8 @@ def main(argv=None) -> Dict:
                         error_feedback=not args.no_error_feedback,
                         fused_adamw=args.fused_adamw, seed=args.seed,
                         prefetch=args.prefetch,
+                        fault_schedule=args.fault_schedule,
+                        min_quorum=args.min_quorum,
                         checkpoint_dir=args.checkpoint_dir,
                         checkpoint_every=args.checkpoint_every,
                         resume=args.resume,

@@ -6,7 +6,8 @@ dicts from ``simulate_schedule``, ``simulate_heterogeneous``,
 ``simulate_gossip``, ``modeled_step_time`` and ``load_calibration``;
 ``comm_report`` equals the reference's under the same link.  The port
 states its own constants (an H100's data sheet, a 100 Gbit/s Ethernet
-link), not the reference's TPU ones, and its fault overlay raises."""
+link), not the reference's TPU ones.  (The fault overlay is held to the
+reference in ``test_torch_faults.py``.)"""
 import dataclasses
 import json
 
@@ -141,22 +142,6 @@ def test_comm_report_matches_the_reference(monkeypatch, method, dkw):
     assert got.pop("link_latency_s") == LINK["latency"]
     assert got == want
     assert ("gossip" in got) == method.endswith("gossip")
-
-
-def test_fault_overlay_is_not_ported():
-    port, _ = _events("gossip")
-    rounds = sync.GossipSync(h=8).gossip_rounds(
-        N_PARAMS, STEPS, DiLoCoConfig(num_workers=4, h_inner_steps=8))
-    link = comm_sim.CommModel(**LINK)
-    with pytest.raises(NotImplementedError, match="fault"):
-        comm_sim.simulate_heterogeneous(port, STEPS, TIMES, link,
-                                        faults=object())
-    with pytest.raises(NotImplementedError, match="fault"):
-        comm_sim.simulate_gossip(rounds, STEPS, TIMES, link,
-                                 faults=object())
-    with pytest.raises(NotImplementedError, match="fault"):
-        train.comm_report(DiLoCoConfig(num_workers=4), "gossip", N_PARAMS,
-                          STEPS, 8, 0.02, TIMES, faults=object())
 
 
 def test_constants_are_the_h100s_not_the_tpus():

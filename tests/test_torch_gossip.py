@@ -457,20 +457,6 @@ def test_runners_reject_what_the_reference_rejects(params, strategy, match):
              1)
 
 
-@pytest.mark.parametrize("strategy", [GossipSync(), AsyncGossipSync(
-    jitter=1)], ids=["gossip", "async"])
-def test_gossip_fault_paths_raise(params, strategy):
-    _, runner, _ = _run(params, DiLoCoConfig(num_workers=4, h_inner_steps=2),
-                        strategy, 1)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        runner.bind_faults(object())
-    dcfg = DiLoCoConfig(num_workers=4, h_inner_steps=2)
-    dt = DistTrainer(lambda p, b: lm_loss(p, b, PCFG), OptimizerConfig(**OPT),
-                     dcfg, strategy)
-    with pytest.raises(NotImplementedError, match="fault"):
-        dt.run(dt.init(params()), None, 1, faults=object())
-
-
 def test_make_strategy_builds_the_gossip_strategies():
     g = make_strategy(DiLoCoConfig(strategy="gossip", topology="random",
                                    sync_seed=5))

@@ -455,8 +455,30 @@ def test_wire_constants_copy_the_reference():
     assert SCALE_EPS == jax_qref.SCALE_EPS == jax_qkernel.SCALE_EPS
 
 
+def _code_without_docstrings(path: Path) -> str:
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body
+                and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+    return ast.dump(tree)
+
+
+def test_faults_module_is_a_copy_of_the_reference():
+    """``core/faults.py`` is the JAX package's stdlib-only module, code
+    for code (only its docstrings speak the port's terms)."""
+    assert (_code_without_docstrings(
+        REPO / "src" / "repro_torch" / "core" / "faults.py")
+        == _code_without_docstrings(REPO / "src" / "repro" / "core"
+                                    / "faults.py"))
+
+
 @pytest.mark.parametrize("path", ["src/repro_torch/core/transport.py",
-                                  "src/repro_torch/core/streaming.py"])
+                                  "src/repro_torch/core/streaming.py",
+                                  "src/repro_torch/core/faults.py"])
 def test_wire_modules_import_nothing_of_the_reference(path):
     mods = list(_imports(REPO / path))
     assert mods and all(m.split(".")[0] not in ("jax", "jaxlib", "repro")

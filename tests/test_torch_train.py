@@ -2,8 +2,9 @@
 loss and every gradient against ``jax.value_and_grad(lm_loss)``, the
 optimizers given identical gradients, DiLoCo and DDP through
 ``run_stage`` / ``DistTrainer`` against the JAX ``DistTrainer`` on the
-same ``worker_batches``; and inside the port, chunked == per-step, the
-CLI, and the paths that are not ported yet raising.
+same ``worker_batches``; and inside the port, chunked == per-step and
+the CLI.  (Fault injection is held to the reference in
+``test_torch_faults.py``.)
 
 Sizes are ``tests/helpers.py``'s tiny dense config (2 layers, d 64, 4
 heads over 2 KV heads, vocab 97); inputs are made with numpy from a seed
@@ -274,26 +275,6 @@ def test_train_cli_defaults_to_cuda_and_raises_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train.main(["--steps", "1"])
-
-
-@pytest.mark.parametrize("what", ["streaming_faults", "faults",
-                                  "pipeline_faults"])
-def test_unported_paths_raise(jparams, what):
-    cfg = port_cfg(tiny_cfg("dense"))
-    params = port_params(tiny_cfg("dense"), jparams)
-    with pytest.raises(NotImplementedError):
-        if what == "streaming_faults":
-            dcfg = DiLoCoConfig(num_workers=2, h_inner_steps=2,
-                                strategy="streaming", num_fragments=2)
-            dt = DistTrainer(lambda p, b: lm_loss(p, b, cfg),
-                             OptimizerConfig(), dcfg, make_strategy(dcfg))
-            dt.run(dt.init(params), None, 1, faults=object())
-        elif what == "pipeline_faults":
-            train.run_pipeline(method="diloco", device="cpu",
-                               fault_schedule="crash:1@2")
-        else:
-            dt = _trainer(cfg)
-            dt.run(dt.init(params), None, 1, faults=object())
 
 
 def test_ddp_sync_rejects_multiple_workers(jparams):

@@ -96,6 +96,22 @@ yardstick.  Then phases, each fatal on failure:
    takes the static path and the ring decode kernel, and on a batch that
    fits the share of greedy tokens equal between the static path and
    the scheduler is printed (not gated);
+4b. the dense configs besides nanochat-d20 at full published widths,
+   heads and vocabularies (f32, random weights from seed 0), one at a
+   time: qwen1.5-0.5b at full depth (24 layers; QKV bias, tied 151,936
+   rows, 16 heads of 64), command-r-plus-104b at 2 layers, mistral-large
+   -123b at 4 and nemotron-4-15b (squared-ReLU MLP) at 8 (~25 GB each:
+   415 / 490 / 62.5 GB at full depth); first the paged kernels at their
+   new (KV, G, D) (16, 1, 64), (8, 12, 128), (8, 6, 128), verify at T 5,
+   and flash at qwen's step shape (B 4, S 256, H 16, D 64) against the
+   plain versions; then phase 4's 8 requests (16 new tokens) through
+   ``Engine`` at spec_k 0 and 4 and ``generate_ids_static``: finite
+   logits, greedy tokens equal across the three, each engine run
+   launching the norms and its paged kernel and no other kernel;
+   tokens/s, ms a step and peak memory; qwen also trains one DiLoCo
+   round at full depth (K 2, H 2, 4 x 256 tokens a worker, fused AdamW;
+   the loss falls, the training kernels and no other) and its depth-2
+   training step is held against the CPU as in phase 3;
 5. the training main path at full nanochat-d20 (20 layers, float32,
    random params from seed 0) on the port's synthetic corpus through its
    ``PackedDataset`` at seq_len 1024: ``run_stage("diloco")`` with K=2,
@@ -144,7 +160,7 @@ yardstick.  Then phases, each fatal on failure:
      error-feedback residual), in a temporary directory under build/;
    - prefetch 4 with the eval hook every 3 steps: the same bits as
      prefetch 0, the hook called at step 2;
-   - drift: a DiLoCo run of nanochat-d20 at full width and depth (vocab
+   - drift: a DiLoCo run of nanochat-d20 at full width, 10 layers (vocab
      512, K 4, H 2, 4 steps of 8 x 128 tokens a worker) measured before
      its last sync: ``param_drift`` against the same function on
      float64 CPU copies (rtol 1e-5), ``worker_cka_matrix`` of the
@@ -171,9 +187,10 @@ yardstick.  Then phases, each fatal on failure:
    Table 1's base stage (300 steps, H 100), beside the link it assumes;
 6d. the fault layer at phase 6c's shape (nanochat-d20, full width, vocab
    512, K 4, per-worker batch 8, seq_len 128, H 2, int8 wire, fused
-   AdamW, remat on) through ``run_stage(faults=...)``: DiLoCo for 8 steps
+   AdamW, remat on) through ``run_stage(faults=...)``, both cut to 10
+   layers for the script's time: DiLoCo for 8 steps
    under ``slow:3@1x1.5,crash:2@2,drop:1@3,corrupt:0@5x2,rejoin:2@6`` and
-   gossip (ring, cut to 10 layers for the script's time) for 4 under
+   gossip (ring) for 4 under
    ``crash:1@1,rejoin:1@2``; gates: the quorum
    and sync records, the fault / quorum / sync / gossip records equal to
    a tiny CPU run's, one rejoin record whose norm and cosine are within
@@ -191,6 +208,18 @@ yardstick.  Then phases, each fatal on failure:
    adoption); then ``comm_report`` for diloco and gossip under a crash,
    a rejoin and a twice-lost payload beside the fault-free report (an
    empty schedule gives the fault-free report);
+6e. GRPO at nanochat-d20's full width and depth (vocab 512): 16
+   arithmetic prompts x G 8 sampled requests of 6 tokens, 4 iterations
+   of ``GRPOTrainer.rollout_and_step`` (fused AdamW, the reference
+   example's optimizer; reward 1 when the first sampled token lies in a
+   set of 128 ids), then its first iteration again under torch.profiler: the set's probability at the prompts' last position
+   rises; the second run's rollouts and parameters equal the first's
+   bit for bit; iteration 1's rollouts of 2 prompts equal a fresh
+   ``Engine``'s on the updated parameters; the rollouts launch the norms and paged decode, the
+   update the training kernels, and nothing else; at depth 2 one update
+   on injected completions against the CPU (phase 3's gates); per
+   iteration rollout and update seconds, sampled tokens/s and peak
+   memory, and the profiled iteration's device busy share;
 7. time each kernel, its plain version and one PyTorch library call on
    the same inputs (CUDA events, L2 flushed before each launch) beside
    the least time the card could take
@@ -198,8 +227,10 @@ yardstick.  Then phases, each fatal on failure:
    cores' rate for their operand type, with two roofs beside it: the
    split-TF32 design ceiling, TC_TF32_PRODUCTS TF32 products per f32
    product, and the 67 TFLOP/s f32 roof); the SSD also at the scoring
-   shape (``SSD_TIMING_SHAPES``); the flash rows also at the pipeline's shape
-   (``PIPELINE_FLASH_SHAPE``, a line of their own); the norms at every
+   shape (``SSD_TIMING_SHAPES``); the flash rows also at the pipeline's
+   shape (``PIPELINE_FLASH_SHAPE``) and qwen1.5-0.5b's step's
+   (``QWEN_FLASH_SHAPE``), paged decode and verify also at phase 4b's
+   (KV, G, D) (``ARCH_PAGED_CASES``); the norms at every
    shape of ``NORM_SHAPES`` (the backward, plain and residual, each with
    its own bound, at two), beside ``floor_ms``, the same timing of an
    empty kernel; then paged verify and the ring decode at a full cache
@@ -620,44 +651,46 @@ def flash_inputs(torch, *, B=4, S=1024, H=10, KV=10, D=128, dtype="float32",
     return q, k, v, do
 
 
+def check_flash(torch, results, dtype, window=None, **shape):
+    """Flash forward (o and lse) and backward (against autograd through
+    the plain forward) at ``shape`` (``flash_inputs``' keywords) against
+    their plain versions; appends one check of each to ``results``."""
+    from repro_torch.kernels.flash_attention import (flash_attention_plain,
+                                                     flash_bwd, flash_fwd)
+    q, k, v, do = flash_inputs(torch, dtype=dtype, seed=len(results),
+                               **shape)
+    o, lse = flash_fwd(q, k, v, window=window)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    o_ref, lse_ref = flash_attention_plain(*leaves, True, window)
+    want = torch.autograd.grad(o_ref, leaves, do)
+    got = flash_bwd(q, k, v, o, lse, do, window=window)
+    torch.cuda.synchronize()
+    e_o, ok_o, r_o = max_err(torch, o, o_ref.detach())
+    e_l = float((lse - lse_ref.detach()).abs().max())
+    ok_l, r_l = scalar_gate(e_l, 1e-4, 1e-5,
+                            float(lse_ref.detach().abs().max()))
+    tag = (tuple(q.shape) + (f"KV={k.shape[2]}",)
+           + ((f"window={window}",) if window else ()))
+    results.append(("flash_fwd", dtype, tag, max(e_o, e_l), ok_o and ok_l,
+                    max(r_o, r_l)))
+    errs = [max_err(torch, a, b, tol=TOL_FLASH_BWD)
+            for a, b in zip(got, want)]
+    results.append(("flash_bwd", dtype, tag, max(e for e, _, _ in errs),
+                    all(k for _, k, _ in errs), max(r for _, _, r in errs)))
+
+
 def phase_train_kernels(torch, results):
     """The training slice's kernels against their plain versions: flash
     forward (o and lse) and backward (against autograd through the plain
     forward), fused AdamW (bit for bit) and the RMSNorm backward (against
     autograd of the plain norms)."""
-    from repro_torch.kernels.flash_attention import (flash_attention_plain,
-                                                     flash_bwd, flash_fwd)
     from repro_torch.kernels.fused_adamw import (fused_adamw_plain,
                                                  fused_adamw_update)
     from repro_torch.kernels.rmsnorm import (rmsnorm_bwd, rmsnorm_plain,
                                              rmsnorm_residual_plain)
     for dtype in ("float32", "bfloat16"):
         for case in (dict(), dict(KV=5), dict(S=1000), dict(window=256)):
-            case = dict(case)
-            window = case.pop("window", None)
-            q, k, v, do = flash_inputs(torch, dtype=dtype, seed=len(results),
-                                       **case)
-            o, lse = flash_fwd(q, k, v, window=window)
-            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-            o_ref, lse_ref = flash_attention_plain(*leaves, True, window)
-            want = torch.autograd.grad(o_ref, leaves, do)
-            got = flash_bwd(q, k, v, o, lse, do, window=window)
-            torch.cuda.synchronize()
-            e_o, ok_o, r_o = max_err(torch, o, o_ref.detach())
-            e_l = float((lse - lse_ref.detach()).abs().max())
-            ok_l, r_l = scalar_gate(e_l, 1e-4, 1e-5,
-                                    float(lse_ref.detach().abs().max()))
-            tag = (tuple(q.shape) + (f"KV={k.shape[2]}",)
-                   + ((f"window={window}",) if window else ()))
-            results.append(("flash_fwd", dtype, tag, max(e_o, e_l),
-                            ok_o and ok_l, max(r_o, r_l)))
-            errs = [max_err(torch, a, b, tol=TOL_FLASH_BWD)
-                    for a, b in zip(got, want)]
-            results.append(("flash_bwd", dtype, tag,
-                            max(e for e, _, _ in errs),
-                            all(k for _, k, _ in errs),
-                            max(r for _, _, r in errs)))
-            del q, k, v, do, o, lse, leaves, o_ref, lse_ref, want, got
+            check_flash(torch, results, dtype, **case)
     g = torch.Generator().manual_seed(2)
     for n, gdt in ((65536 * 1280, "float32"), (65536 * 1280, "bfloat16"),
                    (1_000_003, "float32")):
@@ -1216,46 +1249,64 @@ def rel_err(torch, got, want):
                  / want.abs().max().clamp(min=1e-30))
 
 
-def phase_train_step_vs_cpu(torch):
-    """One training step of nanochat-d20 at full width and depth 2 on the
-    card and on the CPU, same parameters and batch (B 2, S 256): the loss
-    (rtol 1e-5) and every gradient (max error over max |g| <= 1e-4, f32
-    GEMMs sum in another order); one ``nanochat_optimizer`` update with
-    fused AdamW from the CPU's gradients on both (<= 1e-4 of each leaf's
-    max |update|: Newton-Schulz's products in another order); one DiLoCo
-    outer round, K=2 and H=1, through ``DistTrainer`` (losses rtol 1e-5,
-    global params <= 1e-4 of each leaf's max)."""
-    from repro_torch.configs import (NANOCHAT_D20, DiLoCoConfig,
-                                     OptimizerConfig)
-    from repro_torch.core import DistTrainer, make_strategy
-    from repro_torch.models import init_params, lm_loss
-    from repro_torch.models.transformer import flatten, unflatten
-    from repro_torch.optim import nanochat_optimizer
-    cfg = NANOCHAT_D20.with_(num_layers=2)
-    params = flatten(init_params(cfg, seed=0, device="cpu"))
-    params_d = {k: v.cuda() for k, v in params.items()}
-    g = torch.Generator().manual_seed(11)
-    toks = torch.randint(0, cfg.vocab_size, (2, 2, 257), generator=g,
-                         dtype=torch.int32)
-    batch = {"tokens": toks[0, :, :-1], "labels": toks[0, :, 1:]}
+def loss_grads_vs_cpu(torch, loss_fn, params, params_d, batch):
+    """``loss_fn(tree, batch)`` and its gradients on the CPU (``params``,
+    a flat dict) and on the card (``params_d``, the same numbers): the
+    loss's relative error and the worst leaf's max error over its max
+    |g|.  Returns (loss on the CPU, loss on the card, gradient rel err,
+    the CPU's gradients)."""
+    from repro_torch.models.transformer import unflatten
     out = {}
     for dev, p in (("cpu", params), ("cuda", params_d)):
         leaves = {k: v.clone().requires_grad_() for k, v in p.items()}
-        loss, _ = lm_loss(unflatten(leaves), {k: v.to(dev) for k, v in
-                                              batch.items()}, cfg)
+        loss, _ = loss_fn(unflatten(leaves), {k: v.to(dev) for k, v in
+                                              batch.items()})
         grads = torch.autograd.grad(loss, list(leaves.values()))
         out[dev] = (float(loss.detach()), dict(zip(leaves, grads)))
         del leaves, grads
     (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["cuda"]
-    e_loss = abs(l_gpu - l_cpu) / abs(l_cpu)
     e_grad = max(rel_err(torch, g_gpu[k], g_cpu[k]) for k in g_cpu)
-    log(f"  d20 width, depth 2, B 2 x S 256: loss {l_gpu:.6f} vs cpu "
-        f"{l_cpu:.6f} (rel {e_loss:.2e}, tol 1e-5); worst gradient leaf "
-        f"{e_grad:.2e} of its max (tol 1e-4)")
+    return l_cpu, l_gpu, e_grad, g_cpu
+
+
+def train_step_vs_cpu(torch, cfg, B, S, seed):
+    """One training step of ``cfg`` on the card and on the CPU, same
+    parameters (seed 0) and batch (B x S tokens from ``seed``): the loss
+    (rtol 1e-5) and every gradient (max error over max |g| <= 1e-4, f32
+    GEMMs sum in another order); one ``nanochat_optimizer`` update with
+    fused AdamW from the CPU's gradients on both (<= 1e-4 of each leaf's
+    max |update|: Newton-Schulz's products in another order).  Returns
+    (errors, CPU params, card params, tokens (2, B, S + 1) of which the
+    batch is the first, the optimizer config)."""
+    from repro_torch.configs import OptimizerConfig
+    from repro_torch.models import init_params, lm_loss
+    from repro_torch.models.transformer import flatten
+    params = flatten(init_params(cfg, seed=0, device="cpu"))
+    params_d = {k: v.cuda() for k, v in params.items()}
+    g = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (2, B, S + 1), generator=g,
+                         dtype=torch.int32)
+    batch = {"tokens": toks[0, :, :-1], "labels": toks[0, :, 1:]}
+    l_cpu, l_gpu, e_grad, g_cpu = loss_grads_vs_cpu(
+        torch, lambda p, b: lm_loss(p, b, cfg), params, params_d, batch)
+    e_loss = abs(l_gpu - l_cpu) / abs(l_cpu)
+    log(f"  {cfg.name} width, depth {cfg.num_layers}, B {B} x S {S}: loss "
+        f"{l_gpu:.6f} (rel {e_loss:.2e} of the CPU's, tol 1e-5); worst "
+        f"gradient leaf {e_grad:.2e} of its max (tol 1e-4)")
     check(e_loss <= 1e-5 and e_grad <= 1e-4,
-          "training step on the card disagrees with the CPU")
+          f"{cfg.name}: training step on the card disagrees with the CPU")
     opt_cfg = OptimizerConfig(total_steps=10, warmup_steps=2,
                               fused_adamw=True)
+    e_upd = update_vs_cpu(torch, opt_cfg, params, params_d, g_cpu, cfg.name)
+    return ({"loss_rel": e_loss, "grad_rel": e_grad, "update_rel": e_upd},
+            params, params_d, toks, opt_cfg)
+
+
+def update_vs_cpu(torch, opt_cfg, params, params_d, g_cpu, what):
+    """One ``nanochat_optimizer(opt_cfg)`` update at step 1 from the CPU's
+    gradients on both devices: the worst leaf's max error over its max
+    |update| (gate 1e-4: Newton-Schulz's products in another order)."""
+    from repro_torch.optim import nanochat_optimizer
     opt = nanochat_optimizer(opt_cfg)
     upd = {}
     for dev, p in (("cpu", params), ("cuda", params_d)):
@@ -1267,9 +1318,22 @@ def phase_train_step_vs_cpu(torch):
                 for k in upd["cpu"])
     log(f"  nanochat_optimizer update (fused AdamW), same grads: worst "
         f"leaf {e_upd:.2e} of its max (tol 1e-4)")
-    check(e_upd <= 1e-4, "optimizer update on the card disagrees with the "
-          "CPU")
-    del upd, g_cpu, g_gpu, out
+    check(e_upd <= 1e-4, f"{what}: optimizer update on the card disagrees "
+          f"with the CPU")
+    return e_upd
+
+
+def phase_train_step_vs_cpu(torch):
+    """``train_step_vs_cpu`` of nanochat-d20 at full width and depth 2
+    (B 2, S 256), then one DiLoCo outer round, K=2 and H=1, through
+    ``DistTrainer`` (losses rtol 1e-5, global params <= 1e-4 of each
+    leaf's max)."""
+    from repro_torch.configs import NANOCHAT_D20, DiLoCoConfig
+    from repro_torch.core import DistTrainer, make_strategy
+    from repro_torch.models import lm_loss
+    cfg = NANOCHAT_D20.with_(num_layers=2)
+    errs, params, params_d, toks, opt_cfg = train_step_vs_cpu(
+        torch, cfg, 2, 256, 11)
     dcfg = DiLoCoConfig(num_workers=2, h_inner_steps=1)
     # worker w trains on sequence 0 of toks[w]: (K 2, B 1, S 256)
     data = lambda s: {"tokens": toks[:, :1, :-1], "labels": toks[:, :1, 1:]}
@@ -1288,8 +1352,7 @@ def phase_train_step_vs_cpu(torch):
         f"{h_gpu['sync_steps']}")
     check(e_l <= 1e-5 and e_p <= 1e-4 and h_gpu["sync_steps"] == [0],
           "DiLoCo outer round on the card disagrees with the CPU")
-    return {"loss_rel": e_loss, "grad_rel": e_grad, "update_rel": e_upd,
-            "diloco_loss_rel": e_l, "diloco_param_rel": e_p}
+    return dict(errs, diloco_loss_rel=e_l, diloco_param_rel=e_p)
 
 
 def code_steps(torch, a, b):
@@ -1692,16 +1755,16 @@ def profile_engine(torch, eng, prompts, max_new=8):
 
 
 def device_time_by_kernel(torch, prof):
-    """{kernel name: device microseconds} from a torch.profiler run."""
+    """{kernel name: device microseconds} from a torch.profiler run, summed
+    over its raw device events (the profiler's own grouping,
+    ``key_averages``, takes about a minute for a serving run's ~1e5
+    launches; a device event's self time is its duration)."""
     from torch.autograd import DeviceType
     by_name = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
             continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        by_name[e.key] = by_name.get(e.key, 0.0) + us
+        by_name[e.name()] = by_name.get(e.name(), 0.0) + e.duration_ns() / 1e3
     return by_name
 
 
@@ -1882,6 +1945,214 @@ def profile_static(torch, fn, what):
     for k, ms in out["top_kernels_ms"]:
         log(f"    {ms:9.2f} ms  {100 * ms / 1e3 / busy_s:5.1f}%  {k[:90]}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4b: the dense architectures besides nanochat-d20
+# ---------------------------------------------------------------------------
+
+# (arch id, layers run): full published widths, heads and vocabularies,
+# f32, random weights from seed 0.  The depth is cut where the f32
+# parameters at full depth exceed the card (415 / 490 / 62.5 GB at 64 /
+# 88 / 32 layers) to ~25 GB; qwen1.5-0.5b runs whole (1.86 GB)
+ARCH_PLANS = (("qwen1.5-0.5b", 24), ("command-r-plus-104b", 2),
+              ("mistral-large-123b", 4), ("nemotron-4-15b", 8))
+ARCH_MAX_NEW = 16
+# the serving path's kernels: every other kernel stays at 0 launches
+ARCH_KERNELS = ("rmsnorm", "rmsnorm_residual", "paged_decode",
+                "paged_verify")
+# the paged kernels at these configs' new (KV, G, D): qwen's 16 heads of
+# 64, the 96-head configs' groups of 12 and nemotron's of 6; verify at T 5
+# (R = T * G rows up to 60)
+ARCH_PAGED_CASES = ((16, 1, 64), (8, 12, 128), (8, 6, 128))
+# qwen1.5-0.5b's training: one DiLoCo round at full depth (K 2, H 2, 4 x
+# 256 tokens a worker, fused AdamW); the flash kernels at its step's
+# (B, S, H, KV, D); the depth-2 step against the CPU at B 2 x S 128
+QWEN = "qwen1.5-0.5b"
+QWEN_SEQ = 256
+QWEN_TRAIN = dict(steps=2, workers=2, per_worker_batch=4, h=2)
+QWEN_FLASH_SHAPE = (4, QWEN_SEQ, 16, 16, 64)
+
+
+def phase_arch_kernels(torch, results):
+    """The paged decode and verify kernels at ``ARCH_PAGED_CASES`` and the
+    flash kernels at ``QWEN_FLASH_SHAPE`` (head dim 64), f32 and bf16,
+    against their plain versions with phase 2's tolerances."""
+    from repro_torch.kernels.decode_attention import (
+        paged_decode_attention, paged_decode_attention_plain,
+        paged_verify_attention, paged_verify_attention_plain)
+    dev = torch.device("cuda")
+    B, S, H, KV, D = QWEN_FLASH_SHAPE
+    for dtype in ("float32", "bfloat16"):
+        for kv, G, d in ARCH_PAGED_CASES:
+            for T in (1, 5):
+                q, kp, vp, tab, start, ntok, live = (
+                    t.to(dev) for t in paged_case(
+                        torch, KV=kv, G=G, D=d, T=T, dtype=dtype,
+                        seed=100 + T + G))
+                if T == 1:
+                    name, mask = "paged_decode", live[:, 0]
+                    got = paged_decode_attention(q, kp, vp, tab, start)
+                    want = paged_decode_attention_plain(q, kp, vp, tab,
+                                                        start)
+                else:
+                    name, mask = "paged_verify", live
+                    got = paged_verify_attention(q, kp, vp, tab, start,
+                                                 ntok)
+                    want = paged_verify_attention_plain(q, kp, vp, tab,
+                                                        start, ntok)
+                torch.cuda.synchronize()
+                results.append((name, dtype, tuple(q.shape),
+                                *max_err(torch, got, want, mask)))
+        check_flash(torch, results, dtype, B=B, S=S, H=H, KV=KV, D=D)
+
+
+def phase_archs(torch, checks):
+    """The dense configs of ``ARCH_PLANS`` on the card: their new kernel
+    shapes (``phase_arch_kernels``), then each config's serving run
+    (``arch_serving``), qwen1.5-0.5b's training (``qwen_training``), one
+    config at a time with the card's memory freed between them."""
+    from repro_torch.configs import get_config
+    new = []
+    phase_arch_kernels(torch, new)
+    report_checks(new)
+    checks.extend(new)
+    runs = {}
+    for arch, layers in ARCH_PLANS:
+        cfg = get_config(arch).with_(num_layers=layers)
+        runs[arch] = arch_serving(torch, cfg)
+        if arch == QWEN:
+            runs[arch]["train"] = qwen_training(torch, cfg)
+        torch.cuda.empty_cache()
+    return runs
+
+
+def arch_serving(torch, cfg):
+    """``cfg`` (random weights from seed 0) serves phase 4's 8 ragged
+    requests (16 new tokens) through ``Engine`` with spec_k 0 and 4 on an
+    f32 pool, launch counts reset just before each run; gates: finite
+    logits of a forward, greedy tokens equal between spec_k 0 and 4 and
+    equal to ``generate_ids_static``'s (the ring kernel's path), each run
+    launching the norms and its paged kernel and no other kernel.  Logs
+    tokens/s, ms a step and the config's peak memory."""
+    from repro_torch import Engine
+    from repro_torch.kernels import KERNELS, launches, reset_launches
+    from repro_torch.models import forward_lm, init_params
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{cfg.num_heads} heads over {cfg.num_kv_heads} of "
+        f"{cfg.resolved_head_dim()}, d_ff {cfg.d_ff} ({cfg.mlp_activation}),"
+        f" vocab {cfg.vocab_size} ({'tied' if cfg.tie_embeddings else 'untied'}"
+        f"{', qkv bias' if cfg.qkv_bias else ''}): "
+        f"{cfg.param_count() * 4 / 1e9:.2f} GB of f32 parameters "
+        f"({time.perf_counter() - t0:.1f} s to init)")
+    g = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in PROMPT_LENS]
+    prompts[1][13:16] = prompts[1][3:6]       # a draft for spec_k 4
+    with torch.no_grad():
+        logits, _ = forward_lm(params, {"tokens": torch.tensor(
+            [prompts[1]], device="cuda")}, cfg)
+    check(bool(torch.isfinite(logits).all()), f"{cfg.name}: non-finite "
+          f"logits")
+    del logits
+    out, run = {}, {"layers": cfg.num_layers,
+                    "param_gb": cfg.param_count() * 4 / 1e9}
+    for spec_k, attn_kernel in ((0, "paged_decode"), (4, "paged_verify")):
+        name = f"{cfg.name}_spec_k{spec_k}"
+        out[spec_k], rec = engine_run(
+            torch, cfg, params, prompts, spec_k,
+            ("rmsnorm", "rmsnorm_residual", attn_kernel), name,
+            max_new=ARCH_MAX_NEW)
+        off = {k: n for k, n in rec["launches"].items()
+               if n and k not in ARCH_KERNELS}
+        check(not off, f"{name}: kernels {off} launched off the path")
+        rec["ms_per_step_call"] = 1e3 * rec["wall_s"] / rec["step_calls"]
+        run[f"spec_k{spec_k}"] = rec
+    check(out[0] == out[4], f"{cfg.name}: greedy tokens differ between "
+          f"spec_k=0 and 4")
+    eng = Engine(cfg, params, max_len=512, num_slots=8, block_size=16,
+                 device="cuda")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    static = eng.generate_ids_static(prompts, max_new=ARCH_MAX_NEW)
+    wall = time.perf_counter() - t0
+    counts = {k: launches[k] for k in KERNELS}
+    steps = max(PROMPT_LENS) + ARCH_MAX_NEW
+    run["static"] = {"launches": counts, "wall_s": wall,
+                     "tokens_per_s": static.size / wall,
+                     "ms_per_decode_step": 1e3 * wall / steps}
+    check(static.tolist() == out[0], f"{cfg.name}: greedy tokens of the "
+          f"continuous engine differ from generate_ids_static's")
+    run["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  {cfg.name}: greedy tokens equal between spec_k 0, 4 and the "
+        f"static path; tokens/s {run['spec_k0']['tokens_per_s']:.1f} / "
+        f"{run['spec_k4']['tokens_per_s']:.1f} / "
+        f"{run['static']['tokens_per_s']:.1f} (ms a step call "
+        f"{run['spec_k0']['ms_per_step_call']:.1f} / "
+        f"{run['spec_k4']['ms_per_step_call']:.1f}, a static decode step "
+        f"{run['static']['ms_per_decode_step']:.2f}), static launches "
+        f"{ {k: v for k, v in counts.items() if v} }, peak "
+        f"{run['peak_memory_gb']:.2f} GB")
+    del eng, params
+    return run
+
+
+def qwen_training(torch, cfg):
+    """qwen1.5-0.5b at full depth: one DiLoCo round through ``run_stage``
+    (``QWEN_TRAIN`` on the synthetic corpus at seq_len ``QWEN_SEQ``, the
+    tokenizer's ids under the config's 151,936-row vocabulary): the loss
+    falls, the training kernels launch and no other; then the depth-2
+    step against the CPU (``train_step_vs_cpu``, B 2 x S 128)."""
+    from repro_torch.configs import DiLoCoConfig, OptimizerConfig
+    from repro_torch.kernels import KERNELS, launches, reset_launches
+    from repro_torch.launch.train import build_pipeline, run_stage
+    from repro_torch.models import init_params
+    _, _, stages, _ = build_pipeline(seq_len=QWEN_SEQ)
+    opt_cfg = OptimizerConfig(total_steps=QWEN_TRAIN["steps"],
+                              warmup_steps=1, learning_rate=0.02,
+                              adam_lr=1e-3, fused_adamw=True)
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    final, hist = run_stage("diloco", cfg, params, stages["base"],
+                            opt_cfg=opt_cfg, diloco_cfg=DiLoCoConfig(),
+                            seed=0, **QWEN_TRAIN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: launches[k] for k in KERNELS}
+    tokens = (QWEN_TRAIN["workers"] * QWEN_TRAIN["per_worker_batch"]
+              * QWEN_SEQ)
+    run = {"launches": counts, "loss": hist["loss"],
+           "sync_steps": hist["sync_steps"],
+           "step_seconds": hist["step_seconds"],
+           "tokens_per_s": tokens / hist["step_seconds"], "wall_s": wall,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"  {cfg.name} DiLoCo round {QWEN_TRAIN}, seq_len {QWEN_SEQ}: "
+        f"losses {[round(x, 4) for x in hist['loss']]}, syncs "
+        f"{hist['sync_steps']}, step {hist['step_seconds']:.3f} s "
+        f"({run['tokens_per_s']:.0f} tokens/s), peak "
+        f"{run['peak_memory_gb']:.2f} GB, launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    check(all(math.isfinite(x) for x in hist["loss"])
+          and hist["loss"][-1] < hist["loss"][0],
+          f"{cfg.name}: the loss did not fall")
+    check(hist["sync_steps"] == [1], f"{cfg.name}: syncs "
+          f"{hist['sync_steps']}")
+    for k in KERNELS:
+        check((counts[k] > 0) == (k in TRAIN_KERNELS),
+              f"{cfg.name} training: kernel {k} launched {counts[k]} times")
+    del params, final
+    torch.cuda.empty_cache()
+    run["vs_cpu"] = train_step_vs_cpu(torch, cfg.with_(num_layers=2), 2,
+                                      128, 13)[0]
+    return run
 
 
 TRAIN_SEQ = 1024
@@ -2315,8 +2586,11 @@ RESUME_PLANS = (("diloco_int8", dict(strategy="diloco", delta_dtype="int8"),
 RESUME_KW = dict(workers=2, h=2, per_worker_batch=8, seq_len=128)
 PREFETCH_DEPTH = 4
 EVAL_EVERY = 3
-# drift on a short DiLoCo run at nanochat-d20's full depth and width
+# drift on a short DiLoCo run at nanochat-d20's full width, cut to 10
+# layers for the script's time since phases 4b and 6e joined (its float64
+# CPU copies took 18.45 s at 20 layers)
 DRIFT_KW = dict(steps=4, h=2, per_worker_batch=8, seq_len=128)
+DRIFT_LAYERS = 10
 DRIFT_RANK = 8
 TOL_DRIFT = {"param_drift": 1e-5, "worker_cka": 1e-4}   # rtol, vs f64 CPU
 # the card's memory a K 4 pipeline must leave free to move phase 6 to K 4
@@ -2618,8 +2892,8 @@ def resume_runs(torch, paths):
 
 
 def drift_run(torch, k):
-    """A short DiLoCo run of nanochat-d20 (full width and depth, vocab 512)
-    at K ``k``, H 2, 4 steps of 8 x 128 tokens a worker, through the
+    """A short DiLoCo run of nanochat-d20 (full width, ``DRIFT_LAYERS``
+    layers, vocab 512) at K ``k``, H 2, 4 steps of 8 x 128 tokens a worker, through the
     trainer's inner and outer steps; before the last sync: ``param_drift``
     on the card against the same function on float64 CPU copies (rtol
     ``TOL_DRIFT``), ``worker_cka_matrix`` of the workers' final-normed
@@ -2633,7 +2907,8 @@ def drift_run(torch, k):
     from repro_torch.models.transformer import forward_hidden, unflatten
     _, tok, stages, _ = build_pipeline(seq_len=DRIFT_KW["seq_len"])
     ds = stages["base"]
-    cfg = make_model("nanochat-d20", False, tok.vocab_size)
+    cfg = make_model("nanochat-d20", False, tok.vocab_size).with_(
+        num_layers=DRIFT_LAYERS)
     dcfg = DiLoCoConfig(num_workers=k, h_inner_steps=DRIFT_KW["h"])
     dt = DistTrainer(lambda p, b: lm_loss(p, b, cfg),
                      OptimizerConfig(total_steps=DRIFT_KW["steps"],
@@ -2675,7 +2950,8 @@ def drift_run(torch, k):
         cka01 = float(drift.linear_cka(x, y))
         sub01 = float(drift.subspace_overlap(x, y, r=DRIFT_RANK))
     off = ((float(cka_card.sum()) - k) / (k * (k - 1)))
-    log(f"  drift, nanochat-d20 (vocab {cfg.vocab_size}), K {k}, H "
+    log(f"  drift, nanochat-d20 ({cfg.num_layers} layers, vocab "
+        f"{cfg.vocab_size}), K {k}, H "
         f"{DRIFT_KW['h']}, before the sync at step {DRIFT_KW['steps']}: "
         + " ".join(f"{n}={v:.6g}" for n, v in d_card.items())
         + f" (card {t_card:.2f} s; float64 CPU {t_cpu:.2f} s; worst rel "
@@ -2988,9 +3264,10 @@ def gossip_state_runs(torch, tok, ds, opt_cfg):
 # per-worker batch 8, seq_len 128, H 2, the int8 wire, fused AdamW, remat
 # on; (path, method, layers, steps, schedule, gates: quorum, sync_steps).
 # Gossip runs at 10 layers: with it at 20 the script took 1008.2 s of its
-# 1200 on an H100 80GB HBM3 (PERF.md §6)
+# 1200 on an H100 80GB HBM3 (PERF.md §6); DiLoCo too since phases 4b and
+# 6e joined (at 20 layers the script passed 1200 s on the same card)
 FAULT_PLANS = (
-    ("faults_diloco", "diloco", 20, 8,
+    ("faults_diloco", "diloco", 10, 8,
      "slow:3@1x1.5,crash:2@2,drop:1@3,corrupt:0@5x2,rejoin:2@6",
      [(1, 4), (3, 3), (5, 2), (7, 3)], [1, 3, 5, 7]),
     ("faults_gossip", "gossip", 10, 4, "crash:1@1,rejoin:1@2",
@@ -3108,10 +3385,10 @@ class _FaultProbe:
 def phase_faults(torch, diloco_step_s, gossip_step_s):
     """The fault layer (``FAULT_PLANS``) at full width through
     ``run_stage(faults=...)``, each from fresh parameters with launch
-    counts reset just before the run: DiLoCo with a slowdown, a crash, a
-    dropped and a twice-corrupted payload and a rejoin; gossip on the
-    ring (at 10 layers) with a worker down in round 1 and back in round
-    3.  Gates: the
+    counts reset just before the run, both at 10 layers: DiLoCo with a
+    slowdown, a crash, a dropped and a twice-corrupted payload and a
+    rejoin; gossip on the ring with a worker down in round 1 and back in
+    round 3.  Gates: the
     quorum and sync records, the ``fault``, ``quorum``, ``sync_steps``,
     ``gossip_syncs`` records and the rejoin's (step, worker) equal to the
     same schedule's on the CPU (a tiny model); one rejoin record, its norm
@@ -3440,6 +3717,252 @@ def fault_state_runs(torch, tok, ds, opt_cfg):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6e: GRPO
+# ---------------------------------------------------------------------------
+
+# nanochat-d20 at full width and depth (vocab 512, the tokenizer's, so the
+# rollouts decode), 16 arithmetic prompts x G 8 sampled requests of 6 new
+# tokens, the reference example's optimizer (constant, lr 0.01, adam_lr
+# 1e-3) with fused AdamW.  At random init ``arith_reward_fn`` gives every
+# group 0 (every advantage 0), so the reward is the reference test's kind:
+# 1 when the first completion token lies in GRPO_REWARD_IDS (128 of the
+# 512 ids: at a near-uniform policy 90% of the groups are mixed)
+GRPO_ITERS = 4
+GRPO_KW = dict(group_size=8, max_new=6)
+GRPO_PROMPTS = 16
+# the prompts whose iteration-1 groups a fresh engine rolls out again
+GRPO_FRESH_PROMPTS = 2
+GRPO_REWARD_IDS = frozenset(range(0, 512, 4))
+GRPO_ROLLOUT_KERNELS = ("rmsnorm", "rmsnorm_residual", "paged_decode")
+GRPO_UPDATE_KERNELS = ("rmsnorm", "rmsnorm_residual", "flash_fwd",
+                       "flash_bwd", "rmsnorm_bwd", "fused_adamw")
+
+
+class _GRPOProbe:
+    """The reward function of one GRPO run: rewards a first token in
+    ``GRPO_REWARD_IDS`` and records, per ``rollout_and_step`` call, the
+    sampled rows, the time and the launch counts at its first call (the
+    rollouts are then done: ``generate_ids`` has read the tokens back)."""
+
+    def __init__(self):
+        self.rows, self.marks = [], []
+
+    def begin(self):
+        self.rows.append([])
+
+    def __call__(self, prompt_idx, row):
+        from repro_torch.kernels import KERNELS, launches
+        if not self.rows[-1]:
+            self.marks.append((time.perf_counter(),
+                               {k: launches[k] for k in KERNELS}))
+        self.rows[-1].append([int(t) for t in row])
+        return 1.0 if int(row[0]) in GRPO_REWARD_IDS else 0.0
+
+
+def grpo_p_set(torch, cfg, params, prompts):
+    """Mean over the prompts of the policy's probability of the reward set
+    at the prompt's last position (one right-padded forward)."""
+    from repro_torch.models import forward_lm
+    toks = torch.zeros((len(prompts), max(map(len, prompts))),
+                       dtype=torch.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p)
+    last = torch.tensor([len(p) - 1 for p in prompts])
+    with torch.no_grad():
+        logits, _ = forward_lm(params, {"tokens": toks.cuda()}, cfg)
+    probs = torch.softmax(logits[torch.arange(len(prompts)), last.cuda()]
+                          .float(), dim=-1)
+    ids = torch.tensor(sorted(GRPO_REWARD_IDS), device="cuda")
+    return float(probs[:, ids].sum(-1).mean())
+
+
+def grpo_run(torch, cfg, params, prompts, pad_id, opt_cfg, iters,
+             profiled=False, fresh_check=False):
+    """``iters`` iterations of ``GRPOTrainer.rollout_and_step`` (seed = the
+    iteration) from ``params``, launch counts reset before each.  Returns
+    (state, per-iteration records, the sampled rows per iteration, the
+    fresh engine's rows, a copy of the parameters after iteration 0).
+    ``profiled``: each iteration under torch.profiler (its device busy
+    share, and the seconds the trace took to process); ``fresh_check``:
+    before iteration 1, a fresh ``Engine`` on the current parameters
+    samples iteration 1's seed for the first ``GRPO_FRESH_PROMPTS``
+    prompts' groups (a request's tokens depend on its seed, id and
+    prompt alone, not on the batch it shares)."""
+    from repro_torch import Engine
+    from repro_torch.core import GRPOTrainer
+    from repro_torch.kernels import KERNELS, launches, reset_launches
+    from repro_torch.models.transformer import flatten
+    from torch.profiler import ProfilerActivity, profile
+    tr = GRPOTrainer(cfg, opt_cfg, **GRPO_KW)
+    state = tr.init(params)
+    probe = _GRPOProbe()
+    G, max_new = GRPO_KW["group_size"], GRPO_KW["max_new"]
+    rep = [p for p in prompts for _ in range(G)]
+    recs, fresh, snap = [], None, None
+    for it in range(iters):
+        if fresh_check and it == 1:
+            eng = Engine(cfg, state["params"], device="cuda")
+            fresh = eng.generate_ids(rep[:G * GRPO_FRESH_PROMPTS],
+                                     max_new=max_new, greedy=False,
+                                     temperature=tr.temperature,
+                                     seed=it).tolist()
+            del eng
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        probe.begin()
+        reset_launches()
+        prof = (profile(activities=[ProfilerActivity.CUDA]) if profiled
+                else None)
+        if prof is not None:
+            prof.__enter__()
+        t0 = time.perf_counter()
+        state, loss, mean_r = tr.rollout_and_step(state, prompts, probe,
+                                                  pad_id=pad_id, seed=it)
+        t1 = time.perf_counter()
+        t_mark, at_mark = probe.marks[-1]
+        total = {k: launches[k] for k in KERNELS}
+        rec = {"loss": loss, "mean_reward": mean_r,
+               "rollout_s": t_mark - t0, "update_s": t1 - t_mark,
+               "sampled_tokens_per_s": len(rep) * max_new / (t_mark - t0),
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "rollout_launches": at_mark,
+               "update_launches": {k: total[k] - at_mark[k]
+                                   for k in KERNELS}}
+        if prof is not None:
+            t2 = time.perf_counter()
+            prof.__exit__(None, None, None)
+            busy = sum(device_time_by_kernel(torch, prof).values()) / 1e6
+            rec["busy_share"] = busy / (t1 - t0) if busy else None
+            rec["trace_processing_s"] = time.perf_counter() - t2
+            del prof
+        recs.append(rec)
+        if it == 0:
+            snap = {k: v.clone() for k, v in flatten(state["params"]).items()}
+    return state, recs, probe.rows, fresh, snap
+
+
+def phase_grpo(torch):
+    """GRPO at nanochat-d20's full width (``GRPO_*``): run A (timed, 4
+    iterations), then run B from the same seed (1 iteration, under
+    torch.profiler).  Gates: (a) the mean probability of the reward set
+    at the prompts' last position rises over run A; (b) run B's rollouts
+    and parameters equal run A's after iteration 0, bit for bit; (c)
+    iteration 1's rollouts of the first ``GRPO_FRESH_PROMPTS`` prompts
+    equal a fresh ``Engine``'s on the parameters iteration 0 left, with
+    its seed; (d) at depth 2, one
+    update on injected completions, card against CPU, within phase 3's
+    training-step gates (``grpo_update_vs_cpu``); (e) the rollouts
+    launch the norms and paged decode and no other kernel, the update the
+    training kernels and no other."""
+    from repro_torch.configs import NANOCHAT_D20, OptimizerConfig
+    from repro_torch.data import build_tokenizer, synthetic
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import flatten
+    tok = build_tokenizer()
+    cfg = NANOCHAT_D20.with_(vocab_size=tok.vocab_size)
+    items = synthetic.gen_arith_eval(GRPO_PROMPTS, seed=31)
+    prompts = [tok.encode(it["prompt"]) for it in items]
+    opt_cfg = OptimizerConfig(total_steps=GRPO_ITERS, warmup_steps=0,
+                              schedule="constant", learning_rate=0.01,
+                              adam_lr=1e-3, fused_adamw=True)
+    params = init_params(cfg, seed=0, device="cuda")
+    p_before = grpo_p_set(torch, cfg, params, prompts)
+    state_a, recs, rows_a, fresh, snap_a = grpo_run(
+        torch, cfg, params, prompts, tok.pad, opt_cfg, GRPO_ITERS,
+        fresh_check=True)
+    p_after = grpo_p_set(torch, cfg, state_a["params"], prompts)
+    del state_a
+    for it, r in enumerate(recs):
+        log(f"  GRPO iter {it}: loss {r['loss']:+.6f} mean_reward "
+            f"{r['mean_reward']:.4f}, rollout {r['rollout_s']:.3f} s "
+            f"({r['sampled_tokens_per_s']:.1f} sampled tokens/s), update "
+            f"{r['update_s']:.3f} s, peak {r['peak_memory_gb']:.2f} GB")
+    state_b, recs_b, rows_b, _, snap_b = grpo_run(
+        torch, cfg, params, prompts, tok.pad, opt_cfg, 1, profiled=True)
+    same_params = tree_bits_equal(torch, snap_a, snap_b)
+    for it, r in enumerate(recs_b):
+        log(f"  GRPO run B iter {it} under torch.profiler: rollout "
+            f"{r['rollout_s']:.3f} s, update {r['update_s']:.3f} s, device "
+            f"busy share {r['busy_share'] or 'not measured'} (trace "
+            f"processed in {r['trace_processing_s']:.1f} s)")
+    log(f"  GRPO P(reward set) at the prompts' last position {p_before:.6f}"
+        f" -> {p_after:.6f}; run B == run A after iteration 0: rollouts "
+        f"{rows_b == rows_a[:1]}, parameters {same_params}; iteration 1's "
+        f"first {len(fresh)} rows == a fresh engine's "
+        f"{fresh == rows_a[1][:len(fresh)]}")
+    check(p_after > p_before, "GRPO did not raise the reward set's "
+          "probability")
+    check(rows_b == rows_a[:1] and same_params, "GRPO: a second run from "
+          "the same seed differs")
+    check(fresh == rows_a[1][:len(fresh)], "GRPO: iteration 1 did not roll "
+          "out with the updated parameters")
+    for it, r in enumerate(recs):
+        for part, need in (("rollout", GRPO_ROLLOUT_KERNELS),
+                           ("update", GRPO_UPDATE_KERNELS)):
+            counts = r[f"{part}_launches"]
+            for k in KERNELS:
+                check((counts[k] > 0) == (k in need), f"GRPO iter {it} "
+                      f"{part}: kernel {k} launched {counts[k]} times")
+    del state_b, snap_a, snap_b, params
+    torch.cuda.empty_cache()
+    return {"iterations": recs, "profiled": recs_b,
+            "p_reward_set": [p_before, p_after],
+            "launches": {
+                "grpo_rollout": {k: sum(r["rollout_launches"][k]
+                                        for r in recs) for k in KERNELS},
+                "grpo_update": {k: sum(r["update_launches"][k]
+                                       for r in recs) for k in KERNELS}},
+            "vs_cpu": grpo_update_vs_cpu(torch, cfg, prompts, tok.pad,
+                                         opt_cfg)}
+
+
+def grpo_update_vs_cpu(torch, cfg, prompts, pad_id, opt_cfg):
+    """One GRPO update of ``cfg`` at depth 2 on injected completions
+    (random rows from a seed, the reward set's rewards, the batch
+    ``rollout_batch`` builds), card against CPU from the same
+    parameters, within phase 3's training-step gates: ``grpo_loss``
+    (rtol 1e-5), its gradients (each leaf 1e-4 of its max) and the
+    optimizer's update from the CPU's gradients (``update_vs_cpu``)."""
+    import numpy as np
+    from repro_torch.core import grpo_loss
+    from repro_torch.core.grpo import rollout_batch
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import flatten, unflatten
+    cfg = cfg.with_(num_layers=2)
+    G, max_new = GRPO_KW["group_size"], GRPO_KW["max_new"]
+    rep = [p for p in prompts for _ in range(G)]
+    rows = np.random.default_rng(17).integers(
+        0, cfg.vocab_size, (len(rep), max_new)).astype(np.int32)
+    rewards = np.asarray([1.0 if int(r[0]) in GRPO_REWARD_IDS else 0.0
+                          for r in rows], np.float32)
+    batch = {k: torch.from_numpy(v) for k, v in rollout_batch(
+        rep, rows, rewards, G, max_new, pad_id).items()}
+    params = flatten(init_params(cfg, seed=0, device="cpu"))
+    params_d = {k: v.cuda() for k, v in params.items()}
+    l_cpu, l_gpu, e_grad, g_cpu = loss_grads_vs_cpu(
+        torch, lambda p, b: grpo_loss(p, b, cfg), params, params_d, batch)
+    e_loss = abs(l_gpu - l_cpu) / abs(l_cpu)
+    # the loss sums adv * logprob over zero-mean advantages, so it cancels
+    # to far below its terms: its error is taken relative to their scale,
+    # mean |adv| * |mean log-prob|, not to the loss
+    with torch.no_grad():
+        _, met = grpo_loss(unflatten(params), batch, cfg)
+    scale = float(batch["adv"].abs().mean()) * abs(float(
+        met["mean_logprob"]))
+    e_terms = abs(l_gpu - l_cpu) / scale
+    log(f"  GRPO at depth 2, {len(rep)} injected completions: loss "
+        f"{l_gpu:+.6f}, error {e_terms:.2e} of its terms' scale {scale:.4f} "
+        f"(tol 1e-5; {e_loss:.2e} of the loss itself), worst gradient leaf "
+        f"{e_grad:.2e} of its max (tol 1e-4)")
+    check(e_terms <= 1e-5 and e_grad <= 1e-4,
+          "GRPO loss or gradients on the card disagree with the CPU")
+    e_upd = update_vs_cpu(torch, opt_cfg, params, params_d, g_cpu, "GRPO")
+    return {"loss_rel": e_loss, "loss_rel_terms": e_terms, "grad_rel": e_grad,
+            "update_rel": e_upd}
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: timing
 # ---------------------------------------------------------------------------
 
@@ -3535,15 +4058,57 @@ def norm_fwd_times(torch, shape, seed):
             "library_ms": None, "nbytes": 4 * n * 4 + d * 4, "ops": 5 * n}}
 
 
-def phase_timing(torch, paths, checks):
-    """``paths``: {main-path run name: {kernel: launches}}."""
+def paged_timing(torch, T, **case):
+    """Paged decode (T 1) or verify (T 5) at ``paged_case``'s shape (f32;
+    ``case``: its KV, G, D), the plain version and the SDPA yardstick:
+    {"shape", "ms", "plain_ms", "library_ms", "nbytes", "ops"}; bytes and
+    operations of what this call's data needs (``paged_work``)."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (
         paged_decode_attention, paged_decode_attention_plain,
         paged_verify_attention, paged_verify_attention_plain)
     dev = torch.device("cuda")
-    dtype = "float32"                     # the main path's working type
     item = 4
+    q, kp, vp, tab, start, ntok, live = (
+        t.to(dev) for t in paged_case(torch, T=T, dtype="float32", seed=T,
+                                      **case))
+    S, KV, G, D = q.shape[0], q.shape[-3], q.shape[-2], q.shape[-1]
+    bs, MB = kp.shape[1], tab.shape[1]
+    kv_rows, q_rows, tab_reads, pairs = paged_work(tab, start, ntok, bs)
+    nbytes = ((2 * kv_rows * KV * D + 2 * q_rows * KV * G * D) * item
+              + (tab_reads + S * (1 if T == 1 else 2)) * 4)
+    ops = 4 * pairs * KV * G * D
+    # library yardstick: SDPA over the gathered KV with a boolean mask
+    L = MB * bs
+    safe = tab.clamp(min=0).long()
+    kg = kp[safe].reshape(S, L, KV, D).transpose(1, 2)
+    vg = vp[safe].reshape(S, L, KV, D).transpose(1, 2)
+    kg = kg.repeat_interleave(G, dim=1).contiguous()
+    vg = vg.repeat_interleave(G, dim=1).contiguous()
+    tq = torch.arange(T, device=dev)
+    qpos = start.long()[:, None] + tq[None, :]
+    mapped = (tab >= 0).repeat_interleave(bs, dim=1)
+    mask = ((torch.arange(L, device=dev)[None, None, :]
+             <= qpos[:, :, None]) & mapped[:, None, :])[:, None]
+    mask = mask | ~mask.any(-1, keepdim=True)      # no empty rows
+    if T == 1:
+        qs = q.reshape(S, KV * G, 1, D)
+        fn = lambda: paged_decode_attention(q, kp, vp, tab, start)
+        plain = lambda: paged_decode_attention_plain(q, kp, vp, tab, start)
+    else:
+        qs = q.permute(0, 2, 3, 1, 4).reshape(S, KV * G, T, D)
+        fn = lambda: paged_verify_attention(q, kp, vp, tab, start, ntok)
+        plain = lambda: paged_verify_attention_plain(q, kp, vp, tab, start,
+                                                     ntok)
+    lib = lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask)
+    return {"shape": list(q.shape), "ms": time_ms(torch, fn),
+            "plain_ms": time_ms(torch, plain),
+            "library_ms": time_ms(torch, lib), "nbytes": nbytes, "ops": ops}
+
+
+def phase_timing(torch, paths, checks):
+    """``paths``: {main-path run name: {kernel: launches}}."""
+    dtype = "float32"                     # the main path's working type
     out = []
 
     def row(name, shape, ms, plain_ms, lib_ms, nbytes, ops, **extra):
@@ -3588,44 +4153,15 @@ def phase_timing(torch, paths, checks):
                for k, v in norms.items() if k != "decode"})
 
     for name, T in (("paged_decode", 1), ("paged_verify", 5)):
-        q, kp, vp, tab, start, ntok, live = (
-            t.to(dev) for t in paged_case(torch, T=T, dtype=dtype, seed=T))
-        S, KV, G, D = q.shape[0], q.shape[-3], q.shape[-2], q.shape[-1]
-        bs, MB = kp.shape[1], tab.shape[1]
-        kv_rows, q_rows, tab_reads, pairs = paged_work(tab, start, ntok, bs)
-        nbytes = ((2 * kv_rows * KV * D + 2 * q_rows * KV * G * D) * item
-                  + (tab_reads + S * (1 if T == 1 else 2)) * 4)
-        ops = 4 * pairs * KV * G * D
-        # library yardstick: SDPA over the gathered KV with a boolean mask
-        L = MB * bs
-        safe = tab.clamp(min=0).long()
-        kg = kp[safe].reshape(S, L, KV, D).transpose(1, 2)
-        vg = vp[safe].reshape(S, L, KV, D).transpose(1, 2)
-        kg = kg.repeat_interleave(G, dim=1).contiguous()
-        vg = vg.repeat_interleave(G, dim=1).contiguous()
-        tq = torch.arange(T, device=dev)
-        qpos = start.long()[:, None] + tq[None, :]
-        mapped = (tab >= 0).repeat_interleave(bs, dim=1)
-        mask = ((torch.arange(L, device=dev)[None, None, :]
-                 <= qpos[:, :, None]) & mapped[:, None, :])[:, None]
-        mask = mask | ~mask.any(-1, keepdim=True)      # no empty rows
-        if T == 1:
-            qs = q.reshape(S, KV * G, 1, D)
-            fn = lambda: paged_decode_attention(q, kp, vp, tab, start)
-            plain = lambda: paged_decode_attention_plain(q, kp, vp, tab,
-                                                         start)
-        else:
-            qs = q.permute(0, 2, 3, 1, 4).reshape(S, KV * G, T, D)
-            fn = lambda: paged_verify_attention(q, kp, vp, tab, start, ntok)
-            plain = lambda: paged_verify_attention_plain(q, kp, vp, tab,
-                                                         start, ntok)
-        lib = lambda: F.scaled_dot_product_attention(qs, kg, vg,
-                                                     attn_mask=mask)
-        row(name, q.shape, time_ms(torch, fn), time_ms(torch, plain),
-            time_ms(torch, lib), nbytes, ops,
+        t = paged_timing(torch, T)
+        at = {}
+        for KV, G, D in ARCH_PAGED_CASES:
+            a = paged_timing(torch, T, KV=KV, G=G, D=D)
+            at[f"at_kv{KV}_g{G}_d{D}_shape"] = with_bound(a, dtype)
+        row(name, t["shape"], t["ms"], t["plain_ms"], t["library_ms"],
+            t["nbytes"], t["ops"],
             library="F.scaled_dot_product_attention over the K/V gathered "
-                    "from the pool, with a boolean mask")
-    del q, kp, vp, kg, vg, mask
+                    "from the pool, with a boolean mask", **at)
     static_rows(torch, row)
     quant_rows(torch, row)
     train_rows(torch, row)
@@ -3946,14 +4482,19 @@ def sdpa_kernels(torch, B, S, H, KV, D):
 
 def train_rows(torch, row):
     """Timing rows of the training kernels at the main path's shapes
-    (float32): flash at (B 4, S 1024, H = KV = 10, D 128), the RMSNorm
+    (float32): flash at (B 4, S 1024, H = KV = 10, D 128), also at the
+    pipeline's (``PIPELINE_FLASH_SHAPE``) and qwen1.5-0.5b's step
+    (``QWEN_FLASH_SHAPE``, head dim 64), the RMSNorm
     backward, plain and residual, at 4 x 1024 and 8 x 128 rows of 1280,
     fused AdamW on the AdamW partition's largest leaf (65536 x 1280)."""
     from repro_torch.kernels.fused_adamw import (fused_adamw_plain,
                                                  fused_adamw_update)
     shape = TRAIN_FLASH_SHAPE
     times = flash_timing(torch, *shape)
-    pipe = flash_timing(torch, *PIPELINE_FLASH_SHAPE)
+    others = {"pipeline": (PIPELINE_FLASH_SHAPE,
+                           flash_timing(torch, *PIPELINE_FLASH_SHAPE)),
+              "qwen": (QWEN_FLASH_SHAPE,
+                       flash_timing(torch, *QWEN_FLASH_SHAPE))}
     libraries = {
         "flash_fwd": "F.scaled_dot_product_attention(is_causal=True) on "
                      "(B, H, S, D) copies",
@@ -3963,15 +4504,14 @@ def train_rows(torch, row):
                      "(torch.autograd.grad of F.scaled_dot_product_attention)"}
     for name, library in libraries.items():
         ms, plain_ms, lib_ms, nbytes, ops = times[name]
-        p_ms, p_plain, p_lib, p_bytes, p_ops = pipe[name]
-        at_pipe = dict({"shape": list(PIPELINE_FLASH_SHAPE), "ms": p_ms,
-                        "plain_ms": p_plain, "library_ms": p_lib},
-                       **tc_bounds(name, p_bytes, p_ops))
+        at = {}
+        for where, (oshape, t) in others.items():
+            o_ms, o_plain, o_lib, o_bytes, o_ops = t[name]
+            at[f"at_{where}_shape"] = dict(
+                {"shape": list(oshape), "ms": o_ms, "plain_ms": o_plain,
+                 "library_ms": o_lib}, **tc_bounds(name, o_bytes, o_ops))
         row(name, shape[:3] + shape[4:], ms, plain_ms, lib_ms, nbytes, ops,
-            library=library, at_pipeline_shape=at_pipe)
-        log(f"  {name} at the pipeline's shape (B, S, H, KV, D) "
-            f"{PIPELINE_FLASH_SHAPE}: " + " ".join(
-                f"{k}={v}" for k, v in at_pipe.items() if k != "shape"))
+            library=library, **at)
     bwd = {k: norm_bwd_times(torch, NORM_SHAPES[k], seed)
            for seed, k in enumerate(NORM_BWD_SHAPES)}
     t = bwd["training"]
@@ -4222,6 +4762,14 @@ def main(argv=None) -> int:
         report["static"] = static
         lap("4 serving")
 
+        log("[4b/7] the dense configs at full width: qwen1.5-0.5b (24 "
+            "layers), command-r-plus-104b (2), mistral-large-123b (4), "
+            "nemotron-4-15b (8): serving spec_k 0 / 4 and static; qwen's "
+            "DiLoCo round")
+        archs = report["archs"] = phase_archs(torch, checks)
+        report["checks"] = [list(c) for c in checks]
+        lap("4b archs")
+
         log("[5/7] training, nanochat-d20: DiLoCo and DDP on the f32 wire; "
             "DiLoCo on int8, fp8 and fp8_e5m2 wires, compressed DDP, "
             "streaming, overlapped and pipelined on the lossy wire")
@@ -4260,6 +4808,12 @@ def main(argv=None) -> int:
                 for p in ("gossip", "gossip_random")))
         lap("6d faults")
 
+        log("[6e/7] GRPO, nanochat-d20 at full width: 16 prompts x G 8, "
+            "4 iterations and the first again; the depth-2 update against "
+            "the CPU")
+        grpo = report["grpo"] = phase_grpo(torch)
+        lap("6e grpo")
+
         log("[7/7] kernel timing")
         paths = {name: run["launches"] for name, run in runs.items()}
         paths.update({m: run["launches"] for m, run in train.items()})
@@ -4271,6 +4825,12 @@ def main(argv=None) -> int:
                       for n, c in state["launches"].items()})
         paths.update(gossip["launches"])
         paths.update(faults["launches"])
+        for arch, run in archs.items():
+            paths.update({f"{arch}_{part}": run[part]["launches"]
+                          for part in ("spec_k0", "spec_k4", "static")})
+            if "train" in run:
+                paths[f"{arch}_train"] = run["train"]["launches"]
+        paths.update(grpo["launches"])
         floor = report["floor_ms"] = time_ms(
             torch, lambda: torch.cuda._sleep(0))
         kernels = phase_timing(torch, paths, checks)
@@ -4372,10 +4932,29 @@ def main(argv=None) -> int:
                             for key in ("wall_clock_s", "total_bytes",
                                         "retry_bytes")}
                         for m, r in faults["comm_report"].items()}}
+    archs_summary = {a: dict(
+        {part: {k: v for k, v in r[part].items() if k in (
+            "tokens_per_s", "wall_s", "ms_per_step_call",
+            "ms_per_decode_step")}
+         for part in ("spec_k0", "spec_k4", "static")},
+        layers=r["layers"], peak_memory_gb=r["peak_memory_gb"])
+        for a, r in archs.items()}
+    archs_summary[QWEN]["train"] = {k: archs[QWEN]["train"][k] for k in (
+        "loss", "step_seconds", "tokens_per_s", "peak_memory_gb", "vs_cpu")}
+    grpo_summary = {"p_reward_set": grpo["p_reward_set"],
+                    "vs_cpu": grpo["vs_cpu"], "profiled": [{
+                        k: r[k] for k in ("rollout_s", "update_s",
+                                          "busy_share")}
+                        for r in grpo["profiled"]],
+                    "iterations": [{k: r[k] for k in (
+                        "loss", "mean_reward", "rollout_s", "update_s",
+                        "sampled_tokens_per_s", "peak_memory_gb")}
+                        for r in grpo["iterations"]]}
     print(json.dumps({"engine": summary, "capacity": capacity,
                       "train": train_summary, "static": static_summary,
-                      "pipeline": pipeline_summary, "state": state_summary,
-                      "gossip": gossip_summary, "faults": faults_summary,
+                      "archs": archs_summary, "pipeline": pipeline_summary,
+                      "state": state_summary, "gossip": gossip_summary,
+                      "faults": faults_summary, "grpo": grpo_summary,
                       "phase_s": phase_s, "floor_ms": floor}))
     print(json.dumps({"split_timing": report["split_timing"]}))
     print(report["gpu"])

@@ -1,18 +1,31 @@
 """Architecture ids -> ModelConfig, and the reduced smoke variants: the
 JAX package's ``configs/registry.py`` ``get_config`` / ``get_reduced``,
-limited to the configs the port registers (nanochat-d20, mamba2-1.3b)."""
+limited to the configs the port registers: nanochat-d20, the dense
+qwen1.5-0.5b, command-r-plus-104b, nemotron-4-15b (squared-ReLU MLP) and
+mistral-large-123b, and the SSM mamba2-1.3b.  The ids and their order
+are the reference's."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.command_r_plus_104b import \
+    CONFIG as COMMAND_R_PLUS_104B
 from repro_torch.configs.mamba2_13b import CONFIG as MAMBA2_13B
+from repro_torch.configs.mistral_large_123b import \
+    CONFIG as MISTRAL_LARGE_123B
 from repro_torch.configs.nanochat_d20 import CONFIG as NANOCHAT_D20
+from repro_torch.configs.nemotron4_15b import CONFIG as NEMOTRON4_15B
+from repro_torch.configs.qwen15_05b import CONFIG as QWEN15_05B
 
 _CONFIGS: Dict[str, ModelConfig] = {
     "nanochat-d20": NANOCHAT_D20,
+    "qwen1.5-0.5b": QWEN15_05B,
     "mamba2-1.3b": MAMBA2_13B,
+    "command-r-plus-104b": COMMAND_R_PLUS_104B,
+    "nemotron-4-15b": NEMOTRON4_15B,
+    "mistral-large-123b": MISTRAL_LARGE_123B,
 }
 ALL_IDS = list(_CONFIGS)
 

@@ -43,7 +43,7 @@ import torch
 from repro_torch.configs.base import DiLoCoConfig, OptimizerConfig
 from repro_torch.core import outer_opt
 from repro_torch.core.outer_opt import OuterState
-from repro_torch.core.transport import make_codec
+from repro_torch.core.transport import make_codec, wire_width
 from repro_torch.models.transformer import flatten, unflatten
 from repro_torch.optim import Optimizer, apply_updates, nanochat_optimizer
 
@@ -271,3 +271,34 @@ class DiLoCoTrainer:
         the CURRENT anchor with a fresh inner optimizer state and a zero
         residual; the anchor and the outer momentum are untouched."""
         return self._reset_rows(state, residual, reset), residual
+
+    # -- communication accounting (paper: "communication reduced ~100x") ----
+    def bytes_per_sync(self, params) -> int:
+        """Bytes each worker ships per outer sync (payload dtype)."""
+        n = sum(p.numel() for p in flatten(params).values())
+        return n * wire_width(self.cfg.delta_dtype)
+
+    def ddp_bytes_per_step(self, params) -> int:
+        """What synchronous DDP would ship per *inner* step (f32 grads)."""
+        return sum(p.numel() for p in flatten(params).values()) * 4
+
+
+# ---------------------------------------------------------------------------
+# Training loop: a thin wrapper over the DistTrainer runtime
+# ---------------------------------------------------------------------------
+
+def run_diloco(trainer: DiLoCoTrainer, state: DiLoCoState, data_fn,
+               num_steps: int, h_schedule=None, record_every: int = 1,
+               eval_fn: Optional[Callable] = None,
+               eval_every: int = 0) -> Tuple[DiLoCoState, Dict]:
+    """data_fn(step) -> per-worker-stacked batch {name: (K, B, S)}.
+
+    ``h_schedule`` decides when to synchronize (default: fixed H from the
+    config), e.g. the adaptive-H controller.  ``state`` is updated in
+    place and returned with the history (``DistTrainer.run``)."""
+    from repro_torch.core.dist_trainer import DistTrainer
+    from repro_torch.core.sync import DiLoCoSync
+    dt = DistTrainer(trainer.loss_fn, trainer.opt_cfg, trainer.cfg,
+                     DiLoCoSync(h_schedule=h_schedule))
+    return dt.run(state, data_fn, num_steps, record_every=record_every,
+                  eval_fn=eval_fn, eval_every=eval_every)

@@ -18,7 +18,7 @@ as the reference's byte schedule counts it).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core.diloco import (DiLoCoState, DiLoCoTrainer, Flat,
                                      Fragment)
@@ -86,3 +86,16 @@ class StreamingDiLoCoTrainer(DiLoCoTrainer):
         fresh inner optimizer state and residual; dead rows stay frozen."""
         return self.sync(state, residual, frag=frag, contrib=contrib,
                          adopt=adopt, reset=reset)
+
+
+def run_streaming_diloco(trainer: StreamingDiLoCoTrainer, state, data_fn,
+                         num_steps: int, record_every: int = 1
+                         ) -> Tuple[Any, Dict]:
+    """Inner steps with a staggered fragment-sync schedule: fragment
+    (t / (H/F)) mod F syncs every H/F steps.  A thin wrapper over the
+    ``DistTrainer`` runtime."""
+    from repro_torch.core.dist_trainer import DistTrainer
+    from repro_torch.core.sync import StreamingSync
+    dt = DistTrainer(trainer.loss_fn, trainer.opt_cfg, trainer.cfg,
+                     StreamingSync(num_fragments=trainer.num_fragments))
+    return dt.run(state, data_fn, num_steps, record_every=record_every)

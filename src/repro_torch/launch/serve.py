@@ -58,14 +58,20 @@ def build_requests(args, tok):
     return reqs
 
 
-CONFIGS = ("tiny", "nanochat-d20", "mamba2-1.3b")
+# the configs built reduced, as the JAX launcher builds every ``--config``
+REDUCED = ("qwen1.5-0.5b", "command-r-plus-104b", "mistral-large-123b",
+           "nemotron-4-15b")
+CONFIGS = ("tiny", "nanochat-d20", "mamba2-1.3b") + REDUCED
 
 
 def make_config(arch: str, vocab_size: int):
     """``tiny`` (the JAX launcher's tiny-nanochat), ``nanochat-d20`` (the
-    paper's model at full width) or ``mamba2-1.3b`` (the SSM at full
-    width), at the tokenizer's vocabulary."""
-    from repro_torch.configs import MAMBA2_13B, NANOCHAT_D20, ModelConfig
+    paper's model at full width), ``mamba2-1.3b`` (the SSM at full width)
+    or one of ``REDUCED`` (``get_reduced``: the full-depth f32 weights of
+    the 15B-123B configs do not fit one card), at the tokenizer's
+    vocabulary."""
+    from repro_torch.configs import (MAMBA2_13B, NANOCHAT_D20, ModelConfig,
+                                     get_reduced)
     if arch == "tiny":
         return ModelConfig(name="tiny-nanochat", num_layers=4, d_model=128,
                            num_heads=4, num_kv_heads=4, d_ff=512,
@@ -74,6 +80,8 @@ def make_config(arch: str, vocab_size: int):
         return NANOCHAT_D20.with_(vocab_size=vocab_size)
     if arch == "mamba2-1.3b":
         return MAMBA2_13B.with_(vocab_size=vocab_size)
+    if arch in REDUCED:
+        return get_reduced(arch).with_(vocab_size=vocab_size)
     raise NotImplementedError(f"config {arch!r}: the port has "
                               f"{', '.join(CONFIGS)}")
 
@@ -83,7 +91,7 @@ def main(argv=None):
     ap.add_argument("--ckpt", type=str, default=None)
     ap.add_argument("--config", type=str, default="tiny",
                     help="arch when the checkpoint has no .cfg.json "
-                         "metadata: tiny | nanochat-d20 | mamba2-1.3b")
+                         "metadata: " + " | ".join(CONFIGS))
     ap.add_argument("--prompt", action="append", default=[])
     ap.add_argument("--stream", type=str, default=None,
                     help="JSONL request stream with arrival timestamps")

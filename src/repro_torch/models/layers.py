@@ -1,6 +1,6 @@
 """Core layers of the dense decoder: norms, rotary embeddings, embedding /
-unembedding, the SwiGLU MLP and the cross-entropy loss, as plain
-functions on tensors.
+unembedding, the SwiGLU and squared-ReLU MLPs and the cross-entropy loss,
+as plain functions on tensors.
 
 Parameters are nested dicts of tensors with the JAX package's layout:
 matrices are ``(d_in, d_out)`` and applied as ``x @ W``; norms carry a
@@ -113,15 +113,19 @@ def unembed(p, h: torch.Tensor, cfg: ModelConfig,
 
 def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig,
               mm=torch.matmul) -> torch.Tensor:
-    """SwiGLU; ``mm`` is the matrix product (``attention.serving_matmul``
-    when serving)."""
-    if cfg.mlp_activation != "swiglu":
+    """SwiGLU, or nemotron-4's squared ReLU (``relu2``: no gate, so no
+    ``w_gate`` leaf); ``mm`` is the matrix product
+    (``attention.serving_matmul`` when serving)."""
+    if cfg.mlp_activation not in ("swiglu", "relu2"):
         raise NotImplementedError(f"mlp_activation {cfg.mlp_activation!r}: "
-                                  f"the port has swiglu only")
+                                  f"the port has swiglu and relu2")
     dt = x.dtype
     up = mm(x, cast(p["w_up"], dt))
-    gate = mm(x, cast(p["w_gate"], dt))
-    return mm(F.silu(gate) * up, cast(p["w_down"], dt))
+    if cfg.mlp_activation == "swiglu":
+        h = F.silu(mm(x, cast(p["w_gate"], dt))) * up
+    else:
+        h = torch.square(F.relu(up))
+    return mm(h, cast(p["w_down"], dt))
 
 
 # ---------------------------------------------------------------------------

@@ -87,7 +87,8 @@ def _require_uniform_window(cfg: ModelConfig) -> None:
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     """Checkpoint-manifest path -> shape of every parameter leaf.  The SSM
-    block has ``ln1`` and ``mamba`` and no ``attn``, ``ln2`` or ``mlp``."""
+    block has ``ln1`` and ``mamba`` and no ``attn``, ``ln2`` or ``mlp``;
+    an MLP without a gate (``relu2``) has no ``w_gate``."""
     _require_supported(cfg)
     L, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
     hd = cfg.resolved_head_dim()
@@ -103,8 +104,10 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
             "layers/ln2/scale": (L, d),
             "layers/attn/wq": (L, d, nq), "layers/attn/wk": (L, d, nkv),
             "layers/attn/wv": (L, d, nkv), "layers/attn/wo": (L, nq, d),
-            "layers/mlp/w_up": (L, d, f), "layers/mlp/w_gate": (L, d, f),
-            "layers/mlp/w_down": (L, f, d)})
+            "layers/mlp/w_up": (L, d, f)})
+        if cfg.mlp_activation == "swiglu":
+            shapes["layers/mlp/w_gate"] = (L, d, f)
+        shapes["layers/mlp/w_down"] = (L, f, d)
     if not cfg.tie_embeddings:
         shapes["embed/unembed"] = (d, V)
     if cfg.qkv_bias and cfg.arch_type != "ssm":

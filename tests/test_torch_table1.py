@@ -2,8 +2,9 @@
 drift benchmark (``benchmarks/torch_drift_analysis.py``) on the CPU at
 the smallest sizes: the driver runs the pipeline and writes the
 Table-1-shaped summary and ``table1.json`` with the JAX example's keys;
-the benchmark prints the JAX benchmark's lines; neither imports JAX or
-the JAX package."""
+the benchmark prints the JAX benchmark's lines; neither they nor the
+other torch examples (``SCRIPTS``, and every ``torch_*.py`` there) import
+JAX or the JAX package."""
 import ast
 import importlib.util
 import json
@@ -16,7 +17,9 @@ torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 SCRIPTS = ("examples/torch_pipeline_table1.py",
-           "benchmarks/torch_drift_analysis.py")
+           "benchmarks/torch_drift_analysis.py",
+           "examples/torch_quickstart.py", "examples/torch_adaptive_h.py",
+           "examples/torch_serve_batch.py", "examples/torch_grpo_arith.py")
 
 
 def _load(path):
@@ -27,9 +30,9 @@ def _load(path):
     return mod
 
 
-@pytest.mark.parametrize("path", sorted(
+@pytest.mark.parametrize("path", sorted(set(SCRIPTS) | {
     str(p.relative_to(REPO)) for d in ("examples", "benchmarks")
-    for p in (REPO / d).glob("torch_*.py")))
+    for p in (REPO / d).glob("torch_*.py")}))
 def test_torch_scripts_import_neither_jax_nor_the_reference(path):
     tree = ast.parse((REPO / path).read_text())
     mods = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)

@@ -73,8 +73,9 @@ yardstick.  Then phases, each fatal on failure:
      for mamba2-1.3b and nanochat-d20 a 12-token static prefill plus one
      ``decode_step_lm`` (logits 2e-3; SSM state, conv ring, ring K/V
      within 1e-4 of their max);
-4. the serving main path: ``repro_torch.Engine`` with the full
-   nanochat-d20 config (seeded random params, 8 ragged token-id requests,
+4. the serving main path: ``repro_torch.Engine`` with nanochat-d20 at
+   full width and 10 of its 20 layers (``ENGINE_LAYERS``, cut for the
+   script's time; seeded random params, 8 ragged token-id requests,
    max_new 32; 16 off the f32 pool) with spec_k=0 and spec_k=4, on an f32
    pool, on int8, fp8
    and fp8_e5m2 pools and with the fp8 QK^T; greedy tokens must be equal
@@ -85,7 +86,8 @@ yardstick.  Then phases, each fatal on failure:
    fp8 pool under torch.profiler for the device time by kernel and busy
    share, and the capacity of an f32 and an fp8 pool at one byte budget
    (blocks and peak admitted requests); then the static-bucket path:
-   mamba2-1.3b at full width and depth (48 layers, seeded random
+   mamba2-1.3b at full width and 24 of its 48 layers (for the
+   script's time; seeded random
    params) serves the same 8 requests through ``Engine.generate`` (an
    SSM has no paged cache; max_new 16) and scores 4 rows (one over 128
    tokens, one under 64) with ``score_continuations_batch`` (the SSD
@@ -98,8 +100,9 @@ yardstick.  Then phases, each fatal on failure:
    the scheduler is printed (not gated);
 4b. the dense configs besides nanochat-d20 at full published widths,
    heads and vocabularies (f32, random weights from seed 0), one at a
-   time: qwen1.5-0.5b at full depth (24 layers; QKV bias, tied 151,936
-   rows, 16 heads of 64), command-r-plus-104b at 2 layers, mistral-large
+   time: qwen1.5-0.5b at 12 of its 24 layers (QKV bias,
+   tied 151,936 rows, 16 heads of 64), command-r-plus-104b at 2 layers,
+   mistral-large
    -123b at 4 and nemotron-4-15b (squared-ReLU MLP) at 8 (~25 GB each:
    415 / 490 / 62.5 GB at full depth); first the paged kernels at their
    new (KV, G, D) (16, 1, 64), (8, 12, 128), (8, 6, 128), verify at T 5,
@@ -109,10 +112,37 @@ yardstick.  Then phases, each fatal on failure:
    logits, greedy tokens equal across the three, each engine run
    launching the norms and its paged kernel and no other kernel;
    tokens/s, ms a step and peak memory; qwen also trains one DiLoCo
-   round at full depth (K 2, H 2, 4 x 256 tokens a worker, fused AdamW;
+   round at those 12 layers (K 2, H 2, 4 x 256 tokens a worker, fused AdamW;
    the loss falls, the training kernels and no other) and its depth-2
    training step is held against the CPU as in phase 3;
-5. the training main path at full nanochat-d20 (20 layers, float32,
+4c. the decoder-only configs added last, one at a time, the card freed
+   between them (``phase_new_archs``): the kernels at their new shapes
+   (norms at d 1600 / 4096 / 5120; paged decode and verify at mixtral's
+   (8, 4, 128) window 4096 and llama4's (8, 5, 128) window 8192 / 0 over
+   recycled tables, verify == decode bit for bit there; flash forward
+   and backward at the training rounds' shapes, the forward at the long
+   windows with the f32 backward against float64 (each gradient's error
+   within a stated multiple of the plain f32 version's); the SSD at
+   hymba's heads; the SSD's gradient against the plain scan's; the ring
+   at hymba's heads); hymba-1.5b whole (32 layers) on the static path:
+   phase 4's 8 requests and a pair of 1100-token prompts (past its 1024
+   window; the first token equal to ``forward_lm``'s argmax) with the
+   norms and the ring kernel only, 4 rows scored (flash and ssd once a
+   layer); mixtral-8x7b and llama4-scout-17b-a16e at 4 layers
+   (``arch_serving`` at the capacity factor that drops nothing, 4 / 16:
+   spec_k 0 == 4 == static), the MoE's bits on a second call (output,
+   router loss, gradients), spec_k 0 / 4 at the published 1.25 (the
+   agreement and the drops logged), mixtral's pair of 4200-token
+   prompts at spec_k 4 recycling blocks past its 4096 window and equal
+   to the static path; one DiLoCo stage (K 2, H 1, 2 steps, 2 x 256
+   tokens a worker, f32 wire) of hymba (32 layers), mixtral (1 layer:
+   the router loss finite, the router's gradient nonzero, remat on ==
+   off bit for bit) and mamba2-1.3b (48 layers): the loss falls, the
+   training kernels (and the SSD) launch and no other, peak memory and
+   the SSD backward's share of the stage; then a depth-2 step at reduced
+   width of hymba, mixtral, llama4 and mamba2 against the CPU;
+5. the training main path at nanochat-d20's full width and 10 of its 20
+   layers (for the script's time; float32,
    random params from seed 0) on the port's synthetic corpus through its
    ``PackedDataset`` at seq_len 1024: ``run_stage("diloco")`` with K=2,
    per-worker batch 4, H=2, 4 steps and fused AdamW, then
@@ -129,8 +159,9 @@ yardstick.  Then phases, each fatal on failure:
 6. the three-stage pipeline: ``run_pipeline`` (base -> mid -> SFT, with
    the evals after each stage: held-out CE, multiple choice, arithmetic
    and pattern exact match through ``Engine``) of nanochat-d20 at full
-   width (20 layers, d 1280, 10 heads of 128; vocab = the tokenizer's
-   512, as the JAX pipeline sets it) for DiLoCo and for hybrid (DiLoCo
+   width (d 1280, 10 heads of 128; 10 of its 20 layers for
+   the script's time; vocab = the tokenizer's 512, as the JAX pipeline
+   sets it) for DiLoCo and for hybrid (DiLoCo
    base, DDP mid and SFT), K 4, per-worker batch 8, seq_len 128, steps
    6 / 4 / 4, fused AdamW, remat on (the config's default: the forward
    kernels launch again in the backward), each from fresh parameters:
@@ -171,7 +202,8 @@ yardstick.  Then phases, each fatal on failure:
 6c. gossip and async gossip over the codec wire (int8), nanochat-d20 at
    full width (vocab 512), K 4, per-worker batch 8, seq_len 128, H 2,
    fused AdamW, remat on, through ``run_stage``: gossip on the ring and
-   the random topology (20 layers, 4 steps each) and async gossip
+   the random topology (10 layers for the script's time;
+   4 steps each) and async gossip
    (jitter 1, bound 1, 6 steps) at full depth when the gossip run's peak
    plus its three publication boards reckon it fits, else at 10 layers;
    gates: losses finite and falling, the ``gossip_syncs`` and
@@ -208,7 +240,8 @@ yardstick.  Then phases, each fatal on failure:
    adoption); then ``comm_report`` for diloco and gossip under a crash,
    a rejoin and a twice-lost payload beside the fault-free report (an
    empty schedule gives the fault-free report);
-6e. GRPO at nanochat-d20's full width and depth (vocab 512): 16
+6e. GRPO at nanochat-d20's full width and 10 layers (vocab 512; cut from
+   20 for the script's time): 16
    arithmetic prompts x G 8 sampled requests of 6 tokens, 4 iterations
    of ``GRPOTrainer.rollout_and_step`` (fused AdamW, the reference
    example's optimizer; reward 1 when the first sampled token lies in a
@@ -281,6 +314,13 @@ TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, 1e-2)}   # (atol, rtol)
 # f32 backward of flash attention: sums over up to G*S products in another
 # order than the plain einsums; fused AdamW is exact (no FMA contraction)
 TOL_FLASH_BWD = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
+# the f32 flash backward at long sequences (``NEW_FLASH_CASES``), held to
+# a float64 autograd: each gradient's max error at most this many times
+# the plain f32 version's.  Measured on an H100 over four input draws
+# (PERF.md): dq 3.9-10.9x, dk 17.3-31.8x, dv 6.5-19.1x (the tensor
+# cores' f32 accumulation: tools/flash_bwd_error_probe.py), so a kernel
+# 10x less accurate in any one gradient fails
+FLASH_BWD_F64_RATIO = {"dq": 24.0, "dk": 64.0, "dv": 48.0}
 REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:41",
     "rmsnorm_residual": "src/repro/kernels/rmsnorm/kernel.py:58",
@@ -361,6 +401,9 @@ PIPELINE_METHODS = ("diloco", "hybrid")
 PIPELINE_STEPS = {"base": 6, "mid": 4, "sft": 4}
 # K 4, the reference example's: phase 6b measures K 4 with remat at phase
 # 5's shape (4 x 1024 tokens a worker) at 58.2 GB of the card's 85.0
+# nanochat-d20 at full width and 10 of its 20 layers, for the
+# script's time
+PIPELINE_LAYERS = 10
 PIPELINE_KW = dict(arch="nanochat-d20", reduced=False, steps=PIPELINE_STEPS,
                    workers=4, per_worker_batch=8, seq_len=128,
                    fused_adamw=True, eval_after_each_stage=True)
@@ -376,9 +419,13 @@ PIPELINE_IDLE = ("paged_verify", "paged_decode_dequant",
 CPU_GEN_ITEMS = 16
 # where the main path launches the norms (f32 rows of d): a decode step's
 # S*T rows of nanochat-d20 and of mamba2-1.3b, a pipeline worker's batch
-# (8 x 128 tokens) and phase 5's (4 x 1024); the backward at the last two
+# (8 x 128 tokens) and phase 5's (4 x 1024), a decode step's rows of
+# hymba-1.5b, mixtral-8x7b and llama4-scout; the backward at the two
+# training shapes
 NORM_SHAPES = {"decode": (8, 1, 1280), "mamba2_decode": (8, 1, 2048),
-               "pipeline": (8, 128, 1280), "training": (4, 1024, 1280)}
+               "pipeline": (8, 128, 1280), "training": (4, 1024, 1280),
+               "hymba_decode": (8, 1, 1600), "mixtral_decode": (8, 1, 4096),
+               "llama4_decode": (8, 1, 5120)}
 NORM_BWD_SHAPES = ("training", "pipeline")
 
 
@@ -651,10 +698,15 @@ def flash_inputs(torch, *, B=4, S=1024, H=10, KV=10, D=128, dtype="float32",
     return q, k, v, do
 
 
-def check_flash(torch, results, dtype, window=None, **shape):
+def check_flash(torch, results, dtype, window=None, bwd_f64=False,
+                **shape):
     """Flash forward (o and lse) and backward (against autograd through
     the plain forward) at ``shape`` (``flash_inputs``' keywords) against
-    their plain versions; appends one check of each to ``results``."""
+    their plain versions; appends one check of each to ``results``.
+    With ``bwd_f64`` the backward is held to a float64 autograd instead:
+    each gradient's max error at most ``FLASH_BWD_F64_RATIO`` times the
+    plain version's; the errors are logged and returned ({"dq": (kernel,
+    plain), ...})."""
     from repro_torch.kernels.flash_attention import (flash_attention_plain,
                                                      flash_bwd, flash_fwd)
     q, k, v, do = flash_inputs(torch, dtype=dtype, seed=len(results),
@@ -673,10 +725,47 @@ def check_flash(torch, results, dtype, window=None, **shape):
            + ((f"window={window}",) if window else ()))
     results.append(("flash_fwd", dtype, tag, max(e_o, e_l), ok_o and ok_l,
                     max(r_o, r_l)))
+    if bwd_f64:
+        errs = dict(zip(("dq", "dk", "dv"), flash_bwd_f64_errors(
+            torch, (q, k, v, do), got, want, window)))
+        log(f"  flash_bwd {tag} {dtype}: max error against float64, kernel "
+            f"/ plain: " + ", ".join(f"{n} {a:.3e} / {b:.3e}"
+                                     for n, (a, b) in errs.items()))
+        ratio = max(a / b / FLASH_BWD_F64_RATIO[n]
+                    for n, (a, b) in errs.items())
+        err = max(float((a.float() - b).abs().max())
+                  for a, b in zip(got, want))
+        results.append(("flash_bwd", dtype, tag + ("gate: float64",), err,
+                        ratio <= 1.0, ratio))
+        return errs
     errs = [max_err(torch, a, b, tol=TOL_FLASH_BWD)
             for a, b in zip(got, want)]
     results.append(("flash_bwd", dtype, tag, max(e for e, _, _ in errs),
                     all(k for _, k, _ in errs), max(r for _, _, r in errs)))
+
+
+def flash_bwd_f64_errors(torch, inputs, got, want, window):
+    """[(max |kernel - f64|, max |plain - f64|)] for dq, dk, dv: the
+    float64 gradients by autograd through masked softmax attention (K/V
+    repeated over the group) on the same inputs."""
+    import math as _m
+    q, k, v, do = (t.double() for t in inputs)
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    qh, kh, vh = (t.transpose(1, 2) for t in leaves)
+    kh, vh = (t.repeat_interleave(G, dim=1) for t in (kh, vh))
+    i = torch.arange(S, device=q.device)
+    ok = i[None, :] <= i[:, None]
+    if window:
+        ok &= i[:, None] - i[None, :] < window
+    s = (qh @ kh.transpose(-1, -2)) / _m.sqrt(D)
+    s = s.masked_fill(~ok, float("-inf"))
+    o = torch.softmax(s, dim=-1) @ vh
+    ref = torch.autograd.grad(o.transpose(1, 2), leaves, do)
+    return [(float((a.double() - r).abs().max()),
+             float((b.double() - r).abs().max()))
+            for a, b, r in zip(got, want, ref)]
 
 
 def phase_train_kernels(torch, results):
@@ -1327,7 +1416,8 @@ def phase_train_step_vs_cpu(torch):
     """``train_step_vs_cpu`` of nanochat-d20 at full width and depth 2
     (B 2, S 256), then one DiLoCo outer round, K=2 and H=1, through
     ``DistTrainer`` (losses rtol 1e-5, global params <= 1e-4 of each
-    leaf's max)."""
+    leaf's max; the gate holds at weight seed 0 only:
+    ``tools/diloco_gate_probe.py``)."""
     from repro_torch.configs import NANOCHAT_D20, DiLoCoConfig
     from repro_torch.core import DistTrainer, make_strategy
     from repro_torch.models import lm_loss
@@ -1549,6 +1639,14 @@ def phase_wire_round_vs_cpu(torch):
 PROMPT_LENS = (5, 16, 64, 128, 33, 200, 9, 300)
 PAGED = ("paged_decode", "paged_verify", "paged_decode_dequant",
          "paged_verify_dequant", "paged_decode_fp8", "paged_verify_fp8")
+# phase 4's nanochat-d20 (the engine paths, the capacity runs, the
+# over-capacity static batch) at full width and 10 of its 20
+# layers, for the script's time (host-bound: its seconds scale with depth)
+ENGINE_LAYERS = 10
+# phase 4's mamba2-1.3b static path and scoring at full width and 24 of
+# its 48 layers, for the script's time (phase 4c trains it
+# whole)
+STATIC_MAMBA2_LAYERS = 24
 ENGINE_PATHS = (
     # path-name prefix, config change, the attention kernel of spec_k 0
     # and of spec_k 4 (every other paged kernel must stay at 0 launches)
@@ -1562,7 +1660,8 @@ ENGINE_PATHS = (
     ("fp8_matmul_", dict(fp8_matmul=True), "paged_decode_fp8",
      "paged_verify_fp8"),
 )
-CAPACITY_POOL_BYTES = 131_072_000      # 40 f32 blocks of nanochat-d20
+# 40 f32 blocks of nanochat-d20 at ENGINE_LAYERS
+CAPACITY_POOL_BYTES = 65_536_000
 
 
 def phase_engine(torch):
@@ -1576,11 +1675,12 @@ def phase_engine(torch):
     from repro_torch import Engine
     from repro_torch.configs import NANOCHAT_D20
     from repro_torch.models import init_params
-    cfg = NANOCHAT_D20
+    cfg = NANOCHAT_D20.with_(num_layers=ENGINE_LAYERS)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    log(f"  nanochat-d20 params: {cfg.param_count() / 1e6:.1f} M on the card "
+    log(f"  nanochat-d20 ({cfg.num_layers} layers) params: "
+        f"{cfg.param_count() / 1e6:.1f} M on the card "
         f"({time.perf_counter() - t0:.1f} s to init)")
     g = torch.Generator().manual_seed(7)
     prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
@@ -1780,8 +1880,9 @@ def static_counts(torch):
 def phase_static_serving(torch):
     """The static-bucket serving path and scoring.
 
-    mamba2-1.3b at full width and depth (48 layers, random weights from
-    seed 0): ``Engine.generate`` of the 8 ragged requests of phase 4
+    mamba2-1.3b at full width and ``STATIC_MAMBA2_LAYERS`` layers (random
+    weights from seed 0): ``Engine.generate`` of the 8 ragged requests of
+    phase 4
     (greedy, max_new 16), which takes the static path (an SSM has no
     paged cache): rmsnorm kernels launched, no paged, flash or SSD
     kernel; then ``score_continuations_batch`` of 4 rows (one longer than
@@ -1805,7 +1906,7 @@ def phase_static_serving(torch):
     g = torch.Generator().manual_seed(7)
     lens = PROMPT_LENS
 
-    cfg = MAMBA2_13B
+    cfg = MAMBA2_13B.with_(num_layers=STATIC_MAMBA2_LAYERS)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -1877,7 +1978,7 @@ def phase_static_serving(torch):
     del eng, params
     torch.cuda.empty_cache()
 
-    cfg = NANOCHAT_D20
+    cfg = NANOCHAT_D20.with_(num_layers=ENGINE_LAYERS)
     params = init_params(cfg, seed=0, device="cuda")
     prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
                for n in lens]
@@ -1954,8 +2055,9 @@ def profile_static(torch, fn, what):
 # (arch id, layers run): full published widths, heads and vocabularies,
 # f32, random weights from seed 0.  The depth is cut where the f32
 # parameters at full depth exceed the card (415 / 490 / 62.5 GB at 64 /
-# 88 / 32 layers) to ~25 GB; qwen1.5-0.5b runs whole (1.86 GB)
-ARCH_PLANS = (("qwen1.5-0.5b", 24), ("command-r-plus-104b", 2),
+# 88 / 32 layers) to ~25 GB; qwen1.5-0.5b (1.86 GB whole) at 12 of its 24
+# layers, for the script's time (host-bound)
+ARCH_PLANS = (("qwen1.5-0.5b", 12), ("command-r-plus-104b", 2),
               ("mistral-large-123b", 4), ("nemotron-4-15b", 8))
 ARCH_MAX_NEW = 16
 # the serving path's kernels: every other kernel stays at 0 launches
@@ -1965,7 +2067,7 @@ ARCH_KERNELS = ("rmsnorm", "rmsnorm_residual", "paged_decode",
 # 64, the 96-head configs' groups of 12 and nemotron's of 6; verify at T 5
 # (R = T * G rows up to 60)
 ARCH_PAGED_CASES = ((16, 1, 64), (8, 12, 128), (8, 6, 128))
-# qwen1.5-0.5b's training: one DiLoCo round at full depth (K 2, H 2, 4 x
+# qwen1.5-0.5b's training: one DiLoCo round at ARCH_PLANS' depth (K 2, H 2, 4 x
 # 256 tokens a worker, fused AdamW); the flash kernels at its step's
 # (B, S, H, KV, D); the depth-2 step against the CPU at B 2 x S 128
 QWEN = "qwen1.5-0.5b"
@@ -2021,34 +2123,38 @@ def phase_archs(torch, checks):
     for arch, layers in ARCH_PLANS:
         cfg = get_config(arch).with_(num_layers=layers)
         runs[arch] = arch_serving(torch, cfg)
+        del runs[arch]["prompts"], runs[arch]["tokens"]
         if arch == QWEN:
             runs[arch]["train"] = qwen_training(torch, cfg)
         torch.cuda.empty_cache()
     return runs
 
 
-def arch_serving(torch, cfg):
-    """``cfg`` (random weights from seed 0) serves phase 4's 8 ragged
-    requests (16 new tokens) through ``Engine`` with spec_k 0 and 4 on an
-    f32 pool, launch counts reset just before each run; gates: finite
-    logits of a forward, greedy tokens equal between spec_k 0 and 4 and
-    equal to ``generate_ids_static``'s (the ring kernel's path), each run
-    launching the norms and its paged kernel and no other kernel.  Logs
-    tokens/s, ms a step and the config's peak memory."""
+def arch_serving(torch, cfg, params=None):
+    """``cfg`` (random weights from seed 0, or ``params``) serves phase
+    4's 8 ragged requests (16 new tokens) through ``Engine`` with spec_k 0
+    and 4 on an f32 pool, launch counts reset just before each run;
+    gates: finite logits of a forward, greedy tokens equal between spec_k
+    0 and 4 and equal to ``generate_ids_static``'s (the ring kernel's
+    path), each run launching the norms and its paged kernel and no other
+    kernel.  Logs tokens/s, ms a step and the config's peak memory; the
+    record keeps the prompts and the greedy tokens."""
     from repro_torch import Engine
     from repro_torch.kernels import KERNELS, launches, reset_launches
     from repro_torch.models import forward_lm, init_params
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = init_params(cfg, seed=0, device="cuda")
-    torch.cuda.synchronize()
-    log(f"  {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
-        f"{cfg.num_heads} heads over {cfg.num_kv_heads} of "
-        f"{cfg.resolved_head_dim()}, d_ff {cfg.d_ff} ({cfg.mlp_activation}),"
-        f" vocab {cfg.vocab_size} ({'tied' if cfg.tie_embeddings else 'untied'}"
-        f"{', qkv bias' if cfg.qkv_bias else ''}): "
-        f"{cfg.param_count() * 4 / 1e9:.2f} GB of f32 parameters "
-        f"({time.perf_counter() - t0:.1f} s to init)")
+    if params is None:
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        log(f"  {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+            f"{cfg.num_heads} heads over {cfg.num_kv_heads} of "
+            f"{cfg.resolved_head_dim()}, d_ff {cfg.d_ff} "
+            f"({cfg.mlp_activation}), vocab {cfg.vocab_size} "
+            f"({'tied' if cfg.tie_embeddings else 'untied'}"
+            f"{', qkv bias' if cfg.qkv_bias else ''}): "
+            f"{cfg.param_count() * 4 / 1e9:.2f} GB of f32 parameters "
+            f"({time.perf_counter() - t0:.1f} s to init)")
     g = torch.Generator().manual_seed(7)
     prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
                for n in PROMPT_LENS]
@@ -2098,6 +2204,7 @@ def arch_serving(torch, cfg):
         f"{run['static']['ms_per_decode_step']:.2f}), static launches "
         f"{ {k: v for k, v in counts.items() if v} }, peak "
         f"{run['peak_memory_gb']:.2f} GB")
+    run.update(prompts=prompts, tokens=out[0])
     del eng, params
     return run
 
@@ -2155,7 +2262,575 @@ def qwen_training(torch, cfg):
     return run
 
 
+# ---------------------------------------------------------------------------
+# Phase 4c: the decoder-only architectures added last, and SSM training
+# ---------------------------------------------------------------------------
+
+HYMBA, MIXTRAL, LLAMA4, MAMBA2 = ("hymba-1.5b", "mixtral-8x7b",
+                                  "llama4-scout-17b-a16e", "mamba2-1.3b")
+# the capacity factor at which no token is dropped at any T: once it
+# reaches E / K, C = S (mixtral 8 / 2, llama4 16 / 1)
+NO_DROP = {MIXTRAL: 4.0, LLAMA4: 16.0}
+# serving depth (hymba runs whole: 32 layers, 5.37 GB of f32): mixtral
+# and llama4 cut to 4 layers (24.27 / 43.51 GB; 186.8 / 431.1 GB whole):
+# llama4's 4 are its three windowed layers and the first global one
+NEW_SERVE_LAYERS = {MIXTRAL: 4, LLAMA4: 4}
+# a pair of prompts past each window (hymba's 1024, mixtral's 4096)
+LONG_PROMPTS = {HYMBA: 1100, MIXTRAL: 4200}
+LONG_MAX_NEW = 4
+# one DiLoCo stage at K 2, H 1 (2 steps: two outer rounds), f32 wire,
+# 2 x 256 tokens a worker, fused AdamW; mamba2 and hymba whole, mixtral
+# at 1 layer (6.85 GB of f32; its 4 would not fit K 2's copies)
+NEW_TRAIN = dict(steps=2, workers=2, per_worker_batch=2, h=1)
+NEW_TRAIN_SEQ = 256
+NEW_TRAIN_LAYERS = {MAMBA2: 48, MIXTRAL: 1}
+# the kernels at the new configs' shapes: the norms at their d_model;
+# the paged kernels at (KV, G, D, window) of mixtral and llama4's local
+# and global layers over a cache of 288 blocks of 16 (4608 positions,
+# past 4096), windowed tables with their out-of-window blocks recycled
+# (-1); flash (B, S, H, KV, D, window) at hymba's heads (window 1024 and
+# global), mixtral's (4096) and llama4's; the SSD at hymba's heads (H 25,
+# P 64, N 16) over the long prompt and scoring's 144 tokens; the ring
+# decode at hymba's (KV 5, G 5, D 64) over 1600 slots, window 1024 and 0
+NEW_NORM_WIDTHS = (1600, 4096, 5120)
+NEW_PAGED_CASES = ((8, 4, 128, 4096), (8, 5, 128, 8192), (8, 5, 128, 0))
+NEW_PAGED_MB = 288
+NEW_FLASH_CASES = ((1, 1280, 25, 5, 64, 1024), (1, 1280, 25, 5, 64, 0),
+                   (1, 4352, 32, 8, 128, 4096), (1, 1024, 40, 8, 128, 8192))
+# flash forward and backward at the training rounds' shapes (2 x 256
+# tokens: hymba's heads and mixtral's); at ``NEW_FLASH_CASES`` the forward
+# against the plain version and the f32 backward against float64
+# (``FLASH_BWD_F64_RATIO``; its readings in ``FLASH_BWD_F64``)
+NEW_FLASH_TRAIN_CASES = ((2, 256, 25, 5, 64, 1024),
+                         (2, 256, 32, 8, 128, 4096))
+FLASH_BWD_F64 = {}
+NEW_SSD_CASES = ((2, 1100, 25, 64, 16, 128), (4, 144, 25, 64, 16, 128))
+# the SSD gradient on the card: mamba2's and hymba's heads, 2 x 256
+SSD_GRAD_CASES = ((2, 256, 64, 64, 128, 128), (2, 256, 25, 64, 16, 128))
+NEW_RING_CASE = (8, 5, 5, 1600, 64)
+SSM_TRAIN_KERNELS = TRAIN_KERNELS + ("ssd",)
+
+
+def recycle_table(torch, tab, start, ntok, bs, window):
+    """``tab`` with each slot's blocks wholly below its window's floor
+    unmapped (-1), as ``Scheduler.recycle_window`` leaves them."""
+    tab = tab.clone()
+    if window:
+        for s in range(tab.shape[0]):
+            if int(start[s]) >= 0:
+                dead = max(0, (int(start[s]) - window + 1) // bs)
+                tab[s, :dead] = -1
+    return tab
+
+
+def phase_new_arch_kernels(torch, results):
+    """The kernels at the shapes the new configs give them, against their
+    plain versions with phase 2's tolerances, f32 and bf16: the norms
+    (forward, both variants, and the backward) at ``NEW_NORM_WIDTHS``;
+    paged decode and verify (T 5) at ``NEW_PAGED_CASES`` with recycled
+    tables, and verify row t == decode at start + t bit for bit there;
+    flash forward and backward at ``NEW_FLASH_TRAIN_CASES``, the forward
+    at ``NEW_FLASH_CASES`` (the f32 backward there against float64,
+    ``FLASH_BWD_F64_RATIO``); the SSD at
+    ``NEW_SSD_CASES`` (and the same bits on a second call); the ring
+    decode at ``NEW_RING_CASE``; the SSD's gradient (``_SSDGrad``: the
+    kernel's forward, the plain scan's backward) against autograd
+    through ``ssd_chunked`` at ``SSD_GRAD_CASES``: y within ``TOL_SSD``,
+    each gradient within 1e-4 of its largest magnitude."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_bwd,
+                                             rmsnorm_bwd_plain, rmsnorm_plain,
+                                             rmsnorm_residual,
+                                             rmsnorm_residual_plain)
+    from repro_torch.kernels.ssd import ssd, ssd_chunked
+    dev = torch.device("cuda")
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for d in NEW_NORM_WIDTHS:
+            for rows in (8, 300):
+                g = torch.Generator().manual_seed(d + rows)
+                x, r, dy = (torch.randn((rows, d), generator=g).to(dt).cuda()
+                            for _ in range(3))
+                sc = (1 + 0.1 * torch.randn(d, generator=g)).cuda()
+                pairs = [("rmsnorm", rmsnorm(x, sc), rmsnorm_plain(x, sc))]
+                pairs += [("rmsnorm_residual", a, b) for a, b in zip(
+                    rmsnorm_residual(x, r, sc),
+                    rmsnorm_residual_plain(x, r, sc))]
+                gx, gs = rmsnorm_bwd(dy, x, sc)
+                wx, ws = rmsnorm_bwd_plain(dy, x, sc, 1e-5, None, None)
+                torch.cuda.synchronize()
+                for name, a, b in pairs + [("rmsnorm_bwd", gx, wx)]:
+                    results.append((name, dtype, (rows, f"d={d}"),
+                                    *max_err(torch, a, b)))
+                ok_s, r_s = scalar_gate(float((gs - ws).abs().max()), 1e-3,
+                                        1e-4, float(ws.abs().max()))
+                results.append(("rmsnorm_bwd", dtype, (rows, f"d={d}",
+                                                       "dscale"),
+                                float((gs - ws).abs().max()), ok_s, r_s))
+        for kv, G, D, window in NEW_PAGED_CASES:
+            for T in (1, 5):
+                q, kp, vp, tab, start, ntok, live = paged_case(
+                    torch, KV=kv, G=G, D=D, T=T, MB=NEW_PAGED_MB,
+                    dtype=dtype, seed=200 + T + G)
+                tab = recycle_table(torch, tab, start, ntok, 16, window)
+                q, kp, vp, tab, start, ntok = (t.to(dev) for t in (
+                    q, kp, vp, tab, start, ntok))
+                if T == 1:
+                    got = da.paged_decode_attention(q, kp, vp, tab, start,
+                                                    window=window)
+                    want = da.paged_decode_attention_plain(
+                        q, kp, vp, tab, start, window=window)
+                    name, mask = "paged_decode", live[:, 0]
+                else:
+                    got = da.paged_verify_attention(q, kp, vp, tab, start,
+                                                    ntok, window=window)
+                    want = da.paged_verify_attention_plain(
+                        q, kp, vp, tab, start, ntok, window=window)
+                    name, mask = "paged_verify", live
+                torch.cuda.synchronize()
+                tag = tuple(q.shape) + (f"window={window}",
+                                        f"MB={NEW_PAGED_MB}", "recycled")
+                results.append((name, dtype, tag,
+                                *max_err(torch, got, want, mask.to(dev))))
+                if T == 1 or dtype != "float32":
+                    continue
+                err, equal = 0.0, True
+                for t in range(T):
+                    q_pos = torch.where((t < ntok) & (start >= 0), start + t,
+                                        -1).to(torch.int32)
+                    one = da.paged_decode_attention(
+                        q[:, t].contiguous(), kp, vp, tab, q_pos,
+                        window=window)
+                    equal &= torch.equal(got[:, t], one)
+                    err = max(err, float((got[:, t] - one).abs().max()))
+                torch.cuda.synchronize()
+                results.append(("verify_eq_decode", dtype, tag, err, equal,
+                                None))
+        for B, S, H, KV, D, window in NEW_FLASH_TRAIN_CASES:
+            check_flash(torch, results, dtype, window=window or None, B=B,
+                        S=S, H=H, KV=KV, D=D)
+        for B, S, H, KV, D, window in NEW_FLASH_CASES:
+            # in bf16 both versions' errors against float64 are bf16's
+            # rounding (the same within 2.5x): gated against the plain one
+            errs = check_flash(torch, results, dtype, window=window or None,
+                               bwd_f64=dtype == "float32", B=B, S=S, H=H,
+                               KV=KV, D=D)
+            if errs:
+                FLASH_BWD_F64[(dtype, B, S, H, KV, D, window)] = errs
+        for B, S, H, P, N, chunk in NEW_SSD_CASES:
+            args = ssd_case(torch, B, S, H, P, N, seed=S)
+            args[0] = args[0].to(dt)
+            y, h = ssd(*args, chunk=chunk)
+            yp, hp = ssd_chunked(*args, chunk=chunk)
+            y2, h2 = ssd(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            e1, ok1, r1 = max_err(torch, y, yp, tol=TOL_SSD)
+            e2, ok2, r2 = max_err(torch, h, hp, tol=TOL_SSD)
+            tag = (B, S, H, P, N, f"Q={min(chunk, S)}")
+            results.append(("ssd", dtype, tag, max(e1, e2), ok1 and ok2,
+                            max(r1, r2)))
+            results.append(("ssd", dtype, tag + (
+                "same bits on a second call",), 0.0,
+                torch.equal(y, y2) and torch.equal(h, h2), None))
+        B, KV, G, S, D = NEW_RING_CASE
+        for window in (1024, 0):
+            q, k, v, pos, q_pos, live = ring_case(torch, B, KV, G, S, D,
+                                                  dtype=dtype, seed=window)
+            got = decode_attention(q, k, v, pos, q_pos, window=window)
+            want = decode_attention_plain(q, k, v, pos, q_pos, window)
+            torch.cuda.synchronize()
+            err, ok, ratio = max_err(torch, got, want, live)
+            results.append(("ring_decode", dtype, tuple(q.shape) + (
+                f"S={S}", f"window={window}"), err, ok, ratio))
+    for B, S, H, P, N, chunk in SSD_GRAD_CASES:
+        args = ssd_case(torch, B, S, H, P, N, seed=3 * S + H)
+        gy = torch.randn((B, S, H, P), generator=torch.Generator()
+                         .manual_seed(H)).cuda()
+        ts = [a.clone().requires_grad_() for a in args]
+        y, _ = ssd(*ts, chunk=chunk)
+        got = torch.autograd.grad(y, ts, gy)
+        ts2 = [a.clone().requires_grad_() for a in args]
+        y2, _ = ssd_chunked(*ts2, chunk)
+        want = torch.autograd.grad(y2, ts2, gy)
+        torch.cuda.synchronize()
+        e_y, ok_y, r_y = max_err(torch, y, y2.detach(), tol=TOL_SSD)
+        ratios = [float((a - b).abs().max()) / (1e-4 * float(b.abs().max()))
+                  for a, b in zip(got, want)]
+        results.append(("ssd_grad", "float32", (B, S, H, P, N),
+                        max(e_y, max(float((a - b).abs().max()) for a, b in
+                                     zip(got, want))),
+                        ok_y and max(ratios) <= 1.0, max([r_y] + ratios)))
+
+
+def new_arch_params(torch, cfg):
+    """Random parameters of ``cfg`` from seed 0 on the card, logged."""
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import layer_windows
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{cfg.num_heads} heads over {cfg.num_kv_heads} of "
+        f"{cfg.resolved_head_dim()}, vocab {cfg.vocab_size}"
+        + (f", {cfg.num_experts} experts top-{cfg.num_experts_per_tok}"
+           f"{' + shared' if cfg.num_shared_experts else ''}, capacity "
+           f"factor {cfg.moe_capacity_factor}" if cfg.num_experts else "")
+        + f", windows {sorted(set(layer_windows(cfg)))}: "
+        f"{cfg.param_count() * 4 / 1e9:.2f} GB of f32 parameters "
+        f"({time.perf_counter() - t0:.1f} s to init)")
+    return params
+
+
+def long_pair(torch, cfg, n):
+    """Two seeded prompts of n tokens."""
+    g = torch.Generator().manual_seed(n)
+    return [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
+            for _ in range(2)]
+
+
+def moe_drop_runs(torch, cfg, params, prompts, ref, name):
+    """At the published capacity factor (1.25): spec_k 4's greedy tokens,
+    their agreement with the no-drop tokens ``ref`` and the entries
+    dropped (logged, not gated; each MoE call's ``dropped_entries``,
+    tallied by a wrapper of ``apply_moe`` for this run only).  Steps of
+    one token a slot (spec_k 0's and the static path's) drop nothing at
+    any factor: C >= K, and a token's K entries go to K distinct
+    experts."""
+    from repro_torch.models import moe
+    apply_moe, tally = moe.apply_moe, []
+
+    def counted(p, x, cfg, mm=torch.matmul):
+        tally.append((x.shape[0] * x.shape[1] * cfg.num_experts_per_tok,
+                      moe.dropped_entries(p, x, cfg, mm)))
+        return apply_moe(p, x, cfg, mm)
+
+    moe.apply_moe = counted
+    try:
+        toks, _ = engine_run(
+            torch, cfg.with_(moe_capacity_factor=1.25), params, prompts, 4,
+            ("rmsnorm", "rmsnorm_residual", "paged_verify"),
+            f"{name}_spec_k4_1.25", max_new=ARCH_MAX_NEW)
+    finally:
+        moe.apply_moe = apply_moe
+    n = sum(e for e, _ in tally)
+    dropped = int(sum(int(d) for _, d in tally))
+    out = {"spec_k4": {"agreement_with_no_drop": token_agreement(toks, ref),
+                       "entries": n, "dropped": dropped}}
+    log(f"  {name} at capacity factor 1.25, spec_k 4: agreement "
+        f"{out['spec_k4']['agreement_with_no_drop']:.4f} with the no-drop "
+        f"tokens, dropped {dropped} of {n} entries")
+    return out
+
+
+def moe_bits_twice(torch, cfg, params):
+    """Layer 0's MoE on 2 x 64 seeded rows twice on the card: the output,
+    the router loss and every gradient (x and the layer's MoE leaves)
+    the same bits (gated)."""
+    from repro_torch.models import moe
+    lp = {k: v[0].detach().requires_grad_()
+          for k, v in params["layers"]["moe"].items()}
+    x = torch.randn((2, 64, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(3)).cuda().requires_grad_()
+    runs = []
+    for _ in range(2):
+        y, aux = moe.apply_moe(lp, x, cfg)
+        runs.append([y, aux] + list(torch.autograd.grad(
+            y.square().sum() + aux, [x] + list(lp.values()))))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    check(same, f"{cfg.name}: the MoE gave other bits on a second call")
+    return same
+
+
+def phase_new_archs(torch, checks):
+    """``phase_new_arch_kernels``, then one config at a time, the card's
+    memory freed between them: hymba serving and training
+    (``hymba_runs``), mixtral and llama4 serving (``moe_serving``) and
+    mixtral's training (``new_family_training``), mamba2's training; the
+    depth-2 steps of each new family at reduced width against the CPU."""
+    from repro_torch.configs import get_config, get_reduced
+    new = []
+    t0 = time.perf_counter()
+    phase_new_arch_kernels(torch, new)
+    report_checks(new)
+    checks.extend(new)
+    runs = {"kernels_s": time.perf_counter() - t0,
+            "flash_bwd_vs_f64": {str(k): v for k, v in
+                                 FLASH_BWD_F64.items()}}
+    runs[HYMBA] = hymba_runs(torch, get_config(HYMBA))
+    torch.cuda.empty_cache()
+    for arch in (MIXTRAL, LLAMA4):
+        cfg = get_config(arch).with_(num_layers=NEW_SERVE_LAYERS[arch],
+                                     moe_capacity_factor=NO_DROP[arch])
+        runs[arch] = moe_serving(torch, cfg)
+        torch.cuda.empty_cache()
+    for arch in (MIXTRAL, MAMBA2):
+        runs.setdefault(arch, {})["train"] = new_family_training(
+            torch, get_config(arch).with_(num_layers=NEW_TRAIN_LAYERS[arch]))
+        torch.cuda.empty_cache()
+    runs["vs_cpu"] = {}
+    for arch in (HYMBA, MIXTRAL, LLAMA4, MAMBA2):
+        cfg = get_reduced(arch)
+        runs["vs_cpu"][arch] = train_step_vs_cpu(torch, cfg, 2, 128, 17)[0]
+    return runs
+
+
+def hymba_runs(torch, cfg):
+    """hymba-1.5b whole (random weights from seed 0), on the static path
+    (a hybrid has no paged pool): phase 4's 8 requests and the pair of
+    1100-token prompts (past the 1024 window) in one ``Engine.generate``
+    batch (host-bound: a decode step costs the same for 2 rows or 10; the
+    norms and the ring decode, nothing else), the pair's first token
+    equal to the argmax of ``forward_lm`` at its last prompt position
+    (flash and the SSD, once per layer), 4 rows scored (the flash and
+    SSD kernels once per layer each, nothing else); then its training
+    stage (``new_family_training``)."""
+    import numpy as np
+    from repro_torch import Engine
+    from repro_torch.kernels import KERNELS, launches, reset_launches
+    from repro_torch.models import forward_lm
+    torch.cuda.reset_peak_memory_stats()
+    params = new_arch_params(torch, cfg)
+    eng = Engine(cfg, params, max_len=1280, num_slots=8, device="cuda")
+    check(not eng.continuous, "hymba must take the static path")
+    g = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in PROMPT_LENS]
+    run = {"layers": cfg.num_layers, "param_gb": cfg.param_count() * 4 / 1e9}
+    pair = long_pair(torch, cfg, LONG_PROMPTS[HYMBA])
+    ps, max_new = prompts + pair, ARCH_MAX_NEW
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    toks = eng.generate(ps, max_new=max_new)
+    wall = time.perf_counter() - t0
+    counts = {k: launches[k] for k in KERNELS}
+    steps = max(map(len, ps)) + max_new
+    run["static"] = {"launches": counts, "wall_s": wall,
+                     "tokens_per_s": len(ps) * max_new / wall,
+                     "ms_per_decode_step": 1e3 * wall / steps}
+    check(all(len(t) == max_new and all(0 <= x < cfg.vocab_size
+                                       for x in t) for t in toks),
+          "hymba static path: output malformed")
+    for k in KERNELS:
+        check((counts[k] > 0) == (k in ("rmsnorm", "rmsnorm_residual",
+                                        "ring_decode")),
+              f"hymba static path: kernel {k} launched {counts[k]} times")
+    log(f"  hymba static path, {len(ps)} requests (longest "
+        f"{max(map(len, ps))} tokens) x {max_new}: {wall:.2f} s, "
+        f"{run['static']['ms_per_decode_step']:.2f} ms a decode step, "
+        f"launches { {k: v for k, v in counts.items() if v} }")
+    with torch.no_grad():
+        reset_launches()
+        logits, _ = forward_lm(params, {"tokens": torch.tensor(
+            pair, device="cuda")}, cfg)
+        counts = {k: launches[k] for k in KERNELS}
+    first = logits[:, -1].argmax(-1).tolist()
+    check(bool(torch.isfinite(logits).all()), "hymba: non-finite logits")
+    check(first == [t[0] for t in toks[-2:]], f"hymba: the long pair's "
+          f"first tokens {[t[0] for t in toks[-2:]]} differ from the "
+          f"forward's argmax {first}")
+    check(counts["ssd"] == cfg.num_layers
+          and counts["flash_fwd"] == cfg.num_layers,
+          f"hymba forward: launches {counts}")
+    del logits
+    rows = [(prompts[i][:60], prompts[(i + 1) % 8][:6]) for i in range(4)]
+    rows[0] = (prompts[7][:140], prompts[1][:4])
+    reset_launches()
+    t0 = time.perf_counter()
+    scores = eng.score_continuations_batch(rows)
+    wall = time.perf_counter() - t0
+    counts = {k: launches[k] for k in KERNELS}
+    check(bool(np.isfinite(scores).all()) and bool((scores < 0).all()),
+          f"hymba scores {scores}")
+    for k in KERNELS:
+        want = cfg.num_layers if k in ("ssd", "flash_fwd") else None
+        if want is not None:
+            check(counts[k] == want, f"hymba scoring: {k} {counts[k]}")
+        elif k not in ("rmsnorm", "rmsnorm_residual"):
+            check(counts[k] == 0, f"hymba scoring: {k} {counts[k]}")
+    run["score"] = {"launches": counts, "wall_s": wall,
+                    "scores": [float(s) for s in scores]}
+    run["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  hymba scoring, 4 rows: {wall:.3f} s, scores "
+        f"{[round(float(s), 3) for s in scores]}, launches "
+        f"{ {k: v for k, v in counts.items() if v} }; serving peak "
+        f"{run['peak_memory_gb']:.2f} GB")
+    del eng, params
+    torch.cuda.empty_cache()
+    run["train"] = new_family_training(torch, cfg)
+    return run
+
+
+def moe_serving(torch, cfg):
+    """An MoE config at the no-drop factor: ``arch_serving`` (phase 4's
+    requests at spec_k 0 and 4 and the static path, tokens equal, the
+    norms and one paged kernel a run), the MoE's bits on a second call,
+    the published factor's agreement and drops; for mixtral the pair of
+    4200-token prompts (past its 4096 window) at spec_k 4 (blocks
+    recycled) against the static path (the ring kernel)."""
+    from repro_torch import Engine, Request
+    from repro_torch.kernels import KERNELS, launches, reset_launches
+    params = new_arch_params(torch, cfg)
+    run = arch_serving(torch, cfg, params)
+    run["second_call_bits_equal"] = moe_bits_twice(torch, cfg, params)
+    run["factor_1.25"] = moe_drop_runs(torch, cfg, params,
+                                       run.pop("prompts"),
+                                       run.pop("tokens"), cfg.name)
+    if cfg.name == MIXTRAL:
+        pair = long_pair(torch, cfg, LONG_PROMPTS[MIXTRAL])
+        n = LONG_PROMPTS[MIXTRAL] + LONG_MAX_NEW
+        eng = Engine(cfg, params, max_len=n, num_slots=2, block_size=16,
+                     spec_k=4, device="cuda")
+        reqs = [Request(rid=i, prompt=p, max_new=LONG_MAX_NEW)
+                for i, p in enumerate(pair)]
+        torch.cuda.synchronize()
+        reset_launches()
+        stats = eng.run(reqs)
+        counts = {k: launches[k] for k in KERNELS}
+        t0 = time.perf_counter()
+        static = eng.generate_ids_static(pair, LONG_MAX_NEW).tolist()
+        static_s = time.perf_counter() - t0
+        run["long"] = {"recycled_blocks": stats["recycled_blocks"],
+                       "wall_s": stats["wall"], "static_wall_s": static_s,
+                       "step_calls": stats["step_calls"], "launches": counts,
+                       "num_blocks": eng.num_blocks}
+        log(f"  {cfg.name} 2 x {LONG_PROMPTS[MIXTRAL]}-token prompts, "
+            f"spec_k 4: {stats['wall']:.2f} s, {stats['step_calls']} step "
+            f"calls, {stats['recycled_blocks']} blocks recycled of a "
+            f"{eng.num_blocks}-block pool; static path {static_s:.2f} s; "
+            f"launches { {k: v for k, v in counts.items() if v} }")
+        check(stats["recycled_blocks"] > 0, "mixtral: no block recycled")
+        check([r.tokens for r in reqs] == static, "mixtral: the windowed "
+              "engine's tokens differ from the static path's")
+        for k in KERNELS:
+            check((counts[k] > 0) >= (k in ("rmsnorm", "rmsnorm_residual",
+                                            "paged_verify"))
+                  and (counts[k] == 0 or k in ARCH_KERNELS),
+                  f"mixtral long pair: kernel {k} launched {counts[k]}")
+        del eng
+    del params
+    torch.cuda.empty_cache()
+    return run
+
+
+def new_family_training(torch, cfg):
+    """One ``run_stage("diloco")`` of ``cfg`` (``NEW_TRAIN`` on the
+    synthetic corpus at seq_len ``NEW_TRAIN_SEQ``, f32 wire, fused AdamW):
+    the loss finite and falling, the training kernels launched (and the
+    SSD for an SSM or hybrid) and no other; peak memory, step seconds and
+    the SSD backward's share of the stage (CUDA events around each
+    ``_SSDGrad.backward``).  For an MoE also, on one batch: the router
+    loss finite and the router's gradient finite and nonzero, and remat
+    on == off bit for bit (loss and every gradient)."""
+    from repro_torch.configs import DiLoCoConfig, OptimizerConfig
+    from repro_torch.kernels import KERNELS, launches, reset_launches
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch.train import build_pipeline, run_stage
+    from repro_torch.models import init_params, lm_loss
+    from repro_torch.models.transformer import flatten, unflatten
+    _, _, stages, _ = build_pipeline(seq_len=NEW_TRAIN_SEQ)
+    opt_cfg = OptimizerConfig(total_steps=NEW_TRAIN["steps"],
+                              warmup_steps=1, learning_rate=0.02,
+                              adam_lr=1e-3, fused_adamw=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = []
+    orig = ssd_ops._SSDGrad.backward
+
+    def timed(ctx, gy, gh):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = orig(ctx, gy, gh)
+        b.record()
+        events.append((a, b))
+        return out
+
+    ssd_ops._SSDGrad.backward = staticmethod(timed)
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        # the parameters go in unnamed: run_stage holds the only copy
+        final, hist = run_stage("diloco", cfg,
+                                init_params(cfg, seed=0, device="cuda"),
+                                stages["base"], opt_cfg=opt_cfg,
+                                diloco_cfg=DiLoCoConfig(), seed=0,
+                                **NEW_TRAIN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ssd_ops._SSDGrad.backward = orig
+    counts = {k: launches[k] for k in KERNELS}
+    ssd_bwd_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
+    tokens = (NEW_TRAIN["workers"] * NEW_TRAIN["per_worker_batch"]
+              * NEW_TRAIN_SEQ)
+    run = {"layers": cfg.num_layers, "launches": counts,
+           "loss": hist["loss"], "sync_steps": hist["sync_steps"],
+           "step_seconds": hist["step_seconds"],
+           "tokens_per_s": tokens / hist["step_seconds"], "wall_s": wall,
+           "ssd_backward_s": ssd_bwd_s, "ssd_backward_calls": len(events),
+           "ssd_backward_share": ssd_bwd_s / wall,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"  {cfg.name} ({cfg.num_layers} layers) DiLoCo {NEW_TRAIN}, "
+        f"seq_len {NEW_TRAIN_SEQ}: losses "
+        f"{[round(x, 4) for x in hist['loss']]}, syncs "
+        f"{hist['sync_steps']}, step {hist['step_seconds']:.3f} s, stage "
+        f"{wall:.2f} s, SSD backward {ssd_bwd_s:.3f} s in {len(events)} "
+        f"calls ({100 * run['ssd_backward_share']:.1f}% of the stage), "
+        f"peak {run['peak_memory_gb']:.2f} GB, launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    check(all(math.isfinite(x) for x in hist["loss"])
+          and hist["loss"][-1] < hist["loss"][0],
+          f"{cfg.name}: the loss did not fall")
+    ssm = cfg.arch_type == "ssm" or cfg.hybrid
+    want = (SSM_TRAIN_KERNELS if ssm else TRAIN_KERNELS)
+    if cfg.arch_type == "ssm":
+        want = tuple(k for k in want if not k.startswith("flash"))
+    for k in KERNELS:
+        check((counts[k] > 0) == (k in want),
+              f"{cfg.name} training: kernel {k} launched {counts[k]} times")
+    del final
+    torch.cuda.empty_cache()
+    if cfg.num_experts:
+        params = init_params(cfg, seed=0, device="cuda")
+        g = torch.Generator().manual_seed(5)
+        toks = torch.randint(0, cfg.vocab_size, (2, NEW_TRAIN_SEQ + 1),
+                             generator=g).cuda()
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        out = []
+        for remat in (False, True):
+            leaves = {k: v.detach().clone().requires_grad_()
+                      for k, v in flatten(params).items()}
+            loss, m = lm_loss(unflatten(leaves), batch,
+                              cfg.with_(remat=remat))
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            out.append((loss.detach(), m["aux"].detach(),
+                        dict(zip(leaves, grads))))
+            del leaves, grads
+        (l0, a0, g0), (l1, a1, g1) = out
+        router = g0["layers/moe/router"]
+        bits = torch.equal(l0, l1) and all(torch.equal(g0[k], g1[k])
+                                           for k in g0)
+        run.update(aux=float(a0), router_grad_max=float(router.abs().max()),
+                   remat_bits_equal=bits)
+        log(f"  {cfg.name}: router loss {float(a0):.6f}, router gradient "
+            f"max {run['router_grad_max']:.3e}; remat on == off bit for "
+            f"bit: {bits}")
+        check(math.isfinite(float(a0)) and bool(torch.isfinite(router).all())
+              and run["router_grad_max"] > 0, f"{cfg.name}: router loss or "
+              f"gradient")
+        check(bits, f"{cfg.name}: remat on and off differ")
+        del out, g0, g1, params
+    torch.cuda.empty_cache()
+    return run
+
+
 TRAIN_SEQ = 1024
+# phase 5's nanochat-d20 at full width and 10 of its 20 layers since PR
+# 25, for the script's time
+TRAIN_LAYERS = 10
 _K2 = dict(workers=2, per_worker_batch=4)
 TRAIN_PLANS = (
     # path, method, run_stage arguments, DiLoCoConfig fields, expected
@@ -2193,7 +2868,7 @@ def phase_train(torch):
     from repro_torch.kernels import KERNELS, launches, reset_launches
     from repro_torch.launch.train import build_pipeline, run_stage
     from repro_torch.models import init_params
-    cfg = NANOCHAT_D20
+    cfg = NANOCHAT_D20.with_(num_layers=TRAIN_LAYERS)
     _, tok, stages, _ = build_pipeline(seq_len=TRAIN_SEQ)
     ds = stages["base"]
     log(f"  corpus: {ds.num_tokens} tokens of a {tok.vocab_size}-token BPE, "
@@ -2402,6 +3077,20 @@ def phase_pipeline(torch):
     the CPU: held-out CE (rtol 1e-4) and the MC option scores (1e-3 of
     their magnitude) against the card's; greedy-token agreement of the
     first ``CPU_GEN_ITEMS`` arith / pattern items printed."""
+    from repro_torch.launch import train as train_mod
+    # the pipeline builds its model through make_model: cut its depth to
+    # PIPELINE_LAYERS for the run
+    make_model = train_mod.make_model
+    train_mod.make_model = lambda *a: make_model(*a).with_(
+        num_layers=PIPELINE_LAYERS)
+    try:
+        return pipeline_runs(torch)
+    finally:
+        train_mod.make_model = make_model
+
+
+def pipeline_runs(torch):
+    """``phase_pipeline``'s runs."""
     import shutil
     import tempfile
 
@@ -2410,6 +3099,7 @@ def phase_pipeline(torch):
     from repro_torch.evals import heldout_metrics
     from repro_torch.kernels import KERNELS, launches, reset_launches
     from repro_torch.launch.train import build_pipeline, run_pipeline
+
     _, tok, stages, suites = build_pipeline(seq_len=PIPELINE_KW["seq_len"])
     heldout_kw = dict(ds=stages["base"], batches=4, batch_size=8)
     want_methods = {"diloco": ["diloco"] * 3,
@@ -2989,6 +3679,9 @@ GOSSIP_PLANS = (("gossip", "gossip", dict(topology="ring"), 4),
 # copies of the model, 25.2 GB at full depth) do not fit beside the
 # gossip run's measured peak
 GOSSIP_ASYNC_DEPTH = 10
+# gossip and the random topology at 10 of d20's 20 layers,
+# for the script's time
+GOSSIP_LAYERS = 10
 GOSSIP_IDLE = tuple(k for k in REPLACES
                     if k not in TRAIN_KERNELS + WIRE_KERNELS)
 # resume and the jitter-0 equality at depth 2 (full width, vocab 512)
@@ -3041,7 +3734,8 @@ def phase_gossip(torch, diloco_step_s):
     from repro_torch.models.transformer import flatten
     _, tok, stages, _ = build_pipeline(seq_len=GOSSIP_SEQ)
     ds = stages["base"]
-    full = make_model("nanochat-d20", False, tok.vocab_size)
+    full = make_model("nanochat-d20", False, tok.vocab_size).with_(
+        num_layers=GOSSIP_LAYERS)
     tiny = make_model("tiny", True, tok.vocab_size)
     opt_cfg = OptimizerConfig(total_steps=8, warmup_steps=1,
                               learning_rate=0.02, adam_lr=1e-3,
@@ -3728,6 +4422,9 @@ def fault_state_runs(torch, tok, ds, opt_cfg):
 # 1 when the first completion token lies in GRPO_REWARD_IDS (128 of the
 # 512 ids: at a near-uniform policy 90% of the groups are mixed)
 GRPO_ITERS = 4
+# nanochat-d20 at full width and 10 of its 20 layers, for the
+# script's time
+GRPO_LAYERS = 10
 GRPO_KW = dict(group_size=8, max_new=6)
 GRPO_PROMPTS = 16
 # the prompts whose iteration-1 groups a fresh engine rolls out again
@@ -3860,7 +4557,8 @@ def phase_grpo(torch):
     from repro_torch.models import init_params
     from repro_torch.models.transformer import flatten
     tok = build_tokenizer()
-    cfg = NANOCHAT_D20.with_(vocab_size=tok.vocab_size)
+    cfg = NANOCHAT_D20.with_(vocab_size=tok.vocab_size,
+                             num_layers=GRPO_LAYERS)
     items = synthetic.gen_arith_eval(GRPO_PROMPTS, seed=31)
     prompts = [tok.encode(it["prompt"]) for it in items]
     opt_cfg = OptimizerConfig(total_steps=GRPO_ITERS, warmup_steps=0,
@@ -4058,23 +4756,28 @@ def norm_fwd_times(torch, shape, seed):
             "library_ms": None, "nbytes": 4 * n * 4 + d * 4, "ops": 5 * n}}
 
 
-def paged_timing(torch, T, **case):
+def paged_timing(torch, T, window=0, **case):
     """Paged decode (T 1) or verify (T 5) at ``paged_case``'s shape (f32;
-    ``case``: its KV, G, D), the plain version and the SDPA yardstick:
-    {"shape", "ms", "plain_ms", "library_ms", "nbytes", "ops"}; bytes and
-    operations of what this call's data needs (``paged_work``)."""
+    ``case``: its KV, G, D, MB), the plain version and the SDPA
+    yardstick: {"shape", "ms", "plain_ms", "library_ms", "nbytes",
+    "ops"}; bytes and operations of what this call's data needs
+    (``paged_work``).  With a ``window`` the table's out-of-window blocks
+    are recycled (``recycle_table``) and SDPA's mask holds the window."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (
         paged_decode_attention, paged_decode_attention_plain,
         paged_verify_attention, paged_verify_attention_plain)
     dev = torch.device("cuda")
     item = 4
-    q, kp, vp, tab, start, ntok, live = (
-        t.to(dev) for t in paged_case(torch, T=T, dtype="float32", seed=T,
-                                      **case))
+    q, kp, vp, tab, start, ntok, live = paged_case(
+        torch, T=T, dtype="float32", seed=T, **case)
+    tab = recycle_table(torch, tab, start, ntok, kp.shape[1], window)
+    q, kp, vp, tab, start, ntok, live = (t.to(dev) for t in (
+        q, kp, vp, tab, start, ntok, live))
     S, KV, G, D = q.shape[0], q.shape[-3], q.shape[-2], q.shape[-1]
     bs, MB = kp.shape[1], tab.shape[1]
-    kv_rows, q_rows, tab_reads, pairs = paged_work(tab, start, ntok, bs)
+    kv_rows, q_rows, tab_reads, pairs = paged_work(tab, start, ntok, bs,
+                                                   window)
     nbytes = ((2 * kv_rows * KV * D + 2 * q_rows * KV * G * D) * item
               + (tab_reads + S * (1 if T == 1 else 2)) * 4)
     ops = 4 * pairs * KV * G * D
@@ -4088,18 +4791,24 @@ def paged_timing(torch, T, **case):
     tq = torch.arange(T, device=dev)
     qpos = start.long()[:, None] + tq[None, :]
     mapped = (tab >= 0).repeat_interleave(bs, dim=1)
-    mask = ((torch.arange(L, device=dev)[None, None, :]
-             <= qpos[:, :, None]) & mapped[:, None, :])[:, None]
+    kpos = torch.arange(L, device=dev)[None, None, :]
+    mask = ((kpos <= qpos[:, :, None]) & mapped[:, None, :])
+    if window:
+        mask &= qpos[:, :, None] - kpos < window
+    mask = mask[:, None]
     mask = mask | ~mask.any(-1, keepdim=True)      # no empty rows
+    w = dict(window=window)
     if T == 1:
         qs = q.reshape(S, KV * G, 1, D)
-        fn = lambda: paged_decode_attention(q, kp, vp, tab, start)
-        plain = lambda: paged_decode_attention_plain(q, kp, vp, tab, start)
+        fn = lambda: paged_decode_attention(q, kp, vp, tab, start, **w)
+        plain = lambda: paged_decode_attention_plain(q, kp, vp, tab, start,
+                                                     **w)
     else:
         qs = q.permute(0, 2, 3, 1, 4).reshape(S, KV * G, T, D)
-        fn = lambda: paged_verify_attention(q, kp, vp, tab, start, ntok)
+        fn = lambda: paged_verify_attention(q, kp, vp, tab, start, ntok,
+                                            **w)
         plain = lambda: paged_verify_attention_plain(q, kp, vp, tab, start,
-                                                     ntok)
+                                                     ntok, **w)
     lib = lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask)
     return {"shape": list(q.shape), "ms": time_ms(torch, fn),
             "plain_ms": time_ms(torch, plain),
@@ -4158,6 +4867,12 @@ def phase_timing(torch, paths, checks):
         for KV, G, D in ARCH_PAGED_CASES:
             a = paged_timing(torch, T, KV=KV, G=G, D=D)
             at[f"at_kv{KV}_g{G}_d{D}_shape"] = with_bound(a, dtype)
+        for KV, G, D, window in NEW_PAGED_CASES:
+            a = paged_timing(torch, T, window=window, KV=KV, G=G, D=D,
+                             MB=NEW_PAGED_MB)
+            at[f"at_kv{KV}_g{G}_d{D}_window{window}_shape"] = dict(
+                with_bound(a, dtype), window=window,
+                recycled=bool(window))
         row(name, t["shape"], t["ms"], t["plain_ms"], t["library_ms"],
             t["nbytes"], t["ops"],
             library="F.scaled_dot_product_attention over the K/V gathered "
@@ -4277,12 +4992,13 @@ def split_breakdown(torch, calls):
     return out
 
 
-def paged_work(tab, start, ntok, bs):
-    """What one paged call's data needs (window 0): the K/V rows at a
-    mapped position <= the slot's last query (each read once), the query
-    rows that attend some key, the table entries up to the last query's
-    block, and the (query, key) pairs.  Returns (kv_rows, q_rows,
-    tab_reads, pairs) per KV head."""
+def paged_work(tab, start, ntok, bs, window=0):
+    """What one paged call's data needs: the K/V rows at a mapped
+    position inside some query's window (<= the slot's last query; each
+    read once), the query rows that attend some key, the table entries
+    from the first query's window to the last query's block, and the
+    (query, key) pairs.  Returns (kv_rows, q_rows, tab_reads, pairs) per
+    KV head."""
     kv_rows, pairs, q_rows, tab_reads = 0, 0, 0, 0
     tab_h, start_h, ntok_h = tab.cpu(), start.cpu(), ntok.cpu()
     for s in range(tab_h.shape[0]):
@@ -4290,11 +5006,13 @@ def paged_work(tab, start, ntok, bs):
         if st < 0 or n == 0:
             continue
         last = st + n - 1
+        lo = max(0, st - window + 1) if window else 0
         mapped = [int(tab_h[s, p // bs]) >= 0 for p in range(last + 1)]
-        kv_rows += sum(mapped)
-        tab_reads += last // bs + 1
+        kv_rows += sum(mapped[lo:])
+        tab_reads += last // bs + 1 - lo // bs
         for t in range(n):
-            keys = sum(mapped[:st + t + 1])
+            p = st + t
+            keys = sum(mapped[max(0, p - window + 1) if window else 0:p + 1])
             pairs += keys
             q_rows += keys > 0
     return kv_rows, q_rows, tab_reads, pairs
@@ -4343,10 +5061,18 @@ def static_rows(torch, row):
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_plain)
     t = {k: ssd_times(torch, shape) for k, shape in SSD_TIMING_SHAPES.items()}
+    at = {f"at_{k}_shape": with_tc_bound(ssd_times(torch, shape), "ssd")
+          for k, shape in (("hymba", NEW_SSD_CASES[0]),
+                           ("hymba_scoring", NEW_SSD_CASES[1]))}
     row("ssd", t["timed"]["shape"], t["timed"]["ms"], t["timed"]["plain_ms"],
         None, t["timed"]["nbytes"], t["timed"]["ops"],
         library="null: no single PyTorch call computes the chunked SSD "
-                "scan", at_scoring_shape=with_tc_bound(t["scoring"], "ssd"))
+                "scan", at_scoring_shape=with_tc_bound(t["scoring"], "ssd"),
+        gradient_plain_recompute={
+            f"at_{k}_shape": ssd_grad_times(torch, shape)
+            for k, shape in zip(("mamba2_training", "hymba_training"),
+                                SSD_GRAD_CASES)}, **at)
+    ring = ring_times(torch, NEW_RING_CASE, 1024)
     q, k, v, pos, q_pos, live = ring_case(torch, *RING_CASE)
     Bq, KV, G, D = q.shape
     Sr = k.shape[2]
@@ -4364,8 +5090,60 @@ def static_rows(torch, row):
             qs, k, v, attn_mask=mask)),
         nbytes, 4 * n_live * KV * G * D, live_slots=n_live,
         library="F.scaled_dot_product_attention over the ring with the "
-                "slots' boolean mask")
+                "slots' boolean mask",
+        at_hymba_window1024_shape=with_bound(ring, "float32"))
     del q, k, v, pos, q_pos, mask
+
+
+def ring_times(torch, case, window):
+    """The ring decode, its plain version and SDPA (the live, in-window
+    slots' boolean mask, K/V repeated over the group) at ``case`` (B, KV,
+    G, S, D) with ``window``, f32: bytes of the live in-window K/V rows,
+    q, the output and the positions; 4 FLOPs per (query head, slot,
+    d)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    q, k, v, pos, q_pos, live = ring_case(torch, *case)
+    Bq, KV, G, D = q.shape
+    Sr = k.shape[2]
+    qp = q_pos[:, None].long()
+    ok = (pos >= 0) & (pos <= qp) & (qp - pos < window)
+    n_live = int(ok.sum())
+    mask = ok[:, None, None, :]
+    mask = mask | ~mask.any(-1, keepdim=True)
+    qs = q.reshape(Bq, KV * G, 1, D)
+    kr, vr = (t.repeat_interleave(G, dim=1) for t in (k, v))
+    return {"shape": list(q.shape) + [Sr], "window": window,
+            "ms": time_ms(torch, lambda: decode_attention(
+                q, k, v, pos, q_pos, window=window)),
+            "plain_ms": time_ms(torch, lambda: decode_attention_plain(
+                q, k, v, pos, q_pos, window)),
+            "library_ms": time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qs, kr, vr, attn_mask=mask)),
+            "nbytes": (2 * n_live * KV * D + 2 * Bq * KV * G * D) * 4
+            + (Bq * Sr + Bq) * 4,
+            "ops": 4 * n_live * KV * G * D, "live_slots": n_live}
+
+
+def ssd_grad_times(torch, shape):
+    """The SSD's gradient (``_SSDGrad``: the plain ``ssd_chunked`` run
+    again from the saved inputs and backpropagated) at ``shape`` (B, S,
+    H, P, N, Q), f32: one backward's ms, beside the kernel's forward and
+    the plain forward's.  Not a kernel: its own route, with no bound."""
+    from repro_torch.kernels.ssd import ssd, ssd_chunked
+    B, S, H, P, N, Q = shape
+    args = [a.requires_grad_() for a in ssd_case(torch, B, S, H, P, N)]
+    gy = torch.randn((B, S, H, P), device="cuda")
+    y, _ = ssd(*args, chunk=Q)
+    return {"shape": list(shape),
+            "backward_ms": time_ms(torch, lambda: torch.autograd.grad(
+                y, args, gy, retain_graph=True), reps=10),
+            "forward_kernel_ms": time_ms(torch, lambda: ssd(
+                *[a.detach() for a in args], chunk=Q), reps=10),
+            "forward_plain_ms": time_ms(torch, lambda: ssd_chunked(
+                *[a.detach() for a in args], Q), reps=10)}
 
 
 def quant_rows(torch, row):
@@ -4411,42 +5189,61 @@ def quant_rows(torch, row):
                     "fp8 QK^T")
 
 
-def flash_timing(torch, B, S, H, KV, D):
+def flash_timing(torch, B, S, H, KV, D, window=None, fp8=True, reps=50):
     """{name: (ms, plain_ms, library_ms, bytes, ops)} of flash_fwd,
-    flash_fwd_fp8 and flash_bwd at (B, S, H, KV, D), f32, causal: the
-    kernel, its plain version and one SDPA call (forward, or its backward
-    through autograd) on (B, H, S, D) copies.  Bytes: q, k, v and o (and
-    dO, dQ, dK, dV) once, lse once; ops: 4 B H S^2 D / 2 FLOPs forward
-    (half the scores), 2.5 times that backward."""
+    flash_fwd_fp8 (unless ``fp8`` is false) and flash_bwd at (B, S, H,
+    KV, D), f32, causal, with ``window`` if given: the kernel, its plain
+    version and one SDPA call (forward, or its backward through
+    autograd) on (B, H, S, D) copies (a window as a boolean band mask).
+    Bytes: q, k, v and o (and dO, dQ, dK, dV) once, lse once; ops: 4 B H
+    S^2 D / 2 FLOPs forward (half the scores; with a window, 4 B H D per
+    (query, key) pair in the band), 2.5 times that backward."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd_plain, flash_attention_fp8_plain,
         flash_attention_plain, flash_bwd, flash_fwd)
     q, k, v, do = flash_inputs(torch, B=B, S=S, H=H, KV=KV, D=D)
-    o, lse = flash_fwd(q, k, v)
+    w = dict(window=window)
+    o, lse = flash_fwd(q, k, v, **w)
     qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
-    fwd_ops = 4 * B * H * S * S * D / 2
+    kt, vt = (t.repeat_interleave(H // KV, dim=1) for t in (kt, vt))
+    if window:
+        pairs = sum(min(i + 1, window) for i in range(S))
+        fwd_ops = 4 * B * H * pairs * D
+        i = torch.arange(S, device="cuda")
+        band = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+        lib_kw = dict(attn_mask=band)
+    else:
+        fwd_ops = 4 * B * H * S * S * D / 2
+        lib_kw = dict(is_causal=True)
     act = B * S * H * D * 4
     leaves = [t.clone().requires_grad_() for t in (qt, kt, vt)]
-    out_lib = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    out_lib = F.scaled_dot_product_attention(*leaves, **lib_kw)
     sdpa = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True))
-    return {
-        "flash_fwd": (time_ms(torch, lambda: flash_fwd(q, k, v)),
-                      time_ms(torch, lambda: flash_attention_plain(q, k, v)),
+        qt, kt, vt, **lib_kw), reps=reps)
+    plain_reps = max(reps // 5, 3)
+    out = {
+        "flash_fwd": (time_ms(torch, lambda: flash_fwd(q, k, v, **w),
+                              reps=reps),
+                      time_ms(torch, lambda: flash_attention_plain(
+                          q, k, v, True, window), reps=plain_reps),
                       sdpa, 4 * act + B * H * S * 4, fwd_ops),
-        # the fp8 variant's operations: the same FLOPs (its QK^T on codes)
-        "flash_fwd_fp8": (time_ms(torch, lambda: flash_fwd(q, k, v,
-                                                           fp8=True)),
-                          time_ms(torch, lambda: flash_attention_fp8_plain(
-                              q, k, v)),
-                          None, 4 * act + B * H * S * 4, fwd_ops),
-        "flash_bwd": (time_ms(torch, lambda: flash_bwd(q, k, v, o, lse, do)),
+        "flash_bwd": (time_ms(torch, lambda: flash_bwd(q, k, v, o, lse, do,
+                                                       **w), reps=reps),
                       time_ms(torch, lambda: flash_attention_bwd_plain(
-                          q, k, v, o, lse, do)),
+                          q, k, v, o, lse, do, True, window),
+                          reps=plain_reps),
                       time_ms(torch, lambda: torch.autograd.grad(
-                          out_lib, leaves, dot, retain_graph=True)),
+                          out_lib, leaves, dot, retain_graph=True),
+                          reps=reps),
                       8 * act + B * H * S * 4, 2.5 * fwd_ops)}
+    if fp8:
+        # the fp8 variant's operations: the same FLOPs (its QK^T on codes)
+        out["flash_fwd_fp8"] = (
+            time_ms(torch, lambda: flash_fwd(q, k, v, fp8=True, **w)),
+            time_ms(torch, lambda: flash_attention_fp8_plain(q, k, v)),
+            None, 4 * act + B * H * S * 4, fwd_ops)
+    return out
 
 
 def sdpa_kernels(torch, B, S, H, KV, D):
@@ -4483,8 +5280,9 @@ def sdpa_kernels(torch, B, S, H, KV, D):
 def train_rows(torch, row):
     """Timing rows of the training kernels at the main path's shapes
     (float32): flash at (B 4, S 1024, H = KV = 10, D 128), also at the
-    pipeline's (``PIPELINE_FLASH_SHAPE``) and qwen1.5-0.5b's step
-    (``QWEN_FLASH_SHAPE``, head dim 64), the RMSNorm
+    pipeline's (``PIPELINE_FLASH_SHAPE``), qwen1.5-0.5b's step
+    (``QWEN_FLASH_SHAPE``, head dim 64) and the new configs' heads and
+    windows (``NEW_FLASH_CASES``; no fp8 there), the RMSNorm
     backward, plain and residual, at 4 x 1024 and 8 x 128 rows of 1280,
     fused AdamW on the AdamW partition's largest leaf (65536 x 1280)."""
     from repro_torch.kernels.fused_adamw import (fused_adamw_plain,
@@ -4495,6 +5293,10 @@ def train_rows(torch, row):
                            flash_timing(torch, *PIPELINE_FLASH_SHAPE)),
               "qwen": (QWEN_FLASH_SHAPE,
                        flash_timing(torch, *QWEN_FLASH_SHAPE))}
+    for case in NEW_FLASH_CASES:
+        others[f"h{case[2]}_kv{case[3]}_d{case[4]}_window{case[5]}"] = (
+            case, flash_timing(torch, *case[:5], window=case[5] or None,
+                               fp8=False, reps=20))
     libraries = {
         "flash_fwd": "F.scaled_dot_product_attention(is_causal=True) on "
                      "(B, H, S, D) copies",
@@ -4506,6 +5308,8 @@ def train_rows(torch, row):
         ms, plain_ms, lib_ms, nbytes, ops = times[name]
         at = {}
         for where, (oshape, t) in others.items():
+            if name not in t:
+                continue
             o_ms, o_plain, o_lib, o_bytes, o_ops = t[name]
             at[f"at_{where}_shape"] = dict(
                 {"shape": list(oshape), "ms": o_ms, "plain_ms": o_plain,
@@ -4655,6 +5459,38 @@ def ssd_timing(torch):
     return out
 
 
+def new_arch_paths(runs):
+    """Phase 4c's runs -> {path name: launch counts} for phase 7."""
+    paths = {}
+    for arch in (HYMBA, MIXTRAL, LLAMA4, MAMBA2):
+        for part, rec in runs.get(arch, {}).items():
+            if isinstance(rec, dict) and "launches" in rec:
+                paths[f"{arch}_{part}"] = rec["launches"]
+    return paths
+
+
+PARTS = ("spec_k0", "spec_k4", "static", "score", "long", "train")
+
+
+def new_arch_summary(runs):
+    """The summary line's record of phase 4c: per config its runs' (the
+    ``PARTS``) main numbers and its other records as they are."""
+    keep = ("layers", "tokens_per_s", "wall_s", "ms_per_step_call",
+            "ms_per_decode_step", "peak_memory_gb", "loss", "step_seconds",
+            "ssd_backward_s", "ssd_backward_share", "aux", "router_grad_max",
+            "remat_bits_equal", "recycled_blocks", "static_wall_s",
+            "second_call_bits_equal", "factor_1.25", "scores")
+    out = {"kernels_s": runs["kernels_s"], "vs_cpu": runs["vs_cpu"],
+           "flash_bwd_vs_f64": runs["flash_bwd_vs_f64"]}
+    for arch in (HYMBA, MIXTRAL, LLAMA4, MAMBA2):
+        out[arch] = {part: ({k: v for k, v in rec.items() if k in keep}
+                            if isinstance(rec, dict) and part in PARTS
+                            else rec)
+                     for part, rec in runs.get(arch, {}).items()
+                     if part in keep or part in PARTS}
+    return out
+
+
 def gpu_line() -> str:
     try:
         return subprocess.run(
@@ -4678,6 +5514,10 @@ def main(argv=None) -> int:
                     help="only build the SSD kernel of this checkout and "
                          "time it at SSD_TIMING_SHAPES beside the floor "
                          "(one JSON line), as --norm-timing")
+    ap.add_argument("--new-archs", action="store_true",
+                    help="only build the kernels and run phase 4c (the "
+                         "new decoder-only configs), printing its summary "
+                         "as one JSON line")
     args = ap.parse_args(argv)
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found; run from a checkout "
@@ -4693,6 +5533,19 @@ def main(argv=None) -> int:
     if args.norm_timing or args.ssd_timing:
         print(json.dumps(norm_timing(torch) if args.norm_timing
                          else ssd_timing(torch)))
+        print(gpu_line())
+        return 0
+    if args.new_archs:
+        from repro_torch.kernels import _build
+        _build.build()
+        t0 = time.perf_counter()
+        try:
+            runs = phase_new_archs(torch, [])
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+            return 1
+        log(f"phase 4c passed in {time.perf_counter() - t0:.1f} s")
+        print(json.dumps(new_arch_summary(runs)))
         print(gpu_line())
         return 0
     report = {"gpu": gpu_line(), "torch": torch.__version__,
@@ -4762,13 +5615,23 @@ def main(argv=None) -> int:
         report["static"] = static
         lap("4 serving")
 
-        log("[4b/7] the dense configs at full width: qwen1.5-0.5b (24 "
+        log("[4b/7] the dense configs at full width: qwen1.5-0.5b (12 "
             "layers), command-r-plus-104b (2), mistral-large-123b (4), "
             "nemotron-4-15b (8): serving spec_k 0 / 4 and static; qwen's "
             "DiLoCo round")
         archs = report["archs"] = phase_archs(torch, checks)
         report["checks"] = [list(c) for c in checks]
         lap("4b archs")
+
+        log("[4c/7] hymba-1.5b (whole), mixtral-8x7b and "
+            "llama4-scout-17b-a16e (4 layers) at full width: their kernel "
+            "shapes, serving (static path and scoring; spec_k 0 / 4 and "
+            "static; windows past 1024 and 4096), the published capacity "
+            "factor; DiLoCo rounds of hymba, mixtral (1 layer) and mamba2; "
+            "depth-2 steps against the CPU")
+        new_archs = report["new_archs"] = phase_new_archs(torch, checks)
+        report["checks"] = [list(c) for c in checks]
+        lap("4c new archs")
 
         log("[5/7] training, nanochat-d20: DiLoCo and DDP on the f32 wire; "
             "DiLoCo on int8, fp8 and fp8_e5m2 wires, compressed DDP, "
@@ -4831,6 +5694,7 @@ def main(argv=None) -> int:
             if "train" in run:
                 paths[f"{arch}_train"] = run["train"]["launches"]
         paths.update(grpo["launches"])
+        paths.update(new_arch_paths(new_archs))
         floor = report["floor_ms"] = time_ms(
             torch, lambda: torch.cuda._sleep(0))
         kernels = phase_timing(torch, paths, checks)
@@ -4941,6 +5805,7 @@ def main(argv=None) -> int:
         for a, r in archs.items()}
     archs_summary[QWEN]["train"] = {k: archs[QWEN]["train"][k] for k in (
         "loss", "step_seconds", "tokens_per_s", "peak_memory_gb", "vs_cpu")}
+    new_archs_summary = new_arch_summary(new_archs)
     grpo_summary = {"p_reward_set": grpo["p_reward_set"],
                     "vs_cpu": grpo["vs_cpu"], "profiled": [{
                         k: r[k] for k in ("rollout_s", "update_s",
@@ -4955,6 +5820,7 @@ def main(argv=None) -> int:
                       "archs": archs_summary, "pipeline": pipeline_summary,
                       "state": state_summary, "gossip": gossip_summary,
                       "faults": faults_summary, "grpo": grpo_summary,
+                      "new_archs": new_archs_summary,
                       "phase_s": phase_s, "floor_ms": floor}))
     print(json.dumps({"split_timing": report["split_timing"]}))
     print(report["gpu"])

@@ -2,10 +2,10 @@
 
 A ``ModelConfig`` fully describes one architecture.  The field names and
 defaults are those of the JAX package's config, so a ``.cfg.json`` written
-beside a JAX checkpoint loads here unchanged; the port runs the dense
-decoder and the mamba-2 (``arch_type="ssm"``) decoder and raises
-``NotImplementedError`` on the fields it does not implement yet (MoE,
-hybrid, encoder-decoder, VLM, ``window_pattern``).
+beside a JAX checkpoint loads here unchanged; the port runs every
+decoder-only arch (dense, MoE, mamba-2 ``arch_type="ssm"``, hybrid, with
+uniform or per-layer windows) and raises ``NotImplementedError`` on the
+encoder-decoder and VLM fields.
 ``DiLoCoConfig`` and ``OptimizerConfig`` are field-for-field copies of the
 JAX package's training configs; the port raises on the knobs whose code
 paths it does not have yet (see ``core/outer_opt.py`` and ``core/sync.py``).

@@ -1,9 +1,10 @@
 """Architecture ids -> ModelConfig, and the reduced smoke variants: the
 JAX package's ``configs/registry.py`` ``get_config`` / ``get_reduced``,
-limited to the configs the port registers: nanochat-d20, the dense
-qwen1.5-0.5b, command-r-plus-104b, nemotron-4-15b (squared-ReLU MLP) and
-mistral-large-123b, and the SSM mamba2-1.3b.  The ids and their order
-are the reference's."""
+limited to the configs the port registers, every decoder-only one:
+nanochat-d20, the dense qwen1.5-0.5b, command-r-plus-104b,
+nemotron-4-15b (squared-ReLU MLP) and mistral-large-123b, the SSM
+mamba2-1.3b, the MoE mixtral-8x7b and llama4-scout-17b-a16e, and the
+hybrid hymba-1.5b.  The ids and their order are the reference's."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,9 +13,13 @@ from typing import Dict
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.command_r_plus_104b import \
     CONFIG as COMMAND_R_PLUS_104B
+from repro_torch.configs.hymba_15b import CONFIG as HYMBA_15B
+from repro_torch.configs.llama4_scout_17b_a16e import \
+    CONFIG as LLAMA4_SCOUT_17B_A16E
 from repro_torch.configs.mamba2_13b import CONFIG as MAMBA2_13B
 from repro_torch.configs.mistral_large_123b import \
     CONFIG as MISTRAL_LARGE_123B
+from repro_torch.configs.mixtral_8x7b import CONFIG as MIXTRAL_8X7B
 from repro_torch.configs.nanochat_d20 import CONFIG as NANOCHAT_D20
 from repro_torch.configs.nemotron4_15b import CONFIG as NEMOTRON4_15B
 from repro_torch.configs.qwen15_05b import CONFIG as QWEN15_05B
@@ -25,6 +30,9 @@ _CONFIGS: Dict[str, ModelConfig] = {
     "mamba2-1.3b": MAMBA2_13B,
     "command-r-plus-104b": COMMAND_R_PLUS_104B,
     "nemotron-4-15b": NEMOTRON4_15B,
+    "mixtral-8x7b": MIXTRAL_8X7B,
+    "llama4-scout-17b-a16e": LLAMA4_SCOUT_17B_A16E,
+    "hymba-1.5b": HYMBA_15B,
     "mistral-large-123b": MISTRAL_LARGE_123B,
 }
 ALL_IDS = list(_CONFIGS)

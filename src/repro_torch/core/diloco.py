@@ -117,22 +117,23 @@ class DiLoCoTrainer:
         dead workers out: they are not stepped, so their parameters and
         optimizer states keep their bits (the reference computes their
         step and discards it, the same state), and their loss entries are
-        NaN.  The shared step counter advances either way."""
+        NaN.  The shared step counter advances either way.  Each worker's
+        new optimizer state replaces its old one in ``state.inner_opt`` as
+        it lands (the state is consumed), so at most one worker's old
+        state is alive at a time."""
         opt = self._inner_opt()
-        new_opt, losses = [], []
+        states, losses = state.inner_opt, []
         for w, params in enumerate(state.worker_params):
             if live is not None and not live[w]:
-                new_opt.append(state.inner_opt[w])
                 losses.append(torch.full((), float("nan"),
                                          device=state.inner_step.device))
                 continue
             batch = {k: v[w] for k, v in batches.items()}
-            opt_state, loss = worker_step(self.loss_fn, opt, params,
-                                          state.inner_opt[w], batch,
+            states[w], loss = worker_step(self.loss_fn, opt, params,
+                                          states[w], batch,
                                           state.inner_step)
-            new_opt.append(opt_state)
             losses.append(loss)
-        return (state._replace(inner_opt=new_opt,
+        return (state._replace(inner_opt=list(states),
                                inner_step=state.inner_step + 1),
                 torch.stack(losses))
 

@@ -15,9 +15,14 @@ wrapper allocates its scratch with ``torch.empty`` (the chunk states
 (B, nc, H, N, P), the chunk cumsums (B, nc, H, Q) and C.B^T (B, nc, Q,
 Q), f32, nc = ceil(S / Q)); the kernels allocate nothing.
 
-The kernel has no backward: on the card the scan serves the forward
-(scoring, prefill) only, and a call on tensors that require grad raises
-(the plain version on the CPU is differentiable through autograd).
+Training.  When grad mode is on and an operand requires grad, the call
+goes through ``_SSDGrad``, an ``autograd.Function`` whose forward is the
+kernel (the plain ``ssd_chunked`` on the CPU) and whose backward runs
+the plain ``ssd_chunked`` again from the saved inputs under
+``torch.enable_grad()`` and backpropagates through it — the reference
+trains through the plain scan too.  The route is chosen by
+``requires_grad`` alone; without a graph the kernel (or the plain scan)
+runs directly.
 
 Launch count: ``ssd``, one per call of ``ssd`` on the card, which makes
 four device launches (C.B^T, the chunk states, the state passing, the
@@ -53,9 +58,6 @@ def _check(x, dt, A, Bm, Cm, D, Q):
     if x.dtype not in _DTYPES:
         raise TypeError(f"ssd kernel takes float32 or bfloat16 x, got "
                         f"{x.dtype}")
-    if any(t.requires_grad for t in (x, dt, A, Bm, Cm, D)):
-        raise NotImplementedError(
-            "the SSD kernel has no backward (SSM training is not ported)")
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     want = {"dt": (dt, (Bsz, S, H)), "A": (A, (H,)), "D": (D, (H,)),
@@ -72,6 +74,37 @@ def _check(x, dt, A, Bm, Cm, D, Q):
 
 def ssd(x, dt, A, Bm, Cm, D, *,
         chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    args = (x, dt, A, Bm, Cm, D)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _SSDGrad.apply(chunk, *args)
+    return _forward(*args, chunk=chunk)
+
+
+class _SSDGrad(torch.autograd.Function):
+    """The scan's forward (kernel or plain) with the plain scan's
+    gradient: the backward recomputes ``ssd_chunked`` from the saved
+    inputs and backpropagates (gy, gh) through it."""
+
+    @staticmethod
+    def forward(ctx, chunk, *args):
+        ctx.chunk = chunk
+        ctx.save_for_backward(*args)
+        return _forward(*args, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        need = ctx.needs_input_grad[1:]
+        inputs = [t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            y, h = ssd_chunked(*inputs, ctx.chunk)
+        wrt = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad((y, h), wrt, (gy, gh),
+                                         allow_unused=True))
+        return (None,) + tuple(next(grads) if n else None for n in need)
+
+
+def _forward(x, dt, A, Bm, Cm, D, *, chunk: int):
     if x.device.type == "cpu":
         return ssd_chunked(x, dt, A, Bm, Cm, D, chunk)
     if x.dim() != 4:

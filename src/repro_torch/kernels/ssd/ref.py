@@ -3,7 +3,9 @@ wrapper in ``ops.py`` and the yardstick the CUDA kernel is held to.
 
 ``ssd_chunked`` is a line-for-line copy of the JAX package's
 ``repro.models.ssm.ssd_chunked`` (the Pallas kernel's own oracle), in
-float32 throughout: the sequence is cut into chunks of Q tokens; an
+float32 throughout, but for one line: the intra-chunk decays mask the
+exponent before the exp, not the exp after it, which gives the same
+values and keeps the gradient finite where the reference's is NaN: the sequence is cut into chunks of Q tokens; an
 intra-chunk quadratic term (a causal (Q x Q) decay-weighted product) plus
 an inter-chunk linear recurrence over per-chunk states.
 ``ssd_decode_step`` is the one-token recurrence the decode path runs.
@@ -90,9 +92,14 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, chunk: int,
     # intra-chunk: y_i = sum_{j<=i} (C_i.B_j) exp(cum_i - cum_j) xbar_j
     CB = torch.einsum("bnqN,bnkN->bnqk", Cc, Bc)
     cumT = cum.permute(0, 1, 3, 2)                # (B,nc,H,Q)
-    L = torch.exp(cumT[..., :, None] - cumT[..., None, :])
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    L = torch.where(mask, L, torch.zeros((), device=x.device))
+    # exp of the masked difference (exp(-inf) = 0): the reference masks
+    # after the exp, where the upper triangle's positive exponents
+    # overflow once a chunk's decay passes e^88, and the backward's
+    # 0 x inf makes dt's and A's gradients NaN; the values are the same
+    L = torch.exp(torch.where(mask, cumT[..., :, None] - cumT[..., None, :],
+                              torch.full((), float("-inf"),
+                                         device=x.device)))
     M = CB[:, :, None] * L                        # (B,nc,H,Q,Q)
     y_intra = torch.einsum("bnhqk,bnkhp->bnqhp", M, xbar)
 

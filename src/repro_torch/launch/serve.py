@@ -60,16 +60,17 @@ def build_requests(args, tok):
 
 # the configs built reduced, as the JAX launcher builds every ``--config``
 REDUCED = ("qwen1.5-0.5b", "command-r-plus-104b", "mistral-large-123b",
-           "nemotron-4-15b")
+           "nemotron-4-15b", "mixtral-8x7b", "llama4-scout-17b-a16e",
+           "hymba-1.5b")
 CONFIGS = ("tiny", "nanochat-d20", "mamba2-1.3b") + REDUCED
 
 
 def make_config(arch: str, vocab_size: int):
     """``tiny`` (the JAX launcher's tiny-nanochat), ``nanochat-d20`` (the
     paper's model at full width), ``mamba2-1.3b`` (the SSM at full width)
-    or one of ``REDUCED`` (``get_reduced``: the full-depth f32 weights of
-    the 15B-123B configs do not fit one card), at the tokenizer's
-    vocabulary."""
+    or one of ``REDUCED`` (``get_reduced``, as the JAX launcher builds
+    every config: the full-depth f32 weights of the 15B-123B configs do
+    not fit one card), at the tokenizer's vocabulary."""
     from repro_torch.configs import (MAMBA2_13B, NANOCHAT_D20, ModelConfig,
                                      get_reduced)
     if arch == "tiny":

@@ -65,7 +65,7 @@ import os
 import time
 from typing import Dict, Optional, Sequence
 
-from repro_torch.configs import get_config, get_reduced
+from repro_torch.configs import ALL_IDS, get_config, get_reduced
 from repro_torch.configs.base import (DiLoCoConfig, ModelConfig,
                                       OptimizerConfig)
 from repro_torch.models import init_params
@@ -157,8 +157,12 @@ def run_stage(method: str, cfg: ModelConfig, params, stage_ds, *,
     trainer = DistTrainer(lambda p, b: lm_loss(p, b, cfg), opt_cfg, dcfg,
                           make_strategy(dcfg, h_schedule=h_schedule))
     # the initial state is passed unnamed: ``run`` consumes it, and a name
-    # here would keep its K optimizer states alive for the whole run
-    state, hist = trainer.run(trainer.init(params), data, steps,
+    # here would keep its K optimizer states alive for the whole run; the
+    # parameters are dropped too, so a caller that passes the only
+    # reference does not keep a copy of them through the run
+    init = [trainer.init(params)]
+    del params
+    state, hist = trainer.run(init.pop(), data, steps,
                               prefetch=prefetch, faults=faults,
                               min_quorum=min_quorum,
                               checkpoint_dir=checkpoint_dir,
@@ -390,10 +394,10 @@ def main(argv=None) -> Dict:
     ap.add_argument("--method", default="diloco",
                     choices=list(strategy_names()) + ["hybrid"])
     ap.add_argument("--arch", default="tiny",
-                    choices=["tiny", "nanochat-d20"])
+                    choices=["tiny"] + ALL_IDS)
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True,
-                    help="--arch nanochat-d20: the JAX package's reduced "
+                    help="a registered --arch: the JAX package's reduced "
                          "variant (default) or, with --no-reduced, the "
                          "full widths")
     ap.add_argument("--steps", type=int, default=300,

@@ -1,6 +1,8 @@
-"""The decoder-only LM, dense or mamba-2 (``arch_type="ssm"``): the
-full-sequence forward and loss, the paged serving steps (dense), and the
-one-token decode step of the static-bucket serving path (both archs).
+"""The decoder-only LM — dense, MoE, mamba-2 (``arch_type="ssm"``) or
+hybrid (hymba: attention and SSM heads side by side in every block): the
+full-sequence forward and loss, the paged serving steps (dense and MoE),
+and the one-token decode step of the static-bucket serving path (every
+decoder-only arch).
 
 Parameters are a nested dict of tensors with the JAX package's tree and
 leaf layout (``embed/table``, ``layers/attn/wq``, ...): per-layer leaves
@@ -14,7 +16,17 @@ Norm placement: the first ``ln1`` is a plain RMSNorm; every later norm
 add and runs as the fused RMSNorm + residual kernel, ``2L + 1`` norm
 launches per forward (``L + 1`` for the SSM block, ``h + mamba(norm(h))``,
 which has no MLP).  In float32 that is the same math as the JAX
-package's ``h = h + a; x = norm(h)``.
+package's ``h = h + a; x = norm(h)``.  A hybrid block's mixer output,
+``0.5 (chan_norm(a) mix_a + chan_norm(s) mix_s)``, is what ``ln2``'s
+fused kernel adds to the residual.
+
+Windows: each layer attends with its own window (``layer_windows``:
+``window_pattern`` cycled over the layers, else the uniform ``window``;
+0 = global), a Python int handed to the flash, paged and ring kernels.
+
+MoE blocks (``models.moe``) put the routed experts where the MLP is; the
+full forward sums their router losses and ``lm_loss`` adds
+``router_aux_coef`` times the sum, as the reference does.
 
 Training (``forward_hidden``, ``lm_loss``) differentiates through the
 kernels' ``autograd.Function``s.  The stacked leaves are split into their
@@ -54,10 +66,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import kv_pool_dtype
 from repro_torch.models.layers import (apply_mlp, apply_norm,
-                                       apply_norm_residual, embed,
+                                       apply_norm_residual, cast, embed,
                                        softmax_ce_sums,
                                        rope_cos_sin, softmax_cross_entropy,
                                        torch_dtype, unembed)
@@ -66,19 +79,28 @@ Params = Dict[str, object]
 
 
 def _require_supported(cfg: ModelConfig) -> None:
-    """The port runs the dense decoder and the mamba-2 decoder; MoE,
-    hybrid, encoder-decoder and VLM archs raise."""
-    if (cfg.arch_type not in ("dense", "ssm") or cfg.num_experts
-            or cfg.hybrid or cfg.is_encoder_decoder or cfg.num_image_tokens
-            or (cfg.arch_type == "dense") == bool(cfg.ssm_state_size)):
+    """The port runs the decoder-only archs (dense, moe, ssm, hybrid);
+    the encoder-decoder and VLM archs raise."""
+    if (cfg.arch_type not in ("dense", "moe", "ssm", "hybrid")
+            or cfg.is_encoder_decoder or cfg.num_image_tokens):
         raise NotImplementedError(
-            f"arch {cfg.arch_type!r}: the port runs the dense and the ssm "
-            f"(mamba-2) decoders only")
+            f"arch {cfg.arch_type!r}: the port runs the decoder-only archs "
+            f"(dense, moe, ssm, hybrid); encoder-decoder and VLM are not "
+            f"ported")
 
 
-def _require_uniform_window(cfg: ModelConfig) -> None:
+def layer_windows(cfg: ModelConfig) -> List[int]:
+    """Per-layer attention windows (0 = global): ``window_pattern``
+    cycled over the layers, else the uniform ``window``."""
     if cfg.window_pattern:
-        raise NotImplementedError("per-layer window_pattern is not ported")
+        pat = list(cfg.window_pattern)
+        return [int(pat[i % len(pat)]) for i in range(cfg.num_layers)]
+    return [int(cfg.window)] * cfg.num_layers
+
+
+def hybrid_inner(cfg: ModelConfig) -> int:
+    """The hybrid block's SSM width: as wide as its attention heads."""
+    return cfg.num_heads * cfg.resolved_head_dim()
 
 
 # ---------------------------------------------------------------------------
@@ -88,7 +110,9 @@ def _require_uniform_window(cfg: ModelConfig) -> None:
 def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     """Checkpoint-manifest path -> shape of every parameter leaf.  The SSM
     block has ``ln1`` and ``mamba`` and no ``attn``, ``ln2`` or ``mlp``;
-    an MLP without a gate (``relu2``) has no ``w_gate``."""
+    a hybrid block adds ``mamba`` (``hybrid_inner`` wide), ``mix_a`` and
+    ``mix_s`` to the attention block; an MoE block has ``moe`` in place of
+    ``mlp``; an MLP without a gate (``relu2``) has no ``w_gate``."""
     _require_supported(cfg)
     L, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
     hd = cfg.resolved_head_dim()
@@ -103,11 +127,20 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
         shapes.update({
             "layers/ln2/scale": (L, d),
             "layers/attn/wq": (L, d, nq), "layers/attn/wk": (L, d, nkv),
-            "layers/attn/wv": (L, d, nkv), "layers/attn/wo": (L, nq, d),
-            "layers/mlp/w_up": (L, d, f)})
-        if cfg.mlp_activation == "swiglu":
-            shapes["layers/mlp/w_gate"] = (L, d, f)
-        shapes["layers/mlp/w_down"] = (L, f, d)
+            "layers/attn/wv": (L, d, nkv), "layers/attn/wo": (L, nq, d)})
+        if cfg.hybrid:
+            shapes.update({f"layers/mamba/{k}": (L,) + v for k, v in
+                           ssm_mod.mamba_param_shapes(
+                               cfg, hybrid_inner(cfg)).items()})
+            shapes.update({"layers/mix_a": (L, d), "layers/mix_s": (L, d)})
+        if cfg.num_experts:
+            shapes.update({f"layers/moe/{k}": (L,) + v for k, v in
+                           moe_mod.moe_param_shapes(cfg).items()})
+        else:
+            shapes["layers/mlp/w_up"] = (L, d, f)
+            if cfg.mlp_activation == "swiglu":
+                shapes["layers/mlp/w_gate"] = (L, d, f)
+            shapes["layers/mlp/w_down"] = (L, f, d)
     if not cfg.tie_embeddings:
         shapes["embed/unembed"] = (d, V)
     if cfg.qkv_bias and cfg.arch_type != "ssm":
@@ -143,8 +176,9 @@ def flatten(tree: Params, prefix: str = "") -> Dict[str, torch.Tensor]:
 def init_params(cfg: ModelConfig, *, seed: int = 0,
                 device="cpu") -> Params:
     """Random parameters from ``seed`` with the JAX package's init rules
-    (truncated-normal fan-in matrices, N(0, 0.02) embedding, unit norm
-    scales, zero biases; the mamba leaves as ``ssm.init_mamba``), drawn
+    (truncated-normal fan-in matrices, the router's at scale 0.02, N(0,
+    0.02) embedding, unit norm scales and hybrid mixes, zero biases; the
+    mamba leaves as ``ssm.init_mamba``), drawn
     from a ``torch.Generator`` on ``device``.
     The numbers differ from the JAX package's (another generator); tests
     that compare the two load one set of parameters into both."""
@@ -155,14 +189,15 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     L, f = cfg.num_layers, cfg.d_ff
     nq = cfg.num_heads * cfg.resolved_head_dim()
     special_scale = {"layers/attn/wo": 1.0 / math.sqrt(2 * max(L, 1) * nq),
-                     "layers/mlp/w_down": 1.0 / math.sqrt(max(f, 1))}
+                     "layers/mlp/w_down": 1.0 / math.sqrt(max(f, 1)),
+                     "layers/moe/router": 0.02}
     flat = {}
     for path, shape in param_shapes(cfg).items():
         if path.startswith("layers/mamba/"):
             continue
         leaf = path.rsplit("/", 1)[1]
         t = torch.empty(shape, dtype=dt, device=device)
-        if leaf == "scale":
+        if leaf in ("scale", "mix_a", "mix_s"):
             t.fill_(1.0)
         elif leaf in ("bq", "bk", "bv"):
             t.zero_()
@@ -173,9 +208,10 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
             torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=g)
             t.mul_(special_scale.get(path, 1.0 / math.sqrt(fan_in)))
         flat[path] = t
-    if cfg.arch_type == "ssm":
+    if cfg.arch_type == "ssm" or cfg.hybrid:
+        d_inner = hybrid_inner(cfg) if cfg.hybrid else None
         flat.update({f"layers/mamba/{k}": v for k, v in ssm_mod.init_mamba(
-            g, cfg, stack=(L,), dtype=dt, device=device).items()})
+            g, cfg, d_inner, stack=(L,), dtype=dt, device=device).items()})
     return unflatten(flat)
 
 
@@ -191,39 +227,65 @@ def _unstack(tree: Params, n: int) -> List[Params]:
 
 
 def _run_layers(params: Params, h: torch.Tensor, cfg: ModelConfig,
-                mix, mm=torch.matmul) -> torch.Tensor:
-    """Every block and the final norm; returns the final-normed hidden.
-    ``mix(i, layer_params, x)`` is layer i's mixer output on its normed
-    input (attention; the mamba block for ``arch_type="ssm"``, which has
-    no MLP); ``mm`` the MLP's matrix product.  The first ``ln1`` is a
+                mix, mm=torch.matmul) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every block and the final norm; returns (the final-normed hidden,
+    the sum of the layers' router losses).  ``mix(i, layer_params, x)``
+    is layer i's mixer output on its normed input (attention, mixed with
+    the SSM heads on a hybrid block; the mamba block for
+    ``arch_type="ssm"``, which has no MLP); ``mm`` the MLP's, or the
+    router's and shared experts', matrix product.  The first ``ln1`` is a
     plain RMSNorm, every later norm is fused with the residual add before
     it.  With ``cfg.remat``, and only when the forward builds a graph,
     each unit runs under ``torch.utils.checkpoint``."""
     _require_supported(cfg)
-    _require_uniform_window(cfg)
     L = cfg.num_layers
     ssm = cfg.arch_type == "ssm"
     layers = _unstack(params["layers"], L)
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
 
     def block(i, lp, nxt, x, h):
         y = mix(i, lp, x)
+        aux = zero
         if not ssm:
             x, h = apply_norm_residual(lp["ln2"], y, h, cfg)
-            y = apply_mlp(lp["mlp"], x, cfg, mm=mm)
-        return apply_norm_residual(nxt, y, h, cfg)
+            if cfg.num_experts:
+                y, aux = moe_mod.apply_moe(lp["moe"], x, cfg, mm=mm)
+            else:
+                y = apply_mlp(lp["mlp"], x, cfg, mm=mm)
+        x, h = apply_norm_residual(nxt, y, h, cfg)
+        return x, h, aux
 
     remat = cfg.remat and _needs_grad(params, h)
     x = apply_norm(layers[0]["ln1"], h, cfg)
+    aux = zero
     for i, lp in enumerate(layers):
         nxt = layers[i + 1]["ln1"] if i + 1 < L else params["final_norm"]
         if remat:
             # the forward is deterministic and draws no random numbers,
             # so the recompute gives the saved tensors' bits again
-            x, h = checkpoint(block, i, lp, nxt, x, h, use_reentrant=False,
-                              preserve_rng_state=False)
+            x, h, a = checkpoint(block, i, lp, nxt, x, h,
+                                 use_reentrant=False,
+                                 preserve_rng_state=False)
         else:
-            x, h = block(i, lp, nxt, x, h)
-    return x
+            x, h, a = block(i, lp, nxt, x, h)
+        aux = aux + a
+    return x, aux
+
+
+def _chan_norm(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Scale-free RMS over the channels, in f32, back in x's dtype."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + cfg.norm_eps)).to(x.dtype)
+
+
+def _hybrid_mix(lp: Params, a: torch.Tensor, s: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """The hybrid block's mixer: the attention heads' output ``a`` and
+    the SSM heads' ``s``, each RMS-normalised, weighted and averaged."""
+    dt = a.dtype
+    return 0.5 * (_chan_norm(a, cfg) * cast(lp["mix_a"], dt)
+                  + _chan_norm(s, cfg) * cast(lp["mix_s"], dt))
 
 
 def _needs_grad(params: Params, h: torch.Tensor) -> bool:
@@ -238,18 +300,24 @@ def _needs_grad(params: Params, h: torch.Tensor) -> bool:
 def forward_hidden(params: Params, batch: Dict[str, torch.Tensor],
                    cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward up to the final norm.  batch["tokens"]:
-    (B, S) int.  Returns (h (B, S, d), aux_loss) — aux is 0: neither the
-    dense nor the SSM decoder has a router loss."""
+    (B, S) int.  Returns (h (B, S, d), aux_loss): aux is the layers'
+    summed router loss (0 without experts)."""
     h = embed(params["embed"], batch["tokens"], cfg)
     if cfg.arch_type == "ssm":
-        x = _run_layers(params, h, cfg, lambda i, p, x: ssm_mod.apply_mamba(
-            p["mamba"], x, cfg))
-    else:
-        positions = torch.arange(h.shape[1], device=h.device)
-        window = cfg.window or None
-        x = _run_layers(params, h, cfg, lambda i, p, x: attn.attention(
-            p["attn"], x, cfg, positions=positions, window=window))
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        return _run_layers(params, h, cfg, lambda i, p, x:
+                           ssm_mod.apply_mamba(p["mamba"], x, cfg))
+    positions = torch.arange(h.shape[1], device=h.device)
+    windows = layer_windows(cfg)
+
+    def mix(i, p, x):
+        a = attn.attention(p["attn"], x, cfg, positions=positions,
+                           window=windows[i] or None)
+        if cfg.hybrid:
+            a = _hybrid_mix(p, a, ssm_mod.apply_mamba(
+                p["mamba"], x, cfg, d_inner=hybrid_inner(cfg)), cfg)
+        return a
+
+    return _run_layers(params, h, cfg, mix)
 
 
 def forward_lm(params: Params, batch: Dict[str, torch.Tensor],
@@ -287,8 +355,9 @@ def _chunked_ce(params: Params, h: torch.Tensor, labels: torch.Tensor,
 
 def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
             cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
-    """Mean next-token CE of ``batch`` {"tokens", "labels"} (B, S).
-    Returns (loss, {"ce", "aux"})."""
+    """Mean next-token CE of ``batch`` {"tokens", "labels"} (B, S), plus
+    ``router_aux_coef`` times the router loss with experts.  Returns
+    (loss, {"ce", "aux"})."""
     if cfg.loss_chunk:
         h, aux = forward_hidden(params, batch, cfg)
         ce = _chunked_ce(params, h, batch["labels"], cfg)
@@ -296,7 +365,8 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
         logits, aux = forward_lm(params, batch, cfg)
         ce = softmax_cross_entropy(logits, batch["labels"],
                                    z_loss=cfg.z_loss)
-    return ce, {"ce": ce, "aux": aux}
+    loss = ce + cfg.router_aux_coef * aux if cfg.num_experts else ce
+    return loss, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -351,19 +421,21 @@ def _paged_layers(params: Params, h: torch.Tensor, pool, cfg: ModelConfig,
                   scatter=None) -> torch.Tensor:
     """Run every layer over the paged pool and apply the final norm.
     h: (S, T, d); positions: (S, T); scatter: optional host-made (rows,
-    dest), see ``attention.paged_inputs``.  Returns the final-normed
-    hidden."""
+    dest), see ``attention.paged_inputs``.  Each layer attends with its
+    own window (``layer_windows``); an MoE's capacity is taken over each
+    slot's T tokens.  Returns the final-normed hidden."""
     inputs = attn.paged_inputs(positions, block_table, cfg,
                                pool["k"].shape[2], scatter)
     quantized = "k_scale" in pool
-    return _run_layers(params, h, cfg, lambda i, p, x:
-                       attn.paged_decode_attention(
-                           p["attn"], x, cfg, pool["k"][i], pool["v"][i],
-                           inputs,
-                           block_table, window=cfg.window,
-                           k_scale=pool["k_scale"][i] if quantized else None,
-                           v_scale=pool["v_scale"][i] if quantized else None),
-                       mm=attn.serving_matmul(cfg))
+    windows = layer_windows(cfg)
+    x, _ = _run_layers(
+        params, h, cfg, lambda i, p, x: attn.paged_decode_attention(
+            p["attn"], x, cfg, pool["k"][i], pool["v"][i], inputs,
+            block_table, window=windows[i],
+            k_scale=pool["k_scale"][i] if quantized else None,
+            v_scale=pool["v_scale"][i] if quantized else None),
+        mm=attn.serving_matmul(cfg))
+    return x
 
 
 def decode_step_paged(params: Params, pool, batch,
@@ -402,39 +474,51 @@ def verify_step_paged(params: Params, pool, batch,
 
 def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int, *,
                       dtype=None, device="cpu") -> dict:
-    """Stacked (L, ...) decode caches of the static path.  Dense: the ring
-    cache of ``attention.init_cache`` with ``capacity`` slots per row (in
-    the compute dtype by default) and one shared write index; SSM:
-    {"mamba": {"conv", "ssm"}} (float32 by default), whose size does not
-    depend on ``capacity``."""
+    """Stacked (L, ...) decode caches of the static path.  Attention
+    archs: the ring cache of ``attention.init_cache`` with ``capacity``
+    slots per row (in the compute dtype by default) and one shared write
+    index; SSM: {"mamba": {"conv", "ssm"}} (float32 by default), whose
+    size does not depend on ``capacity``; hybrid: both, the mamba cache
+    ``hybrid_inner`` wide."""
     _require_supported(cfg)
-    _require_uniform_window(cfg)
     L = cfg.num_layers
     if cfg.arch_type == "ssm":
         return {"mamba": ssm_mod.init_mamba_cache(
             cfg, batch, dtype=dtype or torch.float32, device=device,
             stack=(L,))}
-    return {"attn": attn.init_cache(cfg, batch, capacity, dtype=dtype,
-                                    device=device, stack=(L,))}
+    cache = {"attn": attn.init_cache(cfg, batch, capacity, dtype=dtype,
+                                     device=device, stack=(L,))}
+    if cfg.hybrid:
+        cache["mamba"] = ssm_mod.init_mamba_cache(
+            cfg, batch, hybrid_inner(cfg), dtype=dtype or torch.float32,
+            device=device, stack=(L,))
+    return cache
 
 
 def _block_decode(i: int, lp: Params, x: torch.Tensor, cfg: ModelConfig,
-                  cache: dict, position: torch.Tensor, rope) -> torch.Tensor:
+                  cache: dict, position: torch.Tensor, rope,
+                  window: int) -> torch.Tensor:
     """Layer i's one-token mixer on its normed input x (B, 1, d), the
     mixer half of the JAX package's ``_block_decode`` (the norms, the
-    residual adds and the MLP are ``_run_layers``'): the mamba step on
-    layer i's conv ring and state, or self-attention on its ring cache
-    with the config's uniform window (0 = none), both updated in place."""
-    if cfg.arch_type == "ssm":
+    residual adds and the MLP or MoE are ``_run_layers``'): the mamba
+    step on layer i's conv ring and state, or self-attention on its ring
+    cache with the layer's ``window`` (0 = none), mixed with the SSM
+    heads' step on a hybrid block; caches updated in place."""
+    def mamba_step(d_inner=None):
         mc = cache["mamba"]
         y, _ = ssm_mod.decode_mamba(lp["mamba"], x, cfg, {
-            "conv": mc["conv"][i], "ssm": mc["ssm"][i]})
+            "conv": mc["conv"][i], "ssm": mc["ssm"][i]}, d_inner=d_inner)
         return y
+
+    if cfg.arch_type == "ssm":
+        return mamba_step()
     ac = cache["attn"]
     y, _ = attn.decode_attention(
         lp["attn"], x, cfg, {"k": ac["k"][i], "v": ac["v"][i],
                              "pos": ac["pos"][i], "idx": ac["idx"]},
-        position=position, window=cfg.window, rope=rope)
+        position=position, window=window, rope=rope)
+    if cfg.hybrid:
+        y = _hybrid_mix(lp, y, mamba_step(hybrid_inner(cfg)), cfg)
     return y
 
 
@@ -458,8 +542,9 @@ def decode_step_lm(params: Params, cache: dict, batch,
     if cfg.arch_type != "ssm":
         rope = rope_cos_sin(position[:, None], cfg.resolved_head_dim(),
                             cfg.rope_theta)
-    x = _run_layers(params, h, cfg, lambda i, p, x: _block_decode(
-        i, p, x, cfg, cache, position, rope))
+    windows = layer_windows(cfg)
+    x, _ = _run_layers(params, h, cfg, lambda i, p, x: _block_decode(
+        i, p, x, cfg, cache, position, rope, windows[i]))
     if "attn" in cache:
         cache["attn"]["idx"] += 1
     return unembed(params["embed"], x, cfg), cache

@@ -3,6 +3,8 @@ optimizer for weight matrices (the JAX package's ``optim/muon.py``).
 
 Newton-Schulz is five batched matrix products per step in f32.  The JAX
 package has no kernel for it, so here it is plain ``torch.matmul``.
+``update`` consumes its state: the momentum buffers are updated in place
+and returned in the new state.
 Stacked layer leaves (L, m, n) are orthogonalised per layer by batching
 the products over the leading dim; the update scale sqrt(max(1, m/n))
 uses the last two dims.
@@ -54,7 +56,9 @@ def muon(lr: Union[float, Callable] = 0.02, momentum: float = 0.95,
                 raise ValueError(f"muon got a {g.dim()}-d leaf {k!r}: "
                                  f"partition_label sends it to adamw")
             g = g.float()
-            mu = momentum * state["mu"][k] + g
+            # in place: the same two roundings as momentum * mu + g, and
+            # no second copy of the momentum (the old state is consumed)
+            mu = state["mu"][k].mul_(momentum).add_(g)
             eff = g + momentum * mu if nesterov else mu
             o = newton_schulz(eff, ns_steps)
             m, n = o.shape[-2], o.shape[-1]

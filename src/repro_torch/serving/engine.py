@@ -37,9 +37,16 @@ Differences from the JAX package, by design:
   position)``: a fresh ``torch.Generator`` (Philox on CUDA) seeded from
   that triple per sampled position, so a request's tokens do not depend
   on which requests shared its batch.  The bits differ from
-  ``jax.random``'s; greedy decoding gives the JAX engine's tokens;
-* sliding-window block recycling is not ported: a windowed config
-  raises ``NotImplementedError`` on the continuous path.
+  ``jax.random``'s; greedy decoding gives the JAX engine's tokens.
+
+Sliding windows, as in the JAX package: a uniform ``cfg.window`` (no
+``window_pattern``) recycles each slot's blocks that fell wholly out of
+the window (``Scheduler.recycle_window``, ``stats["recycled_blocks"]``)
+and budgets a request for its live window only, so a windowed pool
+admits more than the full footprint would; the recycled table entries
+read -1, which the paged kernels treat as unmapped.  Windowed configs
+bypass the prefix cache (recycling would free blocks other slots share).
+A ``window_pattern`` keeps every block: its global layers read them all.
 
 **The static-bucket path** (``generate_ids_static``) serves what the
 scheduler path cannot: archs without a paged cache (``arch_type="ssm"``:
@@ -185,10 +192,6 @@ class Engine:
         self.continuous = paged_cache_supported(cfg)
         if not self.continuous:
             return                     # static-bucket path only: no pool
-        if cfg.window or cfg.window_pattern:
-            raise NotImplementedError(
-                "sliding-window configs need per-slot block recycling, "
-                "which is not ported")
         self._mb = -(-self.max_len // self.block_size)   # blocks per slot
         self.bytes_per_block = paged_block_bytes(cfg, self.block_size)
         if self.num_blocks is None:
@@ -199,9 +202,13 @@ class Engine:
                 self.num_blocks = self.num_slots * self._mb
         self.capacity = self._mb * self.block_size
         self._pool = None       # device pool, allocated on first run()
+        # a uniform window recycles blocks; a window_pattern's global
+        # layers keep every block alive
+        self._recycle_w = int(cfg.window) \
+            if (cfg.window and not cfg.window_pattern) else 0
         self._tree = None
         self._host_pool = None
-        if self.prefix_cache:
+        if self.prefix_cache and not self._recycle_w:
             self._tree = PrefixTree(self.block_size,
                                     self.prefix_cache_blocks or 0)
 
@@ -360,7 +367,7 @@ class Engine:
             pool = KVBlockPool(self.num_blocks, self.block_size,
                                bytes_per_block=self.bytes_per_block)
         sched = Scheduler(self.num_slots, pool, self._mb, self.policy,
-                          tree=self._tree)
+                          window=self._recycle_w, tree=self._tree)
         sched.chunk_tokens = round_tokens
         return sched
 
@@ -386,14 +393,16 @@ class Engine:
     def _prep_round(self, sched: Scheduler, act: List[int],
                     tables: np.ndarray, round_tokens,
                     stats: Dict[str, float]) -> None:
-        """Lazily map the blocks this round writes (``round_tokens``: int,
-        or a per-slot (S,) array) and refresh the padded block tables
-        where the mapping changed."""
+        """Recycle dead window blocks, lazily map the blocks this round
+        writes (``round_tokens``: int, or a per-slot (S,) array) and
+        refresh the padded block tables where the mapping changed."""
         for si in act:
             slot = sched.slots[si]
             n = int(round_tokens[si]) if isinstance(round_tokens, np.ndarray)\
                 else int(round_tokens)
-            if sched.ensure_mapped(si, slot.pos + n - 1):
+            recycled = sched.recycle_window(si)
+            stats["recycled_blocks"] += recycled
+            if sched.ensure_mapped(si, slot.pos + n - 1) or recycled:
                 tables[si] = pad_block_table(slot.blocks, self._mb)
                 self._tdirty = True
 

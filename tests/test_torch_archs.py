@@ -1,7 +1,9 @@
-"""The dense architectures the port runs besides nanochat-d20 —
+"""The attention architectures the port runs besides nanochat-d20 —
 qwen1.5-0.5b (QKV bias, tied, MHA), command-r-plus-104b and
 mistral-large-123b (GQA groups of 12), nemotron-4-15b (the squared-ReLU
-MLP, no ``w_gate``) — against the JAX package, on the CPU: each config
+MLP, no ``w_gate``), and the MoE mixtral-8x7b (window 4096, top-2 of 8)
+and llama4-scout-17b-a16e (a 3 local : 1 global window pattern, top-1 of
+16 plus a shared expert) — against the JAX package, on the CPU: each config
 copy field for field, the parameter tree at full size and reduced, the
 checkpoint round trip and the optimizer split; on ``get_reduced`` with
 the reference's parameters carried across, ``forward_lm`` logits, a
@@ -39,7 +41,7 @@ from torch_parity import jax_flat, port_cfg, port_params
 torch.set_num_threads(1)
 
 ARCHS = ["qwen1.5-0.5b", "command-r-plus-104b", "mistral-large-123b",
-         "nemotron-4-15b"]
+         "nemotron-4-15b", "mixtral-8x7b", "llama4-scout-17b-a16e"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -78,8 +80,9 @@ def test_param_shapes_match_the_jax_tree(arch, size):
     sds, _ = abstract_params(cfg)
     shapes = param_shapes(port_cfg(cfg))
     assert shapes == _shapes(sds)
-    gated = cfg.mlp_activation == "swiglu"
+    gated = cfg.mlp_activation == "swiglu" and not cfg.num_experts
     assert ("layers/mlp/w_gate" in shapes) == gated
+    assert ("layers/moe/w_gate" in shapes) == bool(cfg.num_experts)
     assert sum(int(np.prod(s)) for s in shapes.values()) == \
         cfg.param_count()
 
@@ -102,7 +105,7 @@ def test_checkpoint_round_trip_and_optimizer_split(reduced, tmp_path):
         == jlabels
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["hymba-1.5b"])
 def test_cli_configs_are_the_reduced_configs(arch):
     want = get_reduced(arch).with_(vocab_size=512)
     assert serve.make_config(arch, 512) == want

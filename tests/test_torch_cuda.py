@@ -842,13 +842,31 @@ def test_cuda_ssd_scratch_does_not_leak_into_the_result(cuda):
 
 
 @pytest.mark.cuda
-def test_cuda_ssd_refuses_autograd(cuda):
-    from repro_torch.kernels.ssd import ssd
-    args = [torch.from_numpy(a).to(cuda)
-            for a in ssd_inputs(0, 1, 16, 2, 8, 4)]
-    args[0].requires_grad_()
-    with pytest.raises(NotImplementedError, match="backward"):
-        ssd(*args, chunk=8)
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [(2, 256, 4, 64, 128, 128),
+                                             (1, 300, 25, 64, 16, 128)])
+def test_cuda_ssd_gradient_matches_the_plain_scan(cuda, B, S, H, P, N,
+                                                  chunk):
+    """The kernel's forward with the plain scan's gradient (``_SSDGrad``)
+    against autograd through ``ssd_chunked`` on the card: y within 1e-4
+    + 1e-4 |y|, every gradient within 1e-4 of its largest magnitude; the
+    kernel launched once."""
+    from repro_torch.kernels.ssd import ssd, ssd_chunked
+    args = [torch.from_numpy(a).to(cuda) for a in ssd_inputs(0, B, S, H, P,
+                                                               N)]
+    gy = torch.randn((B, S, H, P), generator=torch.Generator().manual_seed(
+        1)).to(cuda)
+    ts = [a.clone().requires_grad_() for a in args]
+    before = launches["ssd"]
+    y, _ = ssd(*ts, chunk=chunk)
+    assert launches["ssd"] == before + 1
+    got = torch.autograd.grad(y, ts, gy)
+    ts2 = [a.clone().requires_grad_() for a in args]
+    y2, _ = ssd_chunked(*ts2, chunk)
+    want = torch.autograd.grad(y2, ts2, gy)
+    torch.testing.assert_close(y, y2, atol=1e-4, rtol=1e-4)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4 * float(w.abs().max()),
+                                   rtol=0)
 
 
 @pytest.mark.cuda

@@ -118,20 +118,6 @@ def test_paged_block_bytes_and_pool_match_reference():
         assert pool[k].dtype == torch.float32
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(num_experts=4, num_experts_per_tok=2, arch_type="moe"), "dense"),
-])
-def test_unported_features_raise(kw, match):
-    cfg = port_cfg(tiny_cfg("dense", **kw))
-    with pytest.raises(NotImplementedError, match=match):
-        pool = init_paged_cache(cfg, 4, 8)
-        params = init_params(cfg)
-        decode_step_paged(params, pool, {
-            "token": torch.zeros((1, 1), dtype=torch.int32),
-            "position": torch.zeros(1, dtype=torch.int32),
-            "block_table": torch.zeros((1, 1), dtype=torch.int32)}, cfg)
-
-
 def test_unknown_kv_cache_dtype_raises_value_error():
     """As the JAX package's ``kv_quant_dtype`` does."""
     cfg = port_cfg(tiny_cfg("dense", kv_cache_dtype="fp4"))

@@ -25,7 +25,8 @@ from torch_parity import jax_flat, port_cfg, port_params
 torch.set_num_threads(1)
 
 CASES = {"dense": ("dense", {}), "loss_chunk": ("dense", {"loss_chunk": 5}),
-         "window": ("dense", {"window": 6}), "ssm": ("ssm", {})}
+         "window": ("dense", {"window": 6}), "ssm": ("ssm", {}),
+         "moe": ("moe", {}), "hybrid": ("hybrid", {})}
 
 
 def _batch(cfg, seed=3, B=2, S=16):
@@ -57,7 +58,7 @@ def test_remat_on_equals_off_bit_for_bit(case):
         assert torch.equal(g_on[k], g_off[k]), k
 
 
-@pytest.mark.parametrize("case", ["dense", "loss_chunk"])
+@pytest.mark.parametrize("case", ["dense", "loss_chunk", "moe"])
 def test_remat_loss_and_grads_match_jax_remat(case):
     kind, kw = CASES[case]
     jcfg = tiny_cfg(kind, remat=True, **kw)

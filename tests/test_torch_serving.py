@@ -205,15 +205,6 @@ def test_engine_refuses_params_on_another_device(params):
         _engine(meta)
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(window=8), "sliding-window"),
-])
-def test_unported_engine_paths_raise(kw, match):
-    cfg = port_cfg(tiny_cfg("dense", **kw))
-    with pytest.raises(NotImplementedError, match=match):
-        Engine(cfg, init_params(cfg), device="cpu")
-
-
 def test_static_path_batches_raise(params):
     """A batch the scheduler path cannot serve (an empty prompt, max_new <
     1, over capacity) raises nothing now: ``generate`` routes it to the

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--out report.json]
     python3 chip_smoke.py --norm-timing | --ssd-timing
+    python3 chip_smoke.py --new-archs | --enc-vlm
 
 Run from the root of a checkout.  First logs the kernels that SDPA
 launches at the training shape (torch.profiler), the flash rows'
@@ -61,7 +62,10 @@ yardstick.  Then phases, each fatal on failure:
      pool and on an fp8 pool (logits; the fp8 pool within one quantum);
    - one training step: the loss, every gradient, one
      ``nanochat_optimizer`` update with fused AdamW, and one DiLoCo outer
-     round (K=2, H=1);
+     round (K=2, H=1) from one shared state: the CPU's post-inner-step
+     state, copied to the card, takes the round on both devices (global
+     parameters and outer momentum bit for bit, the new parameters' loss
+     rtol 1e-5); one independent round per device printed, not gated;
    - one DiLoCo outer round (K=2, H=1) with an int8 and an fp8 wire:
      from each device's own inner step every code within its deltas'
      distance on the code grid plus one, at most 1e-5 of the codes more
@@ -124,7 +128,8 @@ yardstick.  Then phases, each fatal on failure:
    windows with the f32 backward against float64 (each gradient's error
    within a stated multiple of the plain f32 version's); the SSD at
    hymba's heads; the SSD's gradient against the plain scan's; the ring
-   at hymba's heads); hymba-1.5b whole (32 layers) on the static path:
+   at hymba's heads); hymba-1.5b at 16 of its 32 layers (for the
+   script's time) on the static path:
    phase 4's 8 requests and a pair of 1100-token prompts (past its 1024
    window; the first token equal to ``forward_lm``'s argmax) with the
    norms and the ring kernel only, 4 rows scored (flash and ssd once a
@@ -133,14 +138,35 @@ yardstick.  Then phases, each fatal on failure:
    spec_k 0 == 4 == static), the MoE's bits on a second call (output,
    router loss, gradients), spec_k 0 / 4 at the published 1.25 (the
    agreement and the drops logged), mixtral's pair of 4200-token
-   prompts at spec_k 4 recycling blocks past its 4096 window and equal
-   to the static path; one DiLoCo stage (K 2, H 1, 2 steps, 2 x 256
-   tokens a worker, f32 wire) of hymba (32 layers), mixtral (1 layer:
+   prompts at 2 of the 4 layers at spec_k 4 recycling blocks past its
+   4096 window and equal to the static path; one DiLoCo stage (K 2, H
+   1, 2 steps, 2 x 256 tokens a worker, f32 wire) of hymba (32
+   layers), mixtral (1 layer:
    the router loss finite, the router's gradient nonzero, remat on ==
    off bit for bit) and mamba2-1.3b (48 layers): the loss falls, the
    training kernels (and the SSD) launch and no other, peak memory and
    the SSD backward's share of the stage; then a depth-2 step at reduced
    width of hymba, mixtral, llama4 and mamba2 against the CPU;
+4d. the VLM and the encoder-decoder (``phase_enc_vlm``): the flash
+   kernels at two lengths, non-causal, against their plain versions at
+   seamless's encoder (B 2, S 1024, H = KV 16, D 64), its
+   cross-attention (Sq 256, Sk 1024) and a ragged pair (Sq 37, Sk 1000),
+   causal at internvl2's training shape (B 1, S 512, H 48, KV 8, D
+   128), and the ring kernel as cross decode (B 8, KV 16, Se 1024, D
+   64, every key visible), f32 and bf16; seamless-m4t-medium whole (12
+   + 12 layers, d 1024, vocab 256206 tied, LayerNorm, gelu; f32, seed
+   0): a depth-2 + 2 ``lm_loss`` step with 2 x 1024 frames against the
+   CPU (phase 3's gates), one DiLoCo stage (K 2, H 1, 2 steps, 2 x 256
+   text tokens a worker with frames: the loss falls, the flash kernels
+   and fused AdamW launch and no other), and phase 4's 8 requests on
+   the static path over the zero cross cache, greedy tokens equal to a
+   step-by-step ``decode_step_lm`` loop, the ring kernel twice a layer a
+   step and no other kernel; internvl2-26b at full width (d 6144, 48 /
+   8 heads of 128, vocab 92553 untied): text serving at 8 of its 48
+   layers (``arch_serving``: spec_k 0 == 4 == static), one forward +
+   backward with 256 patches + 256 text tokens at 4 layers, its reduced
+   config's step with patches against the CPU, one DiLoCo stage with
+   patches at 1 layer; tokens/s, ms a step, peak memory;
 5. the training main path at nanochat-d20's full width and 10 of its 20
    layers (for the script's time; float32,
    random params from seed 0) on the port's synthetic corpus through its
@@ -687,22 +713,24 @@ def report_checks(results):
 
 
 def flash_inputs(torch, *, B=4, S=1024, H=10, KV=10, D=128, dtype="float32",
-                 seed=0):
-    """Seeded q, do (B, S, H, D) and k, v (B, S, KV, D) on the card."""
+                 seed=0, Sk=None):
+    """Seeded q, do (B, S, H, D) and k, v (B, Sk, KV, D) (Sk: S unless
+    given) on the card."""
     g = torch.Generator().manual_seed(seed)
     dt = getattr(torch, dtype)
     q, do = (torch.randn((B, S, H, D), generator=g).to(dt).cuda()
              for _ in range(2))
-    k, v = (torch.randn((B, S, KV, D), generator=g).to(dt).cuda()
+    k, v = (torch.randn((B, Sk or S, KV, D), generator=g).to(dt).cuda()
             for _ in range(2))
     return q, k, v, do
 
 
 def check_flash(torch, results, dtype, window=None, bwd_f64=False,
-                **shape):
+                causal=True, **shape):
     """Flash forward (o and lse) and backward (against autograd through
-    the plain forward) at ``shape`` (``flash_inputs``' keywords) against
-    their plain versions; appends one check of each to ``results``.
+    the plain forward) at ``shape`` (``flash_inputs``' keywords; ``Sk``
+    for keys of their own length, non-causal) against their plain
+    versions; appends one check of each to ``results``.
     With ``bwd_f64`` the backward is held to a float64 autograd instead:
     each gradient's max error at most ``FLASH_BWD_F64_RATIO`` times the
     plain version's; the errors are logged and returned ({"dq": (kernel,
@@ -711,17 +739,19 @@ def check_flash(torch, results, dtype, window=None, bwd_f64=False,
                                                      flash_bwd, flash_fwd)
     q, k, v, do = flash_inputs(torch, dtype=dtype, seed=len(results),
                                **shape)
-    o, lse = flash_fwd(q, k, v, window=window)
+    o, lse = flash_fwd(q, k, v, causal=causal, window=window)
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    o_ref, lse_ref = flash_attention_plain(*leaves, True, window)
+    o_ref, lse_ref = flash_attention_plain(*leaves, causal, window)
     want = torch.autograd.grad(o_ref, leaves, do)
-    got = flash_bwd(q, k, v, o, lse, do, window=window)
+    got = flash_bwd(q, k, v, o, lse, do, causal=causal, window=window)
     torch.cuda.synchronize()
     e_o, ok_o, r_o = max_err(torch, o, o_ref.detach())
     e_l = float((lse - lse_ref.detach()).abs().max())
     ok_l, r_l = scalar_gate(e_l, 1e-4, 1e-5,
                             float(lse_ref.detach().abs().max()))
     tag = (tuple(q.shape) + (f"KV={k.shape[2]}",)
+           + ((f"Sk={k.shape[1]}",) if k.shape[1] != q.shape[1] else ())
+           + (() if causal else ("non-causal",))
            + ((f"window={window}",) if window else ()))
     results.append(("flash_fwd", dtype, tag, max(e_o, e_l), ok_o and ok_l,
                     max(r_o, r_l)))
@@ -1358,9 +1388,10 @@ def loss_grads_vs_cpu(torch, loss_fn, params, params_d, batch):
     return l_cpu, l_gpu, e_grad, g_cpu
 
 
-def train_step_vs_cpu(torch, cfg, B, S, seed):
+def train_step_vs_cpu(torch, cfg, B, S, seed, weight_seed=0):
     """One training step of ``cfg`` on the card and on the CPU, same
-    parameters (seed 0) and batch (B x S tokens from ``seed``): the loss
+    parameters (from ``weight_seed``) and batch (B x S tokens from
+    ``seed``): the loss
     (rtol 1e-5) and every gradient (max error over max |g| <= 1e-4, f32
     GEMMs sum in another order); one ``nanochat_optimizer`` update with
     fused AdamW from the CPU's gradients on both (<= 1e-4 of each leaf's
@@ -1370,7 +1401,7 @@ def train_step_vs_cpu(torch, cfg, B, S, seed):
     from repro_torch.configs import OptimizerConfig
     from repro_torch.models import init_params, lm_loss
     from repro_torch.models.transformer import flatten
-    params = flatten(init_params(cfg, seed=0, device="cpu"))
+    params = flatten(init_params(cfg, seed=weight_seed, device="cpu"))
     params_d = {k: v.cuda() for k, v in params.items()}
     g = torch.Generator().manual_seed(seed)
     toks = torch.randint(0, cfg.vocab_size, (2, B, S + 1), generator=g,
@@ -1412,37 +1443,111 @@ def update_vs_cpu(torch, opt_cfg, params, params_d, g_cpu, what):
     return e_upd
 
 
-def phase_train_step_vs_cpu(torch):
+def phase_train_step_vs_cpu(torch, weight_seed=0):
     """``train_step_vs_cpu`` of nanochat-d20 at full width and depth 2
     (B 2, S 256), then one DiLoCo outer round, K=2 and H=1, through
-    ``DistTrainer`` (losses rtol 1e-5, global params <= 1e-4 of each
-    leaf's max; the gate holds at weight seed 0 only:
-    ``tools/diloco_gate_probe.py``)."""
+    ``DistTrainer``'s engine, gated from ONE shared state: the inner step
+    runs once, on the CPU; its post-inner-step state, copied to the card,
+    takes the outer round on both devices, and the new global parameters
+    and the outer momentum must be equal bit for bit (the round is
+    elementwise f32 arithmetic in one order: the averaged deltas, the
+    Nesterov momentum, the anchor's update), the loss of the new global
+    parameters on the batch within rtol 1e-5 (a forward on equal
+    parameters).  Then the card's own round from the same parameters
+    (``DistTrainer.run``: its inner step's loss within rtol 1e-5 of the
+    CPU's, gated; its global parameters against the CPU's round, printed
+    and not gated: AdamW's first step turns a gradient that is zero up to
+    f32 rounding into +-lr on either device, so they part by up to ~2e-3
+    of a leaf's largest magnitude under some weight draws;
+    ``tools/diloco_gate_probe.py`` measures that spread).
+    ``weight_seed``: the parameters' seed (``tools/diloco_gate_probe.py
+    --shared-state`` runs this phase at other seeds)."""
     from repro_torch.configs import NANOCHAT_D20, DiLoCoConfig
     from repro_torch.core import DistTrainer, make_strategy
     from repro_torch.models import lm_loss
+    from repro_torch.models.transformer import unflatten
     cfg = NANOCHAT_D20.with_(num_layers=2)
     errs, params, params_d, toks, opt_cfg = train_step_vs_cpu(
-        torch, cfg, 2, 256, 11)
+        torch, cfg, 2, 256, 11, weight_seed)
     dcfg = DiLoCoConfig(num_workers=2, h_inner_steps=1)
     # worker w trains on sequence 0 of toks[w]: (K 2, B 1, S 256)
-    data = lambda s: {"tokens": toks[:, :1, :-1], "labels": toks[:, :1, 1:]}
-    runs = {}
-    for dev, p in (("cpu", params), ("cuda", params_d)):
-        dt = DistTrainer(lambda pp, b: lm_loss(pp, b, cfg), opt_cfg, dcfg,
-                         make_strategy(dcfg))
-        state, hist = dt.run(dt.init(p), data, 1)
-        runs[dev] = (hist, state.global_params)
-        del state
-    (h_cpu, p_cpu), (h_gpu, p_gpu) = runs["cpu"], runs["cuda"]
-    e_l = abs(h_gpu["loss"][0] - h_cpu["loss"][0]) / abs(h_cpu["loss"][0])
-    e_p = max(rel_err(torch, p_gpu[k], p_cpu[k]) for k in p_cpu)
-    log(f"  DiLoCo round K=2 H=1: loss rel {e_l:.2e} (tol 1e-5), global "
-        f"params worst leaf {e_p:.2e} of its max (tol 1e-4), syncs "
-        f"{h_gpu['sync_steps']}")
-    check(e_l <= 1e-5 and e_p <= 1e-4 and h_gpu["sync_steps"] == [0],
-          "DiLoCo outer round on the card disagrees with the CPU")
-    return dict(errs, diloco_loss_rel=e_l, diloco_param_rel=e_p)
+    batch = {"tokens": toks[:, :1, :-1], "labels": toks[:, :1, 1:]}
+    loss_fn = lambda pp, b: lm_loss(pp, b, cfg)
+
+    def trainer():
+        return DistTrainer(loss_fn, opt_cfg, dcfg, make_strategy(dcfg))
+
+    def on(dev, st):
+        """A copy of ``st`` on ``dev``: every tensor of the state."""
+        cp = lambda d: {k: v.to(dev, copy=True) for k, v in d.items()}
+        return st._replace(
+            global_params=cp(st.global_params),
+            worker_params=[cp(w) for w in st.worker_params],
+            inner_opt=[_to_device(torch, o, dev) for o in st.inner_opt],
+            inner_step=st.inner_step.to(dev, copy=True),
+            outer=st.outer._replace(v=cp(st.outer.v),
+                                    t=st.outer.t.to(dev, copy=True)))
+
+    cpu_eng = trainer().engine()
+    cpu_state, cpu_loss = cpu_eng.inner_step(cpu_eng.init(params), batch)
+    rounds = {}
+    for dev in ("cpu", "cuda"):
+        st = cpu_eng.outer_step(on(dev, cpu_state))
+        with torch.no_grad():
+            loss, _ = lm_loss(unflatten(st.global_params), {
+                "tokens": toks[0, :1, :-1].to(dev),
+                "labels": toks[0, :1, 1:].to(dev)}, cfg)
+        rounds[dev] = (st.global_params, st.outer.v, float(loss))
+        del st
+    del cpu_state
+    (p_c, v_c, l_c), (p_g, v_g, l_g) = rounds["cpu"], rounds["cuda"]
+    same = all(torch.equal(b[k].cpu(), a[k]) for a, b in ((p_c, p_g),
+                                                          (v_c, v_g))
+               for k in a)
+    e_p = max(rel_err(torch, p_g[k], p_c[k]) for k in p_c)
+    e_v = max(rel_err(torch, v_g[k], v_c[k]) for k in v_c)
+    e_l = abs(l_g - l_c) / abs(l_c)
+    # the card's own round: its inner step and outer step, against the
+    # CPU's (the CPU's round from its own inner step is rounds["cpu"])
+    dt = trainer()
+    state, hist = dt.run(dt.init(params_d), lambda s: batch, 1)
+    q_gpu = state.global_params
+    del state
+    # the history's loss is the workers' mean
+    l_inner = float(cpu_loss.double().mean())
+    e_inner = abs(hist["loss"][0] - l_inner) / abs(l_inner)
+    e_pi = max(rel_err(torch, q_gpu[k], p_c[k]) for k in p_c)
+    log(f"  DiLoCo round K=2 H=1 from the CPU's post-inner-step state on "
+        f"both devices: global params and outer momentum "
+        f"{'bit for bit' if same else 'DIFFER'} (worst leaf {e_p:.2e} / "
+        f"{e_v:.2e} of its max), loss of the new global params {l_g:.6f} "
+        f"(rel {e_l:.2e}, tol 1e-5); each device's own round (printed, "
+        f"not gated but the loss): inner-step loss rel {e_inner:.2e} (tol "
+        f"1e-5), global params worst leaf {e_pi:.2e} of its max, syncs "
+        f"{hist['sync_steps']}")
+    check(same and e_l <= 1e-5 and e_inner <= 1e-5,
+          "DiLoCo outer round from one state differs between the card and "
+          "the CPU")
+    check(hist["sync_steps"] == [0], f"DiLoCo round on the card synced "
+          f"at {hist['sync_steps']}")
+    return dict(errs, diloco_shared_state_bitwise=same,
+                diloco_shared_param_rel=e_p, diloco_shared_momentum_rel=e_v,
+                diloco_shared_loss_rel=e_l, diloco_inner_loss_rel=e_inner,
+                diloco_independent_param_rel=e_pi)
+
+
+def _to_device(torch, tree, dev):
+    """A copy of a nested optimizer state (dicts, lists, tuples and named
+    tuples of tensors) on ``dev``."""
+    if torch.is_tensor(tree):
+        return tree.to(dev, copy=True)
+    if isinstance(tree, dict):
+        return {k: _to_device(torch, v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_to_device(torch, v, dev) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(torch, v, dev) for v in tree)
+    return tree
 
 
 def code_steps(torch, a, b):
@@ -2159,12 +2264,15 @@ def arch_serving(torch, cfg, params=None):
     prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
                for n in PROMPT_LENS]
     prompts[1][13:16] = prompts[1][3:6]       # a draft for spec_k 4
+    batch = {"tokens": torch.tensor([prompts[1]], device="cuda")}
+    if cfg.num_image_tokens:          # a VLM's forward takes its patches
+        batch["patches"] = torch.randn(
+            (1, cfg.num_image_tokens, cfg.d_model), generator=g).cuda()
     with torch.no_grad():
-        logits, _ = forward_lm(params, {"tokens": torch.tensor(
-            [prompts[1]], device="cuda")}, cfg)
+        logits, _ = forward_lm(params, batch, cfg)
     check(bool(torch.isfinite(logits).all()), f"{cfg.name}: non-finite "
           f"logits")
-    del logits
+    del logits, batch
     out, run = {}, {"layers": cfg.num_layers,
                     "param_gb": cfg.param_count() * 4 / 1e9}
     for spec_k, attn_kernel in ((0, "paged_decode"), (4, "paged_verify")):
@@ -2271,10 +2379,14 @@ HYMBA, MIXTRAL, LLAMA4, MAMBA2 = ("hymba-1.5b", "mixtral-8x7b",
 # the capacity factor at which no token is dropped at any T: once it
 # reaches E / K, C = S (mixtral 8 / 2, llama4 16 / 1)
 NO_DROP = {MIXTRAL: 4.0, LLAMA4: 16.0}
-# serving depth (hymba runs whole: 32 layers, 5.37 GB of f32): mixtral
-# and llama4 cut to 4 layers (24.27 / 43.51 GB; 186.8 / 431.1 GB whole):
-# llama4's 4 are its three windowed layers and the first global one
+# serving depth, cut for the script's time: hymba at 16 of its 32 layers
+# (its static path is host-bound: seconds scale with depth; it trains
+# whole), mixtral and llama4 at 4 layers (24.27 / 43.51 GB; 186.8 /
+# 431.1 GB whole): llama4's 4 are its three windowed layers and the
+# first global one; mixtral's pair of long prompts at 2 of those 4
+HYMBA_SERVE_LAYERS = 16
 NEW_SERVE_LAYERS = {MIXTRAL: 4, LLAMA4: 4}
+LONG_PAIR_LAYERS = 2
 # a pair of prompts past each window (hymba's 1024, mixtral's 4096)
 LONG_PROMPTS = {HYMBA: 1100, MIXTRAL: 4200}
 LONG_MAX_NEW = 4
@@ -2578,19 +2690,21 @@ def phase_new_archs(torch, checks):
 
 
 def hymba_runs(torch, cfg):
-    """hymba-1.5b whole (random weights from seed 0), on the static path
-    (a hybrid has no paged pool): phase 4's 8 requests and the pair of
+    """hymba-1.5b (random weights from seed 0) at ``HYMBA_SERVE_LAYERS``
+    layers on the static path (a hybrid has no paged pool; its global
+    layer 0 and windowed layers 1-15): phase 4's 8 requests and the pair of
     1100-token prompts (past the 1024 window) in one ``Engine.generate``
     batch (host-bound: a decode step costs the same for 2 rows or 10; the
     norms and the ring decode, nothing else), the pair's first token
     equal to the argmax of ``forward_lm`` at its last prompt position
     (flash and the SSD, once per layer), 4 rows scored (the flash and
     SSD kernels once per layer each, nothing else); then its training
-    stage (``new_family_training``)."""
+    stage whole (``new_family_training``)."""
     import numpy as np
     from repro_torch import Engine
     from repro_torch.kernels import KERNELS, launches, reset_launches
     from repro_torch.models import forward_lm
+    whole, cfg = cfg, cfg.with_(num_layers=HYMBA_SERVE_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     params = new_arch_params(torch, cfg)
     eng = Engine(cfg, params, max_len=1280, num_slots=8, device="cuda")
@@ -2660,7 +2774,7 @@ def hymba_runs(torch, cfg):
         f"{run['peak_memory_gb']:.2f} GB")
     del eng, params
     torch.cuda.empty_cache()
-    run["train"] = new_family_training(torch, cfg)
+    run["train"] = new_family_training(torch, whole)
     return run
 
 
@@ -2670,7 +2784,8 @@ def moe_serving(torch, cfg):
     norms and one paged kernel a run), the MoE's bits on a second call,
     the published factor's agreement and drops; for mixtral the pair of
     4200-token prompts (past its 4096 window) at spec_k 4 (blocks
-    recycled) against the static path (the ring kernel)."""
+    recycled) against the static path (the ring kernel), at the first
+    ``LONG_PAIR_LAYERS`` layers."""
     from repro_torch import Engine, Request
     from repro_torch.kernels import KERNELS, launches, reset_launches
     params = new_arch_params(torch, cfg)
@@ -2682,7 +2797,12 @@ def moe_serving(torch, cfg):
     if cfg.name == MIXTRAL:
         pair = long_pair(torch, cfg, LONG_PROMPTS[MIXTRAL])
         n = LONG_PROMPTS[MIXTRAL] + LONG_MAX_NEW
-        eng = Engine(cfg, params, max_len=n, num_slots=2, block_size=16,
+        cfg = cfg.with_(num_layers=LONG_PAIR_LAYERS)
+        first = dict(params, layers={
+            k: ({kk: vv[:LONG_PAIR_LAYERS] for kk, vv in v.items()}
+                if isinstance(v, dict) else v[:LONG_PAIR_LAYERS])
+            for k, v in params["layers"].items()})
+        eng = Engine(cfg, first, max_len=n, num_slots=2, block_size=16,
                      spec_k=4, device="cuda")
         reqs = [Request(rid=i, prompt=p, max_new=LONG_MAX_NEW)
                 for i, p in enumerate(pair)]
@@ -2710,7 +2830,8 @@ def moe_serving(torch, cfg):
                                             "paged_verify"))
                   and (counts[k] == 0 or k in ARCH_KERNELS),
                   f"mixtral long pair: kernel {k} launched {counts[k]}")
-        del eng
+        run["long"]["layers"] = LONG_PAIR_LAYERS
+        del eng, first
     del params
     torch.cuda.empty_cache()
     return run
@@ -2825,6 +2946,381 @@ def new_family_training(torch, cfg):
         del out, g0, g1, params
     torch.cuda.empty_cache()
     return run
+
+
+# ---------------------------------------------------------------------------
+# Phase 4d: the VLM and the encoder-decoder
+# ---------------------------------------------------------------------------
+
+SEAMLESS, INTERNVL2 = "seamless-m4t-medium", "internvl2-26b"
+# the flash kernels at two lengths, non-causal (B, Sq, Sk, H, KV, D):
+# seamless's encoder (1024 frames), its cross-attention (256 text queries
+# over the 1024 frames) and a ragged pair (partial tiles on both sides)
+ENC_FLASH_CASES = {"encoder": (2, 1024, 1024, 16, 16, 64),
+                   "cross": (2, 256, 1024, 16, 16, 64),
+                   "ragged": (2, 37, 1000, 16, 16, 64)}
+# internvl2's training shape: 256 patches + 256 text tokens, causal
+# (B, S, H, KV, D)
+VLM_FLASH_SHAPE = (1, 512, 48, 8, 128)
+# seamless's cross decode: the ring kernel over the memory, every key
+# visible (B, KV, G, Se, D)
+CROSS_RING_CASE = (8, 16, 1, 1024, 64)
+# internvl2 at full width: serving at 8 of its 48 layers (16.98 GB of
+# f32), the forward + backward at 4, the DiLoCo stage at 1 (6.10 GB:
+# K 2's copies, momentum and AdamW moments near 11x that)
+VLM_SERVE_LAYERS, VLM_GRAD_LAYERS, VLM_TRAIN_LAYERS = 8, 4, 1
+# one DiLoCo stage of each: K 2, H 1, 2 steps, 2 x 256 text tokens a
+# worker (with 256 patches or 1024 frames a sequence), fused AdamW
+ENCDEC_TRAIN = dict(steps=2, workers=2, per_worker_batch=2)
+ENCDEC_TEXT = 256
+# seamless's depth-2 + 2 step against the CPU: B 2 x 128 text tokens
+ENCDEC_VS_CPU = (2, 128)
+ENCDEC_TRAIN_KERNELS = ("flash_fwd", "flash_bwd", "fused_adamw")
+
+
+def phase_enc_vlm_kernels(torch, results):
+    """The kernels at the shapes the last two configs give them, against
+    their plain versions with phase 2's tolerances, f32 and bf16: flash
+    forward and backward non-causal at ``ENC_FLASH_CASES`` (Sq != Sk but
+    for the encoder's) and causal at ``VLM_FLASH_SHAPE`` (the f32
+    backward there against float64, ``FLASH_BWD_F64_RATIO``); the ring decode
+    as cross decode at ``CROSS_RING_CASE`` (slots 0 .. Se - 1, the query
+    at Se - 1)."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    from repro_torch.models.attention import cross_positions
+    for dtype in ("float32", "bfloat16"):
+        for B, Sq, Sk, H, KV, D in ENC_FLASH_CASES.values():
+            check_flash(torch, results, dtype, causal=False, B=B, S=Sq,
+                        Sk=Sk, H=H, KV=KV, D=D)
+        # the f32 backward at G 6, S 512 against float64, as phase 4c's
+        # long shapes: the plain version's elementwise gate sits near its
+        # edge there (0.874 of it on an H100)
+        B, S, H, KV, D = VLM_FLASH_SHAPE
+        errs = check_flash(torch, results, dtype, bwd_f64=dtype == "float32",
+                           B=B, S=S, H=H, KV=KV, D=D)
+        if errs:
+            FLASH_BWD_F64[(dtype,) + VLM_FLASH_SHAPE + (0,)] = errs
+        B, KV, G, Se, D = CROSS_RING_CASE
+        g = torch.Generator().manual_seed(Se + G)
+        dt = getattr(torch, dtype)
+        q = torch.randn((B, KV, G, D), generator=g).to(dt).cuda()
+        k, v = (torch.randn((B, KV, Se, D), generator=g).to(dt).cuda()
+                for _ in range(2))
+        pos, q_pos = cross_positions(B, Se, "cuda")
+        got = decode_attention(q, k, v, pos, q_pos)
+        want = decode_attention_plain(q, k, v, pos, q_pos)
+        torch.cuda.synchronize()
+        results.append(("ring_decode", dtype, tuple(q.shape) + (
+            f"S={Se}", "cross decode"), *max_err(torch, got, want)))
+
+
+def encdec_vs_cpu(torch, cfg):
+    """seamless at full width and depth 2 + 2 (seed 0): ``lm_loss`` and
+    every gradient on the card against the CPU, B 2 x 128 text tokens
+    over 2 x 1024 seeded frames (phase 3's gates: loss rtol 1e-5, each
+    gradient within 1e-4 of its leaf's max)."""
+    from repro_torch.models import init_params, lm_loss
+    from repro_torch.models.transformer import flatten
+    cfg2 = cfg.with_(num_layers=2, num_encoder_layers=2)
+    params = flatten(init_params(cfg2, seed=0, device="cpu"))
+    params_d = {k: v.cuda() for k, v in params.items()}
+    B, S = ENCDEC_VS_CPU
+    g = torch.Generator().manual_seed(21)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g,
+                         dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "frames": 0.3 * torch.randn((B, cfg.encoder_seq_len,
+                                          cfg.d_model), generator=g)}
+    l_cpu, l_gpu, e_grad, _ = loss_grads_vs_cpu(
+        torch, lambda p, b: lm_loss(p, b, cfg2), params, params_d, batch)
+    e_loss = abs(l_gpu - l_cpu) / abs(l_cpu)
+    log(f"  {cfg.name} width, depth 2 + 2, B {B} x S {S} over "
+        f"{cfg.encoder_seq_len} frames: loss {l_gpu:.6f} (rel {e_loss:.2e} "
+        f"of the CPU's, tol 1e-5); worst gradient leaf {e_grad:.2e} of its "
+        f"max (tol 1e-4)")
+    check(e_loss <= 1e-5 and e_grad <= 1e-4,
+          f"{cfg.name}: loss or gradients on the card disagree with the CPU")
+    return {"loss_rel": e_loss, "grad_rel": e_grad}
+
+
+def enc_vlm_stage(torch, cfg, extra, name):
+    """One DiLoCo stage of ``cfg`` through ``DistTrainer`` (``ENCDEC_TRAIN``,
+    H 1, f32 wire, fused AdamW; seeded text of ``ENCDEC_TEXT`` tokens and
+    ``extra(g)``'s frames or patches, the same batch both steps): the
+    loss finite and falling, the training kernels launched and no other
+    (the norms' too for an RMSNorm config); launches, step seconds and
+    peak memory."""
+    from repro_torch.configs import DiLoCoConfig, OptimizerConfig
+    from repro_torch.core import DistTrainer, make_strategy
+    from repro_torch.kernels import KERNELS, launches, reset_launches
+    from repro_torch.models import init_params, lm_loss
+    K, B = ENCDEC_TRAIN["workers"], ENCDEC_TRAIN["per_worker_batch"]
+    g = torch.Generator().manual_seed(23)
+    toks = torch.randint(0, cfg.vocab_size, (K, B, ENCDEC_TEXT + 1),
+                         generator=g, dtype=torch.int32).cuda()
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:],
+             **{k: v.cuda() for k, v in extra(g, (K, B)).items()}}
+    opt_cfg = OptimizerConfig(total_steps=ENCDEC_TRAIN["steps"],
+                              warmup_steps=1, learning_rate=0.02,
+                              adam_lr=1e-3, fused_adamw=True)
+    dcfg = DiLoCoConfig(num_workers=K, h_inner_steps=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dt = DistTrainer(lambda p, b: lm_loss(p, b, cfg), opt_cfg, dcfg,
+                     make_strategy(dcfg))
+    # the parameters go in unnamed: the state holds the only copy
+    state = dt.init(init_params(cfg, seed=0, device="cuda"))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, hist = dt.run(state, lambda s: batch, ENCDEC_TRAIN["steps"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: launches[k] for k in KERNELS}
+    tokens = K * B * ENCDEC_TEXT
+    run = {"layers": cfg.num_layers, "launches": counts,
+           "loss": hist["loss"], "sync_steps": hist["sync_steps"],
+           "step_seconds": hist["step_seconds"],
+           "tokens_per_s": tokens / hist["step_seconds"], "wall_s": wall,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"  {name} ({cfg.num_layers} layers) DiLoCo K {K}, H 1, "
+        f"{ENCDEC_TRAIN['steps']} steps, {B} x {ENCDEC_TEXT} text tokens a "
+        f"worker: losses {[round(x, 4) for x in hist['loss']]}, syncs "
+        f"{hist['sync_steps']}, step {hist['step_seconds']:.3f} s, peak "
+        f"{run['peak_memory_gb']:.2f} GB, launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    check(all(math.isfinite(x) for x in hist["loss"])
+          and hist["loss"][-1] < hist["loss"][0],
+          f"{name}: the loss did not fall")
+    check(hist["sync_steps"] == [0, 1], f"{name}: syncs "
+          f"{hist['sync_steps']}")
+    want = ENCDEC_TRAIN_KERNELS if cfg.norm == "layernorm" else \
+        TRAIN_KERNELS
+    for k in KERNELS:
+        check((counts[k] > 0) == (k in want),
+              f"{name} training: kernel {k} launched {counts[k]} times")
+    del state, batch
+    torch.cuda.empty_cache()
+    return run
+
+
+def left_padded_decode(torch, cfg, params, prompts, max_new):
+    """Greedy tokens of ``prompts`` by ``decode_step_lm`` step by step,
+    left-padded with 0 as the engine's static path pads them, over the
+    decode cache ``init_decode_cache`` makes (for an encoder-decoder its
+    zero cross cache): the static path's tokens from the model's own
+    entry point."""
+    from repro_torch.models import decode_step_lm, init_decode_cache
+    B, Tp = len(prompts), max(len(p) for p in prompts)
+    tokens = torch.zeros((B, Tp), dtype=torch.int32)
+    for i, p in enumerate(prompts):
+        tokens[i, Tp - len(p):] = torch.tensor(p, dtype=torch.int32)
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
+    tokens = tokens.cuda()
+    cache = init_decode_cache(cfg, B, Tp + max_new, device="cuda")
+    out = []
+    with torch.no_grad():
+        for t in range(Tp + max_new - 1):
+            if t < Tp:
+                tok, pos = tokens[:, t:t + 1], (t - (Tp - lens)).clamp(
+                    min=-1)
+            else:
+                tok, pos = out[-1][:, None], lens + (t - Tp)
+            logits, cache = decode_step_lm(params, cache, {
+                "token": tok, "position": pos.cuda()}, cfg)
+            if t >= Tp - 1:
+                out.append(torch.argmax(logits[:, 0].float(), dim=-1).to(
+                    torch.int32))
+    return torch.stack(out, dim=1).cpu().tolist()
+
+
+def seamless_runs(torch, cfg):
+    """seamless-m4t-medium whole (12 + 12 layers, 615 M parameters, f32,
+    seed 0): the depth-2 + 2 step against the CPU (``encdec_vs_cpu``);
+    one DiLoCo stage with frames (``enc_vlm_stage``); phase 4's 8
+    requests (16 new tokens) on the static path (``Engine.generate``: no
+    paged pool; the zero cross cache, as the reference's engine serves
+    it), greedy tokens equal to ``left_padded_decode``'s, the ring kernel
+    twice a layer a step (self- and cross-attention) and no other kernel;
+    tokens/s, ms a static step, peak memory."""
+    from repro_torch import Engine
+    from repro_torch.kernels import KERNELS, launches, reset_launches
+    runs = {"vs_cpu": encdec_vs_cpu(torch, cfg)}
+    torch.cuda.empty_cache()
+    frames = lambda g, lead: {"frames": 0.3 * torch.randn(
+        lead + (cfg.encoder_seq_len, cfg.d_model), generator=g)}
+    runs["train"] = enc_vlm_stage(torch, cfg, frames, SEAMLESS)
+    torch.cuda.reset_peak_memory_stats()
+    params = new_arch_params(torch, cfg)
+    g = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in PROMPT_LENS]
+    eng = Engine(cfg, params, max_len=512, num_slots=8, block_size=16,
+                 device="cuda")
+    check(not eng.continuous, f"{cfg.name}: the engine took the paged path")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    rows = eng.generate(prompts, max_new=ARCH_MAX_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: launches[k] for k in KERNELS}
+    steps = max(PROMPT_LENS) + ARCH_MAX_NEW - 1
+    want = left_padded_decode(torch, cfg, params, prompts, ARCH_MAX_NEW)
+    check(rows == want, f"{cfg.name}: the engine's static tokens differ "
+          f"from decode_step_lm's")
+    check(counts["ring_decode"] == 2 * cfg.num_layers * steps,
+          f"{cfg.name} static launched ring_decode {counts['ring_decode']} "
+          f"times, not 2 x {cfg.num_layers} x {steps}")
+    off = {k: n for k, n in counts.items() if n and k != "ring_decode"}
+    check(not off, f"{cfg.name} static: kernels {off} launched off the path")
+    n_tok = len(rows) * ARCH_MAX_NEW
+    runs["static"] = {"launches": counts, "wall_s": wall,
+                      "tokens_per_s": n_tok / wall,
+                      "ms_per_decode_step": 1e3 * wall / steps,
+                      "peak_memory_gb":
+                          torch.cuda.max_memory_allocated() / 1e9}
+    log(f"  {cfg.name} static path (B 8, Tp {max(PROMPT_LENS)}, max_new "
+        f"{ARCH_MAX_NEW}, zero cross cache): {n_tok} tokens in {wall:.3f} s "
+        f"({n_tok / wall:.1f} tokens/s, "
+        f"{runs['static']['ms_per_decode_step']:.2f} ms a decode step), "
+        f"tokens equal to decode_step_lm's, launches "
+        f"{ {k: v for k, v in counts.items() if v} }, peak "
+        f"{runs['static']['peak_memory_gb']:.2f} GB")
+    del eng, params
+    torch.cuda.empty_cache()
+    return runs
+
+
+def vlm_grad(torch, cfg):
+    """internvl2 at full width and ``VLM_GRAD_LAYERS`` layers: one
+    ``lm_loss`` forward + backward over 256 seeded patches + 256 text
+    tokens (B 1); the loss and every gradient finite, the flash and norm
+    kernels launched (the flash kernels' gate at this shape is
+    ``phase_enc_vlm_kernels``'); the reduced config's loss and gradients
+    against the CPU (phase 3's gates, 16 patches + 128 tokens, B 2)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import KERNELS, launches, reset_launches
+    from repro_torch.models import init_params, lm_loss
+    from repro_torch.models.transformer import flatten, unflatten
+    cfg4 = cfg.with_(num_layers=VLM_GRAD_LAYERS)
+    g = torch.Generator().manual_seed(29)
+    toks = torch.randint(0, cfg.vocab_size, (1, 257), generator=g,
+                         dtype=torch.int32).cuda()
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "patches": torch.randn((1, cfg.num_image_tokens, cfg.d_model),
+                                    generator=g).cuda()}
+    leaves = {k: v.requires_grad_() for k, v in flatten(init_params(
+        cfg4, seed=0, device="cuda")).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    loss, _ = lm_loss(unflatten(leaves), batch, cfg4)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: launches[k] for k in KERNELS}
+    loss = float(loss.detach())
+    finite = math.isfinite(loss) and all(
+        bool(torch.isfinite(x).all()) for x in grads)
+    run = {"layers": VLM_GRAD_LAYERS, "loss": loss, "wall_s": wall,
+           "launches": counts,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"  {cfg.name} ({VLM_GRAD_LAYERS} layers) forward + backward, "
+        f"{cfg.num_image_tokens} patches + 256 text tokens: loss "
+        f"{run['loss']:.4f}, {wall:.3f} s, peak {run['peak_memory_gb']:.2f} "
+        f"GB, launches { {k: v for k, v in counts.items() if v} }")
+    check(finite, f"{cfg.name}: non-finite loss or gradient")
+    for k in ("flash_fwd", "flash_bwd", "rmsnorm_residual", "rmsnorm_bwd"):
+        check(counts[k] > 0, f"{cfg.name}: {k} not launched")
+    del leaves, grads, loss, batch
+    torch.cuda.empty_cache()
+    red = get_reduced(INTERNVL2)
+    params = flatten(init_params(red, seed=0, device="cpu"))
+    g = torch.Generator().manual_seed(31)
+    toks = torch.randint(0, red.vocab_size, (2, 129), generator=g,
+                         dtype=torch.int32)
+    rbatch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+              "patches": torch.randn((2, red.num_image_tokens, red.d_model),
+                                     generator=g)}
+    l_cpu, l_gpu, e_grad, _ = loss_grads_vs_cpu(
+        torch, lambda p, b: lm_loss(p, b, red), params,
+        {k: v.cuda() for k, v in params.items()}, rbatch)
+    e_loss = abs(l_gpu - l_cpu) / abs(l_cpu)
+    log(f"  {red.name} reduced, with patches: loss rel {e_loss:.2e} (tol "
+        f"1e-5), worst gradient leaf {e_grad:.2e} of its max (tol 1e-4)")
+    check(e_loss <= 1e-5 and e_grad <= 1e-4,
+          f"{red.name} reduced: loss or gradients disagree with the CPU")
+    run["reduced_vs_cpu"] = {"loss_rel": e_loss, "grad_rel": e_grad}
+    return run
+
+
+def phase_enc_vlm(torch, checks):
+    """``phase_enc_vlm_kernels``, then one config at a time, the card's
+    memory freed between them: seamless-m4t-medium whole
+    (``seamless_runs``); internvl2-26b at full width: serving at
+    ``VLM_SERVE_LAYERS`` layers (``arch_serving``: text only, spec_k 0 /
+    4 and static), the forward + backward with patches at
+    ``VLM_GRAD_LAYERS`` (``vlm_grad``), and one DiLoCo stage with patches
+    at ``VLM_TRAIN_LAYERS``."""
+    from repro_torch.configs import get_config
+    new = []
+    t0 = time.perf_counter()
+    phase_enc_vlm_kernels(torch, new)
+    report_checks(new)
+    checks.extend(new)
+    runs = {"kernels_s": time.perf_counter() - t0,
+            "flash_bwd_vs_f64": {str(k): v for k, v in FLASH_BWD_F64.items()
+                                 if k[1:6] == VLM_FLASH_SHAPE}}
+    runs[SEAMLESS] = seamless_runs(torch, get_config(SEAMLESS))
+    torch.cuda.empty_cache()
+    cfg = get_config(INTERNVL2)
+    log(f"  {cfg.name} whole ({cfg.num_layers} layers): "
+        f"{cfg.param_count() * 4 / 1e9:.2f} GB of f32 parameters; cut "
+        f"to {VLM_SERVE_LAYERS} / {VLM_GRAD_LAYERS} / {VLM_TRAIN_LAYERS}")
+    vlm = runs[INTERNVL2] = arch_serving(
+        torch, cfg.with_(num_layers=VLM_SERVE_LAYERS))
+    del vlm["prompts"], vlm["tokens"]
+    torch.cuda.empty_cache()
+    vlm["grad"] = vlm_grad(torch, cfg)
+    patches = lambda g, lead: {"patches": torch.randn(
+        lead + (cfg.num_image_tokens, cfg.d_model), generator=g)}
+    vlm["train"] = enc_vlm_stage(
+        torch, cfg.with_(num_layers=VLM_TRAIN_LAYERS), patches, INTERNVL2)
+    torch.cuda.empty_cache()
+    return runs
+
+
+def enc_vlm_paths(runs):
+    """Phase 4d's runs -> {path name: launch counts} for phase 7."""
+    s, v = runs[SEAMLESS], runs[INTERNVL2]
+    return {"seamless_static": s["static"]["launches"],
+            "seamless_train": s["train"]["launches"],
+            "internvl2_spec_k0": v["spec_k0"]["launches"],
+            "internvl2_spec_k4": v["spec_k4"]["launches"],
+            "internvl2_static": v["static"]["launches"],
+            "internvl2_grad": v["grad"]["launches"],
+            "internvl2_train": v["train"]["launches"]}
+
+
+def enc_vlm_summary(runs):
+    """The summary line's record of phase 4d."""
+    keep = ("layers", "tokens_per_s", "wall_s", "ms_per_step_call",
+            "ms_per_decode_step", "peak_memory_gb", "loss", "step_seconds")
+    s, v = runs[SEAMLESS], runs[INTERNVL2]
+    pick = lambda r: {k: x for k, x in r.items() if k in keep}
+    return {"kernels_s": runs["kernels_s"],
+            "flash_bwd_vs_f64": runs["flash_bwd_vs_f64"],
+            SEAMLESS: {"vs_cpu": s["vs_cpu"], "train": pick(s["train"]),
+                       "static": pick(s["static"])},
+            INTERNVL2: dict({p: pick(v[p]) for p in ("spec_k0", "spec_k4",
+                                                     "static", "grad",
+                                                     "train")},
+                            layers=v["layers"],
+                            peak_memory_gb=v["peak_memory_gb"],
+                            reduced_vs_cpu=v["grad"]["reduced_vs_cpu"])}
 
 
 TRAIN_SEQ = 1024
@@ -5091,8 +5587,38 @@ def static_rows(torch, row):
         nbytes, 4 * n_live * KV * G * D, live_slots=n_live,
         library="F.scaled_dot_product_attention over the ring with the "
                 "slots' boolean mask",
-        at_hymba_window1024_shape=with_bound(ring, "float32"))
+        at_hymba_window1024_shape=with_bound(ring, "float32"),
+        at_cross_decode_shape=with_bound(cross_ring_times(torch), "float32"))
     del q, k, v, pos, q_pos, mask
+
+
+def cross_ring_times(torch):
+    """The ring kernel as seamless's cross decode (``CROSS_RING_CASE``,
+    every memory key visible), its plain version and SDPA with no mask,
+    f32; bytes: K / V, q, the output and the positions once; 4 FLOPs per
+    (query head, key, d)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    from repro_torch.models.attention import cross_positions
+    B, KV, G, Se, D = CROSS_RING_CASE
+    g = torch.Generator().manual_seed(41)
+    q = torch.randn((B, KV, G, D), generator=g).cuda()
+    k, v = (torch.randn((B, KV, Se, D), generator=g).cuda()
+            for _ in range(2))
+    pos, q_pos = cross_positions(B, Se, "cuda")
+    qs = q.reshape(B, KV * G, 1, D)
+    return {"shape": [B, KV, G, D, Se],
+            "ms": time_ms(torch, lambda: decode_attention(q, k, v, pos,
+                                                          q_pos)),
+            "plain_ms": time_ms(torch, lambda: decode_attention_plain(
+                q, k, v, pos, q_pos)),
+            "library_ms": time_ms(
+                torch, lambda: F.scaled_dot_product_attention(qs, k, v)),
+            "library": "F.scaled_dot_product_attention with no mask",
+            "nbytes": (2 * B * KV * Se * D + 2 * B * KV * G * D) * 4
+            + (B * Se + B) * 4,
+            "ops": 4 * B * KV * G * Se * D}
 
 
 def ring_times(torch, case, window):
@@ -5189,25 +5715,32 @@ def quant_rows(torch, row):
                     "fp8 QK^T")
 
 
-def flash_timing(torch, B, S, H, KV, D, window=None, fp8=True, reps=50):
+def flash_timing(torch, B, S, H, KV, D, window=None, fp8=True, reps=50,
+                 Sk=None, causal=True):
     """{name: (ms, plain_ms, library_ms, bytes, ops)} of flash_fwd,
     flash_fwd_fp8 (unless ``fp8`` is false) and flash_bwd at (B, S, H,
-    KV, D), f32, causal, with ``window`` if given: the kernel, its plain
+    KV, D), f32, causal, with ``window`` if given, or with ``causal``
+    false over ``Sk`` keys (S unless given): the kernel, its plain
     version and one SDPA call (forward, or its backward through
-    autograd) on (B, H, S, D) copies (a window as a boolean band mask).
-    Bytes: q, k, v and o (and dO, dQ, dK, dV) once, lse once; ops: 4 B H
-    S^2 D / 2 FLOPs forward (half the scores; with a window, 4 B H D per
-    (query, key) pair in the band), 2.5 times that backward."""
+    autograd) on (B, H, S, D) copies (a window as a boolean band mask;
+    non-causal with no mask).  Bytes: q, k, v and o (and dO, dQ, dK, dV)
+    once, lse once; ops: 4 B H S^2 D / 2 FLOPs forward (half the scores;
+    with a window, 4 B H D per (query, key) pair in the band; non-causal
+    4 B H S Sk D, every pair), 2.5 times that backward."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd_plain, flash_attention_fp8_plain,
         flash_attention_plain, flash_bwd, flash_fwd)
-    q, k, v, do = flash_inputs(torch, B=B, S=S, H=H, KV=KV, D=D)
-    w = dict(window=window)
+    Sk = Sk or S
+    q, k, v, do = flash_inputs(torch, B=B, S=S, H=H, KV=KV, D=D, Sk=Sk)
+    w = dict(window=window, causal=causal)
     o, lse = flash_fwd(q, k, v, **w)
     qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
     kt, vt = (t.repeat_interleave(H // KV, dim=1) for t in (kt, vt))
-    if window:
+    if not causal:
+        fwd_ops = 4 * B * H * S * Sk * D
+        lib_kw = dict(is_causal=False)
+    elif window:
         pairs = sum(min(i + 1, window) for i in range(S))
         fwd_ops = 4 * B * H * pairs * D
         i = torch.arange(S, device="cuda")
@@ -5217,6 +5750,7 @@ def flash_timing(torch, B, S, H, KV, D, window=None, fp8=True, reps=50):
         fwd_ops = 4 * B * H * S * S * D / 2
         lib_kw = dict(is_causal=True)
     act = B * S * H * D * 4
+    act_kv = B * Sk * KV * D * 4
     leaves = [t.clone().requires_grad_() for t in (qt, kt, vt)]
     out_lib = F.scaled_dot_product_attention(*leaves, **lib_kw)
     sdpa = time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -5226,17 +5760,17 @@ def flash_timing(torch, B, S, H, KV, D, window=None, fp8=True, reps=50):
         "flash_fwd": (time_ms(torch, lambda: flash_fwd(q, k, v, **w),
                               reps=reps),
                       time_ms(torch, lambda: flash_attention_plain(
-                          q, k, v, True, window), reps=plain_reps),
-                      sdpa, 4 * act + B * H * S * 4, fwd_ops),
+                          q, k, v, causal, window), reps=plain_reps),
+                      sdpa, 2 * act + 2 * act_kv + B * H * S * 4, fwd_ops),
         "flash_bwd": (time_ms(torch, lambda: flash_bwd(q, k, v, o, lse, do,
                                                        **w), reps=reps),
                       time_ms(torch, lambda: flash_attention_bwd_plain(
-                          q, k, v, o, lse, do, True, window),
+                          q, k, v, o, lse, do, causal, window),
                           reps=plain_reps),
                       time_ms(torch, lambda: torch.autograd.grad(
                           out_lib, leaves, dot, retain_graph=True),
                           reps=reps),
-                      8 * act + B * H * S * 4, 2.5 * fwd_ops)}
+                      4 * act + 4 * act_kv + B * H * S * 4, 2.5 * fwd_ops)}
     if fp8:
         # the fp8 variant's operations: the same FLOPs (its QK^T on codes)
         out["flash_fwd_fp8"] = (
@@ -5297,6 +5831,14 @@ def train_rows(torch, row):
         others[f"h{case[2]}_kv{case[3]}_d{case[4]}_window{case[5]}"] = (
             case, flash_timing(torch, *case[:5], window=case[5] or None,
                                fp8=False, reps=20))
+    for where, (B, Sq, Sk, H, KV, D) in ENC_FLASH_CASES.items():
+        others[f"{where}_noncausal"] = (
+            dict(B=B, Sq=Sq, Sk=Sk, H=H, KV=KV, D=D, causal=False,
+                 library="F.scaled_dot_product_attention(is_causal=False)"),
+            flash_timing(torch, B, Sq, H, KV, D, fp8=False, reps=20, Sk=Sk,
+                         causal=False))
+    others["internvl2"] = (VLM_FLASH_SHAPE, flash_timing(
+        torch, *VLM_FLASH_SHAPE, fp8=False, reps=20))
     libraries = {
         "flash_fwd": "F.scaled_dot_product_attention(is_causal=True) on "
                      "(B, H, S, D) copies",
@@ -5312,8 +5854,10 @@ def train_rows(torch, row):
                 continue
             o_ms, o_plain, o_lib, o_bytes, o_ops = t[name]
             at[f"at_{where}_shape"] = dict(
-                {"shape": list(oshape), "ms": o_ms, "plain_ms": o_plain,
-                 "library_ms": o_lib}, **tc_bounds(name, o_bytes, o_ops))
+                {"shape": (oshape if isinstance(oshape, dict)
+                           else list(oshape)), "ms": o_ms,
+                 "plain_ms": o_plain, "library_ms": o_lib},
+                **tc_bounds(name, o_bytes, o_ops))
         row(name, shape[:3] + shape[4:], ms, plain_ms, lib_ms, nbytes, ops,
             library=library, **at)
     bwd = {k: norm_bwd_times(torch, NORM_SHAPES[k], seed)
@@ -5514,6 +6058,10 @@ def main(argv=None) -> int:
                     help="only build the SSD kernel of this checkout and "
                          "time it at SSD_TIMING_SHAPES beside the floor "
                          "(one JSON line), as --norm-timing")
+    ap.add_argument("--enc-vlm", action="store_true",
+                    help="only build the kernels and run phase 4d (the "
+                         "VLM and the encoder-decoder), printing its "
+                         "summary as one JSON line")
     ap.add_argument("--new-archs", action="store_true",
                     help="only build the kernels and run phase 4c (the "
                          "new decoder-only configs), printing its summary "
@@ -5535,17 +6083,20 @@ def main(argv=None) -> int:
                          else ssd_timing(torch)))
         print(gpu_line())
         return 0
-    if args.new_archs:
+    if args.new_archs or args.enc_vlm:
         from repro_torch.kernels import _build
         _build.build()
         t0 = time.perf_counter()
+        phase, summary, name = ((phase_new_archs, new_arch_summary, "4c")
+                                if args.new_archs else
+                                (phase_enc_vlm, enc_vlm_summary, "4d"))
         try:
-            runs = phase_new_archs(torch, [])
+            runs = phase(torch, [])
         except SmokeFailure as e:
             print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
             return 1
-        log(f"phase 4c passed in {time.perf_counter() - t0:.1f} s")
-        print(json.dumps(new_arch_summary(runs)))
+        log(f"phase {name} passed in {time.perf_counter() - t0:.1f} s")
+        print(json.dumps(summary(runs)))
         print(gpu_line())
         return 0
     report = {"gpu": gpu_line(), "torch": torch.__version__,
@@ -5623,8 +6174,9 @@ def main(argv=None) -> int:
         report["checks"] = [list(c) for c in checks]
         lap("4b archs")
 
-        log("[4c/7] hymba-1.5b (whole), mixtral-8x7b and "
-            "llama4-scout-17b-a16e (4 layers) at full width: their kernel "
+        log("[4c/7] hymba-1.5b (16 layers serving, whole training), "
+            "mixtral-8x7b and llama4-scout-17b-a16e (4 layers) at full "
+            "width: their kernel "
             "shapes, serving (static path and scoring; spec_k 0 / 4 and "
             "static; windows past 1024 and 4096), the published capacity "
             "factor; DiLoCo rounds of hymba, mixtral (1 layer) and mamba2; "
@@ -5632,6 +6184,17 @@ def main(argv=None) -> int:
         new_archs = report["new_archs"] = phase_new_archs(torch, checks)
         report["checks"] = [list(c) for c in checks]
         lap("4c new archs")
+
+        log("[4d/7] seamless-m4t-medium (whole: 12 + 12 layers) and "
+            "internvl2-26b (full width; 8 layers serving, 4 the forward + "
+            "backward with patches, 1 the DiLoCo stage): the flash kernels "
+            "at two lengths and the ring kernel as cross decode; "
+            "seamless's depth-2 + 2 step against the CPU, DiLoCo stage "
+            "and static serving; internvl2's text serving at spec_k 0 / 4 "
+            "and static")
+        enc_vlm = report["enc_vlm"] = phase_enc_vlm(torch, checks)
+        report["checks"] = [list(c) for c in checks]
+        lap("4d enc-dec and vlm")
 
         log("[5/7] training, nanochat-d20: DiLoCo and DDP on the f32 wire; "
             "DiLoCo on int8, fp8 and fp8_e5m2 wires, compressed DDP, "
@@ -5695,6 +6258,7 @@ def main(argv=None) -> int:
                 paths[f"{arch}_train"] = run["train"]["launches"]
         paths.update(grpo["launches"])
         paths.update(new_arch_paths(new_archs))
+        paths.update(enc_vlm_paths(enc_vlm))
         floor = report["floor_ms"] = time_ms(
             torch, lambda: torch.cuda._sleep(0))
         kernels = phase_timing(torch, paths, checks)
@@ -5821,6 +6385,7 @@ def main(argv=None) -> int:
                       "state": state_summary, "gossip": gossip_summary,
                       "faults": faults_summary, "grpo": grpo_summary,
                       "new_archs": new_archs_summary,
+                      "enc_vlm": enc_vlm_summary(enc_vlm),
                       "phase_s": phase_s, "floor_ms": floor}))
     print(json.dumps({"split_timing": report["split_timing"]}))
     print(report["gpu"])

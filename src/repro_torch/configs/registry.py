@@ -1,48 +1,42 @@
 """Architecture ids -> ModelConfig, and the reduced smoke variants: the
 JAX package's ``configs/registry.py`` ``get_config`` / ``get_reduced``,
-limited to the configs the port registers, every decoder-only one:
-nanochat-d20, the dense qwen1.5-0.5b, command-r-plus-104b,
-nemotron-4-15b (squared-ReLU MLP) and mistral-large-123b, the SSM
-mamba2-1.3b, the MoE mixtral-8x7b and llama4-scout-17b-a16e, and the
-hybrid hymba-1.5b.  The ids and their order are the reference's."""
+every config the reference registers: nanochat-d20, the dense
+qwen1.5-0.5b, command-r-plus-104b, nemotron-4-15b (squared-ReLU MLP)
+and mistral-large-123b, the SSM mamba2-1.3b, the MoE mixtral-8x7b and
+llama4-scout-17b-a16e, the encoder-decoder seamless-m4t-medium, the VLM
+internvl2-26b and the hybrid hymba-1.5b.  The ids and their order are
+the reference's (``_MODULES``); ``ARCH_IDS`` is every id but
+nanochat-d20, as there."""
 from __future__ import annotations
 
 import dataclasses
+import importlib
 from typing import Dict
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.configs.command_r_plus_104b import \
-    CONFIG as COMMAND_R_PLUS_104B
-from repro_torch.configs.hymba_15b import CONFIG as HYMBA_15B
-from repro_torch.configs.llama4_scout_17b_a16e import \
-    CONFIG as LLAMA4_SCOUT_17B_A16E
-from repro_torch.configs.mamba2_13b import CONFIG as MAMBA2_13B
-from repro_torch.configs.mistral_large_123b import \
-    CONFIG as MISTRAL_LARGE_123B
-from repro_torch.configs.mixtral_8x7b import CONFIG as MIXTRAL_8X7B
-from repro_torch.configs.nanochat_d20 import CONFIG as NANOCHAT_D20
-from repro_torch.configs.nemotron4_15b import CONFIG as NEMOTRON4_15B
-from repro_torch.configs.qwen15_05b import CONFIG as QWEN15_05B
 
-_CONFIGS: Dict[str, ModelConfig] = {
-    "nanochat-d20": NANOCHAT_D20,
-    "qwen1.5-0.5b": QWEN15_05B,
-    "mamba2-1.3b": MAMBA2_13B,
-    "command-r-plus-104b": COMMAND_R_PLUS_104B,
-    "nemotron-4-15b": NEMOTRON4_15B,
-    "mixtral-8x7b": MIXTRAL_8X7B,
-    "llama4-scout-17b-a16e": LLAMA4_SCOUT_17B_A16E,
-    "hymba-1.5b": HYMBA_15B,
-    "mistral-large-123b": MISTRAL_LARGE_123B,
+_MODULES: Dict[str, str] = {
+    "nanochat-d20": "repro_torch.configs.nanochat_d20",
+    "qwen1.5-0.5b": "repro_torch.configs.qwen15_05b",
+    "mamba2-1.3b": "repro_torch.configs.mamba2_13b",
+    "command-r-plus-104b": "repro_torch.configs.command_r_plus_104b",
+    "nemotron-4-15b": "repro_torch.configs.nemotron4_15b",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
+    "llama4-scout-17b-a16e": "repro_torch.configs.llama4_scout_17b_a16e",
+    "seamless-m4t-medium": "repro_torch.configs.seamless_m4t_medium",
+    "internvl2-26b": "repro_torch.configs.internvl2_26b",
+    "hymba-1.5b": "repro_torch.configs.hymba_15b",
+    "mistral-large-123b": "repro_torch.configs.mistral_large_123b",
 }
-ALL_IDS = list(_CONFIGS)
+ARCH_IDS = [k for k in _MODULES if k != "nanochat-d20"]
+ALL_IDS = list(_MODULES)
 
 
 def get_config(arch_id: str) -> ModelConfig:
-    if arch_id not in _CONFIGS:
-        raise NotImplementedError(f"arch {arch_id!r} is not ported; the "
+    if arch_id not in _MODULES:
+        raise NotImplementedError(f"arch {arch_id!r} is not registered; the "
                                   f"port has {ALL_IDS}")
-    return _CONFIGS[arch_id]
+    return importlib.import_module(_MODULES[arch_id]).CONFIG
 
 
 def get_reduced(arch_id: str) -> ModelConfig:

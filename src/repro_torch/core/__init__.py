@@ -17,25 +17,29 @@ from repro_torch.core.grpo import GRPOTrainer, arith_reward_fn, grpo_loss
 from repro_torch.core.outer_opt import OuterState
 from repro_torch.core.schedule import AdaptiveH, FixedH, HSchedule, StagedH
 from repro_torch.core.streaming import (StreamingDiLoCoTrainer,
-                                        fragment_masks, run_streaming_diloco)
+                                        fragment_fraction, fragment_masks,
+                                        run_streaming_diloco)
 from repro_torch.core.sync import (AsyncGossipSync, CompressedDDPSync,
                                    DDPSync, DiLoCoSync, GossipRound,
                                    GossipSync, OverlappedSync, PipelinedSync,
                                    StreamingSync, SyncEvent, SyncRunner,
                                    SyncStrategy, compressed_ddp_config,
                                    gossip_peers, make_strategy,
-                                   strategy_names)
-from repro_torch.core.transport import OuterPayload, Transport, make_codec
+                                   register_strategy, strategy_names)
+from repro_torch.core.transport import (BF16Cast, Codec, F32Passthrough,
+                                        Int8Symmetric, OuterPayload,
+                                        Transport, make_codec)
 
-__all__ = ["AdaptiveH", "AsyncGossipSync", "CompressedDDPSync", "DDPState",
-           "DDPSync", "DDPTrainer", "DiLoCoState", "DiLoCoSync",
-           "DiLoCoTrainer", "DistTrainer", "FaultEvent", "FaultSchedule",
-           "FixedH", "FleetTracker", "GRPOTrainer", "GossipRound",
-           "GossipSync", "HSchedule", "OuterPayload", "OuterState",
+__all__ = ["AdaptiveH", "AsyncGossipSync", "BF16Cast", "Codec",
+           "CompressedDDPSync", "DDPState", "DDPSync", "DDPTrainer",
+           "DiLoCoState", "DiLoCoSync", "DiLoCoTrainer", "DistTrainer",
+           "F32Passthrough", "FaultEvent", "FaultSchedule", "FixedH",
+           "FleetTracker", "GRPOTrainer", "GossipRound", "GossipSync",
+           "HSchedule", "Int8Symmetric", "OuterPayload", "OuterState",
            "OverlappedSync", "PipelinedSync", "RoundInfo", "SimulatedCrash",
            "StagedH", "StreamingDiLoCoTrainer", "StreamingSync", "SyncEvent",
            "SyncRunner", "SyncStrategy", "Transport", "arith_reward_fn",
-           "compressed_ddp_config", "drift", "fragment_masks",
-           "gossip_peers", "grpo_loss", "make_codec", "make_strategy",
-           "outer_opt", "run_ddp", "run_diloco", "run_streaming_diloco",
-           "strategy_names"]
+           "compressed_ddp_config", "drift", "fragment_fraction",
+           "fragment_masks", "gossip_peers", "grpo_loss", "make_codec",
+           "make_strategy", "outer_opt", "register_strategy", "run_ddp",
+           "run_diloco", "run_streaming_diloco", "strategy_names"]

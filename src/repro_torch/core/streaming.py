@@ -53,6 +53,20 @@ def fragment_masks(params, num_fragments: int) -> List[Fragment]:
     return frags
 
 
+def fragment_fraction(params, frag: Fragment) -> float:
+    """The share of the parameters' elements that fragment ``frag`` (one
+    of :func:`fragment_masks`) selects."""
+    flat = flatten(params) if any(isinstance(v, dict)
+                                  for v in params.values()) else params
+    tot = sum(leaf.numel() for leaf in flat.values())
+    sel = 0
+    for path, leaf in flat.items():
+        sl = frag.get(path)
+        if sl is not None:
+            sel += leaf[sl].numel()
+    return sel / max(tot, 1)
+
+
 @dataclasses.dataclass(frozen=True)
 class StreamingDiLoCoTrainer(DiLoCoTrainer):
     """DiLoCoTrainer whose outer step may touch ONE fragment: only that

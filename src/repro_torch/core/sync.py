@@ -1383,8 +1383,19 @@ _STRATEGY_REGISTRY: Dict[str, Any] = {
 }
 
 
+def register_strategy(name: str):
+    """Decorator: register a ``factory(cfg, h_schedule) -> SyncStrategy``
+    under ``name`` (the ``DiLoCoConfig.strategy`` spelling), which
+    ``make_strategy`` then builds."""
+    def deco(factory):
+        _STRATEGY_REGISTRY[name] = factory
+        return factory
+    return deco
+
+
 def strategy_names() -> Tuple[str, ...]:
-    """Strategy names, in the reference's registration order."""
+    """Registered strategy names, in registration order (the reference's
+    for the built-in ones)."""
     return tuple(_STRATEGY_REGISTRY)
 
 

@@ -11,13 +11,16 @@
 // the JAX package's gradient of this function is jax.grad of its jnp
 // reference (kernels/flash_attention/ref.py reference_attention).
 //
-// Function: q (B, S, H, D), k/v (B, S, KV, D) with H % KV == 0 (query head
-// h reads KV head h / G, G = H / KV), scores (q . k) / sqrt(D) in f32,
-// causal (key <= query) unless causal == 0, and with window > 0 only keys
-// with query - key < window.  o (B, S, H, D) in q's dtype; lse (B, H, S)
-// f32.  The layout is the one the model's projections give, so no
-// transpose is needed on either side.  S need not be a multiple of a tile:
-// rows and keys past S are masked.
+// Function: q (B, Sq, H, D), k/v (B, Sk, KV, D) with H % KV == 0 (query
+// head h reads KV head h / G, G = H / KV), scores (q . k) / sqrt(D) in
+// f32, causal (key <= query) unless causal == 0, and with window > 0 only
+// keys with query - key < window.  o (B, Sq, H, D) in q's dtype; lse
+// (B, H, Sq) f32.  The layout is the one the model's projections give, so
+// no transpose is needed on either side.  Sq and Sk need not be multiples
+// of a tile: rows past Sq and keys past Sk are masked.  Sq may differ from
+// Sk only when causal == 0 and window == 0 (an encoder's or a
+// cross-attention's keys; the Pallas kernel tiles Sq and Sk each on its
+// own): an entry refuses the other cases with cudaErrorInvalidValue.
 //
 // What bounds it.  At the training shape (B 4, H 10, S 1024, D 128) the
 // forward does 4*B*H*S^2*D / 2 FLOPs on 4*B*S*H*D*4 bytes, 128 FLOPs a
@@ -66,10 +69,13 @@
 //   directly (key 2t and 2t + 1 of an 8-key block map to k = t and
 //   t + 4).  A masked score is probability 0 exactly; a row's running max
 //   starts at -inf and exp() is never taken of -inf - -inf, so no NaN
-//   arises where a tile masks a whole row; rows past S are never written.
+//   arises where a tile masks a whole row; rows past Sq are never
+//   written.
 // * forward: one CTA per (q tile, head, batch), the last q tile (the most
 //   keys under the causal mask) launched first; online softmax over the
-//   KV tiles; o = acc / l, lse = m + log l.  With FP8_QK, every row of the
+//   KV tiles, each tile's P.V summed on the tensor cores from zero and
+//   added to the rescaled running sum by an FMA (rounded to nearest);
+//   o = acc / l, lse = m + log l.  With FP8_QK, every row of the
 //   staged Q tile (once) and of each K tile (after it lands) is replaced
 //   in place by the values of its e4m3 codes under the row's own scale
 //   max(amax, 1e-12) / 448 (true division, clip to +-448, round to nearest
@@ -78,9 +84,9 @@
 //   1/sqrt(D), in that order, as qk_dot_fp8 does.  P.V stays f32.
 // * backward, FA2's split, no atomics, the same bits on every run:
 //   - delta = rowsum(dO * O), one warp per row;
-//   - dK/dV: one CTA per (KV tile, KV head, batch), k0 = 0 first; it loops
-//     over the G query heads of the group and the query tiles that can see
-//     the keys, and does S^T = K Q^T, dP^T = V dO^T, P^T = exp(S^T * scale
+//   - dK/dV: one CTA per (KV tile of Sk, KV head, batch), k0 = 0 first; it
+//     loops over the G query heads of the group and the query tiles that
+//     can see the keys, and does S^T = K Q^T, dP^T = V dO^T, P^T = exp(S^T * scale
 //     - lse), dV += P^T dO, dS^T = P^T * (dP^T - delta), dK += dS^T Q;
 //     the group sums in registers; dK is scaled once at the end;
 //   - dQ: one CTA per (q tile, head, batch), last tile first, over the KV
@@ -278,7 +284,8 @@ __device__ __forceinline__ void cp_wait_one() {
 }
 
 // Rows r0 .. r0 + ROWS - 1 of a (B, S, NH, D) tensor at head h into a
-// staged tile by cp.async; rows past S are zero.
+// staged tile by cp.async; rows past S are zero (S is the tensor's own
+// length: Sq for q, o and dO, Sk for k and v).
 template <typename T, int D, int ROWS>
 __device__ __forceinline__ void stage(T* dst, const T* __restrict__ src, int b,
                                       int r0, int h, int S, int NH) {
@@ -321,36 +328,39 @@ __device__ void fp8_rows(T* x, float* scale) {
   }
 }
 
-__device__ __forceinline__ bool visible(int qi, int ki, int S, int causal,
-                                        int window) {
-  return qi < S && ki < S && (!causal || ki <= qi) &&
+__device__ __forceinline__ bool visible(int qi, int ki, int Sq, int Sk,
+                                        int causal, int window) {
+  return qi < Sq && ki < Sk && (!causal || ki <= qi) &&
          (window <= 0 || qi - ki < window);
 }
 
 // Every (query, key) of queries [qa, qa + nq) and keys [ka, ka + nk) is
 // visible: the block needs no mask.
 __device__ __forceinline__ bool all_visible(int qa, int nq, int ka, int nk,
-                                            int S, int causal, int window) {
+                                            int Sq, int Sk, int causal,
+                                            int window) {
   const int qz = qa + nq - 1, kz = ka + nk - 1;
-  return qz < S && kz < S && (!causal || kz <= qa) &&
+  return qz < Sq && kz < Sk && (!causal || kz <= qa) &&
          (window <= 0 || qz - ka < window);
 }
 
 // No (query, key) of those blocks is visible: a warp skips the block, which
 // leaves its state exactly as a block of masked scores would.
 __device__ __forceinline__ bool none_visible(int qa, int nq, int ka, int nk,
-                                             int S, int causal, int window) {
-  return qa >= S || ka >= S || (causal && ka > qa + nq - 1) ||
+                                             int Sq, int Sk, int causal,
+                                             int window) {
+  return qa >= Sq || ka >= Sk || (causal && ka > qa + nq - 1) ||
          (window > 0 && qa - (ka + nk - 1) >= window);
 }
 
 template <bool B> struct Flag { static constexpr bool value = B; };
 
-// Key tiles of BN keys that the query rows [q0, q0 + kRows) can see: [lo, hi).
+// Key tiles of BN keys (of Sk) that the query rows [q0, q0 + kRows) can
+// see: [lo, hi).
 template <int BN>
-__device__ __forceinline__ void key_tiles(int q0, int S, int causal,
+__device__ __forceinline__ void key_tiles(int q0, int Sk, int causal,
                                           int window, int* lo, int* hi) {
-  const int k_hi = causal ? min(S, q0 + kRows) : S;
+  const int k_hi = causal ? min(Sk, q0 + kRows) : Sk;
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   *lo = k_lo / BN;
   *hi = (k_hi + BN - 1) / BN;
@@ -442,8 +452,8 @@ template <typename T, int D, int BN, bool FP8_QK>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int S, int H, int KV, float scale,
-                 int causal, int window) {
+                 float* __restrict__ lse, int Sq, int Sk, int H, int KV,
+                 float scale, int causal, int window) {
   constexpr bool QK_EXACT = FP8_QK || sizeof(T) == 2;
   constexpr bool V_EXACT = sizeof(T) == 2;
   constexpr int NB = BN / 8, ND = D / 8;
@@ -458,10 +468,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3, r0 = 16 * warp;
   int kt_lo, kt_hi;
-  key_tiles<BN>(q0, S, causal, window, &kt_lo, &kt_hi);
-  stage<T, D, kRows>(Qs, q, b, q0, h, S, H);
-  stage<T, D, BN>(Ks, k, b, kt_lo * BN, kvh, S, KV);
-  stage<T, D, BN>(Vs, v, b, kt_lo * BN, kvh, S, KV);
+  key_tiles<BN>(q0, Sk, causal, window, &kt_lo, &kt_hi);
+  stage<T, D, kRows>(Qs, q, b, q0, h, Sq, H);
+  stage<T, D, BN>(Ks, k, b, kt_lo * BN, kvh, Sk, KV);
+  stage<T, D, BN>(Vs, v, b, kt_lo * BN, kvh, Sk, KV);
   cp_commit();
 
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
@@ -475,8 +485,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* Kt = Ks + st * BN * D;
     T* Vt = Vs + st * BN * D;
     if (kt + 1 < kt_hi) {
-      stage<T, D, BN>(Ks + (st ^ 1) * BN * D, k, b, k0 + BN, kvh, S, KV);
-      stage<T, D, BN>(Vs + (st ^ 1) * BN * D, v, b, k0 + BN, kvh, S, KV);
+      stage<T, D, BN>(Ks + (st ^ 1) * BN * D, k, b, k0 + BN, kvh, Sk, KV);
+      stage<T, D, BN>(Vs + (st ^ 1) * BN * D, v, b, k0 + BN, kvh, Sk, KV);
     }
     cp_commit();
     cp_wait_one();
@@ -486,7 +496,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       fp8_rows<T, D, BN>(Kt, Ksc + st * BN);
       __syncthreads();
     }
-    if (!none_visible(q0 + r0, 16, k0, BN, S, causal, window)) {
+    if (!none_visible(q0 + r0, 16, k0, BN, Sq, Sk, causal, window)) {
       float s[NB][4];
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb)
@@ -506,13 +516,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
               x = x * Qsc[r0 + g + 8 * hr] * Ksc[st * BN + kc];
             x *= scale;
             if constexpr (decltype(masked)::value)
-              if (!visible(q0 + r0 + g + 8 * hr, k0 + kc, S, causal, window))
+              if (!visible(q0 + r0 + g + 8 * hr, k0 + kc, Sq, Sk, causal,
+                           window))
                 x = -INFINITY;
             s[nb][e] = x;
             mx[hr] = fmaxf(mx[hr], x);
           }
       };
-      if (all_visible(q0 + r0, 16, k0, BN, S, causal, window))
+      if (all_visible(q0 + r0, 16, k0, BN, Sq, Sk, causal, window))
         scores(Flag<false>());
       else
         scores(Flag<true>());
@@ -535,24 +546,35 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) l[hr] = l[hr] * alpha[hr] + quad_sum(ps[hr]);
+      // This tile's P.V on its own, then one rounding to nearest into the
+      // running sum: the tensor cores' f32 accumulation does not round to
+      // nearest, and over a long row of key tiles (a non-causal 1024) its
+      // error reached the gradients through o and lse (1e-4 of a leaf's
+      // largest magnitude at seamless's cross-attention; 1e-5 with the
+      // tile sums kept apart).
+      float pv[ND][4];
+#pragma unroll
+      for (int c = 0; c < ND; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pv[c][e] = 0.f;
+      mma_pv<T, D, NB, V_EXACT>(pv, s, Vt, g, t);
 #pragma unroll
       for (int c = 0; c < ND; ++c) {
-        acc[c][0] *= alpha[0];
-        acc[c][1] *= alpha[0];
-        acc[c][2] *= alpha[1];
-        acc[c][3] *= alpha[1];
+        acc[c][0] = fmaf(acc[c][0], alpha[0], pv[c][0]);
+        acc[c][1] = fmaf(acc[c][1], alpha[0], pv[c][1]);
+        acc[c][2] = fmaf(acc[c][2], alpha[1], pv[c][2]);
+        acc[c][3] = fmaf(acc[c][3], alpha[1], pv[c][3]);
       }
-      mma_pv<T, D, NB, V_EXACT>(acc, s, Vt, g, t);
     }
     __syncthreads();                 // the stage is refilled next iteration
   }
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int qi = q0 + r0 + g + 8 * hr;
-    if (qi >= S) continue;
-    store_row<T, D>(o + ((static_cast<size_t>(b) * S + qi) * H + h) * D, acc,
+    if (qi >= Sq) continue;
+    store_row<T, D>(o + ((static_cast<size_t>(b) * Sq + qi) * H + h) * D, acc,
                     hr, t, 1.f / l[hr]);
-    if (t == 0) lse[(static_cast<size_t>(b) * H + h) * S + qi] = m[hr] + logf(l[hr]);
+    if (t == 0) lse[(static_cast<size_t>(b) * H + h) * Sq + qi] = m[hr] + logf(l[hr]);
   }
 }
 
@@ -588,8 +610,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, T* __restrict__ dk,
-                      T* __restrict__ dv, int S, int H, int KV, float scale,
-                      int causal, int window) {
+                      T* __restrict__ dv, int Sq, int Sk, int H, int KV,
+                      float scale, int causal, int window) {
   constexpr bool E = sizeof(T) == 2;          // inputs exact in TF32
   constexpr int NB = BQ / 8, ND = D / 8;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -605,19 +627,19 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int g = lane >> 2, t = lane & 3, r0 = 16 * warp;
   // query tiles that can see a key of [k0, k0 + kRows), for each head
   const int q_lo = causal ? k0 : 0;
-  const int q_hi = window > 0 ? min(S, k0 + kRows - 1 + window) : S;
+  const int q_hi = window > 0 ? min(Sq, k0 + kRows - 1 + window) : Sq;
   const int qt_lo = q_lo / BQ, nq = (q_hi + BQ - 1) / BQ - qt_lo;
   const int total = G * nq;
   auto stage_tile = [&](int it, int st) {
     const int h = kvh * G + it / nq, q0 = (qt_lo + it % nq) * BQ;
-    const size_t row = (static_cast<size_t>(b) * H + h) * S;
-    stage<T, D, BQ>(Qs + st * BQ * D, q, b, q0, h, S, H);
-    stage<T, D, BQ>(dOs + st * BQ * D, dout, b, q0, h, S, H);
-    stage_row<BQ>(Ls + st * BQ, lse + row, q0, S);
-    stage_row<BQ>(Ds + st * BQ, delta + row, q0, S);
+    const size_t row = (static_cast<size_t>(b) * H + h) * Sq;
+    stage<T, D, BQ>(Qs + st * BQ * D, q, b, q0, h, Sq, H);
+    stage<T, D, BQ>(dOs + st * BQ * D, dout, b, q0, h, Sq, H);
+    stage_row<BQ>(Ls + st * BQ, lse + row, q0, Sq);
+    stage_row<BQ>(Ds + st * BQ, delta + row, q0, Sq);
   };
-  stage<T, D, kRows>(Ks, k, b, k0, kvh, S, KV);
-  stage<T, D, kRows>(Vs, v, b, k0, kvh, S, KV);
+  stage<T, D, kRows>(Ks, k, b, k0, kvh, Sk, KV);
+  stage<T, D, kRows>(Vs, v, b, k0, kvh, Sk, KV);
   stage_tile(0, 0);
   cp_commit();
 
@@ -637,7 +659,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_wait_one();
     __syncthreads();
     // S^T = K Q^T and dP^T = V dO^T: rows are this warp's keys
-    if (!none_visible(q0, BQ, k0 + r0, 16, S, causal, window)) {
+    if (!none_visible(q0, BQ, k0 + r0, 16, Sq, Sk, causal, window)) {
       float s[NB][4], dp[NB][4];
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb)
@@ -653,12 +675,12 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const int ki = k0 + r0 + g + 8 * (e >> 1), qc = 8 * nb + 2 * t + (e & 1);
             float p = exp2f((s[nb][e] * scale - Lt[qc]) * kLog2e);
             if constexpr (decltype(masked)::value)
-              if (!visible(q0 + qc, ki, S, causal, window)) p = 0.f;
+              if (!visible(q0 + qc, ki, Sq, Sk, causal, window)) p = 0.f;
             s[nb][e] = p;
             dp[nb][e] = p * (dp[nb][e] - Dt[qc]);
           }
       };
-      if (all_visible(q0, BQ, k0 + r0, 16, S, causal, window))
+      if (all_visible(q0, BQ, k0 + r0, 16, Sq, Sk, causal, window))
         grads(Flag<false>());
       else
         grads(Flag<true>());
@@ -670,8 +692,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int ki = k0 + r0 + g + 8 * hr;
-    if (ki >= S) continue;
-    const size_t off = ((static_cast<size_t>(b) * S + ki) * KV + kvh) * D;
+    if (ki >= Sk) continue;
+    const size_t off = ((static_cast<size_t>(b) * Sk + ki) * KV + kvh) * D;
     store_row<T, D>(dk + off, dk_acc, hr, t, scale);
     store_row<T, D>(dv + off, dv_acc, hr, t, 1.f);
   }
@@ -683,7 +705,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
-                    int S, int H, int KV, float scale, int causal,
+                    int Sq, int Sk, int H, int KV, float scale, int causal,
                     int window) {
   constexpr bool E = sizeof(T) == 2;
   constexpr int NB = BN / 8, ND = D / 8;
@@ -697,19 +719,19 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3, r0 = 16 * warp;
   int kt_lo, kt_hi;
-  key_tiles<BN>(q0, S, causal, window, &kt_lo, &kt_hi);
-  stage<T, D, kRows>(Qs, q, b, q0, h, S, H);
-  stage<T, D, kRows>(dOs, dout, b, q0, h, S, H);
-  stage<T, D, BN>(Ks, k, b, kt_lo * BN, kvh, S, KV);
-  stage<T, D, BN>(Vs, v, b, kt_lo * BN, kvh, S, KV);
+  key_tiles<BN>(q0, Sk, causal, window, &kt_lo, &kt_hi);
+  stage<T, D, kRows>(Qs, q, b, q0, h, Sq, H);
+  stage<T, D, kRows>(dOs, dout, b, q0, h, Sq, H);
+  stage<T, D, BN>(Ks, k, b, kt_lo * BN, kvh, Sk, KV);
+  stage<T, D, BN>(Vs, v, b, kt_lo * BN, kvh, Sk, KV);
   cp_commit();
   float L[2], Dl[2];
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int qi = q0 + r0 + g + 8 * hr;
-    const size_t i = (static_cast<size_t>(b) * H + h) * S + qi;
-    L[hr] = qi < S ? lse[i] : 0.f;
-    Dl[hr] = qi < S ? delta[i] : 0.f;
+    const size_t i = (static_cast<size_t>(b) * H + h) * Sq + qi;
+    L[hr] = qi < Sq ? lse[i] : 0.f;
+    Dl[hr] = qi < Sq ? delta[i] : 0.f;
   }
 
   float acc[ND][4];
@@ -722,13 +744,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* Kt = Ks + st * BN * D;
     const T* Vt = Vs + st * BN * D;
     if (kt + 1 < kt_hi) {
-      stage<T, D, BN>(Ks + (st ^ 1) * BN * D, k, b, k0 + BN, kvh, S, KV);
-      stage<T, D, BN>(Vs + (st ^ 1) * BN * D, v, b, k0 + BN, kvh, S, KV);
+      stage<T, D, BN>(Ks + (st ^ 1) * BN * D, k, b, k0 + BN, kvh, Sk, KV);
+      stage<T, D, BN>(Vs + (st ^ 1) * BN * D, v, b, k0 + BN, kvh, Sk, KV);
     }
     cp_commit();
     cp_wait_one();
     __syncthreads();
-    if (!none_visible(q0 + r0, 16, k0, BN, S, causal, window)) {
+    if (!none_visible(q0 + r0, 16, k0, BN, Sq, Sk, causal, window)) {
       float s[NB][4], dp[NB][4];
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb)
@@ -744,12 +766,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const int hr = e >> 1, kc = 8 * nb + 2 * t + (e & 1);
             float p = exp2f((s[nb][e] * scale - L[hr]) * kLog2e);
             if constexpr (decltype(masked)::value)
-              if (!visible(q0 + r0 + g + 8 * hr, k0 + kc, S, causal, window))
+              if (!visible(q0 + r0 + g + 8 * hr, k0 + kc, Sq, Sk, causal,
+                           window))
                 p = 0.f;
             s[nb][e] = p * (dp[nb][e] - Dl[hr]);    // dS
           }
       };
-      if (all_visible(q0 + r0, 16, k0, BN, S, causal, window))
+      if (all_visible(q0 + r0, 16, k0, BN, Sq, Sk, causal, window))
         grads(Flag<false>());
       else
         grads(Flag<true>());
@@ -760,8 +783,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int qi = q0 + r0 + g + 8 * hr;
-    if (qi >= S) continue;
-    store_row<T, D>(dq + ((static_cast<size_t>(b) * S + qi) * H + h) * D, acc,
+    if (qi >= Sq) continue;
+    store_row<T, D>(dq + ((static_cast<size_t>(b) * Sq + qi) * H + h) * D, acc,
                     hr, t, scale);
   }
 }
@@ -794,19 +817,26 @@ bool aligned16(const void* p) {
 
 int tiles(int S) { return (S + kRows - 1) / kRows; }
 
+// The lengths an entry takes: Sq != Sk only without the causal mask and
+// the window, whose masks compare a query's and a key's indices as
+// positions of one sequence.
+bool lengths_ok(int Sq, int Sk, int causal, int window) {
+  return Sq >= 0 && Sk >= 0 && (Sq == Sk || (!causal && window <= 0));
+}
+
 template <typename T, int D, bool FP8_QK>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
-                float* lse, int B, int S, int H, int KV, float scale,
+                float* lse, int B, int Sq, int Sk, int H, int KV, float scale,
                 int causal, int window, cudaStream_t st) {
   auto kern = flash_fwd_kernel<T, D, kFwdBN, FP8_QK>;
   const size_t smem = fwd_smem<T>(D, kFwdBN, FP8_QK);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid(H, B, tiles(S));
+  dim3 grid(H, B, tiles(Sq));
   kern<<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, KV, scale,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Sk, H, KV, scale,
       causal, window);
   return cudaGetLastError();
 }
@@ -814,15 +844,15 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
 template <typename T, int D>
 cudaError_t bwd(const void* q, const void* k, const void* v, const void* o,
                 const void* dout, const float* lse, float* delta, void* dq,
-                void* dk, void* dv, int B, int S, int H, int KV, float scale,
-                int causal, int window, cudaStream_t st) {
+                void* dk, void* dv, int B, int Sq, int Sk, int H, int KV,
+                float scale, int causal, int window, cudaStream_t st) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
-  const int rows = B * S * H;
+  const int rows = B * Sq * H;
   flash_bwd_delta_kernel<T><<<(rows + 7) / 8, 256, 0, st>>>(
-      static_cast<const T*>(o), dot, delta, rows, S, H, D);
+      static_cast<const T*>(o), dot, delta, rows, Sq, H, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   auto kdkdv = flash_bwd_dkdv_kernel<T, D, kDkdvBQ>;
@@ -830,9 +860,9 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* o,
   err = cudaFuncSetAttribute(kdkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(s_kv));
   if (err != cudaSuccess) return err;
-  kdkdv<<<dim3(KV, B, tiles(S)), kThreads, s_kv, st>>>(
+  kdkdv<<<dim3(KV, B, tiles(Sk)), kThreads, s_kv, st>>>(
       qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      S, H, KV, scale, causal, window);
+      Sq, Sk, H, KV, scale, causal, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   auto kdq = flash_bwd_dq_kernel<T, D, kDqBN>;
@@ -840,21 +870,21 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* o,
   err = cudaFuncSetAttribute(kdq, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(s_q));
   if (err != cudaSuccess) return err;
-  kdq<<<dim3(H, B, tiles(S)), kThreads, s_q, st>>>(
-      qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), S, H, KV, scale,
+  kdq<<<dim3(H, B, tiles(Sq)), kThreads, s_q, st>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), Sq, Sk, H, KV, scale,
       causal, window);
   return cudaGetLastError();
 }
 
 template <typename T, bool FP8_QK>
 cudaError_t fwd_d(int D, const void* q, const void* k, const void* v,
-                  void* o, float* lse, int B, int S, int H, int KV,
+                  void* o, float* lse, int B, int Sq, int Sk, int H, int KV,
                   float scale, int causal, int window, cudaStream_t st) {
   switch (D) {
-    case 16: return fwd<T, 16, FP8_QK>(q, k, v, o, lse, B, S, H, KV, scale, causal, window, st);
-    case 32: return fwd<T, 32, FP8_QK>(q, k, v, o, lse, B, S, H, KV, scale, causal, window, st);
-    case 64: return fwd<T, 64, FP8_QK>(q, k, v, o, lse, B, S, H, KV, scale, causal, window, st);
-    case 128: return fwd<T, 128, FP8_QK>(q, k, v, o, lse, B, S, H, KV, scale, causal, window, st);
+    case 16: return fwd<T, 16, FP8_QK>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale, causal, window, st);
+    case 32: return fwd<T, 32, FP8_QK>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale, causal, window, st);
+    case 64: return fwd<T, 64, FP8_QK>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale, causal, window, st);
+    case 128: return fwd<T, 128, FP8_QK>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale, causal, window, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -862,33 +892,35 @@ cudaError_t fwd_d(int D, const void* q, const void* k, const void* v,
 template <typename T>
 cudaError_t bwd_d(int D, const void* q, const void* k, const void* v,
                   const void* o, const void* dout, const float* lse,
-                  float* delta, void* dq, void* dk, void* dv, int B, int S,
-                  int H, int KV, float scale, int causal, int window,
+                  float* delta, void* dq, void* dk, void* dv, int B, int Sq,
+                  int Sk, int H, int KV, float scale, int causal, int window,
                   cudaStream_t st) {
   switch (D) {
-    case 16: return bwd<T, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KV, scale, causal, window, st);
-    case 32: return bwd<T, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KV, scale, causal, window, st);
-    case 64: return bwd<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KV, scale, causal, window, st);
-    case 128: return bwd<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KV, scale, causal, window, st);
+    case 16: return bwd<T, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, scale, causal, window, st);
+    case 32: return bwd<T, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, scale, causal, window, st);
+    case 64: return bwd<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, scale, causal, window, st);
+    case 128: return bwd<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, scale, causal, window, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <bool FP8_QK>
 int fwd_any(int dtype, const void* q, const void* k, const void* v, void* o,
-            void* lse, int B, int S, int H, int KV, int D, float scale,
-            int causal, int window, void* stream) {
+            void* lse, int B, int Sq, int Sk, int H, int KV, int D,
+            float scale, int causal, int window, void* stream) {
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
     return static_cast<int>(cudaErrorMisalignedAddress);
+  if (!lengths_ok(Sq, Sk, causal, window))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0)
-    err = fwd_d<float, FP8_QK>(D, q, k, v, o, l, B, S, H, KV, scale, causal,
-                               window, st);
+    err = fwd_d<float, FP8_QK>(D, q, k, v, o, l, B, Sq, Sk, H, KV, scale,
+                               causal, window, st);
   else if (dtype == 1)
-    err = fwd_d<__nv_bfloat16, FP8_QK>(D, q, k, v, o, l, B, S, H, KV, scale,
-                                       causal, window, st);
+    err = fwd_d<__nv_bfloat16, FP8_QK>(D, q, k, v, o, l, B, Sq, Sk, H, KV,
+                                       scale, causal, window, st);
   return static_cast<int>(err);
 }
 
@@ -900,41 +932,44 @@ const char* repro_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// q (B, Sq, H, D), k / v (B, Sk, KV, D), o like q, lse (B, H, Sq) f32.
 int repro_flash_fwd(int dtype, const void* q, const void* k, const void* v,
-                    void* o, void* lse, int B, int S, int H, int KV, int D,
-                    float scale, int causal, int window, void* stream) {
-  return fwd_any<false>(dtype, q, k, v, o, lse, B, S, H, KV, D, scale, causal,
-                        window, stream);
+                    void* o, void* lse, int B, int Sq, int Sk, int H, int KV,
+                    int D, float scale, int causal, int window, void* stream) {
+  return fwd_any<false>(dtype, q, k, v, o, lse, B, Sq, Sk, H, KV, D, scale,
+                        causal, window, stream);
 }
 
 // The forward with QK^T on per-row fp8_e4m3 codes (same arguments).
 int repro_flash_fwd_fp8(int dtype, const void* q, const void* k,
-                        const void* v, void* o, void* lse, int B, int S, int H,
-                        int KV, int D, float scale, int causal, int window,
-                        void* stream) {
-  return fwd_any<true>(dtype, q, k, v, o, lse, B, S, H, KV, D, scale, causal,
-                       window, stream);
+                        const void* v, void* o, void* lse, int B, int Sq,
+                        int Sk, int H, int KV, int D, float scale, int causal,
+                        int window, void* stream) {
+  return fwd_any<true>(dtype, q, k, v, o, lse, B, Sq, Sk, H, KV, D, scale,
+                       causal, window, stream);
 }
 
-// delta is (B, H, S) f32 scratch.
+// delta is (B, H, Sq) f32 scratch.
 int repro_flash_bwd(int dtype, const void* q, const void* k, const void* v,
                     const void* o, const void* dout, const void* lse,
-                    void* delta, void* dq, void* dk, void* dv, int B, int S,
-                    int H, int KV, int D, float scale, int causal, int window,
-                    void* stream) {
+                    void* delta, void* dq, void* dk, void* dv, int B, int Sq,
+                    int Sk, int H, int KV, int D, float scale, int causal,
+                    int window, void* stream) {
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o) ||
       !aligned16(dout) || !aligned16(dq) || !aligned16(dk) || !aligned16(dv))
     return static_cast<int>(cudaErrorMisalignedAddress);
+  if (!lengths_ok(Sq, Sk, causal, window))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0)
-    err = bwd_d<float>(D, q, k, v, o, dout, l, dl, dq, dk, dv, B, S, H, KV,
-                       scale, causal, window, st);
+    err = bwd_d<float>(D, q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Sk, H,
+                       KV, scale, causal, window, st);
   else if (dtype == 1)
-    err = bwd_d<__nv_bfloat16>(D, q, k, v, o, dout, l, dl, dq, dk, dv, B, S,
-                               H, KV, scale, causal, window, st);
+    err = bwd_d<__nv_bfloat16>(D, q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq,
+                               Sk, H, KV, scale, causal, window, st);
   return static_cast<int>(err);
 }
 

@@ -3,14 +3,18 @@ the wrappers in ``ops.py`` and the yardstick the CUDA kernels are held to.
 
 The function is the JAX package's ``kernels/flash_attention/kernel.py``
 ``flash_attention_fwd`` (and its jnp oracle ``ref.py``
-``reference_attention``): causal softmax attention with an optional
-window, scale 1/sqrt(D), computed in f32, grouped-query.  The layout here
-is the model's: q (B, S, H, D), k/v (B, S, KV, D), H % KV == 0 — the JAX
-kernel takes (B, H, S, D), a transpose away.  Scores are materialised
-(B, KV, G, S, S); masked scores are the JAX code's finite -1e30, so their
-probabilities are exactly 0 and no row (every row sees its own key) is
-empty.  The forward also returns the row log-sum-exp (B, H, S) f32, which
-the backward uses to recompute the probabilities.
+``reference_attention``): softmax attention, causal unless
+``causal=False``, with an optional window, scale 1/sqrt(D), computed in
+f32, grouped-query.  The layout here is the model's: q (B, Sq, H, D),
+k/v (B, Sk, KV, D), H % KV == 0 — the JAX kernel takes (B, H, S, D), a
+transpose away.  Query i and key j sit at positions i and j, as in the
+JAX kernel's masks; Sq != Sk is a non-causal call without a window (the
+wrappers in ``ops.py`` refuse the rest).  Scores are materialised (B, KV,
+G, Sq, Sk); masked scores are the JAX code's finite -1e30, so their
+probabilities are exactly 0 and no row (every row sees its own key, or
+every key) is empty.  The forward also returns the row log-sum-exp
+(B, H, Sq) f32, which the backward uses to recompute the
+probabilities.
 
 ``flash_attention_fp8_plain`` is the plain version of the ``fp8=True``
 forward (QK^T on per-row fp8_e4m3 codes): the JAX oracle
@@ -29,12 +33,12 @@ import torch
 NEG_INF = -1e30
 
 
-def _mask(S: int, causal: bool, window: Optional[int],
+def _mask(Sq: int, Sk: int, causal: bool, window: Optional[int],
           device) -> torch.Tensor:
-    """(S, S) bool: query row i may see key column j."""
-    pos = torch.arange(S, device=device)
-    diff = pos[:, None] - pos[None, :]
-    ok = torch.ones((S, S), dtype=torch.bool, device=device)
+    """(Sq, Sk) bool: query row i may see key column j."""
+    diff = (torch.arange(Sq, device=device)[:, None]
+            - torch.arange(Sk, device=device)[None, :])
+    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
     if causal:
         ok &= diff >= 0
     if window:
@@ -43,13 +47,13 @@ def _mask(S: int, causal: bool, window: Optional[int],
 
 
 def _scores(q, k, causal, window):
-    """f32 masked scores (B, KV, G, S, S) and the f32 grouped q, k."""
+    """f32 masked scores (B, KV, G, Sq, Sk) and the f32 grouped q, k."""
     B, S, H, D = q.shape
     KV = k.shape[2]
     qf = q.float().reshape(B, S, KV, H // KV, D)
     kf = k.float()
     s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) / math.sqrt(D)
-    s = torch.where(_mask(S, causal, window, q.device), s,
+    s = torch.where(_mask(S, k.shape[1], causal, window, q.device), s,
                     torch.full_like(s, NEG_INF))
     return s, qf, kf
 
@@ -57,7 +61,7 @@ def _scores(q, k, causal, window):
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True,
                           window: Optional[int] = None):
-    """Returns (o (B, S, H, D) in q's dtype, lse (B, H, S) f32)."""
+    """Returns (o (B, Sq, H, D) in q's dtype, lse (B, H, Sq) f32)."""
     B, S, H, D = q.shape
     s, _, _ = _scores(q, k, causal, window)
     m = s.amax(dim=-1, keepdim=True)

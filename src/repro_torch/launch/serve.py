@@ -59,9 +59,11 @@ def build_requests(args, tok):
 
 
 # the configs built reduced, as the JAX launcher builds every ``--config``
+# (the VLM serves text only; the encoder-decoder takes the static path
+# over a zero cross cache, as the reference's engine serves them)
 REDUCED = ("qwen1.5-0.5b", "command-r-plus-104b", "mistral-large-123b",
            "nemotron-4-15b", "mixtral-8x7b", "llama4-scout-17b-a16e",
-           "hymba-1.5b")
+           "hymba-1.5b", "internvl2-26b", "seamless-m4t-medium")
 CONFIGS = ("tiny", "nanochat-d20", "mamba2-1.3b") + REDUCED
 
 
@@ -169,8 +171,9 @@ def main(argv=None):
     if engine.continuous:
         stats = engine.run([r for _, r in reqs], use_time=True)
         rows = [r.tokens for _, r in reqs]
-    else:   # ssm fallback: static buckets, grouped by max_new (the encoded
-            # prompt ids go straight through)
+    else:   # ssm / hybrid / encoder-decoder fallback: static buckets,
+            # grouped by max_new (the encoded prompt ids go straight
+            # through)
         rows = [None] * len(reqs)
         by_mn = {}
         for i, (_, r) in enumerate(reqs):

@@ -30,7 +30,10 @@ mid-train -> SFT), with the evals after each stage, under one of:
         [--fault-schedule crash:1@2,rejoin:1@4 [--min-quorum Q]] \\
         [--out-dir DIR] [--device cuda|cpu]
 
-``--steps N`` gives the stages N, N // 2 and N // 2 steps.
+``--steps N`` gives the stages N, N // 2 and N // 2 steps.  The VLM
+(internvl2-26b) and the encoder-decoder (seamless-m4t-medium) are
+refused: the stages' text data carries no image patches or audio frames
+(the reference's pipeline cannot train them either).
 ``--delta-dtype`` picks the outer-sync wire codec (int8 and fp8 carry
 per-tensor scales and an error-feedback residual and run the quantize
 kernels on the card; see ``repro_torch.core.transport``).  Runs on the
@@ -263,6 +266,16 @@ def run_pipeline(method: str = "diloco", arch: str = "tiny",
     if worker_speeds and method != "ddp" and len(worker_speeds) != workers:
         raise ValueError(f"--worker-speeds needs one multiplier per worker: "
                          f"got {len(worker_speeds)} for {workers} workers")
+    if arch != "tiny":
+        full = get_config(arch)
+        if full.num_image_tokens or full.is_encoder_decoder:
+            # the reference's pipeline fails on these too (its lm_loss
+            # reads a batch["patches"] / ["frames"] the stage data never
+            # holds)
+            what = ("patches for this VLM" if full.num_image_tokens
+                    else "frames for this encoder-decoder")
+            raise NotImplementedError(f"arch {arch!r}: the pipeline's text "
+                                      f"data has no {what}")
     device = resolve_device(device)
     steps = steps or {"base": 300, "mid": 120, "sft": 120}
     world, tok, stages, suites = build_pipeline(seq_len=seq_len, seed=seed)

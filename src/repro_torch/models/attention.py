@@ -7,6 +7,16 @@ attention with an optional window, so here all map onto the one flash
 function (``repro_torch.kernels.flash_attention``), whose backward is a
 kernel too.  Nothing of size (B, H, S, S) is kept for autograd.
 
+Encoder-decoder: the encoder's self-attention (``encoder_attention``) is
+bidirectional and has no RoPE, as the reference's ``encode`` computes it
+through ``_direct`` with no mask; cross-attention (``attention(...,
+memory=)``) takes K / V from the encoder's output, with no RoPE and no
+mask, over the memory's own length.  Both run the flash kernel with
+``causal=False``, the cross one at Sq != Sk.  Its decode
+(``decode_attention(..., memory_cache=)``) reads a cross cache of
+``precompute_cross_cache`` through the ring decode kernel with every key
+visible: slot positions 0 .. Se - 1 and the query at Se - 1, window 0.
+
 Paged serving: GQA is computed grouped: queries are shaped (S, T, KV, G, hd),
 so KV heads are never repeated.  The fresh K/V of every live token are
 written into the pool IN PLACE before the attention reads it (the JAX package returns
@@ -152,40 +162,88 @@ def paged_inputs(positions: torch.Tensor, block_table: torch.Tensor,
                        n_tok)
 
 
-def project_qkv(p, x: torch.Tensor, cfg: ModelConfig, mm=torch.matmul):
+def project_qkv(p, x: torch.Tensor, cfg: ModelConfig, mm=torch.matmul,
+                xkv: Optional[torch.Tensor] = None):
     """x: (S, T, d) -> q (S, T, KV, G, hd), k/v (S, T, KV, hd) (for
     training, (B, S, d) in, the same shapes with B, S); ``mm`` is the
-    matrix product (``serving_matmul`` when serving)."""
+    matrix product (``serving_matmul`` when serving).  ``xkv`` (B, Sk, d):
+    K and V from these rows instead (cross-attention's memory)."""
     dt = x.dtype
     hd = cfg.resolved_head_dim()
+    xkv = x if xkv is None else xkv
     q = mm(x, cast(p["wq"], dt))
-    k = mm(x, cast(p["wk"], dt))
-    v = mm(x, cast(p["wv"], dt))
+    k = mm(xkv, cast(p["wk"], dt))
+    v = mm(xkv, cast(p["wv"], dt))
     if "bq" in p:
         q = q + cast(p["bq"], dt)
         k = k + cast(p["bk"], dt)
         v = v + cast(p["bv"], dt)
     S, T = x.shape[:2]
+    Sk = xkv.shape[1]
     KV = cfg.num_kv_heads
     return (q.reshape(S, T, KV, cfg.num_heads // KV, hd),
-            k.reshape(S, T, KV, hd), v.reshape(S, T, KV, hd))
+            k.reshape(S, Sk, KV, hd), v.reshape(S, Sk, KV, hd))
 
 
 def attention(p, x: torch.Tensor, cfg: ModelConfig, *,
-              positions: torch.Tensor,
-              window: Optional[int] = None) -> torch.Tensor:
-    """Training / prefill self-attention over a full causal sequence.
-    x: (B, S, d); positions: (S,) — the JAX package's ``attention`` with
-    ``memory`` None.  Returns y (B, S, d)."""
+              positions: torch.Tensor, window: Optional[int] = None,
+              memory: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Training / prefill attention: self-attention over a full causal
+    sequence, or with ``memory`` (B, Se, d) cross-attention, bidirectional
+    over the encoder's output (no RoPE, no window).  x: (B, S, d);
+    positions: (S,) — the JAX package's ``attention``.  Returns y
+    (B, S, d)."""
+    B, S = x.shape[:2]
+    H, hd = cfg.num_heads, cfg.resolved_head_dim()
+    q, k, v = project_qkv(p, x, cfg, xkv=memory)
+    q = q.reshape(B, S, H, hd)
+    if memory is None:
+        cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                          causal=memory is None,
+                          window=(window or None) if memory is None
+                          else None)
+    return out.reshape(B, S, H * hd) @ cast(p["wo"], x.dtype)
+
+
+def encoder_attention(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The encoder's self-attention: bidirectional over its frames, no
+    RoPE, no window (the reference's ``encode``: ``_direct`` with no
+    mask).  x: (B, S, d); returns y (B, S, d)."""
     B, S = x.shape[:2]
     H, hd = cfg.num_heads, cfg.resolved_head_dim()
     q, k, v = project_qkv(p, x, cfg)
-    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
-    q = apply_rope(q.reshape(B, S, H, hd), cos, sin)
-    k = apply_rope(k, cos, sin)
-    out = flash_attention(q, k, v.contiguous(), causal=True,
-                          window=window or None)
+    out = flash_attention(q.reshape(B, S, H, hd).contiguous(),
+                          k.contiguous(), v.contiguous(), causal=False)
     return out.reshape(B, S, H * hd) @ cast(p["wo"], x.dtype)
+
+
+def precompute_cross_cache(p, memory: torch.Tensor,
+                           cfg: ModelConfig) -> dict:
+    """One layer's cross-attention K / V of the encoder's output ``memory``
+    (B, Se, d), computed once per request (the reference's
+    ``precompute_cross_cache``, no bias): {"k", "v"} each (B, KV, Se, hd),
+    the ring decode kernel's layout (the reference's is (B, Se, KV,
+    hd))."""
+    B, Se = memory.shape[:2]
+    hd, KV = cfg.resolved_head_dim(), cfg.num_kv_heads
+    dt = memory.dtype
+    k = (memory @ cast(p["wk"], dt)).reshape(B, Se, KV, hd)
+    v = (memory @ cast(p["wv"], dt)).reshape(B, Se, KV, hd)
+    return {"k": k.transpose(1, 2).contiguous(),
+            "v": v.transpose(1, 2).contiguous()}
+
+
+def cross_positions(batch: int, memory_len: int, device) -> tuple:
+    """(slot positions (B, Se), query positions (B,)) int32 under which
+    the ring decode kernel sees every one of Se memory keys: slots at
+    0 .. Se - 1, the query at Se - 1."""
+    pos = torch.arange(memory_len, dtype=torch.int32, device=device)
+    return (pos.expand(batch, memory_len).contiguous(),
+            torch.full((batch,), memory_len - 1, dtype=torch.int32,
+                       device=device))
 
 
 def _scatter(pool: torch.Tensor, rows: torch.Tensor,
@@ -305,13 +363,23 @@ def decode_attention(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, *,
     is garbage nothing reads); window: 0 = none.  ``rope``: the (cos, sin)
     tables of ``position``, when the caller shares them across layers.
     Returns (y (B, 1, d), cache with idx advanced), the tensors updated in
-    place.  Cross-attention (``memory_cache``) waits for the
-    encoder-decoder slice."""
-    if memory_cache is not None:
-        raise NotImplementedError("cross-attention decode (encoder-decoder "
-                                  "archs) is not ported")
+    place.
+
+    With ``memory_cache`` (one layer's {"k", "v"} (B, KV, Se, hd) of
+    :func:`precompute_cross_cache`) it is cross-attention instead: the
+    query (no bias, no RoPE) against every memory key through the ring
+    decode kernel (:func:`cross_positions`); ``cache`` and ``position``
+    are not read, and ``cache`` comes back as given."""
     B = x.shape[0]
     H, hd = cfg.num_heads, cfg.resolved_head_dim()
+    if memory_cache is not None:
+        KV, Se = cfg.num_kv_heads, memory_cache["k"].shape[2]
+        q = x @ cast(p["wq"], x.dtype)
+        pos, q_pos = cross_positions(B, Se, x.device)
+        out = attn_kernels.decode_attention(
+            q.reshape(B, KV, H // KV, hd), memory_cache["k"],
+            memory_cache["v"], pos, q_pos, window=0)
+        return out.reshape(B, 1, H * hd) @ cast(p["wo"], x.dtype), cache
     q, k_new, v_new = project_qkv(p, x, cfg)
     cos, sin = rope if rope is not None else rope_cos_sin(
         position[:, None], hd, cfg.rope_theta)

@@ -1,13 +1,16 @@
 """Core layers of the dense decoder: norms, rotary embeddings, embedding /
-unembedding, the SwiGLU and squared-ReLU MLPs and the cross-entropy loss,
-as plain functions on tensors.
+unembedding, the SwiGLU, squared-ReLU and gelu MLPs and the
+cross-entropy loss, as plain functions on tensors.
 
 Parameters are nested dicts of tensors with the JAX package's layout:
 matrices are ``(d_in, d_out)`` and applied as ``x @ W``; norms carry a
-float32 ``scale``.  Norms go through the RMSNorm kernels
-(``repro_torch.kernels.rmsnorm``): the CUDA kernel for CUDA tensors, its
-plain version for CPU tensors; both are differentiable, with a backward
-kernel of their own.
+float32 ``scale`` (and a LayerNorm a ``bias``).  RMSNorms go through the
+RMSNorm kernels (``repro_torch.kernels.rmsnorm``): the CUDA kernel for
+CUDA tensors, its plain version for CPU tensors; both are
+differentiable, with a backward kernel of their own.  LayerNorm
+(``norm="layernorm"``, the encoder-decoder's) is plain PyTorch in the
+reference's order, as the JAX package computes it in plain jnp: it has
+no TPU kernel to port.
 """
 from __future__ import annotations
 
@@ -37,21 +40,37 @@ def cast(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 # Norms
 # ---------------------------------------------------------------------------
 
-def _require_rmsnorm(cfg: ModelConfig) -> None:
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r}: the port has the "
-                                  f"RMSNorm kernel only")
+def _is_layernorm(cfg: ModelConfig) -> bool:
+    if cfg.norm not in ("rmsnorm", "layernorm"):
+        raise NotImplementedError(f"norm {cfg.norm!r}: the port has rmsnorm "
+                                  f"and layernorm")
+    return cfg.norm == "layernorm"
+
+
+def layernorm(p, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """The JAX package's LayerNorm, op for op in f32: centre, the mean of
+    squares, ``rsqrt(var + eps)``, times the scale, plus the bias; back in
+    x's dtype.  (``F.layer_norm`` sums its variance in another order.)"""
+    xf = x.float()
+    xf = xf - xf.mean(dim=-1, keepdim=True)
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
 
 
 def apply_norm(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    _require_rmsnorm(cfg)
+    if _is_layernorm(cfg):
+        return layernorm(p, x, cfg.norm_eps)
     return rmsnorm(x, p["scale"], eps=cfg.norm_eps)
 
 
 def apply_norm_residual(p, x: torch.Tensor, residual: torch.Tensor,
                         cfg: ModelConfig):
-    """``h = residual + x; return norm(h), h`` in one kernel."""
-    _require_rmsnorm(cfg)
+    """``h = residual + x; return norm(h), h``: one kernel for RMSNorm;
+    for LayerNorm the plain add, then the norm."""
+    if _is_layernorm(cfg):
+        h = residual + x
+        return layernorm(p, h, cfg.norm_eps), h
     return rmsnorm_residual(x, residual, p["scale"], eps=cfg.norm_eps)
 
 
@@ -113,16 +132,19 @@ def unembed(p, h: torch.Tensor, cfg: ModelConfig,
 
 def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig,
               mm=torch.matmul) -> torch.Tensor:
-    """SwiGLU, or nemotron-4's squared ReLU (``relu2``: no gate, so no
-    ``w_gate`` leaf); ``mm`` is the matrix product
-    (``attention.serving_matmul`` when serving)."""
-    if cfg.mlp_activation not in ("swiglu", "relu2"):
+    """SwiGLU, nemotron-4's squared ReLU (``relu2``) or gelu (the
+    encoder-decoder's: ``jax.nn.gelu``'s default, the tanh
+    approximation); the ungated two have no ``w_gate`` leaf.  ``mm`` is
+    the matrix product (``attention.serving_matmul`` when serving)."""
+    if cfg.mlp_activation not in ("swiglu", "relu2", "gelu"):
         raise NotImplementedError(f"mlp_activation {cfg.mlp_activation!r}: "
-                                  f"the port has swiglu and relu2")
+                                  f"the port has swiglu, relu2 and gelu")
     dt = x.dtype
     up = mm(x, cast(p["w_up"], dt))
     if cfg.mlp_activation == "swiglu":
         h = F.silu(mm(x, cast(p["w_gate"], dt))) * up
+    elif cfg.mlp_activation == "gelu":
+        h = F.gelu(up, approximate="tanh")
     else:
         h = torch.square(F.relu(up))
     return mm(h, cast(p["w_down"], dt))

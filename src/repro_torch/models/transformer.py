@@ -1,8 +1,26 @@
-"""The decoder-only LM — dense, MoE, mamba-2 (``arch_type="ssm"``) or
-hybrid (hymba: attention and SSM heads side by side in every block): the
-full-sequence forward and loss, the paged serving steps (dense and MoE),
-and the one-token decode step of the static-bucket serving path (every
-decoder-only arch).
+"""The LM — dense, MoE, mamba-2 (``arch_type="ssm"``), hybrid (hymba:
+attention and SSM heads side by side in every block), the VLM (image
+patches before the text) and the encoder-decoder: the full-sequence
+forward and loss, the paged serving steps (dense, MoE and the VLM's
+text), and the one-token decode step of the static-bucket serving path
+(every arch).
+
+VLM (``num_image_tokens``): ``batch["patches"]`` (B, n, d), projected
+patch embeddings, go before the embedded tokens; the layers run over
+positions 0 .. n + S - 1 under one causal mask, and the patch rows are cut
+off after the final norm, so logits and loss are the text's (B, S).
+Decode, paged and static, is text-only, as the reference's.
+
+Encoder-decoder (``is_encoder_decoder``): ``encode`` runs the
+``encoder`` stack over ``batch["frames"]`` (B, Se, d), bidirectional and
+without RoPE, then ``enc_norm``; each decoder block is ln1 ->
+self-attention -> add -> ``cross/ln`` -> cross-attention over the
+encoder's output -> add -> ln2 -> MLP -> add (every add fused with the
+next norm as below).  Its decode reads the per-layer cross K / V of
+``init_decode_cache``'s ``cross`` entry: zeros unless the caller fills it
+with ``attention.precompute_cross_cache``, as the reference's engine
+serves it.  These configs use LayerNorm and a gelu MLP
+(``models.layers``).
 
 Parameters are a nested dict of tensors with the JAX package's tree and
 leaf layout (``embed/table``, ``layers/attn/wq``, ...): per-layer leaves
@@ -78,15 +96,20 @@ from repro_torch.models.layers import (apply_mlp, apply_norm,
 Params = Dict[str, object]
 
 
+ARCH_TYPES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+
+
 def _require_supported(cfg: ModelConfig) -> None:
-    """The port runs the decoder-only archs (dense, moe, ssm, hybrid);
-    the encoder-decoder and VLM archs raise."""
-    if (cfg.arch_type not in ("dense", "moe", "ssm", "hybrid")
-            or cfg.is_encoder_decoder or cfg.num_image_tokens):
-        raise NotImplementedError(
-            f"arch {cfg.arch_type!r}: the port runs the decoder-only archs "
-            f"(dense, moe, ssm, hybrid); encoder-decoder and VLM are not "
-            f"ported")
+    """The port runs every arch type the reference's configs use; an
+    encoder-decoder's blocks are attention blocks (no SSM, hybrid or
+    experts), as the reference's."""
+    if cfg.arch_type not in ARCH_TYPES:
+        raise NotImplementedError(f"arch {cfg.arch_type!r}: the port runs "
+                                  f"{', '.join(ARCH_TYPES)}")
+    if cfg.is_encoder_decoder and (cfg.arch_type == "ssm" or cfg.hybrid
+                                   or cfg.num_experts):
+        raise NotImplementedError("an encoder-decoder's blocks are dense "
+                                  "attention blocks")
 
 
 def layer_windows(cfg: ModelConfig) -> List[int]:
@@ -107,27 +130,60 @@ def hybrid_inner(cfg: ModelConfig) -> int:
 # Parameters
 # ---------------------------------------------------------------------------
 
+def _norm_shapes(path: str, stack: Tuple[int, ...], cfg: ModelConfig):
+    """A norm's leaves: ``scale``, and a LayerNorm's ``bias``."""
+    d = cfg.d_model
+    out = {f"{path}/scale": stack + (d,)}
+    if cfg.norm == "layernorm":
+        out[f"{path}/bias"] = stack + (d,)
+    return out
+
+
+def _attn_shapes(path: str, L: int, cfg: ModelConfig, cross: bool = False):
+    """An attention stack's projections (and its qkv bias, which the
+    reference gives no cross-attention)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim()
+    nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    out = {f"{path}/wq": (L, d, nq), f"{path}/wk": (L, d, nkv),
+           f"{path}/wv": (L, d, nkv), f"{path}/wo": (L, nq, d)}
+    if cfg.qkv_bias and not cross:
+        out.update({f"{path}/bq": (L, nq), f"{path}/bk": (L, nkv),
+                    f"{path}/bv": (L, nkv)})
+    return out
+
+
+def _mlp_shapes(path: str, L: int, cfg: ModelConfig):
+    d, f = cfg.d_model, cfg.d_ff
+    out = {f"{path}/w_up": (L, d, f)}
+    if cfg.mlp_activation == "swiglu":
+        out[f"{path}/w_gate"] = (L, d, f)
+    out[f"{path}/w_down"] = (L, f, d)
+    return out
+
+
 def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     """Checkpoint-manifest path -> shape of every parameter leaf.  The SSM
     block has ``ln1`` and ``mamba`` and no ``attn``, ``ln2`` or ``mlp``;
     a hybrid block adds ``mamba`` (``hybrid_inner`` wide), ``mix_a`` and
     ``mix_s`` to the attention block; an MoE block has ``moe`` in place of
-    ``mlp``; an MLP without a gate (``relu2``) has no ``w_gate``."""
+    ``mlp``; an MLP without a gate (``relu2``, ``gelu``) has no
+    ``w_gate``; a LayerNorm has a ``bias`` beside its ``scale``.  An
+    encoder-decoder adds the ``encoder`` stack (``ln1``, ``attn``,
+    ``ln2``, ``mlp``; ``num_encoder_layers`` deep), ``enc_norm`` and the
+    ``cross`` stack (``ln`` and an ``attn`` without qkv bias, one per
+    decoder layer)."""
     _require_supported(cfg)
-    L, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
-    hd = cfg.resolved_head_dim()
-    nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    L, d = cfg.num_layers, cfg.d_model
     V = cfg.padded_vocab()
-    shapes = {"embed/table": (V, d), "final_norm/scale": (d,),
-              "layers/ln1/scale": (L, d)}
+    shapes = {"embed/table": (V, d)}
+    shapes.update(_norm_shapes("final_norm", (), cfg))
+    shapes.update(_norm_shapes("layers/ln1", (L,), cfg))
     if cfg.arch_type == "ssm":
         shapes.update({f"layers/mamba/{k}": (L,) + v for k, v in
                        ssm_mod.mamba_param_shapes(cfg).items()})
     else:
-        shapes.update({
-            "layers/ln2/scale": (L, d),
-            "layers/attn/wq": (L, d, nq), "layers/attn/wk": (L, d, nkv),
-            "layers/attn/wv": (L, d, nkv), "layers/attn/wo": (L, nq, d)})
+        shapes.update(_norm_shapes("layers/ln2", (L,), cfg))
+        shapes.update(_attn_shapes("layers/attn", L, cfg))
         if cfg.hybrid:
             shapes.update({f"layers/mamba/{k}": (L,) + v for k, v in
                            ssm_mod.mamba_param_shapes(
@@ -137,15 +193,18 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
             shapes.update({f"layers/moe/{k}": (L,) + v for k, v in
                            moe_mod.moe_param_shapes(cfg).items()})
         else:
-            shapes["layers/mlp/w_up"] = (L, d, f)
-            if cfg.mlp_activation == "swiglu":
-                shapes["layers/mlp/w_gate"] = (L, d, f)
-            shapes["layers/mlp/w_down"] = (L, f, d)
+            shapes.update(_mlp_shapes("layers/mlp", L, cfg))
     if not cfg.tie_embeddings:
         shapes["embed/unembed"] = (d, V)
-    if cfg.qkv_bias and cfg.arch_type != "ssm":
-        shapes.update({"layers/attn/bq": (L, nq), "layers/attn/bk": (L, nkv),
-                       "layers/attn/bv": (L, nkv)})
+    if cfg.is_encoder_decoder:
+        Le = cfg.num_encoder_layers
+        shapes.update(_norm_shapes("encoder/ln1", (Le,), cfg))
+        shapes.update(_attn_shapes("encoder/attn", Le, cfg))
+        shapes.update(_norm_shapes("encoder/ln2", (Le,), cfg))
+        shapes.update(_mlp_shapes("encoder/mlp", Le, cfg))
+        shapes.update(_norm_shapes("enc_norm", (), cfg))
+        shapes.update(_norm_shapes("cross/ln", (L,), cfg))
+        shapes.update(_attn_shapes("cross/attn", L, cfg, cross=True))
     return shapes
 
 
@@ -176,9 +235,10 @@ def flatten(tree: Params, prefix: str = "") -> Dict[str, torch.Tensor]:
 def init_params(cfg: ModelConfig, *, seed: int = 0,
                 device="cpu") -> Params:
     """Random parameters from ``seed`` with the JAX package's init rules
-    (truncated-normal fan-in matrices, the router's at scale 0.02, N(0,
-    0.02) embedding, unit norm scales and hybrid mixes, zero biases; the
-    mamba leaves as ``ssm.init_mamba``), drawn
+    (truncated-normal fan-in matrices, every attention's ``wo`` at
+    1/sqrt(2 L H hd) and every ``w_down`` at 1/sqrt(d_ff), the router's
+    at scale 0.02, N(0, 0.02) embedding, unit norm scales and hybrid
+    mixes, zero biases; the mamba leaves as ``ssm.init_mamba``), drawn
     from a ``torch.Generator`` on ``device``.
     The numbers differ from the JAX package's (another generator); tests
     that compare the two load one set of parameters into both."""
@@ -188,9 +248,12 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     dt = torch_dtype(cfg.param_dtype)
     L, f = cfg.num_layers, cfg.d_ff
     nq = cfg.num_heads * cfg.resolved_head_dim()
-    special_scale = {"layers/attn/wo": 1.0 / math.sqrt(2 * max(L, 1) * nq),
-                     "layers/mlp/w_down": 1.0 / math.sqrt(max(f, 1)),
-                     "layers/moe/router": 0.02}
+    # by the path's last two parts: the decoder's, the encoder's and the
+    # cross stack's alike (the reference's ``init_attention`` scales every
+    # ``wo`` by the decoder's depth)
+    special_scale = {"attn/wo": 1.0 / math.sqrt(2 * max(L, 1) * nq),
+                     "mlp/w_down": 1.0 / math.sqrt(max(f, 1)),
+                     "moe/router": 0.02}
     flat = {}
     for path, shape in param_shapes(cfg).items():
         if path.startswith("layers/mamba/"):
@@ -199,14 +262,15 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
         t = torch.empty(shape, dtype=dt, device=device)
         if leaf in ("scale", "mix_a", "mix_s"):
             t.fill_(1.0)
-        elif leaf in ("bq", "bk", "bv"):
+        elif leaf in ("bq", "bk", "bv", "bias"):
             t.zero_()
         elif leaf == "table":
             t.normal_(0.0, 0.02, generator=g)
         else:
             fan_in = shape[-2]
             torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=g)
-            t.mul_(special_scale.get(path, 1.0 / math.sqrt(fan_in)))
+            t.mul_(special_scale.get("/".join(path.split("/")[-2:]),
+                                     1.0 / math.sqrt(fan_in)))
         flat[path] = t
     if cfg.arch_type == "ssm" or cfg.hybrid:
         d_inner = hybrid_inner(cfg) if cfg.hybrid else None
@@ -227,25 +291,36 @@ def _unstack(tree: Params, n: int) -> List[Params]:
 
 
 def _run_layers(params: Params, h: torch.Tensor, cfg: ModelConfig,
-                mix, mm=torch.matmul) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Every block and the final norm; returns (the final-normed hidden,
-    the sum of the layers' router losses).  ``mix(i, layer_params, x)``
-    is layer i's mixer output on its normed input (attention, mixed with
-    the SSM heads on a hybrid block; the mamba block for
-    ``arch_type="ssm"``, which has no MLP); ``mm`` the MLP's, or the
-    router's and shared experts', matrix product.  The first ``ln1`` is a
-    plain RMSNorm, every later norm is fused with the residual add before
-    it.  With ``cfg.remat``, and only when the forward builds a graph,
-    each unit runs under ``torch.utils.checkpoint``."""
+                mix, mm=torch.matmul, cross=None, stack: str = "layers",
+                final: str = "final_norm"
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every block of ``params[stack]`` and the norm ``params[final]``;
+    returns (the final-normed hidden, the sum of the layers' router
+    losses).  ``mix(i, layer_params, x)`` is layer i's mixer output on its
+    normed input (attention, mixed with the SSM heads on a hybrid block;
+    the mamba block for ``arch_type="ssm"``, which has no MLP); ``mm`` the
+    MLP's, or the router's and shared experts', matrix product.
+    ``cross(i, cross_params, x)``: an encoder-decoder's cross-attention on
+    its normed input, between the mixer and the MLP, with layer i of
+    ``params["cross"]``.  The first ``ln1`` is a plain norm, every later
+    norm is fused with the residual add before it.  With ``cfg.remat``,
+    and only when the forward builds a graph, each unit runs under
+    ``torch.utils.checkpoint`` (the encoder's as well: ``stack="encoder"``,
+    ``final="enc_norm"``)."""
     _require_supported(cfg)
-    L = cfg.num_layers
+    L = cfg.num_encoder_layers if stack == "encoder" else cfg.num_layers
     ssm = cfg.arch_type == "ssm"
-    layers = _unstack(params["layers"], L)
+    layers = _unstack(params[stack], L)
+    crosses = _unstack(params["cross"], L) if cross is not None \
+        else [None] * L
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
 
-    def block(i, lp, nxt, x, h):
+    def block(i, lp, cp, nxt, x, h):
         y = mix(i, lp, x)
         aux = zero
+        if cp is not None:
+            x, h = apply_norm_residual(cp["ln"], y, h, cfg)
+            y = cross(i, cp, x)
         if not ssm:
             x, h = apply_norm_residual(lp["ln2"], y, h, cfg)
             if cfg.num_experts:
@@ -258,16 +333,16 @@ def _run_layers(params: Params, h: torch.Tensor, cfg: ModelConfig,
     remat = cfg.remat and _needs_grad(params, h)
     x = apply_norm(layers[0]["ln1"], h, cfg)
     aux = zero
-    for i, lp in enumerate(layers):
-        nxt = layers[i + 1]["ln1"] if i + 1 < L else params["final_norm"]
+    for i, (lp, cp) in enumerate(zip(layers, crosses)):
+        nxt = layers[i + 1]["ln1"] if i + 1 < L else params[final]
         if remat:
             # the forward is deterministic and draws no random numbers,
             # so the recompute gives the saved tensors' bits again
-            x, h, a = checkpoint(block, i, lp, nxt, x, h,
+            x, h, a = checkpoint(block, i, lp, cp, nxt, x, h,
                                  use_reentrant=False,
                                  preserve_rng_state=False)
         else:
-            x, h, a = block(i, lp, nxt, x, h)
+            x, h, a = block(i, lp, cp, nxt, x, h)
         aux = aux + a
     return x, aux
 
@@ -297,15 +372,35 @@ def _needs_grad(params: Params, h: torch.Tensor) -> bool:
         t.requires_grad for t in flatten(params).values())
 
 
+def encode(params: Params, frames: torch.Tensor,
+           cfg: ModelConfig) -> torch.Tensor:
+    """The encoder over frame embeddings (B, Se, d): bidirectional
+    attention without RoPE and the MLP in every layer, then ``enc_norm``
+    (the reference's ``encode``).  Returns the memory (B, Se, d) in the
+    compute dtype."""
+    h = frames.to(torch_dtype(cfg.compute_dtype))
+    x, _ = _run_layers(params, h, cfg, lambda i, p, x:
+                       attn.encoder_attention(p["attn"], x, cfg),
+                       stack="encoder", final="enc_norm")
+    return x
+
+
 def forward_hidden(params: Params, batch: Dict[str, torch.Tensor],
                    cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward up to the final norm.  batch["tokens"]:
-    (B, S) int.  Returns (h (B, S, d), aux_loss): aux is the layers'
-    summed router loss (0 without experts)."""
+    (B, S) int; with ``num_image_tokens`` also "patches" (B, n, d), with
+    an encoder "frames" (B, Se, d).  Returns (h (B, S, d), aux_loss): aux
+    is the layers' summed router loss (0 without experts); a VLM's patch
+    rows are cut off."""
     h = embed(params["embed"], batch["tokens"], cfg)
     if cfg.arch_type == "ssm":
         return _run_layers(params, h, cfg, lambda i, p, x:
                            ssm_mod.apply_mamba(p["mamba"], x, cfg))
+    memory = encode(params, batch["frames"], cfg) \
+        if cfg.is_encoder_decoder else None
+    n_img = cfg.num_image_tokens
+    if n_img:
+        h = torch.cat([batch["patches"].to(h.dtype), h], dim=1)
     positions = torch.arange(h.shape[1], device=h.device)
     windows = layer_windows(cfg)
 
@@ -317,7 +412,14 @@ def forward_hidden(params: Params, batch: Dict[str, torch.Tensor],
                 p["mamba"], x, cfg, d_inner=hybrid_inner(cfg)), cfg)
         return a
 
-    return _run_layers(params, h, cfg, mix)
+    cross = None
+    if memory is not None:
+        def cross(i, cp, x):
+            return attn.attention(cp["attn"], x, cfg, positions=positions,
+                                  memory=memory)
+
+    x, aux = _run_layers(params, h, cfg, mix, cross=cross)
+    return (x[:, n_img:] if n_img else x), aux
 
 
 def forward_lm(params: Params, batch: Dict[str, torch.Tensor],
@@ -479,7 +581,10 @@ def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int, *,
     slots per row (in the compute dtype by default) and one shared write
     index; SSM: {"mamba": {"conv", "ssm"}} (float32 by default), whose
     size does not depend on ``capacity``; hybrid: both, the mamba cache
-    ``hybrid_inner`` wide."""
+    ``hybrid_inner`` wide; encoder-decoder: the ring cache and "cross",
+    {"k", "v"} zeros (L, B, KV, encoder_seq_len, hd), each layer's cross
+    K / V in the ring kernel's layout (the reference's is (L, B, Se, KV,
+    hd)), to be filled from ``attention.precompute_cross_cache``."""
     _require_supported(cfg)
     L = cfg.num_layers
     if cfg.arch_type == "ssm":
@@ -492,6 +597,12 @@ def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int, *,
         cache["mamba"] = ssm_mod.init_mamba_cache(
             cfg, batch, hybrid_inner(cfg), dtype=dtype or torch.float32,
             device=device, stack=(L,))
+    if cfg.is_encoder_decoder:
+        shape = (L, batch, cfg.num_kv_heads, cfg.encoder_seq_len,
+                 cfg.resolved_head_dim())
+        dt = dtype or torch_dtype(cfg.compute_dtype)
+        cache["cross"] = {k: torch.zeros(shape, dtype=dt, device=device)
+                          for k in ("k", "v")}
     return cache
 
 
@@ -526,9 +637,10 @@ def decode_step_lm(params: Params, cache: dict, batch,
                    cfg: ModelConfig) -> Tuple[torch.Tensor, dict]:
     """One decode step of the static path.  batch: {"token": (B, 1) int,
     "position": (B,) int32 tensor or an int for every row} — the absolute
-    position of the token, -1 for a left-pad token.  Returns (logits
-    (B, 1, V), cache), the cache updated in place (its ring index
-    advanced)."""
+    position of the token, -1 for a left-pad token.  An encoder-decoder's
+    blocks also attend to the cache's "cross" K / V, every memory key
+    (the ring kernel once a layer).  Returns (logits (B, 1, V), cache),
+    the cache updated in place (its ring index advanced)."""
     token = batch["token"]
     B = token.shape[0]
     position = batch["position"]
@@ -543,8 +655,17 @@ def decode_step_lm(params: Params, cache: dict, batch,
         rope = rope_cos_sin(position[:, None], cfg.resolved_head_dim(),
                             cfg.rope_theta)
     windows = layer_windows(cfg)
+    cross = None
+    if "cross" in cache:
+        cc = cache["cross"]
+
+        def cross(i, cp, x):
+            return attn.decode_attention(
+                cp["attn"], x, cfg, None, position=position,
+                memory_cache={"k": cc["k"][i], "v": cc["v"][i]})[0]
+
     x, _ = _run_layers(params, h, cfg, lambda i, p, x: _block_decode(
-        i, p, x, cfg, cache, position, rope, windows[i]))
+        i, p, x, cfg, cache, position, rope, windows[i]), cross=cross)
     if "attn" in cache:
         cache["attn"]["idx"] += 1
     return unembed(params["embed"], x, cfg), cache

@@ -5,7 +5,11 @@ nanochat's split (the JAX package's ``optim/adamw.py``).
 (``repro_torch.kernels.fused_adamw``: the CUDA kernel on the card, its
 plain version on the CPU): both moment updates, the bias corrections,
 weight decay and the scaled update in one pass.  The unfused path runs
-the same f32 operations in the same order as separate PyTorch ops."""
+the same f32 operations in the same order as separate PyTorch ops.
+
+The moments are updated in place: the state given to ``update`` is
+consumed (as Muon's momentum is), so a worker holds one copy of them
+and no second one builds up over its leaves while it steps."""
 from __future__ import annotations
 
 from typing import Callable, Tuple, Union
@@ -42,13 +46,17 @@ def adamw(lr: Union[float, Callable] = 3e-4,
         for k, g in grads.items():
             m, v, p = state["m"][k], state["v"][k], params[k]
             if fused:
-                u, m, v = fused_adamw_update(p, g, m, v, lr_t, bc1, bc2,
-                                             b1=b1, b2=b2, eps=eps,
-                                             wd=weight_decay)
+                u, m_k, v_k = fused_adamw_update(p, g, m, v, lr_t, bc1, bc2,
+                                                 b1=b1, b2=b2, eps=eps,
+                                                 wd=weight_decay)
+                m.copy_(m_k)
+                v.copy_(v_k)
+                del m_k, v_k
             else:
+                # in place: the same roundings as b1 * m + (1 - b1) * g
                 g = g.float()
-                m = b1 * m + (1 - b1) * g
-                v = b2 * v + (1 - b2) * g.square()
+                m.mul_(b1).add_((1 - b1) * g)
+                v.mul_(b2).add_((1 - b2) * g.square())
                 mhat = m / bc1
                 vhat = v / bc2
                 u = -lr_t * (mhat / (torch.sqrt(vhat) + eps)

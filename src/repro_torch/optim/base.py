@@ -48,3 +48,11 @@ def clip_by_global_norm(tree: Flat, max_norm: float) -> Tuple[Flat,
     norm = global_norm(tree)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return {k: g * scale.to(g.dtype) for k, g in tree.items()}, norm
+
+
+def chain_clip(opt: Optimizer, max_norm: float) -> Optimizer:
+    """Wrap an optimizer with global-norm gradient clipping."""
+    def update(grads, state, params, step):
+        grads, _ = clip_by_global_norm(grads, max_norm)
+        return opt.update(grads, state, params, step)
+    return Optimizer(opt.init, update)

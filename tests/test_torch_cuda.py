@@ -1030,3 +1030,86 @@ def test_cuda_run_pipeline_tiny_matches_cpu(cuda, tmp_path, monkeypatch):
     again = heldout_metrics(cfg, params, ds=stages["base"], batches=4,
                             batch_size=8)
     assert again["heldout_ce"] == card["stages"]["sft"]["core"]["heldout_ce"]
+
+
+# ---------------------------------------------------------------------------
+# The encoder-decoder's attention: the flash kernels at two lengths, and
+# the ring kernel as cross decode
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D", [
+    (2, 1024, 1024, 16, 16, 64),     # seamless's encoder
+    (2, 256, 1024, 16, 16, 64),      # its cross-attention
+    (2, 37, 1000, 16, 16, 64),       # ragged: partial tiles on both sides
+    (1, 100, 33, 4, 2, 128),         # fewer keys than queries, G 2
+])
+def test_cuda_flash_kernels_at_two_lengths_match_plain(cuda, dtype, B, Sq,
+                                                       Sk, H, KV, D):
+    """Non-causal, Sq and Sk each their own: o, lse and every gradient
+    against the plain versions (gradients against autograd through the
+    plain forward), with phase 2's tolerances."""
+    from repro_torch.kernels.flash_attention import (flash_attention_plain,
+                                                     flash_bwd, flash_fwd)
+    g = torch.Generator().manual_seed(Sq + Sk)
+    q, do = (torch.randn((B, Sq, H, D), generator=g).to(dtype).to(cuda)
+             for _ in range(2))
+    k, v = (torch.randn((B, Sk, KV, D), generator=g).to(dtype).to(cuda)
+            for _ in range(2))
+    (fa, fr), (ba, br) = FLASH_TOL[dtype]
+    reset_launches()
+    o, lse = flash_fwd(q, k, v, causal=False)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o_ref, lse_ref = flash_attention_plain(*leaves, False)
+    torch.testing.assert_close(o, o_ref.detach(), atol=fa, rtol=fr)
+    torch.testing.assert_close(lse, lse_ref.detach(), atol=1e-4, rtol=1e-5)
+    got = flash_bwd(q, k, v, o, lse, do, causal=False)
+    want = torch.autograd.grad(o_ref, leaves, do)
+    assert launches["flash_fwd"] == 1 and launches["flash_bwd"] == 1
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b.to(a.dtype), atol=ba, rtol=br)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(causal=True),
+                                dict(causal=False, window=16)])
+def test_cuda_flash_refuses_masks_at_two_lengths(cuda, kw):
+    from repro_torch.kernels.flash_attention import flash_bwd, flash_fwd
+    q = torch.randn((1, 8, 2, 64), device=cuda)
+    k = torch.randn((1, 12, 2, 64), device=cuda)
+    before = dict(launches)
+    with pytest.raises(ValueError, match="only with causal=False"):
+        flash_fwd(q, k, k, **kw)
+    with pytest.raises(ValueError, match="only with causal=False"):
+        flash_bwd(q, k, k, q, torch.zeros((1, 2, 8), device=cuda), q, **kw)
+    assert dict(launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_ring_kernel_as_cross_decode(cuda, dtype, tol):
+    """seamless's cross decode (B 8, H = KV 16, D 64, Se 1024): the ring
+    kernel with slots at 0 .. Se - 1 and the query at Se - 1 sees every
+    key, as softmax attention without a mask does."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    from repro_torch.models.attention import cross_positions
+    B, KV, G, Se, D = 8, 16, 1, 1024, 64
+    g = torch.Generator().manual_seed(5)
+    q = torch.randn((B, KV, G, D), generator=g).to(dtype).to(cuda)
+    k, v = (torch.randn((B, KV, Se, D), generator=g).to(dtype).to(cuda)
+            for _ in range(2))
+    pos, q_pos = cross_positions(B, Se, cuda)
+    reset_launches()
+    got = decode_attention(q, k, v, pos, q_pos)
+    assert launches["ring_decode"] == 1
+    want = decode_attention_plain(q, k, v, pos, q_pos)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=10 * tol)
+    p = torch.softmax(torch.einsum("bhgd,bhsd->bhgs", q.float(), k.float())
+                      / D ** 0.5, dim=-1)
+    dense = torch.einsum("bhgs,bhsd->bhgd", p, v.float())
+    torch.testing.assert_close(got.float(), dense, atol=tol, rtol=10 * tol)

@@ -117,20 +117,6 @@ def test_decode_step_lm_matches_reference_over_a_wrapped_ring(tiny, window):
             rtol=1e-5)
 
 
-def test_window_pattern_and_cross_attention_raise(tiny):
-    """Cross-attention decode (encoder-decoder) still raises; windows,
-    uniform or per layer, are ported (``test_torch_windows.py``)."""
-    cfg, _, tparams = tiny
-    from repro_torch.models import attention
-    pc = port_cfg(cfg)
-    lp = {k: v[0] for k, v in tparams["layers"]["attn"].items()}
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        attention.decode_attention(
-            lp, torch.zeros((1, 1, cfg.d_model)), pc,
-            attention.init_cache(pc, 1, 4),
-            position=torch.zeros(1, dtype=torch.int32), memory_cache={})
-
-
 def _engines(tiny, **kw):
     cfg, params, tparams = tiny
     kw = dict(dict(num_slots=4, max_len=64, block_size=8), **kw)

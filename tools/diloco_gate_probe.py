@@ -1,26 +1,34 @@
 #!/usr/bin/env python3
-"""Why ``chip_smoke.py`` phase 3's DiLoCo-round gate depends on the
-weights drawn.
+"""Why independent DiLoCo rounds on the card and on the CPU part by up
+to ~2e-3 of a leaf's largest magnitude under some weight draws.
+(``chip_smoke.py`` phase 3 gates the round from one shared
+post-inner-step state instead, which holds bit for bit at any draw; this
+probe measures the spread of independent rounds, which that phase
+prints without gating.)
 
     python3 tools/diloco_gate_probe.py [--seeds 0,1,2,3] [--out FILE]
+    python3 tools/diloco_gate_probe.py --shared-state [--seeds 0,1,2,3]
 
 Run from the root of a checkout on a machine with an NVIDIA GPU and nvcc.
 For each weight seed: nanochat-d20 at full width and depth 2 (phase 3's
 ``train_step_vs_cpu`` config and tokens), one DiLoCo round (K 2, H 1,
 fused AdamW, the phase's optimizer config) on the card and on the CPU
 from the same parameters, and the elements of each leaf whose global
-parameters part by more than 1e-4 of the leaf's largest magnitude (the
-gate).  At those elements, each worker's first inner-step gradient on the
-card, on the CPU in float32 and on the CPU in float64 (the port's plain
+parameters part by more than 1e-4 of the leaf's largest magnitude.  At
+those elements, each worker's first inner-step gradient on the card, on
+the CPU in float32 and on the CPU in float64 (the port's plain
 path with ``Tensor.float`` left as float64 for float64 tensors, and a
 float64 compute dtype).  AdamW's first step is ``lr g / (|g| + eps)`` at
 eps 1e-10: ± lr for any |g| far above 1e-10, so an element whose
 gradient is zero up to float32 rounding takes either sign.  Prints one
-line per seed (the gate's maximum, the elements past it, how many have
-the two devices' gradient signs apart, and where float64 sides; per
+line per seed (the largest such part, the elements past 1e-4, how many
+have the two devices' gradient signs apart, and where float64 sides; per
 worker ``grad_rel``, the worst leaf's max |card - CPU| gradient over its
 max |g|), then the card's name and power limit; ``--out`` writes
-everything as JSON.
+everything as JSON.  ``--shared-state`` runs phase 3's training step and
+DiLoCo round itself (``chip_smoke.phase_train_step_vs_cpu``, its gates
+included) at each seed instead, and prints its readings: the round from
+one shared state, and the independent one beside it.
 """
 from __future__ import annotations
 
@@ -129,6 +137,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seeds", default="0,1,2,3")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--shared-state", action="store_true",
+                    help="run chip_smoke.py phase 3's step and DiLoCo "
+                         "round (gated) at each seed")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
@@ -137,12 +148,21 @@ def main(argv=None) -> int:
         print("diloco_gate_probe: CUDA is not available", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    from chip_smoke import gpu_line
+    from chip_smoke import SmokeFailure, gpu_line, phase_train_step_vs_cpu
     from repro_torch.kernels import _build
     _build.build()
     recs = []
     for s in map(int, args.seeds.split(",")):
-        rec = probe(torch, s)
+        if args.shared_state:
+            print(f"weight seed {s}", flush=True)
+            try:
+                rec = dict(seed=s, **phase_train_step_vs_cpu(torch, s))
+            except SmokeFailure as e:
+                print(f"diloco_gate_probe: seed {s}: FAIL: {e}",
+                      file=sys.stderr)
+                return 1
+        else:
+            rec = probe(torch, s)
         recs.append(rec)
         print(json.dumps(rec), flush=True)
     print(gpu_line())

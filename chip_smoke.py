@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out report.json]
     python3 chip_smoke.py --norm-timing | --ssd-timing
-    python3 chip_smoke.py --new-archs | --enc-vlm
+    python3 chip_smoke.py --new-archs | --enc-vlm | --only-mesh
 
 Run from the root of a checkout.  First logs the kernels that SDPA
 launches at the training shape (torch.profiler), the flash rows'
@@ -182,6 +182,28 @@ yardstick.  Then phases, each fatal on failure:
    peak memory and wire bytes per worker per sync (from
    ``OuterPayload.nbytes``) per path; one DiLoCo inner step under
    torch.profiler; the device time of one outer sync of each path;
+5b. the process mesh (``phase_mesh``): nanochat-d20 at full width and 4
+   of its 20 layers (f32, seed 0, random token ids at seq_len 1024) as 2
+   ``torch.distributed`` ranks started with ``spawn``, NCCL with a card a
+   rank, else gloo with both on card 0 (the backend and the card count
+   are logged): DiLoCo on a (pod 2, data 1) mesh through
+   ``DistTrainer.run`` (K 2, H 2, 4 steps, 4 x 1024 tokens a worker) on
+   the f32 and the int8 wire, the outer round a real all-gather of the
+   encoded payload, then DDP on a (pod 1, data 2) mesh (2 steps, global
+   batch 8); then the ranks run the one-process references on the card
+   from the same parameters (rank r the K 2 loop on wire r, rank 0 DDP).
+   Gates: each rank's anchor and outer momentum equal the one-process
+   loop's bit for bit on both wires (its own tensors on its wire, the
+   other rank's by exact digests); the
+   inner steps log no collective; each rank's outer rounds send across
+   pods exactly its ``shipped`` bytes (a payload row a round), which sum
+   over the ranks to the one-process count; the DDP replicas equal each
+   other bit for bit, one process's losses within
+   ``MESH_DDP_LOSS_RTOL`` (each step's, and the final parameters' on a
+   held-out batch) and its parameters within ``MESH_DDP_ATOL``; the
+   training kernels launch in every rank (and the wire kernels on int8
+   only).  Logs per rank the inner-step seconds, each outer round's ms
+   with its host staging and collective apart, and peak memory;
 6. the three-stage pipeline: ``run_pipeline`` (base -> mid -> SFT, with
    the evals after each stage: held-out CE, multiple choice, arithmetic
    and pattern exact match through ``Engine``) of nanochat-d20 at full
@@ -300,6 +322,8 @@ a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
 the last line.  Exits nonzero, with no result, when CUDA is unavailable
 or any phase fails.
 
+``--only-mesh`` builds the kernels and runs only phase 5b, as
+``--new-archs`` and ``--enc-vlm`` run only 4c and 4d.
 ``--norm-timing`` and ``--ssd-timing`` build only rmsnorm.cu or ssd.cu
 and print one JSON line of those kernels' phase-7 timings beside
 ``floor_ms``: run this script beside two checkouts' ``src/`` in one call
@@ -3558,6 +3582,347 @@ def profile_train_step(torch, cfg, params, ds, opt_cfg, kw):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5b: the process mesh
+# ---------------------------------------------------------------------------
+
+# nanochat-d20 at full width and 4 of its 20 layers (about 0.27 B
+# parameters a rank), f32, random token ids from seed 0 at seq_len 1024
+MESH_LAYERS = 4
+MESH_TOKENS = 1 << 20
+MESH_WIRES = ("float32", "int8")
+# every wait on another rank, and the whole spawn, are bounded
+MESH_TIMEOUT_S = 300.0
+# DDP over 2 ranks against one process on the whole batch: the mean of
+# two half-batch gradient means against one mean (other GEMM shapes, so
+# other roundings), then Muon and AdamW.  The losses of the two runs,
+# step by step and of the final parameters on a held-out batch, within
+# this relative tolerance; every parameter within MESH_DDP_ATOL: an
+# element whose gradient is zero up to rounding can take AdamW's step
+# (at most its lr at these betas) with the other sign, 2 lr apart a step
+# (2 steps at adam_lr 1e-3; phase 3 meets the same)
+MESH_DDP_LOSS_RTOL = 1e-4
+MESH_DDP_ATOL = 2 * 2 * 1e-3
+
+
+def bits_digest(torch, flat):
+    """Exact fingerprints of a flat dict's f32 bits, two int64 sums a
+    leaf (plain and position-weighted, wrapping), summed on the card: two
+    ranks compare their states without moving them."""
+    out = {}
+    for k in sorted(flat):
+        b = flat[k].detach().contiguous().view(torch.int32).reshape(-1)
+        b = b.to(torch.int64)
+        w = torch.arange(b.numel(), device=b.device) % 1000003 + 1
+        out[k] = [int(b.sum()), int((b * w).sum())]
+    return out
+
+
+def mesh_rank(rank, world, init_method, workdir, backend):
+    """One rank of phase 5b (started by ``run_ranks``): DiLoCo on a (pod
+    2, data 1) mesh through ``DistTrainer.run`` on each wire of
+    ``MESH_WIRES`` (K 2, H 2, 4 steps, 4 x 1024 tokens a worker), then DDP
+    on a (pod 1, data 2) mesh of the same ranks (2 steps, global batch 8),
+    each from ``init_params(seed=0)`` with its launch counts, transport
+    count and collective log reset just before it; then the one-process
+    references on the card from the same parameters (rank r the DiLoCo
+    loop on wire r, rank 0 DDP).  Writes ``rank<r>.json``."""
+    t_start = time.perf_counter()
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import (NANOCHAT_D20, DiLoCoConfig,
+                                     OptimizerConfig)
+    from repro_torch.core import DistTrainer, make_strategy, transport
+    from repro_torch.data import PackedDataset
+    from repro_torch.kernels import KERNELS, launches, reset_launches
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch.mesh import init_process_mesh
+    from repro_torch.models import init_params, lm_loss
+    mesh = init_process_mesh(2, 1, backend=backend, device="cuda", rank=rank,
+                             world_size=world, init_method=init_method,
+                             timeout_s=MESH_TIMEOUT_S)
+    dev = mesh.device
+    cfg = NANOCHAT_D20.with_(num_layers=MESH_LAYERS)
+    ds = PackedDataset(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, MESH_TOKENS).astype(np.int32), TRAIN_SEQ)
+    params = init_params(cfg, seed=0, device=dev)
+
+    def loss_fn(p, b):
+        return lm_loss(p, b, cfg)
+
+    def opt(steps):
+        return OptimizerConfig(total_steps=steps, warmup_steps=1,
+                               learning_rate=0.02, adam_lr=1e-3,
+                               fused_adamw=True)
+
+    def diloco(wire):
+        return DiLoCoConfig(num_workers=2, h_inner_steps=2,
+                            delta_dtype=wire)
+
+    ddp_cfg = DiLoCoConfig(num_workers=1, h_inner_steps=1, outer_lr=1.0,
+                           outer_momentum=0.0, nesterov=False,
+                           strategy="ddp")
+
+    def diloco_data(s):
+        return ds.worker_batches(s, 2, 4, seed=0)
+
+    def ddp_data(s):
+        return {k: v[None] for k, v in ds.batch(s, 8, seed=0).items()}
+
+    def run(dcfg, steps, data, replicate_fn):
+        dt = DistTrainer(loss_fn, opt(steps), dcfg, make_strategy(dcfg),
+                         replicate_fn)
+        state = dt.init(params)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        transport.reset_shipped()
+        coll.reset_log()
+        t0 = time.perf_counter()
+        state, hist = dt.run(state, data, steps)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        stats = {s: coll.collective_stats(s) for s in ("inner", "outer")}
+        return state, {
+            "wall_s": wall, "launches": {k: launches[k] for k in KERNELS},
+            "loss": hist["loss"], "sync_steps": hist["sync_steps"],
+            "inner_step_s": hist.get("inner_seconds"),
+            "sync_s": hist.get("sync_seconds"),
+            "shipped": sum(transport.shipped.values()), "collectives": stats,
+            "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+    def held_loss(flat):
+        from repro_torch.models.transformer import unflatten
+        b = {k: torch.from_numpy(v).to(dev) for k, v in
+             ds.batch(10_000, 4, seed=1).items()}
+        with torch.no_grad():
+            return float(lm_loss(unflatten(flat), b, cfg)[0])
+
+    out = {"rank": rank, "device": str(dev), "backend": mesh.backend,
+           "cards": torch.cuda.device_count(),
+           "setup_s": time.perf_counter() - t_start}
+    kept = {}
+    for wire in MESH_WIRES:
+        state, rec = run(diloco(wire), 4, diloco_data, mesh.replicate_fn)
+        rec["digest"] = {"global": bits_digest(torch, state.global_params),
+                         "v": bits_digest(torch, state.outer.v)}
+        out[wire] = rec
+        kept[wire] = (state.global_params, state.outer.v)
+        del state
+    dmesh = init_process_mesh(1, 2, backend=backend, device="cuda",
+                              timeout_s=MESH_TIMEOUT_S)
+    state, rec = run(ddp_cfg, 2, ddp_data, dmesh.replicate_fn)
+    rec["digest"] = bits_digest(torch, state.global_params)
+    out["ddp"] = rec
+    kept["ddp"] = state.global_params
+    del state
+    torch.cuda.empty_cache()
+    # the one-process references on this card, from the same params, the
+    # two ranks sharing them: rank r checks MESH_WIRES[r] bit for bit
+    # (the digests hold the other rank to it), rank 0 also DDP
+    t0 = time.perf_counter()
+    wire = MESH_WIRES[rank]
+    ref, rec = run(diloco(wire), 4, diloco_data, None)
+    g, v = kept.pop(wire)
+    out[wire]["vs_one_process"] = {
+        "rank": rank,
+        "global_bits_equal": all(torch.equal(g[k], t) for k, t in
+                                 ref.global_params.items()),
+        "v_bits_equal": all(torch.equal(v[k], t) for k, t in
+                            ref.outer.v.items()),
+        "max_abs_diff": max(float((g[k] - t).abs().max()) for k, t in
+                            ref.global_params.items()),
+        "loss": rec["loss"], "step_s": rec["wall_s"] / 4}
+    del ref, g, v, kept[MESH_WIRES[1 - rank]]
+    if rank == 0:
+        ref, rec = run(ddp_cfg, 2, ddp_data, None)
+        got = kept.pop("ddp")
+        diffs = sorted(((float((got[k] - t).abs().max()),
+                         float(t.abs().max()), k)
+                        for k, t in ref.global_params.items()),
+                       reverse=True)
+        out["ddp"]["vs_one_process"] = {
+            "loss": rec["loss"], "top_leaf_diffs": diffs[:4],
+            "max_abs_diff": diffs[0][0],
+            "held_loss": [held_loss(got), held_loss(ref.global_params)]}
+        del ref, got
+    out["reference_s"] = time.perf_counter() - t0
+    with open(Path(workdir) / f"rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    mesh.close()
+
+
+def phase_mesh(torch):
+    """Phase 5b: two ranks (``mesh_rank``) on the card(s) this machine has:
+    NCCL with a card a rank, else gloo with both ranks on card 0 (NCCL
+    rejects two ranks on one card; gloo stages each collective through the
+    host).  Gates: every rank's DiLoCo anchor and momentum equal the
+    one-process loop's bit for bit on both wires (rank r compares its
+    tensors on wire r, and the two ranks' digests agree); the inner steps
+    log no collective across pods; each rank's outer rounds send across
+    pods exactly its ``shipped`` bytes, one payload row a round (codes,
+    and a scale a leaf on int8), and the ranks' sum is the one-process
+    count; the DDP replicas equal each other bit for bit, one process's
+    losses within ``MESH_DDP_LOSS_RTOL`` and its parameters within
+    ``MESH_DDP_ATOL``; each rank launches
+    the training kernels (and the
+    wire kernels on int8 only), and the DDP step only the training
+    kernels.  Logs per rank the inner-step seconds, the outer round's ms
+    (host staging and collective apart) and peak memory."""
+    import tempfile
+    from repro_torch.configs import NANOCHAT_D20
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import param_shapes
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 2 else "gloo"
+    log(f"  {cards} card(s) visible: 2 ranks on {backend}"
+        + (" (NCCL rejects two ranks on one card; both ranks compute on "
+           "card 0 and each collective is staged through the host)"
+           if backend == "gloo" else ", a card a rank"))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        run_ranks(mesh_rank, 2, tmp, backend, timeout_s=MESH_TIMEOUT_S)
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(2)]
+    wall = time.perf_counter() - t0
+    log(f"  phase 5b: 2 ranks started, trained and joined in {wall:.1f} s "
+        f"(per rank: set-up {[round(r['setup_s'], 1) for r in ranks]} s, "
+        f"one-process references "
+        f"{[round(r['reference_s'], 1) for r in ranks]} s)")
+    shapes = param_shapes(NANOCHAT_D20.with_(num_layers=MESH_LAYERS))
+    n_params = sum(math.prod(s) for s in shapes.values())
+    row = {"float32": 4 * n_params, "int8": n_params + 4 * len(shapes)}
+    out = {"backend": backend, "cards": cards, "ranks": ranks,
+           "wall_s": wall, "launches": {}}
+    for wire in MESH_WIRES:
+        lossy = wire != "float32"
+        for r in ranks:
+            x, name = r[wire], f"mesh_diloco_{wire}_rank{r['rank']}"
+            out["launches"][name] = x["launches"]
+            inner, outer = x["collectives"]["inner"], \
+                x["collectives"]["outer"]
+            rounds = len(x["sync_steps"])
+            log(f"  rank {r['rank']} ({r['device']}, {r['backend']}) "
+                f"DiLoCo {wire}: losses "
+                f"{[round(v, 4) for v in x['loss']]}, syncs "
+                f"{x['sync_steps']}, inner step s {x['inner_step_s']}, "
+                f"outer round ms {[round(1e3 * t, 1) for t in x['sync_s']]} "
+                f"(host staging {1e3 * outer['host_s'] / rounds:.1f} ms, "
+                f"collective {1e3 * outer['coll_s'] / rounds:.1f} ms a "
+                f"round), shipped {x['shipped']} bytes, cross-pod "
+                f"{outer['cross_pod_bytes_per_device']} bytes, peak "
+                f"{x['peak_memory_gb']:.2f} GB, launches "
+                f"{ {k: v for k, v in x['launches'].items() if v} }")
+            check(x["sync_steps"] == [1, 3], f"mesh {wire}: sync records "
+                  f"{x['sync_steps']} != [1, 3]")
+            check(all(math.isfinite(v) for v in x["loss"]),
+                  f"mesh {wire}: non-finite loss")
+            check(inner["count_by_kind"] == {} and
+                  inner["cross_pod_bytes_per_device"] == 0,
+                  f"mesh {wire}: the inner steps issued collectives "
+                  f"{inner['count_by_kind']}")
+            check(outer["cross_pod_bytes_per_device"] == x["shipped"]
+                  == rounds * row[wire],
+                  f"mesh {wire}: rank {r['rank']} sent "
+                  f"{outer['cross_pod_bytes_per_device']} bytes across pods "
+                  f"and shipped {x['shipped']}, for {rounds} rounds of a "
+                  f"{row[wire]}-byte row")
+            for k in TRAIN_KERNELS + (WIRE_KERNELS if lossy else ()):
+                check(x["launches"][k] > 0, f"mesh {wire}: kernel {k} "
+                      f"never launched in rank {r['rank']}")
+            if not lossy:
+                check(x["launches"]["quantize_ef"] == 0, f"mesh {wire}: a "
+                      f"wire kernel launched on the f32 wire")
+        ref = ranks[MESH_WIRES.index(wire)][wire]["vs_one_process"]
+        log(f"  DiLoCo {wire} against one process (K 2 in rank "
+            f"{ref['rank']}'s process): anchor bits equal "
+            f"{ref['global_bits_equal']}, momentum bits equal "
+            f"{ref['v_bits_equal']} (max |diff| {ref['max_abs_diff']}), "
+            f"one-process losses {[round(v, 4) for v in ref['loss']]}, "
+            f"{ref['step_s']:.3f} s a step (both workers, the rounds "
+            f"included)")
+        check(ref["global_bits_equal"] and ref["v_bits_equal"],
+              f"mesh {wire}: rank {ref['rank']}'s anchor or momentum "
+              f"differs from the one-process loop's")
+        check(ranks[0][wire]["digest"] == ranks[1][wire]["digest"],
+              f"mesh {wire}: the two ranks' anchors or momenta differ")
+        check(sum(r[wire]["shipped"] for r in ranks)
+              == 2 * len(ranks[0][wire]["sync_steps"]) * row[wire],
+              f"mesh {wire}: the ranks' shipped bytes do not sum to the "
+              f"one-process count")
+    for r in ranks:
+        x = r["ddp"]
+        out["launches"][f"mesh_ddp_rank{r['rank']}"] = x["launches"]
+        inner = x["collectives"]["inner"]
+        log(f"  rank {r['rank']} DDP (data 2): losses "
+            f"{[round(v, 4) for v in x['loss']]}, step s "
+            f"{x['inner_step_s']}, all-reduces {inner['count_by_kind']} "
+            f"({inner['bytes_by_kind']} bytes; host staging "
+            f"{inner['host_s']:.3f} s, collective {inner['coll_s']:.3f} s), "
+            f"peak {x['peak_memory_gb']:.2f} GB")
+        check(inner["count_by_kind"] == {"all-reduce": 2 * len(shapes)}
+              and inner["cross_pod_bytes_per_device"] == 0,
+              f"mesh ddp: all-reduces {inner['count_by_kind']} (want one a "
+              f"leaf a step, none across pods)")
+        for k in TRAIN_KERNELS:
+            check(x["launches"][k] > 0, f"mesh ddp: kernel {k} never "
+                  f"launched in rank {r['rank']}")
+        check(not any(x["launches"][k] for k in WIRE_KERNELS),
+              "mesh ddp: a wire kernel launched")
+    ddp = ranks[0]["ddp"]["vs_one_process"]
+    # the ranks' step losses are their halves' means: their mean is the
+    # one-process loss on the whole batch
+    mean = [(a + b) / 2 for a, b in zip(ranks[0]["ddp"]["loss"],
+                                        ranks[1]["ddp"]["loss"])]
+    rel = [abs(m - r) / abs(r) for m, r in zip(mean + ddp["held_loss"][:1],
+                                               ddp["loss"]
+                                               + ddp["held_loss"][1:])]
+    ddp["loss_rel_diff"] = rel
+    log(f"  DDP over 2 ranks against one process on the batch of 8: the "
+        f"step losses (the ranks' mean) and the final parameters' loss on "
+        f"a held-out batch {rel} relative off (gate {MESH_DDP_LOSS_RTOL}); "
+        f"largest parameter differences (max |diff|, max |leaf|, leaf) "
+        f"{ddp['top_leaf_diffs']}")
+    check(ranks[0]["ddp"]["digest"] == ranks[1]["ddp"]["digest"],
+          "mesh ddp: the two replicas differ")
+    check(max(rel) <= MESH_DDP_LOSS_RTOL, f"mesh ddp: losses {rel} off one "
+          f"process (gate {MESH_DDP_LOSS_RTOL})")
+    check(ddp["max_abs_diff"] <= MESH_DDP_ATOL, f"mesh ddp: parameters "
+          f"{ddp['max_abs_diff']} off one process (gate {MESH_DDP_ATOL})")
+    return out
+
+
+def mesh_summary(mesh):
+    """Phase 5b's numbers for the summary line."""
+    def per_rank(x):
+        rounds = len(x["sync_steps"]) or 1
+        outer = x["collectives"]["outer"]
+        return {"inner_step_s": x["inner_step_s"],
+                "outer_round_ms": [1e3 * t for t in x["sync_s"] or []],
+                "host_staging_ms_per_round": 1e3 * outer["host_s"] / rounds,
+                "collective_ms_per_round": 1e3 * outer["coll_s"] / rounds,
+                "shipped_bytes": x["shipped"],
+                "peak_memory_gb": x["peak_memory_gb"]}
+    return {"backend": mesh["backend"], "cards": mesh["cards"],
+            "wall_s": mesh["wall_s"],
+            "diloco": {w: [per_rank(r[w]) for r in mesh["ranks"]]
+                       for w in MESH_WIRES},
+            "ddp": [{"step_s": r["ddp"]["inner_step_s"],
+                     "peak_memory_gb": r["ddp"]["peak_memory_gb"],
+                     "allreduce_host_s": r["ddp"]["collectives"]["inner"][
+                         "host_s"],
+                     "allreduce_coll_s": r["ddp"]["collectives"]["inner"][
+                         "coll_s"]} for r in mesh["ranks"]],
+            "one_process_step_s": {
+                w: r[w]["vs_one_process"]["step_s"]
+                for r, w in zip(mesh["ranks"], MESH_WIRES)},
+            "ddp_vs_one_process": mesh["ranks"][0]["ddp"]["vs_one_process"]
+            ["loss_rel_diff"]}
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: the three-stage pipeline with evals
 # ---------------------------------------------------------------------------
 
@@ -6066,6 +6431,10 @@ def main(argv=None) -> int:
                     help="only build the kernels and run phase 4c (the "
                          "new decoder-only configs), printing its summary "
                          "as one JSON line")
+    ap.add_argument("--only-mesh", action="store_true",
+                    help="only build the kernels and run phase 5b (the "
+                         "process mesh), printing its summary as one JSON "
+                         "line")
     args = ap.parse_args(argv)
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found; run from a checkout "
@@ -6083,13 +6452,15 @@ def main(argv=None) -> int:
                          else ssd_timing(torch)))
         print(gpu_line())
         return 0
-    if args.new_archs or args.enc_vlm:
+    if args.new_archs or args.enc_vlm or args.only_mesh:
         from repro_torch.kernels import _build
         _build.build()
         t0 = time.perf_counter()
-        phase, summary, name = ((phase_new_archs, new_arch_summary, "4c")
-                                if args.new_archs else
-                                (phase_enc_vlm, enc_vlm_summary, "4d"))
+        phase, summary, name = (
+            (phase_new_archs, new_arch_summary, "4c") if args.new_archs
+            else (phase_enc_vlm, enc_vlm_summary, "4d") if args.enc_vlm
+            else (lambda torch, checks: phase_mesh(torch), mesh_summary,
+                  "5b"))
         try:
             runs = phase(torch, [])
         except SmokeFailure as e:
@@ -6203,6 +6574,12 @@ def main(argv=None) -> int:
         report["train"] = train
         lap("5 training")
 
+        log("[5b/7] the process mesh, nanochat-d20 at full width and 4 "
+            "layers: DiLoCo over 2 ranks (f32 and int8 wires) and DDP over "
+            "2 ranks against one process")
+        mesh = report["mesh"] = phase_mesh(torch)
+        lap("5b mesh")
+
         log("[6/7] pipeline, nanochat-d20 at full width: base -> mid -> "
             "SFT with evals after each stage, DiLoCo and hybrid")
         t0 = time.perf_counter()
@@ -6243,6 +6620,7 @@ def main(argv=None) -> int:
         log("[7/7] kernel timing")
         paths = {name: run["launches"] for name, run in runs.items()}
         paths.update({m: run["launches"] for m, run in train.items()})
+        paths.update(mesh["launches"])
         paths.update({f"pipeline_{m}": run["launches"]
                       for m, run in pipeline.items()})
         paths.update({m: run["launches"] for m, run in static.items()
@@ -6386,6 +6764,7 @@ def main(argv=None) -> int:
                       "faults": faults_summary, "grpo": grpo_summary,
                       "new_archs": new_archs_summary,
                       "enc_vlm": enc_vlm_summary(enc_vlm),
+                      "mesh": mesh_summary(mesh),
                       "phase_s": phase_s, "floor_ms": floor}))
     print(json.dumps({"split_timing": report["split_timing"]}))
     print(report["gpu"])

@@ -2,13 +2,12 @@
 
 A ``ModelConfig`` fully describes one architecture.  The field names and
 defaults are those of the JAX package's config, so a ``.cfg.json`` written
-beside a JAX checkpoint loads here unchanged; the port runs every
-decoder-only arch (dense, MoE, mamba-2 ``arch_type="ssm"``, hybrid, with
-uniform or per-layer windows) and raises ``NotImplementedError`` on the
-encoder-decoder and VLM fields.
+beside a JAX checkpoint loads here unchanged; the port runs every arch
+type the reference's configs use (dense, MoE, mamba-2 ``arch_type="ssm"``,
+hybrid, the VLM and the encoder-decoder).
 ``DiLoCoConfig`` and ``OptimizerConfig`` are field-for-field copies of the
-JAX package's training configs; the port raises on the knobs whose code
-paths it does not have yet (see ``core/outer_opt.py`` and ``core/sync.py``).
+JAX package's training configs, and ``ShapeConfig`` / ``SHAPES`` its
+dry-run input shapes.
 
 Frozen dataclasses, so configs hash and compare by value.
 """
@@ -154,6 +153,27 @@ class ModelConfig:
         total += emb if self.tie_embeddings else 2 * emb
         total += D  # final norm
         return int(total)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input shape of the dry run (the JAX package's ``ShapeConfig``):
+    ``kind`` "train" | "prefill" | "decode"; decode shapes attend one
+    fresh token against a ``seq_len`` KV cache."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str
+    sub_quadratic_required: bool = False
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode",
+                        sub_quadratic_required=True)
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
 
 
 @dataclass(frozen=True)

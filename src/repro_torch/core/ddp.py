@@ -4,7 +4,12 @@ gradient over the full global batch every step.  On one device the
 gradient of the mean loss over the global batch is what K processes'
 all-reduced gradients would be.  ``DistTrainer`` runs DDP as the K = 1
 strategy (``core/sync.py`` ``DDPSync``); ``DDPTrainer`` is the same step
-on its own, and ``run_ddp`` runs its state through that loop."""
+on its own, and ``run_ddp`` runs its state through that loop.
+
+Across processes (``replicate_fn=mesh.replicate_fn`` of a (pod 1, data
+D) ``launch.mesh`` process mesh) each rank takes its 1/D of the global
+batch, and its gradients are all-reduced (mean over the D ranks) before
+the optimizer runs, so every rank applies the same update."""
 from __future__ import annotations
 
 import dataclasses
@@ -29,6 +34,7 @@ class DDPState(NamedTuple):
 class DDPTrainer:
     loss_fn: Callable
     opt_cfg: OptimizerConfig
+    replicate_fn: Optional[Callable] = None     # a process mesh's
 
     def init(self, params) -> DDPState:
         with torch.no_grad():
@@ -41,11 +47,12 @@ class DDPTrainer:
 
     def train_step(self, state: DDPState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[DDPState, torch.Tensor]:
-        """One step on the global batch; parameters update in place."""
-        opt_state, loss = worker_step(self.loss_fn,
-                                      nanochat_optimizer(self.opt_cfg),
-                                      state.params, state.opt, batch,
-                                      state.step)
+        """One step on the global batch (across processes: this rank's
+        part of it); parameters update in place."""
+        opt_state, loss = worker_step(
+            self.loss_fn, nanochat_optimizer(self.opt_cfg), state.params,
+            state.opt, batch, state.step,
+            getattr(self.replicate_fn, "grad_reduce", None))
         return DDPState(state.params, opt_state, state.step + 1), loss
 
 
@@ -64,7 +71,8 @@ def run_ddp(trainer: DDPTrainer, state: DDPState, data_fn, num_steps: int,
     from repro_torch.core.sync import DDPSync
     dcfg = DiLoCoConfig(num_workers=1, h_inner_steps=1, outer_lr=1.0,
                         outer_momentum=0.0, nesterov=False, strategy="ddp")
-    dt = DistTrainer(trainer.loss_fn, trainer.opt_cfg, dcfg, DDPSync())
+    dt = DistTrainer(trainer.loss_fn, trainer.opt_cfg, dcfg, DDPSync(),
+                     trainer.replicate_fn)
     lifted = DiLoCoState(
         global_params=dict(state.params),
         outer=outer_opt.init_outer_state(state.params),

@@ -4,12 +4,23 @@
     every H:      average parameter deltas, outer Nesterov SGD, re-broadcast
 
 The JAX package stacks the K workers on a leading dim and ``vmap``s one
-worker's step.  Here the K workers are a Python loop over separate flat
-parameter dicts on one device: a stacked (K, ...) copy would need every
-worker's activations and gradients alive at once (about 12 GB per worker
-at nanochat-d20 and 4 x 1024 tokens), while the loop frees each worker's
-graph before the next worker runs.  The arithmetic of each worker is
-the same either way.
+worker's step, and on a pod mesh shards that dim over ``pod``.  Here the
+workers a process holds are a Python loop over separate flat parameter
+dicts: a stacked (K, ...) copy would need every worker's activations and
+gradients alive at once (about 12 GB per worker at nanochat-d20 and 4 x
+1024 tokens), while the loop frees each worker's graph before the next
+worker runs.  The arithmetic of each worker is the same either way.
+
+On one device the process holds all K workers.  As one rank of a process
+mesh (``launch/mesh.py``: ``replicate_fn=mesh.replicate_fn``) it holds
+its own worker's row only (``local_rows``): its parameters, its inner
+optimizer state and its error-feedback residual row; the batches it is
+given are its own (``DistTrainer.run`` cuts them); over a data axis its
+gradients are all-reduced across the pod's data ranks before the
+optimizer runs (``worker_step(grad_reduce=)``); the anchor and the outer
+momentum are replicated, and the outer round all-gathers the encoded
+rows across pods (``core/transport.py``).  The inner step issues no
+collective across pods.
 
 Parameters are flat dicts ``{manifest path: tensor}``; the loss function
 takes the nested tree (``unflatten``), as ``models.lm_loss`` does.  Worker
@@ -62,18 +73,24 @@ class DiLoCoState(NamedTuple):
 
 
 def worker_step(loss_fn: Callable, opt: Optimizer, params: Flat, opt_state,
-                batch: Dict[str, torch.Tensor], step: torch.Tensor
+                batch: Dict[str, torch.Tensor], step: torch.Tensor,
+                grad_reduce: Optional[Callable] = None
                 ) -> Tuple[Any, torch.Tensor]:
     """One inner step of one worker: loss and gradients of ``loss_fn`` at
     ``params`` on ``batch``, the optimizer's update, applied to ``params``
     in place.  The autograd graph is freed before the optimizer runs.
-    Returns (new optimizer state, loss as a 0-d tensor on the device)."""
+    ``grad_reduce`` (``{path: grad} -> {path: grad}``; DDP over a data
+    axis: the mean over the data ranks) runs on the gradients before the
+    optimizer.  Returns (new optimizer state, loss as a 0-d tensor on the
+    device: this process's batch's)."""
     leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
     loss, _ = loss_fn(unflatten(leaves), batch)
-    grads = torch.autograd.grad(loss, list(leaves.values()))
+    grads = dict(zip(params, torch.autograd.grad(loss,
+                                                 list(leaves.values()))))
     del leaves
-    updates, opt_state = opt.update(dict(zip(params, grads)), opt_state,
-                                    params, step)
+    if grad_reduce is not None:
+        grads = grad_reduce(grads)
+    updates, opt_state = opt.update(grads, opt_state, params, step)
     del grads
     apply_updates(params, updates)
     return opt_state, loss.detach()
@@ -81,23 +98,35 @@ def worker_step(loss_fn: Callable, opt: Optimizer, params: Flat, opt_state,
 
 @dataclasses.dataclass(frozen=True)
 class DiLoCoTrainer:
-    """loss_fn(params tree, batch) -> (loss, metrics-dict)."""
+    """loss_fn(params tree, batch) -> (loss, metrics-dict).
+    ``replicate_fn``: the replicate hop of a process mesh
+    (``launch.mesh.ProcessMesh.replicate_fn``), None on one device."""
     loss_fn: Callable
     opt_cfg: OptimizerConfig
     cfg: DiLoCoConfig
+    replicate_fn: Optional[Callable] = None
 
     def _inner_opt(self) -> Optimizer:
         return nanochat_optimizer(self.opt_cfg)
 
+    @property
+    def local_rows(self) -> Tuple[int, ...]:
+        """The worker rows this process holds: all K on one device, its
+        own row (``replicate_fn.rows``) as one rank of a process mesh."""
+        rows = getattr(self.replicate_fn, "rows", None)
+        return tuple(range(self.cfg.num_workers)) if rows is None \
+            else tuple(rows)
+
     # -- construction -------------------------------------------------------
     def init(self, params) -> DiLoCoState:
         """``params``: a nested tree (or flat dict); it is copied, never
-        written.  All state lives on the parameters' device."""
+        written.  All state lives on the parameters' device; one worker
+        copy per local row (``local_rows``)."""
         with torch.no_grad():
             anchor = {k: p.detach().clone()
                       for k, p in flatten(params).items()}
             workers = [{k: p.clone() for k, p in anchor.items()}
-                       for _ in range(self.cfg.num_workers)]
+                       for _ in self.local_rows]
         inner = self._inner_opt()
         device = next(iter(anchor.values())).device
         return DiLoCoState(
@@ -111,10 +140,11 @@ class DiLoCoTrainer:
     def inner_step(self, state: DiLoCoState, batches: Dict[str, torch.Tensor],
                    live: Optional[Sequence[bool]] = None
                    ) -> Tuple[DiLoCoState, torch.Tensor]:
-        """batches: tensors with a leading (K, ...) worker dim.  Runs the
-        workers one after another; returns (state, (K,) losses on the
-        device).  ``live`` (a (K,) mask; None: every worker) leaves the
-        dead workers out: they are not stepped, so their parameters and
+        """batches: tensors with a leading worker dim, one row per local
+        worker (K on one device).  Runs the workers one after another;
+        returns (state, (K,) losses on the device).  ``live`` (a (K,)
+        mask; None: every worker) leaves the dead workers out: they are
+        not stepped, so their parameters and
         optimizer states keep their bits (the reference computes their
         step and discards it, the same state), and their loss entries are
         NaN.  The shared step counter advances either way.  Each worker's
@@ -122,6 +152,7 @@ class DiLoCoTrainer:
         it lands (the state is consumed), so at most one worker's old
         state is alive at a time."""
         opt = self._inner_opt()
+        grad_reduce = getattr(self.replicate_fn, "grad_reduce", None)
         states, losses = state.inner_opt, []
         for w, params in enumerate(state.worker_params):
             if live is not None and not live[w]:
@@ -131,7 +162,7 @@ class DiLoCoTrainer:
             batch = {k: v[w] for k, v in batches.items()}
             states[w], loss = worker_step(self.loss_fn, opt, params,
                                           states[w], batch,
-                                          state.inner_step)
+                                          state.inner_step, grad_reduce)
             losses.append(loss)
         return (state._replace(inner_opt=list(states),
                                inner_step=state.inner_step + 1),
@@ -140,12 +171,13 @@ class DiLoCoTrainer:
     # -- outer step ----------------------------------------------------------
     def init_residual(self, params) -> Optional[Flat]:
         """Per-worker (K, ...) f32 error-feedback residual of each leaf for
-        lossy codecs, or None when the codec is lossless or error feedback
-        is off.  Held by the sync runners, not in ``DiLoCoState``."""
+        lossy codecs (a row per local worker), or None when the codec is
+        lossless or error feedback is off.  Held by the sync runners, not
+        in ``DiLoCoState``."""
         if not (self.cfg.error_feedback
                 and make_codec(self.cfg.delta_dtype).lossy):
             return None
-        return {k: torch.zeros((self.cfg.num_workers,) + tuple(p.shape),
+        return {k: torch.zeros((len(self.local_rows),) + tuple(p.shape),
                                dtype=torch.float32, device=p.device)
                 for k, p in flatten(params).items()}
 
@@ -189,7 +221,7 @@ class DiLoCoTrainer:
             None if residual is None else
             {k: residual[k][:, sl] for k, sl in sel.items()},
             kind="delta" if frag is None else "fragment", fragment=fragment,
-            contrib=contrib)
+            contrib=contrib, replicate_fn=self.replicate_fn)
         if frag is not None:
             mu = self.cfg.outer_momentum
             for k, vk in v.items():
@@ -300,6 +332,6 @@ def run_diloco(trainer: DiLoCoTrainer, state: DiLoCoState, data_fn,
     from repro_torch.core.dist_trainer import DistTrainer
     from repro_torch.core.sync import DiLoCoSync
     dt = DistTrainer(trainer.loss_fn, trainer.opt_cfg, trainer.cfg,
-                     DiLoCoSync(h_schedule=h_schedule))
+                     DiLoCoSync(h_schedule=h_schedule), trainer.replicate_fn)
     return dt.run(state, data_fn, num_steps, record_every=record_every,
                   eval_fn=eval_fn, eval_every=eval_every)

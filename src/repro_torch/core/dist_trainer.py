@@ -36,6 +36,23 @@ The state passed to ``run`` is updated in place (worker parameters and
 optimizer states) and returned; make a fresh one with ``init`` per run.
 A resume loads into fresh tensors, never into ones another run holds.
 
+A process mesh.  With ``replicate_fn=mesh.replicate_fn``
+(``launch/mesh.py``) this process is one rank of a (pod, data) grid of
+``torch.distributed`` ranks: DiLoCo's K workers are the K pods, one
+worker a rank, and DDP runs on the data axis of one pod.  ``run`` cuts
+each ``data_fn(step)`` to this rank's part (its pod's worker row, its
+data index's share of the rows) before the batch reaches the device, the
+inner steps issue no collective across pods, and the outer round
+all-gathers the encoded payload across them.  The history's ``loss`` is
+this rank's worker's, and it gains ``inner_seconds`` (each chunk's
+seconds per inner step) and ``sync_seconds`` (each chunk that synced:
+the seconds of its outer round, the device synchronized); the mesh's
+collective log tags what the inner steps issue ``inner`` and what the
+outer rounds issue ``outer`` (``launch.collectives.scope``).  Only the
+``diloco`` (fixed H) and ``ddp`` strategies run across processes;
+``run`` refuses the others, fault schedules and run checkpoints by name
+(ROADMAP.md §1 queues them), rather than fall back to one process.
+
 Faults.  ``faults`` (a ``core.faults.FaultSchedule``) scripts per-worker
 crash / rejoin / slow / drop / corrupt events and run-level kills.  A
 ``FleetTracker`` follows it: every chunk starts with ``begin_chunk``
@@ -50,6 +67,7 @@ step's due checkpoint is written; a resume fast-forwards the tracker
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable, Dict, Optional, Tuple
@@ -110,14 +128,37 @@ class DistTrainer:
     opt_cfg: OptimizerConfig
     cfg: DiLoCoConfig
     strategy: SyncStrategy
+    replicate_fn: Optional[Callable] = None
 
     # The compute engine: StreamingDiLoCoTrainer is the most general
     # DiLoCoTrainer (inner step, full and fragment outer steps); strategies
     # pick which pieces they drive.
     def engine(self) -> StreamingDiLoCoTrainer:
         return StreamingDiLoCoTrainer(
-            self.loss_fn, self.opt_cfg, self.cfg,
+            self.loss_fn, self.opt_cfg, self.cfg, self.replicate_fn,
             num_fragments=getattr(self.strategy, "num_fragments", 4))
+
+    def _check_processes(self, faults, checkpoint_dir, resume) -> None:
+        """What runs across processes (module docstring), by name."""
+        name = self.strategy.name
+        queued = "not ported yet (ROADMAP.md §1 queues it)"
+        if name not in ("diloco", "ddp"):
+            raise ValueError(f"strategy {name!r} across processes is "
+                             f"{queued}; a replicate_fn runs diloco and ddp")
+        if getattr(self.strategy, "h_schedule", None) is not None:
+            raise ValueError(f"an H schedule across processes is {queued}: "
+                             f"each rank would decide its rounds from its "
+                             f"own loss")
+        if faults is not None:
+            raise ValueError(f"faults= across processes is {queued}")
+        if checkpoint_dir or resume:
+            raise ValueError(f"run checkpoints across processes are "
+                             f"{queued}")
+        rows = getattr(self.replicate_fn, "num_rows", self.cfg.num_workers)
+        if rows != self.cfg.num_workers:
+            raise ValueError(f"the mesh holds {rows} worker rows (pods) but "
+                             f"the config has {self.cfg.num_workers} "
+                             f"workers")
 
     def init(self, params) -> DiLoCoState:
         return self.engine().init(params)
@@ -145,6 +186,17 @@ class DistTrainer:
         uninterrupted run would.  ``faults`` scripts failures (module
         docstring); a round proceeds with the surviving workers while at
         least ``min_quorum`` contribute and is skipped below it."""
+        # a process mesh tags its collective log: the inner steps, and the
+        # replay that runs the outer rounds
+        scope = getattr(self.replicate_fn, "scope",
+                        lambda name: contextlib.nullcontext())
+        if self.replicate_fn is not None:
+            self._check_processes(faults, checkpoint_dir, resume)
+            local, whole = (getattr(self.replicate_fn, "local_batch", None),
+                            data_fn)
+            if local is not None:
+                def data_fn(step):
+                    return local(whole(step))
         has_faults = faults is not None and not faults.empty
         if not chunked and prefetch > 0:
             raise ValueError(
@@ -173,6 +225,8 @@ class DistTrainer:
         device = state.inner_step.device
         history: Dict[str, list] = {"step": [], "loss": [], "sync_steps": [],
                                     "frag_syncs": [], "evals": []}
+        if self.replicate_fn is not None:
+            history.update(inner_seconds=[], sync_seconds=[])
         start_step = 0
         if resume:
             manifest = latest_run_checkpoint(checkpoint_dir)
@@ -239,29 +293,35 @@ class DistTrainer:
                                                range(step, end + 1)],
                                               device))
                 losses = []
-                for i in range(T):
-                    state, loss = eng.inner_step(
-                        state, {k: v[i] for k, v in batches.items()},
-                        live=live)
-                    losses.append(loss)
+                with scope("inner"):
+                    for i in range(T):
+                        state, loss = eng.inner_step(
+                            state, {k: v[i] for k, v in batches.items()},
+                            live=live)
+                        losses.append(loss)
                 del batches
                 losses_host = _fetch(torch.stack(losses))  # ONE read a chunk
-                for i in range(T):
-                    s = step + i
-                    loss_mean = (_host_mean(losses_host[i]) if live is None
-                                 else _host_mean_live(losses_host[i], live))
-                    if s % record_every == 0:
-                        history["step"].append(s)
-                        history["loss"].append(loss_mean)
-                    new_state, recs = runner.after_step(state, s, loss_mean)
-                    if new_state is not state and s != end:
-                        raise RuntimeError(
-                            f"sync runner replaced the state at step {s}, "
-                            f"mid-chunk (chunk ends at {end}): next_event() "
-                            f"must report every step whose after_step "
-                            f"touches device state")
-                    state = new_state
-                    record(recs)
+                t_inner = time.perf_counter()
+                n_synced = len(history["sync_steps"])
+                with scope("outer"):
+                    for i in range(T):
+                        s = step + i
+                        loss_mean = (_host_mean(losses_host[i])
+                                     if live is None else
+                                     _host_mean_live(losses_host[i], live))
+                        if s % record_every == 0:
+                            history["step"].append(s)
+                            history["loss"].append(loss_mean)
+                        new_state, recs = runner.after_step(state, s,
+                                                            loss_mean)
+                        if new_state is not state and s != end:
+                            raise RuntimeError(
+                                f"sync runner replaced the state at step "
+                                f"{s}, mid-chunk (chunk ends at {end}): "
+                                f"next_event() must report every step whose "
+                                f"after_step touches device state")
+                        state = new_state
+                        record(recs)
                 # no second reference to the state into the next chunk:
                 # it would keep the K optimizer states that the next inner
                 # step replaces alive beside their successors
@@ -274,6 +334,11 @@ class DistTrainer:
                     torch.cuda.synchronize(device)  # an outer sync is timed
                 t_now = time.perf_counter()
                 chunk_step_seconds.append((t_now - t_prev) / T)
+                if self.replicate_fn is not None:
+                    history["inner_seconds"].append((t_inner - t_prev) / T)
+                    if (len(history["sync_steps"]) > n_synced
+                            and self.strategy.name == "diloco"):
+                        history["sync_seconds"].append(t_now - t_inner)
                 t_prev = t_now
                 if checkpoint_dir and checkpoint_every and (
                         pending_ckpt or (end + 1) % checkpoint_every == 0):
@@ -304,7 +369,8 @@ class DistTrainer:
         finally:
             if source is not None:
                 source.close()
-        state, recs = runner.finalize(state, num_steps)
+        with scope("outer"):
+            state, recs = runner.finalize(state, num_steps)
         record(recs)
         history["step_seconds"] = sorted(chunk_step_seconds)[
             len(chunk_step_seconds) // 2] if chunk_step_seconds else 0.0

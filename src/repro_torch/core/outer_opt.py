@@ -11,6 +11,12 @@ The exchange itself is ``core/transport.py``: f32 passthrough, bf16 cast,
 or int8 / fp8 / fp8_e5m2 with per-tensor-per-worker scales through the
 quantize kernels, with an optional per-worker error-feedback residual.
 
+On a process mesh (a ``replicate_fn``, ``launch/mesh.py``) a rank holds
+its own worker's rows only: it encodes them, the transport all-gathers
+every worker's encoded rows across pods, and every rank decodes and
+averages all K in worker order, so the anchor and momentum are the
+one-process round's bit for bit.
+
 ``outer_sync`` runs the round one leaf at a time: it stacks one leaf's K
 worker deltas, encodes, ships, decodes and averages them, and applies the
 outer update to that leaf before it touches the next, so no (K, ...)
@@ -21,7 +27,8 @@ needs every leaf first: that path decodes all leaves, then averages.
 """
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import torch
 
@@ -50,10 +57,12 @@ def init_outer_state(params: Flat) -> OuterState:
         t=torch.zeros((), dtype=torch.int32, device=some.device))
 
 
-def make_transport(cfg: DiLoCoConfig) -> Transport:
+def make_transport(cfg: DiLoCoConfig,
+                   replicate_fn: Optional[Callable] = None) -> Transport:
     """The transport the config describes: the quantize kernels on CUDA
-    tensors, their plain versions on CPU tensors."""
-    return Transport(make_codec(cfg.delta_dtype))
+    tensors, their plain versions on CPU tensors; ``replicate_fn`` the
+    replicate hop across processes (None on one card)."""
+    return Transport(make_codec(cfg.delta_dtype), replicate_fn)
 
 
 def quantize_delta(delta: Flat, dtype: str):
@@ -134,12 +143,14 @@ def _average(delta: Flat, cfg: DiLoCoConfig,
 def exchange_and_average(stacked_delta: Flat, cfg: DiLoCoConfig,
                          residual: Optional[Flat] = None,
                          kind: str = "delta", fragment: int = -1,
-                         live: Optional[Sequence[bool]] = None
+                         live: Optional[Sequence[bool]] = None,
+                         replicate_fn: Optional[Callable] = None
                          ) -> Tuple[Flat, Optional[Flat]]:
     """encode -> ship -> decode -> average; returns (averaged delta, new
     error-feedback residual or None).  ``live`` is the quorum round's
-    contribution mask (``_average``)."""
-    full, new_residual = make_transport(cfg).exchange(
+    contribution mask (``_average``); with ``replicate_fn``
+    ``stacked_delta`` and ``residual`` are this process's rows only."""
+    full, new_residual = make_transport(cfg, replicate_fn).exchange(
         stacked_delta, residual, kind=kind, fragment=fragment)
     return _average(full, cfg, live=live), new_residual
 
@@ -174,7 +185,8 @@ def stack_delta(rows: Sequence[torch.Tensor],
 def outer_sync(anchor: Flat, rows: Dict[str, List[torch.Tensor]], v: Flat,
                cfg: DiLoCoConfig, residual: Optional[Flat] = None, *,
                kind: str = "delta", fragment: int = -1,
-               contrib: Optional[Sequence[bool]] = None) -> None:
+               contrib: Optional[Sequence[bool]] = None,
+               replicate_fn: Optional[Callable] = None) -> None:
     """One outer round over the leaves (or fragment slices) named by
     ``anchor``: ``rows[k]`` are the K workers' (or snapshots') tensors of
     leaf k, ``v[k]`` its momentum, ``residual[k]`` its (K, ...) error
@@ -185,7 +197,12 @@ def outer_sync(anchor: Flat, rows: Dict[str, List[torch.Tensor]], v: Flat,
     only they are encoded and averaged, and only their residual rows are
     written, so a non-contributor's carry keeps its bits.  Each row is
     encoded on its own (per-worker scales), so a contributor's codes are
-    those of an all-row exchange."""
+    those of an all-row exchange.
+
+    With ``replicate_fn`` (a process mesh) ``rows`` and ``residual`` hold
+    this rank's worker rows only; the transport gathers every worker's
+    encoded rows, and the anchor and momentum come out as the one-process
+    round's."""
     sub = (None if contrib is None or all(contrib) else
            [i for i, keep in enumerate(contrib) if keep])
     # drift-aware weights need every leaf's delta at once; otherwise one
@@ -204,7 +221,8 @@ def outer_sync(anchor: Flat, rows: Dict[str, List[torch.Tensor]], v: Flat,
             res = (None if residual is None else
                    {k: residual[k].index_select(0, idx) for k in group})
         avg, new_res = exchange_and_average(delta, cfg, res, kind=kind,
-                                            fragment=fragment)
+                                            fragment=fragment,
+                                            replicate_fn=replicate_fn)
         del delta
         for k in group:
             p, vv = update_leaf(anchor[k], v[k], avg[k], cfg)

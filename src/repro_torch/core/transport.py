@@ -28,7 +28,10 @@ their plain versions on CPU tensors.  ``BF16Cast`` is a plain cast, as in
 the reference (no kernel there either).
 
 ``shipped`` counts the wire bytes of every payload shipped, per codec
-name, since ``reset_shipped()`` — the per-sync wire-bytes metric.  The
+name, since ``reset_shipped()`` — the per-sync wire-bytes metric: the
+bytes this process ships.  On one card that is every worker's payload;
+as one rank of a process mesh (a ``replicate_fn``, below) it is this
+rank's own row, so the ranks' counts sum to the one-process count.  The
 gossip hop (``ship_peers`` / ``exchange_peers``, and ``ship_rows`` for the
 peer's f32 outer state) counts only the rows that cross a link: worker i
 receives row ``peer_idx[i]``, and a self-paired worker receives nothing.
@@ -37,7 +40,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -54,6 +57,10 @@ _ALIASES = {"float32": "f32", "f32": "f32",
             "fp8": "fp8", "float8": "fp8", "e4m3": "fp8",
             "fp8_e4m3": "fp8",
             "e5m2": "fp8_e5m2", "fp8_e5m2": "fp8_e5m2"}
+
+# the byte carrier of each narrow wire across the replicate hop: a payload
+# crosses as its bytes (gloo takes neither int16 nor float8 tensors)
+_WIRE_BYTES = ("bf16", "fp8", "fp8_e5m2")
 
 # codec name -> wire bytes shipped since reset_shipped()
 shipped: collections.Counter = collections.Counter()
@@ -227,20 +234,55 @@ def wire_width(dtype: str) -> int:
     return WIRE_WIDTH[_ALIASES[dtype]]
 
 
+def _as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """A (R, ...) tensor's bytes as (R, nbytes / R) uint8 (a bitcast)."""
+    return t.reshape(t.shape[0], -1).view(torch.uint8)
+
+
+def _from_bytes(b: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``_as_bytes`` for every row of ``b``: rows shaped and
+    typed as ``like``'s."""
+    return b.view(like.dtype).reshape((b.shape[0],) + tuple(like.shape[1:]))
+
+
 @dataclasses.dataclass(frozen=True)
 class Transport:
     """Codec + the replicate hop: everything between "delta captured" and
-    "f32 delta available on every worker"."""
+    "f32 delta available on every worker".  ``replicate_fn`` (None on one
+    card) maps ``{path: this process's rows}`` to ``{path: every worker's
+    rows}`` in worker order: the all-gather across pods of a process mesh
+    (``launch.mesh.ProcessMesh.replicate_fn``)."""
     codec: Codec
+    replicate_fn: Optional[Callable] = None
 
     def ship(self, payload: OuterPayload) -> OuterPayload:
-        """The replicate hop.  On one card every worker's rows already sit
-        in the same memory, so shipping is the identity; it counts the
-        payload's wire bytes in ``shipped``.  The reference's bitcast and
-        optimization-barrier games keep XLA from widening the wire on a
-        pod mesh; eager PyTorch has no such rewrite to guard against."""
+        """The replicate hop; counts this process's payload in
+        ``shipped``.  On one card every worker's rows already sit in the
+        same memory, so shipping is the identity.  With a ``replicate_fn``
+        the ENCODED rows and their scales cross, as the reference's pod
+        mesh gathers them: a narrow wire (bf16, fp8, e5m2) as its bytes
+        (``uint8``, a bitcast each way), so only wire-dtype bytes move.
+        The reference's optimization barrier keeps XLA from widening the
+        wire; eager PyTorch has no such rewrite to guard against."""
         shipped[payload.codec] += payload.nbytes()
-        return payload
+        if self.replicate_fn is None:
+            return payload
+        data = payload.data
+        if payload.codec in _WIRE_BYTES:
+            data = {k: _as_bytes(v) for k, v in data.items()}
+        data = self.replicate_fn(data)
+        if payload.codec in _WIRE_BYTES:
+            data = {k: _from_bytes(v, payload.data[k])
+                    for k, v in data.items()}
+        scales = (None if payload.scales is None else
+                  self.replicate_fn(payload.scales))
+        return dataclasses.replace(payload, data=data, scales=scales)
+
+    def _single_process(self, what: str) -> None:
+        if self.replicate_fn is not None:
+            raise NotImplementedError(
+                f"{what} across processes (gossip's point-to-point "
+                f"send / recv) is not ported; ROADMAP.md §1 queues it")
 
     def ship_peers(self, payload: OuterPayload,
                    peer_idx: Sequence[int]) -> OuterPayload:
@@ -251,6 +293,7 @@ class Transport:
         and their scales; decoding comes after.  On one card it is a
         local ``index_select`` over dim 0.  ``shipped`` counts one payload
         row (codes and scales) per worker whose peer is another worker."""
+        self._single_process("the gossip hop")
         some = next(iter(payload.data.values()))
         idx = torch.as_tensor(list(peer_idx), dtype=torch.long,
                               device=some.device)
@@ -271,6 +314,7 @@ class Transport:
         async board, which holds it decoded while the link carries it
         encoded (``codec`` and its ``row_nbytes``).  Counted in
         ``shipped`` like ``ship_peers``."""
+        self._single_process("the gossip hop")
         idx = torch.as_tensor(list(peer_idx), dtype=torch.long,
                               device=t.device)
         if row_nbytes is None:

@@ -31,10 +31,11 @@ Bytes are accounted per codec (``SyncEvent.codec``): results carry a
 ``bytes_by_codec`` breakdown next to ``total_bytes``.
 
 This is the JAX package's ``launch/comm_sim.py`` with the port's own
-constants (below): an H100's data-sheet rates for the roofline step time,
-and a worker's boundary link of one 100 Gbit/s Ethernet port.  It runs on
-the host and never touches the device.  ``faults=`` overlays a
-``core.faults.FaultSchedule`` on the simulators.
+constants, from ``launch/mesh.py`` as the reference's come from its
+``repro.launch.mesh``: an H100's data-sheet rates for the roofline step
+time, and a worker's boundary link of one 100 Gbit/s Ethernet port
+(``DCN_BW``).  It runs on the host and never touches the device.
+``faults=`` overlays a ``core.faults.FaultSchedule`` on the simulators.
 """
 from __future__ import annotations
 
@@ -43,12 +44,11 @@ import json
 import re
 from typing import Dict, Iterable, List, Optional, Sequence
 
-# NVIDIA H100 SXM, data sheet: dense bf16 tensor-core rate and HBM3 rate
-PEAK_FLOPS_BF16 = 989e12      # FLOP/s
-HBM_BW = 3.35e12              # bytes/s
+from repro_torch.launch.mesh import DCN_BW, HBM_BW, PEAK_FLOPS_BF16
+
 # a worker's boundary link: one 100 Gbit/s Ethernet port (IEEE 802.3ba),
 # its line rate in bytes/s, not a measurement
-LINK_BW = 100e9 / 8
+LINK_BW = DCN_BW
 # the per-transfer fixed cost: the model's assumption, not a measurement
 LINK_LATENCY = 1e-3           # s
 
@@ -347,8 +347,10 @@ class CommCalibration:
 
 def load_calibration(path: str, arch: Optional[str] = None
                      ) -> Optional[CommCalibration]:
-    """Calibrate against a dry-run JSON dump in the JAX package's
-    ``launch.dryrun --json-out`` format (e.g. ``dryrun_outer.json``).
+    """Calibrate against a dry-run JSON dump in the ``launch.dryrun
+    --json-out`` format, the port's (``python -m
+    repro_torch.launch.dryrun``) or the JAX package's, which share it
+    (e.g. ``dryrun_outer.json``).
 
     * step time — from a ``train`` / ``diloco-inner`` entry: its
       ``measured_step_s`` field if present (real profiled seconds merged
@@ -356,8 +358,10 @@ def load_calibration(path: str, arch: Optional[str] = None
       hbm_bytes/hbm_bw) at this module's H100 rates from its analytic
       terms — either replaces the
       fixed 40%-MFU assumption;
-    * sync bytes — the outer-step entry's HLO-parsed cross-pod wire bytes
-      (falling back to total wire bytes), replacing width×n_params.
+    * sync bytes — the outer-step entry's cross-pod wire bytes per
+      device (the reference parses them from its compiled program, the
+      port's dry run counts them from the codec's width), falling back to
+      the total wire bytes, replacing width×n_params.
     """
     try:
         with open(path) as f:

@@ -58,11 +58,27 @@ and kills in the base stage, whose rounds then average the surviving
 workers while at least ``--min-quorum`` contribute; the stage's entry
 gains the ``fault``, ``quorum``, ``quorum_skip`` and ``rejoin_drift``
 records.
+
+Across processes.  ``--pods P --data-procs D`` runs the pipeline as P x D
+``torch.distributed`` ranks on a (pod, data) process mesh
+(``launch/mesh.py``): ``--method diloco`` with one worker a pod (K = P)
+and DDP inside each pod over its D ranks, or ``--method ddp`` over D
+ranks (P = 1).  The CLI starts the ranks itself (the ``spawn`` start
+method, the kernels built once before) or, under ``torchrun`` ($RANK /
+$WORLD_SIZE set), is one of them.  ``--backend nccl`` (the default)
+needs a card a rank and is refused with fewer, because NCCL rejects two
+ranks on one card; ``--backend gloo`` runs any number of ranks on one
+card (or on the CPU), each collective staged through the host.  Rank 0
+evaluates, prints and writes ``--out-dir``.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --method diloco \
+        --pods 2 --backend gloo --steps 20 [--data-procs 2] [--device cpu]
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import time
@@ -116,13 +132,15 @@ def run_stage(method: str, cfg: ModelConfig, params, stage_ds, *,
               seed: int = 0, h_schedule=None, prefetch: int = 0,
               faults=None, min_quorum: int = 1,
               checkpoint_dir: Optional[str] = None,
-              checkpoint_every: int = 0, resume: bool = False):
+              checkpoint_every: int = 0, resume: bool = False,
+              replicate_fn=None):
     """Run one pipeline stage of ``cfg`` from ``params`` (a parameter tree
     on the device to train on) under ``method``; returns (final global
     parameter tree, history).  Every method goes through ``DistTrainer``;
     ``method`` picks the sync strategy; ``h_schedule`` (an ``HSchedule``)
     replaces DiLoCo's fixed H; ``faults`` (a ``FaultSchedule``) and
-    ``min_quorum`` reach ``DistTrainer.run``."""
+    ``min_quorum`` reach ``DistTrainer.run``; ``replicate_fn`` (a process
+    mesh's) makes this process one rank of the run."""
     from repro_torch.core import (DistTrainer, compressed_ddp_config,
                                   make_strategy)
     from repro_torch.models import lm_loss
@@ -158,7 +176,8 @@ def run_stage(method: str, cfg: ModelConfig, params, stage_ds, *,
         data = worker_data
 
     trainer = DistTrainer(lambda p, b: lm_loss(p, b, cfg), opt_cfg, dcfg,
-                          make_strategy(dcfg, h_schedule=h_schedule))
+                          make_strategy(dcfg, h_schedule=h_schedule),
+                          replicate_fn)
     # the initial state is passed unnamed: ``run`` consumes it, and a name
     # here would keep its K optimizer states alive for the whole run; the
     # parameters are dropped too, so a caller that passes the only
@@ -234,7 +253,7 @@ def run_pipeline(method: str = "diloco", arch: str = "tiny",
                  fault_schedule: str = "", min_quorum: int = 1,
                  checkpoint_dir: Optional[str] = None,
                  checkpoint_every: int = 0, resume: bool = False,
-                 device="cuda") -> Dict:
+                 device="cuda", mesh=None) -> Dict:
     """The full three-stage pipeline under one method, on ``device``
     ("cuda", the default, or "cpu").  Returns metrics: per stage the JAX
     package's entry (``loss_first``, ``loss_last``, thinned ``losses``,
@@ -254,7 +273,12 @@ def run_pipeline(method: str = "diloco", arch: str = "tiny",
     ``fault_schedule`` (a ``FaultSchedule.from_spec`` string or a JSON
     path) injects scripted failures into the BASE stage, whose rounds
     need ``min_quorum`` contributors; its entry gains the ``fault``,
-    ``quorum``, ``quorum_skip`` and ``rejoin_drift`` records it has."""
+    ``quorum``, ``quorum_skip`` and ``rejoin_drift`` records it has.
+
+    ``mesh`` (a ``launch.mesh.ProcessMesh``) makes this process one rank:
+    ``diloco`` with ``workers`` = its pods, or ``ddp`` on its data axis
+    (one pod); the device is the mesh's, and only rank 0 evaluates, prints
+    and writes ``out_dir``.  Every rank returns its metrics."""
     import torch
 
     from repro_torch.core import AdaptiveH, FaultSchedule, transport
@@ -276,6 +300,11 @@ def run_pipeline(method: str = "diloco", arch: str = "tiny",
                     else "frames for this encoder-decoder")
             raise NotImplementedError(f"arch {arch!r}: the pipeline's text "
                                       f"data has no {what}")
+    lead = True
+    if mesh is not None:
+        _check_mesh_run(mesh.pod, method, workers, grad_compress)
+        device, lead = mesh.device, mesh.rank == 0
+        eval_after_each_stage = eval_after_each_stage and lead
     device = resolve_device(device)
     steps = steps or {"base": 300, "mid": 120, "sft": 120}
     world, tok, stages, suites = build_pipeline(seq_len=seq_len, seed=seed)
@@ -324,7 +353,8 @@ def run_pipeline(method: str = "diloco", arch: str = "tiny",
             prefetch=prefetch,
             faults=faults if is_base else None, min_quorum=min_quorum,
             checkpoint_dir=checkpoint_dir if is_base else None,
-            checkpoint_every=checkpoint_every, resume=resume and is_base)
+            checkpoint_every=checkpoint_every, resume=resume and is_base,
+            replicate_fn=None if mesh is None else mesh.replicate_fn)
         if on_card:
             torch.cuda.synchronize(device)
         wall = time.perf_counter() - t0
@@ -356,6 +386,8 @@ def run_pipeline(method: str = "diloco", arch: str = "tiny",
                 torch.cuda.max_memory_allocated(device) / 1e9)
         entry["port"] = port
         results["stages"][stage] = entry
+        if not lead:
+            continue
         print(f"[{method}:{stage}] {cfg.name} device={device.type} "
               f"kernels={port['kernels']} loss {entry['loss_first']:.3f} -> "
               f"{entry['loss_last']:.3f} syncs={port['syncs']} "
@@ -365,7 +397,7 @@ def run_pipeline(method: str = "diloco", arch: str = "tiny",
               + (f"tasks={entry.get('tasks')}" if eval_after_each_stage
                  else ""), flush=True)
 
-    if worker_speeds and method != "ddp":
+    if worker_speeds and method != "ddp" and lead:
         from repro_torch.models.transformer import flatten
         n_params = sum(p.numel() for p in flatten(params).values())
         # staleness stays 0: the schedules' apply_step already carries the
@@ -390,7 +422,7 @@ def run_pipeline(method: str = "diloco", arch: str = "tiny",
               f"stall {het['stall_s']:.2f}s)" + pair
               + f" link={rep['link_bytes_per_s']:.4g}B/s", flush=True)
 
-    if out_dir:
+    if out_dir and lead:
         os.makedirs(out_dir, exist_ok=True)
         from repro_torch.checkpoint import save_config, save_pytree
         ckpt = os.path.join(out_dir, f"{method}_final")
@@ -399,6 +431,86 @@ def run_pipeline(method: str = "diloco", arch: str = "tiny",
         with open(os.path.join(out_dir, f"{method}_metrics.json"), "w") as f:
             json.dump(results, f, indent=1, default=float)
     return results
+
+
+def _check_mesh_run(pods: int, method: str, workers: int,
+                    grad_compress: str) -> None:
+    """What the pipeline runs across processes, by name."""
+    queued = "is not ported across processes yet (ROADMAP.md §1 queues it)"
+    if method == "diloco":
+        if workers != pods:
+            raise ValueError(f"diloco across processes runs one worker a "
+                             f"pod: workers={workers} on {pods} pods")
+    elif method == "ddp":
+        if pods != 1:
+            raise ValueError(f"ddp runs on the data axis of one pod; the "
+                             f"mesh has {pods} pods")
+        if grad_compress not in ("", "none"):
+            raise ValueError(f"compressed ddp {queued}")
+    else:
+        raise ValueError(f"method {method!r} {queued}; --pods / "
+                         f"--data-procs run diloco and ddp")
+
+
+def _cli_rank(rank: int, world: int, init_method: str, pods: int,
+              data: int, backend: str, kw: Dict, result_path: str) -> None:
+    """One rank of the CLI's run: the mesh, the pipeline; rank 0 writes
+    its metrics to ``result_path``."""
+    import torch
+
+    from repro_torch.launch.mesh import init_process_mesh
+    if kw["device"] == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    mesh = init_process_mesh(pods, data, backend=backend,
+                             device=kw["device"], rank=rank,
+                             world_size=world, init_method=init_method)
+    try:
+        res = run_pipeline(**kw, mesh=mesh)
+        if rank == 0:
+            with open(result_path, "w") as f:
+                json.dump(res, f, default=float)
+    finally:
+        mesh.close()
+
+
+def run_ranks_pipeline(pods: int, data: int, backend: str, **kw) -> Dict:
+    """``run_pipeline(**kw)`` as ``pods`` x ``data`` ranks: under
+    ``torchrun`` this process is one of them; otherwise the ranks are
+    started here with ``spawn``, after the kernels are built once (when
+    the device is a card).  Returns rank 0's metrics."""
+    import tempfile
+
+    from repro_torch.launch.mesh import init_process_mesh, run_ranks
+    world = pods * data
+    _check_mesh_run(pods, kw.get("method", "diloco"), kw.get("workers", 4),
+                    kw.get("grad_compress", "none"))
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        mesh = init_process_mesh(pods, data, backend=backend,
+                                 device=kw.get("device", "cuda"))
+        try:
+            return run_pipeline(**kw, mesh=mesh)
+        finally:
+            mesh.close()
+    kw.setdefault("device", "cuda")
+    if kw["device"] == "cpu" and backend == "nccl":
+        raise ValueError("--backend nccl runs on CUDA devices; on the CPU "
+                         "pass --backend gloo")
+    if kw["device"] != "cpu":
+        import torch
+        cards = torch.cuda.device_count()
+        if backend == "nccl" and cards < world:
+            raise ValueError(
+                f"--backend nccl with {world} ranks on {cards} card(s): "
+                f"NCCL rejects two ranks on one card; pass --backend gloo "
+                f"(the ranks still compute on the card, each collective "
+                f"staged through the host)")
+        from repro_torch.kernels import _build
+        _build.build()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "rank0.json")
+        run_ranks(_cli_rank, world, pods, data, backend, kw, path)
+        with open(path) as f:
+            return json.load(f)
 
 
 def main(argv=None) -> Dict:
@@ -415,7 +527,9 @@ def main(argv=None) -> Dict:
                          "full widths")
     ap.add_argument("--steps", type=int, default=300,
                     help="base-stage steps; mid and SFT take steps // 2")
-    ap.add_argument("--workers", type=int, default=4)
+    ap.add_argument("--workers", type=int, default=None,
+                    help="DiLoCo workers (default 4; across processes the "
+                         "pod count)")
     ap.add_argument("--adaptive-h", action="store_true",
                     help="DiLoCo stages: H from the loss slope (AdaptiveH)")
     ap.add_argument("--fused-adamw", action="store_true",
@@ -477,12 +591,27 @@ def main(argv=None) -> Dict:
     ap.add_argument("--device", type=str, default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--pods", type=int, default=1,
+                    help="ranks on the pod axis: DiLoCo's workers, one a "
+                         "process")
+    ap.add_argument("--data-procs", type=int, default=1,
+                    help="ranks on the data axis: DDP inside each pod")
+    ap.add_argument("--backend", default="nccl", choices=["nccl", "gloo"],
+                    help="collectives across processes; gloo for more "
+                         "ranks than cards")
     args = ap.parse_args(argv)
-    return run_pipeline(method=args.method, arch=args.arch,
+    ranks = args.pods * args.data_procs
+    workers = args.workers or (args.pods if ranks > 1 and args.method ==
+                               "diloco" else 4)
+    run = (functools.partial(run_ranks_pipeline, args.pods, args.data_procs,
+                             args.backend)
+           if ranks > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1
+           else run_pipeline)
+    return run(method=args.method, arch=args.arch,
                         reduced=args.reduced,
                         steps={"base": args.steps, "mid": args.steps // 2,
                                "sft": args.steps // 2},
-                        workers=args.workers, adaptive_h=args.adaptive_h,
+                        workers=workers, adaptive_h=args.adaptive_h,
                         delta_dtype=args.delta_dtype,
                         grad_compress=args.grad_compress,
                         drift_aware=args.drift_aware,

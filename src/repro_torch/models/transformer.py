@@ -77,7 +77,7 @@ forward ignores the flag, as the reference does.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -206,6 +206,41 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
         shapes.update(_norm_shapes("cross/ln", (L,), cfg))
         shapes.update(_attn_shapes("cross/attn", L, cfg, cross=True))
     return shapes
+
+
+# logical dim names of the leaves that shard (the reference's annotations
+# in its ``init_lm``), by the last two parts of the path; a stacked leaf
+# (under ``layers``, ``encoder`` or ``cross``) has "stack" before them, and
+# every other dim is unsharded (None)
+_LEAF_NAMES = {
+    "attn/wq": ("fsdp", "heads"), "attn/wk": ("fsdp", "kv_heads"),
+    "attn/wv": ("fsdp", "kv_heads"), "attn/wo": ("heads", "fsdp"),
+    "mlp/w_up": ("fsdp", "ffn"), "mlp/w_gate": ("fsdp", "ffn"),
+    "mlp/w_down": ("ffn", "fsdp"),
+    "moe/router": ("fsdp", None), "moe/shared_up": ("fsdp", "ffn"),
+    "moe/shared_gate": ("fsdp", "ffn"), "moe/shared_down": ("ffn", "fsdp"),
+    "moe/w_up": ("expert", "fsdp", "ffn"),
+    "moe/w_gate": ("expert", "fsdp", "ffn"),
+    "moe/w_down": ("expert", "ffn", "fsdp"),
+    "mamba/in_proj": ("fsdp", "heads"), "mamba/out_proj": ("heads", "fsdp"),
+    "mamba/conv_w": (None, "heads"),
+    "embed/table": ("vocab", "fsdp"), "embed/unembed": ("fsdp", "vocab"),
+}
+
+
+def param_names(cfg: ModelConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Checkpoint-manifest path -> the logical name of each dim of that
+    leaf (``models.sharding`` resolves them to mesh axes), the names the
+    reference's ``abstract_params`` gives the same leaf."""
+    out = {}
+    for path, shape in param_shapes(cfg).items():
+        parts = path.split("/")
+        stacked = parts[0] in ("layers", "encoder", "cross")
+        names = ("stack",) if stacked else ()
+        rest = _LEAF_NAMES.get("/".join(parts[-2:]),
+                               (None,) * (len(shape) - len(names)))
+        out[path] = names + rest
+    return out
 
 
 def unflatten(flat: Dict[str, torch.Tensor]) -> Params:

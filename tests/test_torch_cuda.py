@@ -1113,3 +1113,38 @@ def test_cuda_ring_kernel_as_cross_decode(cuda, dtype, tol):
                       / D ** 0.5, dim=-1)
     dense = torch.einsum("bhgs,bhsd->bhgd", p, v.float())
     torch.testing.assert_close(got.float(), dense, atol=tol, rtol=10 * tol)
+
+
+@pytest.mark.cuda
+def test_cuda_two_rank_diloco_equals_one_process(cuda, tmp_path):
+    """Two ranks on the card(s) (NCCL with a card a rank, else gloo with
+    both on one card, each collective staged through the host), DiLoCo
+    (pod 2, data 1) on the f32 and int8 wires: each rank's anchor and
+    outer momentum equal the one-process loop's on the card bit for bit,
+    each rank launches the training kernels (the wire kernels on int8),
+    the inner steps issue no collective."""
+    import torch_mesh_ranks as ranks
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import init_params
+    _build.build()                      # once, before the ranks start
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    run_ranks(ranks.pair_cuda, 2, str(tmp_path), backend, timeout_s=300)
+    got = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    params = init_params(ranks.card_cfg(), seed=0, device=cuda)
+    for wire in ("float32", "int8"):
+        dt = ranks.card_trainer(wire)
+        st, _ = dt.run(dt.init(params), ranks.worker_data(ranks.dataset()),
+                       4)
+        for r in got:
+            x = r[wire]
+            for k, t in st.global_params.items():
+                assert torch.equal(x["global"][k], t.cpu()), (wire, k)
+                assert torch.equal(x["v"][k], st.outer.v[k].cpu()), (wire, k)
+            for k in ("rmsnorm_residual", "flash_fwd", "flash_bwd",
+                      "fused_adamw", "rmsnorm_bwd"):
+                assert x["launches"][k] > 0, (wire, k)
+            wire_launches = x["launches"]["quantize_ef"]
+            assert (wire_launches > 0) == (wire == "int8")
+            assert x["inner"]["count_by_kind"] == {}
+            assert x["outer"]["cross_pod_bytes_per_device"] > 0

@@ -128,7 +128,7 @@ yardstick.  Then phases, each fatal on failure:
    windows with the f32 backward against float64 (each gradient's error
    within a stated multiple of the plain f32 version's); the SSD at
    hymba's heads; the SSD's gradient against the plain scan's; the ring
-   at hymba's heads); hymba-1.5b at 16 of its 32 layers (for the
+   at hymba's heads); hymba-1.5b at 8 of its 32 layers (for the
    script's time) on the static path:
    phase 4's 8 requests and a pair of 1100-token prompts (past its 1024
    window; the first token equal to ``forward_lm``'s argmax) with the
@@ -204,10 +204,31 @@ yardstick.  Then phases, each fatal on failure:
    training kernels launch in every rank (and the wire kernels on int8
    only).  Logs per rank the inner-step seconds, each outer round's ms
    with its host staging and collective apart, and peak memory;
+5c. every strategy across ranks (``phase_mesh_strategies``):
+   nanochat-d20 at full width (seed 0, random token ids at seq_len 1024,
+   1 x 1024 tokens a worker), as 2 ranks at 4 layers (streaming,
+   overlapped, pipelined, compressed DDP, DiLoCo under AdaptiveH, a
+   kill and resume (at 1 layer) from the run checkpoint rank 0 writes,
+   and
+   ``run_pipeline("hybrid")``), then as 4 ranks at 2 layers (gossip ring
+   and random, async gossip, DiLoCo through a crash and rejoin), int8
+   wire, NCCL with a card a rank, else gloo with every rank on card 0;
+   then the ranks run the one-process references on the card.  Gates,
+   each rank against its case's one-process run: the anchor, momentum,
+   counters and the rank's worker, residual and gossip rows bit for bit
+   and every history record equal; the resumed run is the uninterrupted
+   one; hybrid's base stage ends bit for bit, its DDP stages' losses
+   within ``MESH_DDP_LOSS_RTOL`` and their parameters within
+   ``MESH_DDP_ATOL``; no collective in the inner steps; each
+   rank's outer-round sends equal its ``shipped`` and the ranks' sum is
+   one process's; gossip sends one peer row a round point to point; a
+   down rank sends 0 bytes; the wire and training kernels launch in
+   every rank.  Logs per rank the inner-step seconds, each round's ms
+   (host staging and collective apart) and peak memory;
 6. the three-stage pipeline: ``run_pipeline`` (base -> mid -> SFT, with
    the evals after each stage: held-out CE, multiple choice, arithmetic
    and pattern exact match through ``Engine``) of nanochat-d20 at full
-   width (d 1280, 10 heads of 128; 10 of its 20 layers for
+   width (d 1280, 10 heads of 128; 6 of its 20 layers for
    the script's time; vocab = the tokenizer's 512, as the JAX pipeline
    sets it) for DiLoCo and for hybrid (DiLoCo
    base, DDP mid and SFT), K 4, per-worker batch 8, seq_len 128, steps
@@ -250,10 +271,10 @@ yardstick.  Then phases, each fatal on failure:
 6c. gossip and async gossip over the codec wire (int8), nanochat-d20 at
    full width (vocab 512), K 4, per-worker batch 8, seq_len 128, H 2,
    fused AdamW, remat on, through ``run_stage``: gossip on the ring and
-   the random topology (10 layers for the script's time;
-   4 steps each) and async gossip
+   the random topology (4 layers for the script's time, since phase 5c
+   joined; 4 steps each) and async gossip
    (jitter 1, bound 1, 6 steps) at full depth when the gossip run's peak
-   plus its three publication boards reckon it fits, else at 10 layers;
+   plus its three publication boards reckon it fits, else at 4 layers;
    gates: losses finite and falling, the ``gossip_syncs`` and
    ``sync_steps`` records equal to the same run's on the CPU (a tiny
    model), the training and wire kernels launched and no other, the
@@ -267,8 +288,9 @@ yardstick.  Then phases, each fatal on failure:
    Table 1's base stage (300 steps, H 100), beside the link it assumes;
 6d. the fault layer at phase 6c's shape (nanochat-d20, full width, vocab
    512, K 4, per-worker batch 8, seq_len 128, H 2, int8 wire, fused
-   AdamW, remat on) through ``run_stage(faults=...)``, both cut to 10
-   layers for the script's time: DiLoCo for 8 steps
+   AdamW, remat on) through ``run_stage(faults=...)``, both cut to 4
+   layers for the script's time (since phase 5c joined): DiLoCo for 8
+   steps
    under ``slow:3@1x1.5,crash:2@2,drop:1@3,corrupt:0@5x2,rejoin:2@6`` and
    gossip (ring) for 4 under
    ``crash:1@1,rejoin:1@2``; gates: the quorum
@@ -322,7 +344,7 @@ a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
 the last line.  Exits nonzero, with no result, when CUDA is unavailable
 or any phase fails.
 
-``--only-mesh`` builds the kernels and runs only phase 5b, as
+``--only-mesh`` builds the kernels and runs only phases 5b and 5c, as
 ``--new-archs`` and ``--enc-vlm`` run only 4c and 4d.
 ``--norm-timing`` and ``--ssd-timing`` build only rmsnorm.cu or ssd.cu
 and print one JSON line of those kernels' phase-7 timings beside
@@ -451,9 +473,9 @@ PIPELINE_METHODS = ("diloco", "hybrid")
 PIPELINE_STEPS = {"base": 6, "mid": 4, "sft": 4}
 # K 4, the reference example's: phase 6b measures K 4 with remat at phase
 # 5's shape (4 x 1024 tokens a worker) at 58.2 GB of the card's 85.0
-# nanochat-d20 at full width and 10 of its 20 layers, for the
-# script's time
-PIPELINE_LAYERS = 10
+# nanochat-d20 at full width and 6 of its 20 layers, for the
+# script's time (10 until phase 5c joined)
+PIPELINE_LAYERS = 6
 PIPELINE_KW = dict(arch="nanochat-d20", reduced=False, steps=PIPELINE_STEPS,
                    workers=4, per_worker_batch=8, seq_len=128,
                    fused_adamw=True, eval_after_each_stage=True)
@@ -2403,12 +2425,13 @@ HYMBA, MIXTRAL, LLAMA4, MAMBA2 = ("hymba-1.5b", "mixtral-8x7b",
 # the capacity factor at which no token is dropped at any T: once it
 # reaches E / K, C = S (mixtral 8 / 2, llama4 16 / 1)
 NO_DROP = {MIXTRAL: 4.0, LLAMA4: 16.0}
-# serving depth, cut for the script's time: hymba at 16 of its 32 layers
-# (its static path is host-bound: seconds scale with depth; it trains
+# serving depth, cut for the script's time: hymba at 8 of its 32 layers
+# (16 until phase 5c joined; its static path is host-bound: seconds
+# scale with depth; layer 0 keeps its global window; it trains
 # whole), mixtral and llama4 at 4 layers (24.27 / 43.51 GB; 186.8 /
 # 431.1 GB whole): llama4's 4 are its three windowed layers and the
 # first global one; mixtral's pair of long prompts at 2 of those 4
-HYMBA_SERVE_LAYERS = 16
+HYMBA_SERVE_LAYERS = 8
 NEW_SERVE_LAYERS = {MIXTRAL: 4, LLAMA4: 4}
 LONG_PAIR_LAYERS = 2
 # a pair of prompts past each window (hymba's 1024, mixtral's 4096)
@@ -3923,6 +3946,536 @@ def mesh_summary(mesh):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5c: every strategy across ranks
+# ---------------------------------------------------------------------------
+
+# nanochat-d20 at full width, random token ids from seed 0 at seq_len
+# 1024, MESH_STRAT_BATCH sequence a worker; 2 ranks at phase 5b's 4
+# layers, 4 ranks at 2 (gossip at K 2 binds DiLoCo's runner, so its
+# pairing needs K >= 3), the kill and resume at 1 (its checkpoint holds
+# K workers' parameters and optimizer states, most of them the
+# 65536-token embeddings), cut for the phase's ~90 s
+MESH_STRAT_BATCH = 1
+MESH_STRAT_LAYERS = {2: MESH_LAYERS, 4: 2}
+MESH_KILL_LAYERS = 1
+
+
+def _strat_case(method, dkw, h, steps, spec="", adaptive=None,
+                layers=None):
+    return dict(method=method, dkw=dkw, h=h, steps=steps, spec=spec,
+                adaptive=adaptive, layers=layers)
+
+
+# name -> case, per world size; each on the int8 wire (the 1-byte wire
+# through the quantize kernels) unless said
+MESH_STRAT_CASES = {
+    # streaming's 2 steps sync both fragments; overlapped and pipelined
+    # apply a round a step after its capture, then sync the trailing step
+    2: {"streaming": _strat_case("streaming", dict(
+            delta_dtype="int8", num_fragments=2), 2, 2),
+        "overlapped": _strat_case("overlapped", dict(
+            delta_dtype="int8", sync_delay=1), 2, 3),
+        "pipelined": _strat_case("pipelined", dict(
+            delta_dtype="int8", num_fragments=2, sync_delay=1), 2, 3),
+        "ddp_compressed": _strat_case("ddp", dict(grad_compress="int8"),
+                                      1, 2),
+        "adaptive_h": _strat_case("diloco", dict(delta_dtype="int8"), 2, 3,
+                                  adaptive=dict(h0=2, h_min=1, window=2)),
+        # killed after step 1 (its checkpoint at 2 written first), then
+        # resumed: against the uninterrupted run
+        "kill_resume": _strat_case("diloco", dict(delta_dtype="int8"), 2, 4,
+                                   spec="kill@1", layers=MESH_KILL_LAYERS)},
+    # one round each: a peer row a rank
+    4: {"gossip_ring": _strat_case("gossip", dict(delta_dtype="int8"), 2, 2),
+        "gossip_random": _strat_case("gossip", dict(
+            delta_dtype="int8", topology="random", sync_seed=3), 2, 2),
+        # periods 2 and 3: the second apply event reads a stale peer
+        "async_gossip": _strat_case("async_gossip", dict(
+            delta_dtype="int8", h_jitter=1, staleness_bound=1, sync_seed=1),
+            2, 3),
+        # worker 1 down at steps 1-2, back at the round at 3
+        "diloco_crash_rejoin": _strat_case(
+            "diloco", dict(delta_dtype="int8"), 2, 4,
+            spec="crash:1@1,rejoin:1@2")},
+}
+MESH_HYBRID = dict(arch="nanochat-d20", reduced=False,
+                   steps={"base": 2, "mid": 2, "sft": 2}, workers=2,
+                   per_worker_batch=4, seq_len=256, fused_adamw=True,
+                   eval_after_each_stage=False)
+
+
+class _KeepRounds:
+    """The strategy ``DistTrainer.run`` binds, its runner kept, with each
+    round's collective records and ``shipped`` bytes."""
+
+    def __init__(self, strategy):
+        self.strategy, self.runner, self.rounds = strategy, None, []
+
+    def bind(self, engine, params):
+        from repro_torch.core import transport
+        from repro_torch.launch import collectives as coll
+        self.runner = runner = self.strategy.bind(engine, params)
+        orig = runner.after_step
+
+        def after_step(state, step, loss):
+            n, b = len(coll.records()), sum(transport.shipped.values())
+            out = orig(state, step, loss)
+            new = coll.records()[n:]
+            if new:
+                self.rounds.append({
+                    "step": step, "shipped": sum(
+                        transport.shipped.values()) - b,
+                    "sent_outer": sum(r.nbytes for r in new
+                                      if r.scope == "outer"
+                                      and r.kind != "recv"),
+                    "kinds_outer": sorted({r.kind for r in new
+                                           if r.scope == "outer"})})
+            return out
+
+        runner.after_step = after_step
+        return runner
+
+    def __getattr__(self, name):
+        return getattr(self.strategy, name)
+
+
+def strat_config(case, k):
+    """``launch.train.run_stage``'s config and strategy for a case."""
+    import dataclasses
+    from repro_torch.configs import DiLoCoConfig
+    from repro_torch.core import (AdaptiveH, compressed_ddp_config,
+                                  make_strategy)
+    base = DiLoCoConfig(**case["dkw"])
+    if case["method"] == "ddp":
+        dcfg = compressed_ddp_config(dataclasses.replace(base,
+                                                         num_workers=k))
+    else:
+        dcfg = dataclasses.replace(base, num_workers=k,
+                                   h_inner_steps=case["h"],
+                                   strategy=case["method"])
+    hs = AdaptiveH(**case["adaptive"]) if case["adaptive"] else None
+    return dcfg, make_strategy(dcfg, h_schedule=hs)
+
+
+def strat_run(torch, cfg, ds, params, case, k, replicate_fn, **run_kw):
+    """One case through ``DistTrainer.run`` (a process mesh's rank with
+    ``replicate_fn``, else the one-process loop), launch counts,
+    ``shipped`` and the collective log reset just before it.  Returns the
+    state's and the runner's bits (``bits_digest``; one digest a worker
+    row), the history without its timings, and what the phase logs."""
+    from repro_torch.configs import OptimizerConfig
+    from repro_torch.core import DistTrainer, FaultSchedule, transport
+    from repro_torch.kernels import KERNELS, launches, reset_launches
+    from repro_torch.launch import collectives as coll
+    from repro_torch.models import lm_loss
+    dcfg, strategy = strat_config(case, k)
+    keep = _KeepRounds(strategy)
+    dt = DistTrainer(lambda p, b: lm_loss(p, b, cfg), OptimizerConfig(
+        total_steps=case["steps"], warmup_steps=1, learning_rate=0.02,
+        adam_lr=1e-3, fused_adamw=True), dcfg, keep, replicate_fn)
+    state = dt.init(params)
+    dev = state.inner_step.device
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    transport.reset_shipped()
+    coll.reset_log()
+    faults = FaultSchedule.from_spec(run_kw.pop("spec", case["spec"]))
+    t0 = time.perf_counter()
+    state, hist = dt.run(
+        state, lambda s: ds.worker_batches(s, k, MESH_STRAT_BATCH, seed=0),
+        case["steps"], faults=None if faults.empty else faults, **run_kw)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    r = keep.runner
+    # the kept runner's after_step refers back to it: break the cycle, so
+    # its arrays go with this call, not at the next garbage collection
+    keep.runner = None
+    del r.after_step
+    arrays = {n: getattr(r, n) for n in ("residual", "anchors", "outer_v")
+              if isinstance(getattr(r, n, None), dict)}
+    rows = len(state.worker_params)
+    return {
+        "digest": {
+            "global": bits_digest(torch, state.global_params),
+            "v": bits_digest(torch, state.outer.v),
+            "rows": [bits_digest(torch, dict(
+                state.worker_params[w], **{f"{n}:{p}": t[w]
+                                           for n, a in arrays.items()
+                                           for p, t in a.items()}))
+                     for w in range(rows)],
+            "counters": [int(state.inner_step), int(state.outer.t)]},
+        "hist": {key: v for key, v in hist.items()
+                 if key not in ("step_seconds", "inner_seconds",
+                                "sync_seconds")},
+        "inner_step_s": hist.get("inner_seconds"),
+        "round_s": hist.get("sync_seconds"), "wall_s": wall,
+        "launches": {name: launches[name] for name in KERNELS},
+        "shipped": sum(transport.shipped.values()),
+        "collectives": {s: coll.collective_stats(s) for s in
+                        ("inner", "outer", "loss", "quorum", "consensus",
+                         "checkpoint")},
+        "rounds": keep.rounds,
+        "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def mesh_strategies_rank(rank, world, init_method, workdir, backend):
+    """One rank of phase 5c (started by ``run_ranks``): every case of
+    ``MESH_STRAT_CASES[world]`` on a (pod world, data 1) mesh from
+    ``init_params(seed=0)``; on 2 ranks also the kill and resume (the
+    run killed after its checkpoint, then resumed from it) and
+    ``run_pipeline("hybrid")``; then this rank's share of the one-process
+    references on the card, from the same parameters (case i in rank i
+    mod world; the hybrid one in rank 0).  Writes ``rank<r>.json``."""
+    t_start = time.perf_counter()
+    import gc
+
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import NANOCHAT_D20
+    from repro_torch.core import SimulatedCrash
+    from repro_torch.data import PackedDataset
+    from repro_torch.launch.mesh import init_process_mesh
+    from repro_torch.models import init_params
+    mesh = init_process_mesh(world, 1, backend=backend, device="cuda",
+                             rank=rank, world_size=world,
+                             init_method=init_method,
+                             timeout_s=MESH_TIMEOUT_S)
+    dev = mesh.device
+    # the ranks share the card: each keeps to its share, so none holds
+    # cached blocks another needs
+    torch.cuda.set_per_process_memory_fraction(1 / world, dev)
+    ds = PackedDataset(np.random.default_rng(0).integers(
+        0, NANOCHAT_D20.vocab_size, MESH_TOKENS).astype(np.int32), TRAIN_SEQ)
+    models = {}
+
+    def model(case):
+        layers = case["layers"] or MESH_STRAT_LAYERS[world]
+        if layers not in models:
+            cfg = NANOCHAT_D20.with_(num_layers=layers)
+            models[layers] = (cfg, init_params(cfg, seed=0, device=dev))
+        return models[layers]
+
+    cases = MESH_STRAT_CASES[world]
+    out = {"rank": rank, "device": str(dev), "backend": mesh.backend,
+           "setup_s": time.perf_counter() - t_start, "cases": {}}
+    ckpt = str(Path(workdir) / "ckpt")        # every rank reads; rank 0 writes
+    io = timed_checkpoint_io()
+    for name, case in cases.items():
+        cfg, params = model(case)
+        if name != "kill_resume":
+            out["cases"][name] = strat_run(torch, cfg, ds, params, case,
+                                           world, mesh.replicate_fn)
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        kw = dict(checkpoint_dir=ckpt, checkpoint_every=2)
+        t0 = time.perf_counter()
+        try:
+            strat_run(torch, cfg, ds, params, case, world,
+                      mesh.replicate_fn, **kw)
+            out["killed"] = False
+        except SimulatedCrash:
+            out["killed"] = True
+        out["killed_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        # resumed with no further checkpoint (its step 4 is the last)
+        out["cases"][name] = strat_run(torch, cfg, ds, params, case, world,
+                                       mesh.replicate_fn, resume=True,
+                                       checkpoint_dir=ckpt)
+        out["resume_s"] = time.perf_counter() - t0
+        out["checkpoint_io_s"] = dict(io)
+        torch.cuda.empty_cache()
+    if world == 2:
+        out["hybrid"] = hybrid_run(torch, mesh, keep_ddp=rank == 0)
+    torch.cuda.empty_cache()
+    # the one-process references, case i in rank i mod world, two ranks
+    # at a time (a reference holds all K workers)
+    torch.cuda.set_per_process_memory_fraction(1.0, dev)
+    t0 = time.perf_counter()
+    out["reference"] = {}
+    for turn in range(world // 2):
+        mesh.replicate_fn.barrier()
+        if rank // 2 != turn:
+            continue
+        for i, (name, case) in enumerate(cases.items()):
+            if i % world == rank:
+                cfg, params = model(case)
+                # the kill's reference is the uninterrupted run
+                out["reference"][name] = strat_run(
+                    torch, cfg, ds, params, case, world, None,
+                    spec="" if name == "kill_resume" else case["spec"])
+                torch.cuda.empty_cache()
+    if world == 2 and rank == 0:
+        ref = hybrid_run(torch, None, keep_ddp=True)
+        # DDP replicas hold equal parameters: rank 0's stand for both
+        out["hybrid_ddp_max_abs_diff"] = {
+            s: max(float((a[k] - t).abs().max()) for k, t in b.items())
+            for s, a, b in zip(("mid", "sft"),
+                               out["hybrid"].pop("ddp_ends"),
+                               ref.pop("ddp_ends"))}
+        out["hybrid_reference"] = ref
+    out["reference_s"] = time.perf_counter() - t0
+    with open(Path(workdir) / f"rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    mesh.close()
+
+
+def timed_checkpoint_io():
+    """Seconds spent in the run checkpoint's writes and reads, summed
+    (the trainer's calls of ``save_run_checkpoint`` and
+    ``load_run_checkpoint`` wrapped)."""
+    from repro_torch.core import dist_trainer
+    io = {"save_s": 0.0, "load_s": 0.0}
+
+    def timed(fn, key):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                io[key] += time.perf_counter() - t0
+        return call
+
+    dist_trainer.save_run_checkpoint = timed(
+        dist_trainer.save_run_checkpoint, "save_s")
+    dist_trainer.load_run_checkpoint = timed(
+        dist_trainer.load_run_checkpoint, "load_s")
+    return io
+
+
+def hybrid_run(torch, mesh, keep_ddp=False):
+    """``run_pipeline("hybrid")`` at ``MESH_HYBRID`` on the card (as a rank
+    of ``mesh``, or in one process), nanochat-d20 at full width cut to
+    ``MESH_LAYERS`` layers: each stage's losses, the digest of the
+    parameters each stage ends on, the launch counts; with ``keep_ddp``
+    also host copies of the parameters the mid and SFT (DDP) stages end
+    on, as ``ddp_ends``."""
+    from repro_torch.kernels import KERNELS, launches, reset_launches
+    from repro_torch.launch import train as train_mod
+    make_model, run_stage = train_mod.make_model, train_mod.run_stage
+    ends, ddp_ends = [], []
+
+    def stage(*a, **kw):
+        p, hist = run_stage(*a, **kw)
+        from repro_torch.models.transformer import flatten
+        if keep_ddp and ends:
+            ddp_ends.append({k: t.detach().cpu().clone()
+                             for k, t in flatten(p).items()})
+        ends.append(bits_digest(torch, flatten(p)))
+        return p, hist
+
+    train_mod.make_model = lambda *a: make_model(*a).with_(
+        num_layers=MESH_LAYERS)
+    train_mod.run_stage = stage
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        res = train_mod.run_pipeline("hybrid", mesh=mesh, device="cuda",
+                                     **MESH_HYBRID)
+        wall = time.perf_counter() - t0
+    finally:
+        train_mod.make_model, train_mod.run_stage = make_model, run_stage
+    out = {"losses": {s: e["losses"] for s, e in res["stages"].items()},
+           "methods": [e["method"] for e in res["stages"].values()],
+           "ends": ends, "wall_s": wall,
+           "launches": {name: launches[name] for name in KERNELS}}
+    if keep_ddp:
+        out["ddp_ends"] = ddp_ends
+    return out
+
+
+def _rel(a, b):
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def phase_mesh_strategies(torch):
+    """Phase 5c: every strategy across ranks (``mesh_strategies_rank``),
+    2 ranks at ``MESH_STRAT_LAYERS[2]`` layers (streaming, overlapped,
+    pipelined, compressed DDP, DiLoCo under AdaptiveH, a kill and resume,
+    hybrid) and 4 at ``MESH_STRAT_LAYERS[4]`` (gossip ring and random,
+    async gossip, DiLoCo through a crash and rejoin), NCCL with a card a
+    rank, else gloo with every rank on card 0.  Gates, each rank against
+    the one-process run of its case on the card: the anchor, momentum,
+    counters, the rank's worker row, residual and gossip rows bit for bit
+    (a digest a row) and every history record equal (an H schedule's and
+    a checkpoint's ``fleet_loss`` the one-process loss); the kill fired
+    and the resumed run is the uninterrupted one; hybrid's base stage
+    ends bit for bit, its DDP stages within ``MESH_DDP_LOSS_RTOL`` (each
+    step's loss, the ranks' mean) and the parameters each ends on within
+    ``MESH_DDP_ATOL``; no collective in the inner steps; each
+    rank's outer-round sends equal its ``shipped``, and the ranks' sum is
+    the one-process count; gossip crosses by send / recv only, one peer
+    row a round (codes and scales, the f32 anchors and momentum; what the
+    formula gives at K 2); a down rank sends 0 bytes in its rounds; the
+    wire and training kernels launched in every rank."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.configs import NANOCHAT_D20
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import param_shapes
+    cards = torch.cuda.device_count()
+    out = {"cards": cards, "launches": {}, "worlds": {}}
+    for world in (2, 4):
+        backend = "nccl" if cards >= world else "gloo"
+        log(f"  {world} ranks on {backend}" + (
+            ", every rank on card 0 (NCCL rejects two ranks on one card; "
+            "each collective is staged through the host)"
+            if backend == "gloo" else ", a card a rank"))
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            run_ranks(mesh_strategies_rank, world, tmp, backend,
+                      timeout_s=MESH_TIMEOUT_S)
+            ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                     for r in range(world)]
+        wall = time.perf_counter() - t0
+        log(f"  {world} ranks started, trained and joined in {wall:.1f} s "
+            f"(per rank: set-up {[round(r['setup_s'], 1) for r in ranks]} "
+            f"s, one-process references "
+            f"{[round(r['reference_s'], 1) for r in ranks]} s)")
+        shapes = param_shapes(NANOCHAT_D20.with_(
+            num_layers=MESH_STRAT_LAYERS[world]))
+        n = sum(math.prod(v) for v in shapes.values())
+        refs = {}
+        for r in ranks:
+            refs.update(r["reference"])
+        out["worlds"][world] = {"backend": backend, "wall_s": wall,
+                                "ranks": ranks}
+        for name, case in MESH_STRAT_CASES[world].items():
+            ref = refs[name]
+            one_shipped = ref["shipped"]
+            for r in ranks:
+                x, w = r["cases"][name], r["rank"]
+                tag = f"mesh {name} rank {w}"
+                out["launches"][f"mesh_{name}_rank{w}"] = x["launches"]
+                inner, outer = (x["collectives"]["inner"],
+                                x["collectives"]["outer"])
+                rounds = x["rounds"]
+                log(f"  rank {w} ({r['device']}, {r['backend']}) {name}: "
+                    f"losses {[round(v, 4) for v in x['hist']['loss']]}, "
+                    f"inner step s {x['inner_step_s']}, round ms "
+                    f"{[round(1e3 * t, 1) for t in x['round_s'] or []]} "
+                    f"(host staging "
+                    f"{1e3 * outer['host_s'] / max(len(rounds), 1):.1f} "
+                    f"ms, collective "
+                    f"{1e3 * outer['coll_s'] / max(len(rounds), 1):.1f} "
+                    f"ms a round; {outer['count_by_kind']}), shipped "
+                    f"{x['shipped']} bytes, cross-pod "
+                    f"{outer['cross_pod_bytes_per_device']}, peak "
+                    f"{x['peak_memory_gb']:.2f} GB")
+                d, rd = x["digest"], ref["digest"]
+                check(d["global"] == rd["global"] and d["v"] == rd["v"]
+                      and d["counters"] == rd["counters"],
+                      f"{tag}: the anchor, momentum or counters differ "
+                      f"from the one-process run's")
+                check(d["rows"] == [rd["rows"][w]], f"{tag}: the worker "
+                      f"row, residual or gossip rows differ from the "
+                      f"one-process run's")
+                for key, val in ref["hist"].items():
+                    if key != "loss":
+                        check(x["hist"].get(key) == val, f"{tag}: history "
+                              f"{key!r} {x['hist'].get(key)} != {val}")
+                if "fleet_loss" in x["hist"]:
+                    check(x["hist"]["fleet_loss"] == ref["hist"]["loss"],
+                          f"{tag}: the fleet's loss is not one process's")
+                check(inner["count_by_kind"] == {}, f"{tag}: the inner "
+                      f"steps issued collectives {inner['count_by_kind']}")
+                check(outer["cross_pod_bytes_per_device"] == x["shipped"],
+                      f"{tag}: sent {outer['cross_pod_bytes_per_device']} "
+                      f"bytes across pods and shipped {x['shipped']}")
+                for k in TRAIN_KERNELS + WIRE_KERNELS:
+                    check(x["launches"][k] > 0, f"{tag}: kernel {k} never "
+                          f"launched")
+                if case["method"] == "gossip":
+                    row = n + 4 * len(shapes) + 8 * n
+                    check(all(rd["kinds_outer"] == ["recv", "send"]
+                              and rd["sent_outer"] == rd["shipped"] == row
+                              for rd in rounds),
+                          f"{tag}: a round did not send one peer row of "
+                          f"{row} bytes point to point: {rounds}")
+                if "crash" in case["spec"] and w == 1:
+                    down = [rd for rd in rounds if rd["step"] in (1,)]
+                    check(down and all(rd["sent_outer"] == 0 ==
+                                       rd["shipped"] for rd in down),
+                          f"{tag}: the down rank sent bytes: {down}")
+            # (a resumed run ships only the rounds after its checkpoint)
+            check(name == "kill_resume" or
+                  sum(r["cases"][name]["shipped"] for r in ranks)
+                  == one_shipped, f"mesh {name}: the ranks' shipped bytes "
+                  f"do not sum to the one-process count {one_shipped}")
+        if world == 2:
+            check(all(r["killed"] for r in ranks), "mesh: the kill did "
+                  "not fire in every rank")
+            log(f"  kill and resume ({MESH_KILL_LAYERS} layer): the killed "
+                f"run {[round(r['killed_s'], 1) for r in ranks]} s a rank, "
+                f"the resumed run {[round(r['resume_s'], 1) for r in ranks]}"
+                f" s; in them the checkpoint's write (rank 0) and reads "
+                f"{[r['checkpoint_io_s'] for r in ranks]} s")
+            hyb = [r["hybrid"] for r in ranks]
+            ref = ranks[0]["hybrid_reference"]
+            for r, h in zip(ranks, hyb):
+                out["launches"][f"mesh_hybrid_rank{r['rank']}"] = \
+                    h["launches"]
+                check(h["methods"] == ["diloco", "ddp", "ddp"],
+                      f"mesh hybrid: stage methods {h['methods']}")
+                check(h["ends"][0] == ref["ends"][0], f"mesh hybrid: rank "
+                      f"{r['rank']}'s base stage ends off one process")
+                for k in TRAIN_KERNELS:
+                    check(h["launches"][k] > 0, f"mesh hybrid: kernel {k} "
+                          f"never launched in rank {r['rank']}")
+            # the one-process loop's worker mean, in float32
+            base_mean = [float((np.float32(a) + np.float32(b))
+                               / np.float32(2)) for a, b in zip(
+                hyb[0]["losses"]["base"], hyb[1]["losses"]["base"])]
+            check(base_mean == ref["losses"]["base"], "mesh hybrid: the "
+                  "base stage's losses are not one process's")
+            rel = {s: _rel([(a + b) / 2 for a, b in zip(
+                hyb[0]["losses"][s], hyb[1]["losses"][s])],
+                ref["losses"][s]) for s in ("mid", "sft")}
+            diff = ranks[0]["hybrid_ddp_max_abs_diff"]
+            out["hybrid_ddp_rel"] = rel
+            out["hybrid_ddp_max_abs_diff"] = diff
+            log(f"  hybrid over 2 ranks: {round(hyb[0]['wall_s'], 1)} s "
+                f"(one process {round(ref['wall_s'], 1)} s); base bit for "
+                f"bit, the DDP stages' losses {rel} relative off one "
+                f"process (gate {MESH_DDP_LOSS_RTOL}), their final "
+                f"parameters {diff} (gate {MESH_DDP_ATOL})")
+            check(max(rel.values()) <= MESH_DDP_LOSS_RTOL,
+                  f"mesh hybrid: DDP stages {rel} off one process")
+            check(max(diff.values()) <= MESH_DDP_ATOL,
+                  f"mesh hybrid: the DDP stages' parameters {diff} off "
+                  f"one process (gate {MESH_DDP_ATOL})")
+    return out
+
+
+def mesh_strategies_summary(ms):
+    """Phase 5c's numbers for the summary line: per world, case and rank
+    the inner-step s, the rounds' ms, host staging and collective ms a
+    round, shipped bytes and peak memory."""
+    def per_rank(x):
+        rounds = max(len(x["rounds"]), 1)
+        outer = x["collectives"]["outer"]
+        return {"inner_step_s": x["inner_step_s"],
+                "round_ms": [1e3 * t for t in x["round_s"] or []],
+                "host_staging_ms_per_round": 1e3 * outer["host_s"] / rounds,
+                "collective_ms_per_round": 1e3 * outer["coll_s"] / rounds,
+                "shipped_bytes": x["shipped"],
+                "sent_per_round": [r["sent_outer"] for r in x["rounds"]],
+                "peak_memory_gb": x["peak_memory_gb"]}
+    return {str(world): {
+        "backend": w["backend"], "wall_s": w["wall_s"],
+        "cases": {name: [per_rank(r["cases"][name]) for r in w["ranks"]]
+                  for name in MESH_STRAT_CASES[world]}}
+        for world, w in ms["worlds"].items()} | {
+        "hybrid_ddp_rel": ms.get("hybrid_ddp_rel"),
+        "hybrid_ddp_max_abs_diff": ms.get("hybrid_ddp_max_abs_diff")}
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: the three-stage pipeline with evals
 # ---------------------------------------------------------------------------
 
@@ -4127,7 +4680,9 @@ def pipeline_vs_cpu(torch, tok, suites, heldout_kw, cfg, params):
 REMAT_TOKENS = dict(per_worker_batch=4, seq_len=TRAIN_SEQ)
 REMAT_PLANS = ((2, False), (2, True), (4, True), (4, False))
 # resume, prefetch and the eval hook at depth 2 and full width (vocab
-# 512): (path, DiLoCoConfig fields, steps, checkpoint_every)
+# 512): (path, DiLoCoConfig fields, steps, checkpoint_every); depth 2 is
+# the least at which pipelined's F 2 fragments each hold a slice of
+# every layer leaf, so a resume meets a leaf only partly synced
 RESUME_DEPTH = 2
 RESUME_PLANS = (("diloco_int8", dict(strategy="diloco", delta_dtype="int8"),
                  4, 2),
@@ -4536,13 +5091,13 @@ GOSSIP_PLANS = (("gossip", "gossip", dict(topology="ring"), 4),
                 # sync_seed 0 draws the periods (3, 3, 2, 3)
                 ("async_gossip", "async_gossip",
                  dict(h_jitter=1, staleness_bound=1), 6))
-# async gossip's depth when its three publication boards (3 x K f32
-# copies of the model, 25.2 GB at full depth) do not fit beside the
-# gossip run's measured peak
-GOSSIP_ASYNC_DEPTH = 10
-# gossip and the random topology at 10 of d20's 20 layers,
-# for the script's time
-GOSSIP_LAYERS = 10
+# async gossip's depth when its publication boards (3 x K f32 copies of
+# the model, the K int8 codes and a gated event's K f32 peer reads) do
+# not fit beside the gossip run's measured peak
+GOSSIP_ASYNC_DEPTH = 4
+# gossip and the random topology at 4 of d20's 20 layers, for the
+# script's time (10 until phase 5c, every strategy across ranks, joined)
+GOSSIP_LAYERS = 4
 GOSSIP_IDLE = tuple(k for k in REPLACES
                     if k not in TRAIN_KERNELS + WIRE_KERNELS)
 # resume and the jitter-0 equality at depth 2 (full width, vocab 512)
@@ -4610,7 +5165,9 @@ def phase_gossip(torch, diloco_step_s):
         cfg = full
         if method == "async_gossip":
             n_full = out["runs"]["gossip"]["n_params"]
-            boards = 3 * K * 4 * n_full / 1e9
+            # the decoded delta, anchors and momentum boards (f32), the
+            # int8 codes board, and a gated event's peer publications (f32)
+            boards = (3 * 4 + 1 + 4) * K * n_full / 1e9
             want = out["runs"]["gossip"]["peak_memory_gb"] + boards
             fits = want < total_gb - 2.0
             cfg = full if fits else full.with_(num_layers=GOSSIP_ASYNC_DEPTH)
@@ -4820,18 +5377,21 @@ def gossip_state_runs(torch, tok, ds, opt_cfg):
 # on; (path, method, layers, steps, schedule, gates: quorum, sync_steps).
 # Gossip runs at 10 layers: with it at 20 the script took 1008.2 s of its
 # 1200 on an H100 80GB HBM3 (PERF.md §6); DiLoCo too since phases 4b and
-# 6e joined (at 20 layers the script passed 1200 s on the same card)
+# 6e joined (at 20 layers the script passed 1200 s on the same card);
+# both at 4 since phase 5c joined
 FAULT_PLANS = (
-    ("faults_diloco", "diloco", 10, 8,
+    ("faults_diloco", "diloco", 4, 8,
      "slow:3@1x1.5,crash:2@2,drop:1@3,corrupt:0@5x2,rejoin:2@6",
      [(1, 4), (3, 3), (5, 2), (7, 3)], [1, 3, 5, 7]),
-    ("faults_gossip", "gossip", 10, 4, "crash:1@1,rejoin:1@2",
+    ("faults_gossip", "gossip", 4, 4, "crash:1@1,rejoin:1@2",
      [(1, 3), (3, 3)], [1, 3]))
 # the worker each plan takes down and brings back
 FAULT_WORKER = {"faults_diloco": 2, "faults_gossip": 1}
 # the rejoin drift on the card against float64 CPU copies of the state
 TOL_REJOIN = 1e-5
-# the bit-for-bit gates at depth 2 (full width, vocab 512), H 2
+# the bit-for-bit gates at depth 2 (full width, vocab 512), H 2: the
+# least depth at which streaming's F 2 fragments each hold a slice of
+# every layer leaf
 FAULT_STATE_DEPTH = 2
 # kill -> resume: (path, DiLoCoConfig fields, K, schedule besides the kill)
 # (K 2: the checkpoints of a K 4 depth-2 state are ~4 GB each)
@@ -6432,9 +6992,9 @@ def main(argv=None) -> int:
                          "new decoder-only configs), printing its summary "
                          "as one JSON line")
     ap.add_argument("--only-mesh", action="store_true",
-                    help="only build the kernels and run phase 5b (the "
-                         "process mesh), printing its summary as one JSON "
-                         "line")
+                    help="only build the kernels and run phases 5b and 5c "
+                         "(the process mesh; every strategy across ranks), "
+                         "printing their summary as one JSON line")
     args = ap.parse_args(argv)
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found; run from a checkout "
@@ -6459,8 +7019,12 @@ def main(argv=None) -> int:
         phase, summary, name = (
             (phase_new_archs, new_arch_summary, "4c") if args.new_archs
             else (phase_enc_vlm, enc_vlm_summary, "4d") if args.enc_vlm
-            else (lambda torch, checks: phase_mesh(torch), mesh_summary,
-                  "5b"))
+            else (lambda torch, checks: (phase_mesh(torch),
+                                         phase_mesh_strategies(torch)),
+                  lambda runs: {"mesh": mesh_summary(runs[0]),
+                                "mesh_strategies":
+                                    mesh_strategies_summary(runs[1])},
+                  "5b and 5c"))
         try:
             runs = phase(torch, [])
         except SmokeFailure as e:
@@ -6545,7 +7109,7 @@ def main(argv=None) -> int:
         report["checks"] = [list(c) for c in checks]
         lap("4b archs")
 
-        log("[4c/7] hymba-1.5b (16 layers serving, whole training), "
+        log("[4c/7] hymba-1.5b (8 layers serving, whole training), "
             "mixtral-8x7b and llama4-scout-17b-a16e (4 layers) at full "
             "width: their kernel "
             "shapes, serving (static path and scoring; spec_k 0 / 4 and "
@@ -6579,6 +7143,14 @@ def main(argv=None) -> int:
             "2 ranks against one process")
         mesh = report["mesh"] = phase_mesh(torch)
         lap("5b mesh")
+
+        log("[5c/7] every strategy across ranks, nanochat-d20 at full "
+            "width: streaming, overlapped, pipelined, compressed DDP, "
+            "AdaptiveH, a kill and resume and hybrid over 2 ranks (4 "
+            "layers); gossip, async gossip and a crash and rejoin over 4 "
+            "(2 layers), each against one process")
+        mesh_strat = report["mesh_strategies"] = phase_mesh_strategies(torch)
+        lap("5c mesh strategies")
 
         log("[6/7] pipeline, nanochat-d20 at full width: base -> mid -> "
             "SFT with evals after each stage, DiLoCo and hybrid")
@@ -6621,6 +7193,7 @@ def main(argv=None) -> int:
         paths = {name: run["launches"] for name, run in runs.items()}
         paths.update({m: run["launches"] for m, run in train.items()})
         paths.update(mesh["launches"])
+        paths.update(mesh_strat["launches"])
         paths.update({f"pipeline_{m}": run["launches"]
                       for m, run in pipeline.items()})
         paths.update({m: run["launches"] for m, run in static.items()
@@ -6765,6 +7338,7 @@ def main(argv=None) -> int:
                       "new_archs": new_archs_summary,
                       "enc_vlm": enc_vlm_summary(enc_vlm),
                       "mesh": mesh_summary(mesh),
+                      "mesh_strategies": mesh_strategies_summary(mesh_strat),
                       "phase_s": phase_s, "floor_ms": floor}))
     print(json.dumps({"split_timing": report["split_timing"]}))
     print(report["gpu"])

@@ -20,8 +20,9 @@ the port's training state, whose leaves ``_leaves`` walks: nested dicts
 (keys sorted), lists of the K workers' flat dicts (by index),
 ``NamedTuple``s such as ``DiLoCoState`` and ``OuterState`` (by field
 name), ``None`` (no leaf) and 0-d tensors such as ``inner_step``.
-bfloat16 leaves are stored as their uint16 bits (numpy has no
-bfloat16)."""
+bfloat16 leaves are stored as their uint16 bits, float8 leaves (an
+async-gossip board's codes) as their uint8 bits: numpy has neither
+type."""
 from __future__ import annotations
 
 import dataclasses
@@ -105,11 +106,19 @@ def _leaves(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
     return out
 
 
+# torch dtypes numpy lacks: (their bits as a torch dtype, the same as a
+# numpy dtype, the numpy dtype stored)
+_AS_BITS = {torch.bfloat16: (torch.int16, np.int16, np.uint16),
+            torch.float8_e4m3fn: (torch.uint8, np.uint8, np.uint8),
+            torch.float8_e5m2: (torch.uint8, np.uint8, np.uint8)}
+
+
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach().cpu()
-        if leaf.dtype == torch.bfloat16:
-            return leaf.view(torch.int16).numpy().view(np.uint16)
+        if leaf.dtype in _AS_BITS:
+            bits, _, stored = _AS_BITS[leaf.dtype]
+            return leaf.view(bits).numpy().view(stored)
         return leaf.numpy()
     return np.asarray(leaf)
 
@@ -120,8 +129,9 @@ def _device_leaf(arr: np.ndarray, like: torch.Tensor, path: str
     if tuple(arr.shape) != tuple(like.shape):
         raise ValueError(f"shape mismatch at {path}: checkpoint "
                          f"{arr.shape} vs {tuple(like.shape)}")
-    if like.dtype == torch.bfloat16 and arr.dtype == np.uint16:
-        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    if like.dtype in _AS_BITS and arr.dtype == _AS_BITS[like.dtype][2]:
+        t = torch.from_numpy(arr.view(_AS_BITS[like.dtype][1])).view(
+            like.dtype)
     else:
         t = torch.from_numpy(arr)
     return t.to(device=like.device, dtype=like.dtype)
@@ -196,9 +206,13 @@ def save_run_checkpoint(ckpt_dir: str, step: int, state: Any,
                         extras_arrays: Any = None,
                         extras_meta: Optional[Dict] = None,
                         history: Optional[Dict] = None,
-                        meta: Optional[Dict] = None) -> str:
+                        meta: Optional[Dict] = None,
+                        before_manifest=None) -> str:
     """Write one crash-consistent training checkpoint; returns the
-    manifest path.  Tensors on the card are copied to the host here."""
+    manifest path.  Tensors on the card are copied to the host here.
+    ``before_manifest()`` runs after the arrays are written and before
+    the manifest that marks them complete (the ranks of a process mesh
+    meet there)."""
     os.makedirs(ckpt_dir, exist_ok=True)
     stem = os.path.join(ckpt_dir, f"ckpt_{step:08d}")
     files = {"state": os.path.basename(stem) + ".state"}
@@ -215,6 +229,8 @@ def save_run_checkpoint(ckpt_dir: str, step: int, state: Any,
         "history": history or {},
         "meta": meta or {},
     }
+    if before_manifest is not None:
+        before_manifest()
     _atomic_json(stem + ".manifest.json", manifest)
     return stem + ".manifest.json"
 
@@ -264,20 +280,62 @@ def latest_run_checkpoint(ckpt_dir: str) -> Optional[Dict]:
     return manifest
 
 
+# the state's per-worker lists (one entry a worker)
+_WORKER_LISTS = ("worker_params", "inner_opt")
+
+
+def _kept(path: str, rows) -> bool:
+    """Whether a process holding workers ``rows`` reads the state array at
+    ``path`` (another worker's list entry it does not)."""
+    head, _, rest = path.partition("/")
+    return head not in _WORKER_LISTS or int(rest.partition("/")[0]) in rows
+
+
+def _keep_rows(by_path: Dict[str, np.ndarray], rows, extras: bool
+               ) -> Dict[str, np.ndarray]:
+    """The checkpoint's arrays as a process holding workers ``rows`` sees
+    them: the state's per-worker list entries ``rows[i]`` renumbered
+    ``i``; every extras array (per-worker (K, ...) stacks) cut to those
+    rows."""
+    if extras:
+        return {p: a[list(rows)] for p, a in by_path.items()}
+    out = {}
+    for p, a in by_path.items():
+        head, _, rest = p.partition("/")
+        if head in _WORKER_LISTS:
+            w, _, tail = rest.partition("/")
+            if int(w) not in rows:
+                continue
+            p = "/".join(x for x in (head, str(rows.index(int(w))), tail)
+                         if x)
+        out[p] = a
+    return out
+
+
 def load_run_checkpoint(manifest: Dict, state_template: Any,
-                        extras_template: Any = None
+                        extras_template: Any = None, rows=None
                         ) -> Tuple[Any, Optional[Any]]:
     """Restore (state, extras) from a manifest returned by
     ``latest_run_checkpoint``, into fresh tensors with the templates'
     structure, dtypes and devices (the templates' tensors are only read
     for those).  ``extras_template`` None (or an entry the checkpoint
-    lacks) yields extras None."""
+    lacks) yields extras None.  ``rows`` (a rank of a process mesh: the
+    workers it holds) keeps those workers' rows of the one-process
+    layout, whatever world size wrote it."""
     ckpt_dir = manifest["_dir"]
     files = manifest["files"]
-    state = _restore(state_template,
-                     load_pytree(os.path.join(ckpt_dir, files["state"])))
+    if rows is None:
+        by_path = load_pytree(os.path.join(ckpt_dir, files["state"]))
+    else:
+        rows = tuple(rows)
+        by_path = _keep_rows(load_pytree(
+            os.path.join(ckpt_dir, files["state"]),
+            keep=lambda p: _kept(p, rows)), rows, extras=False)
+    state = _restore(state_template, by_path)
     extras = None
     if extras_template is not None and "extras" in files:
-        extras = _restore(extras_template, load_pytree(
-            os.path.join(ckpt_dir, files["extras"])))
+        by_path = load_pytree(os.path.join(ckpt_dir, files["extras"]))
+        if rows is not None:
+            by_path = _keep_rows(by_path, rows, extras=True)
+        extras = _restore(extras_template, by_path)
     return state, extras

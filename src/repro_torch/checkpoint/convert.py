@@ -23,12 +23,15 @@ from repro_torch.models.transformer import (Params, flatten, param_shapes,
                                             unflatten)
 
 
-def load_pytree(path: str) -> Dict[str, np.ndarray]:
-    """``<path>.npz`` + ``<path>.json`` -> {manifest path: array}."""
+def load_pytree(path: str, keep=None) -> Dict[str, np.ndarray]:
+    """``<path>.npz`` + ``<path>.json`` -> {manifest path: array}; with
+    ``keep`` (a predicate on the path) only the arrays it keeps are
+    read."""
     with open(path + ".json") as f:
         manifest = json.load(f)
     with np.load(path + ".npz") as data:
-        return {m["path"]: data[m["key"]] for m in manifest}
+        return {m["path"]: data[m["key"]] for m in manifest
+                if keep is None or keep(m["path"])}
 
 
 def params_from_numpy(flat: Dict[str, np.ndarray], cfg: ModelConfig,

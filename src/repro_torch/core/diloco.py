@@ -117,6 +117,13 @@ class DiLoCoTrainer:
         return tuple(range(self.cfg.num_workers)) if rows is None \
             else tuple(rows)
 
+    def local_mask(self, mask: Optional[Sequence[bool]]
+                   ) -> Optional[Tuple[bool, ...]]:
+        """A (K,) worker mask's entries for the rows this process holds
+        (``local_rows``); every entry on one device."""
+        return None if mask is None else tuple(mask[w]
+                                               for w in self.local_rows)
+
     # -- construction -------------------------------------------------------
     def init(self, params) -> DiLoCoState:
         """``params``: a nested tree (or flat dict); it is copied, never
@@ -153,6 +160,7 @@ class DiLoCoTrainer:
         state is alive at a time."""
         opt = self._inner_opt()
         grad_reduce = getattr(self.replicate_fn, "grad_reduce", None)
+        live = self.local_mask(live)
         states, losses = state.inner_opt, []
         for w, params in enumerate(state.worker_params):
             if live is not None and not live[w]:
@@ -208,7 +216,8 @@ class DiLoCoTrainer:
         rows (rejoiners) take the WHOLE new anchor, every leaf, with a
         fresh inner optimizer state and a zero residual; rows in none
         pass through frozen.  With every mask all-true this is the
-        unmasked round, bit for bit."""
+        unmasked round, bit for bit.  The masks index the K workers; a
+        rank of a process mesh applies the entries of its own rows."""
         gp, v = state.global_params, state.outer.v
         sel = ({k: slice(None) for k in gp} if frag is None else
                {k: sl for k, sl in frag.items() if sl is not None})
@@ -231,6 +240,7 @@ class DiLoCoTrainer:
                 elif sl != slice(None):
                     vk[:sl.start].mul_(mu)
                     vk[sl.stop:].mul_(mu)
+        adopt = self.local_mask(adopt)
         for i, params in enumerate(state.worker_params):
             if adopt is not None and not adopt[i]:
                 continue
@@ -253,8 +263,9 @@ class DiLoCoTrainer:
         reference zeroes the moments, which start at zero) and a zero
         error-feedback residual, in place."""
         gp = state.global_params
+        local = self.local_mask(reset)
         for i, params in enumerate(state.worker_params):
-            if not reset[i]:
+            if not local[i]:
                 continue
             for k, w in params.items():
                 w.copy_(gp[k])
@@ -266,7 +277,8 @@ class DiLoCoTrainer:
     def init_inner(self, state: DiLoCoState,
                    rows: Sequence[bool]) -> DiLoCoState:
         """A fresh inner optimizer state (``init`` of the current
-        parameters) for each worker that ``rows`` marks."""
+        parameters) for each worker that ``rows`` (a (K,) mask) marks."""
+        rows = self.local_mask(rows)
         if not any(rows):
             return state
         opt = self._inner_opt()

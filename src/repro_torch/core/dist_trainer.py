@@ -39,19 +39,34 @@ A resume loads into fresh tensors, never into ones another run holds.
 A process mesh.  With ``replicate_fn=mesh.replicate_fn``
 (``launch/mesh.py``) this process is one rank of a (pod, data) grid of
 ``torch.distributed`` ranks: DiLoCo's K workers are the K pods, one
-worker a rank, and DDP runs on the data axis of one pod.  ``run`` cuts
-each ``data_fn(step)`` to this rank's part (its pod's worker row, its
-data index's share of the rows) before the batch reaches the device, the
-inner steps issue no collective across pods, and the outer round
-all-gathers the encoded payload across them.  The history's ``loss`` is
-this rank's worker's, and it gains ``inner_seconds`` (each chunk's
-seconds per inner step) and ``sync_seconds`` (each chunk that synced:
-the seconds of its outer round, the device synchronized); the mesh's
-collective log tags what the inner steps issue ``inner`` and what the
-outer rounds issue ``outer`` (``launch.collectives.scope``).  Only the
-``diloco`` (fixed H) and ``ddp`` strategies run across processes;
-``run`` refuses the others, fault schedules and run checkpoints by name
-(ROADMAP.md §1 queues them), rather than fall back to one process.
+worker a rank, and DDP runs on the data axis of one pod.  Every strategy,
+H schedule, fault schedule and run checkpoint runs so, and reaches the
+one-process loop's state bit for bit.  ``run`` cuts each ``data_fn(step)``
+to this rank's part (its pod's worker row, its data index's share of the
+rows) before the batch reaches the device, the inner steps issue no
+collective across pods, and the rounds move the encoded payload across
+them (an all-gather; a quorum round broadcasts its contributors' rows
+only; gossip sends point to point).  The history's ``loss`` is this
+rank's worker's, and it gains ``inner_seconds`` (each chunk's seconds per
+inner step) and ``sync_seconds`` (each chunk that synced: the seconds of
+its rounds, the device synchronized).  When the runner reads the loss
+(an H schedule such as ``AdaptiveH``) or a checkpoint records it, each
+chunk's loss row is all-gathered across pods after the chunk's one read,
+the runner gets the fleet's mean (summed in worker order, as in one
+process, so every rank decides the same rounds) and the history gains
+``fleet_loss``, the one-process ``loss``.  The mesh's collective log tags
+what the inner steps issue ``inner``, the rounds ``outer``, the loss row
+``loss`` and a checkpoint's gather ``checkpoint`` (the runners add
+``quorum`` and ``consensus``; ``launch.collectives.scope``).
+
+Run checkpoints across ranks are written in the one-process layout, so a
+checkpoint does not depend on the world size: rank 0 gathers every
+worker's rows (parameters, inner optimizer state, the runner's per-worker
+arrays) leaf by leaf through the host and writes the arrays, the ranks
+meet at a barrier, and rank 0 writes the manifest (its history the
+one-process one, each recorded step's worker losses in its ``meta``).  A
+resume loads that layout on every rank and keeps the rank's own rows, so
+a checkpoint crosses between one process and any number of ranks.
 
 Faults.  ``faults`` (a ``core.faults.FaultSchedule``) scripts per-worker
 crash / rejoin / slow / drop / corrupt events and run-level kills.  A
@@ -75,7 +90,8 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.checkpoint import (latest_run_checkpoint,
+from repro_torch.checkpoint.checkpoint import (_children, _leaves,
+                                              latest_run_checkpoint,
                                               load_run_checkpoint,
                                               save_run_checkpoint)
 from repro_torch.configs.base import DiLoCoConfig, OptimizerConfig
@@ -84,6 +100,7 @@ from repro_torch.core.faults import (FaultSchedule, FleetTracker,
                                      SimulatedCrash)
 from repro_torch.core.streaming import StreamingDiLoCoTrainer
 from repro_torch.core.sync import SyncStrategy
+from repro_torch.core.transport import ranked
 from repro_torch.data.pipeline import Prefetcher, stack_batches
 
 
@@ -112,6 +129,72 @@ def _host_mean_live(row: np.ndarray, live) -> float:
     return _host_mean(row[idx]) if idx else float("nan")
 
 
+# history keys of a rank of a process mesh only (not in a checkpoint)
+_RANK_KEYS = ("inner_seconds", "sync_seconds", "fleet_loss")
+
+
+def _rebuild(tree, leaf_fn, prefix: str = ""):
+    """``tree``'s structure with each leaf replaced by ``leaf_fn(path,
+    leaf)`` (the paths of ``checkpoint._leaves``)."""
+    if tree is None:
+        return None
+    kids = _children(tree)
+    if kids is None:
+        return leaf_fn(prefix, tree)
+    vals = {k: _rebuild(v, leaf_fn, f"{prefix}/{k}" if prefix else k)
+            for k, v in kids}
+    if isinstance(tree, dict):
+        return {k: vals[str(k)] for k in tree}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(**vals)
+    return type(tree)(vals[str(i)] for i in range(len(tree)))
+
+
+def _gathered(tree, rep, rows_of):
+    """Every worker's rows of ``tree`` on rank 0, leaf by leaf through the
+    host (``rep.gather_to_lead``; scope ``checkpoint``): ``rows_of(leaf)``
+    is a tensor leaf's (1, ...) row; returns the K host rows of each
+    tensor leaf by path (None on the other ranks)."""
+    out = {}
+    with rep.scope("checkpoint"):
+        for path, leaf in _leaves(tree):
+            if isinstance(leaf, torch.Tensor):
+                out[path] = rep.gather_to_lead(rows_of(leaf))
+    return out if rep.lead else None
+
+
+def _one_process_state(state, rep):
+    """The one-process layout of a rank's state on rank 0: every worker's
+    parameters and inner optimizer state (None on the other ranks)."""
+    per = [(name, _gathered(getattr(state, name)[0], rep,
+                            lambda t: t.unsqueeze(0)))
+           for name in ("worker_params", "inner_opt")]
+    if not rep.lead:
+        return None
+    k = rep.num_rows
+    return state._replace(**{
+        name: [_rebuild(getattr(state, name)[0],
+                        lambda p, leaf, w=w, g=g: g[p][w][0] if p in g
+                        else leaf) for w in range(k)]
+        for name, g in per})
+
+
+def _one_process_extras(arrays, rep):
+    """A runner's per-worker arrays, each leaf's (1, ...) row, as the
+    one-process (K, ...) stacks on rank 0 (None on the other ranks)."""
+    g = _gathered(arrays, rep, lambda t: t)
+    if not rep.lead:
+        return None
+    return _rebuild(arrays, lambda p, leaf: torch.cat(g[p])
+                    if p in g else leaf)
+
+
+def _n_syncs(history) -> int:
+    """Rounds recorded so far, of every strategy's kind."""
+    return sum(len(history.get(k, ())) for k in
+               ("sync_steps", "frag_syncs", "gossip_syncs"))
+
+
 def _history_from_json(v):
     """JSON round-trips tuples as lists; restore the tuples the history
     holds (``frag_syncs``, ``evals``)."""
@@ -138,22 +221,9 @@ class DistTrainer:
             self.loss_fn, self.opt_cfg, self.cfg, self.replicate_fn,
             num_fragments=getattr(self.strategy, "num_fragments", 4))
 
-    def _check_processes(self, faults, checkpoint_dir, resume) -> None:
-        """What runs across processes (module docstring), by name."""
-        name = self.strategy.name
-        queued = "not ported yet (ROADMAP.md §1 queues it)"
-        if name not in ("diloco", "ddp"):
-            raise ValueError(f"strategy {name!r} across processes is "
-                             f"{queued}; a replicate_fn runs diloco and ddp")
-        if getattr(self.strategy, "h_schedule", None) is not None:
-            raise ValueError(f"an H schedule across processes is {queued}: "
-                             f"each rank would decide its rounds from its "
-                             f"own loss")
-        if faults is not None:
-            raise ValueError(f"faults= across processes is {queued}")
-        if checkpoint_dir or resume:
-            raise ValueError(f"run checkpoints across processes are "
-                             f"{queued}")
+    def _check_processes(self) -> None:
+        """A process mesh holds one worker row a pod: its pods must be the
+        config's workers."""
         rows = getattr(self.replicate_fn, "num_rows", self.cfg.num_workers)
         if rows != self.cfg.num_workers:
             raise ValueError(f"the mesh holds {rows} worker rows (pods) but "
@@ -188,15 +258,19 @@ class DistTrainer:
         least ``min_quorum`` contribute and is skipped below it."""
         # a process mesh tags its collective log: the inner steps, and the
         # replay that runs the outer rounds
-        scope = getattr(self.replicate_fn, "scope",
-                        lambda name: contextlib.nullcontext())
-        if self.replicate_fn is not None:
-            self._check_processes(faults, checkpoint_dir, resume)
-            local, whole = (getattr(self.replicate_fn, "local_batch", None),
-                            data_fn)
+        rep = self.replicate_fn
+        scope = getattr(rep, "scope", lambda name: contextlib.nullcontext())
+        is_rank = ranked(rep)
+        if rep is not None:
+            self._check_processes()
+            local, whole = getattr(rep, "local_batch", None), data_fn
             if local is not None:
                 def data_fn(step):
                     return local(whole(step))
+        # the fleet's loss row: the runner reads it, or a checkpoint does
+        fleet = is_rank and (
+            getattr(self.strategy, "h_schedule", None) is not None
+            or bool(checkpoint_dir))
         has_faults = faults is not None and not faults.empty
         if not chunked and prefetch > 0:
             raise ValueError(
@@ -225,19 +299,36 @@ class DistTrainer:
         device = state.inner_step.device
         history: Dict[str, list] = {"step": [], "loss": [], "sync_steps": [],
                                     "frag_syncs": [], "evals": []}
-        if self.replicate_fn is not None:
+        if rep is not None:
             history.update(inner_seconds=[], sync_seconds=[])
+        if fleet:
+            history["fleet_loss"] = []
+        # each recorded step's worker losses, for a checkpoint's meta
+        worker_loss: list = []
         start_step = 0
         if resume:
             manifest = latest_run_checkpoint(checkpoint_dir)
             if manifest is not None:
                 template = runner.checkpoint_extras()
+                rows = tuple(rep.rows) if is_rank else None
                 state, extras = load_run_checkpoint(
                     manifest, state,
-                    template[0] if template is not None else None)
+                    template[0] if template is not None else None,
+                    rows=rows)
                 runner.load_extras(extras, manifest.get("extras_meta") or {})
                 for key, vals in (manifest.get("history") or {}).items():
                     history[key] = [_history_from_json(v) for v in vals]
+                worker_loss = list(
+                    (manifest.get("meta") or {}).get("worker_loss") or [])
+                if is_rank:
+                    history.update(inner_seconds=[], sync_seconds=[])
+                    if fleet:
+                        history["fleet_loss"] = list(history["loss"])
+                    if len(worker_loss) == len(history["loss"]):
+                        # the rank's own worker's, as the run recorded it
+                        history["loss"] = [
+                            _host_mean(np.asarray(r, np.float32)[list(rows)])
+                            for r in worker_loss]
                 start_step = int(manifest["step"])
                 if tracker is not None:
                     tracker.catch_up(start_step)
@@ -300,20 +391,39 @@ class DistTrainer:
                             live=live)
                         losses.append(loss)
                 del batches
-                losses_host = _fetch(torch.stack(losses))  # ONE read a chunk
+                losses = torch.stack(losses)
+                if fleet:
+                    # every pod's (T,) row, then the one read
+                    with scope("loss"):
+                        rows_host = _fetch(rep.fleet_rows(
+                            losses.T.contiguous())).T
+                    losses_host = rows_host[:, list(rep.rows)]
+                else:
+                    losses_host = rows_host = _fetch(losses)  # ONE read
                 t_inner = time.perf_counter()
-                n_synced = len(history["sync_steps"])
+                n_synced = _n_syncs(history)
+                own_live = eng.local_mask(live)
                 with scope("outer"):
                     for i in range(T):
                         s = step + i
                         loss_mean = (_host_mean(losses_host[i])
-                                     if live is None else
-                                     _host_mean_live(losses_host[i], live))
+                                     if own_live is None else
+                                     _host_mean_live(losses_host[i],
+                                                     own_live))
+                        fleet_mean = loss_mean
+                        if fleet:
+                            fleet_mean = (_host_mean(rows_host[i])
+                                          if live is None else
+                                          _host_mean_live(rows_host[i], live))
                         if s % record_every == 0:
                             history["step"].append(s)
                             history["loss"].append(loss_mean)
+                            if fleet:
+                                history["fleet_loss"].append(fleet_mean)
+                                worker_loss.append(
+                                    [float(x) for x in rows_host[i]])
                         new_state, recs = runner.after_step(state, s,
-                                                            loss_mean)
+                                                            fleet_mean)
                         if new_state is not state and s != end:
                             raise RuntimeError(
                                 f"sync runner replaced the state at step "
@@ -334,10 +444,9 @@ class DistTrainer:
                     torch.cuda.synchronize(device)  # an outer sync is timed
                 t_now = time.perf_counter()
                 chunk_step_seconds.append((t_now - t_prev) / T)
-                if self.replicate_fn is not None:
+                if rep is not None:
                     history["inner_seconds"].append((t_inner - t_prev) / T)
-                    if (len(history["sync_steps"]) > n_synced
-                            and self.strategy.name == "diloco"):
+                    if _n_syncs(history) > n_synced:
                         history["sync_seconds"].append(t_now - t_inner)
                 t_prev = t_now
                 if checkpoint_dir and checkpoint_every and (
@@ -349,11 +458,9 @@ class DistTrainer:
                         pending_ckpt = True
                     else:
                         pending_ckpt = False
-                        arrays, extras_meta = extras
-                        save_run_checkpoint(
-                            checkpoint_dir, end + 1, state,
-                            extras_arrays=arrays, extras_meta=extras_meta,
-                            history=history, meta={"num_steps": num_steps})
+                        state = runner.consensus(state)
+                        self._save(checkpoint_dir, end + 1, state, extras,
+                                   history, worker_loss, num_steps)
                         t_prev = time.perf_counter()  # not step time
                 if tracker is not None and tracker.kill_at(end):
                     # scripted process death: any due checkpoint was just
@@ -375,3 +482,30 @@ class DistTrainer:
         history["step_seconds"] = sorted(chunk_step_seconds)[
             len(chunk_step_seconds) // 2] if chunk_step_seconds else 0.0
         return state, history
+
+    def _save(self, checkpoint_dir, step, state, extras, history,
+              worker_loss, num_steps) -> None:
+        """One run checkpoint in the one-process layout (module
+        docstring); across ranks rank 0 writes it from the gathered
+        rows, the ranks meeting before the manifest and after it."""
+        arrays, extras_meta = extras
+        rep = self.replicate_fn
+        if not ranked(rep):
+            save_run_checkpoint(checkpoint_dir, step, state,
+                                extras_arrays=arrays, extras_meta=extras_meta,
+                                history=history, meta={"num_steps": num_steps})
+            return
+        full = _one_process_state(state, rep)
+        arrays = _one_process_extras(arrays, rep)
+        if rep.lead:
+            hist = {k: v for k, v in history.items() if k not in _RANK_KEYS}
+            hist["loss"] = list(history["fleet_loss"])
+            save_run_checkpoint(checkpoint_dir, step, full,
+                                extras_arrays=arrays, extras_meta=extras_meta,
+                                history=hist,
+                                meta={"num_steps": num_steps,
+                                      "worker_loss": worker_loss},
+                                before_manifest=rep.barrier)
+        else:
+            rep.barrier()
+        rep.barrier()           # the manifest is written

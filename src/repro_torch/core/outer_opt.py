@@ -34,7 +34,7 @@ import torch
 
 from repro_torch.configs.base import DiLoCoConfig
 from repro_torch.core.transport import (QuantizedCodec, Transport,
-                                        make_codec, wire_width)
+                                        make_codec, ranked, wire_width)
 from repro_torch.kernels.quantize.ref import reference_quantize_ef
 
 Flat = Dict[str, torch.Tensor]
@@ -144,14 +144,17 @@ def exchange_and_average(stacked_delta: Flat, cfg: DiLoCoConfig,
                          residual: Optional[Flat] = None,
                          kind: str = "delta", fragment: int = -1,
                          live: Optional[Sequence[bool]] = None,
-                         replicate_fn: Optional[Callable] = None
+                         replicate_fn: Optional[Callable] = None,
+                         sources: Optional[Sequence[int]] = None
                          ) -> Tuple[Flat, Optional[Flat]]:
     """encode -> ship -> decode -> average; returns (averaged delta, new
     error-feedback residual or None).  ``live`` is the quorum round's
     contribution mask (``_average``); with ``replicate_fn``
-    ``stacked_delta`` and ``residual`` are this process's rows only."""
+    ``stacked_delta`` and ``residual`` are this process's rows only, and
+    ``sources`` (``Transport.ship``'s) the workers whose rows cross."""
     full, new_residual = make_transport(cfg, replicate_fn).exchange(
-        stacked_delta, residual, kind=kind, fragment=fragment)
+        stacked_delta, residual, kind=kind, fragment=fragment,
+        sources=sources)
     return _average(full, cfg, live=live), new_residual
 
 
@@ -202,14 +205,19 @@ def outer_sync(anchor: Flat, rows: Dict[str, List[torch.Tensor]], v: Flat,
     With ``replicate_fn`` (a process mesh) ``rows`` and ``residual`` hold
     this rank's worker rows only; the transport gathers every worker's
     encoded rows, and the anchor and momentum come out as the one-process
-    round's."""
+    round's.  In a quorum round only the contributors' rows cross (one
+    broadcast from each, ``Transport.ship(sources=)``): a rank encodes
+    its row either way, and one counted out keeps its residual."""
     sub = (None if contrib is None or all(contrib) else
            [i for i, keep in enumerate(contrib) if keep])
+    # across ranks every rank encodes its own rows and the contributors'
+    # cross; on one device only the contributors' rows are stacked
+    across = sub is not None and ranked(replicate_fn)
     # drift-aware weights need every leaf's delta at once; otherwise one
     # leaf at a time, so no (K, ...) stack of the whole model is held
     groups = [list(anchor)] if cfg.drift_aware else [[k] for k in anchor]
     for group in groups:
-        if sub is None:
+        if sub is None or across:
             delta = {k: stack_delta(rows[k], anchor[k]) for k in group}
             res = (None if residual is None else
                    {k: residual[k] for k in group})
@@ -220,9 +228,9 @@ def outer_sync(anchor: Flat, rows: Dict[str, List[torch.Tensor]], v: Flat,
                                device=anchor[group[0]].device)
             res = (None if residual is None else
                    {k: residual[k].index_select(0, idx) for k in group})
-        avg, new_res = exchange_and_average(delta, cfg, res, kind=kind,
-                                            fragment=fragment,
-                                            replicate_fn=replicate_fn)
+        avg, new_res = exchange_and_average(
+            delta, cfg, res, kind=kind, fragment=fragment,
+            replicate_fn=replicate_fn, sources=sub if across else None)
         del delta
         for k in group:
             p, vv = update_leaf(anchor[k], v[k], avg[k], cfg)
@@ -232,6 +240,10 @@ def outer_sync(anchor: Flat, rows: Dict[str, List[torch.Tensor]], v: Flat,
                 continue
             if sub is None:
                 residual[k].copy_(new_res[k])
+            elif across:
+                for j, w in enumerate(replicate_fn.rows):
+                    if contrib[w]:
+                        residual[k][j].copy_(new_res[k][j])
             else:
                 for j, i in enumerate(sub):
                     residual[k][i].copy_(new_res[k][j])

@@ -57,6 +57,16 @@ moves per hop (``hop_bytes_per_worker``), host-side only.
 The gossip runners hold per-worker anchors and outer momentum, stacked
 (K, ...) per leaf, beside the residual; ``gossip_rounds`` is their
 per-pair event model for ``launch/comm_sim.simulate_gossip``.
+
+Across ranks (the engine's ``replicate_fn`` of a process mesh,
+``launch/mesh.py``) every runner holds its rank's worker rows only and
+reaches the one-process state bit for bit: the DiLoCo family ships
+through the transport's all-gather; a quorum round first checks that
+the ranks agree on its masks (``_round_masks``), then broadcasts the
+contributors' rows only, so a down worker's rank sends nothing; the
+gossip hops are point-to-point sends between the paired ranks, and
+gossip's ``global_params`` (the anchors' mean, a K-row read) is read
+only where it is read (``_GossipBase.consensus``).
 """
 from __future__ import annotations
 
@@ -70,7 +80,8 @@ from repro_torch.configs.base import DiLoCoConfig
 from repro_torch.core import outer_opt
 from repro_torch.core.drift import delta_cosine, rejoin_drift
 from repro_torch.core.schedule import FixedH, HSchedule
-from repro_torch.core.transport import make_codec
+from repro_torch.core.transport import (OuterPayload, QuantizedCodec,
+                                        make_codec, ranked)
 
 # history records a runner can emit: (history_key, value) pairs
 Records = List[Tuple[str, Any]]
@@ -117,16 +128,56 @@ def _copy_rows(params, sel=None):
             if sl is not None}
 
 
-def _quorum_round(tracker, state, step: int):
-    """The tracker's masks for the round at ``step`` and its records, with
-    ``("rejoin_drift", (step, worker, delta_norm, cos_to_live_mean))`` for
-    each rejoiner, taken on the state before it adopts
-    (``drift.rejoin_drift``; one host read per rejoin, never per step)."""
+def _round_masks(tracker, engine, step: int):
+    """The tracker's masks for the round at ``step``.  Across ranks (a
+    process mesh) the ranks first check that they agree on them, with one
+    small all-gather (scope ``quorum``): every rank runs the same tracker
+    on the same schedule, and ranks that parted would wait on different
+    collectives."""
     info = tracker.round_masks(step)
+    rep = getattr(engine, "replicate_fn", None)
+    if ranked(rep):
+        with rep.scope("quorum"):
+            rep.agree([int(x) for x in info.contrib + info.adopt
+                       + info.reset] + [int(info.skip)],
+                      f"the quorum round at step {step}")
+    return info
+
+
+def _fleet_rows(engine, state, live):
+    """The ``live`` workers' parameters as a list of flat dicts: the
+    state's own on one device; across ranks each live worker's row from
+    its rank (one broadcast a leaf from each, scope ``consensus``)."""
+    rep = getattr(engine, "replicate_fn", None)
+    rows = _rows(live)
+    if not ranked(rep):
+        return [state.worker_params[w] for w in rows]
+    with rep.scope("consensus"):
+        got = {k: rep({k: t.unsqueeze(0)}, rows)[k]
+               for k, t in state.worker_params[0].items()}
+    return [{k: g[i] for k, g in got.items()} for i in range(len(rows))]
+
+
+def _quorum_round(tracker, state, step: int, engine=None,
+                  refresh=None):
+    """The tracker's masks for the round at ``step`` (``_round_masks``)
+    and its records, with ``("rejoin_drift", (step, worker, delta_norm,
+    cos_to_live_mean))`` for each rejoiner, taken on the state before it
+    adopts (``drift.rejoin_drift``; one host read per rejoin, never per
+    step; across ranks every rank reads the live rows and records it).
+    ``refresh`` brings ``global_params`` up to date first, when a rejoin
+    reads it."""
+    info = _round_masks(tracker, engine, step)
     records = list(info.records)
-    records += [("rejoin_drift", (step, w) + rejoin_drift(
-        state.worker_params, state.global_params, info.live, w))
-        for w, r in enumerate(info.reset) if r]
+    resets = [w for w, r in enumerate(info.reset) if r]
+    if resets:
+        if refresh is not None:
+            state = refresh(state)
+        live = _rows(info.live)
+        fleet = _fleet_rows(engine, state, info.live)
+        records += [("rejoin_drift", (step, w) + rejoin_drift(
+            fleet, state.global_params, [True] * len(live), live.index(w)))
+            for w in resets]
     return info, records
 
 
@@ -155,6 +206,12 @@ class SyncRunner:
     def finalize(self, state, num_steps: int):
         """Called once after the last step; returns (state, records)."""
         return state, []
+
+    def consensus(self, state):
+        """Bring ``global_params`` up to date before a run checkpoint
+        stores it; identity for strategies that keep it current at every
+        sync (the gossip runners defer it across ranks)."""
+        return state
 
     # -- fault tolerance (quorum rounds + elastic rejoin) --------------------
     # Runners that understand per-worker fault events set
@@ -264,7 +321,8 @@ class _DiLoCoRunner(SyncRunner):
             state, self.residual = self.engine.outer_step_ef(state,
                                                              self.residual)
             return state, [("sync_steps", step)]
-        info, records = _quorum_round(self._tracker, state, step)
+        info, records = _quorum_round(self._tracker, state, step,
+                                      self.engine)
         if info.skip:
             if any(info.reset):
                 state, self.residual = self.engine.adopt_anchor(
@@ -401,7 +459,8 @@ class _StreamingRunner(SyncRunner):
                 state, self.residual = self.engine.outer_step_fragment_ef(
                     state, self.masks[f], self.residual)
                 return state, [("frag_syncs", (step, f))]
-            info, records = _quorum_round(self._tracker, state, step)
+            info, records = _quorum_round(self._tracker, state, step,
+                                          self.engine)
             if info.skip:
                 if any(info.reset):
                     state, self.residual = self.engine.adopt_anchor(
@@ -485,6 +544,7 @@ class _OverlappedRunner(SyncRunner):
         self.pending: Optional[list] = None  # frozen snapshot awaiting apply
         self.pending_apply = -1
         self.residual = engine.init_residual(params)
+        self.rows = engine.local_rows     # the workers this process holds
 
     def _draw_snap_steps(self) -> Dict[int, int]:
         """Worker i's delta leaves jitter_i steps before the boundary — a
@@ -504,9 +564,10 @@ class _OverlappedRunner(SyncRunner):
         due = [i for i, s in self.snap_steps.items() if s == step]
         if due:
             if self.buf is None:
-                self.buf = [None] * self.k
-            for i in due:
-                self.buf[i] = _copy_rows(state.worker_params[i])
+                self.buf = [None] * len(self.rows)
+            for j, w in enumerate(self.rows):
+                if w in due:
+                    self.buf[j] = _copy_rows(state.worker_params[j])
         if step == self.round_end:
             # every worker's snap step is <= round_end, so buf is full
             self.pending = self.buf
@@ -639,7 +700,8 @@ class _PipelinedRunner(SyncRunner):
             if self._tracker is not None:
                 # masks captured WITH the snapshot: the deltas in flight
                 # are the capture-time live set's
-                info, recs = _quorum_round(self._tracker, state, step)
+                info, recs = _quorum_round(self._tracker, state, step,
+                                           self.engine)
                 records += recs
             frag = self.round % self.F
             self.pending = ([_copy_rows(w, self.masks[frag])
@@ -668,7 +730,8 @@ class _PipelinedRunner(SyncRunner):
                     state, self.residual)
                 records.append(("sync_steps", num_steps - 1))
             else:
-                info = self._tracker.round_masks(num_steps - 1)
+                info = _round_masks(self._tracker, self.engine,
+                                    num_steps - 1)
                 records += list(info.records)
                 if not info.skip:
                     state, self.residual = self.engine.outer_step_quorum(
@@ -816,42 +879,75 @@ def _gossip_outer_rows(cfg, a, v, base, v_mix, avg,
             v2[w, sl].copy_(new_v[w])
 
 
-def _gossip_new_state(state, k: str, a: torch.Tensor, rows: Sequence[int],
-                      live: Optional[List[int]] = None) -> None:
-    """Workers ``rows`` land on their updated anchors of leaf ``k``;
-    ``global_params`` tracks the anchor mean (the fleet's consensus
-    estimate, for evals and checkpoints) — of the ``live`` rows only
-    when given (a dead worker's anchor is stale)."""
-    for w in rows:
-        state.worker_params[w][k].copy_(a[w])
-    if live is not None:
+def _local_rows(replicate_fn, k: int) -> Tuple[int, ...]:
+    """The workers this process holds: all K on one device."""
+    return tuple(replicate_fn.rows) if ranked(replicate_fn) \
+        else tuple(range(k))
+
+
+def _set_mean(state, k: str, a: torch.Tensor, replicate_fn=None,
+              live: Optional[List[int]] = None) -> None:
+    """``global_params[k]`` := the mean of leaf ``k``'s anchors ``a`` (of
+    the ``live`` rows only when given), summed in worker order.  Across
+    ranks the rows are read from their ranks first (scope
+    ``consensus``)."""
+    if ranked(replicate_fn):
+        with replicate_fn.scope("consensus"):
+            a = replicate_fn({k: a}, live)[k]
+    elif live is not None:
         a = a.index_select(0, torch.tensor(live, dtype=torch.long,
                                            device=a.device))
     state.global_params[k].copy_(outer_opt._mean(a.float()))
 
 
+def _gossip_new_state(state, k: str, a: torch.Tensor, rows: Sequence[int],
+                      live: Optional[List[int]] = None,
+                      defer: bool = False) -> None:
+    """Workers ``rows`` (local indices) land on their updated anchors of
+    leaf ``k``; ``global_params`` tracks the anchor mean (the fleet's
+    consensus estimate, for evals and checkpoints) — of the ``live`` rows
+    only when given (a dead worker's anchor is stale).  ``defer`` (across
+    ranks) leaves ``global_params`` to the runner, which reads the mean
+    only where it is read (``_set_mean``)."""
+    for w in rows:
+        state.worker_params[w][k].copy_(a[w])
+    if not defer:
+        _set_mean(state, k, a, live=live)
+
+
 def _adopt_consensus(state, k: str, a: torch.Tensor, v: torch.Tensor,
-                     residual, vets: List[int], rst: List[int]) -> None:
+                     residual, vets: List[int], rst: List[int],
+                     replicate_fn=None) -> None:
     """Rejoiners ``rst`` adopt the veterans' (``vets``) anchor mean of leaf
     ``k`` with a clean slate: anchor and worker := that consensus, outer
     momentum and residual := 0 (zeros when no veteran is live, as the
-    reference's masked mean gives)."""
-    if vets:
+    reference's masked mean gives).  Workers are global indices; across
+    ranks the veterans' anchors are read from their ranks (scope
+    ``consensus``) and each rank writes its own rejoiner."""
+    if not rst:
+        return
+    rows = _local_rows(replicate_fn, a.shape[0])
+    if not vets:
+        cons = torch.zeros(a.shape[1:], dtype=torch.float32, device=a.device)
+    elif ranked(replicate_fn):
+        with replicate_fn.scope("consensus"):
+            cons = outer_opt._mean(replicate_fn({k: a}, vets)[k].float())
+    else:
         cons = outer_opt._mean(a.index_select(0, torch.tensor(
             vets, dtype=torch.long, device=a.device)).float())
-    else:
-        cons = torch.zeros(a.shape[1:], dtype=torch.float32, device=a.device)
-    for w in rst:
-        a[w].copy_(cons)
-        v[w].zero_()
+    for j, w in enumerate(rows):
+        if w not in rst:
+            continue
+        a[j].copy_(cons)
+        v[j].zero_()
         if residual is not None:
-            residual[k][w].zero_()
-        state.worker_params[w][k].copy_(a[w])
+            residual[k][j].zero_()
+        state.worker_params[j][k].copy_(a[j])
 
 
 @torch.no_grad()
 def _gossip_pair(cfg, state, anchors, v, residual, peer: List[int],
-                 masks=None):
+                 masks=None, replicate_fn=None):
     """One synchronized gossip round, leaf by leaf: encode each worker's
     delta against its own anchor, ship one peer row each (codes, then the
     peer's anchors and momentum), pair-average the whole outer state, and
@@ -871,13 +967,21 @@ def _gossip_pair(cfg, state, anchors, v, residual, peer: List[int],
     momentum, residual, parameters); rejoiners (``reset``) then adopt the
     veterans' (``adopt``) anchor mean with zero momentum and residual
     (the caller restarts their optimizer state); ``global_params`` is the
-    mean of the live rows' anchors; dead rows keep their bits."""
-    transport = outer_opt.make_transport(cfg)
-    act = live = None
+    mean of the live rows' anchors; dead rows keep their bits.
+
+    Across ranks (``replicate_fn`` of a process mesh) the arrays hold this
+    rank's row only, the peer hop is a point-to-point exchange with its
+    peer (a self-paired or dead worker sends nothing), and
+    ``global_params`` is left to the runner (``_set_mean``)."""
+    transport = outer_opt.make_transport(cfg, replicate_fn)
+    defer = ranked(replicate_fn)
+    rows = _local_rows(replicate_fn, len(peer))
+    act = live = vets = rst = None
     if masks is not None:
         active, adopt, reset = masks
-        act, vets, rst = _rows(active), _rows(adopt), _rows(reset)
+        vets, rst = _rows(adopt), _rows(reset)
         live = _rows(x or y for x, y in zip(adopt, reset))
+        act = [j for j, w in enumerate(rows) if active[w]]
     for k, a in anchors.items():
         dq, peer_dq, new_res = transport.exchange_peers(
             {k: _deltas([w[k] for w in state.worker_params], a)}, peer,
@@ -886,8 +990,8 @@ def _gossip_pair(cfg, state, anchors, v, residual, peer: List[int],
             if act is None:
                 residual[k].copy_(new_res[k])
             else:
-                for w in act:
-                    residual[k][w].copy_(new_res[k][w])
+                for j in act:
+                    residual[k][j].copy_(new_res[k][j])
         del new_res
         # dq * 0.5 + peer_dq * 0.5 in place: each op rounds once, as out
         # of place
@@ -898,97 +1002,151 @@ def _gossip_pair(cfg, state, anchors, v, residual, peer: List[int],
         _gossip_outer_rows(cfg, a, v[k], base, v_mix, avg, rows=act)
         del base, v_mix, avg
         if act is None:
-            _gossip_new_state(state, k, a, range(len(peer)))
+            _gossip_new_state(state, k, a, range(len(rows)), defer=defer)
         else:
-            _adopt_consensus(state, k, a, v[k], residual, vets, rst)
-            _gossip_new_state(state, k, a, act, live)
+            _adopt_consensus(state, k, a, v[k], residual, vets, rst,
+                             replicate_fn)
+            _gossip_new_state(state, k, a, act, live, defer=defer)
     return state._replace(outer=state.outer._replace(t=state.outer.t + 1))
 
 
 @torch.no_grad()
-def _gossip_adopt(state, anchors, v, residual, reset, adopt) -> None:
+def _gossip_adopt(state, anchors, v, residual, reset, adopt,
+                  replicate_fn=None) -> None:
     """Rejoin on a skipped gossip round: ``reset`` rows adopt the
     ``adopt`` rows' CURRENT anchor mean (no exchange, no outer update;
     the caller restarts their optimizer state); the veterans are
-    untouched; ``global_params`` becomes the live rows' anchor mean."""
+    untouched; ``global_params`` becomes the live rows' anchor mean (left
+    to the runner across ranks)."""
     vets, rst = _rows(adopt), _rows(reset)
     live = _rows(x or y for x, y in zip(adopt, reset))
     for k, a in anchors.items():
-        _adopt_consensus(state, k, a, v[k], residual, vets, rst)
-        _gossip_new_state(state, k, a, (), live)
+        _adopt_consensus(state, k, a, v[k], residual, vets, rst,
+                         replicate_fn)
+        _gossip_new_state(state, k, a, (), live,
+                          defer=ranked(replicate_fn))
 
 
 @torch.no_grad()
-def _gossip_async(cfg, state, anchors, v, residual, pub, pub_anch, pub_v,
-                  due: List[int], peer: List[int], base_w: List[float],
-                  gate: List[bool]):
-    """One async-gossip apply event for the workers ``due``, in two passes
-    over the leaves, since the drift gate's cosine spans the whole tree:
+def _gossip_async(cfg, state, anchors, v, residual, pub, pub_q, pub_s,
+                  pub_anch, pub_v, due: List[int], peer: List[int],
+                  base_w: List[float], gate: List[bool], replicate_fn=None):
+    """One async-gossip apply event for the workers ``due``, over the rows
+    this process holds (all K on one device; its own across ranks):
 
-    1. encode each due worker's delta, publish (decoded delta, anchors,
-       momentum) into the boards ``pub``, ``pub_anch``, ``pub_v`` — before
-       any read, so a co-due peer is staleness 0 and reads the anchors of
-       before its update — and carry the due rows' residual;
-    2. weight each due worker's peer by ``base_w`` (times ``max(cos(own,
-       peer), 0)`` where ``gate``), mix ``own * (1 - w) + peer * w`` for
-       the delta, the anchors and the momentum, and apply the per-row
-       outer update to the due rows.
+    1. each due row encodes its delta and publishes it — the codes (and
+       scales) into the wire boards ``pub_q`` / ``pub_s``, the decoded
+       delta, anchors and momentum into ``pub``, ``pub_anch``,
+       ``pub_v`` — before any read, so a co-due peer is staleness 0 and
+       reads the anchors of before its update — and carries its residual;
+    2. each row reads the latest publication of the worker it reads (its
+       ``peer`` where its weight is above 0, else its own): the codes and
+       scales through ``Transport.ship_peers``, decoded to the
+       publisher's ``pub`` row bit for bit, then the anchors and the
+       momentum through ``ship_rows``;
+    3. each due row weights its peer by ``base_w`` (times ``max(cos(own,
+       peer), 0)`` where ``gate``), mixes ``own * (1 - w) + peer * w`` for
+       the delta, the anchors and the momentum, and takes the per-row
+       outer update.
 
-    A worker that is not due advances nothing: its parameters, anchors,
-    momentum, residual and publications keep their bits.  A dropped
-    contribution (weight 0) reads the worker's own row, so it crosses no
-    link.  Never builds a whole-model (K, P) stack."""
-    transport = outer_opt.make_transport(cfg)
+    The reads go leaf by leaf, except when a row of the fleet is gated:
+    the cosine spans the whole tree, so every leaf's publication is read
+    first.  Every rank computes the same ``due`` / ``peer`` / weights, so
+    a publisher posts its sends at the event its readers read it, in the
+    same order; a rank that is not due only sends.  A worker that is not
+    due advances nothing: its parameters, anchors, momentum, residual and
+    publications keep their bits.  A dropped contribution (weight 0)
+    reads the worker's own row, so it crosses no link.  Never builds a
+    whole-model (K, P) stack unless a row is gated."""
+    transport = outer_opt.make_transport(cfg, replicate_fn)
     codec, K = transport.codec, len(peer)
+    rows = _local_rows(replicate_fn, K)
     dev = state.inner_step.device
-    due_idx = torch.tensor(due, dtype=torch.long, device=dev)
+    mine = [j for j, w in enumerate(rows) if w in due]
     reads = list(range(K))
     for w in due:
         if base_w[w] > 0:
             reads[w] = peer[w]
-    row_nbytes = {}
+    idx = torch.tensor(mine, dtype=torch.long, device=dev)
     for k, a in anchors.items():
+        if not mine:
+            break
         payload, new_res = codec.encode(
-            {k: _deltas([state.worker_params[w][k] for w in due],
-                        [a[w] for w in due])},
+            {k: _deltas([state.worker_params[j][k] for j in mine],
+                        [a[j] for j in mine])},
             None if residual is None else
-            {k: residual[k].index_select(0, due_idx)})
-        row_nbytes[k] = payload.nbytes() // len(due)
+            {k: residual[k].index_select(0, idx)})
         dq = codec.decode(payload)[k]
-        del payload
-        for j, w in enumerate(due):
-            pub[k][w].copy_(dq[j])
-            pub_anch[k][w].copy_(a[w])
-            pub_v[k][w].copy_(v[k][w])
+        for i, j in enumerate(mine):
+            pub[k][j].copy_(dq[i])
+            pub_q[k][j].copy_(payload.data[k][i])
+            if pub_s is not None:
+                pub_s[k][j].copy_(payload.scales[k][i])
+            pub_anch[k][j].copy_(a[j])
+            pub_v[k][j].copy_(v[k][j])
             if residual is not None:
-                residual[k][w].copy_(new_res[k][j])
-        del dq, new_res
+                residual[k][j].copy_(new_res[k][i])
+        del payload, dq, new_res
+
+    def read(k):
+        # the decoded publication each row reads, (len(rows), ...)
+        got = transport.ship_peers(OuterPayload(
+            data={k: pub_q[k]}, codec=codec.name,
+            scales=None if pub_s is None else {k: pub_s[k]}), reads)
+        return codec.decode(got)[k]
+
+    peer_pub = {k: read(k) for k in pub} if any(gate) else {}
     w_eff = []
-    for w in range(K):
+    for j, w in enumerate(rows):
         wt = torch.tensor(base_w[w], dtype=torch.float32, device=dev)
         if gate[w]:
-            cos = delta_cosine({k: p[w] for k, p in pub.items()},
-                               {k: p[peer[w]] for k, p in pub.items()})
+            cos = delta_cosine({k: p[j] for k, p in pub.items()},
+                               {k: p[j] for k, p in peer_pub.items()})
             wt = wt * torch.clamp(cos.float(), min=0.0)
         w_eff.append(wt)
     take = torch.stack(w_eff)
     keep = 1.0 - take
-
-    def mix(own, published, **kw):
-        col = (-1,) + (1,) * (own.dim() - 1)
-        return (own * keep.reshape(col)).add_(
-            transport.ship_rows(published, reads, **kw)
-            .mul_(take.reshape(col)))
-
     for k, a in anchors.items():
-        avg = mix(pub[k], pub[k], codec=codec.name,
-                  row_nbytes=row_nbytes[k])
-        base = mix(a, pub_anch[k])
-        v_mix = mix(v[k], pub_v[k])
-        _gossip_outer_rows(cfg, a, v[k], base, v_mix, avg, rows=due)
+        got = peer_pub.pop(k) if peer_pub else read(k)
+        peer_anch = transport.ship_rows(pub_anch[k], reads)
+        peer_v = transport.ship_rows(pub_v[k], reads)
+        if not mine:
+            continue
+        col = (-1,) + (1,) * (a.dim() - 1)
+
+        def mix(own, got):
+            return (own * keep.reshape(col)).add_(
+                got.mul_(take.reshape(col)))
+
+        avg = mix(pub[k], got)
+        base = mix(a, peer_anch)
+        v_mix = mix(v[k], peer_v)
+        del got, peer_anch, peer_v
+        _gossip_outer_rows(cfg, a, v[k], base, v_mix, avg, rows=mine)
         del base, v_mix, avg
-        _gossip_new_state(state, k, a, due)
+        _gossip_new_state(state, k, a, mine, defer=ranked(replicate_fn))
     return state._replace(outer=state.outer._replace(t=state.outer.t + 1))
+
+
+# the dtype of each codec's codes on the wire
+_WIRE_DTYPE = {"f32": torch.float32, "bf16": torch.bfloat16,
+               "int8": torch.int8, "fp8": torch.float8_e4m3fn,
+               "fp8_e5m2": torch.float8_e5m2}
+
+
+def _code_board(codec, params, n: int):
+    """(codes, scales or None): ``n`` zero rows a leaf, shaped and typed
+    as ``codec``'s encoding of an (n, ...) stack of ``params`` — the
+    async board's publications as they cross."""
+    codes = {k: torch.zeros((n,) + tuple(p.shape),
+                            dtype=_WIRE_DTYPE[codec.name], device=p.device)
+             for k, p in params.items()}
+    scales = None
+    if isinstance(codec, QuantizedCodec):
+        scales = {k: torch.zeros((n,) + (1,) * p.dim(), dtype=torch.float32,
+                                 device=p.device)
+                  for k, p in params.items()}
+    return codes, scales
 
 
 def _stacked(params, k: int, zeros: bool = False):
@@ -1000,7 +1158,39 @@ def _stacked(params, k: int, zeros: bool = False):
             for n, p in params.items()}
 
 
-class _GossipRunner(SyncRunner):
+class _GossipBase(SyncRunner):
+    """What the gossip runners share across ranks: the per-worker outer
+    state of the rows this process holds, and ``global_params`` (the
+    anchors' mean, a K-row read across ranks) read only where it is read
+    — ``refresh``, ``finalize``, a checkpoint (``consensus``) and a
+    rejoin's drift — rather than every round."""
+
+    def _init_rows(self, engine, params):
+        self.engine = engine
+        self.k = engine.cfg.num_workers
+        rep = engine.replicate_fn
+        self.rep = rep if ranked(rep) else None
+        n = len(engine.local_rows)
+        self.anchors = _stacked(params, n)
+        self.outer_v = _stacked(params, n, zeros=True)
+        self.residual = engine.init_residual(params)
+        self._stale = None      # (live rows or None,) once deferred
+
+    def _defer(self, live: Optional[List[int]] = None) -> None:
+        if self.rep is not None:
+            self._stale = (live,)
+
+    def consensus(self, state):
+        if self._stale is not None:
+            for k, a in self.anchors.items():
+                _set_mean(state, k, a, self.rep, self._stale[0])
+            self._stale = None
+        return state
+
+    refresh = consensus
+
+
+class _GossipRunner(_GossipBase):
     """Synchronized gossip rounds: every H steps each worker encodes its
     delta against its OWN anchor, exchanges (delta, anchors, momentum)
     with one peer of the topology schedule, and applies a per-worker
@@ -1018,31 +1208,32 @@ class _GossipRunner(SyncRunner):
             raise ValueError("full topology is the DiLoCo mean — "
                              "GossipSync.bind delegates it to _DiLoCoRunner")
         gossip_peers(2, 0, topology, seed)   # validate the topology name
-        self.engine = engine
         self.h, self.topology, self.seed = h, topology, seed
-        self.k = engine.cfg.num_workers
         self.since = 0
         self.round = 0
-        self.anchors = _stacked(params, self.k)
-        self.outer_v = _stacked(params, self.k, zeros=True)
-        self.residual = engine.init_residual(params)
+        self._init_rows(engine, params)
 
     def _do_sync(self, state, step):
+        cfg, rep = self.engine.cfg, self.engine.replicate_fn
         if self._tracker is None:
             peers = gossip_peers(self.k, self.round, self.topology,
                                  self.seed)
             records: Records = [("gossip_syncs", (step, w, peers[w], 0))
                                 for w in range(self.k)]
             records.append(("sync_steps", step))
-            state = _gossip_pair(self.engine.cfg, state, self.anchors,
-                                 self.outer_v, self.residual, peers)
+            state = _gossip_pair(cfg, state, self.anchors, self.outer_v,
+                                 self.residual, peers, replicate_fn=rep)
+            self._defer()
             self.round += 1
             return state, records
-        info, records = _quorum_round(self._tracker, state, step)
+        info, records = _quorum_round(self._tracker, state, step,
+                                      self.engine, self.consensus)
+        live = _rows(x or y for x, y in zip(info.adopt, info.reset))
         if info.skip:
             if any(info.reset):
                 _gossip_adopt(state, self.anchors, self.outer_v,
-                              self.residual, info.reset, info.adopt)
+                              self.residual, info.reset, info.adopt, rep)
+                self._defer(live)
                 state = self.engine.init_inner(state, info.reset)
             self.round += 1
             return state, records
@@ -1058,9 +1249,11 @@ class _GossipRunner(SyncRunner):
         for w in contributors:
             records.append(("gossip_syncs", (step, w, peers[w], 0)))
         records.append(("sync_steps", step))
-        state = _gossip_pair(self.engine.cfg, state, self.anchors,
-                             self.outer_v, self.residual, peers,
-                             masks=(info.contrib, info.adopt, info.reset))
+        state = _gossip_pair(cfg, state, self.anchors, self.outer_v,
+                             self.residual, peers,
+                             masks=(info.contrib, info.adopt, info.reset),
+                             replicate_fn=rep)
+        self._defer(live)
         state = self.engine.init_inner(state, info.reset)
         self.round += 1
         return state, records
@@ -1076,10 +1269,11 @@ class _GossipRunner(SyncRunner):
         return step + max(self.h - self.since, 1) - 1
 
     def finalize(self, state, num_steps):
+        records: Records = []
         if self.since:  # trailing partial round
             self.since = 0
-            return self._do_sync(state, num_steps - 1)
-        return state, []
+            state, records = self._do_sync(state, num_steps - 1)
+        return self.consensus(state), records
 
     def checkpoint_extras(self):
         if self.since:
@@ -1151,7 +1345,7 @@ class GossipSync(SyncStrategy):
         return rounds
 
 
-class _AsyncGossipRunner(SyncRunner):
+class _AsyncGossipRunner(_GossipBase):
     """Gossip on per-worker step clocks: worker i syncs every
     ``periods[i] = H + jitter_i`` steps against the latest (delta,
     anchors, momentum) its peer PUBLISHED, with no barrier.  The peer's
@@ -1180,8 +1374,8 @@ class _AsyncGossipRunner(SyncRunner):
             raise ValueError(
                 f"jitter and staleness_bound must be >= 0, got "
                 f"jitter={jitter} staleness_bound={staleness_bound}")
-        self.engine = engine
-        self.k = k = engine.cfg.num_workers
+        self._init_rows(engine, params)
+        k = self.k
         self.h, self.topology = h, topology
         self.bound = staleness_bound
         self.seed = seed
@@ -1189,19 +1383,21 @@ class _AsyncGossipRunner(SyncRunner):
         self.periods = tuple(
             h + (rng.randint(0, jitter) if jitter else 0) for _ in range(k))
         self.fully_sync = (jitter == 0 and staleness_bound == 0)
-        self.anchors = _stacked(params, k)
-        self.outer_v = _stacked(params, k, zeros=True)
-        self.residual = engine.init_residual(params)
         self.pub_step = [-(10 ** 9)] * k      # host-side publish clocks
         self.rounds = [0] * k
         if self.fully_sync:
-            self.pub = self.pub_anch = self.pub_v = None
+            self.pub = self.pub_q = self.pub_s = None
+            self.pub_anch = self.pub_v = None
         else:
-            # published (decoded delta, anchors, momentum), on the device
-            self.pub = _stacked(params, k, zeros=True)
-            self.pub_anch = {n: torch.zeros_like(a)
-                             for n, a in self.anchors.items()}
-            self.pub_v = _stacked(params, k, zeros=True)
+            # published (decoded delta, anchors, momentum) and the codes
+            # (and scales) that cross, on the device
+            n = len(engine.local_rows)
+            self.pub = _stacked(params, n, zeros=True)
+            self.pub_q, self.pub_s = _code_board(
+                make_codec(engine.cfg.delta_dtype), params, n)
+            self.pub_anch = {n_: torch.zeros_like(a)
+                             for n_, a in self.anchors.items()}
+            self.pub_v = _stacked(params, n, zeros=True)
 
     def _do_apply(self, state, step, due):
         k = self.k
@@ -1226,16 +1422,20 @@ class _AsyncGossipRunner(SyncRunner):
             self.rounds[w] += 1
         if len(due) == k:
             records.append(("sync_steps", step))
+        cfg = self.engine.cfg
+        self._defer()
         if self.fully_sync:
             # equal clocks + bound 0: the whole fleet is due and every
             # peer co-due — the synchronous pair function
-            state = _gossip_pair(self.engine.cfg, state, self.anchors,
-                                 self.outer_v, self.residual, peer)
-            return state, records
-        state = _gossip_async(self.engine.cfg, state, self.anchors,
-                              self.outer_v, self.residual, self.pub,
-                              self.pub_anch, self.pub_v, due, peer, base_w,
-                              gate)
+            state = _gossip_pair(cfg, state, self.anchors, self.outer_v,
+                                 self.residual, peer,
+                                 replicate_fn=self.engine.replicate_fn)
+        else:
+            state = _gossip_async(cfg, state, self.anchors, self.outer_v,
+                                  self.residual, self.pub, self.pub_q,
+                                  self.pub_s, self.pub_anch, self.pub_v,
+                                  due, peer, base_w, gate,
+                                  replicate_fn=self.engine.replicate_fn)
         return state, records
 
     def after_step(self, state, step, loss):
@@ -1250,9 +1450,10 @@ class _AsyncGossipRunner(SyncRunner):
 
     def finalize(self, state, num_steps):
         due = [w for w in range(self.k) if num_steps % self.periods[w] != 0]
-        if not due:
-            return state, []
-        return self._do_apply(state, num_steps - 1, due)
+        records: Records = []
+        if due:
+            state, records = self._do_apply(state, num_steps - 1, due)
+        return self.consensus(state), records
 
     def checkpoint_extras(self):
         # the boards and clocks hold everything in flight, so every chunk
@@ -1260,8 +1461,10 @@ class _AsyncGossipRunner(SyncRunner):
         arrays = {"anchors": self.anchors, "outer_v": self.outer_v,
                   "residual": self.residual}
         if not self.fully_sync:
-            arrays.update(pub=self.pub, pub_anch=self.pub_anch,
-                          pub_v=self.pub_v)
+            arrays.update(pub=self.pub, pub_q=self.pub_q,
+                          pub_anch=self.pub_anch, pub_v=self.pub_v)
+            if self.pub_s is not None:
+                arrays["pub_s"] = self.pub_s
         return arrays, {"pub_step": list(self.pub_step),
                         "rounds": list(self.rounds)}
 
@@ -1272,6 +1475,8 @@ class _AsyncGossipRunner(SyncRunner):
             self.residual = arrays["residual"]
             if not self.fully_sync:
                 self.pub = arrays["pub"]
+                self.pub_q = arrays["pub_q"]
+                self.pub_s = arrays.get("pub_s")
                 self.pub_anch = arrays["pub_anch"]
                 self.pub_v = arrays["pub_v"]
         self.pub_step = [int(x) for x in meta["pub_step"]]

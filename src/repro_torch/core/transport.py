@@ -31,10 +31,12 @@ the reference (no kernel there either).
 name, since ``reset_shipped()`` — the per-sync wire-bytes metric: the
 bytes this process ships.  On one card that is every worker's payload;
 as one rank of a process mesh (a ``replicate_fn``, below) it is this
-rank's own row, so the ranks' counts sum to the one-process count.  The
-gossip hop (``ship_peers`` / ``exchange_peers``, and ``ship_rows`` for the
-peer's f32 outer state) counts only the rows that cross a link: worker i
-receives row ``peer_idx[i]``, and a self-paired worker receives nothing.
+rank's own row (none when a quorum round counts it out), so the ranks'
+counts sum to the one-process count.  The gossip hop (``ship_peers`` /
+``exchange_peers``, and ``ship_rows`` for the peer's f32 outer state)
+counts only the rows that cross a link: worker i receives row
+``peer_idx[i]``, and a self-paired worker receives nothing; across ranks
+a rank counts the rows it sends, point to point.
 """
 from __future__ import annotations
 
@@ -68,6 +70,13 @@ shipped: collections.Counter = collections.Counter()
 
 def reset_shipped() -> None:
     shipped.clear()
+
+
+def ranked(replicate_fn) -> bool:
+    """Whether ``replicate_fn`` makes this process one rank of a process
+    mesh: it names the worker rows this process holds (``rows``;
+    ``launch.mesh.PodReplicate``)."""
+    return getattr(replicate_fn, "rows", None) is not None
 
 
 def _nbytes(tree: Optional[Flat]) -> int:
@@ -255,7 +264,8 @@ class Transport:
     codec: Codec
     replicate_fn: Optional[Callable] = None
 
-    def ship(self, payload: OuterPayload) -> OuterPayload:
+    def ship(self, payload: OuterPayload,
+             sources: Optional[Sequence[int]] = None) -> OuterPayload:
         """The replicate hop; counts this process's payload in
         ``shipped``.  On one card every worker's rows already sit in the
         same memory, so shipping is the identity.  With a ``replicate_fn``
@@ -263,26 +273,47 @@ class Transport:
         mesh gathers them: a narrow wire (bf16, fp8, e5m2) as its bytes
         (``uint8``, a bitcast each way), so only wire-dtype bytes move.
         The reference's optimization barrier keeps XLA from widening the
-        wire; eager PyTorch has no such rewrite to guard against."""
-        shipped[payload.codec] += payload.nbytes()
+        wire; eager PyTorch has no such rewrite to guard against.
+
+        ``sources`` (a process mesh only: a quorum round's contributors,
+        ascending) names the workers whose rows cross: the result holds
+        theirs alone, in that order, and a rank whose row is not among
+        them ships (and counts) nothing."""
+        if sources is None or not ranked(self.replicate_fn):
+            shipped[payload.codec] += payload.nbytes()
+        else:
+            n = next(iter(payload.data.values())).shape[0]
+            shipped[payload.codec] += (payload.nbytes() // n * sum(
+                w in sources for w in self.replicate_fn.rows))
         if self.replicate_fn is None:
             return payload
+        hop = (self.replicate_fn if sources is None else
+               lambda flat: self.replicate_fn(flat, sources))
         data = payload.data
         if payload.codec in _WIRE_BYTES:
             data = {k: _as_bytes(v) for k, v in data.items()}
-        data = self.replicate_fn(data)
+        data = hop(data)
         if payload.codec in _WIRE_BYTES:
             data = {k: _from_bytes(v, payload.data[k])
                     for k, v in data.items()}
-        scales = (None if payload.scales is None else
-                  self.replicate_fn(payload.scales))
+        scales = None if payload.scales is None else hop(payload.scales)
         return dataclasses.replace(payload, data=data, scales=scales)
 
-    def _single_process(self, what: str) -> None:
-        if self.replicate_fn is not None:
-            raise NotImplementedError(
-                f"{what} across processes (gossip's point-to-point "
-                f"send / recv) is not ported; ROADMAP.md §1 queues it")
+    def _peer_hop(self, t: torch.Tensor, peer_idx: Sequence[int]
+                  ) -> Tuple[torch.Tensor, int]:
+        """Across ranks: this rank's (1, ...) row ``t`` to each worker
+        that reads it, the row it reads back (``PodReplicate.peer_rows``;
+        a fresh copy of ``t`` when it reads its own), narrow dtypes as
+        their bytes.  Returns (row, rows sent)."""
+        narrow = t.dtype in (torch.bfloat16, torch.float8_e4m3fn,
+                             torch.float8_e5m2)
+        b = _as_bytes(t) if narrow else t
+        got, nbytes = self.replicate_fn.peer_rows(b, peer_idx)
+        if got is None:
+            got = t.clone()
+        elif narrow:
+            got = _from_bytes(got, t)
+        return got, nbytes // (t.numel() * t.element_size())
 
     def ship_peers(self, payload: OuterPayload,
                    peer_idx: Sequence[int]) -> OuterPayload:
@@ -291,9 +322,21 @@ class Transport:
         (K-1)-row gather, which keeps gossip's traffic flat in fleet size.
         The gather runs on the ENCODED payload, codes in the wire dtype
         and their scales; decoding comes after.  On one card it is a
-        local ``index_select`` over dim 0.  ``shipped`` counts one payload
-        row (codes and scales) per worker whose peer is another worker."""
-        self._single_process("the gossip hop")
+        local ``index_select`` over dim 0, and ``shipped`` counts one
+        payload row (codes and scales) per worker whose peer is another
+        worker.  Across ranks (a ``replicate_fn``) each rank holds its
+        own row and the hop is point-to-point sends and receives
+        (``PodReplicate.peer_rows``); ``shipped`` counts the rows this
+        rank sends, so the ranks' counts sum to the one-card count."""
+        if self.replicate_fn is not None:
+            data, scales, sent = {}, None, 0
+            for k, v in payload.data.items():
+                data[k], sent = self._peer_hop(v, peer_idx)
+            if payload.scales is not None:
+                scales = {k: self._peer_hop(v, peer_idx)[0]
+                          for k, v in payload.scales.items()}
+            shipped[payload.codec] += payload.nbytes() * sent
+            return dataclasses.replace(payload, data=data, scales=scales)
         some = next(iter(payload.data.values()))
         idx = torch.as_tensor(list(peer_idx), dtype=torch.long,
                               device=some.device)
@@ -305,31 +348,32 @@ class Transport:
                                    * _crossing(peer_idx))
         return dataclasses.replace(payload, data=data, scales=scales)
 
-    def ship_rows(self, t: torch.Tensor, peer_idx: Sequence[int], *,
-                  codec: str = "f32",
-                  row_nbytes: Optional[int] = None) -> torch.Tensor:
-        """Rows ``peer_idx[i]`` of a stacked (K, ...) tensor for each
+    def ship_rows(self, t: torch.Tensor,
+                  peer_idx: Sequence[int]) -> torch.Tensor:
+        """Rows ``peer_idx[i]`` of a stacked (K, ...) f32 tensor for each
         worker i: the peer's outer state that gossip's pair mean reads
-        (anchors, momentum; f32 on the wire), or a publication on the
-        async board, which holds it decoded while the link carries it
-        encoded (``codec`` and its ``row_nbytes``).  Counted in
-        ``shipped`` like ``ship_peers``."""
-        self._single_process("the gossip hop")
+        (anchors, momentum).  Counted in ``shipped`` like ``ship_peers``;
+        across ranks ``t`` is this rank's row and the hop is
+        ``ship_peers``'."""
+        row_nbytes = t[0].numel() * t.element_size()
+        if self.replicate_fn is not None:
+            got, sent = self._peer_hop(t, peer_idx)
+            shipped["f32"] += row_nbytes * sent
+            return got
         idx = torch.as_tensor(list(peer_idx), dtype=torch.long,
                               device=t.device)
-        if row_nbytes is None:
-            row_nbytes = t[0].numel() * t.element_size()
-        shipped[codec] += row_nbytes * _crossing(peer_idx)
+        shipped["f32"] += row_nbytes * _crossing(peer_idx)
         return _gather_rows(t, idx)
 
     def exchange(self, stacked_delta: Flat, residual: Optional[Flat] = None,
-                 kind: str = "delta", fragment: int = -1
+                 kind: str = "delta", fragment: int = -1,
+                 sources: Optional[Sequence[int]] = None
                  ) -> Tuple[Flat, Optional[Flat]]:
         """encode -> ship -> decode; returns (f32 stacked delta, new
-        error-feedback residual or None)."""
+        error-feedback residual or None).  ``sources``: ``ship``'s."""
         payload, new_residual = self.codec.encode(
             stacked_delta, residual, kind=kind, fragment=fragment)
-        payload = self.ship(payload)
+        payload = self.ship(payload, sources)
         return self.codec.decode(payload), new_residual
 
     def exchange_peers(self, stacked_delta: Flat, peer_idx: Sequence[int],

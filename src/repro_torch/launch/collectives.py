@@ -4,41 +4,61 @@ package's ``launch/hlo_analysis.py weighted_collective_stats`` and
 collectives out of XLA's compiled program; eager PyTorch has no program
 to parse, so the port counts the collectives it issues instead.
 
-Every collective of the port goes through the two wrappers here:
+Every collective of the port goes through the wrappers here:
 
 * ``all_gather_rows(t, mesh)`` — over the mesh's pod group: this rank's
   (1, ...) row in, the (P, ...) rows of every pod out, stacked in POD
   order (the replicate hop of the outer step);
-* ``all_reduce_mean(t, mesh)`` — over the mesh's data group: the mean of
-  the data ranks' tensors (DDP's gradient all-reduce).
+* ``broadcast_rows(t, sources, mesh)`` — the rows of the pods
+  ``sources`` only, in that order, on every rank: one broadcast from
+  each source (a quorum round's contributors; a pod outside ``sources``
+  sends nothing);
+* ``send_recv_rows(sends, recvs, mesh)`` — point-to-point sends and
+  receives between pods, posted together (gossip's peer hop);
+* ``gather_to_lead(t, mesh)`` — every pod's row on the pod group's first
+  rank only (a run checkpoint), through the host;
+* ``all_reduce_mean(t, mesh)`` — over the mesh's data group (or the
+  world, for a data view of the whole mesh, whose all-reduces cross
+  pods): the mean of the data ranks' tensors (DDP's gradient
+  all-reduce);
+* ``barrier(mesh)`` — every rank of the world.
 
 Each call appends a ``CollectiveRecord``: the op kind (the reference's
-names, ``all-gather`` / ``all-reduce``), the mesh axis, the bytes THIS
-rank sends (its operand: the one-process transport's ``shipped`` counts
-each worker's payload once, and so does this), whether the group crosses
-a pod boundary, and the seconds spent.  Under ``gloo`` a CUDA tensor is
-staged to the host around the call (gloo has no CUDA all-gather),
-through pinned memory (copies several times faster than to pageable
+names, ``all-gather`` / ``all-reduce``, and ``broadcast``, ``send``,
+``recv``, ``gather``), the mesh axis, the bytes THIS rank sends (its
+operand: the one-process transport's ``shipped`` counts each worker's
+payload once, and so does this; a ``recv`` record holds the bytes this
+rank received, and a broadcast's receivers log a ``recv``), whether the
+group crosses a pod boundary, and the seconds spent.  Under ``gloo`` a
+CUDA tensor is staged to the host around the call (gloo has no CUDA
+all-gather), through pinned memory (copies several times faster than to pageable
 memory); the staging is explicit and timed apart (``host_s``), and the
 collective itself is ``coll_s``.  CUDA work is synchronized before a
 call, so neither time includes compute enqueued before it.  A large
-tensor goes as up to ``MAX_PIECES`` pieces of about ``PIECE_BYTES``,
-issued together (gloo serves the pieces on its threads at once; one
-1 GiB piece runs slower); the record is the call's.
+tensor goes to an all-gather or all-reduce as up to ``MAX_PIECES``
+pieces of about ``PIECE_BYTES``, issued together (gloo serves the pieces
+on its threads at once; one 1 GiB piece runs slower); the record is the
+call's.
 
 ``collective_stats()`` sums the log into the reference's keys
 (``bytes_by_kind``, ``count_by_kind``, ``wire_bytes_per_device``, where an
 all-reduce counts twice, as a ring all-reduce moves about twice its
-payload, and ``cross_pod_bytes_per_device``); ``scope(name)`` tags the
-records made inside it (for example the inner steps apart from the outer
-rounds) and ``reset_log()`` clears the log.
+payload, and ``cross_pod_bytes_per_device``; the bytes of ``recv``
+records are in ``bytes_by_kind`` only, since the sender counts them);
+``scope(name)`` tags the records made inside it and ``reset_log()``
+clears the log.  The scopes the port uses: ``inner`` (the inner steps),
+``outer`` (the outer rounds: the wire), ``loss`` (the fleet's loss row
+for an H schedule or a checkpoint's history), ``quorum`` (a quorum
+round's masks, checked across ranks), ``consensus`` (K-row reads of
+gossip's anchors: ``global_params``, a rejoiner's consensus, the rejoin
+drift) and ``checkpoint`` (the gather to the writer).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -48,7 +68,8 @@ MAX_PIECES = 32
 
 @dataclasses.dataclass(frozen=True)
 class CollectiveRecord:
-    kind: str            # "all-gather" | "all-reduce"
+    kind: str            # all-gather | all-reduce | broadcast | send |
+    #                      recv | gather
     axis: str            # the mesh axis: "pod" | "data"
     nbytes: int          # bytes this rank sends (its operand)
     cross_pod: bool      # the group spans more than one pod
@@ -90,7 +111,7 @@ def collective_stats(scope: Optional[str] = None) -> Dict:
     for r in records(scope):
         by_kind[r.kind] = by_kind.get(r.kind, 0) + r.nbytes
         count[r.kind] = count.get(r.kind, 0) + 1
-        b = r.nbytes * (2 if r.kind == "all-reduce" else 1)
+        b = r.nbytes * {"all-reduce": 2, "recv": 0}.get(r.kind, 1)
         wire += b
         cross += b if r.cross_pod else 0
         host_s += r.host_s
@@ -110,6 +131,22 @@ def _sync(t: torch.Tensor) -> None:
         torch.cuda.synchronize(t.device)
 
 
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in pinned host memory (gloo's operand for a CUDA tensor)."""
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+
+
+def _log(kind, axis, nbytes, cross, host_s, coll_s) -> None:
+    _LOG.append(CollectiveRecord(kind=kind, axis=axis, nbytes=nbytes,
+                                 cross_pod=cross, host_s=host_s,
+                                 coll_s=coll_s, scope=_SCOPE[-1]))
+
+
+def _pod_rank(mesh, pod: int) -> int:
+    """The global rank of ``pod``'s rank at this rank's data index."""
+    return pod * mesh.data + mesh.data_index
+
+
 def _pieces(x: torch.Tensor):
     """``x`` flat, and the bounds of its pieces."""
     n = x.numel()
@@ -124,8 +161,7 @@ def _run(mesh, t: torch.Tensor, kind: str, axis: str, cross: bool, call):
     _sync(t)
     t0 = time.perf_counter()
     staged = _staged(mesh, t)
-    x = (torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
-         if staged else t)
+    x = _host_copy(t) if staged else t
     t1 = time.perf_counter()
     parts = call(x)
     _sync(parts[0])
@@ -135,10 +171,8 @@ def _run(mesh, t: torch.Tensor, kind: str, axis: str, cross: bool, call):
     out = parts[0] if len(parts) == 1 else torch.cat(parts)
     _sync(out)
     t3 = time.perf_counter()
-    _LOG.append(CollectiveRecord(
-        kind=kind, axis=axis, nbytes=t.numel() * t.element_size(),
-        cross_pod=cross, host_s=(t1 - t0) + (t3 - t2), coll_s=t2 - t1,
-        scope=_SCOPE[-1]))
+    _log(kind, axis, t.numel() * t.element_size(), cross,
+         (t1 - t0) + (t3 - t2), t2 - t1)
     return out
 
 
@@ -167,6 +201,126 @@ def all_gather_rows(t: torch.Tensor, mesh) -> torch.Tensor:
     return _run(mesh, t, "all-gather", "pod", True, call)
 
 
+def broadcast_rows(t: torch.Tensor, sources: Sequence[int], mesh
+                   ) -> torch.Tensor:
+    """The rows of the pods ``sources`` (ascending), stacked in that
+    order, on every rank of the pod group: one broadcast from each source
+    of its (1, ...) row.  ``t`` is this rank's row; a rank outside
+    ``sources`` sends nothing (its ``t`` gives only the shape and dtype),
+    and every rank takes part in every broadcast."""
+    import torch.distributed as dist
+    me = mesh.pod_index
+    _sync(t)
+    staged = _staged(mesh, t)
+    rows = []
+    for src in sources:
+        t0 = time.perf_counter()
+        if src == me:
+            buf = _host_copy(t) if staged else t.contiguous().clone()
+        else:
+            buf = torch.empty(t.shape, dtype=t.dtype,
+                              device="cpu" if staged else t.device,
+                              pin_memory=staged)
+        t1 = time.perf_counter()
+        dist.broadcast(buf, src=_pod_rank(mesh, src), group=mesh.pod_group)
+        _sync(buf)
+        t2 = time.perf_counter()
+        row = buf.to(t.device) if staged else buf
+        _sync(row)
+        t3 = time.perf_counter()
+        _log("broadcast" if src == me else "recv", "pod",
+             buf.numel() * buf.element_size(), True,
+             (t1 - t0) + (t3 - t2), t2 - t1)
+        rows.append(row)
+    return torch.cat(rows) if rows else t[:0]
+
+
+def send_recv_rows(sends: Sequence[Tuple[int, torch.Tensor]],
+                   recvs: Sequence[Tuple[int, torch.Tensor]], mesh
+                   ) -> List[torch.Tensor]:
+    """Point-to-point over the pod group: send each ``(pod, tensor)`` of
+    ``sends`` to that pod, and receive one tensor shaped and typed as
+    ``like`` from each ``(pod, like)`` of ``recvs``, all posted together
+    (``batch_isend_irecv``: NCCL groups them; gloo's are asynchronous), so
+    no order of posting can deadlock.  Returns the received tensors, in
+    ``recvs``' order, on ``like``'s device.  Each send logs a ``send``
+    record of its bytes, each receive a ``recv`` record."""
+    import torch.distributed as dist
+    if not sends and not recvs:
+        return []
+    some = (sends or recvs)[0][1]
+    _sync(some)
+    t0 = time.perf_counter()
+    staged = _staged(mesh, some)
+    out_s = [(p, _host_copy(x) if staged else x.contiguous())
+             for p, x in sends]
+    in_b = [(p, torch.empty(like.shape, dtype=like.dtype,
+                            device="cpu" if staged else like.device,
+                            pin_memory=staged)) for p, like in recvs]
+    t1 = time.perf_counter()
+    ops = ([dist.P2POp(dist.isend, x, _pod_rank(mesh, p), mesh.pod_group)
+            for p, x in out_s]
+           + [dist.P2POp(dist.irecv, x, _pod_rank(mesh, p), mesh.pod_group)
+              for p, x in in_b])
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    if in_b:
+        _sync(in_b[0][1])
+    t2 = time.perf_counter()
+    got = [x.to(like.device) if staged else x
+           for (_, x), (_, like) in zip(in_b, recvs)]
+    if got:
+        _sync(got[0])
+    t3 = time.perf_counter()
+    host_s, coll_s = (t1 - t0) + (t3 - t2), t2 - t1
+    n = len(out_s) + len(in_b)
+    for kind, items in (("send", out_s), ("recv", in_b)):
+        for _, x in items:
+            # the call's seconds, shared out over its sends and receives
+            _log(kind, "pod", x.numel() * x.element_size(), True,
+                 host_s / n, coll_s / n)
+    return got
+
+
+def gather_to_lead(t: torch.Tensor, mesh) -> Optional[List[torch.Tensor]]:
+    """Every pod's row of ``t`` (this rank's), in pod order, as host
+    tensors on the pod group's first rank (pod 0); None on the others.
+    One leaf at a time, so the writer never holds a whole-model stack on
+    the card.  The identity (a list of ``t`` on the host) on one pod."""
+    import torch.distributed as dist
+    if mesh.pod == 1:
+        return [t.detach().cpu()]
+    _sync(t)
+    t0 = time.perf_counter()
+    staged = _staged(mesh, t)
+    x = _host_copy(t) if staged else t.contiguous()
+    lead = mesh.pod_index == 0
+    parts = ([torch.empty(x.shape, dtype=x.dtype, device=x.device,
+                          pin_memory=x.is_pinned()) for _ in range(mesh.pod)]
+             if lead else None)
+    t1 = time.perf_counter()
+    dist.gather(x, parts, dst=_pod_rank(mesh, 0), group=mesh.pod_group)
+    _sync(x)
+    t2 = time.perf_counter()
+    out = None
+    if lead:
+        # group rank i holds global rank pod_ranks[i]: order by its pod
+        order = sorted(range(mesh.pod),
+                       key=lambda i: mesh.pod_ranks[i] // mesh.data)
+        out = [parts[i].cpu() for i in order]
+    t3 = time.perf_counter()
+    _log("gather", "pod", t.numel() * t.element_size(), True,
+         (t1 - t0) + (t3 - t2), t2 - t1)
+    return out
+
+
+def barrier(mesh) -> None:
+    """Every rank of the world (unlogged: it moves no payload)."""
+    import torch.distributed as dist
+    if dist.is_initialized() and mesh.pod * mesh.data > 1:
+        dist.barrier()
+
+
 def all_reduce_mean(t: torch.Tensor, mesh) -> torch.Tensor:
     """The mean of ``t`` over the mesh's data group (the same tensor on
     every data rank).  The identity on one data rank."""
@@ -183,4 +337,4 @@ def all_reduce_mean(t: torch.Tensor, mesh) -> torch.Tensor:
             w.wait()
         return [x.div_(mesh.data)]
 
-    return _run(mesh, t, "all-reduce", "data", False, call)
+    return _run(mesh, t, "all-reduce", "data", mesh.spans_pods, call)

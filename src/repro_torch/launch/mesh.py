@@ -19,8 +19,15 @@ one rank of a (pod, data) grid of ``torch.distributed`` ranks, pod-major
 and one per data slice (the ranks of one pod: DDP's gradient all-reduce).
 Every rank creates every group, in the same order.  Its
 ``replicate_fn`` is the transport's replicate hop across pods
-(``core/transport.py``); ``run_ranks`` starts the ranks with the
-``spawn`` start method (CUDA does not survive ``fork``).
+(``core/transport.py``: the all-gather of every worker's encoded row; a
+quorum round's contributors' rows only, one broadcast each) and carries
+the other exchanges a run across ranks makes (``PodReplicate``: gossip's
+point-to-point hop, the fleet's loss row, the quorum masks' check, a
+checkpoint's gather to rank 0).  ``data_view`` sees the same ranks as
+one pod's data axis (DDP over every rank: plain DDP on a multi-pod mesh,
+the hybrid pipeline's mid and SFT stages).  ``run_ranks`` starts the
+ranks with the ``spawn`` start method (CUDA does not survive
+``fork``).
 
 Hardware constants: the H100 SXM data sheet's dense bf16 tensor-core rate,
 HBM3 rate and capacity, and NVLink 4's rate per direction (``ICI_BW``
@@ -36,12 +43,14 @@ import os
 import shutil
 import tempfile
 import time
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.launch import collectives
-from repro_torch.launch.collectives import all_gather_rows, all_reduce_mean
+from repro_torch.launch.collectives import (all_gather_rows, all_reduce_mean,
+                                            barrier, broadcast_rows,
+                                            gather_to_lead, send_recv_rows)
 
 PEAK_FLOPS_BF16 = 989e12      # FLOP/s per card, dense bf16
 HBM_BW = 3.35e12              # bytes/s per card
@@ -90,11 +99,16 @@ def make_host_mesh(data: int = 1, model: int = 1) -> MeshShape:
 class PodReplicate:
     """The replicate hop over a process mesh, as the transport's
     ``replicate_fn``: ``{path: (1, ...) row}`` -> ``{path: (P, ...)}``, every
-    pod's row in pod order.  It also tells the trainer which worker row
-    this process holds (``rows``, of ``num_rows``), how to cut its batch
+    pod's row in pod order (``sources``: those pods' rows only, one
+    broadcast each).  It also tells the trainer which worker row this
+    process holds (``rows``, of ``num_rows``), how to cut its batch
     (``local_batch``), how to reduce its gradients over the data axis
     (``grad_reduce``, None on one data rank) and how to tag its
-    collectives (``scope``)."""
+    collectives (``scope``), and it carries the other exchanges a run
+    across ranks needs: gossip's point-to-point hop (``peer_rows``), the
+    fleet's rows of a small tensor (``fleet_rows``: the loss row), a
+    check that the ranks agree (``agree``), a checkpoint's gather to the
+    writer (``gather_to_lead``, ``lead``) and a ``barrier``."""
 
     def __init__(self, mesh: "ProcessMesh"):
         self.mesh = mesh
@@ -108,6 +122,11 @@ class PodReplicate:
         return self.mesh.pod
 
     @property
+    def lead(self) -> bool:
+        """This rank writes what the run writes (rank 0)."""
+        return self.mesh.rank == 0
+
+    @property
     def grad_reduce(self) -> Optional[Callable]:
         return self.mesh.grad_reduce if self.mesh.data > 1 else None
 
@@ -118,9 +137,52 @@ class PodReplicate:
         """Tag the collectives issued inside (``collectives.scope``)."""
         return collectives.scope(name)
 
-    def __call__(self, flat: Dict[str, torch.Tensor]
+    def __call__(self, flat: Dict[str, torch.Tensor],
+                 sources: Optional[Sequence[int]] = None
                  ) -> Dict[str, torch.Tensor]:
-        return {k: all_gather_rows(v, self.mesh) for k, v in flat.items()}
+        if sources is None or len(sources) == self.mesh.pod:
+            return {k: all_gather_rows(v, self.mesh) for k, v in flat.items()}
+        return {k: broadcast_rows(v, sources, self.mesh)
+                for k, v in flat.items()}
+
+    def peer_rows(self, t: torch.Tensor, reads: Sequence[int]
+                  ) -> Tuple[Optional[torch.Tensor], int]:
+        """Gossip's hop: worker w reads row ``reads[w]``.  ``t`` is this
+        rank's (1, ...) row; it goes to every other worker that reads it,
+        and the row this rank reads comes from its source, shaped and
+        typed as ``t``; None when it reads its own.  Returns (that row,
+        the bytes this rank sent)."""
+        me = self.mesh.pod_index
+        sends = [(w, t) for w, src in enumerate(reads)
+                 if src == me and w != me]
+        recvs = [(reads[me], t)] if reads[me] != me else []
+        got = send_recv_rows(sends, recvs, self.mesh)
+        return (got[0] if got else None,
+                len(sends) * t.numel() * t.element_size())
+
+    def fleet_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Every pod's (1, ...) row of a small tensor, in pod order."""
+        return all_gather_rows(t, self.mesh)
+
+    def agree(self, values: Sequence[int], what: str) -> None:
+        """Raise unless every pod holds the same ``values`` (a small int
+        vector: a quorum round's masks), so ranks that part never wait on
+        each other's different collectives."""
+        mine = torch.tensor([list(values)], dtype=torch.int32,
+                            device=self.mesh.device)
+        every = self.fleet_rows(mine)
+        if not bool((every == mine).all()):
+            raise RuntimeError(f"the ranks disagree on {what}: "
+                               f"{every.cpu().tolist()}")
+
+    def gather_to_lead(self, t: torch.Tensor):
+        """Every pod's row of ``t``, on the host, at the pod-0 rank of
+        this rank's pod group (None at the others); rank 0's (``lead``)
+        is what a checkpoint writes."""
+        return gather_to_lead(t, self.mesh)
+
+    def barrier(self) -> None:
+        barrier(self.mesh)
 
 
 @dataclasses.dataclass
@@ -135,6 +197,7 @@ class ProcessMesh:
     pod_group: Any = None           # same data index, every pod
     data_group: Any = None          # same pod, every data index
     pod_ranks: Tuple[int, ...] = ()  # global rank of each pod-group rank
+    spans_pods: bool = False        # the data group holds ranks of >1 pod
 
     @property
     def pod_index(self) -> int:
@@ -170,6 +233,20 @@ class ProcessMesh:
             p, d = self.pod_index, self.data_index
             out[k] = v[p:p + 1, d * n:(d + 1) * n]
         return out
+
+    def data_view(self) -> "ProcessMesh":
+        """The same ranks as one pod's data axis: (pod 1, data P x D),
+        DDP over every rank of the world (the hybrid pipeline's mid and
+        SFT stages after its DiLoCo base stage on the pods).  Rank order
+        is kept, so data index = rank.  Its data group spans the pods, so
+        its all-reduces are logged as crossing them."""
+        import torch.distributed as dist
+        if self.pod * self.data == 1:
+            return self
+        return dataclasses.replace(self, pod=1, data=self.pod * self.data,
+                                   pod_group=None, pod_ranks=(),
+                                   data_group=dist.group.WORLD,
+                                   spans_pods=self.pod > 1)
 
     def close(self) -> None:
         import torch.distributed as dist
@@ -248,6 +325,13 @@ def init_process_mesh(pod: int, data: int = 1, *, backend: str = "nccl",
             g = dist.new_group([p * data + d for d in range(data)])
             if p == mesh.pod_index:
                 mesh.data_group = g
+    if mesh.backend == "nccl":
+        # NCCL makes a group's communicator at its first collective, which
+        # every member must enter; point-to-point sends between some of
+        # them (gossip) may come first, so make them now
+        for g in (mesh.pod_group, mesh.data_group):
+            if g is not None:
+                dist.all_reduce(torch.zeros(1, device=dev), group=g)
     return mesh
 
 

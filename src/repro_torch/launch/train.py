@@ -61,9 +61,13 @@ records.
 
 Across processes.  ``--pods P --data-procs D`` runs the pipeline as P x D
 ``torch.distributed`` ranks on a (pod, data) process mesh
-(``launch/mesh.py``): ``--method diloco`` with one worker a pod (K = P)
-and DDP inside each pod over its D ranks, or ``--method ddp`` over D
-ranks (P = 1).  The CLI starts the ranks itself (the ``spawn`` start
+(``launch/mesh.py``): every method with one worker a pod (K = P) and DDP
+inside each pod over its D ranks, except plain ``--method ddp``, which
+runs over all P x D ranks as one data axis, as ``--method hybrid``'s mid
+and SFT stages do after its DiLoCo base stage on the pods.
+``--adaptive-h``, ``--fault-schedule``, ``--checkpoint-every`` /
+``--resume`` run so too (rank 0 writes the checkpoints, in the
+one-process layout).  The CLI starts the ranks itself (the ``spawn`` start
 method, the kernels built once before) or, under ``torchrun`` ($RANK /
 $WORLD_SIZE set), is one of them.  ``--backend nccl`` (the default)
 needs a card a rank and is refused with fewer, because NCCL rejects two
@@ -276,9 +280,14 @@ def run_pipeline(method: str = "diloco", arch: str = "tiny",
     ``quorum``, ``quorum_skip`` and ``rejoin_drift`` records it has.
 
     ``mesh`` (a ``launch.mesh.ProcessMesh``) makes this process one rank:
-    ``diloco`` with ``workers`` = its pods, or ``ddp`` on its data axis
-    (one pod); the device is the mesh's, and only rank 0 evaluates, prints
-    and writes ``out_dir``.  Every rank returns its metrics."""
+    every method but plain ``ddp`` runs ``workers`` = its pods, one a
+    rank (with DDP inside each pod over its data ranks); plain ``ddp``
+    runs on every rank of the mesh as one data axis
+    (``ProcessMesh.data_view``), and so do ``hybrid``'s mid and SFT
+    stages after its DiLoCo base stage on the pods.  The device is the
+    mesh's, and only rank 0 evaluates, prints and writes ``out_dir`` (and
+    the base stage's run checkpoints).  Every rank returns its
+    metrics."""
     import torch
 
     from repro_torch.core import AdaptiveH, FaultSchedule, transport
@@ -345,6 +354,12 @@ def run_pipeline(method: str = "diloco", arch: str = "tiny",
         # faults, checkpoints and resume target the base stage: the long
         # decentralized pretrain is where workers churn and kills land
         is_base = stage == "base"
+        rep = None
+        if mesh is not None:
+            # plain DDP over every rank as one data axis; the rest on pods
+            rep = (mesh.replicate_fn
+                   if _pod_axis(stage_method, grad_compress)
+                   or mesh.pod == 1 else mesh.data_view().replicate_fn)
         params, hist = run_stage(
             stage_method, cfg, params, stages[stage],
             steps=steps[stage], workers=workers,
@@ -354,7 +369,7 @@ def run_pipeline(method: str = "diloco", arch: str = "tiny",
             faults=faults if is_base else None, min_quorum=min_quorum,
             checkpoint_dir=checkpoint_dir if is_base else None,
             checkpoint_every=checkpoint_every, resume=resume and is_base,
-            replicate_fn=None if mesh is None else mesh.replicate_fn)
+            replicate_fn=rep)
         if on_card:
             torch.cuda.synchronize(device)
         wall = time.perf_counter() - t0
@@ -433,23 +448,21 @@ def run_pipeline(method: str = "diloco", arch: str = "tiny",
     return results
 
 
+def _pod_axis(method: str, grad_compress: str) -> bool:
+    """Whether ``method``'s workers are a mesh's pods (one a rank): every
+    method but plain DDP, which runs on a data axis."""
+    return not (method == "ddp" and grad_compress in ("", "none"))
+
+
 def _check_mesh_run(pods: int, method: str, workers: int,
                     grad_compress: str) -> None:
-    """What the pipeline runs across processes, by name."""
-    queued = "is not ported across processes yet (ROADMAP.md §1 queues it)"
-    if method == "diloco":
-        if workers != pods:
-            raise ValueError(f"diloco across processes runs one worker a "
-                             f"pod: workers={workers} on {pods} pods")
-    elif method == "ddp":
-        if pods != 1:
-            raise ValueError(f"ddp runs on the data axis of one pod; the "
-                             f"mesh has {pods} pods")
-        if grad_compress not in ("", "none"):
-            raise ValueError(f"compressed ddp {queued}")
-    else:
-        raise ValueError(f"method {method!r} {queued}; --pods / "
-                         f"--data-procs run diloco and ddp")
+    """What cannot run across processes: it is structural, and says so.
+    A method on the pod axis (every one but plain DDP; ``hybrid``'s
+    DiLoCo base stage) runs one worker a pod."""
+    if _pod_axis(method, grad_compress) and workers != pods:
+        what = ("compressed ddp" if method == "ddp" else method)
+        raise ValueError(f"{what} across processes runs one worker a pod: "
+                         f"workers={workers} on {pods} pods")
 
 
 def _cli_rank(rank: int, world: int, init_method: str, pods: int,
@@ -601,8 +614,9 @@ def main(argv=None) -> Dict:
                          "ranks than cards")
     args = ap.parse_args(argv)
     ranks = args.pods * args.data_procs
-    workers = args.workers or (args.pods if ranks > 1 and args.method ==
-                               "diloco" else 4)
+    workers = args.workers or (
+        args.pods if ranks > 1 and _pod_axis(args.method, args.grad_compress)
+        else 4)
     run = (functools.partial(run_ranks_pipeline, args.pods, args.data_procs,
                              args.backend)
            if ranks > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1

@@ -1148,3 +1148,46 @@ def test_cuda_two_rank_diloco_equals_one_process(cuda, tmp_path):
             assert (wire_launches > 0) == (wire == "int8")
             assert x["inner"]["count_by_kind"] == {}
             assert x["outer"]["cross_pod_bytes_per_device"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_two_rank_gossip_and_quorum_equal_one_process(cuda, tmp_path):
+    """Two ranks on the card(s), gossip (ring, int8) and DiLoCo through a
+    crash, a rejoin and a payload counted out (quorum rounds, int8): each
+    rank's anchor, outer momentum, worker row, residual row and records
+    equal the one-process run's on the card bit for bit; the inner steps
+    issue no collective, each rank's outer rounds send its ``shipped``;
+    each rank launches the training and the wire kernels."""
+    import torch_mesh_ranks as ranks
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import flatten
+    _build.build()                      # once, before the ranks start
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    run_ranks(ranks.strategies_cuda, 2, str(tmp_path), backend,
+              timeout_s=300)
+    got = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    params = flatten(init_params(ranks.card_cfg(), seed=0, device=cuda))
+    for name, case in ranks.CUDA_CASES.items():
+        want = ranks.to_cpu(ranks.run_case(case, params,
+                                           cfg=ranks.card_cfg()))
+        for r, out in enumerate(got):
+            x = out[name]
+            for part in ("global", "v"):
+                for k, t in want[part].items():
+                    assert torch.equal(x[part][k], t), (name, part, k)
+            for k, t in want["workers"][r].items():
+                assert torch.equal(x["workers"][0][k], t), (name, k)
+            for k, t in want["runner"]["residual"].items():
+                assert torch.equal(x["runner"]["residual"][k],
+                                   t[r:r + 1]), (name, k)
+            for key, val in want["hist"].items():
+                if key != "loss":
+                    assert x["hist"][key] == val, (name, key)
+            assert x["stats"]["inner"]["count_by_kind"] == {}
+            assert x["stats"]["outer"]["cross_pod_bytes_per_device"] == \
+                sum(x["shipped"].values()) > 0
+            for k in ("rmsnorm_residual", "flash_fwd", "flash_bwd",
+                      "rmsnorm_bwd", "quantize_ef", "dequantize"):
+                assert x["launches"][k] > 0, (name, k)

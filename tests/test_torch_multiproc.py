@@ -19,8 +19,12 @@ of ``tests/helpers.py``'s tiny dense config.
   pods' losses differ, their workers diverge, the outer round resyncs
   them exactly), the data ranks of a pod bit for bit alike, the inner
   steps' all-reduces inside the pod only; within 1e-5 of one process.
-* ``DistTrainer.run`` and the CLI refuse what is not ported across
-  processes by name, and the gossip hop raises under a ``replicate_fn``.
+* What stays refused across processes is structural: a mesh whose pods
+  are not the config's workers, and in the CLI a pod-axis method with
+  workers other than the pods, nccl on the CPU or with fewer cards than
+  ranks.  The CLI's path runs hybrid with AdaptiveH, a fault schedule
+  and run checkpoints across two ranks (every strategy across ranks:
+  ``tests/test_torch_mesh_strategies.py``).
 """
 import os
 
@@ -38,8 +42,7 @@ from repro.launch.train import run_stage as jax_run_stage
 from repro.models import build_model
 from repro.models.transformer import init_params as jax_init
 from repro_torch.configs import DiLoCoConfig, OptimizerConfig
-from repro_torch.core import (DistTrainer, FaultSchedule, make_strategy,
-                              transport)
+from repro_torch.core import DistTrainer, make_strategy, transport
 from repro_torch.launch import train
 from repro_torch.launch.mesh import ProcessMesh, run_ranks
 from repro_torch.models import lm_loss
@@ -273,45 +276,13 @@ def _mesh_trainer(strategy_cfg, **kw):
                        mesh.replicate_fn)
 
 
-@pytest.mark.parametrize("strategy", ["gossip", "streaming", "pipelined",
-                                      "overlapped", "ddp_compressed"])
-def test_dist_trainer_refuses_unported_strategies_by_name(params, strategy):
-    dcfg = DiLoCoConfig(num_workers=2, h_inner_steps=2, strategy=strategy,
-                        grad_compress="int8", sync_delay=1)
-    dt = _mesh_trainer(dcfg)
-    with pytest.raises(ValueError, match=strategy + ".*ROADMAP"):
-        dt.run(dt.init(unflatten(params)),
-               ranks.worker_data(ranks.dataset()), 2)
-
-
-def test_dist_trainer_refuses_faults_and_checkpoints_by_name(params,
-                                                             tmp_path):
-    from repro_torch.core import AdaptiveH
-    dcfg = DiLoCoConfig(num_workers=2, h_inner_steps=2)
-    data = ranks.worker_data(ranks.dataset())
-    dt = _mesh_trainer(dcfg)
-    with pytest.raises(ValueError, match="faults=.*ROADMAP"):
-        dt.run(dt.init(unflatten(params)), data, 2,
-               faults=FaultSchedule.from_spec("crash:1@1"))
-    with pytest.raises(ValueError, match="checkpoints.*ROADMAP"):
-        dt.run(dt.init(unflatten(params)), data, 2,
-               checkpoint_dir=str(tmp_path), checkpoint_every=1)
-    dt = _mesh_trainer(dcfg, h_schedule=AdaptiveH(h0=2))
-    with pytest.raises(ValueError, match="H schedule"):
-        dt.run(dt.init(unflatten(params)), data, 2)
+def test_dist_trainer_refuses_a_mesh_of_other_worker_count(params):
+    """A process mesh holds one worker row a pod: a config whose worker
+    count is not the pod count is refused by name before any step."""
     dt = _mesh_trainer(DiLoCoConfig(num_workers=4, h_inner_steps=2))
     with pytest.raises(ValueError, match="2 worker rows"):
-        dt.run(dt.init(unflatten(params)), data, 2)
-
-
-def test_gossip_hop_raises_under_a_replicate_fn():
-    tr = transport.Transport(transport.make_codec("int8"),
-                             replicate_fn=lambda flat: flat)
-    payload, _ = tr.codec.encode({"w": torch.ones(2, 3)})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.ship_peers(payload, [1, 0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.ship_rows(torch.ones(2, 3), [1, 0])
+        dt.run(dt.init(unflatten(params)),
+               ranks.worker_data(ranks.dataset()), 2)
 
 
 def test_ship_bitcasts_narrow_wires_to_bytes():
@@ -338,16 +309,23 @@ def test_ship_bitcasts_narrow_wires_to_bytes():
 
 
 def test_cli_refuses_before_spawning():
-    """The CLI refuses unported methods across processes, and nccl on the
-    CPU, before any rank starts."""
-    with pytest.raises(ValueError, match="streaming.*ROADMAP"):
-        train.main(["--method", "streaming", "--pods", "2", "--backend",
-                    "gloo", "--device", "cpu"])
+    """What stays refused across processes is structural, and the CLI
+    says so before any rank starts: a method on the pod axis (every one
+    but plain DDP) with workers other than the pods, nccl on the CPU, and
+    nccl with fewer cards than ranks."""
+    for method in ("streaming", "gossip", "hybrid"):
+        with pytest.raises(ValueError, match=method + ".*one worker a pod"):
+            train.main(["--method", method, "--pods", "2", "--workers", "3",
+                        "--backend", "gloo", "--device", "cpu"])
+    with pytest.raises(ValueError, match="compressed ddp.*one worker a pod"):
+        train.main(["--method", "ddp", "--grad-compress", "int8", "--pods",
+                    "2", "--workers", "4", "--backend", "gloo", "--device",
+                    "cpu"])
     with pytest.raises(ValueError, match="gloo"):
         train.main(["--method", "diloco", "--pods", "2", "--device", "cpu"])
-    with pytest.raises(ValueError, match="one worker a pod"):
-        train.main(["--method", "diloco", "--pods", "2", "--workers", "3",
-                    "--backend", "gloo", "--device", "cpu"])
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="NCCL rejects two ranks"):
+            train.main(["--method", "diloco", "--pods", "2"])
 
 
 def test_cli_pipeline_across_two_ranks():
@@ -364,3 +342,27 @@ def test_cli_pipeline_across_two_ranks():
     assert np.isfinite(base["loss_last"])
     one = mid["port"]["wire_bytes"]["f32"]
     assert one % 4 == 0 and base["port"]["wire_bytes"] == {"f32": 2 * one}
+
+
+def test_cli_runs_hybrid_across_two_ranks(tmp_path):
+    """``run_ranks_pipeline`` runs ``--method hybrid`` as 2 ranks with
+    AdaptiveH, a crash and rejoin and run checkpoints in its DiLoCo base
+    stage (on the pods) and DDP over both ranks in mid and SFT; rank 0's
+    metrics carry the base stage's fault records, and rank 0 wrote the
+    checkpoints."""
+    from repro_torch.checkpoint.checkpoint import list_run_checkpoints
+    ckpt = tmp_path / "ckpt"
+    res = train.run_ranks_pipeline(
+        2, 1, "gloo", method="hybrid", arch="tiny", workers=2,
+        steps={"base": 4, "mid": 1, "sft": 1}, per_worker_batch=2,
+        seq_len=32, eval_after_each_stage=False, device="cpu",
+        adaptive_h=True, fault_schedule="crash:1@1,rejoin:1@2",
+        checkpoint_dir=str(ckpt), checkpoint_every=2)
+    stages = res["stages"]
+    assert [stages[s]["method"] for s in ("base", "mid", "sft")] == \
+        ["diloco", "ddp", "ddp"]
+    assert [tuple(e) for e in stages["base"]["fault"]][:1] == \
+        [(1, "crash", 1)]
+    assert stages["base"]["quorum"]
+    assert all(np.isfinite(stages[s]["loss_last"]) for s in stages)
+    assert [s for s, _ in list_run_checkpoints(str(ckpt))] == [2, 4]

@@ -212,3 +212,300 @@ def pair_cuda(rank: int, world: int, init_method: str, workdir: str,
                      "outer": coll.collective_stats("outer")}
     torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
     mesh.close()
+
+
+# ---------------------------------------------------------------------------
+# Every strategy, AdaptiveH, the fault layer, run checkpoints and hybrid
+# across ranks (tests/test_torch_mesh_strategies.py)
+# ---------------------------------------------------------------------------
+
+def opt_of(total: int):
+    """The optimizer of the JAX-parity test a case mirrors (its
+    ``total_steps``; no fused AdamW, as those tests run)."""
+    return dict(total_steps=total, warmup_steps=2, schedule="wsd",
+                learning_rate=0.02, adam_lr=1e-3)
+
+
+# name -> method, DiLoCoConfig fields, K, H, steps, the optimizer's
+# total_steps, a fault schedule, min_quorum, AdaptiveH's arguments
+def _case(method, dkw, k, h, steps, total, spec="", quorum=1, adaptive=None):
+    return dict(method=method, dkw=dkw, k=k, h=h, steps=steps, total=total,
+                spec=spec, min_quorum=quorum, adaptive=adaptive)
+
+
+CASES2 = {
+    # test_torch_strategies.py's streaming-f2-int8 case, and its f32 twin
+    "streaming-f2-int8": _case("streaming", dict(delta_dtype="int8",
+                                                 num_fragments=2), 2, 2, 4, 8),
+    "streaming-f2-f32": _case("streaming", dict(num_fragments=2), 2, 4, 8, 8),
+    "overlapped-delay1-jitter1-int8": _case(
+        "overlapped", dict(delta_dtype="int8", sync_delay=1, h_jitter=1,
+                           sync_seed=3), 2, 3, 6, 8),
+    "overlapped-delay1-f32": _case("overlapped", dict(sync_delay=1), 2, 2,
+                                   5, 8),
+    "pipelined-f2-delay1-int8": _case(
+        "pipelined", dict(delta_dtype="int8", num_fragments=2, sync_delay=1),
+        2, 2, 5, 8),
+    "pipelined-f2-f32": _case("pipelined", dict(num_fragments=2), 2, 2, 4,
+                              8),
+    "ddp-compressed-int8": _case("ddp", dict(grad_compress="int8"), 2, 2, 4,
+                                 8),
+    "ddp-compressed-f32": _case("ddp", dict(grad_compress="float32"), 2, 2,
+                                3, 8),
+    # test_torch_pipeline.py's AdaptiveH case: H 2, then its floor of 10
+    "diloco-adaptive-h": _case("diloco", {}, 2, 2, 16, 16,
+                               adaptive=dict(h0=2, window=4)),
+    # quorum rounds with a worker down, a rejoin and a payload counted out
+    "diloco-quorum-int8": _case("diloco", dict(delta_dtype="int8"), 2, 2, 8,
+                                12, "crash:1@1,rejoin:1@3,drop:0@5x2"),
+    "streaming-quorum-int8": _case(
+        "streaming", dict(delta_dtype="int8", num_fragments=2), 2, 4, 8, 12,
+        "crash:1@1,rejoin:1@3,drop:0@5x2"),
+    "pipelined-quorum": _case(
+        "pipelined", dict(num_fragments=2, sync_delay=1), 2, 2, 8, 12,
+        "crash:1@1,rejoin:1@4,corrupt:0@5x2"),
+}
+
+CASES4 = {
+    # test_torch_gossip.py's cases
+    "gossip-ring-int8-k4": _case("gossip", dict(delta_dtype="int8"), 4, 2, 6,
+                                 12),
+    "gossip-random-f32-k4": _case("gossip", dict(topology="random",
+                                                 sync_seed=3), 4, 2, 6, 12),
+    "async-jitter1-bound2-int8-k4": _case(
+        "async_gossip", dict(delta_dtype="int8", h_jitter=1,
+                             staleness_bound=2, sync_seed=1), 4, 2, 7, 12),
+    # test_torch_faults_e2e.py's cases
+    "gossip-ring-crash-rejoin-drop-x2": _case(
+        "gossip", {}, 4, 2, 12, 12, "crash:1@3,rejoin:1@6,drop:0@5x2"),
+    "diloco-crash-rejoin-drop-slow": _case(
+        "diloco", {}, 4, 3, 12, 12,
+        "slow:3@2x1.5,crash:2@4,drop:1@5,rejoin:2@10"),
+}
+
+# the run-checkpoint case: DiLoCo int8, a checkpoint every 2 steps, a
+# kill after step 3 (the latest checkpoint is at 4)
+KILL = _case("diloco", dict(delta_dtype="int8"), 2, 2, 8, 12, "kill@3")
+KILL_STEP = 4
+
+# the hybrid pipeline (the tiny launcher model, evals off)
+HYBRID = dict(arch="tiny", steps={"base": 4, "mid": 2, "sft": 2},
+              workers=2, per_worker_batch=2, seq_len=64,
+              eval_after_each_stage=False, device="cpu")
+
+RUNNER_ARRAYS = ("residual", "anchors", "outer_v", "pub", "pub_anch", "pub_v")
+
+
+class KeepRunner:
+    """Hands ``DistTrainer.run`` the strategy's runner and keeps it, with
+    each step's collective records and ``shipped`` bytes of the round it
+    ran (``rounds``: (step, records, shipped))."""
+
+    def __init__(self, strategy):
+        self.strategy, self.runner, self.rounds = strategy, None, []
+
+    def bind(self, engine, params):
+        from repro_torch.core import transport
+        from repro_torch.launch import collectives as coll
+        self.runner = runner = self.strategy.bind(engine, params)
+        orig = runner.after_step
+
+        def after_step(state, step, loss):
+            n, before = len(coll.records()), sum(transport.shipped.values())
+            out = orig(state, step, loss)
+            new = coll.records()[n:]
+            if new:
+                self.rounds.append(
+                    (step, [(r.kind, r.scope, r.nbytes) for r in new],
+                     sum(transport.shipped.values()) - before))
+            return out
+
+        runner.after_step = after_step
+        return runner
+
+    def __getattr__(self, name):
+        return getattr(self.strategy, name)
+
+
+def stage_config(case):
+    """``launch.train.run_stage``'s config and strategy for a case."""
+    import dataclasses
+    from repro_torch.configs import DiLoCoConfig
+    from repro_torch.core import AdaptiveH, compressed_ddp_config, \
+        make_strategy
+    c = case
+    base = DiLoCoConfig(**c["dkw"])
+    if c["method"] == "ddp":
+        dcfg = compressed_ddp_config(dataclasses.replace(
+            base, num_workers=c["k"]))
+    else:
+        delay = min(base.sync_delay, c["h"] - 1)
+        jitter = min(base.h_jitter, c["h"] - 1 - delay)
+        dcfg = dataclasses.replace(base, num_workers=c["k"],
+                                   h_inner_steps=c["h"], strategy=c["method"],
+                                   sync_delay=delay, h_jitter=jitter)
+    hs = AdaptiveH(**c["adaptive"]) if c["adaptive"] else None
+    return dcfg, make_strategy(dcfg, h_schedule=hs)
+
+
+def run_case(case, params, replicate_fn=None, cfg=None, **run_kw):
+    """A case through ``DistTrainer.run`` as ``run_stage`` runs it (tiny
+    dense unless ``cfg``, per-worker batch 2 of ``dataset()``), from the
+    flat ``params`` (on the device to train on).  Returns what a test
+    compares: the state, the runner's arrays, the history (timings left
+    out), ``shipped``, the collective log's statistics by scope and each
+    round's records."""
+    from repro_torch.configs import OptimizerConfig
+    from repro_torch.core import DistTrainer, FaultSchedule, transport
+    from repro_torch.launch import collectives as coll
+    from repro_torch.models import lm_loss
+    from repro_torch.models.transformer import unflatten
+    cfg = cfg or tiny()
+    dcfg, strategy = stage_config(case)
+    keep = KeepRunner(strategy)
+    dt = DistTrainer(lambda p, b: lm_loss(p, b, cfg),
+                     OptimizerConfig(**opt_of(case["total"])), dcfg, keep,
+                     replicate_fn)
+    transport.reset_shipped()
+    coll.reset_log()
+    faults = FaultSchedule.from_spec(case["spec"]) if case["spec"] else None
+    st, hist = dt.run(dt.init(unflatten(params)),
+                      worker_data(dataset(), 2, case["k"]), case["steps"],
+                      faults=faults, min_quorum=case["min_quorum"], **run_kw)
+    r, keep.runner = keep.runner, None
+    del r.after_step            # the wrapper refers back to the runner
+    return dict(
+        _state(st), runner={n: _clone(getattr(r, n)) for n in RUNNER_ARRAYS
+                            if isinstance(getattr(r, n, None), dict)},
+        hist={k: v for k, v in hist.items()
+              if k not in ("step_seconds", "inner_seconds", "sync_seconds")},
+        shipped=dict(transport.shipped),
+        stats={s: coll.collective_stats(s) for s in
+               ("inner", "outer", "loss", "quorum", "consensus",
+                "checkpoint")},
+        rounds=keep.rounds)
+
+
+def _gloo_mesh(rank, world, init_method, pods):
+    from repro_torch.launch.mesh import init_process_mesh
+    torch.set_num_threads(1)
+    return init_process_mesh(pods, world // pods, backend="gloo",
+                             device="cpu", rank=rank, world_size=world,
+                             init_method=init_method, timeout_s=TIMEOUT_S)
+
+
+def strategies2(rank: int, world: int, init_method: str,
+                workdir: str) -> None:
+    """Two ranks, (pod 2, data 1): every case of ``CASES2``; the kill and
+    resume case (killed, resumed, uninterrupted, and resumed from the
+    one-process checkpoint in ``workdir/one_ckpt``); then the hybrid
+    pipeline through ``run_pipeline(mesh=)`` from the parameters in
+    ``workdir/hybrid_params.pt``, with its gradient all-reduces' log
+    records."""
+    from repro_torch.core import SimulatedCrash
+    from repro_torch.launch import train
+    mesh = _gloo_mesh(rank, world, init_method, 2)
+    params = torch.load(os.path.join(workdir, "params.pt"))
+    out = {name: run_case(c, params, mesh.replicate_fn)
+           for name, c in CASES2.items()}
+    ckpt = os.path.join(workdir, "ckpt2")
+    try:
+        run_case(KILL, params, mesh.replicate_fn, checkpoint_dir=ckpt,
+                 checkpoint_every=2)
+        out["killed"] = False
+    except SimulatedCrash:
+        out["killed"] = True
+    out["resumed"] = run_case(KILL, params, mesh.replicate_fn,
+                              checkpoint_dir=ckpt, checkpoint_every=2,
+                              resume=True)
+    out["uninterrupted"] = run_case(
+        dict(KILL, spec=""), params, mesh.replicate_fn,
+        checkpoint_dir=os.path.join(workdir, "ckpt2_whole"),
+        checkpoint_every=2)
+    out["from_one"] = run_case(KILL, params, mesh.replicate_fn,
+                               checkpoint_dir=os.path.join(workdir,
+                                                           "one_ckpt"),
+                               resume=True)
+    hparams = torch.load(os.path.join(workdir, "hybrid_params.pt"))
+    train.init_params = lambda cfg, seed=0, device="cpu": hparams
+    ends = stage_ends(train)
+    from repro_torch.launch import collectives as coll
+    coll.reset_log()
+    out["hybrid"] = train.run_pipeline(
+        "hybrid", mesh=mesh, out_dir=os.path.join(workdir, "hybrid"),
+        **HYBRID)
+    out["hybrid_ends"] = ends
+    # the mid and SFT stages' gradient all-reduces (kind, cross-pod, bytes)
+    out["hybrid_all_reduce"] = [(r.kind, r.cross_pod, r.nbytes)
+                                for r in coll.records()
+                                if r.kind == "all-reduce"]
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    mesh.close()
+
+
+def stage_ends(train):
+    """Make ``train.run_stage`` record the parameters each stage ends on
+    (flat copies, in stage order) in the list returned."""
+    from repro_torch.models.transformer import flatten
+    run_stage, ends = train.run_stage, []
+
+    def stage(*a, **kw):
+        p, hist = run_stage(*a, **kw)
+        ends.append(_clone(flatten(p)))
+        return p, hist
+
+    train.run_stage = stage
+    return ends
+
+
+def strategies4(rank: int, world: int, init_method: str,
+                workdir: str) -> None:
+    """Four ranks, (pod 4, data 1): every case of ``CASES4``."""
+    mesh = _gloo_mesh(rank, world, init_method, 4)
+    params = torch.load(os.path.join(workdir, "params.pt"))
+    out = {name: run_case(c, params, mesh.replicate_fn)
+           for name, c in CASES4.items()}
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    mesh.close()
+
+
+# two ranks on the card(s): gossip (ring; K 2 binds DiLoCo's runner) and
+# the quorum rounds, int8
+CUDA_CASES = {
+    "gossip-ring-int8": _case("gossip", dict(delta_dtype="int8"), 2, 2, 4, 8),
+    "diloco-quorum-int8": CASES2["diloco-quorum-int8"],
+}
+
+
+def to_cpu(x):
+    """A rank's output with every tensor on the host."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, dict):
+        return {k: to_cpu(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)) and not hasattr(x, "_fields"):
+        return type(x)(to_cpu(v) for v in x)
+    return x
+
+
+def strategies_cuda(rank: int, world: int, init_method: str, workdir: str,
+                    backend: str) -> None:
+    """Two ranks on the card(s): each case of ``CUDA_CASES`` at
+    ``card_cfg()`` from ``init_params(seed=0)`` on the rank's card, with
+    its kernel launch counts."""
+    from repro_torch.kernels import KERNELS, launches, reset_launches
+    from repro_torch.launch.mesh import init_process_mesh
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import flatten
+    mesh = init_process_mesh(2, 1, backend=backend, device="cuda",
+                             rank=rank, world_size=world,
+                             init_method=init_method, timeout_s=TIMEOUT_S)
+    params = flatten(init_params(card_cfg(), seed=0, device=mesh.device))
+    out = {}
+    for name, case in CUDA_CASES.items():
+        reset_launches()
+        out[name] = to_cpu(run_case(case, params, mesh.replicate_fn,
+                                    cfg=card_cfg()))
+        out[name]["launches"] = {k: launches[k] for k in KERNELS}
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    mesh.close()

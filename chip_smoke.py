@@ -78,7 +78,7 @@ yardstick.  Then phases, each fatal on failure:
      ``decode_step_lm`` (logits 2e-3; SSM state, conv ring, ring K/V
      within 1e-4 of their max);
 4. the serving main path: ``repro_torch.Engine`` with nanochat-d20 at
-   full width and 10 of its 20 layers (``ENGINE_LAYERS``, cut for the
+   full width and 4 of its 20 layers (``ENGINE_LAYERS``, cut for the
    script's time; seeded random params, 8 ragged token-id requests,
    max_new 32; 16 off the f32 pool) with spec_k=0 and spec_k=4, on an f32
    pool, on int8, fp8
@@ -90,7 +90,7 @@ yardstick.  Then phases, each fatal on failure:
    fp8 pool under torch.profiler for the device time by kernel and busy
    share, and the capacity of an f32 and an fp8 pool at one byte budget
    (blocks and peak admitted requests); then the static-bucket path:
-   mamba2-1.3b at full width and 24 of its 48 layers (for the
+   mamba2-1.3b at full width and 12 of its 48 layers (for the
    script's time; seeded random
    params) serves the same 8 requests through ``Engine.generate`` (an
    SSM has no paged cache; max_new 16) and scores 4 rows (one over 128
@@ -128,7 +128,7 @@ yardstick.  Then phases, each fatal on failure:
    windows with the f32 backward against float64 (each gradient's error
    within a stated multiple of the plain f32 version's); the SSD at
    hymba's heads; the SSD's gradient against the plain scan's; the ring
-   at hymba's heads); hymba-1.5b at 8 of its 32 layers (for the
+   at hymba's heads); hymba-1.5b at 4 of its 32 layers (for the
    script's time) on the static path:
    phase 4's 8 requests and a pair of 1100-token prompts (past its 1024
    window; the first token equal to ``forward_lm``'s argmax) with the
@@ -138,7 +138,7 @@ yardstick.  Then phases, each fatal on failure:
    spec_k 0 == 4 == static), the MoE's bits on a second call (output,
    router loss, gradients), spec_k 0 / 4 at the published 1.25 (the
    agreement and the drops logged), mixtral's pair of 4200-token
-   prompts at 2 of the 4 layers at spec_k 4 recycling blocks past its
+   prompts at 1 of the 4 layers at spec_k 4 recycling blocks past its
    4096 window and equal to the static path; one DiLoCo stage (K 2, H
    1, 2 steps, 2 x 256 tokens a worker, f32 wire) of hymba (32
    layers), mixtral (1 layer:
@@ -167,7 +167,7 @@ yardstick.  Then phases, each fatal on failure:
    backward with 256 patches + 256 text tokens at 4 layers, its reduced
    config's step with patches against the CPU, one DiLoCo stage with
    patches at 1 layer; tokens/s, ms a step, peak memory;
-5. the training main path at nanochat-d20's full width and 10 of its 20
+5. the training main path at nanochat-d20's full width and 4 of its 20
    layers (for the script's time; float32,
    random params from seed 0) on the port's synthetic corpus through its
    ``PackedDataset`` at seq_len 1024: ``run_stage("diloco")`` with K=2,
@@ -225,10 +225,35 @@ yardstick.  Then phases, each fatal on failure:
    down rank sends 0 bytes; the wire and training kernels launch in
    every rank.  Logs per rank the inner-step seconds, each round's ms
    (host staging and collective apart) and peak memory;
+5d. tensor parallelism over the model axis (``tp_rank``, ``tp_gates``),
+   in 5c's 4-rank spawn on meshes built from its process group:
+   nanochat-d20 at full width and 2 layers, 1 x 1024 tokens a worker,
+   as (pod 2, data 1, model 2) DiLoCo K 2 H 2 through
+   ``DistTrainer.run`` (two rounds on int8, one on f32) and as (pod 1,
+   data 2, model 2) DDP (2 steps); then one process's runs on the card.
+   Gates: one forward and backward of the shards from the shared
+   parameters within ``TP_LOSS_RTOL`` / ``TP_GRAD_RTOL`` of the whole
+   model's, and from its one-process gradients one Muon update of every
+   split leaf within ``TP_MUON_RTOL`` and the global norm within
+   ``TP_LOSS_RTOL`` of one process's; an int8 round from one shared
+   state one process's bit for bit (anchor, momentum, residual, scales,
+   codes); the runs' losses within phase 5b's DDP gate, parameters
+   within its bound carried through DiLoCo's outer steps
+   (``flip_bound``) and the Muon leaves within ``TP_MUON_ATOL`` (on
+   int8 plus a code step a round through the outer steps); every
+   whole leaf and every wire scale bit for bit across a worker's model
+   ranks after every step; on int8 the scales within ``TP_SCALE_RTOL``
+   of their size and no code moved further than its input did plus one
+   step (``wire_compare``; the moved codes logged); the inner steps'
+   collectives on the model axis, none crossing a pod; each rank's
+   cross-pod bytes its ``shipped``; the training (and wire) kernels
+   launched in every rank (paths ``mesh_tp_<case>_rank<r>``).  Logs per
+   rank and case the step s, the rounds' ms, the model group's
+   collectives a step and their seconds, and peak memory;
 6. the three-stage pipeline: ``run_pipeline`` (base -> mid -> SFT, with
    the evals after each stage: held-out CE, multiple choice, arithmetic
    and pattern exact match through ``Engine``) of nanochat-d20 at full
-   width (d 1280, 10 heads of 128; 6 of its 20 layers for
+   width (d 1280, 10 heads of 128; 4 of its 20 layers for
    the script's time; vocab = the tokenizer's 512, as the JAX pipeline
    sets it) for DiLoCo and for hybrid (DiLoCo
    base, DDP mid and SFT), K 4, per-worker batch 8, seq_len 128, steps
@@ -260,7 +285,7 @@ yardstick.  Then phases, each fatal on failure:
      error-feedback residual), in a temporary directory under build/;
    - prefetch 4 with the eval hook every 3 steps: the same bits as
      prefetch 0, the hook called at step 2;
-   - drift: a DiLoCo run of nanochat-d20 at full width, 10 layers (vocab
+   - drift: a DiLoCo run of nanochat-d20 at full width, 4 layers (vocab
      512, K 4, H 2, 4 steps of 8 x 128 tokens a worker) measured before
      its last sync: ``param_drift`` against the same function on
      float64 CPU copies (rtol 1e-5), ``worker_cka_matrix`` of the
@@ -310,7 +335,7 @@ yardstick.  Then phases, each fatal on failure:
    adoption); then ``comm_report`` for diloco and gossip under a crash,
    a rejoin and a twice-lost payload beside the fault-free report (an
    empty schedule gives the fault-free report);
-6e. GRPO at nanochat-d20's full width and 10 layers (vocab 512; cut from
+6e. GRPO at nanochat-d20's full width and 4 layers (vocab 512; cut from
    20 for the script's time): 16
    arithmetic prompts x G 8 sampled requests of 6 tokens, 4 iterations
    of ``GRPOTrainer.rollout_and_step`` (fused AdamW, the reference
@@ -344,8 +369,9 @@ a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
 the last line.  Exits nonzero, with no result, when CUDA is unavailable
 or any phase fails.
 
-``--only-mesh`` builds the kernels and runs only phases 5b and 5c, as
-``--new-archs`` and ``--enc-vlm`` run only 4c and 4d.
+``--only-mesh`` builds the kernels and runs only phases 5b, 5c and 5d
+(in 5c's spawn; under NCCL, a card a rank, where the machine has the
+cards), as ``--new-archs`` and ``--enc-vlm`` run only 4c and 4d.
 ``--norm-timing`` and ``--ssd-timing`` build only rmsnorm.cu or ssd.cu
 and print one JSON line of those kernels' phase-7 timings beside
 ``floor_ms``: run this script beside two checkouts' ``src/`` in one call
@@ -473,9 +499,10 @@ PIPELINE_METHODS = ("diloco", "hybrid")
 PIPELINE_STEPS = {"base": 6, "mid": 4, "sft": 4}
 # K 4, the reference example's: phase 6b measures K 4 with remat at phase
 # 5's shape (4 x 1024 tokens a worker) at 58.2 GB of the card's 85.0
-# nanochat-d20 at full width and 6 of its 20 layers, for the
-# script's time (10 until phase 5c joined)
-PIPELINE_LAYERS = 6
+# nanochat-d20 at full width and 4 of its 20 layers, for the
+# script's time (10 until phase 5c joined, then 6: the script passed
+# 1200 s on a slower host)
+PIPELINE_LAYERS = 4
 PIPELINE_KW = dict(arch="nanochat-d20", reduced=False, steps=PIPELINE_STEPS,
                    workers=4, per_worker_batch=8, seq_len=128,
                    fused_adamw=True, eval_after_each_stage=True)
@@ -1080,7 +1107,10 @@ def phase_wire_kernels(torch, results):
     card, bit for bit (codes, residual, scales, dequantized values), for
     each target: the w_up leaf of two workers with a residual, an odd
     (1, 1280) row, a scalar leaf, and per-tile scales (tile 256) on a
-    ragged (2, 1280 * 100 + 7) leaf.  The recorded error is the largest
+    ragged (2, 1280 * 100 + 7) leaf; and the per-row entries with a hook
+    between them (``amax_reduce``: the amax pass, the hook, the code
+    pass) on half a w_up leaf, coded against a larger amax.  The
+    recorded error is the largest
     absolute difference of the f32 outputs (0 when bit for bit)."""
     from repro_torch.kernels.quantize import (dequantize, dequantize_plain,
                                               quantize_ef, quantize_ef_plain)
@@ -1088,6 +1118,28 @@ def phase_wire_kernels(torch, results):
     cases = (((2, W_UP), 0, True), ((1, 1280), 0, True), ((), 0, True),
              ((2, 1280 * 100 + 7), 256, True))
     for target in WIRE_TARGETS:
+        # the hook between the per-row passes (tensor parallelism): a
+        # w_up shard coded against the whole leaf's amax, the model
+        # group's MAX standing as a larger amax the hook returns
+        x = (torch.randn((1, W_UP // 2), generator=g) * 1e-2).cuda()
+        r = (torch.randn((1, W_UP // 2), generator=g) * 1e-5).cuda()
+
+        def hook(a):
+            return torch.maximum(a, torch.full_like(a, 0.07))
+
+        got = quantize_ef(x, r, dtype=target, amax_reduce=hook)
+        want = quantize_ef_plain(x, r, dtype=target, amax_reduce=hook)
+        torch.cuda.synchronize()
+        same = (torch.equal(code_bits(torch, got[0]),
+                            code_bits(torch, want[0]))
+                and torch.equal(got[1], want[1])
+                and torch.equal(got[2], want[2]))
+        err = max(float((a - b).abs().max()) for a, b in
+                  ((got[1], want[1]), (got[2], want[2])))
+        results.append(("quantize_ef", "float32",
+                        (1, W_UP // 2, target, "amax_reduce"), err, same,
+                        None))
+        del x, r, got, want
         for shape, tile, residual in cases:
             x = (torch.randn(shape, generator=g) * 1e-2).cuda()
             r = ((torch.randn(shape, generator=g) * 1e-5).cuda() if residual
@@ -1791,13 +1843,14 @@ PROMPT_LENS = (5, 16, 64, 128, 33, 200, 9, 300)
 PAGED = ("paged_decode", "paged_verify", "paged_decode_dequant",
          "paged_verify_dequant", "paged_decode_fp8", "paged_verify_fp8")
 # phase 4's nanochat-d20 (the engine paths, the capacity runs, the
-# over-capacity static batch) at full width and 10 of its 20
-# layers, for the script's time (host-bound: its seconds scale with depth)
-ENGINE_LAYERS = 10
-# phase 4's mamba2-1.3b static path and scoring at full width and 24 of
-# its 48 layers, for the script's time (phase 4c trains it
-# whole)
-STATIC_MAMBA2_LAYERS = 24
+# over-capacity static batch) at full width and 4 of its 20 layers
+# (10 until the script passed 1200 s on a slower host), for the script's
+# time (host-bound: its seconds scale with depth)
+ENGINE_LAYERS = 4
+# phase 4's mamba2-1.3b static path and scoring at full width and 12 of
+# its 48 layers (24 until the script passed 1200 s on a slower host), for
+# the script's time (phase 4c trains it whole)
+STATIC_MAMBA2_LAYERS = 12
 ENGINE_PATHS = (
     # path-name prefix, config change, the attention kernel of spec_k 0
     # and of spec_k 4 (every other paged kernel must stay at 0 launches)
@@ -1811,8 +1864,9 @@ ENGINE_PATHS = (
     ("fp8_matmul_", dict(fp8_matmul=True), "paged_decode_fp8",
      "paged_verify_fp8"),
 )
-# 40 f32 blocks of nanochat-d20 at ENGINE_LAYERS
-CAPACITY_POOL_BYTES = 65_536_000
+# 40 f32 blocks of nanochat-d20 at ENGINE_LAYERS (a block's bytes scale
+# with depth: 65,536,000 at 10 layers)
+CAPACITY_POOL_BYTES = 26_214_400
 
 
 def phase_engine(torch):
@@ -2425,15 +2479,17 @@ HYMBA, MIXTRAL, LLAMA4, MAMBA2 = ("hymba-1.5b", "mixtral-8x7b",
 # the capacity factor at which no token is dropped at any T: once it
 # reaches E / K, C = S (mixtral 8 / 2, llama4 16 / 1)
 NO_DROP = {MIXTRAL: 4.0, LLAMA4: 16.0}
-# serving depth, cut for the script's time: hymba at 8 of its 32 layers
-# (16 until phase 5c joined; its static path is host-bound: seconds
-# scale with depth; layer 0 keeps its global window; it trains
-# whole), mixtral and llama4 at 4 layers (24.27 / 43.51 GB; 186.8 /
-# 431.1 GB whole): llama4's 4 are its three windowed layers and the
-# first global one; mixtral's pair of long prompts at 2 of those 4
-HYMBA_SERVE_LAYERS = 8
+# serving depth, cut for the script's time: hymba at 4 of its 32 layers
+# (16 until phase 5c joined, 8 until phase 5d did; its static path is
+# host-bound: seconds scale with depth; layer 0 keeps its global window
+# and the other 3 are windowed; it trains whole), mixtral and llama4 at
+# 4 layers (24.27 / 43.51 GB; 186.8 / 431.1 GB whole): llama4's 4 are
+# its three windowed layers and the first global one; mixtral's pair of
+# long prompts at 1 of those 4 (2 until phase 5d joined; every mixtral
+# layer has the 4096 window, so one still recycles blocks)
+HYMBA_SERVE_LAYERS = 4
 NEW_SERVE_LAYERS = {MIXTRAL: 4, LLAMA4: 4}
-LONG_PAIR_LAYERS = 2
+LONG_PAIR_LAYERS = 1
 # a pair of prompts past each window (hymba's 1024, mixtral's 4096)
 LONG_PROMPTS = {HYMBA: 1100, MIXTRAL: 4200}
 LONG_MAX_NEW = 4
@@ -3371,9 +3427,9 @@ def enc_vlm_summary(runs):
 
 
 TRAIN_SEQ = 1024
-# phase 5's nanochat-d20 at full width and 10 of its 20 layers since PR
-# 25, for the script's time
-TRAIN_LAYERS = 10
+# phase 5's nanochat-d20 at full width and 4 of its 20 layers (10 until
+# the script passed 1200 s on a slower host), for the script's time
+TRAIN_LAYERS = 4
 _K2 = dict(workers=2, per_worker_batch=4)
 TRAIN_PLANS = (
     # path, method, run_stage arguments, DiLoCoConfig fields, expected
@@ -4218,6 +4274,12 @@ def mesh_strategies_rank(rank, world, init_method, workdir, backend):
                                ref.pop("ddp_ends"))}
         out["hybrid_reference"] = ref
     out["reference_s"] = time.perf_counter() - t0
+    if world == 4:
+        # phase 5d in the same spawn, on meshes of the same ranks
+        torch.cuda.set_per_process_memory_fraction(1 / world, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["tp"] = tp_rank(torch, rank, mesh.backend)
     with open(Path(workdir) / f"rank{rank}.json", "w") as f:
         json.dump(out, f)
     mesh.close()
@@ -4449,6 +4511,13 @@ def phase_mesh_strategies(torch):
             check(max(diff.values()) <= MESH_DDP_ATOL,
                   f"mesh hybrid: the DDP stages' parameters {diff} off "
                   f"one process (gate {MESH_DDP_ATOL})")
+        if world == 4:
+            log(f"  phase 5d (tensor parallelism) in the 4-rank spawn: "
+                f"{[round(r['tp']['tp_s'], 1) for r in ranks]} s a rank, "
+                f"its one-process references "
+                f"{[round(r['tp']['reference_s'], 1) for r in ranks]} s")
+            tp_gates(torch, ranks, out)
+            out["launches"].update(out["tp"]["launches"])
     return out
 
 
@@ -4472,7 +4541,612 @@ def mesh_strategies_summary(ms):
                   for name in MESH_STRAT_CASES[world]}}
         for world, w in ms["worlds"].items()} | {
         "hybrid_ddp_rel": ms.get("hybrid_ddp_rel"),
-        "hybrid_ddp_max_abs_diff": ms.get("hybrid_ddp_max_abs_diff")}
+        "hybrid_ddp_max_abs_diff": ms.get("hybrid_ddp_max_abs_diff"),
+        "tp": tp_summary(ms["tp"]) if "tp" in ms else None}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5d: tensor parallelism across ranks
+# ---------------------------------------------------------------------------
+
+# nanochat-d20 at full width and 2 of its 20 layers (220.2 M parameters;
+# 10 heads of 128 split 5 a rank, d_ff 5120 and the 65536 vocab split in
+# halves), one 1024-token sequence a worker (and a DDP rank), f32, seed 0,
+# run inside phase 5c's 4-rank spawn on meshes built from its default
+# process group: (pod 2, data 1, model 2) DiLoCo K 2 H 2, two rounds on
+# the int8 wire and one on f32, through DistTrainer.run; (pod 1, data 2,
+# model 2) DDP, 2 steps
+TP_LAYERS = 2
+TP_MESHES = {"pods": (2, 1, 2), "data": (1, 2, 2)}
+TP_CASES = {"diloco_int8": ("pods", "int8", 4),
+            "diloco_f32": ("pods", "float32", 2),
+            "ddp": ("data", None, 2)}
+# one forward and backward from one shared state, the ranks' shards
+# against one process on the card: the loss within this relative
+# tolerance, each gradient leaf within TP_GRAD_RTOL of its max.  The
+# row-parallel products' partial sums are added by an all-reduce, in
+# another order than one GEMM's: last-bit differences, which the
+# backward carries through two layers (f32 holds ~6e-8 relative a sum)
+TP_LOSS_RTOL = 1e-6
+TP_GRAD_RTOL = 1e-5
+# from the one-process gradients of that step, cut to the rank's shards:
+# one Muon update of each split leaf (Newton-Schulz and its m/n on the
+# whole matrix, all-gathered) within TP_MUON_RTOL of its max of one
+# process's, and the global norm (split leaves' squares summed over the
+# model group, whole leaves once) within TP_LOSS_RTOL
+TP_MUON_RTOL = 1e-5
+# the runs' parameters against the one-process runs': the same bound as
+# MESH_DDP_ATOL (AdamW at eps 1e-10 flips the sign of an update whose
+# gradient is zero up to rounding: 2 adam_lr apart a step), carried
+# through each case's outer steps (``flip_bound``); DDP at 2 steps is
+# MESH_DDP_ATOL itself
+TP_ADAM_LR = 1e-3
+# the int8 wire of the runs against the one-process runs': the inner
+# steps part at the last bit and AdamW spreads it, so some codes move;
+# a code may move no further than its input did, plus one step (q = round
+# (e / s) puts q·s within s/2 of e on both sides): every element's
+# |q s - q' s'| <= |e - e'| + max(s, s').  From one shared state nothing
+# moves: codes, scales and inputs bit for bit
+TP_LIPSCHITZ_SLACK = 1e-6
+# the runs' Muon-partition leaves against one process's, apart from the
+# AdamW leaves (whose sign flips ``flip_bound`` covers): Muon's update is
+# a smooth function of the gradient, so they part only as far as the
+# flipped AdamW leaves move the gradients (TP_MUON_ATOL: sound runs on
+# the card part by at most 8.1e-8 on f32 and DDP, PERF.md) plus, on
+# int8, a code step a round carried through the outer steps
+# (``flip_bound`` at adam_lr 0)
+TP_MUON_ATOL = 1e-6
+# each leaf's scale against one process's, relative to its own size
+# (|s - s'| / s'): sound runs on the card part by at most 4.2e-5, while
+# a shard coded against its own amax (the MAX dropped) parts by the
+# shards' amaxes' gap
+TP_SCALE_RTOL = 4e-4
+
+
+def flip_bound(dcfg, steps, adam_lr, extra=()):
+    """The most a parameter can part from one process's when two runs part
+    only where AdamW flips an update's sign: 2 ``adam_lr`` a step, so a
+    round's delta by 2 ``adam_lr`` H, plus ``extra[r]`` (round r's int8
+    step: a code moves at most one step past its input), carried through
+    the outer Nesterov step (a += outer_lr (d + mu v), v = mu v + d).
+    DDP's config (outer lr 1, no momentum, H 1) gives 2 ``adam_lr``
+    ``steps``."""
+    h, mu, v, a = dcfg.h_inner_steps, dcfg.outer_momentum, 0.0, 0.0
+    for r in range(steps // h):
+        d = 2 * adam_lr * h + (extra[r] if r < len(extra) else 0.0)
+        v = mu * v + d
+        a += dcfg.outer_lr * (d + mu * v if dcfg.nesterov else v)
+    return a
+
+
+class _StepBits:
+    """The strategy ``DistTrainer.run`` binds, with the digest of the
+    whole (replicated) leaves of the worker and the anchor after each
+    step (``bits_digest``); at step ``first_round`` (the first outer
+    round) also copies of the worker just before it and of the anchor,
+    momentum and residual just after it (``round``)."""
+
+    def __init__(self, strategy, torch, whole, first_round=None):
+        self.strategy, self.torch, self.whole = strategy, torch, whole
+        self.first_round, self.digests, self.round = first_round, [], None
+
+    def bind(self, engine, params):
+        runner = self.strategy.bind(engine, params)
+        orig = runner.after_step
+
+        def copy(flat):
+            return {k: t.clone() for k, t in flat.items()}
+
+        def after_step(state, step, loss):
+            if step == self.first_round:
+                before = copy(state.worker_params[0])
+            out = orig(state, step, loss)
+            st = out[0]
+            if step == self.first_round:
+                self.round = {"before": before,
+                              "anchor": copy(st.global_params),
+                              "v": copy(st.outer.v),
+                              "residual": copy(runner.residual)}
+            self.digests.append(bits_digest(self.torch, {
+                f"{part}/{k}": t[k] for part, t in (
+                    ("worker", st.worker_params[0]),
+                    ("anchor", st.global_params)) for k in self.whole}))
+            return out
+
+        runner.after_step = after_step
+        return runner
+
+    def __getattr__(self, name):
+        return getattr(self.strategy, name)
+
+
+class _Wire:
+    """Each quantized payload on the card by (round, leaf): its codes, its
+    scale and the quantizer's input e = delta + residual
+    (``QuantizedCodec.encode`` wrapped while in use).  With ``against``
+    (another run's rounds, this rank's shards) each leaf is compared as
+    it is encoded (worker ``row``, cut to ``mesh``'s shard) and nothing
+    is kept: ``stats`` gathers ``wire_compare``'s counts by round."""
+
+    def __init__(self, against=None, mesh=None, row=0):
+        self.against, self.mesh, self.row = against, mesh, row
+        self.rounds, self.stats = [], []
+
+    def __enter__(self):
+        from repro_torch.core import transport
+        self.codec = transport.QuantizedCodec
+        self.orig = self.codec.encode
+        seen = set()
+
+        def encode(codec, delta, residual=None, kind="delta", fragment=-1,
+                   axis=None):
+            payload, res = self.orig(codec, delta, residual, kind, fragment,
+                                     axis)
+            for k in payload.data:
+                if k in seen or not self.stats:
+                    self.rounds.append({})
+                    self.stats.append(dict.fromkeys(
+                        ("moved", "codes", "lipschitz_broken"), 0) | {
+                        "scale_max": 0.0, "scale_max_diff": 0.0,
+                        "scale_rel": 0.0,
+                        "scales_equal": True, "inputs_equal": True})
+                    seen.clear()
+                seen.add(k)
+                e = delta[k].float()
+                if residual is not None:
+                    e = e + residual[k].float()
+                rec = (payload.data[k], payload.scales[k], e)
+                if self.against is None:
+                    self.rounds[-1][k] = tuple(t.clone() for t in rec)
+                else:
+                    wire_compare(self.against[len(self.stats) - 1][k], rec,
+                                 self.mesh, self.row, k, self.stats[-1])
+            return payload, res
+
+        self.codec.encode = encode
+        return self
+
+    def __exit__(self, *exc):
+        self.codec.encode = self.orig
+
+
+def wire_compare(mine, ref, mesh, row, path, stats):
+    """One leaf of this rank's payload (``mine``: codes, scale, input of
+    its shard row) against the one-process payload's (``ref``: K rows,
+    whole) at worker ``row``: adds to ``stats`` the codes that moved, the
+    elements whose dequantized values part by more than their inputs do
+    plus a step (``TP_LIPSCHITZ_SLACK``), the scale's difference (and
+    relative to its size) and whether scales and inputs are equal."""
+    q, s, e = mine
+    rq = shard_of(ref[0][row:row + 1], path, mesh)
+    rs = ref[1][row:row + 1]
+    re = shard_of(ref[2][row:row + 1], path, mesh)
+    qa, qb = q.float(), rq.float()
+    stats["moved"] += int((qa != qb).sum())
+    stats["codes"] += q.numel()
+    step = max(float(s.max()), float(rs.max()))
+    stats["scale_max"] = max(stats["scale_max"], step)
+    broken = ((qa * s - qb * rs).abs()
+              > (e - re).abs() + step * (1 + TP_LIPSCHITZ_SLACK))
+    stats["lipschitz_broken"] += int(broken.sum())
+    stats["scale_max_diff"] = max(stats["scale_max_diff"],
+                                  float((s - rs).abs().max()))
+    stats["scale_rel"] = max(stats["scale_rel"], float(
+        ((s - rs).abs() / rs.clamp(min=1e-30)).max()))
+    stats["scales_equal"] &= bool(s.eq(rs).all())
+    stats["inputs_equal"] &= bool(e.eq(re).all())
+
+
+def shard_of(whole, path, mesh):
+    """This rank's shard of the one-process tensor ``whole`` of leaf
+    ``path`` (or of a (K, ...) stack of it): ``whole`` for a whole
+    leaf."""
+    from repro_torch.models.sharding import split_of
+    dim = split_of(path, mesh.layout)
+    if dim is None:
+        return whole
+    n = whole.shape[dim] // mesh.model
+    return whole.narrow(dim, mesh.model_index * n, n)
+
+
+def tp_rank(torch, rank, backend):
+    """Phase 5d's part of one rank of phase 5c's 4-rank spawn: the meshes
+    of ``TP_MESHES`` built from its default process group; one forward
+    and backward of this rank's shards from ``init_params(seed=0)``
+    against the whole model's on the card; each case of ``TP_CASES``
+    through ``DistTrainer.run`` (launch counts, ``shipped`` and the
+    collective log reset just before it; the whole leaves' digest after
+    every step; the wire's codes and scales); one int8 round at engine
+    level from the ranks' state, then by one process from the same state
+    gathered; then the one-process references of the cases on the card.
+    Returns what ``tp_gates`` reads (numbers only)."""
+    import gc
+
+    import numpy as np
+    from repro_torch.configs import (NANOCHAT_D20, DiLoCoConfig,
+                                     OptimizerConfig)
+    from repro_torch.core import DistTrainer, make_strategy, transport
+    from repro_torch.data import PackedDataset
+    from repro_torch.kernels import KERNELS, launches, reset_launches
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch.collectives import all_gather_rows
+    from repro_torch.launch.mesh import init_process_mesh
+    from repro_torch.models import init_params, lm_loss
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.models.sharding import shard
+    from repro_torch.models.transformer import flatten, unflatten
+    from repro_torch.optim import global_norm, muon, partition_label
+    t_start = time.perf_counter()
+    cfg = NANOCHAT_D20.with_(num_layers=TP_LAYERS)
+    meshes = {name: init_process_mesh(*shape, backend=backend,
+                                      device="cuda", cfg=cfg,
+                                      timeout_s=MESH_TIMEOUT_S)
+              for name, shape in TP_MESHES.items()}
+    mesh = meshes["pods"]
+    dev, layout = mesh.device, mesh.layout
+    whole = sorted(k for k, d in layout.items() if d is None)
+    params = flatten(init_params(cfg, seed=0, device=dev))
+    ds = PackedDataset(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, MESH_TOKENS).astype(np.int32), TRAIN_SEQ)
+    out = {"rank": rank, "index": [mesh.pod_index, mesh.data_index,
+                                   mesh.model_index],
+           "data_index": [meshes["data"].pod_index,
+                          meshes["data"].data_index,
+                          meshes["data"].model_index],
+           "params": sum(t.numel() for t in params.values()),
+           "whole_leaves": whole, "cases": {}}
+
+    def loss_fn(p, b):
+        return lm_loss(p, b, cfg)
+
+    def opt(steps):
+        return OptimizerConfig(total_steps=steps, warmup_steps=1,
+                               learning_rate=0.02, adam_lr=TP_ADAM_LR,
+                               fused_adamw=True)
+
+    def case_cfg(wire):
+        if wire is None:
+            return DiLoCoConfig(num_workers=1, h_inner_steps=1, outer_lr=1.0,
+                                outer_momentum=0.0, nesterov=False,
+                                strategy="ddp")
+        return DiLoCoConfig(num_workers=2, h_inner_steps=2, delta_dtype=wire)
+
+    def data_of(wire):
+        if wire is None:
+            return lambda s: {k: v[None] for k, v in
+                              ds.batch(s, 2, seed=0).items()}
+        return lambda s: ds.worker_batches(s, 2, 1, seed=0)
+
+    def trainer(wire, steps, rep, strategy=None):
+        dcfg = case_cfg(wire)
+        return DistTrainer(loss_fn, opt(steps), dcfg,
+                           strategy or make_strategy(dcfg), rep)
+
+    # one forward and backward from the shared parameters
+    t_shared = time.perf_counter()
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in ds.batch(0, 1, seed=0).items()}
+    own = {k: t.requires_grad_(True) for k, t in
+           shard(params, layout, mesh.model_index, mesh.model).items()}
+    coll.reset_log()
+    with tp.use(mesh):
+        loss, _ = loss_fn(unflatten(own), batch)
+        grads = dict(zip(own, torch.autograd.grad(loss, list(own.values()))))
+    n_coll = len(coll.records())
+    leaves = {k: t.detach().requires_grad_(True) for k, t in params.items()}
+    loss1, _ = loss_fn(unflatten(leaves), batch)
+    grads1 = dict(zip(leaves, torch.autograd.grad(
+        loss1, list(leaves.values()))))
+    errs = {k: float((g - shard_of(grads1[k], k, mesh)).abs().max())
+            / max(float(grads1[k].abs().max()), 1e-30)
+            for k, g in grads.items()}
+    # one Muon update of the split leaves and the global norm from the
+    # one-process gradients, on this rank's shards and by one process
+    cut = {k: shard_of(g, k, mesh).contiguous() for k, g in grads1.items()}
+    split_muon = sorted(k for k in cut if layout[k] is not None
+                        and partition_label(k, cut[k]) == "muon")
+    step0 = torch.zeros((), dtype=torch.int32, device=dev)
+    muon_rel = {}
+    for k in split_muon:
+        opt_tp, opt_one = muon(0.02, axis=mesh), muon(0.02)
+        mine = {k: cut[k]}
+        upd, _ = opt_tp.update(mine, opt_tp.init(mine), mine, step0)
+        ref = {k: grads1[k]}
+        upd1, _ = opt_one.update(ref, opt_one.init(ref), ref, step0)
+        muon_rel[k] = (float((upd[k] - shard_of(upd1[k], k, mesh)).abs()
+                             .max()) / max(float(upd1[k].abs().max()),
+                                           1e-30))
+        del upd, upd1
+    norm, norm1 = global_norm(cut, mesh).item(), global_norm(grads1).item()
+    loss, loss1 = loss.item(), loss1.item()
+    out["shared"] = {"loss": loss, "loss_one": loss1,
+                     "loss_rel": abs(loss - loss1) / abs(loss1),
+                     "grad_rel": errs, "collectives": n_coll,
+                     "muon_rel": muon_rel,
+                     "norm_rel": abs(norm - norm1) / norm1,
+                     "whole_grads": bits_digest(torch, {
+                         k: grads[k] for k in whole})}
+    del own, grads, leaves, grads1, loss, loss1, cut
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out["timing"] = {"setup_s": t_shared - t_start,
+                     "shared_step_s": time.perf_counter() - t_shared}
+    kept = {}
+    for name, (mname, wire, steps) in TP_CASES.items():
+        m = meshes[mname]
+        bits = _StepBits(make_strategy(case_cfg(wire)), torch, whole,
+                         first_round=1 if wire == "int8" else None)
+        dt = trainer(wire, steps, m.replicate_fn, bits)
+        state = dt.init(params)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        transport.reset_shipped()
+        coll.reset_log()
+        t0 = time.perf_counter()
+        with _Wire() as wire_log:
+            # one-step chunks: the whole leaves' digest after every step
+            state, hist = dt.run(state, data_of(wire), steps, chunked=False)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        inner = coll.records("inner")
+        model_inner = [r for r in inner if r.axis == "model"]
+        outer = coll.records("outer")
+        out["cases"][name] = {
+            "wall_s": wall, "steps": steps, "loss": hist["loss"],
+            "inner_step_s": hist.get("inner_seconds"),
+            "round_s": hist.get("sync_seconds"),
+            "launches": {k: launches[k] for k in KERNELS},
+            "shipped": sum(transport.shipped.values()),
+            "inner_axes": sorted({r.axis for r in inner}),
+            "inner_cross_pod": sum(r.cross_pod for r in inner),
+            "model_per_step": len(model_inner) / steps,
+            "model_s_per_step": sum(r.host_s + r.coll_s
+                                    for r in model_inner) / steps,
+            "outer_model": sum(r.axis == "model" and not r.cross_pod
+                               for r in outer),
+            "outer_model_cross": sum(r.axis == "model" and r.cross_pod
+                                     for r in outer),
+            "cross_pod_sent": sum(r.nbytes for r in outer if r.cross_pod
+                                  and r.kind != "recv"),
+            "step_bits": bits.digests,
+            "scale_bits": [bits_digest(torch, {k: v[1] for k, v in
+                                               rnd.items()})
+                           for rnd in wire_log.rounds],
+            "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        kept[name] = (state.global_params, wire_log.rounds, m)
+        del state
+        if bits.round is not None:
+            # the first int8 round from one shared state: one process runs
+            # it from the ranks' worker rows just before it, gathered
+            t0 = time.perf_counter()
+            got = bits.round
+            rows = {k: all_gather_rows(tp.whole(k, t, m).unsqueeze(0), m)
+                    for k, t in got.pop("before").items()}
+            eng = trainer(wire, steps, None).engine()
+            st = eng.init(params)
+            res = eng.init_residual(params)
+            for w in range(2):
+                for k, t in st.worker_params[w].items():
+                    t.copy_(rows[k][w])
+            del rows
+            row = m.pod_index
+            with _Wire(wire_log.rounds[:1], m, row) as cmp:
+                st, res = eng.outer_step_ef(st, res)
+
+            def same(mine, ref):
+                return all(torch.equal(t, shard_of(ref[k], k, m))
+                           for k, t in mine.items())
+
+            out["shared_round"] = dict(
+                cmp.stats[0], rounds=len(cmp.stats),
+                anchor_equal=same(got["anchor"], st.global_params),
+                v_equal=same(got["v"], st.outer.v),
+                residual_equal=same(got["residual"], {
+                    k: r[row:row + 1] for k, r in res.items()}))
+            out["timing"]["shared_round_s"] = time.perf_counter() - t0
+            del eng, st, res, got, bits.round
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["tp_s"] = time.perf_counter() - t_start
+
+    # the one-process references on the card, every rank its own (the
+    # same runs), compared with this rank's shards
+    t0 = time.perf_counter()
+    for name, (mname, wire, steps) in TP_CASES.items():
+        g, tp_log, m = kept.pop(name)
+        dt = trainer(wire, steps, None)
+        with _Wire(tp_log, m, m.pod_index) as cmp:
+            ref, hist = dt.run(dt.init(params), data_of(wire), steps)
+        diffs = {k: float((t - shard_of(ref.global_params[k], k, m))
+                          .abs().max()) for k, t in g.items()}
+        muon_diffs = {k: d for k, d in diffs.items()
+                      if partition_label(k, g[k]) == "muon"}
+        rec = out["cases"][name]
+        rec["vs_one_process"] = {
+            "loss": hist["loss"], "max_abs_diff": max(diffs.values()),
+            "top_leaf": max(diffs, key=diffs.get),
+            "muon_max_abs_diff": max(muon_diffs.values()),
+            "muon_top_leaf": max(muon_diffs, key=muon_diffs.get)}
+        if wire == "int8":
+            rec["wire"] = cmp.stats
+        steps_q = [st["scale_max"] for st in cmp.stats]
+        rec["atol"] = flip_bound(case_cfg(wire), steps, TP_ADAM_LR, steps_q)
+        rec["muon_atol"] = (flip_bound(case_cfg(wire), steps, 0.0, steps_q)
+                            + TP_MUON_ATOL)
+        del g, tp_log, ref, cmp
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["reference_s"] = time.perf_counter() - t0
+    return out
+
+
+def tp_gates(torch, ranks, out):
+    """Phase 5d's gates over the 4 ranks' ``tp_rank`` results (every rank
+    against the one-process runs on the card): the shared forward and
+    backward within ``TP_LOSS_RTOL`` / ``TP_GRAD_RTOL``, and from its
+    one-process gradients Muon's update of every split leaf within
+    ``TP_MUON_RTOL`` and the global norm within ``TP_LOSS_RTOL``; the
+    runs' losses within ``MESH_DDP_LOSS_RTOL``, their parameters within
+    ``flip_bound`` (phase 5b's DDP gates, ``MESH_DDP_ATOL`` at DDP's 2
+    steps, carried through DiLoCo's outer steps) and their Muon leaves
+    within ``TP_MUON_ATOL`` (plus on int8 a code step a round through the
+    outer steps); the whole leaves' bits and the wire's
+    scales equal across the model ranks of a worker after every step
+    (and the whole leaves' gradients of the shared step); on the int8
+    wire every model rank's scales the one-process scales within
+    ``TP_SCALE_RTOL`` of their size, and no code moved further than its
+    input did plus a step (``wire_compare``); from the first round's
+    shared state the round (anchor, momentum, residual, inputs, scales,
+    codes) one process's bit for bit; the inner steps' collectives the
+    model axis's only, none crossing a pod, and each rank's cross-pod
+    bytes its ``shipped`` (its shards' codes and scales); the training
+    kernels (and on int8 the wire kernels) launched in every rank."""
+    import numpy as np
+    tp_out = out["tp"] = {"launches": {}}
+    by_rank = {r["rank"]: r["tp"] for r in ranks}
+    for w, x in sorted(by_rank.items()):
+        tag = f"mesh tp rank {w}"
+        log(f"  rank {w} tp: {x['tp_s']:.1f} s ("
+            + ", ".join(f"{k} {v:.1f}" for k, v in x["timing"].items())
+            + f"), one-process references {x['reference_s']:.1f} s; the "
+            f"shared step's loss {x['shared']['loss_rel']:.3g} relative "
+            f"and gradients {max(x['shared']['grad_rel'].values()):.3g} of "
+            f"a leaf's max off one process, {x['shared']['collectives']} "
+            f"model-axis collectives; from the one-process gradients, "
+            f"Muon's update on shards "
+            f"{max(x['shared']['muon_rel'].values()):.3g} of a leaf's max "
+            f"and the global norm {x['shared']['norm_rel']:.3g} relative "
+            f"off one process's")
+        sh = x["shared"]
+        check(sh["loss_rel"] <= TP_LOSS_RTOL, f"{tag}: the shared step's "
+              f"loss {sh['loss_rel']} relative off one process")
+        worst = max(sh["grad_rel"], key=sh["grad_rel"].get)
+        check(sh["grad_rel"][worst] <= TP_GRAD_RTOL, f"{tag}: gradient "
+              f"{worst} {sh['grad_rel'][worst]} of its max off one process")
+        worst = max(sh["muon_rel"], key=sh["muon_rel"].get)
+        check(len(sh["muon_rel"]) > 0
+              and sh["muon_rel"][worst] <= TP_MUON_RTOL, f"{tag}: Muon's "
+              f"update of {worst} on shards {sh['muon_rel'][worst]} of its "
+              f"max off one process's")
+        check(sh["norm_rel"] <= TP_LOSS_RTOL, f"{tag}: the global norm on "
+              f"shards {sh['norm_rel']} relative off one process's")
+        sr = x["shared_round"]
+        check(sr["anchor_equal"] and sr["v_equal"] and sr["residual_equal"]
+              and sr["scales_equal"] and sr["inputs_equal"]
+              and sr["moved"] == 0 and sr["codes"] > 0 and sr["rounds"] == 1,
+              f"{tag}: the int8 round from one shared state is not one "
+              f"process's bit for bit: {sr}")
+        for name, c in x["cases"].items():
+            ctag = f"{tag} {name}"
+            tp_out["launches"][f"mesh_tp_{name}_rank{w}"] = c["launches"]
+            ref = c["vs_one_process"]
+            log(f"  rank {w} tp {name} ({c['wall_s']:.1f} s): losses "
+                f"{[round(v, 5) for v in c['loss']]}, step s "
+                f"{c['inner_step_s']}, round ms "
+                f"{[round(1e3 * t, 1) for t in c['round_s'] or []]}, model "
+                f"collectives {c['model_per_step']:.0f} a step in "
+                f"{c['model_s_per_step']:.3f} s, parameters "
+                f"{ref['max_abs_diff']:.3g} off one process (gate "
+                f"{c['atol']:.3g}) "
+                f"({ref['top_leaf']}), Muon's {ref['muon_max_abs_diff']:.3g} "
+                f"(gate {c['muon_atol']:.3g}) ({ref['muon_top_leaf']}), "
+                f"shipped {c['shipped']} bytes, peak "
+                f"{c['peak_memory_gb']:.2f} GB"
+                + (f", wire by round {c['wire']}" if "wire" in c else ""))
+            check(ref["max_abs_diff"] <= c["atol"], f"{ctag}: "
+                  f"parameters {ref['max_abs_diff']} off one process "
+                  f"(gate {c['atol']:.4g}, flip_bound)")
+            check(ref["muon_max_abs_diff"] <= c["muon_atol"], f"{ctag}: "
+                  f"Muon's leaves {ref['muon_max_abs_diff']} off one "
+                  f"process ({ref['muon_top_leaf']}; gate "
+                  f"{c['muon_atol']:.4g})")
+            axes = ["data", "model"] if name == "ddp" else ["model"]
+            check(c["inner_axes"] == axes and c["inner_cross_pod"] == 0
+                  and c["outer_model_cross"] == 0, f"{ctag}: the inner "
+                  f"steps' collectives on {c['inner_axes']} (not {axes}), "
+                  f"or one crossed a pod")
+            check(c["cross_pod_sent"] == c["shipped"], f"{ctag}: sent "
+                  f"{c['cross_pod_sent']} bytes across pods and shipped "
+                  f"{c['shipped']}")
+            if "wire" in c:
+                # moved codes are logged; none moves further than its
+                # input did plus a step, and each scale is one process's
+                # within TP_SCALE_RTOL of its own size
+                for r, wg in enumerate(c["wire"]):
+                    check(len(c["wire"]) == 2 and wg["codes"] > 0
+                          and wg["lipschitz_broken"] == 0
+                          and wg["scale_rel"] <= TP_SCALE_RTOL,
+                          f"{ctag}: round {r}'s wire parts from one "
+                          f"process's: {wg}")
+            kernels = TRAIN_KERNELS + (WIRE_KERNELS if "int8" in name
+                                       else ())
+            for k in kernels:
+                check(c["launches"][k] > 0, f"{ctag}: kernel {k} never "
+                      f"launched")
+    # the model ranks of one worker (or DDP replica): the same losses and
+    # the same bits of every whole leaf after every step; the workers'
+    # (replicas') losses, averaged, one process's within the loss gate
+    for name in TP_CASES:
+        key = "data_index" if name == "ddp" else "index"
+        groups = {}
+        for x in by_rank.values():
+            groups.setdefault(tuple(x[key][:2]), []).append(x["cases"][name])
+        for idx, (a, b) in groups.items():
+            check(a["loss"] == b["loss"] and a["step_bits"] == b["step_bits"]
+                  and a["scale_bits"] == b["scale_bits"],
+                  f"mesh tp {name}: the model ranks of {idx} part in their "
+                  f"losses, whole leaves or wire scales")
+        rows = [g[0]["loss"] for _, g in sorted(groups.items())]
+        mean = [float((np.float32(a) + np.float32(b)) / np.float32(2))
+                for a, b in zip(*rows)]
+        rel = _rel(mean, by_rank[0]["cases"][name]["vs_one_process"]["loss"])
+        tp_out[f"{name}_loss_rel"] = rel
+        check(rel <= MESH_DDP_LOSS_RTOL, f"mesh tp {name}: losses {rel} "
+              f"relative off one process (gate {MESH_DDP_LOSS_RTOL})")
+    for idx in {tuple(x["index"][:2]) for x in by_rank.values()}:
+        a, b = [x for x in by_rank.values() if tuple(x["index"][:2]) == idx]
+        check(a["shared"]["whole_grads"] == b["shared"]["whole_grads"],
+              f"mesh tp: the whole leaves' gradients part across the model "
+              f"ranks of {idx}")
+    tp_out["ranks"] = by_rank
+    return tp_out
+
+
+def tp_summary(tp_out):
+    """Phase 5d's numbers for the summary line: per case and rank the
+    step s, the rounds' ms, the model group's collectives a step and
+    their seconds, the parameters' distance from one process, peak
+    memory; the ranks' phase seconds."""
+    return {"cases": {name: [{
+        "step_s": r["cases"][name]["inner_step_s"],
+        "round_ms": [1e3 * t for t in r["cases"][name]["round_s"] or []],
+        "model_collectives_per_step": r["cases"][name]["model_per_step"],
+        "model_collective_s_per_step":
+            r["cases"][name]["model_s_per_step"],
+        "max_abs_diff": r["cases"][name]["vs_one_process"]["max_abs_diff"],
+        "muon_max_abs_diff":
+            r["cases"][name]["vs_one_process"]["muon_max_abs_diff"],
+        "wire": r["cases"][name].get("wire"),
+        "peak_memory_gb": r["cases"][name]["peak_memory_gb"]}
+        for _, r in sorted(tp_out["ranks"].items())] for name in TP_CASES},
+        "shared_loss_rel": [r["shared"]["loss_rel"]
+                            for _, r in sorted(tp_out["ranks"].items())],
+        "shared_grad_rel": [max(r["shared"]["grad_rel"].values())
+                            for _, r in sorted(tp_out["ranks"].items())],
+        "shared_muon_rel": [max(r["shared"]["muon_rel"].values())
+                            for _, r in sorted(tp_out["ranks"].items())],
+        "shared_norm_rel": [r["shared"]["norm_rel"]
+                            for _, r in sorted(tp_out["ranks"].items())],
+        "loss_rel": {k: v for k, v in tp_out.items()
+                     if k.endswith("_loss_rel")},
+        "shared_round": [r["shared_round"]
+                         for _, r in sorted(tp_out["ranks"].items())],
+        "timing": [r["timing"] for _, r in sorted(tp_out["ranks"].items())],
+        "tp_s": [r["tp_s"] for _, r in sorted(tp_out["ranks"].items())],
+        "reference_s": [r["reference_s"]
+                        for _, r in sorted(tp_out["ranks"].items())]}
 
 
 # ---------------------------------------------------------------------------
@@ -4692,11 +5366,12 @@ RESUME_PLANS = (("diloco_int8", dict(strategy="diloco", delta_dtype="int8"),
 RESUME_KW = dict(workers=2, h=2, per_worker_batch=8, seq_len=128)
 PREFETCH_DEPTH = 4
 EVAL_EVERY = 3
-# drift on a short DiLoCo run at nanochat-d20's full width, cut to 10
-# layers for the script's time since phases 4b and 6e joined (its float64
-# CPU copies took 18.45 s at 20 layers)
+# drift on a short DiLoCo run at nanochat-d20's full width, cut to 4
+# layers for the script's time (10 from phases 4b and 6e until phase
+# 5d's gates passed 1200 s on a slower host; its float64 CPU copies took
+# 18.45 s at 20 layers)
 DRIFT_KW = dict(steps=4, h=2, per_worker_batch=8, seq_len=128)
-DRIFT_LAYERS = 10
+DRIFT_LAYERS = 4
 DRIFT_RANK = 8
 TOL_DRIFT = {"param_drift": 1e-5, "worker_cka": 1e-4}   # rtol, vs f64 CPU
 # the card's memory a K 4 pipeline must leave free to move phase 6 to K 4
@@ -5500,7 +6175,7 @@ class _FaultProbe:
 def phase_faults(torch, diloco_step_s, gossip_step_s):
     """The fault layer (``FAULT_PLANS``) at full width through
     ``run_stage(faults=...)``, each from fresh parameters with launch
-    counts reset just before the run, both at 10 layers: DiLoCo with a
+    counts reset just before the run, both at 4 layers: DiLoCo with a
     slowdown, a crash, a dropped and a twice-corrupted payload and a
     rejoin; gossip on the ring with a worker down in round 1 and back in
     round 3.  Gates: the
@@ -5843,9 +6518,9 @@ def fault_state_runs(torch, tok, ds, opt_cfg):
 # 1 when the first completion token lies in GRPO_REWARD_IDS (128 of the
 # 512 ids: at a near-uniform policy 90% of the groups are mixed)
 GRPO_ITERS = 4
-# nanochat-d20 at full width and 10 of its 20 layers, for the
-# script's time
-GRPO_LAYERS = 10
+# nanochat-d20 at full width and 4 of its 20 layers (10 until phase 5d's
+# gates passed 1200 s on a slower host), for the script's time
+GRPO_LAYERS = 4
 GRPO_KW = dict(group_size=8, max_new=6)
 GRPO_PROMPTS = 16
 # the prompts whose iteration-1 groups a fresh engine rolls out again
@@ -6993,7 +7668,8 @@ def main(argv=None) -> int:
                          "as one JSON line")
     ap.add_argument("--only-mesh", action="store_true",
                     help="only build the kernels and run phases 5b and 5c "
-                         "(the process mesh; every strategy across ranks), "
+                         "(the process mesh; every strategy across ranks; "
+                         "5d, tensor parallelism, in 5c's 4-rank spawn), "
                          "printing their summary as one JSON line")
     args = ap.parse_args(argv)
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -7109,7 +7785,7 @@ def main(argv=None) -> int:
         report["checks"] = [list(c) for c in checks]
         lap("4b archs")
 
-        log("[4c/7] hymba-1.5b (8 layers serving, whole training), "
+        log("[4c/7] hymba-1.5b (4 layers serving, whole training), "
             "mixtral-8x7b and llama4-scout-17b-a16e (4 layers) at full "
             "width: their kernel "
             "shapes, serving (static path and scoring; spec_k 0 / 4 and "
@@ -7148,9 +7824,11 @@ def main(argv=None) -> int:
             "width: streaming, overlapped, pipelined, compressed DDP, "
             "AdaptiveH, a kill and resume and hybrid over 2 ranks (4 "
             "layers); gossip, async gossip and a crash and rejoin over 4 "
-            "(2 layers), each against one process")
+            "(2 layers), each against one process; [5d/7] in the 4-rank "
+            "spawn, tensor parallelism (2 layers): DiLoCo on (pod 2, "
+            "model 2), int8 and f32, and DDP on (data 2, model 2)")
         mesh_strat = report["mesh_strategies"] = phase_mesh_strategies(torch)
-        lap("5c mesh strategies")
+        lap("5c and 5d mesh strategies, tensor parallelism")
 
         log("[6/7] pipeline, nanochat-d20 at full width: base -> mid -> "
             "SFT with evals after each stage, DiLoCo and hybrid")

@@ -313,7 +313,7 @@ def _keep_rows(by_path: Dict[str, np.ndarray], rows, extras: bool
 
 
 def load_run_checkpoint(manifest: Dict, state_template: Any,
-                        extras_template: Any = None, rows=None
+                        extras_template: Any = None, rows=None, cut=None
                         ) -> Tuple[Any, Optional[Any]]:
     """Restore (state, extras) from a manifest returned by
     ``latest_run_checkpoint``, into fresh tensors with the templates'
@@ -321,7 +321,9 @@ def load_run_checkpoint(manifest: Dict, state_template: Any,
     for those).  ``extras_template`` None (or an entry the checkpoint
     lacks) yields extras None.  ``rows`` (a rank of a process mesh: the
     workers it holds) keeps those workers' rows of the one-process
-    layout, whatever world size wrote it."""
+    layout, whatever world size wrote it; ``cut`` (``{path: array}`` ->
+    the same, a rank of a model axis: ``models.sharding.shard``) cuts the
+    arrays to the rank's shards before they are restored."""
     ckpt_dir = manifest["_dir"]
     files = manifest["files"]
     if rows is None:
@@ -331,11 +333,15 @@ def load_run_checkpoint(manifest: Dict, state_template: Any,
         by_path = _keep_rows(load_pytree(
             os.path.join(ckpt_dir, files["state"]),
             keep=lambda p: _kept(p, rows)), rows, extras=False)
+    if cut is not None:
+        by_path = cut(by_path)
     state = _restore(state_template, by_path)
     extras = None
     if extras_template is not None and "extras" in files:
         by_path = load_pytree(os.path.join(ckpt_dir, files["extras"]))
         if rows is not None:
             by_path = _keep_rows(by_path, rows, extras=True)
+        if cut is not None:
+            by_path = cut(by_path)
         extras = _restore(extras_template, by_path)
     return state, extras

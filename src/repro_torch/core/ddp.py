@@ -9,7 +9,10 @@ on its own, and ``run_ddp`` runs its state through that loop.
 Across processes (``replicate_fn=mesh.replicate_fn`` of a (pod 1, data
 D) ``launch.mesh`` process mesh) each rank takes its 1/D of the global
 batch, and its gradients are all-reduced (mean over the D ranks) before
-the optimizer runs, so every rank applies the same update."""
+the optimizer runs, so every rank applies the same update.  On a mesh
+whose model axis splits the model (``replicate_fn.tp``) each rank holds
+and steps its shards (``core/diloco.py``), and the mean runs over the
+data group of its model index."""
 from __future__ import annotations
 
 import dataclasses
@@ -19,8 +22,8 @@ import torch
 
 from repro_torch.configs.base import DiLoCoConfig, OptimizerConfig
 from repro_torch.core import outer_opt
-from repro_torch.core.diloco import DiLoCoState, Flat, worker_step
-from repro_torch.models.transformer import flatten
+from repro_torch.core.diloco import (DiLoCoState, Flat, own_params,
+                                     under_model_axis, worker_step)
 from repro_torch.optim import nanochat_optimizer
 
 
@@ -36,21 +39,25 @@ class DDPTrainer:
     opt_cfg: OptimizerConfig
     replicate_fn: Optional[Callable] = None     # a process mesh's
 
+    def _opt(self):
+        return nanochat_optimizer(self.opt_cfg,
+                                  axis=getattr(self.replicate_fn, "tp", None))
+
     def init(self, params) -> DDPState:
-        with torch.no_grad():
-            own = {k: p.detach().clone() for k, p in flatten(params).items()}
+        own = own_params(params, self.replicate_fn)
         device = next(iter(own.values())).device
         return DDPState(params=own,
-                        opt=nanochat_optimizer(self.opt_cfg).init(own),
+                        opt=self._opt().init(own),
                         step=torch.zeros((), dtype=torch.int32,
                                          device=device))
 
+    @under_model_axis
     def train_step(self, state: DDPState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[DDPState, torch.Tensor]:
         """One step on the global batch (across processes: this rank's
         part of it); parameters update in place."""
         opt_state, loss = worker_step(
-            self.loss_fn, nanochat_optimizer(self.opt_cfg), state.params,
+            self.loss_fn, self._opt(), state.params,
             state.opt, batch, state.step,
             getattr(self.replicate_fn, "grad_reduce", None))
         return DDPState(state.params, opt_state, state.step + 1), loss

@@ -42,10 +42,22 @@ and a zero residual, the dead keep their bits (``outer_step_quorum``,
 
 The DDP baseline (``core/ddp.py``, and ``DDPSync`` in ``core/sync.py``) is
 the same inner step with K = 1 on the global batch.
+
+Tensor parallelism.  On a mesh with a ``model`` axis > 1
+(``replicate_fn.tp``) a worker is split over its model group: ``init``
+cuts the one-process parameters to this rank's shards
+(``models.sharding.shard``), and the inner steps and rounds run under
+the mesh's model axis (``models.tensor_parallel.use``), which the layers
+reduce over; the inner optimizer (the global norm, Muon) and the
+transport's codec (the wire's scales) take the mesh as their ``axis``;
+the outer step and AdamW are elementwise on the shards.  Each state
+tensor is this rank's shard of the one-process tensor;
+``init_residual`` takes the state's (sharded) parameters.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
                     Sequence, Tuple)
 
@@ -55,6 +67,8 @@ from repro_torch.configs.base import DiLoCoConfig, OptimizerConfig
 from repro_torch.core import outer_opt
 from repro_torch.core.outer_opt import OuterState
 from repro_torch.core.transport import make_codec, wire_width
+from repro_torch.models import tensor_parallel as tp
+from repro_torch.models.sharding import shard
 from repro_torch.models.transformer import flatten, unflatten
 from repro_torch.optim import Optimizer, apply_updates, nanochat_optimizer
 
@@ -70,6 +84,31 @@ class DiLoCoState(NamedTuple):
     worker_params: List[Flat]  # K per-worker copies, updated in place
     inner_opt: List[Any]       # K per-worker inner optimizer states
     inner_step: torch.Tensor   # total inner steps taken (0-d int32)
+
+
+def own_params(params, replicate_fn=None) -> Flat:
+    """A copy of ``params`` (a tree or flat dict, one-process layout, never
+    written) as this process holds it: whole, or cut to this rank's
+    shards on a mesh whose model axis splits the worker."""
+    with torch.no_grad():
+        flat = {k: p.detach() for k, p in flatten(params).items()}
+        mesh = getattr(replicate_fn, "tp", None)
+        if mesh is None:
+            return {k: p.clone() for k, p in flat.items()}
+        if set(flat) != set(mesh.layout):
+            raise ValueError("the parameters are not the tree the mesh's "
+                             "layout was made for (init_process_mesh(cfg=))")
+        return shard(flat, mesh.layout, mesh.model_index, mesh.model)
+
+
+def under_model_axis(method):
+    """Run a trainer's method under its mesh's model axis
+    (``tensor_parallel.use``; no axis without one)."""
+    @functools.wraps(method)
+    def run(self, *args, **kw):
+        with tp.use(getattr(self.replicate_fn, "tp", None)):
+            return method(self, *args, **kw)
+    return run
 
 
 def worker_step(loss_fn: Callable, opt: Optimizer, params: Flat, opt_state,
@@ -107,7 +146,8 @@ class DiLoCoTrainer:
     replicate_fn: Optional[Callable] = None
 
     def _inner_opt(self) -> Optimizer:
-        return nanochat_optimizer(self.opt_cfg)
+        return nanochat_optimizer(self.opt_cfg,
+                                  axis=getattr(self.replicate_fn, "tp", None))
 
     @property
     def local_rows(self) -> Tuple[int, ...]:
@@ -129,9 +169,8 @@ class DiLoCoTrainer:
         """``params``: a nested tree (or flat dict); it is copied, never
         written.  All state lives on the parameters' device; one worker
         copy per local row (``local_rows``)."""
+        anchor = own_params(params, self.replicate_fn)
         with torch.no_grad():
-            anchor = {k: p.detach().clone()
-                      for k, p in flatten(params).items()}
             workers = [{k: p.clone() for k, p in anchor.items()}
                        for _ in self.local_rows]
         inner = self._inner_opt()
@@ -144,6 +183,7 @@ class DiLoCoTrainer:
             inner_step=torch.zeros((), dtype=torch.int32, device=device))
 
     # -- inner step ----------------------------------------------------------
+    @under_model_axis
     def inner_step(self, state: DiLoCoState, batches: Dict[str, torch.Tensor],
                    live: Optional[Sequence[bool]] = None
                    ) -> Tuple[DiLoCoState, torch.Tensor]:
@@ -190,6 +230,7 @@ class DiLoCoTrainer:
                 for k, p in flatten(params).items()}
 
     @torch.no_grad()
+    @under_model_axis
     def sync(self, state: DiLoCoState, residual: Optional[Flat] = None, *,
              frag: Optional[Fragment] = None,
              snapshot: Optional[List[Flat]] = None, fragment: int = -1,

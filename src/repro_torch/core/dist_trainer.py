@@ -68,6 +68,18 @@ one-process one, each recorded step's worker losses in its ``meta``).  A
 resume loads that layout on every rank and keeps the rank's own rows, so
 a checkpoint crosses between one process and any number of ranks.
 
+Tensor parallelism.  On a mesh whose ``model`` axis splits each worker
+(``replicate_fn.tp``) the run holds DiLoCo (``diloco``, fixed H) and
+DDP (``ddp``) on every wire, with run checkpoints: the whole run goes
+under the model axis (``models.tensor_parallel.use``), ``init`` shards,
+and a checkpoint gathers each leaf over the model group to model index
+0, whose ranks alone then run the pod gather (so it keeps the
+one-process layout and resumes at any model size: a resume cuts what
+it loads to the rank's shards).  Every model rank of a worker computes
+the same loss, bit for bit.  The other strategies, an H schedule
+(AdaptiveH), the fault layer and drift-aware averaging are refused by
+name (ROADMAP §1).
+
 Faults.  ``faults`` (a ``core.faults.FaultSchedule``) scripts per-worker
 crash / rejoin / slow / drop / corrupt events and run-level kills.  A
 ``FleetTracker`` follows it: every chunk starts with ``begin_chunk``
@@ -95,13 +107,14 @@ from repro_torch.checkpoint.checkpoint import (_children, _leaves,
                                               load_run_checkpoint,
                                               save_run_checkpoint)
 from repro_torch.configs.base import DiLoCoConfig, OptimizerConfig
-from repro_torch.core.diloco import DiLoCoState
+from repro_torch.core.diloco import DiLoCoState, under_model_axis
 from repro_torch.core.faults import (FaultSchedule, FleetTracker,
                                      SimulatedCrash)
 from repro_torch.core.streaming import StreamingDiLoCoTrainer
 from repro_torch.core.sync import SyncStrategy
 from repro_torch.core.transport import ranked
 from repro_torch.data.pipeline import Prefetcher, stack_batches
+from repro_torch.models.sharding import shard
 
 
 # the default longest chunk: how many steps' losses may wait on the device
@@ -131,6 +144,8 @@ def _host_mean_live(row: np.ndarray, live) -> float:
 
 # history keys of a rank of a process mesh only (not in a checkpoint)
 _RANK_KEYS = ("inner_seconds", "sync_seconds", "fleet_loss")
+# the strategies a model axis > 1 runs (ROADMAP §1 has the rest)
+TP_STRATEGIES = ("diloco", "ddp")
 
 
 def _rebuild(tree, leaf_fn, prefix: str = ""):
@@ -233,6 +248,29 @@ class DistTrainer:
     def init(self, params) -> DiLoCoState:
         return self.engine().init(params)
 
+    def _check_model_axis(self, faults) -> None:
+        """What a mesh whose model axis splits the worker does not hold
+        yet, refused by name."""
+        if getattr(self.replicate_fn, "tp", None) is None:
+            return
+        name = self.strategy.name
+        what = None
+        if name not in TP_STRATEGIES:
+            what = f"the {name!r} strategy"
+        elif getattr(self.strategy, "h_schedule", None) is not None:
+            what = "an H schedule (AdaptiveH)"
+        elif faults is not None and not faults.empty:
+            what = "the fault layer"
+        elif self.cfg.drift_aware:
+            what = "drift-aware averaging"
+        if what is not None:
+            raise NotImplementedError(
+                f"{what} under a model axis > 1: tensor parallelism holds "
+                f"{' and '.join(TP_STRATEGIES)} at a fixed H; the rest "
+                f"waits for ROADMAP §1's item 'tensor parallelism for the "
+                f"other strategies'")
+
+    @under_model_axis
     def run(self, state: DiLoCoState, data_fn, num_steps: int,
             record_every: int = 1, eval_fn: Optional[Callable] = None,
             eval_every: int = 0, *, chunked: bool = True, prefetch: int = 0,
@@ -256,6 +294,7 @@ class DistTrainer:
         uninterrupted run would.  ``faults`` scripts failures (module
         docstring); a round proceeds with the surviving workers while at
         least ``min_quorum`` contribute and is skipped below it."""
+        self._check_model_axis(faults)
         # a process mesh tags its collective log: the inner steps, and the
         # replay that runs the outer rounds
         rep = self.replicate_fn
@@ -311,10 +350,13 @@ class DistTrainer:
             if manifest is not None:
                 template = runner.checkpoint_extras()
                 rows = tuple(rep.rows) if is_rank else None
+                mesh = getattr(rep, "tp", None)
                 state, extras = load_run_checkpoint(
                     manifest, state,
                     template[0] if template is not None else None,
-                    rows=rows)
+                    rows=rows, cut=None if mesh is None else (
+                        lambda arrays: shard(arrays, mesh.layout,
+                                             mesh.model_index, mesh.model)))
                 runner.load_extras(extras, manifest.get("extras_meta") or {})
                 for key, vals in (manifest.get("history") or {}).items():
                     history[key] = [_history_from_json(v) for v in vals]
@@ -495,6 +537,23 @@ class DistTrainer:
                                 extras_arrays=arrays, extras_meta=extras_meta,
                                 history=history, meta={"num_steps": num_steps})
             return
+        mesh = getattr(rep, "tp", None)
+        if mesh is not None:
+            # the model ranks' shards joined at model index 0 first (every
+            # rank, the same leaves in the same order); the pod gather
+            # below runs among the model-index-0 ranks alone
+            def join(path, t):
+                dim = (mesh.split_dim(path) if isinstance(t, torch.Tensor)
+                       else None)
+                return t if dim is None else mesh.model_gather(t, dim)
+
+            with rep.scope("checkpoint"):
+                state = _rebuild(state, join)
+                arrays = _rebuild(arrays, join)
+            if mesh.model_index:
+                rep.barrier()   # the checkpoint's files are written
+                rep.barrier()   # the manifest is written
+                return
         full = _one_process_state(state, rep)
         arrays = _one_process_extras(arrays, rep)
         if rep.lead:

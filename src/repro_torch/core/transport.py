@@ -27,6 +27,18 @@ dequantize kernels (``repro_torch.kernels.quantize``) on CUDA tensors and
 their plain versions on CPU tensors.  ``BF16Cast`` is a plain cast, as in
 the reference (no kernel there either).
 
+Tensor parallelism (a process mesh with ``model`` > 1, the
+``replicate_fn``'s ``tp``): each rank's rows are its shards of the
+worker's leaves.  ``Transport`` hands that mesh to the codec
+(``encode(axis=)``), and ``QuantizedCodec.encode`` reduces a split leaf's
+per-row amax over the model group (MAX) between the quantize kernel's
+two passes, so the scale is the whole leaf's on every model rank and
+the codes are the one-process codes' slices; the replicate hop gathers
+each rank's shard rows over its pod group (the reference's multi-pod
+outer step keeps each leaf's model shards the same way); a whole leaf
+is shipped by every model rank, as every device of the reference's
+model axis ships it.
+
 ``shipped`` counts the wire bytes of every payload shipped, per codec
 name, since ``reset_shipped()`` — the per-sync wire-bytes metric: the
 bytes this process ships.  On one card that is every worker's payload;
@@ -132,8 +144,10 @@ class Codec:
         return {k: v.float() for k, v in data.items()}
 
     def encode(self, delta: Flat, residual: Optional[Flat] = None,
-               kind: str = "delta", fragment: int = -1
+               kind: str = "delta", fragment: int = -1, axis=None
                ) -> Tuple[OuterPayload, Optional[Flat]]:
+        """``axis``: the model axis the leaves are split over (a process
+        mesh, ``model`` > 1), or None; an elementwise codec ignores it."""
         e = (delta if residual is None else
              {k: d.float() + residual[k] for k, d in delta.items()})
         data, scales = self._enc(e)
@@ -183,13 +197,17 @@ class QuantizedCodec(Codec):
     def qdtype(self) -> str:
         return "int8"
 
-    def encode(self, delta, residual=None, kind="delta", fragment=-1):
+    def encode(self, delta, residual=None, kind="delta", fragment=-1,
+               axis=None):
         from repro_torch.kernels import quantize as qz
         data, scales, new_res = {}, {}, {}
         for k, d in delta.items():
+            # a shard's amax, maxed over the model group: the leaf's scale
+            hook = (None if axis is None or axis.split_dim(k) is None else
+                    lambda a: axis.model_all_reduce(a, "max"))
             data[k], new_res[k], scales[k] = qz.quantize_ef(
                 d, None if residual is None else residual[k],
-                dtype=self.qdtype)
+                dtype=self.qdtype, amax_reduce=hook)
         payload = OuterPayload(data=data, scales=scales, kind=kind,
                                codec=self.name, fragment=fragment)
         return payload, (new_res if residual is not None else None)
@@ -372,7 +390,8 @@ class Transport:
         """encode -> ship -> decode; returns (f32 stacked delta, new
         error-feedback residual or None).  ``sources``: ``ship``'s."""
         payload, new_residual = self.codec.encode(
-            stacked_delta, residual, kind=kind, fragment=fragment)
+            stacked_delta, residual, kind=kind, fragment=fragment,
+            axis=getattr(self.replicate_fn, "tp", None))
         payload = self.ship(payload, sources)
         return self.codec.decode(payload), new_residual
 
@@ -386,7 +405,8 @@ class Transport:
         ``peer_idx[i]``'s.  The delta is dropped once encoded (pass it
         unnamed to free it here)."""
         payload, new_residual = self.codec.encode(
-            stacked_delta, residual, kind=kind, fragment=fragment)
+            stacked_delta, residual, kind=kind, fragment=fragment,
+            axis=getattr(self.replicate_fn, "tp", None))
         del stacked_delta
         peer_payload = self.ship_peers(payload, peer_idx)
         return (self.codec.decode(payload), self.codec.decode(peer_payload),

@@ -38,6 +38,14 @@
 // A ragged last tile counts its missing columns as zeros, exactly as the
 // reference's zero padding does.  dequantize is one grid-stride pass.
 //
+// Shards.  Under tensor parallelism a rank holds a slice of each split
+// leaf, but the wire's scale is the whole leaf's (one per tensor per
+// worker).  So the per-row mode's two passes are two C entries:
+// repro_quantize_amax runs pass (1) into the caller's amax slots, the
+// caller may reduce them (MAX over the model group), and
+// repro_quantize_from_amax runs pass (2) against that amax.
+// repro_quantize_ef is the per-tile mode.
+//
 // What bounds it: bytes.  quantize_ef needs x and r read once and q and r'
 // written once, 13 bytes per element with a residual; this first kernel
 // reads x and r twice (21 bytes).  dequantize reads 1 byte and writes 4.
@@ -217,26 +225,37 @@ int row_blocks(long long m) {
                                                : kMaxBlocksPerRow);
 }
 
-template <int QT>
-cudaError_t quantize(const float* x, const float* r, void* q, float* nr,
-                     float* s, float* amax, long long k, long long m,
-                     long long tile, cudaStream_t st) {
-  using T = typename Target<QT>::T;
-  if (tile > 0) {
-    const long long nt = (m + tile - 1) / tile;
-    dim3 grid(static_cast<unsigned>(nt), static_cast<unsigned>(k));
-    tile_quantize_kernel<QT><<<grid, kThreads, 0, st>>>(
-        x, r, static_cast<T*>(q), nr, s, m, static_cast<int>(tile));
-    return cudaGetLastError();
-  }
+// pass (1) of the per-row mode: amax[row] = max |e| over the row
+cudaError_t row_amax(const float* x, const float* r, float* amax,
+                     long long k, long long m, cudaStream_t st) {
   cudaError_t err = cudaMemsetAsync(amax, 0, k * sizeof(float), st);
   if (err != cudaSuccess) return err;
   dim3 grid(row_blocks(m), static_cast<unsigned>(k));
   row_amax_kernel<<<grid, kThreads, 0, st>>>(x, r, amax, m);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// pass (2): scale, q and r' of each row against amax[row]
+template <int QT>
+cudaError_t quantize_from_amax(const float* x, const float* r, void* q,
+                               float* nr, float* s, const float* amax,
+                               long long k, long long m, cudaStream_t st) {
+  dim3 grid(row_blocks(m), static_cast<unsigned>(k));
   row_quantize_kernel<QT><<<grid, kThreads, 0, st>>>(
-      x, r, static_cast<T*>(q), nr, s, amax, m);
+      x, r, static_cast<typename Target<QT>::T*>(q), nr, s, amax, m);
+  return cudaGetLastError();
+}
+
+template <int QT>
+cudaError_t quantize_tiles(const float* x, const float* r, void* q,
+                           float* nr, float* s, long long k, long long m,
+                           long long tile, cudaStream_t st) {
+  if (tile <= 0) return cudaErrorInvalidValue;
+  const long long nt = (m + tile - 1) / tile;
+  dim3 grid(static_cast<unsigned>(nt), static_cast<unsigned>(k));
+  tile_quantize_kernel<QT><<<grid, kThreads, 0, st>>>(
+      x, r, static_cast<typename Target<QT>::T*>(q), nr, s, m,
+      static_cast<int>(tile));
   return cudaGetLastError();
 }
 
@@ -259,25 +278,53 @@ const char* repro_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// x, r: (k, m) f32 (r may be null: no residual); q: (k, m) narrow; nr:
-// (k, m) f32; s: (k,) for tile == 0, else (k, ceil(m / tile)); amax: k
-// floats of scratch (tile == 0 only).
+// The per-tile mode.  x, r: (k, m) f32 (r may be null: no residual); q:
+// (k, m) narrow; nr: (k, m) f32; s: (k, ceil(m / tile)); tile > 0.
 int repro_quantize_ef(int qdtype, const void* x, const void* r, void* q,
-                      void* nr, void* s, void* amax, long long k,
-                      long long m, long long tile, void* stream) {
+                      void* nr, void* s, long long k, long long m,
+                      long long tile, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   const float* rf = static_cast<const float*>(r);
   float* nrf = static_cast<float*>(nr);
   float* sf = static_cast<float*>(s);
-  float* af = static_cast<float*>(amax);
   cudaError_t err = cudaErrorInvalidValue;
   if (qdtype == 0)
-    err = quantize<0>(xf, rf, q, nrf, sf, af, k, m, tile, st);
+    err = quantize_tiles<0>(xf, rf, q, nrf, sf, k, m, tile, st);
   else if (qdtype == 1)
-    err = quantize<1>(xf, rf, q, nrf, sf, af, k, m, tile, st);
+    err = quantize_tiles<1>(xf, rf, q, nrf, sf, k, m, tile, st);
   else if (qdtype == 2)
-    err = quantize<2>(xf, rf, q, nrf, sf, af, k, m, tile, st);
+    err = quantize_tiles<2>(xf, rf, q, nrf, sf, k, m, tile, st);
+  return static_cast<int>(err);
+}
+
+// The per-row mode, pass (1): amax (k floats) = each row's max |x + r| (r
+// may be null).
+int repro_quantize_amax(const void* x, const void* r, void* amax,
+                        long long k, long long m, void* stream) {
+  return static_cast<int>(row_amax(
+      static_cast<const float*>(x), static_cast<const float*>(r),
+      static_cast<float*>(amax), k, m, static_cast<cudaStream_t>(stream)));
+}
+
+// Pass (2), against the caller's amax (k floats): q (k, m) narrow, nr
+// (k, m) f32 and s (k,), each row coded against its amax.
+int repro_quantize_from_amax(int qdtype, const void* x, const void* r,
+                             void* q, void* nr, void* s, const void* amax,
+                             long long k, long long m, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const float* rf = static_cast<const float*>(r);
+  float* nrf = static_cast<float*>(nr);
+  float* sf = static_cast<float*>(s);
+  const float* af = static_cast<const float*>(amax);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (qdtype == 0)
+    err = quantize_from_amax<0>(xf, rf, q, nrf, sf, af, k, m, st);
+  else if (qdtype == 1)
+    err = quantize_from_amax<1>(xf, rf, q, nrf, sf, af, k, m, st);
+  else if (qdtype == 2)
+    err = quantize_from_amax<2>(xf, rf, q, nrf, sf, af, k, m, st);
   return static_cast<int>(err);
 }
 

@@ -11,6 +11,14 @@ for CPU tensors.  They mirror the JAX package's
   padding: it treats a ragged last tile's missing columns as zeros);
 * ``dequantize(q, scale, tile=)`` — the inverse.
 
+Per-row scales take two C entries, one a pass: ``repro_quantize_amax``
+writes the (K,) per-row amax and ``repro_quantize_from_amax`` codes each
+row against it.  ``quantize_ef(..., amax_reduce=f)`` applies ``f`` to
+the amax between them: under tensor parallelism, the MAX over the model
+group, so each rank's shard is coded against the whole leaf's scale.
+The plain version takes the same hook.  Per-tile scales are one entry,
+``repro_quantize_ef``.
+
 Scalar (0-d) leaves run as a (1, 1) view and 0-size leaves take the plain
 version without a launch, here in the wrapper and not in the kernel, as
 in the JAX package.  The kernel takes float32 rows (other float inputs
@@ -28,8 +36,10 @@ from repro_torch.kernels.quantize.ref import (dequantize_plain,
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
-    "repro_quantize_ef": (_I,) + (_P,) * 6 + (_L,) * 3 + (_P,),
+    "repro_quantize_ef": (_I,) + (_P,) * 5 + (_L,) * 3 + (_P,),
     "repro_dequantize": (_I,) + (_P,) * 3 + (_L,) * 3 + (_P,),
+    "repro_quantize_amax": (_P,) * 3 + (_L,) * 2 + (_P,),
+    "repro_quantize_from_amax": (_I,) + (_P,) * 6 + (_L,) * 2 + (_P,),
 }
 _QDTYPES = {torch.int8: 0, torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
 _MAX_ROWS = 65535
@@ -57,17 +67,22 @@ def _check_tile(tile: int) -> None:
 
 
 def quantize_ef(x: torch.Tensor, residual=None, *, dtype: str = "int8",
-                tile: int = 0):
+                tile: int = 0, amax_reduce=None):
     """Per-row (``tile=0``) or per-tile symmetric quantize of ``x`` (K,
     ...) with the error-feedback ``residual`` (or None).  Returns ``(q,
-    new_residual, scale)``; see the module docstring for the shapes."""
+    new_residual, scale)``; see the module docstring for the shapes and
+    ``amax_reduce``."""
     _check_tile(tile)
+    if amax_reduce is not None and tile:
+        raise ValueError("amax_reduce applies to per-row scales (tile=0)")
     if x.device.type == "cpu":
-        return quantize_ef_plain(x, residual, dtype=dtype, tile=tile)
+        return quantize_ef_plain(x, residual, dtype=dtype, tile=tile,
+                                 amax_reduce=amax_reduce)
     if x.dim() == 0:
         q, nr, s = quantize_ef(
             x.reshape(1, 1), None if residual is None
-            else residual.reshape(1, 1), dtype=dtype, tile=tile)
+            else residual.reshape(1, 1), dtype=dtype, tile=tile,
+            amax_reduce=amax_reduce)
         return q.reshape(()), nr.reshape(()), s.reshape(())
     if x.numel() == 0:
         return quantize_ef_plain(x, residual, dtype=dtype, tile=tile)
@@ -85,13 +100,28 @@ def quantize_ef(x: torch.Tensor, residual=None, *, dtype: str = "int8",
     nr = torch.empty((k, m), dtype=torch.float32, device=x.device)
     nt = -(-m // tile) if tile else 1
     s = torch.empty((k, nt), dtype=torch.float32, device=x.device)
-    amax = torch.empty(k, dtype=torch.float32, device=x.device)
     lib = _lib()
+    rp = 0 if rf is None else rf.data_ptr()
     with torch.cuda.device(x.device):
-        rc = lib.repro_quantize_ef(
-            _QDTYPES[qt], xf.data_ptr(), 0 if rf is None else rf.data_ptr(),
-            q.data_ptr(), nr.data_ptr(), s.data_ptr(), amax.data_ptr(), k, m,
-            tile, torch.cuda.current_stream(x.device).cuda_stream)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if tile:
+            rc = lib.repro_quantize_ef(
+                _QDTYPES[qt], xf.data_ptr(), rp, q.data_ptr(), nr.data_ptr(),
+                s.data_ptr(), k, m, tile, stream)
+        else:
+            amax = torch.empty(k, dtype=torch.float32, device=x.device)
+            rc = lib.repro_quantize_amax(xf.data_ptr(), rp, amax.data_ptr(),
+                                         k, m, stream)
+            _build.check(rc, lib, "quantize_ef")
+            if amax_reduce is not None:
+                amax = amax_reduce(amax).float().contiguous()
+                if amax.shape != (k,) or amax.device != x.device:
+                    raise ValueError(f"amax_reduce must return ({k},) on "
+                                     f"{x.device}, got {tuple(amax.shape)} "
+                                     f"on {amax.device}")
+            rc = lib.repro_quantize_from_amax(
+                _QDTYPES[qt], xf.data_ptr(), rp, q.data_ptr(), nr.data_ptr(),
+                s.data_ptr(), amax.data_ptr(), k, m, stream)
     _build.check(rc, lib, "quantize_ef")
     _build.launches["quantize_ef"] += 1
     if not tile:

@@ -78,12 +78,15 @@ def quantize_axis(x: torch.Tensor, axis: int = -1,
 
 
 def reference_quantize_ef(x: torch.Tensor, residual=None,
-                          dtype: str = "int8"):
+                          dtype: str = "int8", amax_reduce=None):
     """Per-row symmetric quantization with error feedback.  ``x``: (K, ...)
     — one row per worker; the scales reduce over every non-leading axis.
     Returns ``(q, new_residual, scale)`` with ``scale`` shaped ``(K, 1, ...,
     1)``.  Scalar (0-d) leaves quantize elementwise; 0-size leaves pass
-    through with unit scales."""
+    through with unit scales.  ``amax_reduce`` (a function of the per-row
+    amax tensor, e.g. the MAX over a model group whose ranks each hold a
+    shard of the row) replaces the amax before the scale is formed, so
+    every shard codes against the whole row's scale."""
     e = x.float()
     if residual is not None:
         e = e + residual.float()
@@ -93,6 +96,8 @@ def reference_quantize_ef(x: torch.Tensor, residual=None,
                            dtype=torch.float32, device=e.device)
         return e.to(target_dtype(dtype)), e, scale
     amax = e.abs().amax(dim=axes, keepdim=True) if axes else e.abs()
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
     scale = amax.clamp(min=SCALE_EPS) / _qmax(dtype, e.device)
     q = _narrow(e, scale, dtype)
     return q, e - q.float() * scale, scale
@@ -120,18 +125,22 @@ def _untile(t: torch.Tensor, shape) -> torch.Tensor:
 
 
 def quantize_ef_plain(x: torch.Tensor, residual=None, *, dtype: str = "int8",
-                      tile: int = 0):
+                      tile: int = 0, amax_reduce=None):
     """The ``quantize_ef`` wrapper's semantics in plain torch.  ``tile=0``
-    is :func:`reference_quantize_ef`; ``tile > 0`` gives one scale per
-    ``tile`` elements of each flattened row, shaped ``(K, padded_M //
-    tile)`` (the padding is zeros, which add nothing to an amax)."""
+    is :func:`reference_quantize_ef` (``amax_reduce`` its hook);
+    ``tile > 0`` gives one scale per ``tile`` elements of each flattened
+    row, shaped ``(K, padded_M // tile)`` (the padding is zeros, which
+    add nothing to an amax)."""
+    if amax_reduce is not None and tile:
+        raise ValueError("amax_reduce applies to per-row scales (tile=0)")
     if x.dim() == 0:
         q, nr, s = quantize_ef_plain(
             x.reshape(1, 1), None if residual is None
-            else residual.reshape(1, 1), dtype=dtype, tile=tile)
+            else residual.reshape(1, 1), dtype=dtype, tile=tile,
+            amax_reduce=amax_reduce)
         return q.reshape(()), nr.reshape(()), s.reshape(())
     if not tile or x.numel() == 0:
-        return reference_quantize_ef(x, residual, dtype)
+        return reference_quantize_ef(x, residual, dtype, amax_reduce)
     e = x.float()
     if residual is not None:
         e = e + residual.float()

@@ -21,6 +21,14 @@ Every collective of the port goes through the wrappers here:
   world, for a data view of the whole mesh, whose all-reduces cross
   pods): the mean of the data ranks' tensors (DDP's gradient
   all-reduce);
+* ``all_reduce_model(t, mesh, op)`` — the SUM or MAX of ``t`` over the
+  mesh's model group (the ranks of one pod and data index: tensor
+  parallelism's all-reduces, ``models/tensor_parallel.py``);
+* ``all_gather_model(t, dim, mesh)`` — the model ranks' tensors joined
+  along ``dim``, in model-index order (Muon's whole matrix, a gather of
+  shards into the one-process layout);
+* ``gather_model(t, dim, mesh)`` — the same join at model index 0 only
+  (a run checkpoint's shards, which one rank writes);
 * ``barrier(mesh)`` — every rank of the world.
 
 Each call appends a ``CollectiveRecord``: the op kind (the reference's
@@ -70,7 +78,7 @@ MAX_PIECES = 32
 class CollectiveRecord:
     kind: str            # all-gather | all-reduce | broadcast | send |
     #                      recv | gather
-    axis: str            # the mesh axis: "pod" | "data"
+    axis: str            # the mesh axis: "pod" | "data" | "model"
     nbytes: int          # bytes this rank sends (its operand)
     cross_pod: bool      # the group spans more than one pod
     host_s: float        # staging a CUDA tensor through the host (gloo)
@@ -143,8 +151,9 @@ def _log(kind, axis, nbytes, cross, host_s, coll_s) -> None:
 
 
 def _pod_rank(mesh, pod: int) -> int:
-    """The global rank of ``pod``'s rank at this rank's data index."""
-    return pod * mesh.data + mesh.data_index
+    """The global rank of ``pod``'s rank at this rank's data and model
+    index."""
+    return mesh.rank_of(pod, mesh.data_index, mesh.model_index)
 
 
 def _pieces(x: torch.Tensor):
@@ -195,7 +204,7 @@ def all_gather_rows(t: torch.Tensor, mesh) -> torch.Tensor:
             w.wait()
         # group rank i holds global rank pod_ranks[i]: order by its pod
         order = sorted(range(mesh.pod),
-                       key=lambda i: mesh.pod_ranks[i] // mesh.data)
+                       key=lambda i: mesh.pod_of(mesh.pod_ranks[i]))
         return [parts[i] for i in order]
 
     return _run(mesh, t, "all-gather", "pod", True, call)
@@ -306,7 +315,7 @@ def gather_to_lead(t: torch.Tensor, mesh) -> Optional[List[torch.Tensor]]:
     if lead:
         # group rank i holds global rank pod_ranks[i]: order by its pod
         order = sorted(range(mesh.pod),
-                       key=lambda i: mesh.pod_ranks[i] // mesh.data)
+                       key=lambda i: mesh.pod_of(mesh.pod_ranks[i]))
         out = [parts[i].cpu() for i in order]
     t3 = time.perf_counter()
     _log("gather", "pod", t.numel() * t.element_size(), True,
@@ -317,7 +326,7 @@ def gather_to_lead(t: torch.Tensor, mesh) -> Optional[List[torch.Tensor]]:
 def barrier(mesh) -> None:
     """Every rank of the world (unlogged: it moves no payload)."""
     import torch.distributed as dist
-    if dist.is_initialized() and mesh.pod * mesh.data > 1:
+    if dist.is_initialized() and mesh.pod * mesh.data * mesh.model > 1:
         dist.barrier()
 
 
@@ -338,3 +347,66 @@ def all_reduce_mean(t: torch.Tensor, mesh) -> torch.Tensor:
         return [x.div_(mesh.data)]
 
     return _run(mesh, t, "all-reduce", "data", mesh.spans_pods, call)
+
+
+def all_reduce_model(t: torch.Tensor, mesh, op: str = "sum") -> torch.Tensor:
+    """The SUM (``op`` "sum") or MAX ("max") of ``t`` over the mesh's model
+    group, the same tensor on every model rank (a new one: ``t`` is not
+    written).  Logged on the ``model`` axis, not crossing pods.  The
+    identity on one model rank."""
+    import torch.distributed as dist
+    if mesh.model == 1:
+        return t
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+
+    def call(x):
+        x = x.clone(memory_format=torch.contiguous_format) if x is t else x
+        flat, bounds = _pieces(x)
+        for w in [dist.all_reduce(flat[a:b], op=red, group=mesh.model_group,
+                                  async_op=True) for a, b in bounds]:
+            w.wait()
+        return [x]
+
+    return _run(mesh, t, "all-reduce", "model", False, call)
+
+
+def all_gather_model(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """Every model rank's ``t`` (equal shapes) joined along ``dim``, in
+    model-index order (group rank = model index: the group's ranks
+    ascend with it).  Logged on the ``model`` axis.  The identity on one
+    model rank."""
+    import torch.distributed as dist
+    if mesh.model == 1:
+        return t
+
+    def call(x):
+        x = x.contiguous()
+        parts = [torch.empty(x.shape, dtype=x.dtype, device=x.device,
+                             pin_memory=x.is_pinned())
+                 for _ in range(mesh.model)]
+        dist.all_gather(parts, x, group=mesh.model_group)
+        return [torch.cat(parts, dim=dim)]
+
+    return _run(mesh, t, "all-gather", "model", False, call)
+
+
+def gather_model(t: torch.Tensor, dim: int, mesh) -> Optional[torch.Tensor]:
+    """``all_gather_model``'s join at the model group's first rank (model
+    index 0) alone; None at the others.  Logged on the ``model`` axis.
+    ``t`` itself on one model rank."""
+    import torch.distributed as dist
+    if mesh.model == 1:
+        return t
+    lead = mesh.model_index == 0
+
+    def call(x):
+        x = x.contiguous()
+        parts = ([torch.empty(x.shape, dtype=x.dtype, device=x.device,
+                              pin_memory=x.is_pinned())
+                  for _ in range(mesh.model)] if lead else None)
+        dist.gather(x, parts, group=mesh.model_group, dst=mesh.rank_of(
+            mesh.pod_index, mesh.data_index, 0))
+        return [torch.cat(parts, dim=dim)] if lead else [t]
+
+    out = _run(mesh, t, "gather", "model", False, call)
+    return out if lead else None

@@ -12,12 +12,18 @@ DiLoCo worker boundary.  The reference's TPU pod is (16, 16); here the
 tensor-parallel axis would put its per-layer collectives on InfiniBand
 between hosts.
 
-The process mesh.  ``init_process_mesh(pod, data)`` makes this process
-one rank of a (pod, data) grid of ``torch.distributed`` ranks, pod-major
-(rank = pod_index * data + data_index), with one group per pod slice
-(the ranks of one data index across pods: the outer step's all-gather)
-and one per data slice (the ranks of one pod: DDP's gradient all-reduce).
-Every rank creates every group, in the same order.  Its
+The process mesh.  ``init_process_mesh(pod, data, model)`` makes this
+process one rank of a (pod, data, model) grid of ``torch.distributed``
+ranks, pod-major (rank = (pod_index * data + data_index) * model +
+model_index), with one group per pod slice (the ranks of one data and
+model index across pods: the outer step's all-gather), one per data
+slice (the ranks of one pod and model index: DDP's gradient all-reduce)
+and one per model slice (the ranks of one pod and data index: tensor
+parallelism's all-reduces, ``models/tensor_parallel.py``).  Every rank
+creates every group, in the same order.  With ``model`` > 1 each rank
+of a model group holds its shards of the one worker (``cfg``'s layout,
+``models.sharding.tp_layout``); ``model`` 1 is the (pod, data) mesh
+as it was.  Its
 ``replicate_fn`` is the transport's replicate hop across pods
 (``core/transport.py``: the all-gather of every worker's encoded row; a
 quorum round's contributors' rows only, one broadcast each) and carries
@@ -25,9 +31,9 @@ the other exchanges a run across ranks makes (``PodReplicate``: gossip's
 point-to-point hop, the fleet's loss row, the quorum masks' check, a
 checkpoint's gather to rank 0).  ``data_view`` sees the same ranks as
 one pod's data axis (DDP over every rank: plain DDP on a multi-pod mesh,
-the hybrid pipeline's mid and SFT stages).  ``run_ranks`` starts the
-ranks with the ``spawn`` start method (CUDA does not survive
-``fork``).
+the hybrid pipeline's mid and SFT stages), its model axis kept.
+``run_ranks`` starts the ranks with the ``spawn`` start method (CUDA
+does not survive ``fork``).
 
 Hardware constants: the H100 SXM data sheet's dense bf16 tensor-core rate,
 HBM3 rate and capacity, and NVLink 4's rate per direction (``ICI_BW``
@@ -130,6 +136,12 @@ class PodReplicate:
     def grad_reduce(self) -> Optional[Callable]:
         return self.mesh.grad_reduce if self.mesh.data > 1 else None
 
+    @property
+    def tp(self) -> Optional["ProcessMesh"]:
+        """The mesh when its model axis splits the worker (``model`` > 1),
+        else None: what ``models.tensor_parallel.use`` takes."""
+        return self.mesh if self.mesh.model > 1 else None
+
     def local_batch(self, batch):
         return self.mesh.local_batch(batch)
 
@@ -187,29 +199,74 @@ class PodReplicate:
 
 @dataclasses.dataclass
 class ProcessMesh:
-    """This process's place in a (pod, data) grid of ranks and its two
-    groups (``init_process_mesh``)."""
+    """This process's place in a (pod, data, model) grid of ranks and its
+    groups (``init_process_mesh``); ``layout`` (``model`` > 1) maps each
+    parameter leaf to the dim its shards split (``models.sharding``)."""
     pod: int
     data: int
     rank: int
     backend: str
     device: torch.device
-    pod_group: Any = None           # same data index, every pod
-    data_group: Any = None          # same pod, every data index
+    pod_group: Any = None           # same data and model index, every pod
+    data_group: Any = None          # same pod and model index, every data
     pod_ranks: Tuple[int, ...] = ()  # global rank of each pod-group rank
     spans_pods: bool = False        # the data group holds ranks of >1 pod
+    model: int = 1
+    model_group: Any = None         # same pod and data index, every model
+    layout: Optional[Dict[str, Optional[int]]] = None
+    # same model index, every pod and data index (``data_view``'s group)
+    flat_data_group: Any = None
 
     @property
     def pod_index(self) -> int:
-        return self.rank // self.data
+        return self.pod_of(self.rank)
 
     @property
     def data_index(self) -> int:
-        return self.rank % self.data
+        return (self.rank // self.model) % self.data
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model
+
+    def pod_of(self, rank: int) -> int:
+        """The pod of global rank ``rank``."""
+        return rank // (self.data * self.model)
+
+    def rank_of(self, pod: int, data: int, model: int) -> int:
+        """The global rank at (pod, data, model)."""
+        return (pod * self.data + data) * self.model + model
 
     @property
     def replicate_fn(self) -> PodReplicate:
         return PodReplicate(self)
+
+    # the model axis, as the layers (``models.tensor_parallel``), the
+    # optimizer (``axis=``) and the wire's codec (``axis=``) take it
+    def split_dim(self, path: str) -> Optional[int]:
+        """The dim (from the end) ``layout`` splits leaf ``path`` on over
+        the model axis (any path ending in a leaf's), or None: whole."""
+        from repro_torch.models.sharding import split_of
+        return None if self.layout is None else split_of(path, self.layout)
+
+    def model_all_reduce(self, t: torch.Tensor, op: str = "sum"
+                         ) -> torch.Tensor:
+        """``t``'s SUM or MAX over the model group."""
+        return collectives.all_reduce_model(t, self, op)
+
+    def model_all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The model group's tensors joined along ``dim``."""
+        return collectives.all_gather_model(t, dim, self)
+
+    def model_gather(self, t: torch.Tensor, dim: int
+                     ) -> Optional[torch.Tensor]:
+        """``model_all_gather``'s join at model index 0 only (None at the
+        other model ranks)."""
+        return collectives.gather_model(t, dim, self)
+
+    def model_part(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's contiguous piece of a whole ``t`` along ``dim``."""
+        return t.chunk(self.model, dim=dim)[self.model_index]
 
     def grad_reduce(self, grads: Dict[str, torch.Tensor]
                     ) -> Dict[str, torch.Tensor]:
@@ -235,18 +292,20 @@ class ProcessMesh:
         return out
 
     def data_view(self) -> "ProcessMesh":
-        """The same ranks as one pod's data axis: (pod 1, data P x D),
-        DDP over every rank of the world (the hybrid pipeline's mid and
-        SFT stages after its DiLoCo base stage on the pods).  Rank order
-        is kept, so data index = rank.  Its data group spans the pods, so
-        its all-reduces are logged as crossing them."""
+        """The same ranks as one pod's data axis: (pod 1, data P x D,
+        model M), DDP over every rank of one model index (the hybrid
+        pipeline's mid and SFT stages after its DiLoCo base stage on the
+        pods).  Rank order is kept, so data index = rank // M, and the
+        model axis and its groups are this mesh's.  Its data group spans
+        the pods, so its all-reduces are logged as crossing them."""
         import torch.distributed as dist
         if self.pod * self.data == 1:
             return self
-        return dataclasses.replace(self, pod=1, data=self.pod * self.data,
-                                   pod_group=None, pod_ranks=(),
-                                   data_group=dist.group.WORLD,
-                                   spans_pods=self.pod > 1)
+        return dataclasses.replace(
+            self, pod=1, data=self.pod * self.data, pod_group=None,
+            pod_ranks=(), spans_pods=self.pod > 1,
+            data_group=(dist.group.WORLD if self.model == 1
+                        else self.flat_data_group))
 
     def close(self) -> None:
         import torch.distributed as dist
@@ -282,28 +341,41 @@ def _device_for(device, backend: str, rank: int, world: int) -> torch.device:
     return dev
 
 
-def init_process_mesh(pod: int, data: int = 1, *, backend: str = "nccl",
-                      device="cuda", rank: Optional[int] = None,
+def init_process_mesh(pod: int, data: int = 1, model: int = 1, *,
+                      backend: str = "nccl", device="cuda",
+                      rank: Optional[int] = None,
                       world_size: Optional[int] = None,
                       init_method: Optional[str] = None,
-                      timeout_s: float = 600.0) -> ProcessMesh:
+                      timeout_s: float = 600.0, cfg=None) -> ProcessMesh:
     """Join (or start) the default process group as one rank of a (pod,
-    data) mesh and build its groups.  ``rank`` / ``world_size`` default to
-    ``$RANK`` / ``$WORLD_SIZE`` and ``init_method`` to ``env://`` (as under
-    ``torchrun``); ``timeout_s`` bounds every wait on another rank, so a
-    dead rank fails the others instead of hanging them."""
+    data, model) mesh and build its groups (on a default group already
+    joined, another mesh of the same ranks).  ``rank`` / ``world_size``
+    default to ``$RANK`` / ``$WORLD_SIZE`` and ``init_method`` to
+    ``env://`` (as under ``torchrun``); ``timeout_s`` bounds every wait on
+    another rank, so a dead rank fails the others instead of hanging
+    them.  ``model`` > 1 needs the model config ``cfg``, whose layout
+    (``models.sharding.tp_layout``) the ranks split; a family the port
+    does not run tensor-parallel is refused here, by name."""
     import torch.distributed as dist
-    if pod < 1 or data < 1:
-        raise ValueError(f"mesh axes must be >= 1, got pod {pod} data {data}")
+    if pod < 1 or data < 1 or model < 1:
+        raise ValueError(f"mesh axes must be >= 1, got pod {pod} data "
+                         f"{data} model {model}")
+    layout = None
+    if model > 1:
+        if cfg is None:
+            raise ValueError("a mesh with model > 1 needs the model config "
+                             "(cfg=): its layout says what each rank holds")
+        from repro_torch.models.sharding import tp_layout
+        layout = tp_layout(cfg, model)
     if not dist.is_initialized():
         rank = int(os.environ["RANK"]) if rank is None else rank
         world = (int(os.environ["WORLD_SIZE"]) if world_size is None
                  else world_size)
     else:
         rank, world = dist.get_rank(), dist.get_world_size()
-    if world != pod * data:
+    if world != pod * data * model:
         raise ValueError(f"{world} ranks cannot form a (pod {pod}, data "
-                         f"{data}) mesh")
+                         f"{data}, model {model}) mesh")
     dev = _device_for(device, backend, rank, world)
     if not dist.is_initialized():
         dist.init_process_group(
@@ -311,25 +383,42 @@ def init_process_mesh(pod: int, data: int = 1, *, backend: str = "nccl",
             world_size=world,
             timeout=datetime.timedelta(seconds=timeout_s))
     mesh = ProcessMesh(pod=pod, data=data, rank=rank,
-                       backend=dist.get_backend(), device=dev)
+                       backend=dist.get_backend(), device=dev, model=model,
+                       layout=layout)
+    at = mesh.rank_of
     # every rank makes every group, in the same order
     if pod > 1:
         for d in range(data):
-            g = dist.new_group([p * data + d for p in range(pod)])
-            if d == mesh.data_index:
-                mesh.pod_group = g
-                mesh.pod_ranks = tuple(dist.get_global_rank(g, i)
-                                       for i in range(pod))
+            for m in range(model):
+                g = dist.new_group([at(p, d, m) for p in range(pod)])
+                if (d, m) == (mesh.data_index, mesh.model_index):
+                    mesh.pod_group = g
+                    mesh.pod_ranks = tuple(dist.get_global_rank(g, i)
+                                           for i in range(pod))
     if data > 1:
         for p in range(pod):
-            g = dist.new_group([p * data + d for d in range(data)])
-            if p == mesh.pod_index:
-                mesh.data_group = g
+            for m in range(model):
+                g = dist.new_group([at(p, d, m) for d in range(data)])
+                if (p, m) == (mesh.pod_index, mesh.model_index):
+                    mesh.data_group = g
+    if model > 1:
+        for p in range(pod):
+            for d in range(data):
+                g = dist.new_group([at(p, d, m) for m in range(model)])
+                if (p, d) == (mesh.pod_index, mesh.data_index):
+                    mesh.model_group = g
+        if pod * data > 1:
+            for m in range(model):
+                g = dist.new_group([at(p, d, m) for p in range(pod)
+                                    for d in range(data)])
+                if m == mesh.model_index:
+                    mesh.flat_data_group = g
     if mesh.backend == "nccl":
         # NCCL makes a group's communicator at its first collective, which
         # every member must enter; point-to-point sends between some of
         # them (gossip) may come first, so make them now
-        for g in (mesh.pod_group, mesh.data_group):
+        for g in (mesh.pod_group, mesh.data_group, mesh.model_group,
+                  mesh.flat_data_group):
             if g is not None:
                 dist.all_reduce(torch.zeros(1, device=dev), group=g)
     return mesh

@@ -77,6 +77,18 @@ evaluates, prints and writes ``--out-dir``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --method diloco \
         --pods 2 --backend gloo --steps 20 [--data-procs 2] [--device cpu]
+
+``--model-procs M`` adds a model axis: each worker (and each DDP replica)
+is split over M ranks, tensor-parallel (``models/tensor_parallel.py``),
+P x D x M ranks in all.  It runs ``diloco``, ``ddp`` and ``hybrid`` on
+every wire, with checkpoints, on the dense decoder (``tiny`` or a dense
+``--arch``); the other methods, ``--adaptive-h``, ``--fault-schedule``,
+``--drift-aware`` and the other families are refused by name.  Each
+stage ends on the gathered one-process parameters, which rank 0
+evaluates.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --method diloco \
+        --pods 2 --model-procs 2 --backend gloo --steps 20 --device cpu
 """
 from __future__ import annotations
 
@@ -86,7 +98,7 @@ import functools
 import json
 import os
 import time
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 from repro_torch.configs import ALL_IDS, get_config, get_reduced
 from repro_torch.configs.base import (DiLoCoConfig, ModelConfig,
@@ -148,6 +160,7 @@ def run_stage(method: str, cfg: ModelConfig, params, stage_ds, *,
     from repro_torch.core import (DistTrainer, compressed_ddp_config,
                                   make_strategy)
     from repro_torch.models import lm_loss
+    from repro_torch.models.tensor_parallel import gather_params
     from repro_torch.models.transformer import unflatten
 
     def worker_data(step):
@@ -194,7 +207,9 @@ def run_stage(method: str, cfg: ModelConfig, params, stage_ds, *,
                               checkpoint_dir=checkpoint_dir,
                               checkpoint_every=checkpoint_every,
                               resume=resume)
-    return unflatten(state.global_params), hist
+    # on a model axis, the shards joined: the stage ends one-process
+    return unflatten(gather_params(state.global_params,
+                                   getattr(replicate_fn, "tp", None))), hist
 
 
 def comm_report(dcfg: DiLoCoConfig, method: str, n_params: int, steps: int,
@@ -311,7 +326,10 @@ def run_pipeline(method: str = "diloco", arch: str = "tiny",
                                       f"data has no {what}")
     lead = True
     if mesh is not None:
-        _check_mesh_run(mesh.pod, method, workers, grad_compress)
+        _check_mesh_run(mesh.pod, method, workers, grad_compress, mesh.model,
+                        _tp_refused(dict(adaptive_h=adaptive_h,
+                                         fault_schedule=fault_schedule,
+                                         drift_aware=drift_aware)))
         device, lead = mesh.device, mesh.rank == 0
         eval_after_each_stage = eval_after_each_stage and lead
     device = resolve_device(device)
@@ -454,29 +472,68 @@ def _pod_axis(method: str, grad_compress: str) -> bool:
     return not (method == "ddp" and grad_compress in ("", "none"))
 
 
+# the methods a model axis > 1 runs (hybrid: DiLoCo, then DDP)
+TP_METHODS = ("diloco", "ddp", "hybrid")
+
+
 def _check_mesh_run(pods: int, method: str, workers: int,
-                    grad_compress: str) -> None:
+                    grad_compress: str, model: int = 1,
+                    refused: Sequence[str] = ()) -> None:
     """What cannot run across processes: it is structural, and says so.
     A method on the pod axis (every one but plain DDP; ``hybrid``'s
-    DiLoCo base stage) runs one worker a pod."""
+    DiLoCo base stage) runs one worker a pod.  A model axis > 1 runs
+    ``TP_METHODS`` without compression; ``refused`` names the options
+    given that it does not hold (``--adaptive-h``, ...)."""
     if _pod_axis(method, grad_compress) and workers != pods:
         what = ("compressed ddp" if method == "ddp" else method)
         raise ValueError(f"{what} across processes runs one worker a pod: "
                          f"workers={workers} on {pods} pods")
+    if model == 1:
+        return
+    what = list(refused)
+    if method not in TP_METHODS:
+        what.insert(0, f"--method {method}")
+    elif grad_compress not in ("", "none"):
+        what.insert(0, "compressed ddp (--grad-compress)")
+    if what:
+        raise NotImplementedError(
+            f"{', '.join(what)} under --model-procs {model}: tensor "
+            f"parallelism runs {', '.join(TP_METHODS)} on the dense decoder; "
+            f"the rest waits for ROADMAP §1's item 'tensor parallelism for "
+            f"the other strategies'")
+
+
+def _tp_refused(kw: Dict) -> List[str]:
+    """The options of a ``run_pipeline`` call a model axis > 1 refuses."""
+    return [flag for flag, on in (
+        ("--adaptive-h", kw.get("adaptive_h")),
+        ("--fault-schedule", kw.get("fault_schedule")),
+        ("--drift-aware", kw.get("drift_aware"))) if on]
+
+
+def _pipeline_cfg(kw: Dict) -> ModelConfig:
+    """The model ``run_pipeline(**kw)`` builds (its layout is what a model
+    axis splits)."""
+    vocab = build_pipeline(seq_len=kw.get("seq_len", 128),
+                           seed=kw.get("seed", 0))[1].vocab_size
+    return make_model(kw.get("arch", "tiny"), kw.get("reduced", True), vocab)
 
 
 def _cli_rank(rank: int, world: int, init_method: str, pods: int,
-              data: int, backend: str, kw: Dict, result_path: str) -> None:
-    """One rank of the CLI's run: the mesh, the pipeline; rank 0 writes
-    its metrics to ``result_path``."""
+              data: int, model: int, backend: str, kw: Dict,
+              result_path: str, cfg: Optional[ModelConfig]) -> None:
+    """One rank of the CLI's run: the mesh (``cfg``: the model a model
+    axis splits), the pipeline; rank 0 writes its metrics to
+    ``result_path``."""
     import torch
 
     from repro_torch.launch.mesh import init_process_mesh
     if kw["device"] == "cpu":
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    mesh = init_process_mesh(pods, data, backend=backend,
+    mesh = init_process_mesh(pods, data, model, backend=backend,
                              device=kw["device"], rank=rank,
-                             world_size=world, init_method=init_method)
+                             world_size=world, init_method=init_method,
+                             cfg=cfg)
     try:
         res = run_pipeline(**kw, mesh=mesh)
         if rank == 0:
@@ -486,20 +543,26 @@ def _cli_rank(rank: int, world: int, init_method: str, pods: int,
         mesh.close()
 
 
-def run_ranks_pipeline(pods: int, data: int, backend: str, **kw) -> Dict:
-    """``run_pipeline(**kw)`` as ``pods`` x ``data`` ranks: under
-    ``torchrun`` this process is one of them; otherwise the ranks are
-    started here with ``spawn``, after the kernels are built once (when
-    the device is a card).  Returns rank 0's metrics."""
+def run_ranks_pipeline(pods: int, data: int, backend: str,
+                       model: int = 1, **kw) -> Dict:
+    """``run_pipeline(**kw)`` as ``pods`` x ``data`` x ``model`` ranks:
+    under ``torchrun`` this process is one of them; otherwise the ranks
+    are started here with ``spawn``, after the kernels are built once
+    (when the device is a card).  Returns rank 0's metrics."""
     import tempfile
 
     from repro_torch.launch.mesh import init_process_mesh, run_ranks
-    world = pods * data
+    world = pods * data * model
     _check_mesh_run(pods, kw.get("method", "diloco"), kw.get("workers", 4),
-                    kw.get("grad_compress", "none"))
+                    kw.get("grad_compress", "none"), model, _tp_refused(kw))
+    cfg = None
+    if model > 1:
+        from repro_torch.models.sharding import require_tp_family
+        cfg = _pipeline_cfg(kw)
+        require_tp_family(cfg)
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        mesh = init_process_mesh(pods, data, backend=backend,
-                                 device=kw.get("device", "cuda"))
+        mesh = init_process_mesh(pods, data, model, backend=backend,
+                                 device=kw.get("device", "cuda"), cfg=cfg)
         try:
             return run_pipeline(**kw, mesh=mesh)
         finally:
@@ -521,7 +584,8 @@ def run_ranks_pipeline(pods: int, data: int, backend: str, **kw) -> Dict:
         _build.build()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "rank0.json")
-        run_ranks(_cli_rank, world, pods, data, backend, kw, path)
+        run_ranks(_cli_rank, world, pods, data, model, backend, kw, path,
+                  cfg)
         with open(path) as f:
             return json.load(f)
 
@@ -609,16 +673,19 @@ def main(argv=None) -> Dict:
                          "process")
     ap.add_argument("--data-procs", type=int, default=1,
                     help="ranks on the data axis: DDP inside each pod")
+    ap.add_argument("--model-procs", type=int, default=1,
+                    help="ranks on the model axis: each worker split "
+                         "tensor-parallel over this many processes")
     ap.add_argument("--backend", default="nccl", choices=["nccl", "gloo"],
                     help="collectives across processes; gloo for more "
                          "ranks than cards")
     args = ap.parse_args(argv)
-    ranks = args.pods * args.data_procs
+    ranks = args.pods * args.data_procs * args.model_procs
     workers = args.workers or (
         args.pods if ranks > 1 and _pod_axis(args.method, args.grad_compress)
         else 4)
     run = (functools.partial(run_ranks_pipeline, args.pods, args.data_procs,
-                             args.backend)
+                             args.backend, args.model_procs)
            if ranks > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1
            else run_pipeline)
     return run(method=args.method, arch=args.arch,

@@ -44,6 +44,15 @@ index ``idx``; the new K/V go to slot ``idx % cap`` IN PLACE
 the JAX package's ``_mask_bias`` gates (slot filled, causal, window).
 The cache keeps the kernel's (B, KV, cap, hd) layout, not the JAX
 package's (B, cap, KV, hd), so no step transposes it.
+
+Tensor parallelism (training): with this rank's heads of ``wq`` /
+``wk`` / ``wv`` (columns) and ``wo`` (rows), ``attention`` runs the
+flash kernels on the local ``num_heads / model`` query heads and
+``num_kv_heads / model`` KV heads (a contiguous run of KV groups, so GQA
+pairs each query head with its own KV head), RoPE per head as always,
+and sums ``wo``'s partial products over the model group
+(``models/tensor_parallel.py``).  The head counts come from the leaves'
+shapes, which are the config's on one rank.
 """
 from __future__ import annotations
 
@@ -56,6 +65,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import decode_attention as attn_kernels
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.quantize import quantize_axis, target_dtype
+from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.layers import (apply_rope, cast, rope_cos_sin,
                                        token_matmul, torch_dtype)
 
@@ -180,8 +190,9 @@ def project_qkv(p, x: torch.Tensor, cfg: ModelConfig, mm=torch.matmul,
         v = v + cast(p["bv"], dt)
     S, T = x.shape[:2]
     Sk = xkv.shape[1]
-    KV = cfg.num_kv_heads
-    return (q.reshape(S, T, KV, cfg.num_heads // KV, hd),
+    # this rank's heads (all of them on one rank)
+    H, KV = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
+    return (q.reshape(S, T, KV, H // KV, hd),
             k.reshape(S, Sk, KV, hd), v.reshape(S, Sk, KV, hd))
 
 
@@ -194,8 +205,12 @@ def attention(p, x: torch.Tensor, cfg: ModelConfig, *,
     positions: (S,) — the JAX package's ``attention``.  Returns y
     (B, S, d)."""
     B, S = x.shape[:2]
-    H, hd = cfg.num_heads, cfg.resolved_head_dim()
+    hd = cfg.resolved_head_dim()
+    split = p["wq"].shape[-1] != cfg.num_heads * hd
+    if split:
+        x = tp.copy_to_model(x)
     q, k, v = project_qkv(p, x, cfg, xkv=memory)
+    H = q.shape[2] * q.shape[3]
     q = q.reshape(B, S, H, hd)
     if memory is None:
         cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
@@ -205,7 +220,8 @@ def attention(p, x: torch.Tensor, cfg: ModelConfig, *,
                           causal=memory is None,
                           window=(window or None) if memory is None
                           else None)
-    return out.reshape(B, S, H * hd) @ cast(p["wo"], x.dtype)
+    out = out.reshape(B, S, H * hd) @ cast(p["wo"], x.dtype)
+    return tp.reduce_from_model(out) if split else out
 
 
 def encoder_attention(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

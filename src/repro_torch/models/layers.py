@@ -11,6 +11,13 @@ differentiable, with a backward kernel of their own.  LayerNorm
 (``norm="layernorm"``, the encoder-decoder's) is plain PyTorch in the
 reference's order, as the JAX package computes it in plain jnp: it has
 no TPU kernel to port.
+
+Under tensor parallelism (``models/tensor_parallel.py``, a mesh active)
+a layer whose leaves are this rank's shards (a shape off the config's)
+runs Megatron-style: the embedding vocab-parallel, the unembedding
+column-parallel over the vocab (the logits are this rank's vocab
+columns), the MLP column- then row-parallel and summed over the model
+group, and ``softmax_ce_sums(vocab_parallel=True)`` on split logits.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_residual
+from repro_torch.models import tensor_parallel as tp
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -100,9 +108,18 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 # Embedding / unembedding
 # ---------------------------------------------------------------------------
 
+def vocab_split(p, cfg: ModelConfig) -> bool:
+    """Whether the embedding table ``p["table"]`` is this rank's rows of
+    a vocab split over the model axis."""
+    return p["table"].shape[0] != cfg.padded_vocab()
+
+
 def embed(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return F.embedding(tokens.long(), p["table"]).to(
-        torch_dtype(cfg.compute_dtype))
+    if vocab_split(p, cfg):
+        rows = tp.vocab_embedding(p["table"], tokens)
+    else:
+        rows = F.embedding(tokens.long(), p["table"])
+    return rows.to(torch_dtype(cfg.compute_dtype))
 
 
 def token_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -119,7 +136,10 @@ def token_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def unembed(p, h: torch.Tensor, cfg: ModelConfig,
             mm=torch.matmul) -> torch.Tensor:
+    """Logits of ``h``; with a split vocab, this rank's vocab columns."""
     w = p["table"].t() if cfg.tie_embeddings else p["unembed"]
+    if vocab_split(p, cfg):
+        h = tp.copy_to_model(h)
     logits = mm(h, cast(w, h.dtype))
     if cfg.logit_soft_cap > 0:
         logits = cfg.logit_soft_cap * torch.tanh(logits / cfg.logit_soft_cap)
@@ -135,10 +155,15 @@ def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig,
     """SwiGLU, nemotron-4's squared ReLU (``relu2``) or gelu (the
     encoder-decoder's: ``jax.nn.gelu``'s default, the tanh
     approximation); the ungated two have no ``w_gate`` leaf.  ``mm`` is
-    the matrix product (``attention.serving_matmul`` when serving)."""
+    the matrix product (``attention.serving_matmul`` when serving).  With
+    this rank's columns of the hidden width (tensor parallelism), the
+    output is summed over the model group."""
     if cfg.mlp_activation not in ("swiglu", "relu2", "gelu"):
         raise NotImplementedError(f"mlp_activation {cfg.mlp_activation!r}: "
                                   f"the port has swiglu, relu2 and gelu")
+    split = p["w_up"].shape[-1] != cfg.d_ff
+    if split:
+        x = tp.copy_to_model(x)
     dt = x.dtype
     up = mm(x, cast(p["w_up"], dt))
     if cfg.mlp_activation == "swiglu":
@@ -147,7 +172,8 @@ def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig,
         h = F.gelu(up, approximate="tanh")
     else:
         h = torch.square(F.relu(up))
-    return mm(h, cast(p["w_down"], dt))
+    out = mm(h, cast(p["w_down"], dt))
+    return tp.reduce_from_model(out) if split else out
 
 
 # ---------------------------------------------------------------------------
@@ -155,16 +181,21 @@ def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def softmax_ce_sums(logits: torch.Tensor, labels: torch.Tensor, mask=None,
-                    z_loss: float = 0.0):
+                    z_loss: float = 0.0, vocab_parallel: bool = False):
     """(sum of CE over valid positions, count of valid positions), in f32;
-    labels == -1 (and mask == 0) are not valid."""
+    labels == -1 (and mask == 0) are not valid.  ``vocab_parallel``: the
+    logits are this rank's vocab columns (``tensor_parallel
+    .vocab_parallel_ce``)."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        labels.long().clamp(min=0)[..., None])[..., 0]
-    ce = lse - gold
-    if z_loss:
-        ce = ce + z_loss * lse.square()
+    if vocab_parallel:
+        ce = tp.vocab_parallel_ce(logits, labels, z_loss)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels.long().clamp(min=0)[..., None])[..., 0]
+        ce = lse - gold
+        if z_loss:
+            ce = ce + z_loss * lse.square()
     valid = labels >= 0
     if mask is not None:
         valid = valid & (mask > 0)
@@ -173,7 +204,9 @@ def softmax_ce_sums(logits: torch.Tensor, labels: torch.Tensor, mask=None,
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                          mask=None, z_loss: float = 0.0) -> torch.Tensor:
+                          mask=None, z_loss: float = 0.0,
+                          vocab_parallel: bool = False) -> torch.Tensor:
     """Mean CE over valid positions, in f32.  labels == -1 are ignored."""
-    total, count = softmax_ce_sums(logits, labels, mask, z_loss)
+    total, count = softmax_ce_sums(logits, labels, mask, z_loss,
+                                   vocab_parallel)
     return total / count.clamp(min=1.0)

@@ -13,14 +13,35 @@ The mesh is anything with a ``shape`` dict of axis -> size
 (``launch.mesh.MeshShape``).  The port's dry run resolves its abstract
 states with these rules.  The reference's ``logical_constraint`` (a
 ``with_sharding_constraint`` inside jit) has no meaning in eager PyTorch,
-which has no partitioner to hint: the port's models run whole on each
-rank and never call one, so there is none here.
+which has no partitioner to hint, so there is none here.
+
+The runtime layout over the ``model`` axis of a process mesh.  Eager
+PyTorch splits by hand what XLA's partitioner splits for the reference
+(``models/tensor_parallel.py``).  ``tp_layout(cfg, model)`` maps each
+parameter leaf to the dim it is split on over ``model`` ranks, or None
+(whole on every rank): the dim ``spec_for`` shards over ``model``, with
+one rule more, because the port's attention runs whole heads: a
+``heads`` / ``kv_heads`` dim splits only where ``num_heads`` and
+``num_kv_heads`` both divide by ``model`` (at ``model`` 4 ``spec_for``
+splits d20's (1280, 1280) ``wq``, 10 heads of 128, into 320-column
+pieces, which cut heads in half); otherwise attention's leaves stay
+whole, as the reference's ``attn_dp`` profile keeps them.  The qkv biases split with
+their heads (the reference's rules name no dim of theirs).  Dims are
+counted from the END of the leaf (-1 the last), so the same entry
+addresses a leaf, its optimizer moments and a (K, ...) stack of it.
+``shard`` cuts one-process flat parameters to a rank's shards,
+``gather`` joins the ranks' shards back, and ``split_of`` finds a
+leaf's entry from any path that ends in the leaf's (a checkpoint's
+``worker_params/0/layers/attn/wq``).
 """
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
 
 MeshAxes = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[MeshAxes, ...]
@@ -120,3 +141,115 @@ def local_shape(shape: Sequence[int], spec: Spec, mesh) -> Tuple[int, ...]:
             prod *= mesh.shape[a]
         out.append(int(n) // prod)
     return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# The runtime layout over a process mesh's ``model`` axis
+# ---------------------------------------------------------------------------
+
+Layout = Mapping[str, Optional[int]]
+
+# the families tensor parallelism splits by hand (ROADMAP §1 lists the rest)
+TP_FAMILIES = ("dense",)
+_HEAD_NAMES = ("heads", "kv_heads")
+_QKV_BIAS = {"attn/bq": "attn/wq", "attn/bk": "attn/wk",
+             "attn/bv": "attn/wv"}
+
+
+class _AxisShape:
+    def __init__(self, model: int):
+        self.shape = {"model": model}
+
+
+def require_tp_family(cfg) -> None:
+    """Refuse, by name, a config whose family the port does not yet run
+    tensor-parallel: MoE, SSM, hybrid, encoder-decoder and VLM wait for
+    a later slice (ROADMAP §1, "Tensor parallelism for the other
+    families")."""
+    what = ("MoE" if cfg.num_experts else "SSM" if cfg.arch_type == "ssm"
+            else "hybrid" if cfg.hybrid
+            else "encoder-decoder" if cfg.is_encoder_decoder
+            else "VLM" if cfg.num_image_tokens
+            else None if cfg.arch_type in TP_FAMILIES else cfg.arch_type)
+    if what is not None:
+        raise NotImplementedError(
+            f"{cfg.name or 'this config'} ({what}): tensor parallelism over "
+            f"the model axis runs the dense decoder only; the {what} family "
+            f"waits for ROADMAP §1's item 'tensor parallelism for the other "
+            f"families'")
+
+
+def tp_layout(cfg, model: int) -> Dict[str, Optional[int]]:
+    """Every parameter leaf of ``cfg`` -> the dim (negative, from the end)
+    split over ``model`` ranks, or None: the module docstring's rules.
+    With ``model`` 1 every leaf is whole."""
+    from repro_torch.models.transformer import param_names, param_shapes
+    if model > 1:
+        require_tp_family(cfg)
+    shapes = param_shapes(cfg)
+    heads_ok = cfg.num_heads % model == 0 and cfg.num_kv_heads % model == 0
+    axis = _AxisShape(model)
+    out: Dict[str, Optional[int]] = {}
+    for path, names in param_names(cfg).items():
+        shape = shapes[path]
+        spec = spec_for(names, shape, mesh=axis) if model > 1 else ()
+        dim = next((i for i, a in enumerate(spec) if a == "model"), None)
+        if dim is not None and names[dim] in _HEAD_NAMES and not heads_ok:
+            dim = None
+        out[path] = None if dim is None else dim - len(shape)
+    for path in shapes:
+        tail = "/".join(path.split("/")[-2:])
+        if tail in _QKV_BIAS:
+            w = path[:-len(tail)] + _QKV_BIAS[tail]
+            out[path] = None if out[w] is None else -1
+    return out
+
+
+def split_of(path: str, layout: Layout) -> Optional[int]:
+    """The layout's entry for the leaf ``path`` names, where ``path`` is
+    the leaf's own or ends in it (``.../layers/attn/wq``); None for a
+    path that ends in no leaf of the layout (a step counter)."""
+    if path in layout:
+        return layout[path]
+    parts = path.split("/")
+    for i in range(1, len(parts)):
+        tail = "/".join(parts[i:])
+        if tail in layout:
+            return layout[tail]
+    return None
+
+
+def _cut(t, dim: int, index: int, model: int):
+    n = t.shape[dim] // model
+    if isinstance(t, torch.Tensor):
+        return t.narrow(dim, index * n, n)
+    return np.take(t, range(index * n, (index + 1) * n), axis=dim)
+
+
+def shard(flat: Dict[str, object], layout: Layout, index: int,
+          model: int) -> Dict[str, object]:
+    """Rank ``index``'s shards of one-process flat parameters (tensors or
+    numpy arrays; any path ending in a leaf's): a split leaf's
+    ``index``-th of ``model`` contiguous pieces along its dim, copied; a
+    whole leaf copied as it is."""
+    out = {}
+    for path, t in flat.items():
+        dim = split_of(path, layout)
+        piece = t if dim is None or model == 1 else _cut(t, dim, index,
+                                                         model)
+        out[path] = (piece.clone() if isinstance(piece, torch.Tensor)
+                     else np.array(piece))
+    return out
+
+
+def gather(shards: List[Dict[str, torch.Tensor]], layout: Layout
+           ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``shard``: the model ranks' shards (tensors), in
+    model-index order, joined into the one-process layout (a whole leaf is
+    rank 0's)."""
+    out = {}
+    for path, t in shards[0].items():
+        dim = split_of(path, layout)
+        out[path] = t if dim is None or len(shards) == 1 else torch.cat(
+            [s[path] for s in shards], dim=dim)
+    return out

@@ -73,6 +73,17 @@ it was given.
 ``cfg.fp8_matmul`` reaches the paged serving kernels only (fp8 QK^T).
 The JAX package's training attention has no fp8 path, so the training
 forward ignores the flag, as the reference does.
+
+Tensor parallelism.  Under an active model axis
+(``models.tensor_parallel.use``) with this rank's shards of the dense
+decoder's leaves, ``forward_hidden``, ``_chunked_ce`` and ``lm_loss``
+run Megatron-style through the layers (``models.layers``,
+``models.attention``): the residual stream and the RMSNorm kernels stay
+whole on every rank; the logits ``forward_lm`` returns are this rank's
+vocab columns (``mesh.model_all_gather(logits, -1)`` joins them).
+Per-layer remat recomputes each layer's forward, all-reduces included.
+The other families and every serving step refuse a model axis, by name
+(``_require_supported``).
 """
 from __future__ import annotations
 
@@ -86,12 +97,14 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.attention import kv_pool_dtype
 from repro_torch.models.layers import (apply_mlp, apply_norm,
                                        apply_norm_residual, cast, embed,
                                        softmax_ce_sums,
                                        rope_cos_sin, softmax_cross_entropy,
-                                       torch_dtype, unembed)
+                                       torch_dtype, unembed, vocab_split)
+from repro_torch.models.sharding import require_tp_family
 
 Params = Dict[str, object]
 
@@ -99,10 +112,20 @@ Params = Dict[str, object]
 ARCH_TYPES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
-def _require_supported(cfg: ModelConfig) -> None:
+def _require_supported(cfg: ModelConfig, serving: bool = False) -> None:
     """The port runs every arch type the reference's configs use; an
     encoder-decoder's blocks are attention blocks (no SSM, hybrid or
-    experts), as the reference's."""
+    experts), as the reference's.  Under an active model axis
+    (``tensor_parallel.use``) it trains the dense decoder only, and
+    serves nothing (``serving``): each refused by name, naming what
+    ROADMAP §1 has left to do."""
+    if tp.active() is not None:
+        if serving:
+            raise NotImplementedError(
+                "serving under a model axis > 1: the paged pool split by "
+                "KV heads and the kv_seq decode wait for ROADMAP §1's item "
+                "'tensor-parallel serving'")
+        require_tp_family(cfg)
     if cfg.arch_type not in ARCH_TYPES:
         raise NotImplementedError(f"arch {cfg.arch_type!r}: the port runs "
                                   f"{', '.join(ARCH_TYPES)}")
@@ -427,6 +450,7 @@ def forward_hidden(params: Params, batch: Dict[str, torch.Tensor],
     an encoder "frames" (B, Se, d).  Returns (h (B, S, d), aux_loss): aux
     is the layers' summed router loss (0 without experts); a VLM's patch
     rows are cut off."""
+    _require_supported(cfg)
     h = embed(params["embed"], batch["tokens"], cfg)
     if cfg.arch_type == "ssm":
         return _run_layers(params, h, cfg, lambda i, p, x:
@@ -459,7 +483,8 @@ def forward_hidden(params: Params, batch: Dict[str, torch.Tensor],
 
 def forward_lm(params: Params, batch: Dict[str, torch.Tensor],
                cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  Returns (logits (B, S, V), aux_loss)."""
+    """Full-sequence forward.  Returns (logits (B, S, V), aux_loss); with
+    a split vocab, this rank's (B, S, V / model) columns."""
     h, aux = forward_hidden(params, batch, cfg)
     return unembed(params["embed"], h, cfg), aux
 
@@ -468,7 +493,8 @@ def _chunk_ce_sums(embed_p, h, labels, cfg: ModelConfig):
     """CE sum and valid count of one sequence chunk (see
     ``softmax_ce_sums``)."""
     return softmax_ce_sums(unembed(embed_p, h, cfg), labels,
-                           z_loss=cfg.z_loss)
+                           z_loss=cfg.z_loss,
+                           vocab_parallel=vocab_split(embed_p, cfg))
 
 
 def _chunked_ce(params: Params, h: torch.Tensor, labels: torch.Tensor,
@@ -500,8 +526,9 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
         ce = _chunked_ce(params, h, batch["labels"], cfg)
     else:
         logits, aux = forward_lm(params, batch, cfg)
-        ce = softmax_cross_entropy(logits, batch["labels"],
-                                   z_loss=cfg.z_loss)
+        ce = softmax_cross_entropy(
+            logits, batch["labels"], z_loss=cfg.z_loss,
+            vocab_parallel=vocab_split(params["embed"], cfg))
     loss = ce + cfg.router_aux_coef * aux if cfg.num_experts else ce
     return loss, {"ce": ce, "aux": aux}
 
@@ -561,6 +588,7 @@ def _paged_layers(params: Params, h: torch.Tensor, pool, cfg: ModelConfig,
     dest), see ``attention.paged_inputs``.  Each layer attends with its
     own window (``layer_windows``); an MoE's capacity is taken over each
     slot's T tokens.  Returns the final-normed hidden."""
+    _require_supported(cfg, serving=True)
     inputs = attn.paged_inputs(positions, block_table, cfg,
                                pool["k"].shape[2], scatter)
     quantized = "k_scale" in pool
@@ -676,6 +704,7 @@ def decode_step_lm(params: Params, cache: dict, batch,
     blocks also attend to the cache's "cross" K / V, every memory key
     (the ring kernel once a layer).  Returns (logits (B, 1, V), cache),
     the cache updated in place (its ring index advanced)."""
+    _require_supported(cfg, serving=True)
     token = batch["token"]
     B = token.shape[0]
     position = batch["position"]

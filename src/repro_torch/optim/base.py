@@ -12,6 +12,13 @@ schedules and the bias corrections without a host round trip.  Updates
 and optimizer states are float32.  ``apply_updates`` adds in place
 (``p += u``, the same value as the JAX package's ``p + u``), so a worker
 holds one copy of its parameters.
+
+Tensor parallelism.  The functions that are not elementwise take the
+model axis as an argument, ``axis``: a process mesh whose model axis
+splits the leaves (``launch.mesh.ProcessMesh``, ``model`` > 1: its
+``split_dim``, ``model_all_reduce``, ``model_all_gather`` and
+``model_part``), or None (whole leaves, no collective).  The trainers
+that own the mesh pass it in.
 """
 from __future__ import annotations
 
@@ -33,26 +40,37 @@ def apply_updates(params: Flat, updates: Flat) -> None:
         p.add_(updates[path].to(p.dtype))
 
 
-def global_norm(tree: Flat) -> torch.Tensor:
+def global_norm(tree: Flat, axis=None) -> torch.Tensor:
     """sqrt of the sum over leaves, in path order, of each leaf's sum of
-    squares in f32 — the JAX package sums its leaves in the same order."""
+    squares in f32 — the JAX package sums its leaves in the same order.
+    With a model ``axis`` a split leaf's sum of squares is summed over
+    the model group (one all-reduce for all of them) and a whole leaf
+    counts once, so every model rank gets the norm of the whole tree."""
+    paths = sorted(tree)
+    sqs = [tree[path].float().square().sum() for path in paths]
+    split = ([] if axis is None else
+             [i for i, path in enumerate(paths)
+              if axis.split_dim(path) is not None])
+    if split:
+        summed = axis.model_all_reduce(torch.stack([sqs[i] for i in split]))
+        for j, i in enumerate(split):
+            sqs[i] = summed[j]
     total = None
-    for path in sorted(tree):
-        sq = tree[path].float().square().sum()
+    for sq in sqs:
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(tree: Flat, max_norm: float) -> Tuple[Flat,
-                                                               torch.Tensor]:
-    norm = global_norm(tree)
+def clip_by_global_norm(tree: Flat, max_norm: float, axis=None
+                        ) -> Tuple[Flat, torch.Tensor]:
+    norm = global_norm(tree, axis)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return {k: g * scale.to(g.dtype) for k, g in tree.items()}, norm
 
 
-def chain_clip(opt: Optimizer, max_norm: float) -> Optimizer:
+def chain_clip(opt: Optimizer, max_norm: float, axis=None) -> Optimizer:
     """Wrap an optimizer with global-norm gradient clipping."""
     def update(grads, state, params, step):
-        grads, _ = clip_by_global_norm(grads, max_norm)
+        grads, _ = clip_by_global_norm(grads, max_norm, axis)
         return opt.update(grads, state, params, step)
     return Optimizer(opt.init, update)

@@ -57,13 +57,18 @@ def partitioned(opts: dict, label_fn: Callable) -> Optimizer:
     return Optimizer(init, update)
 
 
-def nanochat_optimizer(cfg: OptimizerConfig) -> Optimizer:
+def nanochat_optimizer(cfg: OptimizerConfig, axis=None) -> Optimizer:
+    """Muon and AdamW by ``partition_label``, after global-norm clipping
+    at ``cfg.grad_clip``.  ``axis``: the model axis the leaves are split
+    over (``optim/base.py``), which Muon and the clipping norm reduce
+    over; AdamW is elementwise."""
     muon_lr = lr_schedule(cfg.schedule, cfg.learning_rate, cfg.total_steps,
                           cfg.warmup_steps, cfg.final_lr_frac)
     adam_lr = lr_schedule(cfg.schedule, cfg.adam_lr, cfg.total_steps,
                           cfg.warmup_steps, cfg.final_lr_frac)
     inner = partitioned(
-        {"muon": muon(muon_lr, cfg.muon_momentum, cfg.muon_ns_steps),
+        {"muon": muon(muon_lr, cfg.muon_momentum, cfg.muon_ns_steps,
+                      axis=axis),
          "adamw": adamw(adam_lr, cfg.adam_betas, cfg.adam_eps,
                         cfg.weight_decay, fused=cfg.fused_adamw)},
         partition_label)
@@ -72,7 +77,7 @@ def nanochat_optimizer(cfg: OptimizerConfig) -> Optimizer:
         return inner
 
     def update(grads, state, params, step):
-        grads, _ = clip_by_global_norm(grads, cfg.grad_clip)
+        grads, _ = clip_by_global_norm(grads, cfg.grad_clip, axis)
         return inner.update(grads, state, params, step)
 
     return Optimizer(inner.init, update)

@@ -8,6 +8,14 @@ and returned in the new state.
 Stacked layer leaves (L, m, n) are orthogonalised per layer by batching
 the products over the leading dim; the update scale sqrt(max(1, m/n))
 uses the last two dims.
+
+With a model ``axis`` (``optim/base.py``) a leaf split over it is
+orthogonalised WHOLE, as the reference's SPMD computes it on the
+logical matrix: the effective update is all-gathered over the model
+group along the split dim, Newton-Schulz and the scale run on the whole
+matrix (the norm, X·Xᵀ, the transpose choice and m/n are the whole
+matrix's), and each rank keeps its slice.  Every model rank computes
+the same iteration.
 """
 from __future__ import annotations
 
@@ -38,7 +46,7 @@ def newton_schulz(G: torch.Tensor, steps: int = 5,
 
 
 def muon(lr: Union[float, Callable] = 0.02, momentum: float = 0.95,
-         ns_steps: int = 5, nesterov: bool = True) -> Optimizer:
+         ns_steps: int = 5, nesterov: bool = True, axis=None) -> Optimizer:
     lr_fn = lr if callable(lr) else (lambda _: lr)
 
     def init(params):
@@ -60,11 +68,16 @@ def muon(lr: Union[float, Callable] = 0.02, momentum: float = 0.95,
             # no second copy of the momentum (the old state is consumed)
             mu = state["mu"][k].mul_(momentum).add_(g)
             eff = g + momentum * mu if nesterov else mu
+            dim = None if axis is None else axis.split_dim(k)
+            if dim is not None:
+                eff = axis.model_all_gather(eff, dim)
             o = newton_schulz(eff, ns_steps)
             m, n = o.shape[-2], o.shape[-1]
             scale = torch.sqrt(torch.tensor(max(1.0, m / n),
                                             dtype=torch.float32,
                                             device=o.device))
+            if dim is not None:
+                o = axis.model_part(o, dim)
             updates[k], mu_new[k] = -lr_t * scale * o, mu
         return updates, {"mu": mu_new}
 

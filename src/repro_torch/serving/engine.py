@@ -101,7 +101,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.tokenizer import BPETokenizer
 from repro_torch.models.attention import scatter_plan
-from repro_torch.models.transformer import (Params, decode_step_lm,
+from repro_torch.models.transformer import (Params, _require_supported,
+                                            decode_step_lm,
                                             decode_step_paged, flatten,
                                             forward_lm, init_decode_cache,
                                             init_paged_cache, kv_pool_dtype,
@@ -185,6 +186,7 @@ class Engine:
     def __post_init__(self):
         self.device = resolve_device(self.device)
         cfg = self.cfg
+        _require_supported(cfg, serving=True)   # no model axis (ROADMAP §1)
         for path, t in flatten(self.params).items():
             if t.device.type != self.device.type:
                 raise ValueError(f"param {path} is on {t.device}, the engine "

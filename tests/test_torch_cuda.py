@@ -1191,3 +1191,40 @@ def test_cuda_two_rank_gossip_and_quorum_equal_one_process(cuda, tmp_path):
             for k in ("rmsnorm_residual", "flash_fwd", "flash_bwd",
                       "rmsnorm_bwd", "quantize_ef", "dequantize"):
                 assert x["launches"][k] > 0, (name, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("target", ["int8", "fp8_e4m3", "fp8_e5m2"])
+@pytest.mark.parametrize("residual", [False, True])
+def test_cuda_quantize_from_a_reduced_amax_matches_plain(cuda, target,
+                                                         residual):
+    """``quantize_ef(amax_reduce=)`` on the card (pass 1, the hook, pass 2:
+    ``repro_quantize_amax`` and ``repro_quantize_from_amax``) against the
+    plain version with the same hook: the amax the hook is handed, and
+    the codes, scale and residual coded against what it returns (here
+    the max with a larger amax, as a model group's MAX gives a shard),
+    bit for bit; one launch counted a call."""
+    from repro_torch.kernels.quantize import quantize_ef
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 3, 1000, generator=g)
+    r = 1e-3 * torch.randn(2, 3, 1000, generator=g) if residual else None
+    other = torch.tensor([5.0, 0.25])
+    seen = {}
+
+    def hook(where):
+        def reduce(a):
+            seen[where] = a.reshape(-1).cpu()
+            return torch.maximum(a, other.reshape(a.shape).to(a.device))
+        return reduce
+
+    want = quantize_ef(x, r, dtype=target, amax_reduce=hook("cpu"))
+    reset_launches()
+    got = quantize_ef(x.to(cuda), None if r is None else r.to(cuda),
+                      dtype=target, amax_reduce=hook("cuda"))
+    assert launches["quantize_ef"] == 1
+    assert torch.equal(seen["cuda"], seen["cpu"])
+    for a, b in zip(got, want):
+        a = a.cpu()
+        if a.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+            a, b = a.view(torch.uint8), b.view(torch.uint8)
+        assert torch.equal(a, b)

@@ -28,22 +28,22 @@ def dataset():
     return PackedDataset(tokens, 16)
 
 
-def diloco_trainer(wire: str, replicate_fn=None, k: int = 2):
+def diloco_trainer(wire: str, replicate_fn=None, k: int = 2, cfg=None):
     from repro_torch.configs import DiLoCoConfig, OptimizerConfig
     from repro_torch.core import DistTrainer, make_strategy
     from repro_torch.models import lm_loss
-    cfg = tiny()
+    cfg = cfg or tiny()
     dcfg = DiLoCoConfig(num_workers=k, h_inner_steps=2, delta_dtype=wire)
     return DistTrainer(lambda p, b: lm_loss(p, b, cfg),
                        OptimizerConfig(**OPT), dcfg, make_strategy(dcfg),
                        replicate_fn)
 
 
-def ddp_trainer(replicate_fn=None):
+def ddp_trainer(replicate_fn=None, cfg=None):
     from repro_torch.configs import DiLoCoConfig, OptimizerConfig
     from repro_torch.core import DistTrainer, make_strategy
     from repro_torch.models import lm_loss
-    cfg = tiny()
+    cfg = cfg or tiny()
     dcfg = DiLoCoConfig(num_workers=1, h_inner_steps=1, outer_lr=1.0,
                         outer_momentum=0.0, nesterov=False, strategy="ddp")
     return DistTrainer(lambda p, b: lm_loss(p, b, cfg),
@@ -507,5 +507,209 @@ def strategies_cuda(rank: int, world: int, init_method: str, workdir: str,
         out[name] = to_cpu(run_case(case, params, mesh.replicate_fn,
                                     cfg=card_cfg()))
         out[name]["launches"] = {k: launches[k] for k in KERNELS}
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    mesh.close()
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over the model axis
+# (tests/test_torch_tensor_parallel.py)
+# ---------------------------------------------------------------------------
+
+def tp_cfg(heads: int = 4, kv: int = 2, head_dim: int = 0):
+    """The tiny dense config with a vocab the model axis splits (128); at
+    ``heads`` 3 (``head_dim`` 16) attention stays whole at model 2."""
+    from repro_torch.configs import ModelConfig
+    return ModelConfig(num_layers=2, d_model=64, num_heads=heads,
+                       num_kv_heads=kv, head_dim=head_dim, d_ff=128,
+                       vocab_size=128)
+
+
+def tp_cfg3():
+    return tp_cfg(3, 1, 16)
+
+
+# one DiLoCo round (K 2, H 2) on each wire; 4 steps with a checkpoint
+# every 2 for the checkpoint cases
+TP_DILOCO = {"float32": _case("diloco", {}, 2, 2, 2, 8),
+             "int8": _case("diloco", dict(delta_dtype="int8"), 2, 2, 2, 8)}
+TP_CKPT = _case("diloco", {}, 2, 2, 4, 8)
+TP_SEED = 11
+
+
+def tp_inputs():
+    """The unit checks' inputs, from one seed (the same on every rank):
+    tokens, logits and labels (some -1), Muon's gradients of two split
+    leaves, and a (1, 2, 64, 64) delta with its residual."""
+    g = torch.Generator().manual_seed(TP_SEED)
+    labels = torch.randint(0, 128, (4, 8), generator=g)
+    labels[0, :3] = -1
+    return {"tokens": torch.randint(0, 128, (4, 8), generator=g),
+            "logits": 3 * torch.randn(4, 8, 128, generator=g),
+            "labels": labels,
+            "muon": {"layers/attn/wq": torch.randn(2, 64, 64, generator=g),
+                     "layers/mlp/w_down": torch.randn(2, 128, 64,
+                                                      generator=g)},
+            "delta": torch.randn(1, 2, 64, 64, generator=g),
+            "residual": 1e-3 * torch.randn(1, 2, 64, 64, generator=g)}
+
+
+def tp_units(mesh, params) -> dict:
+    """This rank's side of the unit checks, on its model group: the
+    vocab-parallel embedding, CE (sums and the logits' gradient, z-loss
+    on), Muon's update of split leaves, the global norm of the tiny
+    tree's shards and the quantize kernel's plain version with the MAX
+    hook, each on this rank's shards of ``tp_inputs``."""
+    from repro_torch.kernels.quantize import quantize_ef
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.models.layers import embed, softmax_ce_sums
+    from repro_torch.models.sharding import shard
+    from repro_torch.optim.base import global_norm
+    from repro_torch.optim.muon import muon
+    x = tp_inputs()
+    cfg = tp_cfg()
+    own = shard(params, mesh.layout, mesh.model_index, mesh.model)
+    out = {}
+    with tp.use(mesh):
+        out["embed"] = embed({"table": own["embed/table"]}, x["tokens"], cfg)
+        local = mesh.model_part(x["logits"], -1).clone().requires_grad_(True)
+        total, count = softmax_ce_sums(local, x["labels"], z_loss=1e-4,
+                                       vocab_parallel=True)
+        out["ce"] = (total.detach(), count)
+        out["ce_grad"] = torch.autograd.grad(total, local)[0]
+        grads = shard(x["muon"], mesh.layout, mesh.model_index, mesh.model)
+    opt = muon(0.02, axis=mesh)
+    upd, _ = opt.update(grads, opt.init(grads), grads,
+                        torch.zeros((), dtype=torch.int32))
+    out["muon"] = upd
+    out["global_norm"] = global_norm(own, mesh)
+    d = mesh.model_part(x["delta"], -1)
+    r = mesh.model_part(x["residual"], -1)
+    out["quantize"] = quantize_ef(
+        d, r, dtype="int8",
+        amax_reduce=lambda a: mesh.model_all_reduce(a, "max"))
+    return out
+
+
+def tp_loss_grads(mesh, params, cfg) -> dict:
+    """One forward and backward of ``lm_loss`` on this rank's shards of
+    ``params`` (a (2, 16) batch of ``dataset()``): the loss, the shards'
+    gradients and the collective records it made."""
+    from repro_torch.launch import collectives as coll
+    from repro_torch.models import lm_loss
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.models.sharding import shard
+    from repro_torch.models.transformer import unflatten
+    own = shard(params, mesh.layout, mesh.model_index, mesh.model)
+    leaves = {k: v.requires_grad_(True) for k, v in own.items()}
+    coll.reset_log()
+    with tp.use(mesh):
+        loss, _ = lm_loss(unflatten(leaves),
+                          _tensors(dataset().batch(0, 2, seed=0)), cfg)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    return {"loss": loss.detach(), "grads": dict(zip(leaves, grads)),
+            "records": [(r.kind, r.axis, r.cross_pod)
+                        for r in coll.records()]}
+
+
+class WireLog:
+    """Records each quantized payload's codes and scales by leaf
+    (``QuantizedCodec.encode`` wrapped while in use)."""
+
+    def __enter__(self):
+        from repro_torch.core import transport
+        self.codec, self.orig = transport.QuantizedCodec, \
+            transport.QuantizedCodec.encode
+        self.wire = {}
+
+        def encode(codec, delta, residual=None, kind="delta", fragment=-1,
+                   axis=None):
+            payload, res = self.orig(codec, delta, residual, kind, fragment,
+                                     axis)
+            for k in payload.data:
+                self.wire[k] = (payload.data[k].clone(),
+                                payload.scales[k].clone())
+            return payload, res
+
+        self.codec.encode = encode
+        return self.wire
+
+    def __exit__(self, *exc):
+        self.codec.encode = self.orig
+
+
+def tp_round(mesh, params, wire: str) -> dict:
+    """One DiLoCo round at engine level (K 2, H 2) on this rank's shards:
+    the worker shards just before the round, the state after it, the
+    wire's codes and scales, and the collective records of the inner
+    steps and of the round."""
+    from repro_torch.launch import collectives as coll
+    from repro_torch.models.transformer import unflatten
+    eng = diloco_trainer(wire, mesh.replicate_fn, cfg=tp_cfg()).engine()
+    st = eng.init(unflatten(params))
+    res = eng.init_residual(st.global_params)
+    data = worker_data(dataset())
+    coll.reset_log()
+    with coll.scope("inner"):
+        for i in range(2):
+            st, _ = eng.inner_step(st, _tensors(mesh.local_batch(data(i))))
+    before = _clone(st.worker_params[0])
+    with WireLog() as wire_log, coll.scope("outer"):
+        st, res = eng.outer_step_ef(st, res)
+    return dict(_state(st, res), before=before, wire=dict(wire_log),
+                records=[(r.kind, r.axis, r.cross_pod, r.nbytes, r.scope)
+                         for r in coll.records()])
+
+
+def tensor_parallel4(rank: int, world: int, init_method: str,
+                     workdir: str) -> None:
+    """Four ranks.  As (pod 2, data 1, model 2) at ``tp_cfg()``: the unit
+    checks, one forward and backward from the shared parameters, a
+    DiLoCo round at engine level and through ``DistTrainer.run`` on the
+    f32 and int8 wires (``TP_DILOCO``), ``TP_CKPT`` writing run
+    checkpoints (``workdir/tp_ckpt``) and resumed from the one-process
+    checkpoint in ``workdir/one_ckpt``; as (pod 1, data 2, model 2): 2
+    DDP steps; as (pod 2, data 1, model 2) at ``tp_cfg3()``, whose
+    attention stays whole: the f32 round."""
+    from repro_torch.launch.mesh import init_process_mesh
+    from repro_torch.models.transformer import unflatten
+    torch.set_num_threads(1)
+    kw = dict(backend="gloo", device="cpu", rank=rank, world_size=world,
+              init_method=init_method, timeout_s=TIMEOUT_S)
+    mesh = init_process_mesh(2, 1, 2, cfg=tp_cfg(), **kw)
+    params = torch.load(os.path.join(workdir, "params.pt"))
+    cfg = tp_cfg()
+    out = {"index": (mesh.pod_index, mesh.data_index, mesh.model_index),
+           "layout": mesh.layout, "units": tp_units(mesh, params),
+           "loss_grads": tp_loss_grads(mesh, params, cfg)}
+    for wire, case in TP_DILOCO.items():
+        out[f"round_{wire}"] = tp_round(mesh, params, wire)
+        with WireLog() as wire_log:
+            out[f"run_{wire}"] = run_case(case, params, mesh.replicate_fn,
+                                          cfg=cfg)
+        out[f"run_{wire}"]["wire"] = dict(wire_log)
+    out["ckpt_run"] = run_case(TP_CKPT, params, mesh.replicate_fn, cfg=cfg,
+                               checkpoint_dir=os.path.join(workdir,
+                                                           "tp_ckpt"),
+                               checkpoint_every=2)
+    out["from_one"] = run_case(TP_CKPT, params, mesh.replicate_fn, cfg=cfg,
+                               checkpoint_dir=os.path.join(workdir,
+                                                           "one_ckpt"),
+                               resume=True)
+    dmesh = init_process_mesh(1, 2, 2, cfg=cfg, **kw)
+    dt = ddp_trainer(dmesh.replicate_fn, cfg=cfg)
+    from repro_torch.launch import collectives as coll
+    coll.reset_log()
+    st, hist = dt.run(dt.init(unflatten(params)), ddp_data(dataset()), 2)
+    out["ddp"] = dict(_state(st), hist=hist,
+                      records=[(r.kind, r.axis, r.cross_pod)
+                               for r in coll.records()],
+                      index=(dmesh.pod_index, dmesh.data_index,
+                             dmesh.model_index))
+    params3 = torch.load(os.path.join(workdir, "params3.pt"))
+    mesh3 = init_process_mesh(2, 1, 2, cfg=tp_cfg3(), **kw)
+    out["three_heads"] = run_case(TP_DILOCO["float32"], params3,
+                                  mesh3.replicate_fn, cfg=tp_cfg3())
+    out["layout3"] = mesh3.layout
     torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
     mesh.close()

@@ -41,7 +41,9 @@ yardstick.  Then phases, each fatal on failure:
      KV 10, G 1, S 320, D 128) with window 0 and 64 over a wrapped ring
      with empty slots (the row whose query sits at -1 gives zeros and is
      not compared), a chunk of dead slots, a window starting mid-chunk
-     and S 200 (not a multiple of the chunk);
+     and S 200 (not a multiple of the chunk); its two halves for phase
+     5e's kv_seq decode (``SPLIT_RING_CASE``): the partials over one
+     rank's 128 slots of 512 and the combine of the 4 ranks' partials;
    - the fp8 QK^T flash forward (``flash_fwd(fp8=True)``) against its
      plain version at (B 4, S 1024, H = KV = 10, D 128), causal, plus
      G=2, S=1000 and window=64 cases, f32 and bf16, with the flash
@@ -104,7 +106,7 @@ yardstick.  Then phases, each fatal on failure:
    the scheduler is printed (not gated);
 4b. the dense configs besides nanochat-d20 at full published widths,
    heads and vocabularies (f32, random weights from seed 0), one at a
-   time: qwen1.5-0.5b at 12 of its 24 layers (QKV bias,
+   time: qwen1.5-0.5b at 6 of its 24 layers (QKV bias,
    tied 151,936 rows, 16 heads of 64), command-r-plus-104b at 2 layers,
    mistral-large
    -123b at 4 and nemotron-4-15b (squared-ReLU MLP) at 8 (~25 GB each:
@@ -116,7 +118,7 @@ yardstick.  Then phases, each fatal on failure:
    logits, greedy tokens equal across the three, each engine run
    launching the norms and its paged kernel and no other kernel;
    tokens/s, ms a step and peak memory; qwen also trains one DiLoCo
-   round at those 12 layers (K 2, H 2, 4 x 256 tokens a worker, fused AdamW;
+   round at those 6 layers (K 2, H 2, 4 x 256 tokens a worker, fused AdamW;
    the loss falls, the training kernels and no other) and its depth-2
    training step is held against the CPU as in phase 3;
 4c. the decoder-only configs added last, one at a time, the card freed
@@ -128,7 +130,7 @@ yardstick.  Then phases, each fatal on failure:
    windows with the f32 backward against float64 (each gradient's error
    within a stated multiple of the plain f32 version's); the SSD at
    hymba's heads; the SSD's gradient against the plain scan's; the ring
-   at hymba's heads); hymba-1.5b at 4 of its 32 layers (for the
+   at hymba's heads); hymba-1.5b at 2 of its 32 layers (for the
    script's time) on the static path:
    phase 4's 8 requests and a pair of 1100-token prompts (past its 1024
    window; the first token equal to ``forward_lm``'s argmax) with the
@@ -206,7 +208,7 @@ yardstick.  Then phases, each fatal on failure:
    with its host staging and collective apart, and peak memory;
 5c. every strategy across ranks (``phase_mesh_strategies``):
    nanochat-d20 at full width (seed 0, random token ids at seq_len 1024,
-   1 x 1024 tokens a worker), as 2 ranks at 4 layers (streaming,
+   1 x 1024 tokens a worker), as 2 ranks at 2 layers (streaming,
    overlapped, pipelined, compressed DDP, DiLoCo under AdaptiveH, a
    kill and resume (at 1 layer) from the run checkpoint rank 0 writes,
    and
@@ -250,6 +252,24 @@ yardstick.  Then phases, each fatal on failure:
    launched in every rank (paths ``mesh_tp_<case>_rank<r>``).  Logs per
    rank and case the step s, the rounds' ms, the model group's
    collectives a step and their seconds, and peak memory;
+5e. tensor-parallel serving (``tp_serve_rank``, ``tp_serve_gates``), in
+   the same spawn after 5d: nanochat-d20 at full width and 2 layers,
+   8 rows, through ``make_serve_step(mesh=)`` for 12 teacher-forced
+   tokens from a seeded ring filled to 4 slots short of its capacity (so
+   the ring wraps): head-parallel on (data 2, model 2) (5 heads a rank,
+   cap 512), ``kv_seq`` on (1, 1, 4) at cap 512 (128 slots a rank) and
+   at cap 400 (100 slots: not a multiple of the 64-slot chunk).  Gates,
+   each rank against the one-process serve step on the card: the kv_seq
+   attention at cap 512 from the same q / k / v bit for bit the
+   one-process ring kernel's (the ranks' partials gathered and
+   combined); every step's logits within ``TP_SERVE_ATOL``; the greedy
+   ids (``vocab_parallel_argmax``) the one-process argmax where its
+   top-2 margin exceeds twice that; the cache's positions and write
+   index; 1 + 2 L model-axis collectives a step, none across a pod; the
+   ring kernel (head-parallel) or its two halves (kv_seq) launched once
+   a layer a step and not the other (paths
+   ``mesh_tp_serve_<case>_rank<r>``).  Logs per case and rank a token's
+   ms, the collectives a step and peak memory;
 6. the three-stage pipeline: ``run_pipeline`` (base -> mid -> SFT, with
    the evals after each stage: held-out CE, multiple choice, arithmetic
    and pattern exact match through ``Engine``) of nanochat-d20 at full
@@ -369,9 +389,9 @@ a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
 the last line.  Exits nonzero, with no result, when CUDA is unavailable
 or any phase fails.
 
-``--only-mesh`` builds the kernels and runs only phases 5b, 5c and 5d
-(in 5c's spawn; under NCCL, a card a rank, where the machine has the
-cards), as ``--new-archs`` and ``--enc-vlm`` run only 4c and 4d.
+``--only-mesh`` builds the kernels and runs only phases 5b, 5c, 5d and 5e
+(5d and 5e in 5c's spawn; under NCCL, a card a rank, where the machine
+has the cards), as ``--new-archs`` and ``--enc-vlm`` run only 4c and 4d.
 ``--norm-timing`` and ``--ssd-timing`` build only rmsnorm.cu or ssd.cu
 and print one JSON line of those kernels' phase-7 timings beside
 ``floor_ms``: run this script beside two checkouts' ``src/`` in one call
@@ -440,6 +460,11 @@ REPLACES = {
     "dequantize": "src/repro/kernels/quantize/kernel.py:126",
     "ssd": "src/repro/kernels/ssd/kernel.py:89",
     "ring_decode": "src/repro/kernels/decode_attention/kernel.py:489",
+    # the ring decode's two halves, the kv_seq (sequence-parallel) decode's
+    # split and combine: the same TPU kernel, whose one program the
+    # reference's partitioner splits over the slots
+    "ring_decode_partials": "src/repro/kernels/decode_attention/kernel.py:489",
+    "ring_combine": "src/repro/kernels/decode_attention/kernel.py:489",
     # the fp8=True variant of flash_fwd: the TPU kernel with qk_dot_fp8
     # (src/repro/kernels/common.py:31) in its body (kernel.py:69-70)
     "flash_fwd_fp8": "src/repro/kernels/flash_attention/kernel.py:127",
@@ -469,6 +494,8 @@ SOURCE = {
     "ssd": "src/repro_torch/kernels/csrc/ssd.cu",
     "ring_decode": "src/repro_torch/kernels/csrc/ring_attention.cu",
     "flash_fwd_fp8": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "ring_decode_partials": "src/repro_torch/kernels/csrc/ring_attention.cu",
+    "ring_combine": "src/repro_torch/kernels/csrc/ring_attention.cu",
 }
 WIRE_KERNELS = ("quantize_ef", "dequantize")
 WIRE_TARGETS = ("int8", "fp8_e4m3", "fp8_e5m2")
@@ -1248,6 +1275,44 @@ def phase_static_kernels(torch, results):
             results.append(("ring_decode", dtype, tuple(q.shape) + (
                 f"S={Sr}", f"window={window}") + ((edge,) if edge else ()),
                 err, ok, ratio))
+        split_ring_checks(torch, results, dtype)
+
+
+def split_ring_checks(torch, results, dtype):
+    """The ring decode's two halves (phase 5e's kv_seq decode) at
+    ``SPLIT_RING_CASE``: the partials of one rank's run of slots against
+    their plain version where a chunk is live (an empty chunk's m -inf
+    in both), and the combine of every run's plain partials against the
+    plain combine (the row whose query sits at -1 gives zeros and is not
+    compared)."""
+    from repro_torch.kernels.decode_attention import (
+        combine_partials, decode_attention_partials,
+        decode_attention_partials_plain)
+    from repro_torch.kernels.decode_attention.ref import (
+        combine_partials as combine_plain)
+    B, KV, G, S, D, R = SPLIT_RING_CASE
+    q, k, v, pos, q_pos, live = ring_case(torch, B, KV, G, S, D,
+                                          dtype=dtype, seed=7)
+    n = S // R
+    run = (k[..., :n, :].contiguous(), v[..., :n, :].contiguous(),
+           pos[:, :n].contiguous())
+    got = decode_attention_partials(q, *run, q_pos)
+    want = decode_attention_partials_plain(q, *run, q_pos)
+    torch.cuda.synchronize()
+    full = want[0] > -math.inf
+    errs = [max_err(torch, a, b, full) for a, b in zip(got, want)]
+    results.append(("ring_decode_partials", dtype, tuple(q.shape) + (
+        f"S={n} of {S}",), max(e[0] for e in errs),
+        all(e[1] for e in errs) and bool(torch.equal(got[0] == -math.inf,
+                                                     ~full)),
+        max(e[2] for e in errs)))
+    parts = decode_attention_partials_plain(q, k, v, pos, q_pos)
+    out = combine_partials(*parts, q.dtype)
+    want = combine_plain(*parts).to(q.dtype)
+    torch.cuda.synchronize()
+    err, ok, ratio = max_err(torch, out, want, live)
+    results.append(("ring_combine", dtype, tuple(parts[2].shape),
+                    err, ok and bool((out[~live] == 0).all()), ratio))
 
 
 # ---------------------------------------------------------------------------
@@ -2260,9 +2325,9 @@ def profile_static(torch, fn, what):
 # (arch id, layers run): full published widths, heads and vocabularies,
 # f32, random weights from seed 0.  The depth is cut where the f32
 # parameters at full depth exceed the card (415 / 490 / 62.5 GB at 64 /
-# 88 / 32 layers) to ~25 GB; qwen1.5-0.5b (1.86 GB whole) at 12 of its 24
-# layers, for the script's time (host-bound)
-ARCH_PLANS = (("qwen1.5-0.5b", 12), ("command-r-plus-104b", 2),
+# 88 / 32 layers) to ~25 GB; qwen1.5-0.5b (1.86 GB whole) at 6 of its 24
+# layers, for the script's time (host-bound; 12 until phase 5e joined)
+ARCH_PLANS = (("qwen1.5-0.5b", 6), ("command-r-plus-104b", 2),
               ("mistral-large-123b", 4), ("nemotron-4-15b", 8))
 ARCH_MAX_NEW = 16
 # the serving path's kernels: every other kernel stays at 0 launches
@@ -2479,15 +2544,16 @@ HYMBA, MIXTRAL, LLAMA4, MAMBA2 = ("hymba-1.5b", "mixtral-8x7b",
 # the capacity factor at which no token is dropped at any T: once it
 # reaches E / K, C = S (mixtral 8 / 2, llama4 16 / 1)
 NO_DROP = {MIXTRAL: 4.0, LLAMA4: 16.0}
-# serving depth, cut for the script's time: hymba at 4 of its 32 layers
-# (16 until phase 5c joined, 8 until phase 5d did; its static path is
-# host-bound: seconds scale with depth; layer 0 keeps its global window
-# and the other 3 are windowed; it trains whole), mixtral and llama4 at
+# serving depth, cut for the script's time: hymba at 2 of its 32 layers
+# (16 until phase 5c joined, 8 until phase 5d did, 4 until phase 5e;
+# its static path is host-bound: seconds scale with depth; layer 0 keeps
+# its global window and layer 1 is windowed; it trains whole), mixtral
+# and llama4 at
 # 4 layers (24.27 / 43.51 GB; 186.8 / 431.1 GB whole): llama4's 4 are
 # its three windowed layers and the first global one; mixtral's pair of
 # long prompts at 1 of those 4 (2 until phase 5d joined; every mixtral
 # layer has the 4096 window, so one still recycles blocks)
-HYMBA_SERVE_LAYERS = 4
+HYMBA_SERVE_LAYERS = 2
 NEW_SERVE_LAYERS = {MIXTRAL: 4, LLAMA4: 4}
 LONG_PAIR_LAYERS = 1
 # a pair of prompts past each window (hymba's 1024, mixtral's 4096)
@@ -4006,13 +4072,14 @@ def mesh_summary(mesh):
 # ---------------------------------------------------------------------------
 
 # nanochat-d20 at full width, random token ids from seed 0 at seq_len
-# 1024, MESH_STRAT_BATCH sequence a worker; 2 ranks at phase 5b's 4
-# layers, 4 ranks at 2 (gossip at K 2 binds DiLoCo's runner, so its
-# pairing needs K >= 3), the kill and resume at 1 (its checkpoint holds
-# K workers' parameters and optimizer states, most of them the
-# 65536-token embeddings), cut for the phase's ~90 s
+# 1024, MESH_STRAT_BATCH sequence a worker; 2 ranks at 2 layers (phase
+# 5b's 4 until phase 5e joined), 4 ranks at 2 (gossip at K 2 binds
+# DiLoCo's runner, so its pairing needs K >= 3), the kill and resume at
+# 1 (its checkpoint holds K workers' parameters and optimizer states,
+# most of them the 65536-token embeddings), hybrid at phase 5b's 4
+# (``hybrid_run``), cut for the phase's ~90 s
 MESH_STRAT_BATCH = 1
-MESH_STRAT_LAYERS = {2: MESH_LAYERS, 4: 2}
+MESH_STRAT_LAYERS = {2: 2, 4: 2}
 MESH_KILL_LAYERS = 1
 
 
@@ -4280,6 +4347,10 @@ def mesh_strategies_rank(rank, world, init_method, workdir, backend):
         gc.collect()
         torch.cuda.empty_cache()
         out["tp"] = tp_rank(torch, rank, mesh.backend)
+        # phase 5e, after 5d, on meshes of the same ranks
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["tp_serve"] = tp_serve_rank(torch, rank, mesh.backend)
     with open(Path(workdir) / f"rank{rank}.json", "w") as f:
         json.dump(out, f)
     mesh.close()
@@ -4518,6 +4589,11 @@ def phase_mesh_strategies(torch):
                 f"{[round(r['tp']['reference_s'], 1) for r in ranks]} s")
             tp_gates(torch, ranks, out)
             out["launches"].update(out["tp"]["launches"])
+            serve_s = [round(r["tp_serve"]["tp_serve_s"], 1) for r in ranks]
+            log(f"  phase 5e (tensor-parallel serving) in the 4-rank "
+                f"spawn: {serve_s} s a rank")
+            tp_serve_gates(torch, ranks, out)
+            out["launches"].update(out["tp_serve"]["launches"])
     return out
 
 
@@ -4542,7 +4618,9 @@ def mesh_strategies_summary(ms):
         for world, w in ms["worlds"].items()} | {
         "hybrid_ddp_rel": ms.get("hybrid_ddp_rel"),
         "hybrid_ddp_max_abs_diff": ms.get("hybrid_ddp_max_abs_diff"),
-        "tp": tp_summary(ms["tp"]) if "tp" in ms else None}
+        "tp": tp_summary(ms["tp"]) if "tp" in ms else None,
+        "tp_serve": (tp_serve_summary(ms["tp_serve"]) if "tp_serve" in ms
+                     else None)}
 
 
 # ---------------------------------------------------------------------------
@@ -5147,6 +5225,316 @@ def tp_summary(tp_out):
         "tp_s": [r["tp_s"] for _, r in sorted(tp_out["ranks"].items())],
         "reference_s": [r["reference_s"]
                         for _, r in sorted(tp_out["ranks"].items())]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5e: tensor-parallel serving across ranks
+# ---------------------------------------------------------------------------
+
+# nanochat-d20 at full width and 2 of its 20 layers (TP_LAYERS: 220.2 M
+# parameters), 8 rows, f32, seed 0, in phase 5c's 4-rank spawn on meshes
+# of its ranks: head-parallel on (data 2, model 2) (5 of the 10 heads a
+# rank, 4 rows a data rank); kv_seq on (1, 1, 4) at cap 512 (128 slots a
+# rank: two of the one-process kernel's 64-slot chunks) and at cap 400
+# (100 slots a rank: chunks of 64 and 36, not the one-process chunks)
+TP_SERVE_CASES = {"heads_m2": ((1, 2, 2), 512),
+                  "kv_seq_m4": ((1, 1, 4), 512),
+                  "kv_seq_m4_cap400": ((1, 1, 4), 400)}
+TP_SERVE_B = 8
+TP_SERVE_SEED = 11
+# the ring starts with all but its last TP_SERVE_FREE slots filled (seeded
+# K / V, positions 0 .. cap - TP_SERVE_FREE - 1, every rank's slots live);
+# TP_SERVE_STEPS teacher-forced tokens fill the rest and wrap onto slot 0
+# onward (rank 0's, under kv_seq)
+TP_SERVE_FREE = 4
+TP_SERVE_STEPS = 12
+# every step's logits (this rank's vocab columns, std ~1 at this init)
+# against the one-process serve step on the same card: the row-parallel
+# products' partial sums are added by an all-reduce, and the rank's
+# smaller GEMMs may take other cuBLAS kernels, so the two part at the
+# last bits of f32 (~1e-6 at logits near 1); a wrong head, slot or
+# partial moves them by ~0.1 and more.  Written in PERF.md before the
+# first run.  Greedy ids are gated where the one-process top-2 margin
+# exceeds twice this
+TP_SERVE_ATOL = 1e-4
+TP_SERVE_KERNELS = {"heads": ("ring_decode",),
+                    "kv_seq": ("ring_decode_partials", "ring_combine")}
+# the split ring entries' phase-2 check and phase-7 row: one rank's run of
+# the kv_seq case at cap 512 (B 8, KV 10, G 1, 128 slots, D 128) and the
+# combine over the 4 ranks' partials (8 chunks)
+SPLIT_RING_CASE = (8, 10, 1, 512, 128, 4)
+
+
+def filled_ring(torch, cfg, cap, dev):
+    """The one-process ring cache of ``TP_SERVE_B`` rows at capacity
+    ``cap`` with all but ``TP_SERVE_FREE`` slots filled from a seed (K and
+    V standard normal, positions 0 ..), its write index at the first free
+    slot."""
+    from repro_torch.models import init_decode_cache
+    c = init_decode_cache(cfg, TP_SERVE_B, cap, device=dev)
+    a = c["attn"]
+    g = torch.Generator().manual_seed(cap)
+    fill = cap - TP_SERVE_FREE
+    for key in ("k", "v"):
+        a[key][..., :fill, :] = torch.randn(
+            a[key][..., :fill, :].shape, generator=g).to(dev)
+    a["pos"][..., :fill] = torch.arange(fill, dtype=torch.int32, device=dev)
+    a["idx"] = fill
+    return c
+
+
+def tp_serve_rank(torch, rank, backend):
+    """Phase 5e's part of one rank of phase 5c's 4-rank spawn: each case
+    of ``TP_SERVE_CASES`` on its mesh of the spawn's ranks, from
+    ``init_params(seed=0)`` through ``serve_layout``'s ``shard`` (d20
+    repeats no KV head) and a ``filled_ring`` cut by ``shard_cache``: the
+    attention of the kv_seq case at cap 512 from the same q / k / v as
+    the one-process ring kernel; ``TP_SERVE_STEPS`` serve steps through
+    ``make_serve_step(mesh=)`` (launch counts and the collective log reset
+    just before them), each timed; the greedy ids
+    (``vocab_parallel_argmax``); then the one-process serve steps on the
+    same card from the same cache.  Returns what ``tp_serve_gates``
+    reads."""
+    import gc
+
+    from repro_torch.configs import NANOCHAT_D20
+    from repro_torch.kernels import KERNELS, launches, reset_launches
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_partials)
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch.mesh import init_process_mesh
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import init_params
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.models.sharding import (repeat_kv_heads, serve_layout,
+                                             shard, shard_cache,
+                                             tp_kv_repeat)
+    from repro_torch.models.transformer import flatten, unflatten
+    t_start = time.perf_counter()
+    cfg = NANOCHAT_D20.with_(num_layers=TP_LAYERS)
+    meshes = {}
+    for shape, _ in TP_SERVE_CASES.values():
+        if shape not in meshes:
+            meshes[shape] = init_process_mesh(
+                *shape, backend=backend, device="cuda",
+                cfg=tp_kv_repeat(cfg, shape[2]), timeout_s=MESH_TIMEOUT_S)
+    dev = next(iter(meshes.values())).device
+    params = flatten(init_params(cfg, seed=0, device=dev))
+    g = torch.Generator().manual_seed(TP_SERVE_SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (TP_SERVE_B, TP_SERVE_STEPS),
+                           generator=g, dtype=torch.int32).to(dev)
+    out = {"rank": rank, "cases": {}, "launches": {}}
+    for name, (shape, cap) in TP_SERVE_CASES.items():
+        mesh = meshes[shape]
+        M = mesh.model
+        mode, layout = serve_layout(cfg, M)
+        served = tp_kv_repeat(cfg, M)
+        own = unflatten(shard(repeat_kv_heads(params, cfg, M), layout,
+                              mesh.model_index, M))
+        whole = filled_ring(torch, cfg, cap, dev)
+        n = TP_SERVE_B // mesh.data
+        rows = slice(mesh.data_index * n, (mesh.data_index + 1) * n)
+        mine = {"attn": {k: (v[:, rows] if torch.is_tensor(v) else v)
+                         for k, v in whole["attn"].items()}}
+        part = shard_cache(mine, mode, mesh.model_index, M)
+        fill = whole["attn"]["idx"]
+        rec = {"mode": mode, "model": M, "cap": cap,
+               "slots": part["attn"]["k"].shape[-2],
+               "index": [mesh.pod_index, mesh.data_index, mesh.model_index]}
+        if mode == "kv_seq" and cap == 512:
+            # the attention from the same q / k / v: the one-process ring
+            # kernel against this rank's partials, gathered and combined
+            q = torch.randn((n, cfg.num_kv_heads, 1, cfg.resolved_head_dim()),
+                            generator=g).to(dev)
+            q_pos = torch.full((n,), fill, dtype=torch.int32, device=dev)
+            a, p = mine["attn"], part["attn"]
+            want = decode_attention(q, a["k"][0].contiguous(),
+                                    a["v"][0].contiguous(),
+                                    a["pos"][0].contiguous(), q_pos)
+            with tp.use(mesh):
+                got = tp.seq_parallel_attention(*decode_attention_partials(
+                    q, p["k"][0].contiguous(), p["v"][0].contiguous(),
+                    p["pos"][0].contiguous(), q_pos))
+            torch.cuda.synchronize(dev)
+            rec["attention_bits_equal"] = bool(torch.equal(got, want))
+            rec["attention_max_abs_diff"] = float((got - want).abs().max())
+        step = make_serve_step(served, mesh)
+        positions = [torch.full((n,), fill + t, dtype=torch.int32,
+                                device=dev) for t in range(TP_SERVE_STEPS)]
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        coll.reset_log()
+        logits, token_s = [], []
+        for t in range(TP_SERVE_STEPS):
+            t0 = time.perf_counter()
+            out_t, part = step(own, part, {"token": tokens[rows, t:t + 1],
+                                           "position": positions[t]})
+            torch.cuda.synchronize(dev)
+            token_s.append(time.perf_counter() - t0)
+            logits.append(out_t)
+        counts = {k: launches[k] for k in KERNELS}
+        recs = coll.records()
+        model_recs = [(r.kind, r.axis, r.cross_pod) for r in recs]
+        steady = recs[len(recs) // TP_SERVE_STEPS:]     # after the first step
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        with tp.use(mesh):
+            ids = [tp.vocab_parallel_argmax(x) for x in logits]
+        # the one-process serve steps on the same card, same cache
+        ref_step = make_serve_step(cfg)
+        tree = unflatten(params)
+        V = logits[0].shape[-1]
+        cols = slice(mesh.model_index * V, (mesh.model_index + 1) * V)
+        diffs, margins, agree, ref_s = [], [], [], []
+        held = sum(t.numel() * t.element_size() for t in [
+            *flatten(own).values(), part["attn"]["k"], part["attn"]["v"],
+            part["attn"]["pos"]])
+        whole_b = sum(t.numel() * t.element_size() for t in [
+            *params.values(), whole["attn"]["k"], whole["attn"]["v"],
+            whole["attn"]["pos"]])
+        for t in range(TP_SERVE_STEPS):
+            t0 = time.perf_counter()
+            ref, whole = ref_step(tree, whole, {
+                "token": tokens[:, t:t + 1],
+                "position": torch.full((TP_SERVE_B,), fill + t,
+                                       dtype=torch.int32, device=dev)})
+            torch.cuda.synchronize(dev)
+            ref_s.append(time.perf_counter() - t0)
+            ref = ref[rows]
+            diffs.append(float((logits[t] - ref[:, cols]).abs().max()))
+            top2 = ref.topk(2, dim=-1).values
+            margin = top2[:, 0] - top2[:, 1]
+            clear = margin > 2 * TP_SERVE_ATOL
+            agree.append(bool((ids[t] == ref.argmax(-1))[clear].all()))
+            margins.append(int(clear.sum()))
+        ref_part = shard_cache(
+            {"attn": {k: (v[:, rows] if torch.is_tensor(v) else v)
+                      for k, v in whole["attn"].items()}},
+            mode, mesh.model_index, M)["attn"]
+        rec.update(
+            logits_max_abs_diff=diffs, greedy_equal=agree,
+            greedy_rows_gated=margins, launches=counts,
+            collectives_per_step=len(model_recs) / TP_SERVE_STEPS,
+            collective_ms_per_step=1e3 * sum(
+                r.host_s + r.coll_s for r in steady) / (TP_SERVE_STEPS - 1),
+            collective_kinds=sorted({k for k, _, _ in model_recs}),
+            collective_axes=sorted({a for _, a, _ in model_recs}),
+            collective_cross_pod=sum(c for _, _, c in model_recs),
+            token_ms=[1e3 * t for t in token_s], peak_memory_gb=peak,
+            one_process_token_ms=[1e3 * t for t in ref_s],
+            state_gb=held / 1e9, one_process_state_gb=whole_b / 1e9,
+            cache_pos_equal=bool(torch.equal(part["attn"]["pos"],
+                                             ref_part["pos"])),
+            cache_idx=[part["attn"]["idx"], ref_part["idx"]],
+            cache_kv_max_abs_diff=max(
+                float((part["attn"][k] - ref_part[k]).abs().max())
+                for k in ("k", "v")))
+        out["cases"][name] = rec
+        out["launches"][f"mesh_tp_serve_{name}_rank{rank}"] = counts
+        del own, whole, mine, part, logits, ref_part
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["tp_serve_s"] = time.perf_counter() - t_start
+    return out
+
+
+def tp_serve_gates(torch, ranks, out):
+    """Phase 5e's gates over the 4 ranks' ``tp_serve_rank`` results, each
+    rank against the one-process serve steps on the same card: the
+    layout ``serve_layout`` picks; the kv_seq attention at cap 512 bit
+    for bit the one-process ring kernel's from the same q / k / v; every
+    step's logits within ``TP_SERVE_ATOL``; the greedy ids the one-process
+    argmax wherever its top-2 margin exceeds twice that; the cache's
+    positions and write index the one-process cache's; a step's
+    collectives on the model axis (the embedding's all-reduce, then per
+    layer the attention's all-reduce or all-gather and the MLP's
+    all-reduce), none across a pod; the layout's ring kernels launched
+    once a layer a step and the other one not at all."""
+    serve = out["tp_serve"] = {"launches": {}}
+    by_rank = {r["rank"]: r["tp_serve"] for r in ranks}
+    L = TP_LAYERS
+    for w, x in sorted(by_rank.items()):
+        serve["launches"].update(x["launches"])
+        for name, c in x["cases"].items():
+            tag = f"mesh tp serve rank {w} {name}"
+            mode = "heads" if name.startswith("heads") else "kv_seq"
+            steady = sorted(c["token_ms"][1:])
+            one = sorted(c["one_process_token_ms"][1:])
+            log(f"  rank {w} tp serve {name} ({c['mode']}, model "
+                f"{c['model']}, {c['slots']} slots of {c['cap']} a rank): "
+                f"a token {steady[len(steady) // 2]:.2f} ms (median of "
+                f"steps 2-{TP_SERVE_STEPS}; first {c['token_ms'][0]:.1f}; "
+                f"one process {one[len(one) // 2]:.2f}), weights and cache "
+                f"{c['state_gb']:.3f} GB a rank (one process "
+                f"{c['one_process_state_gb']:.3f}), "
+                f"{c['collectives_per_step']:.0f} model-axis collectives a "
+                f"step ({c['collective_kinds']}; "
+                f"{c['collective_ms_per_step']:.2f} ms of staging and "
+                f"collective a step after the first), logits "
+                f"{max(c['logits_max_abs_diff']):.3g} off one process "
+                f"(gate {TP_SERVE_ATOL}), greedy rows gated "
+                f"{sum(c['greedy_rows_gated'])}, cache K/V "
+                f"{c['cache_kv_max_abs_diff']:.3g} off, peak "
+                f"{c['peak_memory_gb']:.2f} GB"
+                + (f", attention bits equal {c['attention_bits_equal']} "
+                   f"({c['attention_max_abs_diff']:.3g})"
+                   if "attention_bits_equal" in c else ""))
+            check(c["mode"] == mode, f"{tag}: layout {c['mode']}")
+            if "attention_bits_equal" in c:
+                check(c["attention_bits_equal"], f"{tag}: the kv_seq "
+                      f"attention is not the one-process ring kernel's bit "
+                      f"for bit ({c['attention_max_abs_diff']})")
+            check(max(c["logits_max_abs_diff"]) <= TP_SERVE_ATOL,
+                  f"{tag}: logits {max(c['logits_max_abs_diff'])} off one "
+                  f"process (gate {TP_SERVE_ATOL})")
+            check(all(c["greedy_equal"]) and sum(c["greedy_rows_gated"]),
+                  f"{tag}: greedy ids differ from one process's where its "
+                  f"top-2 margin exceeds {2 * TP_SERVE_ATOL}: "
+                  f"{c['greedy_equal']}")
+            check(c["cache_pos_equal"] and c["cache_idx"][0] ==
+                  c["cache_idx"][1], f"{tag}: the cache's positions or "
+                  f"write index part from one process's")
+            want = 1 + 2 * L
+            check(c["collectives_per_step"] == want
+                  and c["collective_axes"] == ["model"]
+                  and c["collective_cross_pod"] == 0,
+                  f"{tag}: {c['collectives_per_step']} collectives a step "
+                  f"on {c['collective_axes']} (want {want} on the model "
+                  f"axis, none across a pod)")
+            kinds = (["all-reduce"] if mode == "heads"
+                     else ["all-gather", "all-reduce"])
+            check(c["collective_kinds"] == kinds, f"{tag}: collective kinds "
+                  f"{c['collective_kinds']}")
+            for k in TP_SERVE_KERNELS["heads"] + TP_SERVE_KERNELS["kv_seq"]:
+                n = (L * TP_SERVE_STEPS if k in TP_SERVE_KERNELS[mode]
+                     else 0)
+                check(c["launches"][k] == n, f"{tag}: kernel {k} launched "
+                      f"{c['launches'][k]} times (want {n})")
+    serve["ranks"] = by_rank
+    return serve
+
+
+def tp_serve_summary(serve):
+    """Phase 5e's numbers for the summary line: per case and rank a
+    token's ms (median of the steady steps), the model-axis collectives a
+    step, peak memory, the logits' distance from one process."""
+    return {name: [{
+        "token_ms_median": sorted(r["cases"][name]["token_ms"][1:])[
+            len(r["cases"][name]["token_ms"][1:]) // 2],
+        "collectives_per_step": r["cases"][name]["collectives_per_step"],
+        "collective_ms_per_step": r["cases"][name]["collective_ms_per_step"],
+        "one_process_token_ms_median": sorted(
+            r["cases"][name]["one_process_token_ms"][1:])[
+            len(r["cases"][name]["one_process_token_ms"][1:]) // 2],
+        "state_gb": r["cases"][name]["state_gb"],
+        "one_process_state_gb": r["cases"][name]["one_process_state_gb"],
+        "peak_memory_gb": r["cases"][name]["peak_memory_gb"],
+        "logits_max_abs_diff": max(r["cases"][name]["logits_max_abs_diff"]),
+        "attention_bits_equal": r["cases"][name].get("attention_bits_equal")}
+        for _, r in sorted(serve["ranks"].items())]
+        for name in TP_SERVE_CASES} | {
+        "tp_serve_s": [r["tp_serve_s"]
+                       for _, r in sorted(serve["ranks"].items())]}
 
 
 # ---------------------------------------------------------------------------
@@ -7190,6 +7578,47 @@ def static_rows(torch, row):
         at_hymba_window1024_shape=with_bound(ring, "float32"),
         at_cross_decode_shape=with_bound(cross_ring_times(torch), "float32"))
     del q, k, v, pos, q_pos, mask
+    split_ring_rows(torch, row)
+
+
+def split_ring_rows(torch, row):
+    """Timing rows of the ring decode's two halves at ``SPLIT_RING_CASE``
+    (f32): the partials over one rank's run of slots (bytes: its live K/V
+    rows, q, the positions and the partials written; 4 FLOPs per (query
+    head, live slot, d)) and the combine of the ranks' partials (bytes:
+    the partials read and the output written; 2 FLOPs per (row, chunk,
+    d)).  No one PyTorch call returns or merges partial softmax states
+    (library_ms null)."""
+    from repro_torch.kernels.decode_attention import (
+        combine_partials, decode_attention_partials,
+        decode_attention_partials_plain)
+    from repro_torch.kernels.decode_attention.ops import ring_chunks
+    from repro_torch.kernels.decode_attention.ref import (
+        combine_partials as combine_plain)
+    B, KV, G, S, D, R = SPLIT_RING_CASE
+    q, k, v, pos, q_pos, live = ring_case(torch, B, KV, G, S, D, seed=7)
+    n = S // R
+    run = (k[..., :n, :].contiguous(), v[..., :n, :].contiguous(),
+           pos[:, :n].contiguous())
+    ok = (run[2] >= 0) & (run[2] <= q_pos[:, None])
+    n_live, nc, rows = int(ok.sum()), ring_chunks(n), B * KV * G
+    row("ring_decode_partials", tuple(q.shape) + (n,),
+        time_ms(torch, lambda: decode_attention_partials(q, *run, q_pos)),
+        time_ms(torch, lambda: decode_attention_partials_plain(
+            q, *run, q_pos)), None,
+        (2 * n_live * KV * D + rows * D) * 4 + (B * n + B) * 4
+        + rows * nc * (D + 2) * 4, 4 * n_live * KV * G * D,
+        live_slots=n_live, ranks=R,
+        library="null: no one PyTorch call returns partial softmax states")
+    parts = decode_attention_partials_plain(q, k, v, pos, q_pos)
+    nc_all = parts[0].shape[-1]
+    row("ring_combine", tuple(parts[2].shape),
+        time_ms(torch, lambda: combine_partials(*parts)),
+        time_ms(torch, lambda: combine_plain(*parts)), None,
+        rows * nc_all * (D + 2) * 4 + rows * D * 4, 2 * rows * nc_all * D,
+        ranks=R, library="null: no one PyTorch call merges partial softmax "
+                         "states")
+    del q, k, v, pos, q_pos, run, parts
 
 
 def cross_ring_times(torch):
@@ -7669,8 +8098,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only-mesh", action="store_true",
                     help="only build the kernels and run phases 5b and 5c "
                          "(the process mesh; every strategy across ranks; "
-                         "5d, tensor parallelism, in 5c's 4-rank spawn), "
-                         "printing their summary as one JSON line")
+                         "5d, tensor parallelism, and 5e, tensor-parallel "
+                         "serving, in 5c's 4-rank spawn), printing their "
+                         "summary as one JSON line")
     args = ap.parse_args(argv)
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found; run from a checkout "
@@ -7700,7 +8130,7 @@ def main(argv=None) -> int:
                   lambda runs: {"mesh": mesh_summary(runs[0]),
                                 "mesh_strategies":
                                     mesh_strategies_summary(runs[1])},
-                  "5b and 5c"))
+                  "5b to 5e"))
         try:
             runs = phase(torch, [])
         except SmokeFailure as e:
@@ -7777,7 +8207,7 @@ def main(argv=None) -> int:
         report["static"] = static
         lap("4 serving")
 
-        log("[4b/7] the dense configs at full width: qwen1.5-0.5b (12 "
+        log("[4b/7] the dense configs at full width: qwen1.5-0.5b (6 "
             "layers), command-r-plus-104b (2), mistral-large-123b (4), "
             "nemotron-4-15b (8): serving spec_k 0 / 4 and static; qwen's "
             "DiLoCo round")
@@ -7785,7 +8215,7 @@ def main(argv=None) -> int:
         report["checks"] = [list(c) for c in checks]
         lap("4b archs")
 
-        log("[4c/7] hymba-1.5b (4 layers serving, whole training), "
+        log("[4c/7] hymba-1.5b (2 layers serving, whole training), "
             "mixtral-8x7b and llama4-scout-17b-a16e (4 layers) at full "
             "width: their kernel "
             "shapes, serving (static path and scoring; spec_k 0 / 4 and "
@@ -7822,13 +8252,15 @@ def main(argv=None) -> int:
 
         log("[5c/7] every strategy across ranks, nanochat-d20 at full "
             "width: streaming, overlapped, pipelined, compressed DDP, "
-            "AdaptiveH, a kill and resume and hybrid over 2 ranks (4 "
-            "layers); gossip, async gossip and a crash and rejoin over 4 "
+            "AdaptiveH over 2 ranks (2 layers), a kill and resume (1) and "
+            "hybrid (4); gossip, async gossip and a crash and rejoin over 4 "
             "(2 layers), each against one process; [5d/7] in the 4-rank "
             "spawn, tensor parallelism (2 layers): DiLoCo on (pod 2, "
-            "model 2), int8 and f32, and DDP on (data 2, model 2)")
+            "model 2), int8 and f32, and DDP on (data 2, model 2); "
+            "[5e/7] tensor-parallel serving (2 layers): head-parallel on "
+            "(data 2, model 2), kv_seq on (1, 1, 4) at cap 512 and 400")
         mesh_strat = report["mesh_strategies"] = phase_mesh_strategies(torch)
-        lap("5c and 5d mesh strategies, tensor parallelism")
+        lap("5c, 5d and 5e mesh strategies, tensor parallelism, serving")
 
         log("[6/7] pipeline, nanochat-d20 at full width: base -> mid -> "
             "SFT with evals after each stage, DiLoCo and hybrid")

@@ -33,12 +33,29 @@
 // left-pad token of the static prefill) comes out as zeros; that row is
 // garbage the caller never reads, in both implementations.
 //
+// Sequence-parallel decode (the `kv_seq` layout of a model axis): each
+// rank holds a contiguous run of the ring's slots.  Two more entries split
+// the work of repro_ring_decode between the ranks: the split kernel over
+// the rank's slots with every chunk's partial state written out (also when
+// there is one chunk), and the combine kernel alone over partials the
+// caller gathered from the ranks in ascending slot order.  With the rank's
+// slot count a multiple of `chunk`, its chunks are the one-process
+// kernel's chunks, so the gathered partials and their combine are the
+// one-process call's, bit for bit.
+//
 // C interface (ctypes): pointers and the stream as void*, sizes as int;
 // dtype 0 = float32, 1 = bfloat16 (q, k, v and the output).  With nc =
 // ceil(S / chunk) > 1 chunks, part_m / part_l (B * KV * G * nc floats) and
 // part_acc (B * KV * G * nc * D floats) are the caller's f32 scratch (null
 // when nc == 1).  D must be a multiple of 4, at most 512.  Returns
 // cudaGetLastError() after the launches.
+//
+//   repro_ring_decode_partials: the same arguments without `out`; the
+//     partials are written for every nc, (B * KV * G, nc) m and l and
+//     (B * KV * G, nc, D) acc, an empty chunk as m = -inf (its l and acc
+//     unwritten);
+//   repro_ring_combine: partials of `rows` rows over nc chunks in that
+//     layout -> out (rows, D) in the dtype.
 
 #include "split_combine.cuh"
 
@@ -54,7 +71,8 @@ ring_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const int* __restrict__ pos,
                   const int* __restrict__ q_pos, T* __restrict__ out,
                   float* pm, float* pl, float* pacc, int KV, int G, int S,
-                  int D, int window, int chunk, int nc, int w, float scale) {
+                  int D, int window, int chunk, int nc, int w, float scale,
+                  bool partials) {
   extern __shared__ __align__(16) char smem_raw[];
   const int bh = blockIdx.x, b = bh / KV, c = blockIdx.y;
   const int j_lo = c * chunk;
@@ -72,7 +90,7 @@ ring_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     mine |= ok;
   }
   if (!__syncthreads_or(mine)) {                        // no live slot
-    write_empty<T>(out, pm, G, D, c, nc, row_of);
+    write_empty<T>(out, pm, G, D, c, nc, row_of, partials);
     return;
   }
 
@@ -108,16 +126,18 @@ ring_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                              scale, [&](int, int j) { return live[j] != 0; });
     }
   }
-  write_rows<T>(sm, out, pm, pl, pacc, G, D, c, nc, row_of);
+  write_rows<T>(sm, out, pm, pl, pacc, G, D, c, nc, row_of, partials);
 }
 
+// The split kernel, then (unless `partials`, or with one chunk) the
+// combine.
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const int* pos,
            const int* q_pos, void* out, float* pm, float* pl, float* pacc,
            int B, int KV, int G, int S, int D, int window, int chunk,
-           cudaStream_t st) {
+           bool partials, cudaStream_t st) {
   const int nc = (S + chunk - 1) / chunk;
-  if (nc > 1 && (pm == nullptr || pl == nullptr || pacc == nullptr))
+  if ((nc > 1 || partials) && (pm == nullptr || pl == nullptr || pacc == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int w = copy_width(static_cast<size_t>(D) * sizeof(T), k, v);
   if (w == 0) return static_cast<int>(cudaErrorMisalignedAddress);
@@ -130,11 +150,33 @@ int launch(const void* q, const void* k, const void* v, const int* pos,
   kernel<<<dim3(B * KV, nc), kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), pos,
       q_pos, static_cast<T*>(out), pm, pl, pacc, KV, G, S, D, window, chunk, nc, w,
-      scale);
+      scale, partials);
   err = cudaGetLastError();
-  if (err != cudaSuccess || nc == 1) return static_cast<int>(err);
+  if (err != cudaSuccess || nc == 1 || partials) return static_cast<int>(err);
   launch_combine<T>(pm, pl, pacc, out, B * KV * G, nc, D, st);
   return static_cast<int>(cudaGetLastError());
+}
+
+int ring_entry(int dtype, const void* q, const void* k, const void* v,
+               const void* pos, const void* q_pos, void* out, void* part_m,
+               void* part_l, void* part_acc, int B, int KV, int G, int S, int D,
+               int window, int chunk, bool partials, void* stream) {
+  if (B < 1 || KV < 1 || G < 1 || S < 1 || D < 1 || D % 4 != 0 || D > 4 * kThreads ||
+      chunk < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* p = static_cast<const int*>(pos);
+  const auto* qp = static_cast<const int*>(q_pos);
+  auto* pm = static_cast<float*>(part_m);
+  auto* pl = static_cast<float*>(part_l);
+  auto* pa = static_cast<float*>(part_acc);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float>(q, k, v, p, qp, out, pm, pl, pa, B, KV, G, S, D, window, chunk,
+                         partials, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(q, k, v, p, qp, out, pm, pl, pa, B, KV, G, S, D, window,
+                                 chunk, partials, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -150,21 +192,36 @@ int repro_ring_decode(int dtype, const void* q, const void* k, const void* v,
                       void* part_m, void* part_l, void* part_acc, int B,
                       int KV, int G, int S, int D, int window, int chunk,
                       void* stream) {
-  if (B < 1 || KV < 1 || G < 1 || S < 1 || D < 1 || D % 4 != 0 || D > 4 * kThreads ||
-      chunk < 1)
+  return ring_entry(dtype, q, k, v, pos, q_pos, out, part_m, part_l, part_acc, B, KV, G,
+                    S, D, window, chunk, false, stream);
+}
+
+int repro_ring_decode_partials(int dtype, const void* q, const void* k,
+                               const void* v, const void* pos,
+                               const void* q_pos, void* part_m, void* part_l,
+                               void* part_acc, int B, int KV, int G, int S,
+                               int D, int window, int chunk, void* stream) {
+  return ring_entry(dtype, q, k, v, pos, q_pos, nullptr, part_m, part_l, part_acc, B, KV,
+                    G, S, D, window, chunk, true, stream);
+}
+
+int repro_ring_combine(int dtype, const void* part_m, const void* part_l,
+                       const void* part_acc, void* out, int rows, int nc, int D,
+                       void* stream) {
+  if (rows < 1 || nc < 1 || D < 1 || part_m == nullptr || part_l == nullptr ||
+      part_acc == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto* p = static_cast<const int*>(pos);
-  const auto* qp = static_cast<const int*>(q_pos);
-  auto* pm = static_cast<float*>(part_m);
-  auto* pl = static_cast<float*>(part_l);
-  auto* pa = static_cast<float*>(part_acc);
+  const auto* pm = static_cast<const float*>(part_m);
+  const auto* pl = static_cast<const float*>(part_l);
+  const auto* pa = static_cast<const float*>(part_acc);
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k, v, p, qp, out, pm, pl, pa, B, KV, G, S, D, window, chunk, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, p, qp, out, pm, pl, pa, B, KV, G, S, D, window,
-                                 chunk, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+    split::launch_combine<float>(pm, pl, pa, out, rows, nc, D, st);
+  else if (dtype == 1)
+    split::launch_combine<__nv_bfloat16>(pm, pl, pa, out, rows, nc, D, st);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

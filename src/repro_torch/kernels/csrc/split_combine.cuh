@@ -477,16 +477,18 @@ __device__ __forceinline__ TO finish(float acc, float l, float m) {
 }
 
 // The CTA's state of chunk c for its R rows: partials (m, l, acc) at
-// index row_of(r) * nc + c, or with nc == 1 the finished output rows.
+// index row_of(r) * nc + c, or with nc == 1 the finished output rows
+// (unless `partials`: a caller that merges the partials itself, also of
+// one chunk).
 template <typename TO, typename RowOf>
 __device__ void write_rows(const Smem& sm, TO* __restrict__ out, float* pm,
                            float* pl, float* pacc, int R, int D, int c, int nc,
-                           RowOf row_of) {
+                           RowOf row_of, bool partials = false) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int r = warp; r < R; r += kWarps) {
     const size_t row = row_of(r);
     const float* a = sm.acc + static_cast<size_t>(r) * D;
-    if (nc == 1) {
+    if (nc == 1 && !partials) {
       for (int d = lane; d < D; d += 32) out[row * D + d] = finish<TO>(a[d], sm.l[r], sm.m[r]);
     } else {
       const size_t i = row * nc + c;
@@ -500,14 +502,14 @@ __device__ void write_rows(const Smem& sm, TO* __restrict__ out, float* pm,
 }
 
 // A chunk with no key for any of the CTA's rows: m = -inf (l and acc are
-// never read), or with nc == 1 zero output rows.
+// never read), or with nc == 1 zero output rows (unless `partials`).
 template <typename TO, typename RowOf>
 __device__ void write_empty(TO* __restrict__ out, float* pm, int R, int D,
-                            int c, int nc, RowOf row_of) {
+                            int c, int nc, RowOf row_of, bool partials = false) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int r = warp; r < R; r += kWarps) {
     const size_t row = row_of(r);
-    if (nc == 1) {
+    if (nc == 1 && !partials) {
       for (int d = lane; d < D; d += 32) out[row * D + d] = from_f32<TO>(0.f);
     } else if (lane == 0) {
       pm[row * nc + c] = -INFINITY;

@@ -13,7 +13,12 @@ positions; ``fp8=True`` runs QK^T on per-row fp8_e4m3 tiles
 
 ``decode_attention`` is the ring-buffer decode of the static serving
 path: q (B, KV, G, D), a cache k / v (B, KV, S, D) in q's dtype, slot
-positions pos (B, S) and query positions q_pos (B,) int32.
+positions pos (B, S) and query positions q_pos (B,) int32.  Its two
+halves, for the sequence-parallel decode of a ``kv_seq`` cache (each
+model rank holds a run of the ring's slots): ``decode_attention_partials``
+(the split kernel over this rank's slots, every chunk's partial state
+returned) and ``combine_partials`` (the combine kernel over partials the
+caller gathered, in ascending slot order).
 
 The kernels split each row's keys into chunks of ``CHUNK_KEYS`` key
 positions, one CTA each, and merge the chunks' partial softmax states in
@@ -26,7 +31,8 @@ Launch counts, one per call (a call may run the combine kernel after the
 split kernel): ``paged_decode`` / ``paged_verify`` (plain pools),
 ``paged_decode_fp8`` / ``paged_verify_fp8`` (fp8 QK^T),
 ``paged_decode_dequant`` / ``paged_verify_dequant`` (quantized pools),
-``ring_decode`` (the ring cache)."""
+``ring_decode`` (the ring cache), ``ring_decode_partials`` and
+``ring_combine`` (its two halves)."""
 from __future__ import annotations
 
 import ctypes
@@ -35,7 +41,9 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.ref import (
-    decode_attention_plain, paged_decode_attention_dequant_plain,
+    combine_partials as combine_partials_plain,
+    decode_attention_partials_plain, decode_attention_plain,
+    paged_decode_attention_dequant_plain,
     paged_decode_attention_plain, paged_verify_attention_dequant_plain,
     paged_verify_attention_plain)
 
@@ -58,6 +66,11 @@ _RING_SIGNATURES = {
     # dtype, q, k, v, pos, q_pos, out, part_m, part_l, part_acc, B, KV, G,
     # S, D, window, chunk, stream
     "repro_ring_decode": (_I,) + (_P,) * 9 + (_I,) * 7 + (_P,),
+    # dtype, q, k, v, pos, q_pos, part_m, part_l, part_acc, B, KV, G, S, D,
+    # window, chunk, stream
+    "repro_ring_decode_partials": (_I,) + (_P,) * 8 + (_I,) * 7 + (_P,),
+    # dtype, part_m, part_l, part_acc, out, rows, nc, D, stream
+    "repro_ring_combine": (_I,) + (_P,) * 4 + (_I,) * 3 + (_P,),
 }
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -222,11 +235,7 @@ def paged_verify_attention_dequant(q, k_pool, v_pool, k_scale, v_scale,
                    (start_pos, n_tokens), False, window)
 
 
-def decode_attention(q, k, v, pos, q_pos, *, window: int = 0) -> torch.Tensor:
-    """One query token per row against a ring-buffer cache; see
-    ``decode_attention_plain`` for the gates."""
-    if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, pos, q_pos, window)
+def _check_ring(q, k, v, pos, q_pos) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"decode attention takes CPU or CUDA tensors, got "
                          f"{q.device}")
@@ -255,6 +264,16 @@ def decode_attention(q, k, v, pos, q_pos, *, window: int = 0) -> torch.Tensor:
                              "device")
         if not t.is_contiguous():
             raise ValueError("ring decode kernel takes contiguous tensors")
+
+
+def decode_attention(q, k, v, pos, q_pos, *, window: int = 0) -> torch.Tensor:
+    """One query token per row against a ring-buffer cache; see
+    ``decode_attention_plain`` for the gates."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k, v, pos, q_pos, window)
+    _check_ring(q, k, v, pos, q_pos)
+    B, KV, G, D = q.shape
+    S = k.shape[2]
     out = torch.empty_like(q)
     buf, *part = _scratch(B * KV * G, ring_chunks(S), D, q.device)
     lib = _build.load("ring_attention", _RING_SIGNATURES)
@@ -266,4 +285,74 @@ def decode_attention(q, k, v, pos, q_pos, *, window: int = 0) -> torch.Tensor:
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, lib, "ring_decode")
     _build.launches["ring_decode"] += 1
+    return out
+
+
+def decode_attention_partials(q, k, v, pos, q_pos, *,
+                              window: int = 0) -> tuple:
+    """:func:`decode_attention`'s split half over these slots (one rank's
+    run of a ``kv_seq`` ring): the partial softmax states of its
+    ``ring_chunks(S)`` chunks, m and l (B, KV, G, nc) and acc (B, KV, G,
+    nc, D), f32, an empty chunk with m = -inf (on the card its l and acc
+    are left unwritten: ``combine_partials`` gives it weight 0 and reads
+    neither)."""
+    if q.device.type == "cpu":
+        return decode_attention_partials_plain(q, k, v, pos, q_pos, window,
+                                               chunk_keys=CHUNK_KEYS)
+    _check_ring(q, k, v, pos, q_pos)
+    B, KV, G, D = q.shape
+    S = k.shape[2]
+    nc = ring_chunks(S)
+    m = torch.empty((B, KV, G, nc), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    acc = torch.empty((B, KV, G, nc, D), dtype=torch.float32,
+                      device=q.device)
+    lib = _build.load("ring_attention", _RING_SIGNATURES)
+    with torch.cuda.device(q.device):
+        rc = lib.repro_ring_decode_partials(
+            _Q_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            pos.data_ptr(), q_pos.data_ptr(), m.data_ptr(), l.data_ptr(),
+            acc.data_ptr(), B, KV, G, S, D, int(window), CHUNK_KEYS,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, lib, "ring_decode_partials")
+    _build.launches["ring_decode_partials"] += 1
+    return m, l, acc
+
+
+def combine_partials(m, l, acc, dtype=torch.float32) -> torch.Tensor:
+    """:func:`decode_attention`'s combine half: each row's partials m, l
+    (..., nc) and acc (..., nc, D), f32, merged in ascending chunk order,
+    acc / l rounded once to ``dtype`` (zeros for a row with no key);
+    returns (..., D)."""
+    if m.device.type == "cpu":
+        return combine_partials_plain(m, l, acc).to(dtype)
+    if m.device.type != "cuda":
+        raise ValueError(f"the combine takes CPU or CUDA tensors, got "
+                         f"{m.device}")
+    if dtype not in _Q_DTYPES:
+        raise TypeError(f"the combine writes float32 or bfloat16, got "
+                        f"{dtype}")
+    if (m.dim() < 1 or l.shape != m.shape
+            or tuple(acc.shape[:-1]) != tuple(m.shape)):
+        raise ValueError(f"partials m {tuple(m.shape)} / l "
+                         f"{tuple(l.shape)} / acc {tuple(acc.shape)} do "
+                         f"not match: (..., nc), (..., nc), (..., nc, D)")
+    for t in (m, l, acc):
+        if t.dtype != torch.float32 or t.device != m.device:
+            raise TypeError("the partials must be float32 on one device")
+        if not t.is_contiguous():
+            raise ValueError("the combine kernel takes contiguous tensors")
+    nc, D = m.shape[-1], acc.shape[-1]
+    out = torch.empty(tuple(m.shape[:-1]) + (D,), dtype=dtype,
+                      device=m.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.load("ring_attention", _RING_SIGNATURES)
+    with torch.cuda.device(m.device):
+        rc = lib.repro_ring_combine(
+            _Q_DTYPES[dtype], m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+            out.data_ptr(), m.numel() // nc, nc, D,
+            torch.cuda.current_stream(m.device).cuda_stream)
+    _build.check(rc, lib, "ring_combine")
+    _build.launches["ring_combine"] += 1
     return out

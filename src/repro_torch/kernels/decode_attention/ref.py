@@ -34,7 +34,13 @@ partial softmax state (m, l, acc) per (row, chunk) with masked keys at
 exactly zero, merged in ascending chunk order (``combine_partials``).
 Each row's values depend only on its own q row, keys and position limit,
 so verify row t equals decode at ``start + t`` bit for bit, and decode is
-verify at T = 1, as in the kernels."""
+verify at T = 1, as in the kernels.
+
+Two of the mirror's parts are also plain versions the wrappers call: the
+ring's partial states (``decode_attention_partials_plain``) and their
+merge (``combine_partials``), the two halves of the sequence-parallel
+decode (a ``kv_seq`` cache: each rank's slots' partials, gathered across
+the ranks, merged once)."""
 from __future__ import annotations
 
 import math
@@ -184,7 +190,8 @@ def decode_attention_plain(q, k, v, pos, q_pos,
 
 
 # ---------------------------------------------------------------------------
-# The split-key mirror (tests only)
+# The split-key mirror (the ring's partials and their merge are also the
+# CPU path of the split ring entries)
 # ---------------------------------------------------------------------------
 
 def _exp(x: torch.Tensor) -> torch.Tensor:
@@ -272,17 +279,25 @@ def paged_decode_split_plain(q, k_pool, v_pool, block_tables, q_pos,
         chunk_keys=chunk_keys)[:, 0]
 
 
-def decode_attention_split_plain(q, k, v, pos, q_pos, window: int = 0, *,
-                                 chunk_keys: int = 64) -> torch.Tensor:
-    """:func:`decode_attention_plain` through the split: chunks of
-    ``chunk_keys`` ring slots.  Rows with no live slot are zeros."""
+def decode_attention_partials_plain(q, k, v, pos, q_pos, window: int = 0,
+                                    *, chunk_keys: int = 64) -> tuple:
+    """The ring decode's partial softmax states over chunks of
+    ``chunk_keys`` slots (:func:`decode_attention_plain`'s gates): m, l
+    (B, KV, G, nc) and acc (B, KV, G, nc, D), f32; a chunk with no live
+    slot has m = -inf, l = 0 and acc = 0."""
     D = q.shape[-1]
     pos, qp = pos.long(), q_pos.long()[:, None]
     ok = (pos >= 0) & (pos <= qp)
     if window > 0:
         ok &= (qp - pos) < window
     s = (q.float()[..., None, :] * k.float()[:, :, None]).contiguous().sum(-1)
-    m, l, acc = _split_states(s / math.sqrt(D), ok[:, None, None, :],
-                              v.float().transpose(-1, -2)[:, :, None],
-                              chunk_keys)
-    return combine_partials(m, l, acc).to(q.dtype)
+    return _split_states(s / math.sqrt(D), ok[:, None, None, :],
+                         v.float().transpose(-1, -2)[:, :, None], chunk_keys)
+
+
+def decode_attention_split_plain(q, k, v, pos, q_pos, window: int = 0, *,
+                                 chunk_keys: int = 64) -> torch.Tensor:
+    """:func:`decode_attention_plain` through the split: chunks of
+    ``chunk_keys`` ring slots.  Rows with no live slot are zeros."""
+    return combine_partials(*decode_attention_partials_plain(
+        q, k, v, pos, q_pos, window, chunk_keys=chunk_keys)).to(q.dtype)

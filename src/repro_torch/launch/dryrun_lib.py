@@ -7,8 +7,9 @@ cost and collective statistics off the compiled program.  Eager PyTorch
 has no compiler to lower to, so the port resolves the same abstract
 state (``launch/state.py``, on the ``meta`` device) under the same rules
 (the profile or ``auto_profile``; ``kv_seq`` over ``model`` for KV heads
-that do not divide it; the worker dim on ``pod`` when training across
-pods) and reports:
+that do not divide it, with attention's leaves whole as the port's serve
+step holds them; the worker dim on ``pod`` when training across pods)
+and reports:
 
 * per-device **argument bytes**, from each argument's shard shape;
 * the analytic FLOPs and HBM bytes (``launch/analytic.py``), ``n_params``
@@ -233,8 +234,12 @@ def dryrun_combo(arch_id: str, shape_name: str, *, multi_pod: bool = False,
     if (shape.kind == "decode" and cfg.num_kv_heads % tp
             and cfg.arch_type != "ssm"):
         # KV heads that do not divide the TP axis: shard the cache's
-        # sequence dim over `model` instead
+        # sequence dim over `model` instead; the port's serve step then
+        # holds attention's leaves whole on every rank (models.sharding
+        # serve_layout), where spec_for would cut the heads' columns
         eff_rules.setdefault("kv_seq", ("model",))
+        eff_rules.setdefault("heads", ())
+        eff_rules.setdefault("kv_heads", ())
     if multi_pod and shape.kind == "train":
         # the DiLoCo inner step: the worker dim owns "pod", batch "data"
         eff_rules.setdefault("batch", ("data",))

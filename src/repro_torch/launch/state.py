@@ -10,7 +10,6 @@ under its names.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Any, Dict, Tuple
 
 import torch
@@ -18,6 +17,9 @@ import torch
 from repro_torch.configs.base import (DiLoCoConfig, ModelConfig,
                                       OptimizerConfig)
 from repro_torch.models.sharding import local_shape, spec_for
+# the reference keeps tp_kv_repeat here; the port's lives beside the
+# serving layout that reads it
+from repro_torch.models.sharding import tp_kv_repeat  # noqa: F401
 from repro_torch.models.transformer import param_names, param_shapes
 from repro_torch.models.layers import torch_dtype
 from repro_torch.optim import nanochat_optimizer
@@ -87,7 +89,10 @@ def decode_cache_names(cache) -> Any:
     """Names of a stacked decode cache (``init_decode_cache``), by leaf
     name, in the port's layouts: attention K / V (L, B, KV, cap, hd), the
     cross cache alike, ``pos`` (L, B, cap), the mamba ``conv`` (L, B, W-1,
-    conv_dim) and ``ssm`` (L, B, H, N, P)."""
+    conv_dim) and ``ssm`` (L, B, H, N, P).  A model rank's part of the
+    ring cache (``init_decode_cache(..., mesh=)``) has the shapes these
+    names resolve to over ``model`` under the serve step's rules
+    (``kv_seq`` on ``model`` where the KV heads do not divide)."""
     by_leaf = {"k": ("stack", "batch", "kv_heads", "kv_seq", None),
                "v": ("stack", "batch", "kv_heads", "kv_seq", None),
                "pos": ("stack", "batch", "kv_seq"),
@@ -178,16 +183,3 @@ def abstract_diloco_state(cfg: ModelConfig, opt_cfg: OptimizerConfig,
         inner_opt=add_leading(opt_state_names(inner, names), "pod"),
         inner_step=())
     return state, state_names
-
-
-def tp_kv_repeat(cfg: ModelConfig, tp: int) -> ModelConfig:
-    """Repeat KV heads up to the tensor-parallel degree (the Megatron GQA
-    trick), so the decode KV cache shards over ``model``; only where the
-    result still divides ``num_heads``.  Archs that cannot (llama4-scout's
-    40 heads, hymba's 25) shard the cache's sequence dim instead
-    (``launch/dryrun_lib.py``)."""
-    if cfg.num_kv_heads >= tp or cfg.arch_type == "ssm":
-        return cfg
-    if tp % cfg.num_kv_heads or cfg.num_heads % tp:
-        return cfg
-    return dataclasses.replace(cfg, num_kv_heads=tp)

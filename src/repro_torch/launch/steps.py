@@ -19,6 +19,17 @@
 The reference takes a ``ModelAPI``; the port's model functions take the
 config, so these take ``cfg``.  Parameters are flat dicts (train, DiLoCo)
 or trees (prefill, serve), as the functions they wrap take them.
+
+Serving over a model axis (``mesh=``, a process mesh of ``model`` > 1):
+each model rank runs the prefill and serve steps on its shards
+(``models.sharding.serve_layout``: ``shard`` of the parameters, after
+``repeat_kv_heads`` where the KV heads repeat) and its part of the cache
+(``init_decode_cache(..., mesh=)``), under ``tensor_parallel.use(mesh)``,
+and gets back what the reference's partitioned program returns: the
+logits of its own vocab columns (``("batch", "vocab")``), and its part of
+the cache, updated in place.  ``tensor_parallel.vocab_parallel_argmax``
+gives the greedy ids; ``mesh.model_all_gather(logits, -1)`` the whole
+logits.
 """
 from __future__ import annotations
 
@@ -31,6 +42,7 @@ from repro_torch.configs.base import (DiLoCoConfig, ModelConfig,
 from repro_torch.core.ddp import DDPTrainer
 from repro_torch.core.diloco import DiLoCoTrainer
 from repro_torch.models import decode_step_lm, forward_lm, lm_loss
+from repro_torch.models import tensor_parallel as tp
 
 
 def _loss(cfg: ModelConfig) -> Callable:
@@ -73,23 +85,28 @@ def make_inner_chunk(cfg: ModelConfig, opt_cfg: OptimizerConfig,
     return chunk
 
 
-def make_prefill_step(cfg: ModelConfig) -> Callable:
+def make_prefill_step(cfg: ModelConfig, mesh=None) -> Callable:
     """``prefill(params, batch) -> (B, V)`` next-token logits of the last
-    position."""
+    position; over ``mesh``'s model axis, this rank's (B, V / model) vocab
+    columns."""
     @torch.no_grad()
     def prefill(params, batch):
-        logits, _ = forward_lm(params, batch, cfg)
+        with tp.use(mesh):
+            logits, _ = forward_lm(params, batch, cfg)
         return logits[:, -1, :]
 
     return prefill
 
 
-def make_serve_step(cfg: ModelConfig) -> Callable:
+def make_serve_step(cfg: ModelConfig, mesh=None) -> Callable:
     """``serve_step(params, cache, batch) -> ((B, V) logits, cache)``:
-    one token a row against the static cache (updated in place)."""
+    one token a row against the static cache (updated in place); over
+    ``mesh``'s model axis, this rank's (B, V / model) vocab columns and
+    its part of the cache."""
     @torch.no_grad()
     def serve_step(params, cache, batch):
-        logits, cache = decode_step_lm(params, cache, batch, cfg)
+        with tp.use(mesh):
+            logits, cache = decode_step_lm(params, cache, batch, cfg)
         return logits[:, 0, :], cache
 
     return serve_step

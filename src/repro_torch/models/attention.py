@@ -53,6 +53,16 @@ pairs each query head with its own KV head), RoPE per head as always,
 and sums ``wo``'s partial products over the model group
 (``models/tensor_parallel.py``).  The head counts come from the leaves'
 shapes, which are the config's on one rank.
+
+Tensor parallelism (the static serve step, ``models.sharding
+.serve_layout``): head-parallel, ``decode_attention`` runs the ring
+kernel on the rank's heads and its heads of the cache, and sums ``wo``'s
+partial products as training does.  ``kv_seq``, attention is whole on
+every rank and the cache holds the rank's run of the ring's slots (its
+``"kv_seq"`` entry the rank count): the new K/V go to the slot's owner
+only (``_cache_insert``), each rank computes its slots' partial softmax
+states (the ring kernel's split half), and
+``tensor_parallel.seq_parallel_attention`` merges the ranks' partials.
 """
 from __future__ import annotations
 
@@ -340,14 +350,16 @@ def paged_decode_attention(p, x: torch.Tensor, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, *, dtype=None,
-               device="cpu", stack: Tuple[int, ...] = ()) -> dict:
+               device="cpu", stack: Tuple[int, ...] = (),
+               kv_heads: Optional[int] = None) -> dict:
     """A fixed-capacity cache: {"k", "v": stack + (B, KV, cap, hd) in
     ``dtype`` (default the compute dtype), "pos": stack + (B, cap) int32
     filled with -1, "idx": 0, the next write slot (mod cap), shared by
-    every layer of a stack}."""
+    every layer of a stack}.  ``kv_heads``: a model rank's KV heads in
+    place of the config's."""
     hd = cfg.resolved_head_dim()
     dt = dtype or torch_dtype(cfg.compute_dtype)
-    shape = stack + (batch, cfg.num_kv_heads, capacity, hd)
+    shape = stack + (batch, kv_heads or cfg.num_kv_heads, capacity, hd)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device),
             "pos": torch.full(stack + (batch, capacity), -1,
@@ -359,11 +371,20 @@ def _cache_insert(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
                   pos_new: torch.Tensor) -> dict:
     """Write S_new entries (k_new / v_new (B, S_new, KV, hd), pos_new (B,
     S_new)) at slot ``idx mod cap`` IN PLACE.  Decode writes one position,
-    so a write never crosses the ring's end.  Returns the cache dict with
-    ``idx`` advanced (the same tensors)."""
+    so a write never crosses the ring's end.  A ``kv_seq`` part (its
+    ``"kv_seq"`` ranks of cap / ranks slots each) takes the one entry only
+    on the rank that owns the slot.  Returns the cache dict with ``idx``
+    advanced (the same tensors)."""
     cap = cache["k"].shape[2]
     s_new = k_new.shape[1]
     slot = cache["idx"] % cap
+    parts = cache.get("kv_seq", 1)
+    if parts > 1:
+        if s_new != 1:
+            raise ValueError("a kv_seq cache takes one entry a step")
+        owner, slot = divmod(cache["idx"] % (cap * parts), cap)
+        if owner != tp.active().model_index:
+            return dict(cache, idx=cache["idx"] + s_new)
     cache["k"][:, :, slot:slot + s_new] = k_new.transpose(1, 2)
     cache["v"][:, :, slot:slot + s_new] = v_new.transpose(1, 2)
     cache["pos"][:, slot:slot + s_new] = pos_new
@@ -385,7 +406,13 @@ def decode_attention(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, *,
     :func:`precompute_cross_cache`) it is cross-attention instead: the
     query (no bias, no RoPE) against every memory key through the ring
     decode kernel (:func:`cross_positions`); ``cache`` and ``position``
-    are not read, and ``cache`` comes back as given."""
+    are not read, and ``cache`` comes back as given.
+
+    Under a model axis the head counts come from the leaves' shapes: with
+    this rank's heads, its heads of the cache and ``wo``'s partial
+    products summed over the model group; with whole attention and a
+    ``kv_seq`` cache part, the ranks' slots merged
+    (``tensor_parallel.seq_parallel_attention``)."""
     B = x.shape[0]
     H, hd = cfg.num_heads, cfg.resolved_head_dim()
     if memory_cache is not None:
@@ -396,13 +423,23 @@ def decode_attention(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, *,
             q.reshape(B, KV, H // KV, hd), memory_cache["k"],
             memory_cache["v"], pos, q_pos, window=0)
         return out.reshape(B, 1, H * hd) @ cast(p["wo"], x.dtype), cache
+    H = p["wq"].shape[-1] // hd              # this rank's heads
+    split = H != cfg.num_heads
+    if split:
+        x = tp.copy_to_model(x)
     q, k_new, v_new = project_qkv(p, x, cfg)
     cos, sin = rope if rope is not None else rope_cos_sin(
         position[:, None], hd, cfg.rope_theta)
     q = apply_rope(q.reshape(B, 1, H, hd), cos, sin).reshape(q.shape)
     k_new = apply_rope(k_new, cos, sin)
     cache = _cache_insert(cache, k_new, v_new, position[:, None])
-    out = attn_kernels.decode_attention(
-        q[:, 0].contiguous(), cache["k"], cache["v"], cache["pos"],
-        position, window=int(window or 0))
-    return out.reshape(B, 1, H * hd) @ cast(p["wo"], x.dtype), cache
+    args = (q[:, 0].contiguous(), cache["k"], cache["v"], cache["pos"],
+            position)
+    if cache.get("kv_seq", 1) > 1:
+        out = tp.seq_parallel_attention(
+            *attn_kernels.decode_attention_partials(
+                *args, window=int(window or 0)), dtype=x.dtype)
+    else:
+        out = attn_kernels.decode_attention(*args, window=int(window or 0))
+    y = out.reshape(B, 1, H * hd) @ cast(p["wo"], x.dtype)
+    return (tp.reduce_from_model(y) if split else y), cache

@@ -33,10 +33,33 @@ addresses a leaf, its optimizer moments and a (K, ...) stack of it.
 ``gather`` joins the ranks' shards back, and ``split_of`` finds a
 leaf's entry from any path that ends in the leaf's (a checkpoint's
 ``worker_params/0/layers/attn/wq``).
+
+Serving over ``model`` (the reference's dry run of its serve step,
+``launch/state.py`` ``tp_kv_repeat`` and ``launch/dryrun_lib.py``'s
+``kv_seq`` rule), decided from the config and ``model`` alone
+(``serve_layout``):
+
+* ``"heads"``: after ``tp_kv_repeat`` both head counts divide by
+  ``model``.  Each rank holds a contiguous run of the KV heads with their
+  query groups (``tp_layout`` of the repeated config) and those heads of
+  the ring cache, (L, B, KV / model, cap, hd), ``pos`` whole.  Where the
+  repeat applies, ``repeat_kv_heads`` repeats ``wk`` / ``wv`` (and their
+  biases) to match, and the repeated config computes the original
+  model's function.
+* ``"kv_seq"``: the KV heads still do not divide.  Attention stays whole
+  on every rank (``tp_layout``); rank r holds the ring slots [r cap /
+  model, (r + 1) cap / model) of k / v and ``pos``, and the shared write
+  index.  The softmax reduces over the ranks' slots
+  (``tensor_parallel.seq_parallel_attention``).
+
+The MLP and the vocab split as in training, either way.  ``shard_cache`` /
+``gather_cache`` cut a one-process ring cache into the ranks' parts and
+join them back.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import threading
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
@@ -253,3 +276,87 @@ def gather(shards: List[Dict[str, torch.Tensor]], layout: Layout
         out[path] = t if dim is None or len(shards) == 1 else torch.cat(
             [s[path] for s in shards], dim=dim)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Serving over the ``model`` axis
+# ---------------------------------------------------------------------------
+
+def tp_kv_repeat(cfg, tp: int):
+    """Repeat KV heads up to the tensor-parallel degree (the Megatron GQA
+    trick), so the decode KV cache shards over ``model``; only where the
+    result still divides ``num_heads``.  Archs that cannot (llama4-scout's
+    40 heads, hymba's 25) shard the cache's sequence dim instead
+    (``serve_layout``'s ``"kv_seq"``)."""
+    if cfg.num_kv_heads >= tp or cfg.arch_type == "ssm":
+        return cfg
+    if tp % cfg.num_kv_heads or cfg.num_heads % tp:
+        return cfg
+    return dataclasses.replace(cfg, num_kv_heads=tp)
+
+
+def serve_layout(cfg, model: int) -> Tuple[str, Dict[str, Optional[int]]]:
+    """(``"heads"`` or ``"kv_seq"``, the parameter layout) of serving
+    ``cfg`` over ``model`` ranks: the module docstring's rules.  The
+    layout is ``tp_layout`` of ``tp_kv_repeat(cfg, model)``, the config
+    the ranks serve (with ``repeat_kv_heads``' parameters)."""
+    rep = tp_kv_repeat(cfg, model)
+    heads = rep.num_heads % model == 0 and rep.num_kv_heads % model == 0
+    return ("heads" if heads else "kv_seq"), tp_layout(rep, model)
+
+
+_KV_LEAVES = ("attn/wk", "attn/wv", "attn/bk", "attn/bv")
+
+
+def repeat_kv_heads(flat: Dict[str, torch.Tensor], cfg,
+                    model: int) -> Dict[str, torch.Tensor]:
+    """One-process flat parameters of ``cfg`` as those of
+    ``tp_kv_repeat(cfg, model)``: each KV head's columns of ``wk`` /
+    ``wv`` (and ``bk`` / ``bv``) repeated ``model / num_kv_heads`` times
+    in place (``repeat_interleave``), so query head h reads new KV head
+    h // (H / model), a copy of its own KV head h // (H / KV).  The other
+    leaves are the same tensors; ``flat`` itself where no repeat
+    applies."""
+    times = tp_kv_repeat(cfg, model).num_kv_heads // cfg.num_kv_heads
+    if times == 1:
+        return flat
+    hd = cfg.resolved_head_dim()
+    out = {}
+    for path, t in flat.items():
+        if "/".join(path.split("/")[-2:]) in _KV_LEAVES:
+            heads = t.reshape(*t.shape[:-1], t.shape[-1] // hd, hd)
+            t = heads.repeat_interleave(times, dim=-2).flatten(-2)
+        out[path] = t
+    return out
+
+
+# the ring cache's leaves and the dim a layout splits them on (from the
+# end): k / v (L, B, KV, cap, hd), pos (L, B, cap)
+_CACHE_SPLIT = {"heads": {"k": -3, "v": -3},
+                "kv_seq": {"k": -2, "v": -2, "pos": -1}}
+
+
+def shard_cache(cache: dict, mode: str, index: int, model: int) -> dict:
+    """Rank ``index``'s part of a one-process static decode cache
+    (``init_decode_cache``, ``{"attn": {"k", "v", "pos", "idx"}}``) in
+    ``mode``'s layout (``serve_layout``), copied; a ``kv_seq`` part
+    records the rank count under ``"kv_seq"``."""
+    attn = {}
+    for name, t in cache["attn"].items():
+        dim = _CACHE_SPLIT[mode].get(name)
+        if torch.is_tensor(t):
+            t = (t if dim is None else _cut(t, dim, index, model)).clone()
+        attn[name] = t
+    if mode == "kv_seq":
+        attn["kv_seq"] = model
+    return dict(cache, attn=attn)
+
+
+def gather_cache(parts: List[dict]) -> dict:
+    """Inverse of ``shard_cache``: the model ranks' caches, in
+    model-index order, joined into the one-process cache."""
+    attn = dict(parts[0]["attn"])
+    mode = "kv_seq" if attn.pop("kv_seq", 1) > 1 else "heads"
+    for name, dim in _CACHE_SPLIT[mode].items():
+        attn[name] = torch.cat([p["attn"][name] for p in parts], dim=dim)
+    return dict(parts[0], attn=attn)

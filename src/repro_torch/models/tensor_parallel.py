@@ -24,6 +24,16 @@ stream and the norms are whole on every rank.
   (softmax minus one-hot, scaled), since the logits' own backward
   through ``copy_to_model`` sums the ranks' parts of dh.
 
+Serving (no backward):
+
+* ``seq_parallel_attention(m, l, acc)``: the ``kv_seq`` decode's merge.
+  Each rank's partial softmax states of its ring slots' chunks (the ring
+  kernel's split half) are all-gathered in model-index order, which is
+  ascending slot order, and merged once (its combine half): every rank
+  gets the whole attention output;
+* ``vocab_parallel_argmax(logits)``: the greedy id of vocab-split logits,
+  the same on every model rank, ties to the lower id as ``torch.argmax``.
+
 The active mesh.  ``use(mesh)`` makes ``mesh`` (a ``launch.mesh
 .ProcessMesh`` with ``model`` > 1) the one the layers reduce over; the
 trainers enter it around their inner steps and rounds.  It is a
@@ -43,6 +53,8 @@ import contextlib
 from typing import List
 
 import torch
+
+from repro_torch.kernels.decode_attention import combine_partials
 
 _ACTIVE: List = [None]
 
@@ -171,3 +183,40 @@ def gather_params(flat, mesh):
     if mesh is None or mesh.model == 1:
         return flat
     return {k: whole(k, flat[k], mesh) for k in sorted(flat)}
+
+
+def seq_parallel_attention(m: torch.Tensor, l: torch.Tensor,
+                           acc: torch.Tensor,
+                           dtype=torch.float32) -> torch.Tensor:
+    """The attention output (..., D) in ``dtype`` from this rank's
+    partials, m and l (..., nc) and acc (..., nc, D) f32 over its slots'
+    chunks: the model group's partials joined along the chunk dim in
+    model-index order (one all-gather of the three packed together), then
+    the combine.  The same on every model rank."""
+    mesh = _mesh()
+    D = acc.shape[-1]
+    packed = torch.cat([acc, m[..., None], l[..., None]], dim=-1)
+    every = mesh.model_all_gather(packed, -2)
+    return combine_partials(every[..., D].contiguous(),
+                            every[..., D + 1].contiguous(),
+                            every[..., :D].contiguous(), dtype)
+
+
+def vocab_parallel_argmax(logits: torch.Tensor) -> torch.Tensor:
+    """The greedy ids (...,) int64 of this rank's vocab columns ``logits``
+    (..., V / M) of every rank's: ``torch.argmax`` of the gathered logits,
+    ties to the lower id, the same on every model rank.  Each rank's best
+    value and its global id go through one all-gather (ids as f32, exact
+    below 2**24)."""
+    mesh = _mesh()
+    n = logits.shape[-1]
+    if n * mesh.model > 1 << 24:
+        raise ValueError(f"a vocab of {n * mesh.model} ids does not pass "
+                         f"exactly as float32")
+    at = logits.argmax(dim=-1, keepdim=True)
+    best = torch.gather(logits, -1, at).float()
+    ids = (at + mesh.model_index * n).float()
+    every = mesh.model_all_gather(torch.cat([best, ids], -1)[..., None, :],
+                                  -2)
+    rank = every[..., 0].argmax(dim=-1, keepdim=True)
+    return torch.gather(every[..., 1], -1, rank)[..., 0].long()

@@ -82,8 +82,12 @@ run Megatron-style through the layers (``models.layers``,
 whole on every rank; the logits ``forward_lm`` returns are this rank's
 vocab columns (``mesh.model_all_gather(logits, -1)`` joins them).
 Per-layer remat recomputes each layer's forward, all-reduces included.
-The other families and every serving step refuse a model axis, by name
-(``_require_supported``).
+``decode_step_lm`` serves the dense decoder the same way, on the rank's
+part of the ring cache (``init_decode_cache(..., mesh=)``; head-parallel
+or ``kv_seq``, ``models.sharding.serve_layout``), its logits this rank's
+vocab columns.  The other families refuse a model axis, by name, and so
+do the paged steps, which serve the ``Engine``: the reference's engine
+runs on no mesh (``_require_supported``).
 """
 from __future__ import annotations
 
@@ -104,7 +108,8 @@ from repro_torch.models.layers import (apply_mlp, apply_norm,
                                        softmax_ce_sums,
                                        rope_cos_sin, softmax_cross_entropy,
                                        torch_dtype, unembed, vocab_split)
-from repro_torch.models.sharding import require_tp_family
+from repro_torch.models.sharding import (require_tp_family, serve_layout,
+                                         tp_kv_repeat)
 
 Params = Dict[str, object]
 
@@ -112,19 +117,21 @@ Params = Dict[str, object]
 ARCH_TYPES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
-def _require_supported(cfg: ModelConfig, serving: bool = False) -> None:
+def _require_supported(cfg: ModelConfig, paged: bool = False) -> None:
     """The port runs every arch type the reference's configs use; an
     encoder-decoder's blocks are attention blocks (no SSM, hybrid or
     experts), as the reference's.  Under an active model axis
-    (``tensor_parallel.use``) it trains the dense decoder only, and
-    serves nothing (``serving``): each refused by name, naming what
-    ROADMAP §1 has left to do."""
+    (``tensor_parallel.use``) it trains and serves (the static serve
+    step) the dense decoder only, each other family refused by name, and
+    runs no paged step (``paged``): the paged pool serves the ``Engine``,
+    which runs on no mesh, as the reference's."""
     if tp.active() is not None:
-        if serving:
+        if paged:
             raise NotImplementedError(
-                "serving under a model axis > 1: the paged pool split by "
-                "KV heads and the kv_seq decode wait for ROADMAP §1's item "
-                "'tensor-parallel serving'")
+                "the paged serving steps under a model axis > 1: the paged "
+                "pool is the Engine's, and the Engine runs on no mesh, as "
+                "the reference's does; serve over a model axis through "
+                "launch.steps.make_serve_step (the static ring cache)")
         require_tp_family(cfg)
     if cfg.arch_type not in ARCH_TYPES:
         raise NotImplementedError(f"arch {cfg.arch_type!r}: the port runs "
@@ -588,7 +595,7 @@ def _paged_layers(params: Params, h: torch.Tensor, pool, cfg: ModelConfig,
     dest), see ``attention.paged_inputs``.  Each layer attends with its
     own window (``layer_windows``); an MoE's capacity is taken over each
     slot's T tokens.  Returns the final-normed hidden."""
-    _require_supported(cfg, serving=True)
+    _require_supported(cfg, paged=True)
     inputs = attn.paged_inputs(positions, block_table, cfg,
                                pool["k"].shape[2], scatter)
     quantized = "k_scale" in pool
@@ -638,7 +645,7 @@ def verify_step_paged(params: Params, pool, batch,
 # ---------------------------------------------------------------------------
 
 def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int, *,
-                      dtype=None, device="cpu") -> dict:
+                      dtype=None, device="cpu", mesh=None) -> dict:
     """Stacked (L, ...) decode caches of the static path.  Attention
     archs: the ring cache of ``attention.init_cache`` with ``capacity``
     slots per row (in the compute dtype by default) and one shared write
@@ -647,9 +654,33 @@ def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int, *,
     ``hybrid_inner`` wide; encoder-decoder: the ring cache and "cross",
     {"k", "v"} zeros (L, B, KV, encoder_seq_len, hd), each layer's cross
     K / V in the ring kernel's layout (the reference's is (L, B, Se, KV,
-    hd)), to be filled from ``attention.precompute_cross_cache``."""
+    hd)), to be filled from ``attention.precompute_cross_cache``.
+
+    ``mesh`` (a process mesh of ``model`` > 1): one model rank's part of
+    the dense decoder's ring cache, in ``serve_layout``'s layout of
+    ``cfg`` (the config the ranks serve, after ``tp_kv_repeat``): its KV
+    heads, or (``kv_seq``) its ``capacity / model`` slots, with
+    ``"kv_seq"`` the rank count."""
     _require_supported(cfg)
     L = cfg.num_layers
+    model = 1 if mesh is None else mesh.model
+    if model > 1:
+        require_tp_family(cfg)
+        if tp_kv_repeat(cfg, model) != cfg:
+            raise ValueError(f"{cfg.name or 'this config'}: serve "
+                             f"tp_kv_repeat(cfg, {model}) over {model} "
+                             f"model ranks, with repeat_kv_heads' "
+                             f"parameters")
+        if serve_layout(cfg, model)[0] == "heads":
+            return {"attn": attn.init_cache(
+                cfg, batch, capacity, dtype=dtype, device=device,
+                stack=(L,), kv_heads=cfg.num_kv_heads // model)}
+        if capacity % model:
+            raise ValueError(f"a kv_seq cache of {capacity} slots does not "
+                             f"split over {model} model ranks")
+        return {"attn": dict(attn.init_cache(
+            cfg, batch, capacity // model, dtype=dtype, device=device,
+            stack=(L,)), kv_seq=model)}
     if cfg.arch_type == "ssm":
         return {"mamba": ssm_mod.init_mamba_cache(
             cfg, batch, dtype=dtype or torch.float32, device=device,
@@ -689,11 +720,31 @@ def _block_decode(i: int, lp: Params, x: torch.Tensor, cfg: ModelConfig,
     ac = cache["attn"]
     y, _ = attn.decode_attention(
         lp["attn"], x, cfg, {"k": ac["k"][i], "v": ac["v"][i],
-                             "pos": ac["pos"][i], "idx": ac["idx"]},
+                             "pos": ac["pos"][i], "idx": ac["idx"],
+                             "kv_seq": ac.get("kv_seq", 1)},
         position=position, window=window, rope=rope)
     if cfg.hybrid:
         y = _hybrid_mix(lp, y, mamba_step(hybrid_inner(cfg)), cfg)
     return y
+
+
+def _check_cache_part(params: Params, cache: dict, cfg: ModelConfig) -> None:
+    """Raise unless the ring cache is the part the leaves' layout reads:
+    a ``kv_seq`` part (its rank count the model axis's) exactly where a
+    model axis is active and attention's leaves are whole."""
+    if "attn" not in cache:
+        return
+    mesh = tp.active()
+    whole = params["layers"]["attn"]["wq"].shape[-1] == \
+        cfg.num_heads * cfg.resolved_head_dim()
+    want = mesh.model if mesh is not None and whole else 1
+    got = cache["attn"].get("kv_seq", 1)
+    if got != want:
+        raise ValueError(
+            f"the ring cache is split over {got} ranks' slots where "
+            f"{want} is served: under a model axis with whole attention "
+            f"(kv_seq) pass the rank's part, init_decode_cache(..., "
+            f"mesh=); otherwise the cache of the rank's heads")
 
 
 def decode_step_lm(params: Params, cache: dict, batch,
@@ -703,8 +754,12 @@ def decode_step_lm(params: Params, cache: dict, batch,
     position of the token, -1 for a left-pad token.  An encoder-decoder's
     blocks also attend to the cache's "cross" K / V, every memory key
     (the ring kernel once a layer).  Returns (logits (B, 1, V), cache),
-    the cache updated in place (its ring index advanced)."""
-    _require_supported(cfg, serving=True)
+    the cache updated in place (its ring index advanced).  Under a model
+    axis: this rank's shards and part of the cache
+    (``init_decode_cache(..., mesh=)``), and this rank's (B, 1, V / model)
+    vocab columns."""
+    _require_supported(cfg)
+    _check_cache_part(params, cache, cfg)
     token = batch["token"]
     B = token.shape[0]
     position = batch["position"]

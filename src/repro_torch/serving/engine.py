@@ -100,6 +100,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.tokenizer import BPETokenizer
+from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.attention import scatter_plan
 from repro_torch.models.transformer import (Params, _require_supported,
                                             decode_step_lm,
@@ -186,7 +187,13 @@ class Engine:
     def __post_init__(self):
         self.device = resolve_device(self.device)
         cfg = self.cfg
-        _require_supported(cfg, serving=True)   # no model axis (ROADMAP §1)
+        if tp.active() is not None:
+            raise NotImplementedError(
+                "the Engine under a model axis > 1: it runs on no mesh, as "
+                "the reference's Engine does; serve over a model axis "
+                "through launch.steps.make_serve_step and "
+                "make_prefill_step")
+        _require_supported(cfg)
         for path, t in flatten(self.params).items():
             if t.device.type != self.device.type:
                 raise ValueError(f"param {path} is on {t.device}, the engine "

@@ -337,6 +337,60 @@ def test_cuda_ring_split_edges(cuda, dtype, tol, window):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("S,ranks", [(512, 4), (256, 4), (512, 2),
+                                     (400, 4)])
+def test_cuda_split_ring_entries_are_the_ring_kernel(cuda, dtype, tol, S,
+                                                     ranks):
+    """The kv_seq decode's two halves on the card: each of ``ranks`` runs
+    of S / ranks slots through ``decode_attention_partials``, the partials
+    joined in slot order and merged by ``combine_partials``.  Where a
+    run's slots are a multiple of the 64-slot chunk, the one-process
+    ``decode_attention`` bit for bit (its chunks are the runs' chunks);
+    else (S 400: runs of 100) within the ring kernel's tolerance of the
+    plain version.  The partials match their plain version where a chunk
+    is live (an empty chunk's l and acc are left unwritten)."""
+    from repro_torch.kernels.decode_attention import (
+        combine_partials, decode_attention, decode_attention_partials,
+        decode_attention_partials_plain, decode_attention_plain)
+    B, KV, G, D = 4, 2, 3, 64
+    q, k, v, pos, q_pos, live = ring_inputs(S, B, KV, G, S, D)
+    pos[0, 64:128] = -1
+    q, k, v = (torch.from_numpy(a).to(dtype).to(cuda) for a in (q, k, v))
+    pos, q_pos = (torch.from_numpy(a).to(cuda) for a in (pos, q_pos))
+    n = S // ranks
+    parts = []
+    reset_launches()
+    for r in range(ranks):
+        run = [t[..., r * n:(r + 1) * n, :].contiguous() for t in (k, v)]
+        got = decode_attention_partials(q, *run,
+                                        pos[:, r * n:(r + 1) * n]
+                                        .contiguous(), q_pos)
+        want = decode_attention_partials_plain(
+            q, *run, pos[:, r * n:(r + 1) * n], q_pos)
+        torch.cuda.synchronize()
+        full = want[0] > -float("inf")
+        assert torch.equal(got[0] == -float("inf"), ~full)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a[full], b[full], atol=tol,
+                                       rtol=10 * tol)
+        parts.append(got)
+    out = combine_partials(*(torch.cat([p[i] for p in parts], dim=3)
+                             .contiguous() for i in range(3)), dtype)
+    torch.cuda.synchronize()
+    assert dict(launches) == {"ring_decode_partials": ranks,
+                              "ring_combine": 1}
+    live = torch.from_numpy(live).to(cuda)
+    if n % 64 == 0:
+        assert torch.equal(out, decode_attention(q, k, v, pos, q_pos))
+    want = decode_attention_plain(q, k, v, pos, q_pos)
+    torch.testing.assert_close(out[live].float(), want[live].float(),
+                               atol=tol, rtol=10 * tol)
+    assert bool((out[~live] == 0).all())
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_count_one_launch_each(cuda):
     x = torch.randn((4, 1, 256), device=cuda)
     s = torch.ones(256, device=cuda)

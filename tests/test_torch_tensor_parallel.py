@@ -49,10 +49,9 @@ from repro_torch.models import lm_loss, tensor_parallel as tp
 from repro_torch.models.layers import embed, softmax_ce_sums
 from repro_torch.models.sharding import (gather, local_shape, shard,
                                          spec_for, tp_layout)
-from repro_torch.models.transformer import (decode_step_lm, flatten,
-                                            forward_hidden, init_params,
-                                            param_names, param_shapes,
-                                            unflatten)
+from repro_torch.models.transformer import (flatten, forward_hidden,
+                                            init_params, param_names,
+                                            param_shapes, unflatten)
 from repro_torch.optim.base import global_norm
 from repro_torch.optim.muon import muon
 from repro_torch.serving import Engine
@@ -635,16 +634,12 @@ def test_other_families_refuse_a_model_axis(kind):
 
 
 def test_serving_refuses_a_model_axis(params):
+    """The ``Engine`` runs on no mesh, as the reference's; the static
+    serve step runs over a model axis (``test_torch_tp_serving.py``)."""
     p = unflatten(params)
     with tp.use(_fake_mesh()):
-        with pytest.raises(NotImplementedError, match="tensor-parallel "
-                                                      "serving"):
+        with pytest.raises(NotImplementedError, match="runs on no mesh"):
             Engine(CFG, p, device="cpu")
-        with pytest.raises(NotImplementedError, match="tensor-parallel "
-                                                      "serving"):
-            decode_step_lm(p, {}, {"token": torch.zeros(1, 1,
-                                                        dtype=torch.long),
-                                   "position": 0}, CFG)
 
 
 def test_model_axis_needs_its_config_and_shards_need_an_axis(params):

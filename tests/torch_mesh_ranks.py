@@ -713,3 +713,131 @@ def tensor_parallel4(rank: int, world: int, init_method: str,
     out["layout3"] = mesh3.layout
     torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
     mesh.close()
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel serving (tests/test_torch_tp_serving.py)
+# ---------------------------------------------------------------------------
+
+# a prompt fed token by token, then decode tokens, teacher-forced, through
+# an 8-slot ring (it wraps across the kv_seq ranks' slots); 4 rows, 2 a
+# data rank on the (data 2, model 2) mesh
+SERVE_B, SERVE_CAP, SERVE_PROMPT, SERVE_DECODE = 4, 8, 5, 12
+# case -> (config, (pod, data, model)): head-parallel at model 2,
+# head-parallel after the KV repeat at model 4 (2 KV heads -> 4), kv_seq
+# at model 2 and 4 (1 KV head, 3 query heads)
+SERVE_CASES = {"heads2": ("tp_cfg", (1, 2, 2)),
+               "heads4": ("tp_cfg", (1, 1, 4)),
+               "kv_seq2": ("tp_cfg3", (1, 2, 2)),
+               "kv_seq4": ("tp_cfg3", (1, 1, 4))}
+# the exact checks' ring: (B, KV, G, cap, D), 64-slot chunks
+SERVE_RING = (2, 1, 3, 256, 16)
+
+
+def serve_inputs():
+    """Tokens (B, T) int32 and positions (T, B) int32 of the serve run:
+    row 0 one step behind (a left-pad token at -1 first), row 2 three
+    ahead."""
+    T = SERVE_PROMPT + SERVE_DECODE
+    tokens = np.random.default_rng(TP_SEED).integers(
+        0, 128, (SERVE_B, T)).astype(np.int32)
+    t = np.arange(T)[:, None]
+    positions = np.maximum(t + np.array([-1, 0, 3, 0]), -1).astype(np.int32)
+    return tokens, positions
+
+
+def serve_ring():
+    """The exact checks' ring: q, k, v, pos, q_pos from one seed, every
+    slot live but the last row's dead run."""
+    B, KV, G, S, D = SERVE_RING
+    g = torch.Generator().manual_seed(TP_SEED)
+    q = torch.randn(B, KV, G, D, generator=g)
+    k, v = torch.randn(2, B, KV, S, D, generator=g)
+    pos = torch.randperm(S, generator=g).int().expand(B, S).contiguous()
+    pos[-1, 40:140] = -1
+    return q, k, v, pos, torch.full((B,), S - 1, dtype=torch.int32)
+
+
+def serve_case(mesh, cfg, flat, cfg_one) -> dict:
+    """The serve run of this rank on ``mesh``: ``flat`` one-process
+    parameters of ``cfg_one`` through ``repeat_kv_heads`` and ``shard``;
+    each step's logits (this rank's vocab columns), greedy ids and
+    collective records, the final cache part, the prefill step's logits
+    of the prompt."""
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import init_decode_cache
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.models.sharding import (repeat_kv_heads, serve_layout,
+                                             shard)
+    from repro_torch.models.transformer import unflatten
+    mode, layout = serve_layout(cfg_one, mesh.model)
+    params = unflatten(shard(repeat_kv_heads(flat, cfg_one, mesh.model),
+                             layout, mesh.model_index, mesh.model))
+    tokens, positions = serve_inputs()
+    n = SERVE_B // mesh.data
+    rows = slice(mesh.data_index * n, (mesh.data_index + 1) * n)
+    tokens = torch.from_numpy(tokens[rows])
+    cache = init_decode_cache(cfg, n, SERVE_CAP, mesh=mesh)
+    step = make_serve_step(cfg, mesh)
+    logits, ids, records = [], [], []
+    for t in range(tokens.shape[1]):
+        coll.reset_log()
+        out, cache = step(params, cache, {
+            "token": tokens[:, t:t + 1],
+            "position": torch.from_numpy(positions[t, rows])})
+        records.append([(r.kind, r.axis, r.cross_pod)
+                        for r in coll.records()])
+        logits.append(out)
+        with tp.use(mesh):
+            ids.append(tp.vocab_parallel_argmax(out))
+    prefill = make_prefill_step(cfg, mesh)(
+        params, {"tokens": tokens[:, :SERVE_PROMPT]})
+    return {"index": (mesh.pod_index, mesh.data_index, mesh.model_index),
+            "mode": mode, "logits": torch.stack(logits),
+            "ids": torch.stack(ids), "records": records, "cache": cache,
+            "prefill": prefill}
+
+
+def serve_units(mesh) -> dict:
+    """The exact checks on this model group: ``vocab_parallel_argmax`` of
+    this rank's columns of tied logits, and the kv_seq attention of this
+    rank's slots of ``serve_ring`` (plain partials, gathered, combined)."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_partials)
+    from repro_torch.models import tensor_parallel as tp
+    g = torch.Generator().manual_seed(TP_SEED)
+    tied = torch.randint(0, 3, (6, 8 * mesh.model), generator=g).float()
+    q, k, v, pos, q_pos = serve_ring()
+    part = [mesh.model_part(t, -2 if t.dim() == 4 else -1).contiguous()
+            for t in (k, v, pos)]
+    with tp.use(mesh):
+        ids = tp.vocab_parallel_argmax(mesh.model_part(tied, -1))
+        attn = tp.seq_parallel_attention(*decode_attention_partials(
+            q, *part, q_pos))
+    return {"tied": tied, "ids": ids, "attention": attn}
+
+
+def tp_serving4(rank: int, world: int, init_method: str,
+                workdir: str) -> None:
+    """Four ranks: each case of ``SERVE_CASES`` on its mesh of the same
+    ranks (the served config ``tp_kv_repeat(cfg, model)``), then
+    ``serve_units`` on the (data 2, model 2) and (1, 1, 4) meshes.
+    Writes ``serve_rank<r>.pt``."""
+    from repro_torch.launch.mesh import init_process_mesh
+    from repro_torch.models.sharding import tp_kv_repeat
+    torch.set_num_threads(1)
+    kw = dict(backend="gloo", device="cpu", rank=rank, world_size=world,
+              init_method=init_method, timeout_s=TIMEOUT_S)
+    flat = {"tp_cfg": torch.load(os.path.join(workdir, "params.pt")),
+            "tp_cfg3": torch.load(os.path.join(workdir, "params3.pt"))}
+    out = {"cases": {}, "units": {}}
+    for name, (cname, shape) in SERVE_CASES.items():
+        cfg_one = globals()[cname]()
+        cfg = tp_kv_repeat(cfg_one, shape[2])
+        mesh = init_process_mesh(*shape, cfg=cfg, **kw)
+        out["cases"][name] = serve_case(mesh, cfg, flat[cname], cfg_one)
+        if name.startswith("kv_seq"):
+            out["units"][shape[2]] = serve_units(mesh)
+    torch.save(out, os.path.join(workdir, f"serve_rank{rank}.pt"))
+    mesh.close()

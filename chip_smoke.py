@@ -270,6 +270,33 @@ yardstick.  Then phases, each fatal on failure:
    a layer a step and not the other (paths
    ``mesh_tp_serve_<case>_rank<r>``).  Logs per case and rank a token's
    ms, the collectives a step and peak memory;
+5f. ZeRO-3 ``fsdp`` over the data axis and drift-aware rounds on shards
+   (``fsdp_rank``, ``fsdp_gates``), in the same spawn after 5e:
+   nanochat-d20 at full width and 2 layers, 1 x 1024 tokens a rank,
+   each ``fsdp`` mesh beside its replicated twin of the same ranks.  F1,
+   (data 4) DDP for 2 steps through ``DistTrainer.run``: the ranks' mean
+   losses within ``MESH_DDP_LOSS_RTOL`` and the parameters within
+   ``MESH_DDP_ATOL`` of one process's run on the card and of the
+   replicated run's.  F2, (pod 2, data 2) DiLoCo K 2 H 2 on the int8
+   wire at engine level: from the replicated worker just before the
+   round, the round's anchor, momentum, residual, codes, inputs and
+   scales the replicated round's, sliced, bit for bit; the fsdp mesh's
+   own two inner steps within ``TP_LOSS_RTOL`` in loss,
+   ``MESH_DDP_ATOL`` in the worker and ``TP_MUON_ATOL`` in its Muon
+   leaves; a rank's cross-pod bytes its shards' codes and every leaf's
+   scale, about half the replicated rank's.  F3, (data 2, model 2) DDP:
+   one step from shared parameters, the loss, the reduce-scattered
+   gradients and Muon's update the replicated step's, sliced, bit for
+   bit; 2 steps within the DDP gates of the replicated run.  F4, a
+   drift-aware int8 round on (pod 2, model 2) and on fsdp (pod 2, data
+   2) from F2's worker: the softmax weights within ``FSDP_WEIGHT_ATOL``
+   of one process's from the same deltas, joined, and the average
+   within ``TP_GRAD_RTOL`` of a leaf's max.  Every case: a rank's live
+   state bytes the dry run's (``runtime_state_bytes``), the training
+   (and wire) kernels launched in every rank (paths
+   ``mesh_fsdp_<case>_rank<r>``).  Logs per case and rank the step s,
+   the data-axis collectives a step and their seconds, the state bytes
+   beside the dry run's and peak memory;
 6. the three-stage pipeline: ``run_pipeline`` (base -> mid -> SFT, with
    the evals after each stage: held-out CE, multiple choice, arithmetic
    and pattern exact match through ``Engine``) of nanochat-d20 at full
@@ -389,8 +416,8 @@ a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
 the last line.  Exits nonzero, with no result, when CUDA is unavailable
 or any phase fails.
 
-``--only-mesh`` builds the kernels and runs only phases 5b, 5c, 5d and 5e
-(5d and 5e in 5c's spawn; under NCCL, a card a rank, where the machine
+``--only-mesh`` builds the kernels and runs only phases 5b to 5f (5d,
+5e and 5f in 5c's spawn; under NCCL, a card a rank, where the machine
 has the cards), as ``--new-archs`` and ``--enc-vlm`` run only 4c and 4d.
 ``--norm-timing`` and ``--ssd-timing`` build only rmsnorm.cu or ssd.cu
 and print one JSON line of those kernels' phase-7 timings beside
@@ -4344,6 +4371,7 @@ def mesh_strategies_rank(rank, world, init_method, workdir, backend):
     if world == 4:
         # phase 5d in the same spawn, on meshes of the same ranks
         torch.cuda.set_per_process_memory_fraction(1 / world, dev)
+        models.clear()
         gc.collect()
         torch.cuda.empty_cache()
         out["tp"] = tp_rank(torch, rank, mesh.backend)
@@ -4351,6 +4379,10 @@ def mesh_strategies_rank(rank, world, init_method, workdir, backend):
         gc.collect()
         torch.cuda.empty_cache()
         out["tp_serve"] = tp_serve_rank(torch, rank, mesh.backend)
+        # phase 5f, after 5e, on meshes of the same ranks
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["fsdp"] = fsdp_rank(torch, rank, mesh.backend)
     with open(Path(workdir) / f"rank{rank}.json", "w") as f:
         json.dump(out, f)
     mesh.close()
@@ -4594,6 +4626,13 @@ def phase_mesh_strategies(torch):
                 f"spawn: {serve_s} s a rank")
             tp_serve_gates(torch, ranks, out)
             out["launches"].update(out["tp_serve"]["launches"])
+            log(f"  phase 5f (fsdp over the data axis; drift-aware rounds "
+                f"on shards) in the 4-rank spawn: "
+                f"{[round(r['fsdp']['fsdp_s'], 1) for r in ranks]} s a "
+                f"rank, the one-process reference "
+                f"{round(ranks[0]['fsdp']['reference_s'], 1)} s (rank 0)")
+            fsdp_gates(torch, ranks, out)
+            out["launches"].update(out["fsdp"]["launches"])
     return out
 
 
@@ -4620,7 +4659,8 @@ def mesh_strategies_summary(ms):
         "hybrid_ddp_max_abs_diff": ms.get("hybrid_ddp_max_abs_diff"),
         "tp": tp_summary(ms["tp"]) if "tp" in ms else None,
         "tp_serve": (tp_serve_summary(ms["tp_serve"]) if "tp_serve" in ms
-                     else None)}
+                     else None),
+        "fsdp": fsdp_summary(ms["fsdp"]) if "fsdp" in ms else None}
 
 
 # ---------------------------------------------------------------------------
@@ -5163,6 +5203,9 @@ def tp_gates(torch, ranks, out):
             for k in kernels:
                 check(c["launches"][k] > 0, f"{ctag}: kernel {k} never "
                       f"launched")
+        log(f"  rank {w} tp peak memory a rank: " + ", ".join(
+            f"{name} {c['peak_memory_gb']:.2f} GB"
+            for name, c in x["cases"].items()))
     # the model ranks of one worker (or DDP replica): the same losses and
     # the same bits of every whole leaf after every step; the workers'
     # (replicas') losses, averaged, one process's within the loss gate
@@ -5535,6 +5578,635 @@ def tp_serve_summary(serve):
         for name in TP_SERVE_CASES} | {
         "tp_serve_s": [r["tp_serve_s"]
                        for _, r in sorted(serve["ranks"].items())]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5f: ZeRO-3 (fsdp) over the data axis; drift-aware rounds on shards
+# ---------------------------------------------------------------------------
+
+# nanochat-d20 at full width and TP_LAYERS (2) of its 20 layers (220.2 M
+# parameters), random ids from seed 0 at seq_len 1024, one 1024-token
+# sequence a rank, f32, in phase 5c's 4-rank spawn after 5e, on meshes of
+# its ranks: each fsdp mesh beside its replicated twin of the same ranks,
+# and (pod 2, model 2) for the drift-aware round on the model axis
+FSDP_MESHES = {"d4f": ((1, 4, 1), True), "d4r": ((1, 4, 1), False),
+               "p2d2f": ((2, 2, 1), True), "p2d2r": ((2, 2, 1), False),
+               "d2m2f": ((1, 2, 2), True), "d2m2r": ((1, 2, 2), False),
+               "p2m2": ((2, 1, 2), False)}
+# F1 (data 4) and F3 (data 2, model 2): DDP for FSDP_STEPS steps through
+# DistTrainer.run, with fsdp and without; F2 (pod 2, data 2): DiLoCo K 2
+# H 2 on the int8 wire, its two inner steps and one round at engine level;
+# F4: one drift-aware int8 round on each of FSDP_DRIFT from F2's worker
+FSDP_STEPS = 2
+FSDP_DDP = {"ddp_d4": ("d4f", "d4r"), "ddp_d2m2": ("d2m2f", "d2m2r")}
+FSDP_DRIFT = ("p2m2", "p2d2f")
+# the drift-aware softmax weights of a round on shards against one
+# process's from the same decoded deltas (the shards joined): the
+# cosines' partial sums are added over the groups in another order.  The
+# averaged delta is held within TP_GRAD_RTOL of a leaf's max (phase 5d's
+# shared-step tolerance)
+FSDP_WEIGHT_ATOL = 1e-6
+
+
+def fsdp_rank(torch, rank, backend, device="cuda", cfg=None):
+    """Phase 5f's part of one rank of phase 5c's 4-rank spawn, after 5e:
+    the meshes of ``FSDP_MESHES`` built from its default process group,
+    each run from ``init_params(seed=0)`` of ``cfg`` (default
+    nanochat-d20 at ``TP_LAYERS`` layers).  F3's shared step on (data 2,
+    model 2), with fsdp and without: the loss, the gradients after
+    ``grad_reduce`` and Muon's update of the Muon leaves from them; F1's
+    and F3's DDP runs through ``DistTrainer.run`` (launch counts and the
+    collective log reset just before each); F2 at engine level: the
+    replicated (pod 2, data 2) mesh's two inner steps and int8 round,
+    then the fsdp mesh's own two inner steps and its round from the
+    replicated worker just before the round; F4's drift-aware rounds
+    from that worker, and one process's weights and average from the
+    same decoded deltas, joined; each case's live state bytes beside the
+    dry run's; then (rank 0 alone) the one-process DDP run of F1.
+    Returns what ``fsdp_gates`` reads (numbers only)."""
+    import gc
+
+    import numpy as np
+    from repro_torch.configs import (NANOCHAT_D20, DiLoCoConfig,
+                                     OptimizerConfig)
+    from repro_torch.core import (DiLoCoTrainer, DistTrainer, make_strategy,
+                                  outer_opt)
+    from repro_torch.core.ddp import DDPTrainer
+    from repro_torch.data import PackedDataset
+    from repro_torch.kernels import KERNELS, launches, reset_launches
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch.dryrun_lib import runtime_state_bytes
+    from repro_torch.launch.mesh import MeshShape, init_process_mesh
+    from repro_torch.launch.state import live_state_bytes
+    from repro_torch.models import fsdp, init_params, lm_loss
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.models.transformer import flatten, unflatten
+    from repro_torch.optim import muon, partition_label
+    t_start = time.perf_counter()
+    cfg = cfg or NANOCHAT_D20.with_(num_layers=TP_LAYERS)
+    meshes = {name: init_process_mesh(*shape, backend=backend,
+                                      device=device, cfg=cfg, fsdp=f,
+                                      timeout_s=MESH_TIMEOUT_S)
+              for name, (shape, f) in FSDP_MESHES.items()}
+    dev = meshes["d4f"].device
+    cuda = dev.type == "cuda"
+    params = flatten(init_params(cfg, seed=0, device=dev))
+    ds = PackedDataset(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, MESH_TOKENS).astype(np.int32), TRAIN_SEQ)
+    out = {"rank": rank, "cases": {}, "launches": {},
+           "params": sum(t.numel() for t in params.values()),
+           "index": {n: [m.pod_index, m.data_index, m.model_index]
+                     for n, m in meshes.items()}}
+
+    def loss_fn(p, b):
+        return lm_loss(p, b, cfg)
+
+    def opt():
+        return OptimizerConfig(total_steps=FSDP_STEPS, warmup_steps=1,
+                               learning_rate=0.02, adam_lr=TP_ADAM_LR,
+                               fused_adamw=True)
+
+    ddp_cfg = DiLoCoConfig(num_workers=1, h_inner_steps=1, outer_lr=1.0,
+                           outer_momentum=0.0, nesterov=False,
+                           strategy="ddp")
+    int8 = DiLoCoConfig(num_workers=2, h_inner_steps=FSDP_STEPS,
+                        delta_dtype="int8")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def start():
+        # every count reset just before the path runs
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        coll.reset_log()
+        return time.perf_counter()
+
+    def peak():
+        return torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else 0.0
+
+    def resident():
+        # what the rank holds as a case starts: its state, and the whole
+        # parameters kept for the one-process inits and comparisons
+        return torch.cuda.memory_allocated(dev) / 1e9 if cuda else 0.0
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    def counts():
+        return {k: launches[k] for k in KERNELS}
+
+    def data_axis(steps, scope):
+        s = coll.collective_stats(scope, axis="data")
+        return {"data_per_step": sum(s["count_by_kind"].values()) / steps,
+                "data_kinds": s["count_by_kind"],
+                "data_s_per_step": (s["host_s"] + s["coll_s"]) / steps,
+                "data_host_s_per_step": s["host_s"] / steps}
+
+    def shape_of(name):
+        return MeshShape(tuple(zip(("pod", "data", "model"),
+                                   FSDP_MESHES[name][0])))
+
+    def sliced(whole, m):
+        # this rank's data pieces of a replicated twin's tensors
+        return {k: t if m.data_split_dim(k) is None
+                else m.data_part(t, m.data_split_dim(k))
+                for k, t in whole.items()}
+
+    def diffs(a, b):
+        return {k: float((a[k].float() - b[k].to(a[k].device).float())
+                         .abs().max()) for k in sorted(a)}
+
+    def equal(a, b):
+        return set(a) == set(b) and all(
+            torch.equal(a[k], b[k].to(a[k].device)) for k in a)
+
+    def host(flat):
+        # a copy on the host: kept for a later comparison, out of the
+        # card's peak
+        return {k: t.to("cpu", copy=True) for k, t in flat.items()}
+
+    def top(d):
+        k = max(d, key=d.get)
+        return d[k], k
+
+    def batch_of(arrays):
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                for k, v in arrays.items()}
+
+    out["timing"] = {"setup_s": time.perf_counter() - t_start}
+    # F3's shared step: the same parameters and batch on (data 2, model 2)
+    # with fsdp and without
+    t0 = time.perf_counter()
+    shared = {}
+    batch = {k: v[None] for k, v in ds.batch(0, 2, seed=0).items()}
+    for name in ("d2m2f", "d2m2r"):
+        m = meshes[name]
+        b = {k: v[0] for k, v in batch_of(m.local_batch(batch)).items()}
+        leaves = {k: t.requires_grad_(True) for k, t in m.own(params).items()}
+        coll.reset_log()
+        with tp.use(m), fsdp.use(m):
+            loss, _ = loss_fn(unflatten(leaves), b)
+            grads = dict(zip(leaves, torch.autograd.grad(
+                loss, list(leaves.values()))))
+        grads = m.grad_reduce(grads)
+        mats = {k: g for k, g in grads.items()
+                if partition_label(k, g) == "muon"}
+        o = muon(0.02, axis=m)
+        upd, _ = o.update(mats, o.init(mats), mats,
+                          torch.zeros((), dtype=torch.int32, device=dev))
+        sync()
+        shared[name] = (loss.detach(), grads, upd, data_axis(1, None))
+        del leaves, loss, grads, mats, upd, o
+    (lf, gf, uf, cf), (lr_, gr, ur, cr) = shared["d2m2f"], shared["d2m2r"]
+    mf = meshes["d2m2f"]
+    gd, ud = diffs(gf, sliced(gr, mf)), diffs(uf, sliced(ur, mf))
+    out["shared"] = {
+        "loss": float(lf), "loss_equal": bool(torch.equal(lf, lr_)),
+        "grads_equal": equal(gf, sliced(gr, mf)),
+        "grads_max_abs_diff": top(gd), "muon_leaves": len(uf),
+        "muon_equal": equal(uf, sliced(ur, mf)), "muon_max_abs_diff": top(ud),
+        "step": cf, "step_replicated": cr}
+    out["timing"]["shared_s"] = time.perf_counter() - t0
+    del shared, lf, gf, uf, lr_, gr, ur
+    free()
+
+    # F1 and F3: DDP through DistTrainer.run, with fsdp and without; the
+    # parameters each run ends on joined (every rank), compared
+    f1_whole = None
+    for case, (fn, rn) in FSDP_DDP.items():
+        t_case = time.perf_counter()
+        rec, ends = {}, {}
+        for name in (fn, rn):
+            m = meshes[name]
+
+            def data(step, rows=m.data):
+                return {k: v[None] for k, v in
+                        ds.batch(step, rows, seed=0).items()}
+
+            dt = DistTrainer(loss_fn, opt(), ddp_cfg, make_strategy(ddp_cfg),
+                             m.replicate_fn)
+            state = dt.init(params)
+            live = live_state_bytes(state)
+            t0 = start()
+            held = resident()
+            # one-step chunks: each step's seconds
+            state, hist = dt.run(state, data, FSDP_STEPS, chunked=False)
+            sync()
+            r = {"wall_s": time.perf_counter() - t0, "loss": hist["loss"],
+                 "step_s": hist.get("inner_seconds"),
+                 "peak_memory_gb": peak(), "resident_gb": held,
+                 "launches": counts(),
+                 **data_axis(FSDP_STEPS, "inner"),
+                 "run_state_bytes": live,
+                 "run_state_dry_bytes": runtime_state_bytes(
+                     cfg, shape_of(name), strategy="diloco", fsdp=m.fsdp,
+                     opt_cfg=opt(), dcfg=ddp_cfg)}
+            ends[name] = tp.gather_params(state.global_params, m)
+            del state, dt
+            ddp = DDPTrainer(loss_fn, opt(), m.replicate_fn).init(params)
+            r["state_bytes"] = live_state_bytes(ddp)
+            r["state_dry_bytes"] = runtime_state_bytes(
+                cfg, shape_of(name), strategy="ddp", fsdp=m.fsdp,
+                opt_cfg=opt())
+            del ddp
+            rec[name] = r
+            free()
+        out["launches"][f"mesh_fsdp_{case}_rank{rank}"] = rec[fn]["launches"]
+        rec["vs_replicated"] = top(diffs(ends[fn], ends[rn]))
+        if case == "ddp_d4" and rank == 0:
+            f1_whole = ends[fn]
+        del ends
+        out["cases"][case] = rec
+        free()
+        out["timing"][f"{case}_s"] = time.perf_counter() - t_case
+
+    # F2: (pod 2, data 2) DiLoCo at engine level, replicated then fsdp
+    def engine(m, dcfg):
+        return DiLoCoTrainer(loss_fn, opt(), dcfg, m.replicate_fn)
+
+    def inner_steps(eng, st, m):
+        losses, step_s = [], []
+        with coll.scope("inner"):
+            for s in range(int8.h_inner_steps):
+                b = batch_of(m.local_batch(ds.worker_batches(s, 2, 2,
+                                                             seed=0)))
+                t1 = time.perf_counter()
+                st, loss = eng.inner_step(st, b)
+                sync()
+                step_s.append(time.perf_counter() - t1)
+                losses.append(float(loss[0]))
+        return st, losses, step_s
+
+    def one_round(eng, st, res):
+        t1 = time.perf_counter()
+        with _Wire() as wire, coll.scope("outer"):
+            st, res = eng.outer_step_ef(st, res)
+        sync()
+        sent = sum(r.nbytes for r in coll.records("outer")
+                   if r.cross_pod and r.kind != "recv")
+        return st, res, wire.rounds, sent, time.perf_counter() - t1
+
+    t0 = time.perf_counter()
+    rep_m, f_m = meshes["p2d2r"], meshes["p2d2f"]
+    f2 = {}
+    for name, m in (("p2d2r", rep_m), ("p2d2f", f_m)):
+        eng = engine(m, int8)
+        st = eng.init(params)
+        res = eng.init_residual(st.global_params)
+        r = {"state_bytes": live_state_bytes(st, res),
+             "state_dry_bytes": runtime_state_bytes(
+                 cfg, shape_of(name), strategy="diloco", fsdp=m.fsdp,
+                 opt_cfg=opt(), dcfg=int8)}
+        start()
+        r["resident_gb"] = resident()
+        st, r["loss"], r["step_s"] = inner_steps(eng, st, m)
+        r.update(data_axis(int8.h_inner_steps, "inner"))
+        if m.fsdp:
+            # its own inner steps against the replicated ones, then the
+            # round from the replicated worker just before its round
+            mine = st.worker_params[0]
+            d = diffs(mine, sliced(before, m))
+            muon_d = {k: v for k, v in d.items()
+                      if partition_label(k, mine[k]) == "muon"}
+            r["inner_vs_replicated"] = top(d)
+            r["inner_muon_vs_replicated"] = top(muon_d)
+            for k, t in m.own(before).items():
+                st.worker_params[0][k].copy_(t)
+        else:
+            before = host(st.worker_params[0])
+        st, res, rounds, r["cross_pod_sent"], r["round_s"] = one_round(
+            eng, st, res)
+        r["launches"] = counts()
+        r["peak_memory_gb"] = peak()
+        r["outer"] = coll.collective_stats("outer")
+        r["cross_pod_want"] = sum(
+            t.numel() // (m.data if m.data_split_dim(k) is not None else 1)
+            for k, t in params.items()) + 4 * len(params)
+        if m.fsdp:
+            anchor, v, resid, (rq, rs, re) = ends
+            q, s, e = ({k: x[i] for k, x in rounds[0].items()}
+                       for i in range(3))
+            r["anchor_equal"] = equal(st.global_params, anchor)
+            r["v_equal"] = equal(st.outer.v, v)
+            r["residual_equal"] = equal(res, resid)
+            r["codes_equal"] = equal(q, rq)
+            r["scales_equal"] = equal(s, rs)
+            r["inputs_equal"] = equal(e, re)
+            r["rounds"] = len(rounds)
+            out["launches"][f"mesh_fsdp_diloco_p2d2_rank{rank}"] = \
+                r["launches"]
+        else:
+            # the replicated round's results cut to the fsdp rank's data
+            # pieces (what its round must give, bit for bit)
+            def piece(flat):
+                return {k: t.clone() for k, t in sliced(flat, f_m).items()}
+
+            wire = [{k: x[i] for k, x in rounds[0].items()}
+                    for i in range(3)]
+            ends = (piece(st.global_params), piece(st.outer.v), piece(res),
+                    (piece(wire[0]), wire[1], piece(wire[2])))
+            del wire
+        f2[name] = r
+        del eng, st, res, rounds
+        free()
+    del ends
+    free()
+    out["timing"]["diloco_p2d2_s"] = time.perf_counter() - t0
+    out["cases"]["diloco_p2d2"] = f2
+
+    # F4: a drift-aware int8 round from F2's replicated worker, on the
+    # model axis and under fsdp; one process's from the decoded deltas
+    for name in FSDP_DRIFT:
+        m = meshes[name]
+        dcfg = DiLoCoConfig(num_workers=2, h_inner_steps=FSDP_STEPS,
+                            delta_dtype="int8", drift_aware=True)
+        eng = engine(m, dcfg)
+        st = eng.init(params)
+        res = eng.init_residual(st.global_params)
+        for k, t in m.own(before).items():
+            st.worker_params[0][k].copy_(t)
+        seen = {}
+        orig_w, orig_a = outer_opt.drift_weights, outer_opt._average
+
+        def weights(*a, **kw):
+            w = orig_w(*a, **kw)
+            seen["w"] = w.clone()
+            return w
+
+        def average(delta, *a, **kw):
+            avg = orig_a(delta, *a, **kw)
+            seen["delta"] = {k: t.clone() for k, t in delta.items()}
+            seen["avg"] = {k: t.clone() for k, t in avg.items()}
+            return avg
+
+        t0 = start()
+        held = resident()
+        outer_opt.drift_weights, outer_opt._average = weights, average
+        try:
+            with coll.scope("outer"):
+                st, res = eng.outer_step_ef(st, res)
+        finally:
+            outer_opt.drift_weights, outer_opt._average = orig_w, orig_a
+        sync()
+        r = {"round_s": time.perf_counter() - t0, "launches": counts(),
+             "peak_memory_gb": peak(), "resident_gb": held,
+             "outer": coll.collective_stats("outer"),
+             "weights": seen["w"].tolist()}
+        out["launches"][f"mesh_fsdp_drift_{name}_rank{rank}"] = r["launches"]
+        del eng, st, res
+        free()
+        delta = {k: tp.whole(k, t, m)
+                 for k, t in sorted(seen.pop("delta").items())}
+        mean = {k: outer_opt._mean(d) for k, d in delta.items()}
+        w1 = outer_opt.drift_weights(delta, mean)
+        a1 = outer_opt._average(delta, dcfg)
+        del delta, mean
+        mine = m.own(a1)
+        r["weights_one"] = w1.tolist()
+        r["weight_max_abs_diff"] = float((seen["w"] - w1).abs().max())
+        r["average_rel"] = top({
+            k: float((seen["avg"][k] - mine[k]).abs().max())
+            / max(float(a1[k].abs().max()), 1e-30) for k in a1})
+        out["cases"][f"drift_{name}"] = r
+        del seen, a1, mine
+        free()
+        out["timing"][f"drift_{name}_s"] = time.perf_counter() - t0
+    del before
+    out["fsdp_s"] = time.perf_counter() - t_start
+
+    # the one-process DDP run of F1 on the card (rank 0 alone)
+    t0 = time.perf_counter()
+    if rank == 0:
+        dt = DistTrainer(loss_fn, opt(), ddp_cfg, make_strategy(ddp_cfg))
+        rows = meshes["d4f"].data
+        state, hist = dt.run(dt.init(params), lambda s: {
+            k: v[None] for k, v in ds.batch(s, rows, seed=0).items()},
+            FSDP_STEPS)
+        d = diffs(f1_whole, state.global_params)
+        out["cases"]["ddp_d4"]["vs_one_process"] = {
+            "loss": hist["loss"], "max_abs_diff": top(d)}
+        del dt, state, f1_whole
+        free()
+    out["reference_s"] = time.perf_counter() - t0
+    return out
+
+
+def fsdp_gates(torch, ranks, out):
+    """Phase 5f's gates over the 4 ranks' ``fsdp_rank`` results.  F1
+    (data 4) DDP with fsdp: the ranks' mean losses within
+    ``MESH_DDP_LOSS_RTOL`` and the parameters within ``MESH_DDP_ATOL`` of
+    the one-process run on the card, and within the same of the
+    replicated (data 4) run.  F2 (pod 2, data 2) int8 DiLoCo: from one
+    shared state the fsdp round's anchor, momentum, residual, codes,
+    inputs and scales the replicated round's, sliced, bit for bit; the
+    two inner steps before it within ``TP_LOSS_RTOL`` in loss, the worker
+    within ``MESH_DDP_ATOL`` and its Muon leaves within ``TP_MUON_ATOL``
+    of the replicated worker; a rank's cross-pod bytes its shards' codes
+    and every leaf's scale (about half the replicated rank's).  F3 (data
+    2, model 2) DDP: from one shared state the loss, the reduce-scattered
+    gradients and Muon's update from them the replicated run's, sliced,
+    bit for bit; the 2-step runs' losses within ``MESH_DDP_LOSS_RTOL`` and
+    parameters within ``MESH_DDP_ATOL`` of the replicated run's.  F4: the
+    drift-aware weights within ``FSDP_WEIGHT_ATOL`` of one process's from
+    the same deltas and the same bits on every rank, the averaged delta
+    within ``TP_GRAD_RTOL`` of a leaf's max.  Every case: a rank's live
+    state bytes the dry run's (``runtime_state_bytes``); the inner steps'
+    data-axis collectives none but under fsdp; the training kernels (and
+    on the int8 rounds the wire kernels) launched in every rank."""
+    import numpy as np
+    f_out = out["fsdp"] = {"launches": {}}
+    by_rank = {r["rank"]: r["fsdp"] for r in ranks}
+    for w, x in sorted(by_rank.items()):
+        tag = f"mesh fsdp rank {w}"
+        f_out["launches"].update(x["launches"])
+        sh = x["shared"]
+        log(f"  rank {w} fsdp: {x['fsdp_s']:.1f} s ("
+            + ", ".join(f"{k} {v:.1f}" for k, v in x["timing"].items())
+            + f"), one-process reference {x['reference_s']:.1f} s; F3's "
+            f"shared step: loss bits equal {sh['loss_equal']}, gradients "
+            f"{sh['grads_equal']} ({sh['grads_max_abs_diff'][0]:.3g}), "
+            f"Muon's update of {sh['muon_leaves']} leaves "
+            f"{sh['muon_equal']} ({sh['muon_max_abs_diff'][0]:.3g}); the "
+            f"step's data-axis collectives {sh['step']['data_kinds']} in "
+            f"{sh['step']['data_s_per_step']:.3f} s (replicated "
+            f"{sh['step_replicated']['data_kinds']} in "
+            f"{sh['step_replicated']['data_s_per_step']:.3f} s)")
+        check(sh["loss_equal"] and sh["grads_equal"] and sh["muon_equal"]
+              and sh["muon_leaves"] > 0, f"{tag}: F3's shared step on "
+              f"shards is not the replicated step's, sliced, bit for bit: "
+              f"gradients {sh['grads_max_abs_diff']}, Muon "
+              f"{sh['muon_max_abs_diff']}")
+        for case in FSDP_DDP:
+            c = x["cases"][case]
+            fn, rn = FSDP_DDP[case]
+            for name in (fn, rn):
+                r = c[name]
+                log(f"  rank {w} fsdp {case} {name} ({r['wall_s']:.1f} s): "
+                    f"losses {[round(v, 5) for v in r['loss']]}, step s "
+                    f"{r['step_s']}, data-axis collectives "
+                    f"{r['data_per_step']:.0f} a step "
+                    f"({r['data_kinds']}) in {r['data_s_per_step']:.3f} s "
+                    f"({r['data_host_s_per_step']:.3f} s of it host "
+                    f"staging), state {r['state_bytes']} bytes a rank (dry "
+                    f"run {r['state_dry_bytes']}; the run's "
+                    f"{r['run_state_bytes']}, dry run "
+                    f"{r['run_state_dry_bytes']}), peak memory a rank "
+                    f"{r['peak_memory_gb']:.2f} GB ({r['resident_gb']:.2f} "
+                    f"held as it started)")
+                check(r["state_bytes"] == r["state_dry_bytes"]
+                      and r["run_state_bytes"] == r["run_state_dry_bytes"],
+                      f"{tag} {case} {name}: live state bytes "
+                      f"{r['state_bytes']} / {r['run_state_bytes']} are not "
+                      f"the dry run's {r['state_dry_bytes']} / "
+                      f"{r['run_state_dry_bytes']}")
+                want = (["all-gather", "all-reduce", "reduce-scatter"]
+                        if name == fn else ["all-reduce"])
+                check(sorted(r["data_kinds"]) == want, f"{tag} {case} "
+                      f"{name}: data-axis collectives {r['data_kinds']}")
+            loss_rel = _rel(c[fn]["loss"], c[rn]["loss"])
+            check(loss_rel <= MESH_DDP_LOSS_RTOL, f"{tag} {case}: losses "
+                  f"{c[fn]['loss']} off the replicated run's "
+                  f"{c[rn]['loss']}")
+            for k in TRAIN_KERNELS:
+                check(c[fn]["launches"][k] > 0, f"{tag} {case}: kernel {k} "
+                      f"never launched")
+            d, leaf = c["vs_replicated"]
+            log(f"  rank {w} fsdp {case}: losses {loss_rel:.3g} relative "
+                f"and parameters {d:.3g} ({leaf}) off the replicated run's "
+                f"(gates {MESH_DDP_LOSS_RTOL}, {MESH_DDP_ATOL})")
+            check(d <= MESH_DDP_ATOL, f"{tag} {case}: parameters {d} off "
+                  f"the replicated run's ({leaf})")
+        f2 = x["cases"]["diloco_p2d2"]
+        for name in ("p2d2r", "p2d2f"):
+            r = f2[name]
+            log(f"  rank {w} fsdp diloco_p2d2 {name}: inner losses "
+                f"{[round(v, 5) for v in r['loss']]}, step s "
+                f"{[round(t, 3) for t in r['step_s']]}, data-axis "
+                f"collectives {r['data_per_step']:.0f} a step "
+                f"({r['data_kinds']}) in {r['data_s_per_step']:.3f} s, "
+                f"round {1e3 * r['round_s']:.1f} ms, cross-pod "
+                f"{r['cross_pod_sent']} bytes, state {r['state_bytes']} "
+                f"bytes a rank (dry run {r['state_dry_bytes']}), peak "
+                f"memory a rank {r['peak_memory_gb']:.2f} GB "
+                f"({r['resident_gb']:.2f} held as it started)")
+            check(r["state_bytes"] == r["state_dry_bytes"], f"{tag} "
+                  f"diloco {name}: live state bytes {r['state_bytes']} are "
+                  f"not the dry run's {r['state_dry_bytes']}")
+            check(r["cross_pod_sent"] == r["cross_pod_want"], f"{tag} "
+                  f"diloco {name}: sent {r['cross_pod_sent']} bytes across "
+                  f"pods, not its codes and scales' {r['cross_pod_want']}")
+        f, t = f2["p2d2f"], f2["p2d2r"]
+        ratio = f["cross_pod_sent"] / t["cross_pod_sent"]
+        loss_rel = _rel(f["loss"], t["loss"])
+        log(f"  rank {w} fsdp diloco_p2d2: cross-pod bytes {ratio:.4f} of "
+            f"the replicated rank's; the inner steps {loss_rel:.3g} "
+            f"relative in loss, the worker {f['inner_vs_replicated'][0]:.3g}"
+            f" ({f['inner_vs_replicated'][1]}), its Muon leaves "
+            f"{f['inner_muon_vs_replicated'][0]:.3g} off the replicated "
+            f"run's; the round from one shared state: anchor "
+            f"{f['anchor_equal']}, momentum {f['v_equal']}, residual "
+            f"{f['residual_equal']}, codes {f['codes_equal']}, inputs "
+            f"{f['inputs_equal']}, scales {f['scales_equal']}")
+        check(f["anchor_equal"] and f["v_equal"] and f["residual_equal"]
+              and f["codes_equal"] and f["inputs_equal"]
+              and f["scales_equal"] and f["rounds"] == 1, f"{tag}: the "
+              f"int8 round from one shared state is not the replicated "
+              f"round's, sliced, bit for bit")
+        check(loss_rel <= TP_LOSS_RTOL
+              and f["inner_vs_replicated"][0] <= MESH_DDP_ATOL
+              and f["inner_muon_vs_replicated"][0] <= TP_MUON_ATOL,
+              f"{tag}: the inner steps part from the replicated ones: loss "
+              f"{loss_rel}, worker {f['inner_vs_replicated']}, Muon leaves "
+              f"{f['inner_muon_vs_replicated']}")
+        check(0.5 < ratio < 0.51, f"{tag}: a rank ships {ratio} of the "
+              f"replicated rank's bytes")
+        for k in TRAIN_KERNELS + WIRE_KERNELS:
+            check(f["launches"][k] > 0, f"{tag} diloco_p2d2: kernel {k} "
+                  f"never launched")
+        for name in FSDP_DRIFT:
+            r = x["cases"][f"drift_{name}"]
+            rel, leaf = r["average_rel"]
+            log(f"  rank {w} fsdp drift-aware round on {name} "
+                f"({1e3 * r['round_s']:.1f} ms): weights {r['weights']} "
+                f"(one process {r['weights_one']}; "
+                f"{r['weight_max_abs_diff']:.3g} off, gate "
+                f"{FSDP_WEIGHT_ATOL}), the average {rel:.3g} of a leaf's "
+                f"max off one process's ({leaf}; gate {TP_GRAD_RTOL}), "
+                f"peak memory a rank {r['peak_memory_gb']:.2f} GB "
+                f"({r['resident_gb']:.2f} held as it started)")
+            check(r["weight_max_abs_diff"] <= FSDP_WEIGHT_ATOL,
+                  f"{tag} drift {name}: weights {r['weights']} off one "
+                  f"process's {r['weights_one']}")
+            check(rel <= TP_GRAD_RTOL, f"{tag} drift {name}: the average "
+                  f"{rel} of {leaf}'s max off one process's")
+            check(r["weights"] == by_rank[0]["cases"][f"drift_{name}"][
+                "weights"], f"{tag} drift {name}: the ranks' weights part")
+            for k in WIRE_KERNELS:
+                check(r["launches"][k] > 0, f"{tag} drift {name}: kernel "
+                      f"{k} never launched")
+    # F1 against one process: the 4 ranks' mean loss, rank 0's joined
+    # parameters
+    one = by_rank[0]["cases"]["ddp_d4"]["vs_one_process"]
+    losses = [x["cases"]["ddp_d4"]["d4f"]["loss"] for x in by_rank.values()]
+    mean = [float(np.mean(np.asarray(v, dtype=np.float32)))
+            for v in zip(*losses)]
+    rel = _rel(mean, one["loss"])
+    d, leaf = one["max_abs_diff"]
+    f_out["ddp_d4_vs_one_process"] = {"loss_rel": rel, "max_abs_diff": d,
+                                      "leaf": leaf}
+    log(f"  fsdp ddp_d4 against one process on the card: losses {rel:.3g} "
+        f"relative (gate {MESH_DDP_LOSS_RTOL}), parameters {d:.3g} ({leaf}; "
+        f"gate {MESH_DDP_ATOL})")
+    check(rel <= MESH_DDP_LOSS_RTOL and d <= MESH_DDP_ATOL, f"mesh fsdp "
+          f"ddp_d4: losses {rel} relative, parameters {d} ({leaf}) off one "
+          f"process")
+    f_out["ranks"] = by_rank
+    return f_out
+
+
+def fsdp_summary(f_out):
+    """Phase 5f's numbers for the summary line: per case and rank the
+    step s, the data-axis collectives a step and their seconds, state
+    bytes beside the dry run's, peak memory, and the distances gated."""
+    ranks = [r for _, r in sorted(f_out["ranks"].items())]
+
+    def ddp(r, name, case):
+        c = r["cases"][case][name]
+        return {k: c[k] for k in (
+            "step_s", "data_per_step", "data_s_per_step",
+            "data_host_s_per_step", "state_bytes", "state_dry_bytes",
+            "run_state_bytes", "peak_memory_gb", "resident_gb", "wall_s")}
+
+    return {
+        "ddp": {case: {name: [ddp(r, name, case) for r in ranks]
+                       for name in names} | {
+            "vs_replicated": [r["cases"][case]["vs_replicated"]
+                              for r in ranks]}
+                for case, names in FSDP_DDP.items()},
+        "ddp_d4_vs_one_process": f_out["ddp_d4_vs_one_process"],
+        "shared": [{k: r["shared"][k] for k in (
+            "loss_equal", "grads_equal", "muon_equal", "grads_max_abs_diff",
+            "muon_max_abs_diff")} for r in ranks],
+        "diloco_p2d2": {name: [{k: r["cases"]["diloco_p2d2"][name].get(k)
+                                for k in (
+            "step_s", "data_per_step", "data_s_per_step", "round_s",
+            "cross_pod_sent", "state_bytes", "state_dry_bytes",
+            "peak_memory_gb", "resident_gb", "inner_vs_replicated",
+            "inner_muon_vs_replicated")} for r in ranks]
+            for name in ("p2d2r", "p2d2f")},
+        "drift": {name: [{k: r["cases"][f"drift_{name}"][k] for k in (
+            "weights", "weight_max_abs_diff", "average_rel", "round_s",
+            "peak_memory_gb", "resident_gb")} for r in ranks]
+            for name in FSDP_DRIFT},
+        "timing": [r["timing"] for r in ranks],
+        "fsdp_s": [r["fsdp_s"] for r in ranks],
+        "reference_s": [r["reference_s"] for r in ranks]}
 
 
 # ---------------------------------------------------------------------------
@@ -8098,9 +8770,10 @@ def main(argv=None) -> int:
     ap.add_argument("--only-mesh", action="store_true",
                     help="only build the kernels and run phases 5b and 5c "
                          "(the process mesh; every strategy across ranks; "
-                         "5d, tensor parallelism, and 5e, tensor-parallel "
-                         "serving, in 5c's 4-rank spawn), printing their "
-                         "summary as one JSON line")
+                         "5d, tensor parallelism, 5e, tensor-parallel "
+                         "serving, and 5f, fsdp over the data axis, in 5c's "
+                         "4-rank spawn), printing their summary as one JSON "
+                         "line")
     args = ap.parse_args(argv)
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found; run from a checkout "
@@ -8130,7 +8803,7 @@ def main(argv=None) -> int:
                   lambda runs: {"mesh": mesh_summary(runs[0]),
                                 "mesh_strategies":
                                     mesh_strategies_summary(runs[1])},
-                  "5b to 5e"))
+                  "5b to 5f"))
         try:
             runs = phase(torch, [])
         except SmokeFailure as e:
@@ -8258,9 +8931,13 @@ def main(argv=None) -> int:
             "spawn, tensor parallelism (2 layers): DiLoCo on (pod 2, "
             "model 2), int8 and f32, and DDP on (data 2, model 2); "
             "[5e/7] tensor-parallel serving (2 layers): head-parallel on "
-            "(data 2, model 2), kv_seq on (1, 1, 4) at cap 512 and 400")
+            "(data 2, model 2), kv_seq on (1, 1, 4) at cap 512 and 400; "
+            "[5f/7] fsdp over the data axis (2 layers): DDP on (data 4) "
+            "and (data 2, model 2), int8 DiLoCo on (pod 2, data 2), each "
+            "beside its replicated twin; drift-aware rounds on (pod 2, "
+            "model 2) and fsdp (pod 2, data 2)")
         mesh_strat = report["mesh_strategies"] = phase_mesh_strategies(torch)
-        lap("5c, 5d and 5e mesh strategies, tensor parallelism, serving")
+        lap("5c to 5f mesh strategies, tensor parallelism, serving, fsdp")
 
         log("[6/7] pipeline, nanochat-d20 at full width: base -> mid -> "
             "SFT with evals after each stage, DiLoCo and hybrid")

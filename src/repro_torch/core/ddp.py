@@ -12,7 +12,11 @@ batch, and its gradients are all-reduced (mean over the D ranks) before
 the optimizer runs, so every rank applies the same update.  On a mesh
 whose model axis splits the model (``replicate_fn.tp``) each rank holds
 and steps its shards (``core/diloco.py``), and the mean runs over the
-data group of its model index."""
+data group of its model index.  With ``fsdp`` the data ranks split
+the model too (ZeRO-3, ``core/diloco.py``): each rank holds and steps
+its shards, the layers gather their weights over the data group, and
+a sharded leaf's gradient comes out of the backward already
+reduce-scattered."""
 from __future__ import annotations
 
 import dataclasses
@@ -40,8 +44,8 @@ class DDPTrainer:
     replicate_fn: Optional[Callable] = None     # a process mesh's
 
     def _opt(self):
-        return nanochat_optimizer(self.opt_cfg,
-                                  axis=getattr(self.replicate_fn, "tp", None))
+        return nanochat_optimizer(
+            self.opt_cfg, axis=getattr(self.replicate_fn, "sharded", None))
 
     def init(self, params) -> DDPState:
         own = own_params(params, self.replicate_fn)

@@ -53,6 +53,16 @@ transport's codec (the wire's scales) take the mesh as their ``axis``;
 the outer step and AdamW are elementwise on the shards.  Each state
 tensor is this rank's shard of the one-process tensor;
 ``init_residual`` takes the state's (sharded) parameters.
+
+ZeRO-3 over the data axis.  On a mesh with ``fsdp``
+(``replicate_fn.sharded``) the pod's data ranks split the worker as
+well: ``init`` cuts each leaf's ``fsdp`` dim too (``ProcessMesh.own``),
+so the parameters, AdamW's moments, Muon's momentum, the anchor, the
+outer momentum and the residual are all shards; the steps run under the
+mesh's data axis (``models.fsdp.use``), whose layers gather their
+weights and reduce-scatter their gradients, ``grad_reduce`` all-reduces
+the whole leaves only, and the optimizer and codec reduce over both
+groups.
 """
 from __future__ import annotations
 
@@ -67,8 +77,8 @@ from repro_torch.configs.base import DiLoCoConfig, OptimizerConfig
 from repro_torch.core import outer_opt
 from repro_torch.core.outer_opt import OuterState
 from repro_torch.core.transport import make_codec, wire_width
+from repro_torch.models import fsdp
 from repro_torch.models import tensor_parallel as tp
-from repro_torch.models.sharding import shard
 from repro_torch.models.transformer import flatten, unflatten
 from repro_torch.optim import Optimizer, apply_updates, nanochat_optimizer
 
@@ -89,24 +99,27 @@ class DiLoCoState(NamedTuple):
 def own_params(params, replicate_fn=None) -> Flat:
     """A copy of ``params`` (a tree or flat dict, one-process layout, never
     written) as this process holds it: whole, or cut to this rank's
-    shards on a mesh whose model axis splits the worker."""
+    shards on a mesh whose model axis or ``fsdp`` splits the worker."""
     with torch.no_grad():
         flat = {k: p.detach() for k, p in flatten(params).items()}
-        mesh = getattr(replicate_fn, "tp", None)
+        mesh = getattr(replicate_fn, "sharded", None)
         if mesh is None:
             return {k: p.clone() for k, p in flat.items()}
-        if set(flat) != set(mesh.layout):
+        if set(flat) != set(mesh.layout or mesh.data_layout):
             raise ValueError("the parameters are not the tree the mesh's "
                              "layout was made for (init_process_mesh(cfg=))")
-        return shard(flat, mesh.layout, mesh.model_index, mesh.model)
+        return mesh.own(flat)
 
 
 def under_model_axis(method):
     """Run a trainer's method under its mesh's model axis
-    (``tensor_parallel.use``; no axis without one)."""
+    (``tensor_parallel.use``) and ``fsdp`` data axis (``fsdp.use``); no
+    axis without them."""
     @functools.wraps(method)
     def run(self, *args, **kw):
-        with tp.use(getattr(self.replicate_fn, "tp", None)):
+        rep = self.replicate_fn
+        with tp.use(getattr(rep, "tp", None)), \
+                fsdp.use(getattr(rep, "sharded", None)):
             return method(self, *args, **kw)
     return run
 
@@ -146,8 +159,8 @@ class DiLoCoTrainer:
     replicate_fn: Optional[Callable] = None
 
     def _inner_opt(self) -> Optimizer:
-        return nanochat_optimizer(self.opt_cfg,
-                                  axis=getattr(self.replicate_fn, "tp", None))
+        return nanochat_optimizer(
+            self.opt_cfg, axis=getattr(self.replicate_fn, "sharded", None))
 
     @property
     def local_rows(self) -> Tuple[int, ...]:

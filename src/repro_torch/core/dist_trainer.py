@@ -76,9 +76,17 @@ and a checkpoint gathers each leaf over the model group to model index
 0, whose ranks alone then run the pod gather (so it keeps the
 one-process layout and resumes at any model size: a resume cuts what
 it loads to the rank's shards).  Every model rank of a worker computes
-the same loss, bit for bit.  The other strategies, an H schedule
-(AdaptiveH), the fault layer and drift-aware averaging are refused by
-name (ROADMAP §1).
+the same loss, bit for bit.  Drift-aware averaging sums its cosines
+over the shards.  The other strategies, an H schedule (AdaptiveH) and
+the fault layer are refused by name (ROADMAP §1).
+
+ZeRO-3 over the data axis.  On a mesh with ``fsdp``
+(``replicate_fn.sharded``, ``models/fsdp.py``) the same holds with the
+data ranks splitting each worker as well: DiLoCo (fixed H, drift-aware
+or not) and DDP, every wire, run checkpoints (each leaf joined over the
+model group, then over the data group among the model-index-0 ranks,
+before the pod gather: the file is the one-process layout, and a resume
+cuts it on both axes); the same strategies and options are refused.
 
 Faults.  ``faults`` (a ``core.faults.FaultSchedule``) scripts per-worker
 crash / rejoin / slow / drop / corrupt events and run-level kills.  A
@@ -114,7 +122,6 @@ from repro_torch.core.streaming import StreamingDiLoCoTrainer
 from repro_torch.core.sync import SyncStrategy
 from repro_torch.core.transport import ranked
 from repro_torch.data.pipeline import Prefetcher, stack_batches
-from repro_torch.models.sharding import shard
 
 
 # the default longest chunk: how many steps' losses may wait on the device
@@ -144,7 +151,7 @@ def _host_mean_live(row: np.ndarray, live) -> float:
 
 # history keys of a rank of a process mesh only (not in a checkpoint)
 _RANK_KEYS = ("inner_seconds", "sync_seconds", "fleet_loss")
-# the strategies a model axis > 1 runs (ROADMAP §1 has the rest)
+# the strategies a model axis > 1 or fsdp runs (ROADMAP §1 has the rest)
 TP_STRATEGIES = ("diloco", "ddp")
 
 
@@ -249,9 +256,10 @@ class DistTrainer:
         return self.engine().init(params)
 
     def _check_model_axis(self, faults) -> None:
-        """What a mesh whose model axis splits the worker does not hold
-        yet, refused by name."""
-        if getattr(self.replicate_fn, "tp", None) is None:
+        """What a mesh whose model axis or ``fsdp`` splits the worker does
+        not hold yet, refused by name."""
+        mesh = getattr(self.replicate_fn, "sharded", None)
+        if mesh is None:
             return
         name = self.strategy.name
         what = None
@@ -261,14 +269,15 @@ class DistTrainer:
             what = "an H schedule (AdaptiveH)"
         elif faults is not None and not faults.empty:
             what = "the fault layer"
-        elif self.cfg.drift_aware:
-            what = "drift-aware averaging"
         if what is not None:
+            axes = " and ".join(a for a, on in (
+                ("a model axis > 1", mesh.model > 1),
+                ("fsdp over the data axis", mesh.fsdp)) if on)
             raise NotImplementedError(
-                f"{what} under a model axis > 1: tensor parallelism holds "
+                f"{what} under {axes}: a sharded worker runs "
                 f"{' and '.join(TP_STRATEGIES)} at a fixed H; the rest "
-                f"waits for ROADMAP §1's item 'tensor parallelism for the "
-                f"other strategies'")
+                f"waits for ROADMAP §1's 'configurations the port does not "
+                f"yet run'")
 
     @under_model_axis
     def run(self, state: DiLoCoState, data_fn, num_steps: int,
@@ -350,13 +359,11 @@ class DistTrainer:
             if manifest is not None:
                 template = runner.checkpoint_extras()
                 rows = tuple(rep.rows) if is_rank else None
-                mesh = getattr(rep, "tp", None)
+                mesh = getattr(rep, "sharded", None)
                 state, extras = load_run_checkpoint(
                     manifest, state,
                     template[0] if template is not None else None,
-                    rows=rows, cut=None if mesh is None else (
-                        lambda arrays: shard(arrays, mesh.layout,
-                                             mesh.model_index, mesh.model)))
+                    rows=rows, cut=None if mesh is None else mesh.own)
                 runner.load_extras(extras, manifest.get("extras_meta") or {})
                 for key, vals in (manifest.get("history") or {}).items():
                     history[key] = [_history_from_json(v) for v in vals]
@@ -537,20 +544,32 @@ class DistTrainer:
                                 extras_arrays=arrays, extras_meta=extras_meta,
                                 history=history, meta={"num_steps": num_steps})
             return
-        mesh = getattr(rep, "tp", None)
+        mesh = getattr(rep, "sharded", None)
         if mesh is not None:
             # the model ranks' shards joined at model index 0 first (every
-            # rank, the same leaves in the same order); the pod gather
-            # below runs among the model-index-0 ranks alone
-            def join(path, t):
-                dim = (mesh.split_dim(path) if isinstance(t, torch.Tensor)
-                       else None)
-                return t if dim is None else mesh.model_gather(t, dim)
+            # rank, the same leaves in the same order), then under fsdp
+            # the data ranks' among the model-index-0 ranks; the pod
+            # gather below runs among the ranks at data and model index 0
+            # alone (or every data index, when the data axis replicates)
+            def joiner(split, gather):
+                def join(path, t):
+                    dim = (split(path) if isinstance(t, torch.Tensor)
+                           else None)
+                    return t if dim is None else gather(t, dim)
+                return join
 
             with rep.scope("checkpoint"):
-                state = _rebuild(state, join)
-                arrays = _rebuild(arrays, join)
-            if mesh.model_index:
+                for split, gather, off in (
+                        (mesh.split_dim, mesh.model_gather,
+                         mesh.model_index),
+                        (mesh.data_split_dim, mesh.data_all_gather,
+                         mesh.data_index if mesh.fsdp else 0)):
+                    join = joiner(split, gather)
+                    state = _rebuild(state, join)
+                    arrays = _rebuild(arrays, join)
+                    if off:
+                        break
+            if mesh.model_index or (mesh.fsdp and mesh.data_index):
                 rep.barrier()   # the checkpoint's files are written
                 rep.barrier()   # the manifest is written
                 return

@@ -15,7 +15,10 @@ On a process mesh (a ``replicate_fn``, ``launch/mesh.py``) a rank holds
 its own worker's rows only: it encodes them, the transport all-gathers
 every worker's encoded rows across pods, and every rank decodes and
 averages all K in worker order, so the anchor and momentum are the
-one-process round's bit for bit.
+one-process round's bit for bit.  Where the mesh's model axis or
+``fsdp`` splits a worker, the rows, anchor, momentum and residual are
+this rank's shards; the round is elementwise on them, and drift-aware
+averaging sums its cosines' partial sums over the splitting groups.
 
 ``outer_sync`` runs the round one leaf at a time: it stacks one leaf's K
 worker deltas, encodes, ships, decodes and averages them, and applies the
@@ -89,12 +92,40 @@ def dequantize_delta(payload: Flat, scales: Optional[Flat]) -> Flat:
 # Averaging
 # ---------------------------------------------------------------------------
 
-def _tree_dot(a: Flat, b: Flat) -> torch.Tensor:
-    out = None
-    for k in a:
-        s = torch.sum(a[k].float() * b[k].float())
-        out = s if out is None else out + s
-    return out
+def _drift_dots(delta: Flat, mean: Flat, axis=None):
+    """The drift-aware weights' tree sums: (|Δ̄|², [|Δ_i|²], [Δ_i·Δ̄]),
+    each a sum over the leaves in dict order of the leaf's own sum.  With
+    an ``axis`` (a process mesh whose model axis or ``fsdp`` splits the
+    leaves) a split leaf's partial sums are summed over every group that
+    splits it first (one all-reduce a group of the stacked per-leaf
+    partials, ``reduce_leaves``), and a whole leaf counts once."""
+    keys = list(delta)
+    k_workers = delta[keys[0]].shape[0]
+    parts = []
+    for k in keys:
+        m = mean[k]
+        sums = [torch.sum(m.float() * m.float())]
+        sums += [torch.sum(delta[k][i].float() * delta[k][i].float())
+                 for i in range(k_workers)]
+        sums += [torch.sum(delta[k][i].float() * m.float())
+                 for i in range(k_workers)]
+        parts.append(torch.stack(sums))
+    if axis is not None:
+        parts = axis.reduce_leaves(keys, parts)
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return (total[0], total[1:1 + k_workers], total[1 + k_workers:])
+
+
+def drift_weights(delta: Flat, mean: Flat, axis=None) -> torch.Tensor:
+    """Drift-aware averaging's (K,) weights softmax(4 · cos(Δ_i, Δ̄)) of
+    stacked (K, ...) deltas and their mean, over the whole tree
+    (``_drift_dots``; ``axis``: its)."""
+    mm, dd, dm = _drift_dots(delta, mean, axis)
+    mean_norm = torch.sqrt(mm) + 1e-12
+    cos = dm / ((torch.sqrt(dd) + 1e-12) * mean_norm)
+    return torch.softmax(4.0 * cos, dim=0)
 
 
 def _mean(d: torch.Tensor) -> torch.Tensor:
@@ -107,7 +138,7 @@ def _mean(d: torch.Tensor) -> torch.Tensor:
 
 
 def _average(delta: Flat, cfg: DiLoCoConfig,
-             live: Optional[Sequence[bool]] = None) -> Flat:
+             live: Optional[Sequence[bool]] = None, axis=None) -> Flat:
     """Decoded f32 (K, ...) stacked deltas -> averaged delta dict; with
     ``drift_aware`` each worker is weighted by softmax(4 · cos(Δ_i, Δ̄))
     over the whole dict.
@@ -117,7 +148,11 @@ def _average(delta: Flat, cfg: DiLoCoConfig,
     gives the rest -inf logits).  They are picked out before the same
     expressions run, so the masked mean IS the plain mean of the
     survivors, bit for bit, and an all-live mask is the unmasked
-    average.  ``live=None`` is the unmasked average."""
+    average.  ``live=None`` is the unmasked average.  ``axis`` (a process
+    mesh whose model axis or ``fsdp`` splits the leaves: ``delta`` holds
+    this rank's shards) sums the cosines' partial sums over the groups
+    that split each leaf (``_drift_dots``), so the weights are the whole
+    tree's on every rank."""
     if live is not None and not all(live):
         rows = [i for i, keep in enumerate(live) if keep]
         if not rows:
@@ -128,14 +163,7 @@ def _average(delta: Flat, cfg: DiLoCoConfig,
     mean = {k: _mean(d) for k, d in delta.items()}
     if not cfg.drift_aware:
         return mean
-    k_workers = next(iter(delta.values())).shape[0]
-    mean_norm = torch.sqrt(_tree_dot(mean, mean)) + 1e-12
-    cos = []
-    for i in range(k_workers):
-        di = {k: d[i] for k, d in delta.items()}
-        ni = torch.sqrt(_tree_dot(di, di)) + 1e-12
-        cos.append(_tree_dot(di, mean) / (ni * mean_norm))
-    w = torch.softmax(4.0 * torch.stack(cos), dim=0)          # (K,)
+    w = drift_weights(delta, mean, axis)                      # (K,)
     return {k: torch.tensordot(w, d.float(), dims=([0], [0]))
             for k, d in delta.items()}
 
@@ -155,7 +183,9 @@ def exchange_and_average(stacked_delta: Flat, cfg: DiLoCoConfig,
     full, new_residual = make_transport(cfg, replicate_fn).exchange(
         stacked_delta, residual, kind=kind, fragment=fragment,
         sources=sources)
-    return _average(full, cfg, live=live), new_residual
+    return (_average(full, cfg, live=live,
+                     axis=getattr(replicate_fn, "sharded", None)),
+            new_residual)
 
 
 # ---------------------------------------------------------------------------

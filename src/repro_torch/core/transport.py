@@ -146,8 +146,9 @@ class Codec:
     def encode(self, delta: Flat, residual: Optional[Flat] = None,
                kind: str = "delta", fragment: int = -1, axis=None
                ) -> Tuple[OuterPayload, Optional[Flat]]:
-        """``axis``: the model axis the leaves are split over (a process
-        mesh, ``model`` > 1), or None; an elementwise codec ignores it."""
+        """``axis``: the mesh axes the leaves are split over (a process
+        mesh whose model axis or ``fsdp`` splits them), or None; an
+        elementwise codec ignores it."""
         e = (delta if residual is None else
              {k: d.float() + residual[k] for k, d in delta.items()})
         data, scales = self._enc(e)
@@ -202,9 +203,10 @@ class QuantizedCodec(Codec):
         from repro_torch.kernels import quantize as qz
         data, scales, new_res = {}, {}, {}
         for k, d in delta.items():
-            # a shard's amax, maxed over the model group: the leaf's scale
-            hook = (None if axis is None or axis.split_dim(k) is None else
-                    lambda a: axis.model_all_reduce(a, "max"))
+            # a shard's amax, maxed over every group that splits the leaf:
+            # the whole leaf's scale
+            hook = (None if axis is None or not axis.splits(k) else
+                    lambda a, k=k: axis.reduce_leaves([k], [a], "max")[0])
             data[k], new_res[k], scales[k] = qz.quantize_ef(
                 d, None if residual is None else residual[k],
                 dtype=self.qdtype, amax_reduce=hook)
@@ -391,7 +393,7 @@ class Transport:
         error-feedback residual or None).  ``sources``: ``ship``'s."""
         payload, new_residual = self.codec.encode(
             stacked_delta, residual, kind=kind, fragment=fragment,
-            axis=getattr(self.replicate_fn, "tp", None))
+            axis=getattr(self.replicate_fn, "sharded", None))
         payload = self.ship(payload, sources)
         return self.codec.decode(payload), new_residual
 
@@ -406,7 +408,7 @@ class Transport:
         unnamed to free it here)."""
         payload, new_residual = self.codec.encode(
             stacked_delta, residual, kind=kind, fragment=fragment,
-            axis=getattr(self.replicate_fn, "tp", None))
+            axis=getattr(self.replicate_fn, "sharded", None))
         del stacked_delta
         peer_payload = self.ship_peers(payload, peer_idx)
         return (self.codec.decode(payload), self.codec.decode(peer_payload),

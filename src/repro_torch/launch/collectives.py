@@ -29,10 +29,26 @@ Every collective of the port goes through the wrappers here:
   shards into the one-process layout);
 * ``gather_model(t, dim, mesh)`` — the same join at model index 0 only
   (a run checkpoint's shards, which one rank writes);
+* ``reduce_scatter_data(t, dim, mesh)`` — over the data group: the mean
+  of the data ranks' ``t``, this rank's contiguous piece along ``dim``
+  (the gradient of a weight gathered by ``fsdp``, ``models/fsdp.py``);
+* ``all_gather_data(t, dim, mesh)`` — the data ranks' pieces joined
+  along ``dim`` in data-index order (a layer's weights before use under
+  ``fsdp``, Muon's whole matrix, a checkpoint's join);
+* ``all_reduce_data(t, mesh, op)`` — the SUM or MAX of ``t`` over the
+  data group (the partial sums of leaves ``fsdp`` splits: the global
+  norm, the wire's amax, the drift-aware cosines);
 * ``barrier(mesh)`` — every rank of the world.
 
+The data-axis wrappers cross pods only where the data group spans them
+(a ``data_view``).  Their gloo calls are gloo's own ``reduce_scatter``,
+``all_gather`` and ``all_reduce``, present in both PyTorch builds the
+port runs on (2.13 on the CPU, 2.11 with CUDA 12.8 on the card); a CUDA
+tensor is staged through pinned host memory as for every gloo call.
+
 Each call appends a ``CollectiveRecord``: the op kind (the reference's
-names, ``all-gather`` / ``all-reduce``, and ``broadcast``, ``send``,
+names, ``all-gather`` / ``all-reduce`` / ``reduce-scatter``, and
+``broadcast``, ``send``,
 ``recv``, ``gather``), the mesh axis, the bytes THIS rank sends (its
 operand: the one-process transport's ``shipped`` counts each worker's
 payload once, and so does this; a ``recv`` record holds the bytes this
@@ -43,10 +59,10 @@ all-gather), through pinned memory (copies several times faster than to pageable
 memory); the staging is explicit and timed apart (``host_s``), and the
 collective itself is ``coll_s``.  CUDA work is synchronized before a
 call, so neither time includes compute enqueued before it.  A large
-tensor goes to an all-gather or all-reduce as up to ``MAX_PIECES``
-pieces of about ``PIECE_BYTES``, issued together (gloo serves the pieces
-on its threads at once; one 1 GiB piece runs slower); the record is the
-call's.
+tensor goes to an all-gather, all-reduce or reduce-scatter as up to
+``MAX_PIECES`` pieces of about ``PIECE_BYTES``, issued together (gloo
+serves the pieces on its threads at once; one 1 GiB piece runs slower);
+the record is the call's.
 
 ``collective_stats()`` sums the log into the reference's keys
 (``bytes_by_kind``, ``count_by_kind``, ``wire_bytes_per_device``, where an
@@ -76,8 +92,8 @@ MAX_PIECES = 32
 
 @dataclasses.dataclass(frozen=True)
 class CollectiveRecord:
-    kind: str            # all-gather | all-reduce | broadcast | send |
-    #                      recv | gather
+    kind: str            # all-gather | all-reduce | reduce-scatter |
+    #                      broadcast | send | recv | gather
     axis: str            # the mesh axis: "pod" | "data" | "model"
     nbytes: int          # bytes this rank sends (its operand)
     cross_pod: bool      # the group spans more than one pod
@@ -109,14 +125,18 @@ def scope(name: str):
         _SCOPE.pop()
 
 
-def collective_stats(scope: Optional[str] = None) -> Dict:
+def collective_stats(scope: Optional[str] = None,
+                     axis: Optional[str] = None) -> Dict:
     """The log summed into the reference's collective-statistics keys (per
-    device = per rank), plus the seconds staged and spent."""
+    device = per rank), plus the seconds staged and spent; those of one
+    mesh axis if named."""
     by_kind: Dict[str, int] = {}
     count: Dict[str, int] = {}
     wire = cross = 0
     host_s = coll_s = 0.0
     for r in records(scope):
+        if axis is not None and r.axis != axis:
+            continue
         by_kind[r.kind] = by_kind.get(r.kind, 0) + r.nbytes
         count[r.kind] = count.get(r.kind, 0) + 1
         b = r.nbytes * {"all-reduce": 2, "recv": 0}.get(r.kind, 1)
@@ -410,3 +430,71 @@ def gather_model(t: torch.Tensor, dim: int, mesh) -> Optional[torch.Tensor]:
 
     out = _run(mesh, t, "gather", "model", False, call)
     return out if lead else None
+
+
+def reduce_scatter_data(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """The mean of ``t`` over the mesh's data group, this rank's
+    contiguous piece along ``dim`` (data index i holds the i-th of
+    ``data`` equal pieces): one reduce-scatter of the SUM, divided by the
+    data count as ``all_reduce_mean`` divides it.  Logged as
+    ``reduce-scatter`` on the ``data`` axis, with ``t``'s bytes.  ``t``
+    itself on one data rank."""
+    import torch.distributed as dist
+    if mesh.data == 1:
+        return t
+
+    def call(x):
+        chunks = [c.contiguous() for c in x.chunk(mesh.data, dim=dim)]
+        out = torch.empty(chunks[0].shape, dtype=x.dtype, device=x.device,
+                          pin_memory=x.is_pinned())
+        flat, bounds = _pieces(out)
+        ins = [c.reshape(-1) for c in chunks]
+        for w in [dist.reduce_scatter(flat[a:b], [c[a:b] for c in ins],
+                                      op=dist.ReduceOp.SUM,
+                                      group=mesh.data_group, async_op=True)
+                  for a, b in bounds]:
+            w.wait()
+        return [out.div_(mesh.data)]
+
+    return _run(mesh, t, "reduce-scatter", "data", mesh.spans_pods, call)
+
+
+def all_gather_data(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """Every data rank's ``t`` (equal shapes) joined along ``dim``, in
+    data-index order (group rank = data index: the group's ranks ascend
+    with it).  Logged on the ``data`` axis.  ``t`` itself on one data
+    rank."""
+    import torch.distributed as dist
+    if mesh.data == 1:
+        return t
+
+    def call(x):
+        parts = [torch.empty(x.shape, dtype=x.dtype, device=x.device,
+                             pin_memory=x.is_pinned())
+                 for _ in range(mesh.data)]
+        flat, bounds = _pieces(x.contiguous())
+        outs = [p.reshape(-1) for p in parts]
+        for w in [dist.all_gather([o[a:b] for o in outs], flat[a:b],
+                                  group=mesh.data_group, async_op=True)
+                  for a, b in bounds]:
+            w.wait()
+        return [torch.cat(parts, dim=dim)]
+
+    return _run(mesh, t, "all-gather", "data", mesh.spans_pods, call)
+
+
+def all_reduce_data(t: torch.Tensor, mesh, op: str = "sum") -> torch.Tensor:
+    """The SUM (``op`` "sum") or MAX ("max") of ``t`` over the mesh's data
+    group, the same tensor on every data rank (a new one).  Logged on the
+    ``data`` axis.  ``t`` itself on one data rank."""
+    import torch.distributed as dist
+    if mesh.data == 1:
+        return t
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+
+    def call(x):
+        x = x.clone(memory_format=torch.contiguous_format) if x is t else x
+        dist.all_reduce(x, op=red, group=mesh.data_group)
+        return [x]
+
+    return _run(mesh, t, "all-reduce", "data", mesh.spans_pods, call)

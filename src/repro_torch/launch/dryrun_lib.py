@@ -19,6 +19,18 @@ and reports:
   width, plus the scales (the runtime's collective log counts the same;
   the reference counts the gathered result, all K rows).
 
+The runtime's own meshes.  ``runtime_rules`` are the rules a runtime
+process mesh holds a worker under: ``"fsdp": ("data",)`` where the run
+shards over ``data`` (``init_process_mesh(fsdp=True)``) and ``()`` where
+its data ranks replicate the worker, the worker dim on ``pod``, and
+attention whole where the head counts do not divide ``model`` (as
+``models.sharding.tp_layout`` keeps it).  ``runtime_state_bytes``
+resolves the abstract DDP or DiLoCo state under them at the runtime's
+f32: the bytes one rank holds, which equal a rank's live state
+(``launch.state.live_state_bytes``).  The one split the rules do not
+name is a qkv bias's, which ``tp_layout`` cuts with its heads; no
+config the runtime shards on a model axis in these checks has one.
+
 Fields that only a compiled program has are None: ``temp_size_in_bytes``
 and the other compiled sizes, ``lower_s`` / ``compile_s``, XLA's cost
 analysis, and the collective bytes of a sharded inner step (the
@@ -43,7 +55,7 @@ from repro_torch.launch.mesh import (DCN_BW, HBM_BW, ICI_BW,
                                      PEAK_FLOPS_BF16, MeshShape,
                                      make_production_mesh)
 from repro_torch.launch.state import (abstract_diloco_state, abstract_params,
-                                      abstract_train_state,
+                                      abstract_train_state, add_leading,
                                       decode_cache_names, state_bytes,
                                       tp_kv_repeat)
 from repro_torch.models.sharding import local_shape, sharding_ctx, spec_for
@@ -334,3 +346,41 @@ def dryrun_outer_step(arch_id: str, *, delta_dtype: str = "float32",
              "cross_pod_bytes_per_device": wire}
     return _finish(arch_id, f"outer[{delta_dtype}]", mesh, "diloco-outer",
                    args, cfg.param_count(), verbose, collectives=colls)
+
+
+def runtime_rules(cfg: ModelConfig, mesh: MeshShape, fsdp: bool) -> Dict:
+    """The logical rules a runtime process mesh of ``mesh``'s shape holds
+    a worker of ``cfg`` under (the module docstring's)."""
+    model = mesh.shape.get("model", 1)
+    rules: Dict = {"fsdp": ("data",) if fsdp else (), "pod": ("pod",)}
+    if model > 1 and (cfg.num_heads % model or cfg.num_kv_heads % model):
+        rules.update(heads=(), kv_heads=())
+    return rules
+
+
+def runtime_state_bytes(cfg: ModelConfig, mesh: MeshShape, *,
+                        strategy: str = "diloco", fsdp: bool = False,
+                        opt_cfg: Optional[OptimizerConfig] = None,
+                        dcfg: Optional[DiLoCoConfig] = None) -> int:
+    """Bytes one rank of a runtime (pod, data, model) process mesh holds of
+    its training state, resolved under ``runtime_rules`` at the config's
+    parameter dtype: ``ddp``, ``core.ddp.DDPTrainer``'s state (parameters,
+    optimizer state, step); ``diloco``, ``DiLoCoTrainer``'s (the anchor,
+    the outer momentum, the worker row's parameters and inner optimizer
+    state, the counters) plus the error-feedback residual row of a lossy
+    wire (``dcfg``; default the f32 wire, K = the mesh's pods)."""
+    opt_cfg = opt_cfg or default_opt_cfg()
+    with sharding_ctx(mesh, runtime_rules(cfg, mesh, fsdp)):
+        if strategy == "ddp":
+            state, names = abstract_train_state(cfg, opt_cfg)
+            return state_bytes(state, names, mesh)
+        dcfg = dcfg or DiLoCoConfig(num_workers=mesh.shape.get("pod", 1))
+        state, names = abstract_diloco_state(cfg, opt_cfg, dcfg)
+        total = state_bytes(state, names, mesh)
+        if dcfg.error_feedback and make_codec(dcfg.delta_dtype).lossy:
+            params, pnames = abstract_params(cfg)
+            residual = {k: torch.empty((dcfg.num_workers,) + tuple(p.shape),
+                                       dtype=torch.float32, device="meta")
+                        for k, p in params.items()}
+            total += state_bytes(residual, add_leading(pnames, "pod"), mesh)
+        return total

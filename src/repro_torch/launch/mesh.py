@@ -23,7 +23,14 @@ parallelism's all-reduces, ``models/tensor_parallel.py``).  Every rank
 creates every group, in the same order.  With ``model`` > 1 each rank
 of a model group holds its shards of the one worker (``cfg``'s layout,
 ``models.sharding.tp_layout``); ``model`` 1 is the (pod, data) mesh
-as it was.  Its
+as it was.  With ``fsdp`` (and ``data`` > 1) each rank of a data group
+holds its shards of the pod's worker too, ZeRO-3 style
+(``models.sharding.fsdp_layout``: every matrix's ``fsdp`` dim over
+``data``): the parameters, the optimizer state and DiLoCo's outer state
+are shards, a layer's weights are all-gathered over ``data`` before it
+runs and their gradients reduce-scattered (``models/fsdp.py``); without
+it the data axis replicates the worker (the reference's "dp" treatment
+of the axis; with it, its "2d" / ``dp_fsdp`` rule).  Its
 ``replicate_fn`` is the transport's replicate hop across pods
 (``core/transport.py``: the all-gather of every worker's encoded row; a
 quorum round's contributors' rows only, one broadcast each) and carries
@@ -142,6 +149,15 @@ class PodReplicate:
         else None: what ``models.tensor_parallel.use`` takes."""
         return self.mesh if self.mesh.model > 1 else None
 
+    @property
+    def sharded(self) -> Optional["ProcessMesh"]:
+        """The mesh when its model axis or ``fsdp`` splits the worker's
+        leaves, else None: what ``init`` cuts the parameters by, the
+        optimizer and the wire's codec take as their ``axis`` and a
+        checkpoint joins over."""
+        m = self.mesh
+        return m if m.model > 1 or m.fsdp else None
+
     def local_batch(self, batch):
         return self.mesh.local_batch(batch)
 
@@ -201,7 +217,9 @@ class PodReplicate:
 class ProcessMesh:
     """This process's place in a (pod, data, model) grid of ranks and its
     groups (``init_process_mesh``); ``layout`` (``model`` > 1) maps each
-    parameter leaf to the dim its shards split (``models.sharding``)."""
+    parameter leaf to the dim its shards split over the model axis, and
+    ``data_layout`` (``fsdp``) to the dim they split over the data axis
+    (``models.sharding``)."""
     pod: int
     data: int
     rank: int
@@ -216,6 +234,12 @@ class ProcessMesh:
     layout: Optional[Dict[str, Optional[int]]] = None
     # same model index, every pod and data index (``data_view``'s group)
     flat_data_group: Any = None
+    data_layout: Optional[Dict[str, Optional[int]]] = None
+
+    @property
+    def fsdp(self) -> bool:
+        """Whether the data axis shards the worker (ZeRO-3)."""
+        return self.data_layout is not None
 
     @property
     def pod_index(self) -> int:
@@ -268,10 +292,71 @@ class ProcessMesh:
         """This rank's contiguous piece of a whole ``t`` along ``dim``."""
         return t.chunk(self.model, dim=dim)[self.model_index]
 
+    # the data axis under ``fsdp``, as the layers (``models.fsdp``), the
+    # optimizer and the wire's codec take it
+    def data_split_dim(self, path: str) -> Optional[int]:
+        """The dim (from the end) ``data_layout`` splits leaf ``path`` on
+        over the data axis, or None: whole (or no ``fsdp``)."""
+        from repro_torch.models.sharding import split_of
+        return split_of(path, self.data_layout)
+
+    def splits(self, path: str) -> bool:
+        """Whether a mesh axis splits leaf ``path``."""
+        return (self.split_dim(path) is not None
+                or self.data_split_dim(path) is not None)
+
+    def data_all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The data group's tensors joined along ``dim``."""
+        return collectives.all_gather_data(t, dim, self)
+
+    def data_reduce_scatter(self, t: torch.Tensor, dim: int
+                            ) -> torch.Tensor:
+        """The mean of ``t`` over the data group, this rank's piece along
+        ``dim``."""
+        return collectives.reduce_scatter_data(t, dim, self)
+
+    def data_all_reduce(self, t: torch.Tensor, op: str = "sum"
+                        ) -> torch.Tensor:
+        """``t``'s SUM or MAX over the data group."""
+        return collectives.all_reduce_data(t, self, op)
+
+    def data_part(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's contiguous piece of a whole ``t`` along ``dim``."""
+        return t.chunk(self.data, dim=dim)[self.data_index]
+
+    def reduce_leaves(self, paths, parts, op: str = "sum"):
+        """Each leaf's partial ``parts[i]`` (same-shaped tensors, one a
+        path of ``paths``) reduced (SUM or MAX) over every group that
+        splits that leaf: one all-reduce over the model group for the
+        leaves it splits, then one over the data group for those
+        ``fsdp`` splits, each of the stacked partials.  A whole leaf's
+        partial is returned as it is, so it counts once."""
+        parts = list(parts)
+        for split, reduce in ((self.split_dim, self.model_all_reduce),
+                              (self.data_split_dim, self.data_all_reduce)):
+            idx = [i for i, p in enumerate(paths) if split(p) is not None]
+            if idx:
+                summed = reduce(torch.stack([parts[i] for i in idx]), op)
+                for j, i in enumerate(idx):
+                    parts[i] = summed[j]
+        return parts
+
+    def own(self, flat: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's shards of one-process flat tensors or arrays (any
+        path ending in a leaf's), over the model axis and under ``fsdp``
+        the data axis (``models.sharding.shard``), copied."""
+        from repro_torch.models.sharding import shard
+        return shard(flat, self.layout, self.model_index, self.model,
+                     fsdp=self.data_layout, data_index=self.data_index,
+                     data=self.data)
+
     def grad_reduce(self, grads: Dict[str, torch.Tensor]
                     ) -> Dict[str, torch.Tensor]:
-        """Each gradient's mean over the data ranks of this pod."""
-        return {k: all_reduce_mean(g, self) for k, g in grads.items()}
+        """Each gradient's mean over the data ranks of this pod; under
+        ``fsdp`` the whole leaves' only, since a split leaf's gradient
+        came reduce-scattered out of the backward (``models.fsdp``)."""
+        return {k: g if self.data_split_dim(k) is not None
+                else all_reduce_mean(g, self) for k, g in grads.items()}
 
     def local_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """This rank's part of a worker-stacked batch ``{name: (K, B,
@@ -301,6 +386,11 @@ class ProcessMesh:
         import torch.distributed as dist
         if self.pod * self.data == 1:
             return self
+        if self.fsdp:
+            raise NotImplementedError(
+                "a data view of an fsdp mesh: its data axis would need the "
+                "shards of P x D data ranks, not D (hybrid's mid and SFT "
+                "stages, plain ddp across pods); ROADMAP §1 queues it")
         return dataclasses.replace(
             self, pod=1, data=self.pod * self.data, pod_group=None,
             pod_ranks=(), spans_pods=self.pod > 1,
@@ -346,7 +436,8 @@ def init_process_mesh(pod: int, data: int = 1, model: int = 1, *,
                       rank: Optional[int] = None,
                       world_size: Optional[int] = None,
                       init_method: Optional[str] = None,
-                      timeout_s: float = 600.0, cfg=None) -> ProcessMesh:
+                      timeout_s: float = 600.0, cfg=None,
+                      fsdp: bool = False) -> ProcessMesh:
     """Join (or start) the default process group as one rank of a (pod,
     data, model) mesh and build its groups (on a default group already
     joined, another mesh of the same ranks).  ``rank`` / ``world_size``
@@ -355,7 +446,11 @@ def init_process_mesh(pod: int, data: int = 1, model: int = 1, *,
     another rank, so a dead rank fails the others instead of hanging
     them.  ``model`` > 1 needs the model config ``cfg``, whose layout
     (``models.sharding.tp_layout``) the ranks split; a family the port
-    does not run tensor-parallel is refused here, by name."""
+    does not run tensor-parallel is refused here, by name.  ``fsdp``
+    with ``data`` > 1 shards each leaf's ``fsdp`` dim over the data
+    ranks too (``models.sharding.fsdp_layout`` of ``cfg``; off, the
+    default, the data ranks replicate the worker; on one data rank
+    there is nothing to shard)."""
     import torch.distributed as dist
     if pod < 1 or data < 1 or model < 1:
         raise ValueError(f"mesh axes must be >= 1, got pod {pod} data "
@@ -367,6 +462,13 @@ def init_process_mesh(pod: int, data: int = 1, model: int = 1, *,
                              "(cfg=): its layout says what each rank holds")
         from repro_torch.models.sharding import tp_layout
         layout = tp_layout(cfg, model)
+    data_layout = None
+    if fsdp and data > 1:
+        if cfg is None:
+            raise ValueError("an fsdp mesh needs the model config (cfg=): "
+                             "its layout says what each rank holds")
+        from repro_torch.models.sharding import fsdp_layout
+        data_layout = fsdp_layout(cfg, data, model)
     if not dist.is_initialized():
         rank = int(os.environ["RANK"]) if rank is None else rank
         world = (int(os.environ["WORLD_SIZE"]) if world_size is None
@@ -384,7 +486,7 @@ def init_process_mesh(pod: int, data: int = 1, model: int = 1, *,
             timeout=datetime.timedelta(seconds=timeout_s))
     mesh = ProcessMesh(pod=pod, data=data, rank=rank,
                        backend=dist.get_backend(), device=dev, model=model,
-                       layout=layout)
+                       layout=layout, data_layout=data_layout)
     at = mesh.rank_of
     # every rank makes every group, in the same order
     if pod > 1:

@@ -6,7 +6,9 @@ storage, so the dry run describes a 100B-parameter state without
 allocating it.  Names are tuples of logical dim names, one per dim
 (``models.transformer.param_names``), which ``models.sharding.spec_for``
 resolves on a mesh; ``state_bytes`` sums the per-device bytes of a state
-under its names.
+under its names, and ``live_state_bytes`` the bytes a live state holds,
+which the dry run of a runtime mesh predicts
+(``launch.dryrun_lib.runtime_state_bytes``).
 """
 from __future__ import annotations
 
@@ -114,6 +116,25 @@ def add_leading(names_tree, name: str = "pod") -> Any:
     """Prepend a logical dim (worker stacking) to every leaf's names."""
     return _map_names(lambda n, _: (name,) + tuple(n), names_tree,
                       names_tree)
+
+
+def live_state_bytes(*trees) -> int:
+    """Bytes of the tensors a live state holds (nested dicts, lists and
+    named tuples of tensors; several trees together), each storage
+    counted once: a state whose entries share a tensor holds it once."""
+    seen, total = set(), 0
+
+    def count(path, t):
+        nonlocal total
+        key = (t.device, t.untyped_storage().data_ptr())
+        if key not in seen:
+            seen.add(key)
+            total += t.untyped_storage().nbytes()
+        return ()
+
+    for tree in trees:
+        _map_with_path(count, tree)
+    return total
 
 
 def state_bytes(tree, names_tree, mesh) -> int:

@@ -23,7 +23,7 @@ mid-train -> SFT), with the evals after each stage, under one of:
   --method hybrid      DiLoCo base, DDP mid + SFT (the paper's hand-off)
 
     PYTHONPATH=src python -m repro_torch.launch.train --method hybrid \\
-        --steps 30 --workers 2 [--delta-dtype int8|fp8|fp8_e5m2|bfloat16] \\
+        --steps 30 --workers 2 [--sync-dtype f32|bf16|int8|fp8|e5m2] \\
         [--no-error-feedback] [--drift-aware] [--fused-adamw] \\
         [--adaptive-h] [--prefetch N] [--checkpoint-dir DIR \\
         --checkpoint-every N [--resume]] [--worker-speeds 1,1,1.5,2] \\
@@ -34,9 +34,13 @@ mid-train -> SFT), with the evals after each stage, under one of:
 (internvl2-26b) and the encoder-decoder (seamless-m4t-medium) are
 refused: the stages' text data carries no image patches or audio frames
 (the reference's pipeline cannot train them either).
-``--delta-dtype`` picks the outer-sync wire codec (int8 and fp8 carry
+``--sync-dtype f32|bf16|int8|fp8|e5m2`` (or the long names float32,
+bfloat16, fp8_e5m2) picks the outer-sync wire codec (int8 and fp8 carry
 per-tensor scales and an error-feedback residual and run the quantize
-kernels on the card; see ``repro_torch.core.transport``).  Runs on the
+kernels on the card; see ``repro_torch.core.transport``); it is the
+preferred spelling and overrides ``--delta-dtype``, the older one, and
+both reach ``run_pipeline`` as the same canonical name
+(``SYNC_DTYPES``).  Runs on the
 card by default and raises without one; ``--device cpu`` runs the
 kernels' plain PyTorch versions.  The corpora and eval suites are the
 synthetic world of ``repro_torch.data.synthetic`` (the same texts,
@@ -77,6 +81,11 @@ evaluates, prints and writes ``--out-dir``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --method diloco \
         --pods 2 --backend gloo --steps 20 [--data-procs 2] [--device cpu]
+
+``--fsdp`` (with ``--data-procs`` > 1) shards each worker over its data
+ranks ZeRO-3 style (``models/fsdp.py``) instead of replicating it, for
+``--method diloco`` (drift-aware or not) and plain ``ddp`` on one pod;
+``--model-procs`` splits it over the model axis beside that.
 
 ``--model-procs M`` adds a model axis: each worker (and each DDP replica)
 is split over M ranks, tensor-parallel (``models/tensor_parallel.py``),
@@ -207,9 +216,11 @@ def run_stage(method: str, cfg: ModelConfig, params, stage_ds, *,
                               checkpoint_dir=checkpoint_dir,
                               checkpoint_every=checkpoint_every,
                               resume=resume)
-    # on a model axis, the shards joined: the stage ends one-process
+    # on a model axis or under fsdp, the shards joined: the stage ends
+    # one-process
     return unflatten(gather_params(state.global_params,
-                                   getattr(replicate_fn, "tp", None))), hist
+                                   getattr(replicate_fn, "sharded",
+                                           None))), hist
 
 
 def comm_report(dcfg: DiLoCoConfig, method: str, n_params: int, steps: int,
@@ -328,8 +339,8 @@ def run_pipeline(method: str = "diloco", arch: str = "tiny",
     if mesh is not None:
         _check_mesh_run(mesh.pod, method, workers, grad_compress, mesh.model,
                         _tp_refused(dict(adaptive_h=adaptive_h,
-                                         fault_schedule=fault_schedule,
-                                         drift_aware=drift_aware)))
+                                         fault_schedule=fault_schedule)),
+                        fsdp=mesh.fsdp)
         device, lead = mesh.device, mesh.rank == 0
         eval_after_each_stage = eval_after_each_stage and lead
     device = resolve_device(device)
@@ -474,41 +485,51 @@ def _pod_axis(method: str, grad_compress: str) -> bool:
 
 # the methods a model axis > 1 runs (hybrid: DiLoCo, then DDP)
 TP_METHODS = ("diloco", "ddp", "hybrid")
+# the methods fsdp runs: hybrid's DDP stages run on a data view of the
+# mesh, whose data axis would need other shards
+FSDP_METHODS = ("diloco", "ddp")
 
 
 def _check_mesh_run(pods: int, method: str, workers: int,
                     grad_compress: str, model: int = 1,
-                    refused: Sequence[str] = ()) -> None:
+                    refused: Sequence[str] = (), fsdp: bool = False
+                    ) -> None:
     """What cannot run across processes: it is structural, and says so.
     A method on the pod axis (every one but plain DDP; ``hybrid``'s
     DiLoCo base stage) runs one worker a pod.  A model axis > 1 runs
-    ``TP_METHODS`` without compression; ``refused`` names the options
-    given that it does not hold (``--adaptive-h``, ...)."""
+    ``TP_METHODS`` without compression, ``fsdp`` ``FSDP_METHODS`` (plain
+    DDP on one pod: across pods it runs on a data view); ``refused``
+    names the options given that neither holds (``--adaptive-h``,
+    ...)."""
     if _pod_axis(method, grad_compress) and workers != pods:
         what = ("compressed ddp" if method == "ddp" else method)
         raise ValueError(f"{what} across processes runs one worker a pod: "
                          f"workers={workers} on {pods} pods")
-    if model == 1:
+    if model == 1 and not fsdp:
         return
     what = list(refused)
-    if method not in TP_METHODS:
+    if method not in (FSDP_METHODS if fsdp else TP_METHODS):
         what.insert(0, f"--method {method}")
     elif grad_compress not in ("", "none"):
         what.insert(0, "compressed ddp (--grad-compress)")
+    elif fsdp and method == "ddp" and pods > 1:
+        what.insert(0, "plain ddp across pods (a data view)")
     if what:
+        axes = " and ".join(a for a, on in (
+            (f"--model-procs {model}", model > 1), ("--fsdp", fsdp)) if on)
         raise NotImplementedError(
-            f"{', '.join(what)} under --model-procs {model}: tensor "
-            f"parallelism runs {', '.join(TP_METHODS)} on the dense decoder; "
-            f"the rest waits for ROADMAP §1's item 'tensor parallelism for "
-            f"the other strategies'")
+            f"{', '.join(what)} under {axes}: a sharded worker runs "
+            f"{', '.join(FSDP_METHODS if fsdp else TP_METHODS)} on the "
+            f"dense decoder; the rest waits for ROADMAP §1's "
+            f"'configurations the port does not yet run'")
 
 
 def _tp_refused(kw: Dict) -> List[str]:
-    """The options of a ``run_pipeline`` call a model axis > 1 refuses."""
+    """The options of a ``run_pipeline`` call a model axis > 1 or fsdp
+    refuses."""
     return [flag for flag, on in (
         ("--adaptive-h", kw.get("adaptive_h")),
-        ("--fault-schedule", kw.get("fault_schedule")),
-        ("--drift-aware", kw.get("drift_aware"))) if on]
+        ("--fault-schedule", kw.get("fault_schedule"))) if on]
 
 
 def _pipeline_cfg(kw: Dict) -> ModelConfig:
@@ -521,9 +542,10 @@ def _pipeline_cfg(kw: Dict) -> ModelConfig:
 
 def _cli_rank(rank: int, world: int, init_method: str, pods: int,
               data: int, model: int, backend: str, kw: Dict,
-              result_path: str, cfg: Optional[ModelConfig]) -> None:
+              result_path: str, cfg: Optional[ModelConfig],
+              fsdp: bool = False) -> None:
     """One rank of the CLI's run: the mesh (``cfg``: the model a model
-    axis splits), the pipeline; rank 0 writes its metrics to
+    axis or ``fsdp`` splits), the pipeline; rank 0 writes its metrics to
     ``result_path``."""
     import torch
 
@@ -533,7 +555,7 @@ def _cli_rank(rank: int, world: int, init_method: str, pods: int,
     mesh = init_process_mesh(pods, data, model, backend=backend,
                              device=kw["device"], rank=rank,
                              world_size=world, init_method=init_method,
-                             cfg=cfg)
+                             cfg=cfg, fsdp=fsdp)
     try:
         res = run_pipeline(**kw, mesh=mesh)
         if rank == 0:
@@ -544,25 +566,32 @@ def _cli_rank(rank: int, world: int, init_method: str, pods: int,
 
 
 def run_ranks_pipeline(pods: int, data: int, backend: str,
-                       model: int = 1, **kw) -> Dict:
-    """``run_pipeline(**kw)`` as ``pods`` x ``data`` x ``model`` ranks:
-    under ``torchrun`` this process is one of them; otherwise the ranks
-    are started here with ``spawn``, after the kernels are built once
-    (when the device is a card).  Returns rank 0's metrics."""
+                       model: int = 1, fsdp: bool = False, **kw) -> Dict:
+    """``run_pipeline(**kw)`` as ``pods`` x ``data`` x ``model`` ranks
+    (``fsdp``: the data ranks shard each worker, ``data`` > 1): under
+    ``torchrun`` this process is one of them; otherwise the ranks are
+    started here with ``spawn``, after the kernels are built once (when
+    the device is a card).  Returns rank 0's metrics."""
     import tempfile
 
     from repro_torch.launch.mesh import init_process_mesh, run_ranks
     world = pods * data * model
+    if fsdp and data == 1:
+        raise ValueError("--fsdp shards each worker over its data ranks: "
+                         "pass --data-procs > 1")
     _check_mesh_run(pods, kw.get("method", "diloco"), kw.get("workers", 4),
-                    kw.get("grad_compress", "none"), model, _tp_refused(kw))
+                    kw.get("grad_compress", "none"), model, _tp_refused(kw),
+                    fsdp=fsdp)
     cfg = None
-    if model > 1:
+    if model > 1 or fsdp:
         from repro_torch.models.sharding import require_tp_family
         cfg = _pipeline_cfg(kw)
-        require_tp_family(cfg)
+        require_tp_family(cfg, "tensor parallelism over the model axis"
+                          if model > 1 else "fsdp over the data axis")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         mesh = init_process_mesh(pods, data, model, backend=backend,
-                                 device=kw.get("device", "cuda"), cfg=cfg)
+                                 device=kw.get("device", "cuda"), cfg=cfg,
+                                 fsdp=fsdp)
         try:
             return run_pipeline(**kw, mesh=mesh)
         finally:
@@ -585,9 +614,16 @@ def run_ranks_pipeline(pods: int, data: int, backend: str,
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "rank0.json")
         run_ranks(_cli_rank, world, pods, data, model, backend, kw, path,
-                  cfg)
+                  cfg, fsdp)
         with open(path) as f:
             return json.load(f)
+
+
+# the wire codec spellings of --sync-dtype / --delta-dtype -> the name
+# run_pipeline and the codec take (the reference's map)
+SYNC_DTYPES = {"f32": "float32", "bf16": "bfloat16", "int8": "int8",
+               "fp8": "fp8", "e5m2": "fp8_e5m2", "fp8_e5m2": "fp8_e5m2",
+               "float32": "float32", "bfloat16": "bfloat16"}
 
 
 def main(argv=None) -> Dict:
@@ -611,10 +647,15 @@ def main(argv=None) -> Dict:
                     help="DiLoCo stages: H from the loss slope (AdaptiveH)")
     ap.add_argument("--fused-adamw", action="store_true",
                     help="AdamW through the fused kernel")
+    ap.add_argument("--sync-dtype", default=None,
+                    choices=["f32", "bf16", "int8", "fp8", "e5m2",
+                             "float32", "bfloat16", "fp8_e5m2"],
+                    help="the outer-sync wire codec (the preferred "
+                         "spelling; overrides --delta-dtype)")
     ap.add_argument("--delta-dtype", default="float32",
                     choices=["float32", "f32", "bfloat16", "bf16", "int8",
                              "fp8", "e5m2", "fp8_e5m2"],
-                    help="the outer-sync wire codec")
+                    help="the older spelling of --sync-dtype")
     ap.add_argument("--no-error-feedback", action="store_true",
                     help="disable the lossy codecs' error-feedback residual")
     ap.add_argument("--grad-compress", default="none",
@@ -676,16 +717,22 @@ def main(argv=None) -> Dict:
     ap.add_argument("--model-procs", type=int, default=1,
                     help="ranks on the model axis: each worker split "
                          "tensor-parallel over this many processes")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="with --data-procs > 1: shard each worker over its "
+                         "data ranks (ZeRO-3) instead of replicating it")
     ap.add_argument("--backend", default="nccl", choices=["nccl", "gloo"],
                     help="collectives across processes; gloo for more "
                          "ranks than cards")
     args = ap.parse_args(argv)
+    if args.fsdp and args.data_procs == 1:
+        ap.error("--fsdp shards each worker over its data ranks: pass "
+                 "--data-procs > 1")
     ranks = args.pods * args.data_procs * args.model_procs
     workers = args.workers or (
         args.pods if ranks > 1 and _pod_axis(args.method, args.grad_compress)
         else 4)
     run = (functools.partial(run_ranks_pipeline, args.pods, args.data_procs,
-                             args.backend, args.model_procs)
+                             args.backend, args.model_procs, args.fsdp)
            if ranks > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1
            else run_pipeline)
     return run(method=args.method, arch=args.arch,
@@ -693,7 +740,8 @@ def main(argv=None) -> Dict:
                         steps={"base": args.steps, "mid": args.steps // 2,
                                "sft": args.steps // 2},
                         workers=workers, adaptive_h=args.adaptive_h,
-                        delta_dtype=args.delta_dtype,
+                        delta_dtype=SYNC_DTYPES[args.sync_dtype
+                                                or args.delta_dtype],
                         grad_compress=args.grad_compress,
                         drift_aware=args.drift_aware,
                         sync_delay=args.sync_delay, h_jitter=args.h_jitter,

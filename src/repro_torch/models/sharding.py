@@ -34,6 +34,19 @@ addresses a leaf, its optimizer moments and a (K, ...) stack of it.
 leaf's entry from any path that ends in the leaf's (a checkpoint's
 ``worker_params/0/layers/attn/wq``).
 
+The runtime layout over the ``data`` axis (ZeRO-3, the reference's
+``"fsdp": ("data",)`` rule, which its "2d" and ``dp_fsdp`` profiles
+train under).  ``fsdp_layout(cfg, data, model)`` maps each leaf to the
+dim its ``fsdp`` name resolves to over ``data`` under the default rules
+(``spec_for`` on a (data, model) mesh: the d_model dim of every matrix,
+where ``data`` divides it), or None: the 1-D leaves (norm scales,
+biases) stay whole.  Under (data, model) a leaf may split on two dims:
+d20's ``wq`` (stack, d, nq) splits d over ``data`` and nq over
+``model``, ``embed/table`` (vocab, d) vocab over ``model`` and d over
+``data``.  Its dims count from the end too.  ``shard`` and ``gather``
+take both layouts (``fsdp=``, ``data=``): a rank's shard is its model
+piece of its data piece, and ``gather(shard(p)) == p`` exactly.
+
 Serving over ``model`` (the reference's dry run of its serve step,
 ``launch/state.py`` ``tp_kv_repeat`` and ``launch/dryrun_lib.py``'s
 ``kv_seq`` rule), decided from the config and ``model`` alone
@@ -180,15 +193,16 @@ _QKV_BIAS = {"attn/bq": "attn/wq", "attn/bk": "attn/wk",
 
 
 class _AxisShape:
-    def __init__(self, model: int):
-        self.shape = {"model": model}
+    def __init__(self, model: int, data: int = 1):
+        self.shape = {"data": data, "model": model}
 
 
-def require_tp_family(cfg) -> None:
-    """Refuse, by name, a config whose family the port does not yet run
-    tensor-parallel: MoE, SSM, hybrid, encoder-decoder and VLM wait for
-    a later slice (ROADMAP §1, "Tensor parallelism for the other
-    families")."""
+def require_tp_family(cfg, axis: str = "tensor parallelism over the "
+                      "model axis") -> None:
+    """Refuse, by name, a config whose family the port does not yet split
+    over a mesh axis (``axis`` names the split): MoE, SSM, hybrid,
+    encoder-decoder and VLM wait for a later slice (ROADMAP §1, "Tensor
+    parallelism for the other families")."""
     what = ("MoE" if cfg.num_experts else "SSM" if cfg.arch_type == "ssm"
             else "hybrid" if cfg.hybrid
             else "encoder-decoder" if cfg.is_encoder_decoder
@@ -196,10 +210,9 @@ def require_tp_family(cfg) -> None:
             else None if cfg.arch_type in TP_FAMILIES else cfg.arch_type)
     if what is not None:
         raise NotImplementedError(
-            f"{cfg.name or 'this config'} ({what}): tensor parallelism over "
-            f"the model axis runs the dense decoder only; the {what} family "
-            f"waits for ROADMAP §1's item 'tensor parallelism for the other "
-            f"families'")
+            f"{cfg.name or 'this config'} ({what}): {axis} runs the dense "
+            f"decoder only; the {what} family waits for ROADMAP §1's item "
+            f"'tensor parallelism for the other families'")
 
 
 def tp_layout(cfg, model: int) -> Dict[str, Optional[int]]:
@@ -228,10 +241,32 @@ def tp_layout(cfg, model: int) -> Dict[str, Optional[int]]:
     return out
 
 
-def split_of(path: str, layout: Layout) -> Optional[int]:
+def fsdp_layout(cfg, data: int, model: int = 1) -> Dict[str, Optional[int]]:
+    """Every parameter leaf of ``cfg`` -> the dim (negative, from the end)
+    its ``fsdp`` name splits over ``data`` ranks (``spec_for`` under the
+    default rules on a (data, model) mesh), or None: the module
+    docstring's rules.  With ``data`` 1 every leaf is whole."""
+    from repro_torch.models.transformer import param_names, param_shapes
+    if data > 1:
+        require_tp_family(cfg, "fsdp over the data axis")
+    shapes = param_shapes(cfg)
+    axes = _AxisShape(model, data)
+    out: Dict[str, Optional[int]] = {}
+    for path, names in param_names(cfg).items():
+        shape = shapes[path]
+        spec = spec_for(names, shape, mesh=axes) if data > 1 else ()
+        dim = next((i for i, a in enumerate(spec) if a == "data"), None)
+        out[path] = None if dim is None else dim - len(shape)
+    return out
+
+
+def split_of(path: str, layout: Optional[Layout]) -> Optional[int]:
     """The layout's entry for the leaf ``path`` names, where ``path`` is
     the leaf's own or ends in it (``.../layers/attn/wq``); None for a
-    path that ends in no leaf of the layout (a step counter)."""
+    path that ends in no leaf of the layout (a step counter) or no
+    layout."""
+    if layout is None:
+        return None
     if path in layout:
         return layout[path]
     parts = path.split("/")
@@ -249,33 +284,49 @@ def _cut(t, dim: int, index: int, model: int):
     return np.take(t, range(index * n, (index + 1) * n), axis=dim)
 
 
-def shard(flat: Dict[str, object], layout: Layout, index: int,
-          model: int) -> Dict[str, object]:
+def shard(flat: Dict[str, object], layout: Optional[Layout], index: int,
+          model: int, *, fsdp: Optional[Layout] = None, data_index: int = 0,
+          data: int = 1) -> Dict[str, object]:
     """Rank ``index``'s shards of one-process flat parameters (tensors or
     numpy arrays; any path ending in a leaf's): a split leaf's
     ``index``-th of ``model`` contiguous pieces along its dim, copied; a
-    whole leaf copied as it is."""
+    whole leaf copied as it is.  With ``fsdp`` (a ``fsdp_layout``) the
+    piece is further cut to data rank ``data_index``'s of ``data``
+    pieces along its ``fsdp`` dim."""
     out = {}
     for path, t in flat.items():
+        piece = t
         dim = split_of(path, layout)
-        piece = t if dim is None or model == 1 else _cut(t, dim, index,
-                                                         model)
+        if dim is not None and model > 1:
+            piece = _cut(piece, dim, index, model)
+        dim = split_of(path, fsdp)
+        if dim is not None and data > 1:
+            piece = _cut(piece, dim, data_index, data)
         out[path] = (piece.clone() if isinstance(piece, torch.Tensor)
                      else np.array(piece))
     return out
 
 
-def gather(shards: List[Dict[str, torch.Tensor]], layout: Layout
-           ) -> Dict[str, torch.Tensor]:
-    """Inverse of ``shard``: the model ranks' shards (tensors), in
-    model-index order, joined into the one-process layout (a whole leaf is
-    rank 0's)."""
+def _join(parts: List[Dict[str, torch.Tensor]], layout: Optional[Layout]
+          ) -> Dict[str, torch.Tensor]:
     out = {}
-    for path, t in shards[0].items():
+    for path, t in parts[0].items():
         dim = split_of(path, layout)
-        out[path] = t if dim is None or len(shards) == 1 else torch.cat(
-            [s[path] for s in shards], dim=dim)
+        out[path] = t if dim is None or len(parts) == 1 else torch.cat(
+            [s[path] for s in parts], dim=dim)
     return out
+
+
+def gather(shards: List[Dict[str, torch.Tensor]], layout: Optional[Layout],
+           *, fsdp: Optional[Layout] = None, data: int = 1
+           ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``shard``: the ranks' shards (tensors), in rank order
+    (data-major: the model ranks of data index 0 first), joined into the
+    one-process layout (a whole leaf is rank 0's)."""
+    model = len(shards) // data
+    rows = [_join(shards[d * model:(d + 1) * model], layout)
+            for d in range(data)]
+    return _join(rows, fsdp)
 
 
 # ---------------------------------------------------------------------------

@@ -171,16 +171,22 @@ def vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor,
 def whole(path: str, t: torch.Tensor, mesh) -> torch.Tensor:
     """The one-process leaf of this rank's shard ``t`` at ``path`` (any
     path ending in a leaf's): all-gathered over ``mesh``'s model group
-    along its split dim; ``t`` itself for a whole leaf or another tensor.
-    Every model rank must call it on the same paths in the same order."""
+    along its split dim, then, under ``fsdp``, over its data group along
+    its ``fsdp`` dim; ``t`` itself for a whole leaf or another tensor.
+    Every rank of those groups must call it on the same paths in the
+    same order."""
     dim = mesh.split_dim(path)
-    return t if dim is None else mesh.model_all_gather(t, dim)
+    if dim is not None:
+        t = mesh.model_all_gather(t, dim)
+    dim = mesh.data_split_dim(path)
+    return t if dim is None else mesh.data_all_gather(t, dim)
 
 
 def gather_params(flat, mesh):
     """One-process flat parameters from this rank's shards (``whole``
-    leaf by leaf, in path order); ``flat`` itself on one model rank."""
-    if mesh is None or mesh.model == 1:
+    leaf by leaf, in path order); ``flat`` itself on a mesh that splits
+    no leaf (or none)."""
+    if mesh is None or (mesh.model == 1 and not mesh.fsdp):
         return flat
     return {k: whole(k, flat[k], mesh) for k in sorted(flat)}
 

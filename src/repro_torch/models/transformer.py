@@ -99,6 +99,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import fsdp
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import tensor_parallel as tp
@@ -125,14 +126,16 @@ def _require_supported(cfg: ModelConfig, paged: bool = False) -> None:
     step) the dense decoder only, each other family refused by name, and
     runs no paged step (``paged``): the paged pool serves the ``Engine``,
     which runs on no mesh, as the reference's."""
-    if tp.active() is not None:
+    if tp.active() is not None or fsdp.active() is not None:
         if paged:
             raise NotImplementedError(
                 "the paged serving steps under a model axis > 1: the paged "
                 "pool is the Engine's, and the Engine runs on no mesh, as "
                 "the reference's does; serve over a model axis through "
                 "launch.steps.make_serve_step (the static ring cache)")
-        require_tp_family(cfg)
+        require_tp_family(cfg, "tensor parallelism over the model axis"
+                          if tp.active() is not None
+                          else "fsdp over the data axis")
     if cfg.arch_type not in ARCH_TYPES:
         raise NotImplementedError(f"arch {cfg.arch_type!r}: the port runs "
                                   f"{', '.join(ARCH_TYPES)}")
@@ -371,7 +374,9 @@ def _run_layers(params: Params, h: torch.Tensor, cfg: ModelConfig,
     norm is fused with the residual add before it.  With ``cfg.remat``,
     and only when the forward builds a graph, each unit runs under
     ``torch.utils.checkpoint`` (the encoder's as well: ``stack="encoder"``,
-    ``final="enc_norm"``)."""
+    ``final="enc_norm"``).  Under an ``fsdp`` mesh each unit gathers its
+    layer's weights first and runs under the checkpoint whatever
+    ``cfg.remat`` says (``models.fsdp``)."""
     _require_supported(cfg)
     L = cfg.num_encoder_layers if stack == "encoder" else cfg.num_layers
     ssm = cfg.arch_type == "ssm"
@@ -381,6 +386,7 @@ def _run_layers(params: Params, h: torch.Tensor, cfg: ModelConfig,
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
 
     def block(i, lp, cp, nxt, x, h):
+        lp = fsdp.gathered(lp, stack)
         y = mix(i, lp, x)
         aux = zero
         if cp is not None:
@@ -395,7 +401,8 @@ def _run_layers(params: Params, h: torch.Tensor, cfg: ModelConfig,
         x, h = apply_norm_residual(nxt, y, h, cfg)
         return x, h, aux
 
-    remat = cfg.remat and _needs_grad(params, h)
+    remat = ((cfg.remat or fsdp.active() is not None)
+             and _needs_grad(params, h))
     x = apply_norm(layers[0]["ln1"], h, cfg)
     aux = zero
     for i, (lp, cp) in enumerate(zip(layers, crosses)):
@@ -450,6 +457,16 @@ def encode(params: Params, frames: torch.Tensor,
     return x
 
 
+def _gather_embed(params: Params) -> Params:
+    """``params`` with the embedding subtree's data shards joined (an
+    active ``fsdp`` mesh), once for the lookup and the logits, so a tied
+    table's two gradients are summed before their one reduce-scatter;
+    ``params`` itself otherwise."""
+    if fsdp.active() is None:
+        return params
+    return dict(params, embed=fsdp.gathered(params["embed"], "embed"))
+
+
 def forward_hidden(params: Params, batch: Dict[str, torch.Tensor],
                    cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward up to the final norm.  batch["tokens"]:
@@ -457,6 +474,13 @@ def forward_hidden(params: Params, batch: Dict[str, torch.Tensor],
     an encoder "frames" (B, Se, d).  Returns (h (B, S, d), aux_loss): aux
     is the layers' summed router loss (0 without experts); a VLM's patch
     rows are cut off."""
+    return _forward_hidden(_gather_embed(params), batch, cfg)
+
+
+def _forward_hidden(params: Params, batch: Dict[str, torch.Tensor],
+                    cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``forward_hidden`` on parameters whose embedding is whole (or this
+    rank's model shards: ``_gather_embed`` ran)."""
     _require_supported(cfg)
     h = embed(params["embed"], batch["tokens"], cfg)
     if cfg.arch_type == "ssm":
@@ -492,7 +516,8 @@ def forward_lm(params: Params, batch: Dict[str, torch.Tensor],
                cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  Returns (logits (B, S, V), aux_loss); with
     a split vocab, this rank's (B, S, V / model) columns."""
-    h, aux = forward_hidden(params, batch, cfg)
+    params = _gather_embed(params)
+    h, aux = _forward_hidden(params, batch, cfg)
     return unembed(params["embed"], h, cfg), aux
 
 
@@ -529,7 +554,8 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
     ``router_aux_coef`` times the router loss with experts.  Returns
     (loss, {"ce", "aux"})."""
     if cfg.loss_chunk:
-        h, aux = forward_hidden(params, batch, cfg)
+        params = _gather_embed(params)
+        h, aux = _forward_hidden(params, batch, cfg)
         ce = _chunked_ce(params, h, batch["labels"], cfg)
     else:
         logits, aux = forward_lm(params, batch, cfg)

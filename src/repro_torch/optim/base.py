@@ -13,12 +13,13 @@ and optimizer states are float32.  ``apply_updates`` adds in place
 (``p += u``, the same value as the JAX package's ``p + u``), so a worker
 holds one copy of its parameters.
 
-Tensor parallelism.  The functions that are not elementwise take the
-model axis as an argument, ``axis``: a process mesh whose model axis
-splits the leaves (``launch.mesh.ProcessMesh``, ``model`` > 1: its
-``split_dim``, ``model_all_reduce``, ``model_all_gather`` and
-``model_part``), or None (whole leaves, no collective).  The trainers
-that own the mesh pass it in.
+Tensor parallelism and ``fsdp``.  The functions that are not
+elementwise take the mesh axes as an argument, ``axis``: a process mesh
+whose model axis and/or ``fsdp`` data axis split the leaves
+(``launch.mesh.ProcessMesh``: its ``split_dim`` / ``data_split_dim``,
+``reduce_leaves``, ``model_all_gather`` / ``data_all_gather`` and
+``model_part`` / ``data_part``), or None (whole leaves, no collective).
+The trainers that own the mesh pass it in.
 """
 from __future__ import annotations
 
@@ -43,18 +44,14 @@ def apply_updates(params: Flat, updates: Flat) -> None:
 def global_norm(tree: Flat, axis=None) -> torch.Tensor:
     """sqrt of the sum over leaves, in path order, of each leaf's sum of
     squares in f32 — the JAX package sums its leaves in the same order.
-    With a model ``axis`` a split leaf's sum of squares is summed over
-    the model group (one all-reduce for all of them) and a whole leaf
-    counts once, so every model rank gets the norm of the whole tree."""
+    With an ``axis`` a split leaf's sum of squares is summed over every
+    group that splits it, model and/or data (one all-reduce a group for
+    all of them, ``reduce_leaves``) and a whole leaf counts once, so
+    every rank gets the norm of the whole tree."""
     paths = sorted(tree)
     sqs = [tree[path].float().square().sum() for path in paths]
-    split = ([] if axis is None else
-             [i for i, path in enumerate(paths)
-              if axis.split_dim(path) is not None])
-    if split:
-        summed = axis.model_all_reduce(torch.stack([sqs[i] for i in split]))
-        for j, i in enumerate(split):
-            sqs[i] = summed[j]
+    if axis is not None:
+        sqs = axis.reduce_leaves(paths, sqs)
     total = None
     for sq in sqs:
         total = sq if total is None else total + sq

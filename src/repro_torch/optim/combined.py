@@ -59,9 +59,9 @@ def partitioned(opts: dict, label_fn: Callable) -> Optimizer:
 
 def nanochat_optimizer(cfg: OptimizerConfig, axis=None) -> Optimizer:
     """Muon and AdamW by ``partition_label``, after global-norm clipping
-    at ``cfg.grad_clip``.  ``axis``: the model axis the leaves are split
+    at ``cfg.grad_clip``.  ``axis``: the mesh axes the leaves are split
     over (``optim/base.py``), which Muon and the clipping norm reduce
-    over; AdamW is elementwise."""
+    over; AdamW is elementwise, and runs on shards as it is."""
     muon_lr = lr_schedule(cfg.schedule, cfg.learning_rate, cfg.total_steps,
                           cfg.warmup_steps, cfg.final_lr_frac)
     adam_lr = lr_schedule(cfg.schedule, cfg.adam_lr, cfg.total_steps,

@@ -15,7 +15,10 @@ logical matrix: the effective update is all-gathered over the model
 group along the split dim, Newton-Schulz and the scale run on the whole
 matrix (the norm, X·Xᵀ, the transpose choice and m/n are the whole
 matrix's), and each rank keeps its slice.  Every model rank computes
-the same iteration.
+the same iteration.  Under ``fsdp`` (an ``axis`` whose data axis splits
+the leaves) the effective update is all-gathered over the data group
+along its ``fsdp`` dim as well, so every rank of a worker
+orthogonalises the whole matrix and keeps its piece.
 """
 from __future__ import annotations
 
@@ -68,14 +71,20 @@ def muon(lr: Union[float, Callable] = 0.02, momentum: float = 0.95,
             # no second copy of the momentum (the old state is consumed)
             mu = state["mu"][k].mul_(momentum).add_(g)
             eff = g + momentum * mu if nesterov else mu
-            dim = None if axis is None else axis.split_dim(k)
+            dim = ddim = None
+            if axis is not None:
+                dim, ddim = axis.split_dim(k), axis.data_split_dim(k)
             if dim is not None:
                 eff = axis.model_all_gather(eff, dim)
+            if ddim is not None:
+                eff = axis.data_all_gather(eff, ddim)
             o = newton_schulz(eff, ns_steps)
             m, n = o.shape[-2], o.shape[-1]
             scale = torch.sqrt(torch.tensor(max(1.0, m / n),
                                             dtype=torch.float32,
                                             device=o.device))
+            if ddim is not None:
+                o = axis.data_part(o, ddim)
             if dim is not None:
                 o = axis.model_part(o, dim)
             updates[k], mu_new[k] = -lr_t * scale * o, mu

@@ -597,7 +597,24 @@ def _strategy(name, **kw):
     ("faults", {}, "fault layer"),
     ("drift_aware", {}, "drift-aware")])
 def test_distributed_run_refuses_what_tp_does_not_hold(name, kw, match,
-                                                       params):
+                                                       params, request):
+    """Each strategy or option a model axis does not hold is refused by
+    name before any collective.  Drift-aware averaging is held: the
+    ranks' ``TP_DRIFT`` run through ``DistTrainer.run`` on (pod 2, model
+    2) ends within ``ATOL`` of one process's (its cosines summed over the
+    model shards), the model ranks of a worker with equal losses."""
+    if name == "drift_aware":
+        four = request.getfixturevalue("four")
+        ref = ranks.run_case(ranks.TP_DRIFT, params, cfg=CFG)
+        layout = four[0]["layout"]
+        for w in (0, 1):
+            pair = _model_pair(four, w)
+            got = gather([r["drift"]["global"] for r in pair], layout)
+            _close(got, ref["global"], ATOL, "drift-aware vs one process")
+            assert pair[0]["drift"]["hist"]["loss"] == \
+                pair[1]["drift"]["hist"]["loss"]
+            assert pair[0]["drift"]["hist"]["sync_steps"] == [1]
+        return
     faults = None
     if name == "ddp_compressed":
         from repro_torch.core import compressed_ddp_config
@@ -610,8 +627,6 @@ def test_distributed_run_refuses_what_tp_does_not_hold(name, kw, match,
     elif name == "faults":
         dcfg, strategy = _strategy("diloco")
         faults = FaultSchedule.from_spec("crash:1@1,rejoin:1@2")
-    elif name == "drift_aware":
-        dcfg, strategy = _strategy("diloco", drift_aware=True)
     else:
         dcfg, strategy = _strategy(name, **kw)
     dt = DistTrainer(lambda p, b: lm_loss(p, b, CFG),
@@ -661,7 +676,19 @@ def test_model_axis_needs_its_config_and_shards_need_an_axis(params):
     ("diloco", dict(drift_aware=True), "--drift-aware")])
 def test_cli_refuses_what_tp_does_not_hold(method, kw, match):
     """``run_ranks_pipeline`` (the CLI's path) refuses these before it
-    starts a rank."""
+    starts a rank.  ``--drift-aware`` runs: the tiny pipeline's DiLoCo as
+    (pod 2, model 2) ranks, its stages ending on finite losses with the
+    base stage's two rounds on the f32 wire."""
+    if kw.get("drift_aware"):
+        res = train.run_ranks_pipeline(
+            2, 1, "gloo", 2, method=method, arch="tiny", workers=2,
+            steps={"base": 2, "mid": 1, "sft": 1}, per_worker_batch=2,
+            seq_len=32, eval_after_each_stage=False, device="cpu", **kw)
+        stages = res["stages"]
+        assert all(np.isfinite(stages[s]["loss_last"]) for s in stages)
+        assert stages["base"]["port"]["syncs"] == 2
+        assert set(stages["base"]["port"]["wire_bytes"]) == {"f32"}
+        return
     with pytest.raises(NotImplementedError, match=match):
         train.run_ranks_pipeline(2, 1, "gloo", 2, method=method, workers=2,
                                  device="cpu", **kw)

@@ -534,6 +534,8 @@ def tp_cfg3():
 TP_DILOCO = {"float32": _case("diloco", {}, 2, 2, 2, 8),
              "int8": _case("diloco", dict(delta_dtype="int8"), 2, 2, 2, 8)}
 TP_CKPT = _case("diloco", {}, 2, 2, 4, 8)
+# drift-aware averaging through DistTrainer.run on the model axis
+TP_DRIFT = _case("diloco", dict(drift_aware=True), 2, 2, 2, 8)
 TP_SEED = 11
 
 
@@ -666,7 +668,8 @@ def tensor_parallel4(rank: int, world: int, init_method: str,
     """Four ranks.  As (pod 2, data 1, model 2) at ``tp_cfg()``: the unit
     checks, one forward and backward from the shared parameters, a
     DiLoCo round at engine level and through ``DistTrainer.run`` on the
-    f32 and int8 wires (``TP_DILOCO``), ``TP_CKPT`` writing run
+    f32 and int8 wires (``TP_DILOCO``), drift-aware (``TP_DRIFT``),
+    ``TP_CKPT`` writing run
     checkpoints (``workdir/tp_ckpt``) and resumed from the one-process
     checkpoint in ``workdir/one_ckpt``; as (pod 1, data 2, model 2): 2
     DDP steps; as (pod 2, data 1, model 2) at ``tp_cfg3()``, whose
@@ -688,6 +691,7 @@ def tensor_parallel4(rank: int, world: int, init_method: str,
             out[f"run_{wire}"] = run_case(case, params, mesh.replicate_fn,
                                           cfg=cfg)
         out[f"run_{wire}"]["wire"] = dict(wire_log)
+    out["drift"] = run_case(TP_DRIFT, params, mesh.replicate_fn, cfg=cfg)
     out["ckpt_run"] = run_case(TP_CKPT, params, mesh.replicate_fn, cfg=cfg,
                                checkpoint_dir=os.path.join(workdir,
                                                            "tp_ckpt"),
@@ -841,3 +845,219 @@ def tp_serving4(rank: int, world: int, init_method: str,
             out["units"][shape[2]] = serve_units(mesh)
     torch.save(out, os.path.join(workdir, f"serve_rank{rank}.pt"))
     mesh.close()
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-3 over the data axis (tests/test_torch_fsdp.py)
+# ---------------------------------------------------------------------------
+
+# the meshes of the 4 ranks: name -> ((pod, data, model), fsdp, config);
+# each fsdp mesh beside its replicated twin of the same ranks
+FSDP_MESHES = {"d4f": ((1, 4, 1), True, "tiny"),
+               "d4r": ((1, 4, 1), False, "tiny"),
+               "p2d2f": ((2, 2, 1), True, "tiny"),
+               "p2d2r": ((2, 2, 1), False, "tiny"),
+               "d2m2f": ((1, 2, 2), True, "tp_cfg"),
+               "d2m2r": ((1, 2, 2), False, "tp_cfg"),
+               "p2m2": ((2, 1, 2), False, "tp_cfg")}
+# DiLoCo K 2 H 2 (one round) on each wire; the checkpoint case writes at
+# step 2 and resumes to 4
+FSDP_DILOCO = {"float32": _case("diloco", {}, 2, 2, 2, 8),
+               "int8": _case("diloco", dict(delta_dtype="int8"), 2, 2, 2, 8)}
+FSDP_CKPT = _case("diloco", dict(delta_dtype="int8"), 2, 2, 4, 8)
+FSDP_DRIFT = dict(delta_dtype="int8", drift_aware=True)
+
+
+def _fsdp_batch(mesh, step: int = 0):
+    """This rank's part of a 4-row ``dataset()`` batch (one DDP step)."""
+    b = mesh.local_batch({k: v[None] for k, v in
+                          dataset().batch(step, 4, seed=0).items()})
+    return {k: v[0] for k, v in _tensors(b).items()}
+
+
+def fsdp_grads(mesh, params, cfg) -> dict:
+    """One step's loss and gradients on this rank's shards of ``params``
+    from its part of a 4-row batch, reduced as the inner step reduces
+    them (``grad_reduce``), then Muon's update of the Muon leaves from
+    those gradients; and the collective records of the step."""
+    from repro_torch.launch import collectives as coll
+    from repro_torch.models import fsdp, lm_loss
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.models.transformer import unflatten
+    from repro_torch.optim import partition_label
+    from repro_torch.optim.muon import muon
+    leaves = {k: v.requires_grad_(True) for k, v in mesh.own(params).items()}
+    coll.reset_log()
+    with tp.use(mesh), fsdp.use(mesh):
+        loss, _ = lm_loss(unflatten(leaves), _fsdp_batch(mesh), cfg)
+        grads = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()))))
+    grads = mesh.grad_reduce(grads)
+    records = [(r.kind, r.axis, r.nbytes) for r in coll.records()]
+    mats = {k: g for k, g in grads.items()
+            if partition_label(k, g) == "muon"}
+    opt = muon(0.02, axis=mesh)
+    upd, _ = opt.update(mats, opt.init(mats), mats,
+                        torch.zeros((), dtype=torch.int32))
+    return {"loss": loss.detach(), "grads": grads, "muon": upd,
+            "records": records}
+
+
+def fsdp_units(mesh, params) -> dict:
+    """This rank's side of the unit checks on a (data 2, model 2) fsdp
+    mesh: Muon's update of ``tp_inputs``' split leaves on their shards,
+    the global norm of the parameters' shards, and the quantize kernel's
+    plain version on a shard of ``tp_inputs``' delta (a ``wq`` stack)
+    with the amax MAX over both groups."""
+    from repro_torch.kernels.quantize import quantize_ef
+    from repro_torch.optim.base import global_norm
+    from repro_torch.optim.muon import muon
+    x = tp_inputs()
+    grads = mesh.own(x["muon"])
+    opt = muon(0.02, axis=mesh)
+    upd, _ = opt.update(grads, opt.init(grads), grads,
+                        torch.zeros((), dtype=torch.int32))
+    k = "layers/attn/wq"
+    d = mesh.own({k: x["delta"]})[k]
+    r = mesh.own({k: x["residual"]})[k]
+    return {"muon": upd, "global_norm": global_norm(mesh.own(params), mesh),
+            "quantize": quantize_ef(
+                d, r, dtype="int8",
+                amax_reduce=lambda a: mesh.reduce_leaves([k], [a],
+                                                         "max")[0])}
+
+
+def fsdp_round(mesh, params, cfg, dkw, before=None) -> dict:
+    """Two inner steps and one DiLoCo round (K 2, H 2) at engine level on
+    this rank's shards: from the shared ``params``, or with the worker
+    set to ``before`` (one-process flat tensors of this pod's worker)
+    just before the round.  Returns the worker just before the round
+    (this rank's), the state after it, the wire's codes and scales, the
+    drift-aware weights and the averaged delta (when ``dkw`` asks for
+    them), the cross-pod bytes and the records of the round."""
+    from repro_torch.configs import DiLoCoConfig, OptimizerConfig
+    from repro_torch.core import DiLoCoTrainer, outer_opt
+    from repro_torch.launch import collectives as coll
+    from repro_torch.models import lm_loss
+    from repro_torch.models.transformer import unflatten
+    dcfg = DiLoCoConfig(num_workers=2, h_inner_steps=2, **dkw)
+    eng = DiLoCoTrainer(lambda p, b: lm_loss(p, b, cfg),
+                        OptimizerConfig(**OPT), dcfg, mesh.replicate_fn)
+    st = eng.init(unflatten(params))
+    res = eng.init_residual(st.global_params)
+    if before is None:
+        data = worker_data(dataset())
+        for i in range(2):
+            st, _ = eng.inner_step(st, _tensors(mesh.local_batch(data(i))))
+    else:
+        for k, t in mesh.own(before).items():
+            st.worker_params[0][k].copy_(t)
+    worker = _clone(st.worker_params[0])
+    seen = {"weights": [], "average": []}
+    orig_w, orig_a = outer_opt.drift_weights, outer_opt._average
+
+    def weights(*a, **kw):
+        w = orig_w(*a, **kw)
+        seen["weights"].append(w.clone())
+        return w
+
+    def average(delta, *a, **kw):
+        out = orig_a(delta, *a, **kw)
+        seen["average"].append((_clone(delta), _clone(out)))
+        return out
+
+    outer_opt.drift_weights, outer_opt._average = weights, average
+    coll.reset_log()
+    try:
+        with WireLog() as wire, coll.scope("outer"):
+            st, res = eng.outer_step_ef(st, res)
+    finally:
+        outer_opt.drift_weights, outer_opt._average = orig_w, orig_a
+    outer = coll.records("outer")
+    return dict(_state(st, res), before=worker, wire=dict(wire),
+                weights=seen["weights"],
+                average=seen["average"] if dcfg.drift_aware else [],
+                cross_pod=sum(r.nbytes for r in outer if r.cross_pod),
+                records=[(r.kind, r.axis, r.cross_pod, r.nbytes)
+                         for r in outer])
+
+
+def fsdp4(rank: int, world: int, init_method: str, workdir: str) -> None:
+    """Four ranks, on the meshes of ``FSDP_MESHES`` (each fsdp mesh beside
+    its replicated twin): the unit checks and one step's gradients and
+    Muon update on (data 2, model 2); 2 DDP steps on (data 4) and on
+    (data 2, model 2); a DiLoCo round through ``DistTrainer.run`` on
+    (pod 2, data 2), f32 and int8; an int8 round at engine level on the
+    replicated (pod 2, data 2) mesh, then on the fsdp one from the
+    replicated run's worker just before it; drift-aware int8 rounds on
+    (pod 2, model 2) and fsdp (pod 2, data 2); ``FSDP_CKPT`` written at
+    step 2 and resumed to 4, and uninterrupted; a rank's live state
+    bytes.  Writes ``fsdp_rank<r>.pt``."""
+    from repro_torch.configs import DiLoCoConfig, OptimizerConfig
+    from repro_torch.core import DiLoCoTrainer
+    from repro_torch.core.ddp import DDPTrainer
+    from repro_torch.launch.mesh import init_process_mesh
+    from repro_torch.launch.state import live_state_bytes
+    from repro_torch.models import lm_loss
+    from repro_torch.models.transformer import unflatten
+    torch.set_num_threads(1)
+    kw = dict(backend="gloo", device="cpu", rank=rank, world_size=world,
+              init_method=init_method, timeout_s=TIMEOUT_S)
+    cfgs = {"tiny": tiny(), "tp_cfg": tp_cfg()}
+    flat = {"tiny": torch.load(os.path.join(workdir, "params.pt")),
+            "tp_cfg": torch.load(os.path.join(workdir, "params_tp.pt"))}
+    meshes = {name: init_process_mesh(*shape, cfg=cfgs[c], fsdp=f, **kw)
+              for name, (shape, f, c) in FSDP_MESHES.items()}
+    out = {"index": {n: (m.pod_index, m.data_index, m.model_index)
+                     for n, m in meshes.items()},
+           "layout": {n: (m.layout, m.data_layout)
+                      for n, m in meshes.items()}}
+    tiny_p, tp_p = flat["tiny"], flat["tp_cfg"]
+    out["units"] = fsdp_units(meshes["d2m2f"], tp_p)
+    for n in ("d2m2f", "d2m2r"):
+        out[f"grads_{n}"] = fsdp_grads(meshes[n], tp_p, cfgs["tp_cfg"])
+    for n, c in (("d4f", "tiny"), ("d4r", "tiny"), ("d2m2f", "tp_cfg"),
+                 ("d2m2r", "tp_cfg")):
+        dt = ddp_trainer(meshes[n].replicate_fn, cfg=cfgs[c])
+        st, hist = dt.run(dt.init(unflatten(flat[c])), ddp_data(dataset()),
+                          2)
+        out[f"ddp_{n}"] = dict(_state(st), hist=hist)
+    for wire, case in FSDP_DILOCO.items():
+        for n in ("p2d2f", "p2d2r"):
+            out[f"run_{wire}_{n}"] = run_case(case, tiny_p,
+                                              meshes[n].replicate_fn)
+    # an int8 round from one shared state: the replicated mesh's, then
+    # the fsdp mesh's from its worker just before the round
+    dkw = dict(delta_dtype="int8")
+    rep = fsdp_round(meshes["p2d2r"], tiny_p, cfgs["tiny"], dkw)
+    out["round_p2d2r"] = rep
+    out["round_p2d2f"] = fsdp_round(meshes["p2d2f"], tiny_p, cfgs["tiny"],
+                                    dkw, before=rep["before"])
+    out["drift_p2m2"] = fsdp_round(meshes["p2m2"], tp_p, cfgs["tp_cfg"],
+                                   FSDP_DRIFT)
+    out["drift_p2d2f"] = fsdp_round(meshes["p2d2f"], tiny_p, cfgs["tiny"],
+                                    FSDP_DRIFT)
+    ckpt = os.path.join(workdir, "fsdp_ckpt")
+    rep_f = meshes["p2d2f"].replicate_fn
+    out["ckpt_first"] = run_case(dict(FSDP_CKPT, steps=2), tiny_p, rep_f,
+                                 checkpoint_dir=ckpt, checkpoint_every=2)
+    out["ckpt_resumed"] = run_case(FSDP_CKPT, tiny_p, rep_f,
+                                   checkpoint_dir=ckpt, resume=True)
+    out["ckpt_whole"] = run_case(FSDP_CKPT, tiny_p, rep_f)
+    # the live state of a rank, as each trainer holds it after init
+    live = {}
+    for n, c in (("d4f", "tiny"), ("d2m2f", "tp_cfg")):
+        st = DDPTrainer(lambda p, b: None, OptimizerConfig(**OPT),
+                        meshes[n].replicate_fn).init(flat[c])
+        live[f"ddp_{n}"] = live_state_bytes(st)
+    for n in ("p2d2f", "p2d2r"):
+        eng = DiLoCoTrainer(lambda p, b: lm_loss(p, b, cfgs["tiny"]),
+                            OptimizerConfig(**OPT),
+                            DiLoCoConfig(num_workers=2, **dkw),
+                            meshes[n].replicate_fn)
+        st = eng.init(tiny_p)
+        live[f"diloco_{n}"] = live_state_bytes(
+            st, eng.init_residual(st.global_params))
+    out["live_bytes"] = live
+    torch.save(out, os.path.join(workdir, f"fsdp_rank{rank}.pt"))
+    meshes["d4f"].close()
